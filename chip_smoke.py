@@ -1,0 +1,556 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py            # every phase, one card
+
+Phases (each fails loudly; the run exits non-zero if any fails):
+  1. the card's name and power limit, torch/CUDA versions, TF32 off;
+  2. build every CUDA kernel from ``flexflow_tpu_torch/kernels/csrc``
+     with nvcc for sm_90a (one nvcc per source, all started together);
+  3. kernel parity: K1 (``flash_attend``) and K2 (``flash_attend`` with
+     the fused append) against their plain PyTorch versions on the card,
+     at the serving path's shapes and on small shapes for the rest of
+     their contract; each kernel timed beside its bound, its plain
+     version and ``scaled_dot_product_attention`` as a yardstick;
+  4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
+     greedily on the card and on the CPU with the same weights (one
+     seeded numpy draw); the tokens must agree;
+  5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
+     ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
+     prompts, 64 new tokens); prints prefill ms, decode ms/step,
+     tokens/s and peak memory, and checks that every attention call of
+     the run launched K1 or K2 (L per step) and none ran the plain
+     version.
+
+The line before the last is the kernel table as JSON; the last line is
+``{"ok": true, "device": {...}}``. Without CUDA, or without the
+repository beside it, the script exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import argparse
+import gc
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,           # dense tensor-core rate
+              "float32": 67e12}             # fp32 outside the tensor cores
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # atol = rtol, as the CPU tests
+K1_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attend.cu"
+K1_REPLACES = "flexflow_tpu/kernels/attention.py:483"
+K2_REPLACES = "flexflow_tpu/kernels/attention.py:514"
+
+# the slice at full size: LLaMA-2-7B geometry
+VOCAB, HIDDEN, INTER, LAYERS, HEADS, KV_HEADS = 32000, 4096, 11008, 32, 32, 32
+REQUESTS, PROMPT_LEN, MAX_SEQ, NEW_TOKENS = 8, 32, 256, 64
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip()
+    return out.splitlines()[0].strip()
+
+
+# ----------------------------------------------------------------------
+# timing helpers
+# ----------------------------------------------------------------------
+class Timer:
+    """Median time of a CUDA call, each launch after an L2 flush (the
+    serving path meets each layer's cache cold)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        # 512 MiB: the flush also keeps the device busy while the host
+        # runs the wrapper, so the events time the kernel, not the host
+        self.flush = torch.empty(512 << 20, dtype=torch.uint8, device="cuda")
+
+    def __call__(self, fn, iters: int = 20, warmup: int = 3) -> float:
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        times = []
+        for _ in range(iters):
+            self.flush.zero_()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+
+def attention_bound_ms(torch, q, lengths, qpos, S, KH, causal, cache_dtype,
+                       extra_bytes=0):
+    """Least time for the work this call's data needs: each valid cache
+    row of K and V read once, q read and the output written once, plus
+    ``extra_bytes``; against the visible (query, key) pairs' FLOPs (q.k and
+    p.v, 2 each per element of D). Returns (ms, "bytes"|"operations")."""
+    R, Q, H, D = q.shape
+    L = lengths.clamp(0, S).to(torch.int64)
+    isz = torch.empty((), dtype=cache_dtype).element_size()
+    nbytes = (2 * int(L.sum()) * KH * D * isz
+              + q.numel() * q.element_size() * 2 + extra_bytes)
+    s = torch.arange(S, device=q.device)
+    vis = s[None, None, :] < L[:, None, None]
+    if causal:
+        vis = vis & (s[None, None, :] <= qpos[:, :, None])
+    flops = 4 * D * H * int(vis.sum())
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = flops / PEAK_FLOPS[str(cache_dtype).replace("torch.", "")]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# ----------------------------------------------------------------------
+# phase 3: kernel parity
+# ----------------------------------------------------------------------
+def kernel_phase(torch, timer):
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.kernels.attention import (NEG_INF, append_at,
+                                                      flash_attend,
+                                                      reference_attend)
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = "cuda"
+
+    def mk(R, Q, H, KH, D, S, dtype, seed, L=None):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        lead = () if L is None else (L,)
+
+        def r(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+        return r(R, Q, H, D), r(*lead, R, KH, S, D), r(*lead, R, KH, S, D)
+
+    def ivec(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    def compare(name, ref, out, lengths, dtype):
+        act = lengths > 0
+        err = (ref.float()[act] - out.float()[act]).abs()
+        tol = TOL[str(dtype).replace("torch.", "")]
+        bad = err > tol + tol * ref.float()[act].abs()
+        ok = not bool(bad.any()) and bool(torch.isfinite(out.float()).all())
+        zeros_ok = bool((out[~act] == 0).all())
+        log(f"  {name:34s} max_abs_err={float(err.max()):.3e} "
+            f"tol={tol:g} len0_rows_zero={zeros_ok} "
+            f"{'PASS' if ok and zeros_ok else 'FAIL'}")
+        if not (ok and zeros_ok):
+            raise AssertionError(f"kernel parity failed: {name}")
+        return float(err.max())
+
+    def k1_case(name, R, Q, H, KH, D, S, dtype, lengths, qpos, seed,
+                bias=None, alibi=None, causal=True):
+        q, k, v = mk(R, Q, H, KH, D, S, dtype, seed)
+        out = flash_attend(q, k, v, lengths, qpos, bias=bias, alibi=alibi,
+                           causal=causal)
+        torch.cuda.synchronize()
+        ref = reference_attend(q, k, v, lengths.clamp(max=S), qpos,
+                               bias=bias, alibi=alibi, causal=causal)
+        return compare(name, ref, out, lengths, dtype), (q, k, v)
+
+    def k2_case(name, R, Q, H, KH, D, S, dtype, appos, seed, L=None,
+                layer_idx=None):
+        q, k, v = mk(R, Q, H, KH, D, S, dtype, seed, L)
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dtype)
+        vn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dtype)
+        lengths = torch.where(appos >= 0, appos + 1, torch.zeros_like(appos))
+        qpos = appos.clamp(min=0)[:, None] + torch.arange(
+            Q, dtype=torch.int32, device=dev)[None]
+        k_ref, v_ref = k.clone(), v.clone()
+        out, k_out, v_out = flash_attend(q, k, v, lengths, qpos,
+                                         append_kv=(kn, vn, appos),
+                                         layer_idx=layer_idx)
+        torch.cuda.synchronize()
+        append_at(k_ref, v_ref, kn, vn, appos, layer_idx=layer_idx)
+        kl = k_ref if layer_idx is None else k_ref[layer_idx]
+        vl = v_ref if layer_idx is None else v_ref[layer_idx]
+        ref = reference_attend(q, kl, vl, lengths, qpos)
+        if not (torch.equal(k_out, k_ref) and torch.equal(v_out, v_ref)):
+            raise AssertionError(f"{name}: cache after the fused append "
+                                 "differs from the plain append")
+        if k_out.data_ptr() != k.data_ptr():
+            raise AssertionError(f"{name}: the append was not in place")
+        err = compare(name + " (cache bitwise ok)", ref, out, lengths, dtype)
+        return err, (q, k, v, kn, vn, lengths, qpos)
+
+    bf, f32 = torch.bfloat16, torch.float32
+    log("phase 3: kernel parity (kernel vs plain PyTorch version, on the "
+        "card; atol = rtol)")
+    # --- the serving path's shapes: R=8, H=KH=32, D=128, S=256, bf16 ---
+    R, H, KH, D, S = REQUESTS, HEADS, KV_HEADS, HIDDEN // HEADS, MAX_SEQ
+    Qp = 64     # prefill chunk: max_tokens_per_batch 256 // min(R, 4)
+    pre_len = ivec([PROMPT_LEN - 1] * R)   # all but the pending token
+    pre_qpos = torch.arange(Qp, dtype=torch.int32, device=dev)[None].repeat(
+        R, 1)
+    k1_err, (q1, k1, v1) = k1_case("K1 prefill R8 Q64 H32 D128 S256",
+                                   R, Qp, H, KH, D, S, bf, pre_len,
+                                   pre_qpos, 1)
+    appos_main = ivec([PROMPT_LEN + 31] * R)   # mid-generation decode step
+    k2_err, k2_args = k2_case("K2 decode  R8 Q8 stacked L32 idx5", R, 8, H,
+                              KH, D, S, bf, appos_main, 2, L=LAYERS,
+                              layer_idx=5)
+    # --- the rest of the contract, small shapes ---
+    k1_case("K1 GQA G=4 S=200 (ragged tile)", 3, 5, 16, 4, 128, 200, bf,
+            ivec([200, 77, 1]), ivec([[195 + i for i in range(5)],
+                                      [72 + i for i in range(5)],
+                                      [0] * 5]), 3)
+    k1_case("K1 D=64 prefill", 2, 16, 8, 8, 64, 256, bf, ivec([16, 9]),
+            torch.arange(16, dtype=torch.int32, device=dev)[None].repeat(
+                2, 1), 4)
+    rng = np.random.RandomState(7)
+    tb = np.where(rng.rand(2, 16, 256) < 0.4, NEG_INF, 0.0).astype(
+        np.float32)
+    tb[:, :, 0] = 0.0
+    k1_case("K1 tree bias + ALiBi, causal=False", 2, 16, 8, 4, 128, 256,
+            f32, ivec([100, 60]),
+            ivec([[i + 40 for i in range(16)], [i + 20 for i in range(16)]]),
+            5, bias=torch.tensor(tb, device=dev),
+            alibi=torch.tensor((rng.rand(8) * 0.2).astype(np.float32),
+                               device=dev), causal=False)
+    k1_case("K1 lengths 0 and > S (clamped)", 3, 1, 4, 4, 64, 128, bf,
+            ivec([0, 300, 50]), ivec([[0], [127], [49]]), 6)
+    k1_case("K1 fp32 prefill", 2, 32, 8, 8, 64, 128, f32, ivec([32, 7]),
+            torch.arange(32, dtype=torch.int32, device=dev)[None].repeat(
+                2, 1), 8)
+    k2_case("K2 appos=-1 row, fp32", 4, 8, 8, 4, 128, 256, f32,
+            ivec([37, 0, 255, -1]), 9)
+    k2_case("K2 bf16 D=64 GQA", 3, 1, 8, 2, 64, 256, bf, ivec([5, 130, 64]),
+            10)
+
+    # --- times at the serving path's shapes ---
+    log("  timing at the serving path's shapes (median of 20, L2 flushed "
+        "before each launch)")
+    rows = []
+
+    def sdpa_call(q, kc, vc, lengths, qpos):
+        qh = q.transpose(1, 2)                          # [R, H, Q, D]
+        s = torch.arange(kc.shape[-2], device=dev)
+        mask = ((s[None, None, :] < lengths[:, None, None])
+                & (s[None, None, :] <= qpos[:, :, None]))[:, None]
+        gqa = q.shape[2] != kc.shape[1]
+        return lambda: F.scaled_dot_product_attention(
+            qh, kc, vc, attn_mask=mask, enable_gqa=gqa)
+
+    ms1 = timer(lambda: flash_attend(q1, k1, v1, pre_len, pre_qpos))
+    pl1 = timer(lambda: reference_attend(q1, k1, v1, pre_len, pre_qpos))
+    lib1 = timer(sdpa_call(q1, k1, v1, pre_len, pre_qpos))
+    b1, by1 = attention_bound_ms(torch, q1, pre_len, pre_qpos, S, KH, True,
+                                 bf)
+    rows.append(dict(name="flash_attend", route="cuda", source=K1_SOURCE,
+                     replaces=K1_REPLACES, max_abs_err=k1_err, ms=ms1,
+                     plain_ms=pl1, bound_ms=b1, bound_by=by1,
+                     library_ms=lib1))
+    q2, k2, v2, kn, vn, len2, qp2 = k2_args
+
+    def k2_plain():
+        append_at(k2, v2, kn, vn, appos_main, layer_idx=5)
+        return reference_attend(q2, k2[5], v2[5], len2, qp2)
+
+    ms2 = timer(lambda: flash_attend(q2, k2, v2, len2, qp2,
+                                     append_kv=(kn, vn, appos_main),
+                                     layer_idx=5))
+    pl2 = timer(k2_plain)
+    lib2 = timer(sdpa_call(q2, k2[5], v2[5], len2, qp2))
+    # the append reads k_new/v_new once and writes them once
+    b2, by2 = attention_bound_ms(torch, q2, len2, qp2, S, KH, True, bf,
+                                 extra_bytes=4 * kn.numel() * 2)
+    rows.append(dict(name="flash_attend_append", route="cuda",
+                     source=K1_SOURCE, replaces=K2_REPLACES,
+                     max_abs_err=k2_err, ms=ms2, plain_ms=pl2, bound_ms=b2,
+                     bound_by=by2, library_ms=lib2))
+    for r in rows:
+        log(f"  {r['name']:20s} kernel {r['ms']:.4f} ms | bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | plain "
+            f"{r['plain_ms']:.4f} ms | sdpa {r['library_ms']:.4f} ms")
+    del q1, k1, v1, k2_args, q2, k2, v2
+    kernels.reset_counts()
+    return rows
+
+
+# ----------------------------------------------------------------------
+# phase 4: end-to-end parity, card vs CPU
+# ----------------------------------------------------------------------
+def e2e_parity_phase(torch):
+    import numpy as np
+
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.convert import load_params, params_from_jax
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    log("phase 4: end-to-end parity, 2-layer LLaMA at 7B width, fp32, "
+        "card vs CPU")
+    lc = LLAMAConfig(vocab_size=VOCAB, hidden_size=HIDDEN,
+                     intermediate_size=INTER, num_hidden_layers=2,
+                     num_attention_heads=HEADS, num_key_value_heads=KV_HEADS,
+                     max_position_embeddings=MAX_SEQ)
+    rng = np.random.default_rng(11)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    pnp = None
+    outs = {}
+    for device in ("cpu", "cuda"):
+        cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
+                       max_sequence_length=MAX_SEQ,
+                       max_tokens_per_batch=REQUESTS * PROMPT_LEN,
+                       kv_cache_dtype="float32", compute_dtype="float32")
+        m = FFModel(cfg)
+        create_llama_model(m, lc)
+        m.compile()
+        if pnp is None:     # one seeded numpy draw, carried to both
+            pnp = {
+                layer: {w: (np.ones(t.shape, np.float32) if "norm" in layer
+                            else 0.02 * rng.standard_normal(
+                                t.shape, dtype=np.float32))
+                        for w, t in lp.items()}
+                for layer, lp in m.params.items()}
+        load_params(m, params_from_jax(pnp, device=device))
+        rm = RequestManager()
+        guids = [rm.register_new_request(p, max_new_tokens=16)
+                 for p in prompts]
+        t0 = time.perf_counter()
+        rm.generate_incr_decoding(m)
+        outs[device] = [rm.results[g].output_tokens for g in guids]
+        log(f"  {device}: {time.perf_counter() - t0:.2f} s, decode width "
+            f"{m._inference_manager.decode_width}")
+        del m
+    same_req = sum(a == b for a, b in zip(outs["cpu"], outs["cuda"]))
+    tot = sum(len(a) for a in outs["cpu"])
+    same_tok = sum(x == y for a, b in zip(outs["cpu"], outs["cuda"])
+                   for x, y in zip(a, b))
+    log(f"  token agreement {same_tok}/{tot}; identical requests "
+        f"{same_req}/{REQUESTS}")
+    for i, (a, b) in enumerate(zip(outs["cpu"], outs["cuda"])):
+        if a != b:
+            j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+            log(f"  first divergence: request {i} token {j}: cpu {a[j]} "
+                f"vs cuda {b[j]}")
+            break
+    # fp32 on both sides; only the summation order differs. At most one
+    # request may diverge (a near-tie flips its argmax, and greedy decode
+    # carries the flip forward).
+    if same_req < REQUESTS - 1 or any(len(a) != 16 for a in outs["cuda"]):
+        raise AssertionError("end-to-end card/CPU token parity failed")
+
+
+# ----------------------------------------------------------------------
+# phase 5: the slice at full size
+# ----------------------------------------------------------------------
+def profile_decode(torch, llm, prompts, card):
+    """Device busy share and device time by kernel over one short
+    generate call (torch.profiler; the launch counts were read before)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        llm.generate(prompts, max_new_tokens=16)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    from torch.autograd import DeviceType
+
+    # device-side events only: a CPU op's self device time repeats the
+    # time of the kernels it launched
+    rows = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    busy = sum(r[2] for r in rows)
+    log(f"  profile of generate(16 new tokens): wall {wall_us / 1e3:.2f} ms, "
+        f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
+        f"idle {100 - 100 * busy / wall_us:.1f}%  [{card}]")
+    for key, n, us in sorted(rows, key=lambda r: -r[2])[:15]:
+        log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<6d} "
+            f"{key[:90]}")
+
+
+def full_size_phase(torch, card, profile=False):
+    import numpy as np
+
+    from flexflow_tpu_torch import LLM, DataType, kernels
+    from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
+    from flexflow_tpu_torch.serve.inference_manager import InferenceManager
+
+    log(f"phase 5: LLaMA-2-7B geometry, bf16 weights and cache, "
+        f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} "
+        f"new tokens  [{card}]")
+    hf = dict(model_type="llama", vocab_size=VOCAB, hidden_size=HIDDEN,
+              intermediate_size=INTER, num_hidden_layers=LAYERS,
+              num_attention_heads=HEADS, num_key_value_heads=KV_HEADS,
+              max_position_embeddings=MAX_SEQ)
+    lc = LLAMAConfig.from_hf_config(hf)
+    hd = HIDDEN // HEADS
+    shapes = {"embed_tokens": (VOCAB, HIDDEN), "lm_head": (VOCAB, HIDDEN),
+              "q_proj": (HEADS * hd, HIDDEN), "k_proj": (KV_HEADS * hd, HIDDEN),
+              "v_proj": (KV_HEADS * hd, HIDDEN), "o_proj": (HIDDEN, HEADS * hd),
+              "gate_proj": (INTER, HIDDEN), "up_proj": (INTER, HIDDEN),
+              "down_proj": (HIDDEN, INTER)}
+    g = torch.Generator(device="cuda").manual_seed(1234)
+    sd = {}
+    for key in hf_weight_map(lc):
+        if key.endswith("norm.weight"):
+            sd[key] = torch.ones(HIDDEN, dtype=torch.bfloat16, device="cuda")
+            continue
+        part = key.split(".")[-2]
+        sd[key] = torch.empty(shapes[part], dtype=torch.bfloat16,
+                              device="cuda").normal_(0.0, 0.02, generator=g)
+    t0 = time.perf_counter()
+    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
+    del sd
+    llm.compile(max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
+                max_tokens_per_batch=REQUESTS * PROMPT_LEN,
+                kv_cache_dtype="bfloat16", compute_dtype="bfloat16",
+                device="cuda", seed=7)
+    torch.cuda.synchronize()
+    log(f"  build + load: {time.perf_counter() - t0:.2f} s")
+    m = llm.ffmodel
+    ifm = m._inference_manager = InferenceManager(m)
+    log(f"  decode width {ifm.decode_width}")
+    stats = {"prefill_s": [], "decode_s": 0.0, "decode_steps": 0,
+             "prefill_steps": 0}
+    step, block = ifm.step, ifm.decode_block
+
+    def timed_step(meta, want_output=True):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(meta, want_output)
+        torch.cuda.synchronize()
+        stats["prefill_s"].append(time.perf_counter() - t)
+        stats["prefill_steps"] += 1
+        return out
+
+    def timed_block(tok, pos, act, n):
+        t = time.perf_counter()
+        out = block(tok, pos, act, n)    # ends in a host readback
+        stats["decode_s"] += time.perf_counter() - t
+        stats["decode_steps"] += min(int(n), m.config.decode_block_steps)
+        return out
+
+    ifm.step, ifm.decode_block = timed_step, timed_block
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    llm.generate(prompts, max_new_tokens=8)         # warm-up (cuBLAS, ...)
+    for k in stats:
+        stats[k] = [] if k == "prefill_s" else 0
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()        # counts of the measured run only
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = llm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(kernels.counts)
+    n_tok = sum(len(r.output_tokens) for r in res)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    pre_ms = [s * 1e3 for s in stats["prefill_s"]]
+    dec_ms = stats["decode_s"] * 1e3 / max(1, stats["decode_steps"])
+    log(f"  prefill: {stats['prefill_steps']} chunk(s), "
+        f"{', '.join(f'{x:.2f}' for x in pre_ms)} ms  [{card}]")
+    log(f"  decode: {stats['decode_steps']} steps, {dec_ms:.3f} ms/step  "
+        f"[{card}]")
+    log(f"  end to end: {n_tok} tokens in {wall:.3f} s = "
+        f"{n_tok / wall:.1f} tokens/s  [{card}]")
+    log(f"  peak device memory {peak:.2f} GiB  [{card}]")
+    log(f"  kernel launches in the measured run: {counts}")
+    if n_tok != REQUESTS * NEW_TOKENS or not all(
+            0 <= t < VOCAB for r in res for t in r.output_tokens):
+        raise AssertionError("full-size run produced wrong token counts/ids")
+    want = {"flash_attend": LAYERS * stats["prefill_steps"],
+            "flash_attend_append": LAYERS * stats["decode_steps"],
+            "plain_attend_cuda": 0}
+    if counts != want or not stats["prefill_steps"]:
+        raise AssertionError(f"kernel launch counts {counts} != {want}")
+    if profile:
+        profile_decode(torch, llm, prompts, card)
+    return counts, dict(prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
+                        tokens_per_s=n_tok / wall, peak_gib=peak)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default="1,2,3,4,5",
+                    help="comma-separated phases to run (default: all)")
+    ap.add_argument("--profile", action="store_true",
+                    help="phase 5 also traces one short generate call with "
+                         "torch.profiler (device busy share, time by kernel)")
+    args = ap.parse_args(argv)
+    phases = {int(p) for p in args.phases.split(",")}
+
+    if not os.path.isdir(os.path.join(HERE, "flexflow_tpu_torch", "kernels",
+                                      "csrc")):
+        print("chip_smoke.py: the flexflow_tpu_torch package is not beside "
+              "this script; run it from a checkout of the repository",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, HERE)
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: torch.cuda.is_available() is False; this "
+              "script needs an NVIDIA GPU", file=sys.stderr)
+        return 3
+
+    card = nvidia_smi()
+    log(card)
+    log(f"phase 1: torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    log(f"  allow_tf32: matmul={torch.backends.cuda.matmul.allow_tf32} "
+        f"cudnn={torch.backends.cudnn.allow_tf32}; bf16 reduced-precision "
+        f"reduction "
+        f"{torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
+
+    from flexflow_tpu_torch.kernels import build
+
+    t0 = time.perf_counter()
+    libs = build.build_all()
+    log(f"phase 2: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
+    for name in libs:
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {line.strip()}")
+
+    timer = Timer(torch)
+    rows = kernel_phase(torch, timer) if 3 in phases else []
+    del timer
+    # the model <-> InferenceManager reference cycle keeps a phase's model
+    # alive until a collection; free it before the next phase's peak
+    gc.collect()
+    if 4 in phases:
+        e2e_parity_phase(torch)
+        gc.collect()
+    if 5 in phases:
+        counts, _ = full_size_phase(torch, card, profile=args.profile)
+        for r in rows:
+            r["launches"] = counts[r["name"]]
+    log(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,48 @@
+"""FFConfig of the PyTorch/CUDA port: the serving fields of
+``flexflow_tpu.config.FFConfig`` plus ``device``.
+
+The device alone decides the attention path: CUDA tensors go to the
+hand-written kernels, CPU tensors to their plain PyTorch versions. There
+is no switch that puts the plain version on the card, and no silent CPU
+fallback — asking for ``cuda`` where CUDA is missing raises
+(``resolve_device``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass
+class FFConfig:
+    # where the model's parameters, KV caches and activations live
+    device: str = "cuda"
+    seed: int = 0
+    # activations compute in compute_dtype; params keep their WeightSpec dtype
+    compute_dtype: str = "float32"
+
+    # --- serving shapes (reference BatchConfig::max_requests_per_batch /
+    # max_tokens_per_batch / max_sequence_length) ---
+    max_requests_per_batch: int = 8
+    max_tokens_per_batch: int = 128
+    max_sequence_length: int = 256
+    kv_cache_dtype: str = "bfloat16"
+    # decode steps per host readback (serve/engine.py decode block)
+    decode_block_steps: int = 8
+    # incremental-decode step width; 0 = auto: the padded verify width (8)
+    # where the CUDA kernel serves the config, 1 elsewhere
+    # (InferenceManager._resolve_decode_width)
+    decode_width: int = 0
+
+
+def resolve_device(name) -> torch.device:
+    """The config's device, checked: a CUDA device that this process
+    cannot reach raises instead of falling back to the CPU."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"FFConfig.device={str(name)!r} but torch.cuda.is_available() "
+            "is False; pass device='cpu' to run the plain PyTorch path")
+    return dev

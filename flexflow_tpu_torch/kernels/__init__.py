@@ -1,0 +1,27 @@
+"""Hand-written Hopper kernels of the port (CUDA C++ for ``sm_90a``).
+
+Each kernel replaces one Pallas TPU kernel of ``flexflow_tpu/kernels`` and
+has a plain PyTorch version beside it. A wrapper takes the plain version
+only for tensors on the CPU; on CUDA tensors it launches the kernel or
+raises — nothing falls back.
+
+``counts`` holds one plain integer per kernel, bumped where the wrapper
+launches it, plus ``plain_attend_cuda``: calls of the plain attention on
+CUDA tensors, which the serving path never makes (``chip_smoke.py``
+checks it reads 0 after a full serving run).
+"""
+
+from __future__ import annotations
+
+counts = {"flash_attend": 0, "flash_attend_append": 0, "plain_attend_cuda": 0}
+
+
+def reset_counts():
+    for k in counts:
+        counts[k] = 0
+
+
+from flexflow_tpu_torch.kernels.attention import (  # noqa: E402
+    flash_attend, reference_attend)
+
+__all__ = ["counts", "flash_attend", "reference_attend", "reset_counts"]
