@@ -17,17 +17,26 @@ On CUDA tensors ``flash_attend`` launches the kernel (or raises on a shape
 it does not take); on CPU tensors it runs the plain versions below. The
 cache stream is cut into ``BLOCK_S``-position tiles whatever the query
 width, so a width-1 and a width-8 decode split the softmax identically.
+
+Split-S: where ``R * KH`` blocks would leave SMs idle, ``split_plan`` cuts
+the S tiles into splits; each split's partial softmax state is combined
+by a second small launch in a fixed order. The plan depends on (R, KH, S,
+SM count) only, never on the query width or on ``lengths`` (no host
+read). ``split_attend`` is its plain version, for tests and the chip
+smoke test.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
 
 NEG_INF = -1e30  # finite "minus infinity": keeps the online softmax NaN-free
 BLOCK_S = 64     # cache positions per kernel tile (csrc/flash_attend.cu BS)
+SPLIT_MIN_TILES = 4  # a split streams at least this many tiles
 SUPPORTED_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -35,6 +44,47 @@ _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 def supports_shapes(S: int, D: int) -> bool:
     """Can the CUDA kernels serve a cache of length S and head dim D?"""
     return S > 0 and D in SUPPORTED_HEAD_DIMS
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(R: int, KH: int, S: int, sms: int):
+    """(n_split, tiles_per_split) for a cache of S positions served by
+    R * KH (row, kv head) streams on ``sms`` SMs. One split when the
+    streams alone fill the SMs; else enough splits, of whole 64-position
+    tiles and at least ``SPLIT_MIN_TILES`` each, for two blocks an SM."""
+    tiles = -(-S // BLOCK_S)
+    streams = R * KH
+    if streams >= sms:
+        return 1, tiles
+    want = -(-2 * sms // streams)
+    tps = max(-(-tiles // want), SPLIT_MIN_TILES)
+    return -(-tiles // tps), tps
+
+
+def _masked_scores(q, k_cache, lengths, qpos, bias, alibi, causal, qk_scale):
+    """fp32 scores [R, KH, G, Q, S] of dt-rounded q and k, with ALiBi and
+    bias added and NEG_INF where a key is not visible."""
+    R, Q, H, D = q.shape
+    KH, S = k_cache.shape[1], k_cache.shape[2]
+    G = H // KH
+    # products of dt-rounded operands, accumulated in fp32
+    qg = q.reshape(R, Q, KH, G, D).float()
+    kc = k_cache.to(q.dtype).float()
+    s = torch.einsum("rqkgd,rksd->rkgqs", qg, kc) * qk_scale
+    s_ids = torch.arange(S, device=q.device)[None, None, :]        # [1,1,S]
+    if alibi is not None:
+        dist = (qpos[:, :, None] - s_ids).float()                  # [R,Q,S]
+        slopes = alibi.float().reshape(KH, G)
+        s = s - slopes[None, :, :, None, None] * dist[:, None, None, :, :]
+    if bias is not None:
+        s = s + bias.float()[:, None, None, :, :]
+    if causal:
+        visible = s_ids <= qpos[:, :, None]
+    else:
+        visible = torch.ones((R, Q, S), dtype=torch.bool, device=q.device)
+    visible = visible & (s_ids < lengths[:, None, None])
+    return torch.where(visible[:, None, None, :, :], s,
+                       torch.tensor(NEG_INF, device=q.device))
 
 
 def reference_attend(q, k_cache, v_cache, lengths, qpos, bias=None,
@@ -51,34 +101,69 @@ def reference_attend(q, k_cache, v_cache, lengths, qpos, bias=None,
     if q.is_cuda:
         kernels.counts["plain_attend_cuda"] += 1
     R, Q, H, D = q.shape
+    if qk_scale is None:
+        qk_scale = 1.0 / math.sqrt(D)
+    out_dtype = out_dtype or q.dtype
+    dt = q.dtype
+    s = _masked_scores(q, k_cache, lengths, qpos, bias, alibi, causal,
+                       qk_scale)
+    p = torch.softmax(s, dim=-1)
+    vc = v_cache.to(dt).float()
+    out = torch.einsum("rkgqs,rksd->rqkgd", p.to(dt).float(), vc).to(dt)
+    return out.reshape(R, Q, H * D).to(out_dtype)
+
+
+def split_attend(q, k_cache, v_cache, lengths, qpos, bias=None, alibi=None,
+                 *, plan, causal=True, qk_scale=None, out_dtype=None):
+    """Plain version of the kernels' split-S arithmetic: each split of
+    ``plan = (n_split, tiles_per_split)`` runs an online softmax over its
+    ``BLOCK_S``-position tiles below ``ceil(min(len, S) / BLOCK_S)`` and
+    keeps (m, l, unnormalised O); the splits are combined in order,
+    out = sum w_s O_s / sum w_s l_s with w_s = exp(m_s - max m). Rows with
+    ``lengths == 0`` give zeros, as the kernels do. Same arguments and
+    result as ``reference_attend``; used by tests and ``chip_smoke.py``."""
+    R, Q, H, D = q.shape
     KH, S = k_cache.shape[1], k_cache.shape[2]
     G = H // KH
     if qk_scale is None:
         qk_scale = 1.0 / math.sqrt(D)
     out_dtype = out_dtype or q.dtype
     dt = q.dtype
-    # products of dt-rounded operands, accumulated in fp32
-    qg = q.reshape(R, Q, KH, G, D).float()
-    kc = k_cache.to(dt).float()
+    n_split, tps = plan
+    s = _masked_scores(q, k_cache, lengths, qpos, bias, alibi, causal,
+                       qk_scale)
     vc = v_cache.to(dt).float()
-    s = torch.einsum("rqkgd,rksd->rkgqs", qg, kc) * qk_scale
-    s_ids = torch.arange(S, device=q.device)[None, None, :]        # [1,1,S]
-    if alibi is not None:
-        dist = (qpos[:, :, None] - s_ids).float()                  # [R,Q,S]
-        slopes = alibi.float().reshape(KH, G)
-        s = s - slopes[None, :, :, None, None] * dist[:, None, None, :, :]
-    if bias is not None:
-        s = s + bias.float()[:, None, None, :, :]
-    if causal:
-        visible = s_ids <= qpos[:, :, None]
-    else:
-        visible = torch.ones((R, Q, S), dtype=torch.bool, device=q.device)
-    visible = visible & (s_ids < lengths[:, None, None])
-    s = torch.where(visible[:, None, None, :, :], s,
-                    torch.tensor(NEG_INF, device=q.device))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("rkgqs,rksd->rqkgd", p.to(dt).float(), vc).to(dt)
-    return out.reshape(R, Q, H * D).to(out_dtype)
+    nb = (lengths.clamp(0, S).long() + BLOCK_S - 1) // BLOCK_S      # [R]
+    stat = (R, KH, G, Q)
+    ms, ls, os_ = [], [], []
+    for sp in range(n_split):
+        m = torch.full(stat, NEG_INF, device=q.device)
+        l = torch.zeros(stat, device=q.device)
+        o = torch.zeros(stat + (D,), device=q.device)
+        for t in range(sp * tps, min((sp + 1) * tps, -(-S // BLOCK_S))):
+            live = (t < nb)[:, None, None, None]                      # [R,1,1,1]
+            x = s[..., t * BLOCK_S:(t + 1) * BLOCK_S]
+            m_new = torch.maximum(m, x.amax(-1))
+            p = torch.exp(x - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            pv = torch.einsum("rkgqs,rksd->rkgqd", p.to(dt).float(),
+                              vc[:, :, t * BLOCK_S:(t + 1) * BLOCK_S])
+            l = torch.where(live, l * corr + p.sum(-1), l)
+            o = torch.where(live[..., None], o * corr[..., None] + pv, o)
+            m = torch.where(live, m_new, m)
+        ms.append(m)
+        ls.append(l)
+        os_.append(o)
+    mx = torch.stack(ms).amax(0)
+    o = torch.zeros_like(os_[0])
+    l = torch.zeros_like(ls[0])
+    for m_s, l_s, o_s in zip(ms, ls, os_):
+        w = torch.exp(m_s - mx)
+        l = l + w * l_s
+        o = o + w[..., None] * o_s
+    out = (o / l.clamp(min=1e-30)[..., None]).to(dt)              # [R,KH,G,Q,D]
+    out = out.permute(0, 3, 1, 2, 4).reshape(R, Q, H * D)
+    return out.to(out_dtype)
 
 
 def append_at(k_cache, v_cache, k_new, v_new, appos, layer_idx=None):
@@ -139,8 +224,13 @@ def _ptr(t):
 def _bind(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.ff_flash_attend, lib.ff_flash_attend_append):
-        fn.argtypes = [vp] * 11 + [i] * 6 + [f, i, i, i, vp]
+        fn.argtypes = [vp] * 13 + [i] * 8 + [f, i, i, i, vp]
         fn.restype = i
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(dev) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
 def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
@@ -176,16 +266,22 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     if out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"out dtype {out_dtype} not in {list(_KERNEL_DTYPES)}")
     for name, t in (("k_cache", kc), ("v_cache", vc)):
-        if t.device != dev or not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous on {dev}")
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous and 16-byte "
+                             f"aligned on {dev}")
+
+    def aligned(t):
+        # the kernels read q, k_new and v_new in 16-byte (or 4-byte) words
+        t = t.contiguous()
+        return t.clone() if t.data_ptr() % 16 else t
 
     def small(t, dtype, shape, name):
         if t.device != dev or tuple(t.shape) != shape:
             raise ValueError(f"{name} must be {shape} on {dev}, got "
                              f"{tuple(t.shape)} on {t.device}")
-        return t.to(dtype).contiguous()
+        return aligned(t.to(dtype))
 
-    qc = q.to(cdt).contiguous()
+    qc = aligned(q.to(cdt))
     lens = small(lengths, torch.int32, (R,), "lengths")
     qp = small(qpos, torch.int32, (R, Q), "qpos")
     b = None if bias is None else small(bias, torch.float32, (R, Q, S), "bias")
@@ -197,6 +293,13 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
         vn = small(v_new, cdt, (R, 1, KH, D), "v_new")
         ap = small(appos, torch.int32, (R,), "appos")
     out = torch.empty((R, Q, H * D), dtype=out_dtype, device=dev)
+    n_split, tps = split_plan(R, KH, S, _sm_count(dev))
+    part_o = part_ml = None
+    if n_split > 1:   # fp32 partials of each split, combined in the kernel call
+        part_o = torch.empty((n_split, R, Q, H, D), dtype=torch.float32,
+                             device=dev)
+        part_ml = torch.empty((n_split, R, Q, H, 2), dtype=torch.float32,
+                              device=dev)
 
     lib = build.load("flash_attend")
     if not getattr(lib, "_ff_bound", False):
@@ -206,8 +309,9 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
                else (lib.ff_flash_attend_append, "flash_attend_append"))
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = fn(_ptr(qc), _ptr(kc), _ptr(vc), _ptr(lens), _ptr(qp), _ptr(b),
-            _ptr(al), _ptr(kn), _ptr(vn), _ptr(ap), _ptr(out),
-            R, Q, H, KH, S, D, scale, int(bool(causal)),
+            _ptr(al), _ptr(kn), _ptr(vn), _ptr(ap), _ptr(out), _ptr(part_o),
+            _ptr(part_ml), R, Q, H, KH, S, D, n_split, tps, scale,
+            int(bool(causal)),
             _KERNEL_DTYPES[cdt], _KERNEL_DTYPES[out_dtype],
             ctypes.c_void_p(stream))
     if rc != 0:

@@ -10,34 +10,52 @@
 // finite NEG_INF masking, q and p rounded to the cache type before their
 // products, fp32 accumulation.
 //
-// What bounds it on this card: decode (K2, one real token per row) and
-// prefill chunks of short prompts read each valid K/V row once and do
-// about 4*G*Q flops per cache element, far below the ~295 flop/byte an
-// H100 needs before bf16 tensor cores are the limit — the bound is the
-// HBM bytes of the valid cache prefix, 2*R*KH*len*D*itemsize.
+// What bounds each kernel on this card:
+//  * K2 (decode: G*Q query rows of which G are real) reads every valid
+//    K/V row once and does ~4*G*Q flops per cache element, far below the
+//    ~295 flop/byte where bf16 tensor cores become the limit: it is bound
+//    by the HBM bytes of the valid prefix, 2*R*KH*len*D*itemsize, and at
+//    short caches by the latency of its first tile;
+//  * K1 (prefill chunks, tree verify: G*Q = 64..256 rows) does ~64x more
+//    flops per byte, still below that line: bytes again, provided the
+//    products run on the tensor cores (scalar fp32 FMA made it
+//    shared-memory-bound at 6% of its bound).
 //
-// What the design does about it:
-//  * one block per (row r, kv head kh) — no cross-block ordering: the
-//    TPU's sequential grid over r and its cross-program DMA hand-off
-//    (attention.py:182-231) are replaced by a loop over S-tiles inside
-//    the block, and the block stops after ceil(min(len, S) / BS) tiles,
-//    so inactive rows (len 0) read nothing and write zeros;
-//  * every query row of a kv head (all G*Q of them) is served by the
-//    block that streams that head, so each K/V tile is read from HBM once
-//    per QT query rows (a pass), straight from the stacked [L,R,KH,S,D]
-//    cache at the layer's base pointer — no layer is ever copied out;
-//  * BS is a constant (64 positions): the softmax partition over S does
-//    not depend on the query width, so a width-1 and a width-8 decode of
-//    the same positions round identically;
-//  * K2 writes k_new/v_new into its own (r, kh) cache row at appos[r],
-//    then __syncthreads(), then streams: no other block reads that slice,
-//    so the fused append needs no cross-block ordering. The cache is read
-//    with plain (coherent) loads, never the read-only path, so the block
-//    sees its own write;
-//  * no PACK=2 lane packing and no 128-lane padding: D = 64 and D = 128
-//    rows are read as they are stored.
-// This first version is simple scalar FMA over shared-memory tiles;
-// wgmma/TMA and split-S for long caches are later work.
+// What the design does about it (bf16 cache, the serving path):
+//  * grid (query tile x S-split, kv head, row). A block serves 64 of the
+//    G*Q query rows of one (row, kv head), four warps of 16 rows each, and
+//    reads each 64-position K/V tile of its S range from HBM once;
+//  * K/V tiles arrive by 16-byte cp.async into a 3-stage ring of bf16
+//    tiles (XOR-swizzled 16-byte chunks, so ldmatrix is conflict-free):
+//    tiles j+1 and j+2 are in flight while tile j computes. Positions past
+//    len are zero-filled, never read. The first tiles are requested right
+//    after the block's scalars arrive, before q is read: a decode block
+//    that streams one tile waits on two memory latencies, not a chain;
+//  * S = Q.K^T and O += P.V run on mma.sync.m16n8k16 (bf16 in, fp32
+//    accumulate), operands by ldmatrix; q is held in registers, P is
+//    rounded to bf16 in registers (the reference's p.to(dt)) and never
+//    touches shared memory. 96 KiB of shared memory a block at D = 128,
+//    so two blocks share an SM. A tile that every key of a row sees, with
+//    no ALiBi or bias, skips the per-key mask tests (same arithmetic);
+//  * finished rows go through shared memory and out in 16-byte stores;
+//  * a query tile stops streaming at ceil(min(len, max qpos + 1) / 64)
+//    under causal masking (tiles past it are fully masked for every row);
+//  * split-S (flash-decoding): when R*KH blocks cannot fill the SMs, the
+//    host's plan (split_plan in attention.py, a function of R, KH, S and
+//    the SM count only) cuts the tiles into n_split ranges of tps tiles.
+//    Each split writes a partial (m, l, unnormalised O) in fp32; a second
+//    small kernel combines the splits in a fixed order (deterministic);
+//  * K2's fused append: the block of query tile 0 in the split that owns
+//    appos[r] writes k_new/v_new into the cache; every block that streams
+//    position appos[r] copies it from k_new/v_new instead of the cache,
+//    so no block reads a row another block writes and no ordering or
+//    proxy fence is needed;
+//  * the softmax partition over S is 64-position tiles whatever Q, and
+//    each row's arithmetic depends only on that row: a width-1 decode, a
+//    width-8 decode and a K1 call over the same cache give bitwise equal
+//    rows for the same query.
+// The fp32 cache type keeps scalar FMA (TF32 tensor cores would lose the
+// 2e-5 parity) with the same grid, split plan, causal cut and append.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -46,17 +64,19 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int NT = 256;  // threads per block
-constexpr int BS = 64;   // cache positions per S-tile (never depends on Q)
-constexpr int QT = 32;   // query rows per pass
-constexpr int NWARPS = NT / 32;
+constexpr int BS = 64;     // cache positions per S-tile (never depends on Q)
+constexpr int QM = 64;     // query rows per block (a grid dimension)
+constexpr int NT_MMA = 128;   // bf16 kernel: four warps of 16 query rows
+constexpr int NSTAGE = 3;     // bf16 kernel: K/V ring depth
+constexpr int NT_SIMT = 256;  // fp32 kernel
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -77,209 +97,626 @@ struct Args {
   const void* v_new;
   const int* appos;    // [R] (K2)
   void* out;           // [R, Q, H*D]
+  float* part_o;       // [n_split, R, Q, H, D] when n_split > 1
+  float* part_ml;      // [n_split, R, Q, H, 2]
   int R, Q, H, KH, S;
+  int n_split, tps;    // S-splits of tps tiles each
   float scale;
   int causal;
 };
 
+// What one block streams: (row r, kv head kh, query tile qt, split),
+// S-tiles [t0, t1), and the cache position whose K/V come from k_new.
+struct Block {
+  int r, kh, qt, split, G, GQ, q0, len, t0, t1, app;
+};
+
+// Every thread of the block calls this (it synchronises).
+template <bool APPEND>
+__device__ Block block_setup(const Args& a) {
+  __shared__ int qmax;
+  Block b;
+  b.r = blockIdx.z;
+  b.kh = blockIdx.y;
+  b.qt = blockIdx.x / a.n_split;
+  b.split = blockIdx.x % a.n_split;
+  b.G = a.H / a.KH;
+  b.GQ = b.G * a.Q;
+  b.q0 = b.qt * QM;
+  // every scalar load issued before the first use of any of them: the
+  // block's first tile waits on one memory latency, not a chain of them
+  const int gq = b.q0 + threadIdx.x;
+  const bool has_q = a.causal && threadIdx.x < QM && gq < b.GQ;
+  const int my_qp = has_q ? a.qpos[b.r * a.Q + gq % a.Q] : -1;
+  const int len = a.lengths[b.r];
+  const int p = APPEND ? a.appos[b.r] : -1;
+  b.len = min(max(len, 0), a.S);
+  b.app = (p >= 0 && p < a.S) ? p : -1;
+  int lim = b.len;
+  if (a.causal) {
+    // causal tile cut: no row of this query tile sees past max qpos
+    if (threadIdx.x == 0) qmax = -1;
+    __syncthreads();
+    if (has_q) atomicMax(&qmax, my_qp);
+    __syncthreads();
+    lim = min(lim, max(qmax + 1, 0));
+  }
+  const int nb = (lim + BS - 1) / BS;
+  b.t0 = b.split * a.tps;
+  b.t1 = min(b.t0 + a.tps, nb);
+  return b;
+}
+
+// K2: the block of query tile 0 in the split that owns appos[r] writes
+// k_new/v_new into the cache (16-byte stores). No block reads that row
+// of the cache: the streams take it from k_new/v_new.
+template <typename T, int D>
+__device__ void append_store(const Args& a, const Block& b) {
+  if (b.app < 0 || b.qt != 0 || b.split != (b.app / BS) / a.tps) return;
+  constexpr int CH = D * (int)sizeof(T) / 16;
+  const size_t src = ((size_t)b.r * a.KH + b.kh) * D;
+  const size_t dst = (((size_t)b.r * a.KH + b.kh) * a.S + b.app) * D;
+  const uint4* kn = reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.k_new) + src);
+  const uint4* vn = reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.v_new) + src);
+  uint4* kc = reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.k) + dst);
+  uint4* vc = reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.v) + dst);
+  for (int c = threadIdx.x; c < CH; c += blockDim.x) {
+    kc[c] = kn[c];
+    vc[c] = vn[c];
+  }
+}
+
+// (r, qi, h) of query row gq of the block, flattened as in out [R, Q, H*D]
+__device__ __forceinline__ size_t out_row(const Args& a, const Block& b, int gq) {
+  const int g = gq / a.Q, qi = gq % a.Q;
+  return ((size_t)b.r * a.Q + qi) * a.H + b.kh * b.G + g;
+}
+
+// One output element of a finished row: normalised and rounded like the
+// reference (to the cache type, then to the output type) when there is
+// one split, else the split's unnormalised fp32 partial.
+template <typename T, typename OutT>
+__device__ __forceinline__ void store_out(const Args& a, const Block& b, size_t row, int D,
+                                          int d, float o, float l) {
+  if (a.n_split == 1) {
+    reinterpret_cast<OutT*>(a.out)[row * D + d] =
+        from_f<OutT>(round_to<T>(o / fmaxf(l, 1e-30f)));
+  } else {
+    a.part_o[((size_t)b.split * a.R * a.Q * a.H + row) * D + d] = o;
+  }
+}
+
+// The split's running max and sum of a finished row (split-S only).
+__device__ __forceinline__ void store_ml(const Args& a, const Block& b, size_t row, float m,
+                                         float l) {
+  if (a.n_split == 1) return;
+  float* p = a.part_ml + ((size_t)b.split * a.R * a.Q * a.H + row) * 2;
+  p[0] = m;
+  p[1] = l;
+}
+
+// The score of query row (gq, qpos qp, ALiBi slope, bias row) against
+// cache position pos: masked to NEG_INF, else scaled, ALiBi, bias.
+__device__ __forceinline__ float score(const Args& a, const Block& b, float dot, bool row_ok,
+                                       int qp, float slope, const float* brow, int pos) {
+  if (!row_ok || pos >= b.len || (a.causal && pos > qp)) return NEG_INF;
+  float s = dot * a.scale;
+  if (a.alibi) s = s - slope * (float)(qp - pos);
+  if (brow) s = s + brow[pos];
+  return s;
+}
+
+// ---------------------------------------------------------------------
+// bf16 cache: tensor cores (mma.sync.m16n8k16), cp.async ring
+// ---------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// 16-byte async copy global -> shared; src_bytes 0 fills zeros
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// c[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// element offset of 16-byte chunk `ch` of tile row `row` ([BS][D] tile,
+// chunks XOR-swizzled by row so that 8 rows of one chunk hit 8 banks)
 template <int D>
-constexpr size_t smem_bytes() {
+__device__ __forceinline__ int swz(int row, int ch) {
+  return row * D + ((ch ^ (row & 7)) << 3);
+}
+
+template <int D>
+constexpr size_t mma_smem_bytes() {
+  return sizeof(bf16) * NSTAGE * 2 * BS * D;
+}
+
+// A warp's 16 finished rows (mma accumulator layout) go through shared
+// memory `st` (padded rows: conflict-free) and out to dst(row) with
+// 16-byte stores; normalised and rounded like store_out when `normalise`.
+template <typename T, typename E, int D, typename Dst>
+__device__ __forceinline__ void warp_store(E* st, const float (&o)[D / 8][4], const float* l,
+                                           bool normalise, int lane, int rows, Dst dst) {
+  constexpr int LD = D + 16 / (int)sizeof(E);
+  constexpr int CPR = D * (int)sizeof(E) / 16;  // 16-byte chunks per row
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x = o[n][2 * i + e];
+        if (normalise) x = round_to<T>(x / fmaxf(l[i], 1e-30f));
+        st[(gid + 8 * i) * LD + n * 8 + tig * 2 + e] = from_f<E>(x);
+      }
+  __syncwarp();
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int row = c / CPR, ch = c % CPR;
+    if (row < rows)
+      reinterpret_cast<uint4*>(dst(row))[ch] = reinterpret_cast<const uint4*>(st + row * LD)[ch];
+  }
+}
+
+template <typename OutT, int D, bool APPEND>
+__global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [NSTAGE][K|V][BS][D]
+  constexpr int CH = D / 8;                        // 16-byte chunks per row
+  constexpr int KS = D / 16;                       // k-steps of q.k
+  constexpr int ND = D / 8;                        // n-tiles of p.v
+
+  const Block b = block_setup<APPEND>(a);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2, tig = lane & 3;
+  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
+  const bf16* kc = reinterpret_cast<const bf16*>(a.k) + head;
+  const bf16* vc = reinterpret_cast<const bf16*>(a.v) + head;
+  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
+  const bf16* kn = APPEND ? reinterpret_cast<const bf16*>(a.k_new) + nsrc : nullptr;
+  const bf16* vn = APPEND ? reinterpret_cast<const bf16*>(a.v_new) + nsrc : nullptr;
+
+  auto load_tile = [&](int t, int st) {
+    bf16* ks_ = ring + (size_t)st * 2 * BS * D;
+    bf16* vs_ = ks_ + BS * D;
+    for (int c = tid; c < BS * CH; c += NT_MMA) {
+      const int row = c / CH, ch = c % CH, pos = t * BS + row;
+      const bf16 *ksrc = kc, *vsrc = vc;
+      int bytes = 16;
+      if (pos == b.app) {
+        ksrc = kn + ch * 8;
+        vsrc = vn + ch * 8;
+      } else if (pos < b.len) {
+        ksrc = kc + (size_t)pos * D + ch * 8;
+        vsrc = vc + (size_t)pos * D + ch * 8;
+      } else {
+        bytes = 0;  // past the valid prefix: zeros, nothing read
+      }
+      cp_async16(ks_ + swz<D>(row, ch), ksrc, bytes);
+      cp_async16(vs_ + swz<D>(row, ch), vsrc, bytes);
+    }
+  };
+  // the first tiles go out before anything else is read
+  const int ntiles = max(b.t1 - b.t0, 0);
+#pragma unroll
+  for (int i = 0; i < NSTAGE - 1; ++i) {
+    if (i < ntiles) load_tile(b.t0 + i, i);
+    cp_async_commit();
+  }
+
+  // this thread's two query rows: gid and gid + 8 of its warp's 16
+  const int wrow = b.q0 + warp * 16;
+  const bool wactive = wrow < b.GQ;
+  bool rok[2];
+  int qp[2];
+  float slope[2];
+  const float* brow[2];
+  size_t orow[2];
+  const bf16* qrow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gq = wrow + gid + 8 * i;
+    rok[i] = gq < b.GQ;
+    const int gqc = rok[i] ? gq : 0;
+    const int g = gqc / a.Q, qi = gqc % a.Q;
+    qp[i] = a.qpos[b.r * a.Q + qi];
+    slope[i] = a.alibi ? a.alibi[b.kh * b.G + g] : 0.f;
+    brow[i] = a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr;
+    orow[i] = out_row(a, b, gqc);
+    qrow[i] = reinterpret_cast<const bf16*>(a.q) + orow[i] * D;
+  }
+  // q as mma A fragments, kept in registers for the whole stream
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1, d = ks * 16 + tig * 2 + 8 * (e >> 1);
+      qa[ks][e] = rok[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + d) : 0u;
+    }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < ntiles; ++j) {
+    if (j + NSTAGE - 1 < ntiles) load_tile(b.t0 + j + NSTAGE - 1, (j + NSTAGE - 1) % NSTAGE);
+    cp_async_commit();
+    cp_async_wait<NSTAGE - 1>();  // tile j has landed (this thread's part)
+    __syncthreads();              // ... and every thread's
+    if (wactive) {
+      const bf16* ks_ = ring + (size_t)(j % NSTAGE) * 2 * BS * D;
+      const bf16* vs_ = ks_ + BS * D;
+      const int s0 = (b.t0 + j) * BS;
+      // S = q . k^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
+      float s[8][4];
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+      for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+        for (int np = 0; np < 4; ++np) {
+          uint32_t kb[4];
+          const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+          ldmatrix_x4(kb, ks_ + swz<D>(key, ks * 2 + ((lane >> 3) & 1)));
+          mma_bf16(s[2 * np], qa[ks], kb[0], kb[1]);
+          mma_bf16(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+        }
+      // online softmax; row i of this thread = accumulator elements 2i, 2i+1
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        // every key of the tile visible to this row and nothing added:
+        // the same scaled product score() returns, without its tests
+        const bool plain = rok[i] && s0 + BS <= b.len && (!a.causal || s0 + BS - 1 <= qp[i]) &&
+                           !a.alibi && !a.bias;
+        if (plain) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e) s[n][2 * i + e] = s[n][2 * i + e] * a.scale;
+        } else {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+              s[n][2 * i + e] = score(a, b, s[n][2 * i + e], rok[i], qp[i], slope[i], brow[i],
+                                      s0 + n * 8 + tig * 2 + e);
+        }
+        float mx = NEG_INF;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[n][2 * i + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[i], mx);
+        float sum = 0.f;
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float p = __expf(s[n][2 * i + e] - m_new);
+            s[n][2 * i + e] = p;
+            sum += p;
+          }
+        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+        corr[i] = __expf(m[i] - m_new);
+        l[i] = l[i] * corr[i] + sum;
+        m[i] = m_new;
+      }
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        o[n][0] *= corr[0];
+        o[n][1] *= corr[0];
+        o[n][2] *= corr[1];
+        o[n][3] *= corr[1];
+      }
+      // O += P . V: P (rounded to bf16) as A fragments, 4 k-steps of 16 keys
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+        for (int dp = 0; dp < ND / 2; ++dp) {
+          uint32_t vb[4];
+          const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+          ldmatrix_x4_trans(vb, vs_ + swz<D>(key, dp * 2 + (lane >> 4)));
+          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
+          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next iteration refills this stage
+  }
+
+  if (APPEND) append_store<bf16, D>(a, b);  // off the critical path: no block reads it
+  if (!wactive) return;
+  // the ring is idle now (last loop barrier passed, no copy pending):
+  // each warp stages its rows in its own 16 x D slice of it
+  const int nrows = min(16, b.GQ - wrow);
+  if (a.n_split == 1) {
+    warp_store<bf16, OutT, D>(
+        reinterpret_cast<OutT*>(smem_raw) + warp * 16 * (D + 16 / sizeof(OutT)), o, l, true,
+        lane, nrows,
+        [&](int row) { return reinterpret_cast<OutT*>(a.out) + out_row(a, b, wrow + row) * D; });
+  } else {
+    const size_t base = (size_t)b.split * a.R * a.Q * a.H;
+    warp_store<bf16, float, D>(
+        reinterpret_cast<float*>(smem_raw) + warp * 16 * (D + 4), o, l, false, lane, nrows,
+        [&](int row) { return a.part_o + (base + out_row(a, b, wrow + row)) * D; });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rok[i] && tig == 0) store_ml(a, b, orow[i], m[i], l[i]);
+  }
+}
+
+// ---------------------------------------------------------------------
+// fp32 cache: scalar FMA over shared-memory tiles
+// ---------------------------------------------------------------------
+
+template <int D>
+constexpr size_t simt_smem_bytes() {
   // q tile, K tile (padded rows), V tile, scores/probabilities,
   // m / l / correction per query row, qpos per query row
-  return sizeof(float) * (QT * D + BS * (D + 1) + BS * D + QT * BS + 3 * QT) +
-         sizeof(int) * QT;
+  return sizeof(float) * (QM * D + BS * (D + 1) + BS * D + QM * BS + 3 * QM) +
+         sizeof(int) * QM;
 }
 
-template <typename T, typename OutT, int D, bool APPEND>
-__global__ void __launch_bounds__(NT)
-flash_attend_kernel(const Args a) {
+template <typename OutT, int D, bool APPEND>
+__global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
   extern __shared__ float smem[];
   constexpr int KS = D + 1;  // padded K row stride: conflict-free column reads
-  float* q_s = smem;               // [QT][D]
-  float* k_s = q_s + QT * D;       // [BS][KS]
+  constexpr int NWARPS = NT_SIMT / 32;
+  float* q_s = smem;               // [QM][D]
+  float* k_s = q_s + QM * D;       // [BS][KS]
   float* v_s = k_s + BS * KS;      // [BS][D]
-  float* p_s = v_s + BS * D;       // [QT][BS]
-  float* m_s = p_s + QT * BS;      // [QT]
-  float* l_s = m_s + QT;           // [QT]
-  float* c_s = l_s + QT;           // [QT]
-  int* qp_s = reinterpret_cast<int*>(c_s + QT);  // [QT]
+  float* p_s = v_s + BS * D;       // [QM][BS]
+  float* m_s = p_s + QM * BS;      // [QM]
+  float* l_s = m_s + QM;           // [QM]
+  float* c_s = l_s + QM;           // [QM]
+  int* qp_s = reinterpret_cast<int*>(c_s + QM);  // [QM]
 
-  const int r = blockIdx.x, kh = blockIdx.y, tid = threadIdx.x;
-  const int G = a.H / a.KH, GQ = G * a.Q;
-  const size_t head = ((size_t)r * a.KH + kh) * (size_t)a.S * D;
-  T* kc = reinterpret_cast<T*>(a.k) + head;
-  T* vc = reinterpret_cast<T*>(a.v) + head;
-
-  if (APPEND) {
-    const int p = a.appos[r];
-    if (p >= 0 && p < a.S) {
-      const size_t src = ((size_t)r * a.KH + kh) * D;
-      const T* kn = reinterpret_cast<const T*>(a.k_new) + src;
-      const T* vn = reinterpret_cast<const T*>(a.v_new) + src;
-      for (int d = tid; d < D; d += NT) {
-        kc[(size_t)p * D + d] = kn[d];
-        vc[(size_t)p * D + d] = vn[d];
-      }
-    }
-    __syncthreads();  // the block's own write is visible to its stream
-  }
-
-  const int len = min(max(a.lengths[r], 0), a.S);
-  const int nb = (len + BS - 1) / BS;
-  const T* qg = reinterpret_cast<const T*>(a.q);
-  OutT* og = reinterpret_cast<OutT*>(a.out);
+  const Block b = block_setup<APPEND>(a);
+  const int tid = threadIdx.x;
+  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
+  const float* kc = reinterpret_cast<const float*>(a.k) + head;
+  const float* vc = reinterpret_cast<const float*>(a.v) + head;
+  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
+  const float* qg = reinterpret_cast<const float*>(a.q);
 
   // accumulator ownership: thread tid owns dim my_d of query rows
-  // row0, row0 + RSTEP, ... of the current pass
-  constexpr int NACC = QT * D / NT;
-  constexpr int RSTEP = NT / D;
+  // row0, row0 + RSTEP, ...
+  constexpr int NACC = QM * D / NT_SIMT;
+  constexpr int RSTEP = NT_SIMT / D;
   const int my_d = tid % D, row0 = tid / D;
   // score ownership: thread tid owns key column sc of rows srow0 + i*SSTEP
-  constexpr int SSTEP = NT / BS;
-  constexpr int NSC = QT / SSTEP;
+  constexpr int SSTEP = NT_SIMT / BS;
+  constexpr int NSC = QM / SSTEP;
   const int sc = tid % BS, srow0 = tid / BS;
 
-  for (int base = 0; base < GQ; base += QT) {
-    for (int e = tid; e < QT * D; e += NT) {
-      const int row = e / D, d = e % D, gq = base + row;
-      float val = 0.f;
-      if (gq < GQ) {
-        const int g = gq / a.Q, qi = gq % a.Q, h = kh * G + g;
-        val = to_f(qg[(((size_t)r * a.Q + qi) * a.H + h) * D + d]);
-      }
-      q_s[e] = val;
-    }
-    for (int row = tid; row < QT; row += NT) {
-      const int gq = base + row;
-      qp_s[row] = gq < GQ ? a.qpos[r * a.Q + gq % a.Q] : 0;
-      m_s[row] = NEG_INF;
-      l_s[row] = 0.f;
-    }
-    float acc[NACC];
+  for (int e = tid; e < QM * D; e += NT_SIMT) {
+    const int row = e / D, d = e % D, gq = b.q0 + row;
+    q_s[e] = gq < b.GQ ? qg[out_row(a, b, gq) * D + d] : 0.f;
+  }
+  for (int row = tid; row < QM; row += NT_SIMT) {
+    const int gq = b.q0 + row;
+    qp_s[row] = gq < b.GQ ? a.qpos[b.r * a.Q + gq % a.Q] : 0;
+    m_s[row] = NEG_INF;
+    l_s[row] = 0.f;
+  }
+  float acc[NACC];
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  __syncthreads();
+
+  for (int t = b.t0; t < b.t1; ++t) {
+    const int s0 = t * BS;
+    for (int e = tid; e < BS * D; e += NT_SIMT) {
+      const int s = e / D, d = e % D, pos = s0 + s;
+      float kv = 0.f, vv = 0.f;
+      if (pos == b.app) {
+        kv = reinterpret_cast<const float*>(a.k_new)[nsrc + d];
+        vv = reinterpret_cast<const float*>(a.v_new)[nsrc + d];
+      } else if (pos < b.len) {
+        kv = kc[(size_t)pos * D + d];
+        vv = vc[(size_t)pos * D + d];
+      }
+      k_s[s * KS + d] = kv;
+      v_s[s * D + d] = vv;
+    }
     __syncthreads();
 
-    for (int j = 0; j < nb; ++j) {
-      const int s0 = j * BS;
-      for (int e = tid; e < BS * D; e += NT) {
-        const int s = e / D, d = e % D, pos = s0 + s;
-        float kv = 0.f, vv = 0.f;
-        if (pos < a.S) {
-          kv = to_f(kc[(size_t)pos * D + d]);
-          vv = to_f(vc[(size_t)pos * D + d]);
-        }
-        k_s[s * KS + d] = kv;
-        v_s[s * D + d] = vv;
+    // scores s[row][col] = q[row] . k[col], fp32 accumulate
+    {
+      float dots[NSC];
+#pragma unroll
+      for (int i = 0; i < NSC; ++i) dots[i] = 0.f;
+      for (int d = 0; d < D; ++d) {
+        const float kd = k_s[sc * KS + d];
+#pragma unroll
+        for (int i = 0; i < NSC; ++i) dots[i] += q_s[(srow0 + i * SSTEP) * D + d] * kd;
       }
-      __syncthreads();
-
-      // scores s[row][col] = q[row] . k[col], fp32 accumulate
-      {
-        float dots[NSC];
 #pragma unroll
-        for (int i = 0; i < NSC; ++i) dots[i] = 0.f;
-        for (int d = 0; d < D; ++d) {
-          const float kd = k_s[sc * KS + d];
-#pragma unroll
-          for (int i = 0; i < NSC; ++i) dots[i] += q_s[(srow0 + i * SSTEP) * D + d] * kd;
-        }
-        const int pos = s0 + sc;
-#pragma unroll
-        for (int i = 0; i < NSC; ++i) {
-          const int row = srow0 + i * SSTEP, gq = base + row;
-          float s = NEG_INF;
-          if (gq < GQ && pos < len) {
-            const int qp = qp_s[row];
-            if (!a.causal || pos <= qp) {
-              const int g = gq / a.Q, qi = gq % a.Q;
-              s = dots[i] * a.scale;
-              if (a.alibi) s = s - a.alibi[kh * G + g] * (float)(qp - pos);
-              if (a.bias) s = s + a.bias[((size_t)r * a.Q + qi) * a.S + pos];
-            }
-          }
-          p_s[row * BS + sc] = s;
-        }
-      }
-      __syncthreads();
-
-      // online softmax, one warp per query row (BS == 64: two keys a lane)
-      const int warp = tid / 32, lane = tid % 32;
-      for (int row = warp; row < QT; row += NWARPS) {
-        const float x0 = p_s[row * BS + lane], x1 = p_s[row * BS + lane + 32];
-        float mx = fmaxf(x0, x1);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-        const float m_old = m_s[row];
-        const float m_new = fmaxf(m_old, mx);
-        const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-        float sum = p0 + p1;
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-        p_s[row * BS + lane] = round_to<T>(p0);
-        p_s[row * BS + lane + 32] = round_to<T>(p1);
-        if (lane == 0) {
-          const float corr = expf(m_old - m_new);
-          l_s[row] = l_s[row] * corr + sum;
-          m_s[row] = m_new;
-          c_s[row] = corr;
-        }
-      }
-      __syncthreads();
-
-      // acc = acc * corr + p . v
-      {
-        float pv[NACC];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) pv[i] = 0.f;
-        for (int s = 0; s < BS; ++s) {
-          const float vv = v_s[s * D + my_d];
-#pragma unroll
-          for (int i = 0; i < NACC; ++i) pv[i] += p_s[(row0 + i * RSTEP) * BS + s] * vv;
-        }
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) acc[i] = acc[i] * c_s[row0 + i * RSTEP] + pv[i];
-      }
-      __syncthreads();  // the next tile overwrites k_s / v_s / p_s
-    }
-
-#pragma unroll
-    for (int i = 0; i < NACC; ++i) {
-      const int row = row0 + i * RSTEP, gq = base + row;
-      if (gq < GQ) {
-        const int g = gq / a.Q, qi = gq % a.Q, h = kh * G + g;
-        og[((size_t)r * a.Q + qi) * a.H * D + (size_t)h * D + my_d] =
-            from_f<OutT>(acc[i] / fmaxf(l_s[row], 1e-30f));
+      for (int i = 0; i < NSC; ++i) {
+        const int row = srow0 + i * SSTEP, gq = b.q0 + row;
+        const bool ok = gq < b.GQ;
+        const int qi = ok ? gq % a.Q : 0, g = ok ? gq / a.Q : 0;
+        p_s[row * BS + sc] =
+            score(a, b, dots[i], ok, qp_s[row], a.alibi ? a.alibi[b.kh * b.G + g] : 0.f,
+                  a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr, s0 + sc);
       }
     }
-    __syncthreads();  // the next pass rewrites q_s / m_s / l_s
+    __syncthreads();
+
+    // online softmax, one warp per query row (BS == 64: two keys a lane)
+    const int warp = tid / 32, lane = tid % 32;
+    for (int row = warp; row < QM; row += NWARPS) {
+      const float x0 = p_s[row * BS + lane], x1 = p_s[row * BS + lane + 32];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = m_s[row];
+      const float m_new = fmaxf(m_old, mx);
+      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      p_s[row * BS + lane] = p0;
+      p_s[row * BS + lane + 32] = p1;
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        l_s[row] = l_s[row] * corr + sum;
+        m_s[row] = m_new;
+        c_s[row] = corr;
+      }
+    }
+    __syncthreads();
+
+    // acc = acc * corr + p . v
+    {
+      float pv[NACC];
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) pv[i] = 0.f;
+      for (int s = 0; s < BS; ++s) {
+        const float vv = v_s[s * D + my_d];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) pv[i] += p_s[(row0 + i * RSTEP) * BS + s] * vv;
+      }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = acc[i] * c_s[row0 + i * RSTEP] + pv[i];
+    }
+    __syncthreads();  // the next tile overwrites k_s / v_s / p_s
+  }
+
+  if (APPEND) append_store<float, D>(a, b);
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int row = row0 + i * RSTEP, gq = b.q0 + row;
+    if (gq >= b.GQ) continue;
+    const size_t orow = out_row(a, b, gq);
+    store_out<float, OutT>(a, b, orow, D, my_d, acc[i], l_s[row]);
+    if (my_d == 0) store_ml(a, b, orow, m_s[row], l_s[row]);
   }
 }
+
+// ---------------------------------------------------------------------
+// split-S combine: out = sum_s w_s O_s / sum_s w_s l_s, w_s = e^(m_s - m)
+// over the splits in order (deterministic). One block per (r, qi, h).
+// ---------------------------------------------------------------------
+
+template <typename T, typename OutT>
+__global__ void combine_kernel(const float* part_o, const float* part_ml, OutT* out,
+                               int rows, int D, int n_split) {
+  extern __shared__ float ml_s[];  // [n_split][2]: (m, l), then (weight, l)
+  __shared__ float l_tot;
+  const size_t row = blockIdx.x;
+  // all splits' (m, l) at once: one memory latency, not n_split of them
+  for (int e = threadIdx.x; e < 2 * n_split; e += blockDim.x)
+    ml_s[e] = part_ml[((size_t)(e >> 1) * rows + row) * 2 + (e & 1)];
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float mx = NEG_INF, l = 0.f;
+    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml_s[2 * s]);
+    for (int s = 0; s < n_split; ++s) {
+      const float w = expf(ml_s[2 * s] - mx);
+      l += w * ml_s[2 * s + 1];
+      ml_s[2 * s] = w;
+    }
+    l_tot = fmaxf(l, 1e-30f);
+  }
+  __syncthreads();
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+#pragma unroll 8
+    for (int s = 0; s < n_split; ++s)
+      o += ml_s[2 * s] * part_o[((size_t)s * rows + row) * D + d];
+    out[row * D + d] = from_f<OutT>(round_to<T>(o / l_tot));
+  }
+}
+
+// ---------------------------------------------------------------------
+// launch
+// ---------------------------------------------------------------------
 
 template <typename T, typename OutT, int D, bool APPEND>
 int launch(const Args& a, cudaStream_t stream) {
-  auto kern = flash_attend_kernel<T, OutT, D, APPEND>;
-  constexpr size_t smem = smem_bytes<D>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kern<<<dim3(a.R, a.KH), NT, smem, stream>>>(a);
+  constexpr bool MMA = sizeof(T) == 2;  // bf16 cache: tensor cores
+  constexpr size_t smem = MMA ? mma_smem_bytes<D>() : simt_smem_bytes<D>();
+  auto kern = MMA ? attend_mma_kernel<OutT, D, APPEND> : attend_simt_kernel<OutT, D, APPEND>;
+  static bool smem_set = false;  // one attribute call per instantiation
+  cudaError_t err = cudaSuccess;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((unsigned)(((a.H / a.KH) * a.Q + QM - 1) / QM * a.n_split),
+                  (unsigned)a.KH, (unsigned)a.R);
+  kern<<<grid, MMA ? NT_MMA : NT_SIMT, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  const int rows = a.R * a.Q * a.H;
+  combine_kernel<T, OutT><<<rows, D, 2 * a.n_split * sizeof(float), stream>>>(a.part_o, a.part_ml,
+                                                  reinterpret_cast<OutT*>(a.out), rows, D,
+                                                  a.n_split);
   return (int)cudaGetLastError();
 }
 
 template <bool APPEND>
 int dispatch(const Args& a, int D, int cache_bf16, int out_bf16, cudaStream_t st) {
-  using bf = __nv_bfloat16;
   if (D == 128) {
-    if (cache_bf16 && out_bf16) return launch<bf, bf, 128, APPEND>(a, st);
-    if (cache_bf16) return launch<bf, float, 128, APPEND>(a, st);
-    if (out_bf16) return launch<float, bf, 128, APPEND>(a, st);
+    if (cache_bf16 && out_bf16) return launch<bf16, bf16, 128, APPEND>(a, st);
+    if (cache_bf16) return launch<bf16, float, 128, APPEND>(a, st);
+    if (out_bf16) return launch<float, bf16, 128, APPEND>(a, st);
     return launch<float, float, 128, APPEND>(a, st);
   }
   if (D == 64) {
-    if (cache_bf16 && out_bf16) return launch<bf, bf, 64, APPEND>(a, st);
-    if (cache_bf16) return launch<bf, float, 64, APPEND>(a, st);
-    if (out_bf16) return launch<float, bf, 64, APPEND>(a, st);
+    if (cache_bf16 && out_bf16) return launch<bf16, bf16, 64, APPEND>(a, st);
+    if (cache_bf16) return launch<bf16, float, 64, APPEND>(a, st);
+    if (out_bf16) return launch<float, bf16, 64, APPEND>(a, st);
     return launch<float, float, 64, APPEND>(a, st);
   }
   return (int)cudaErrorInvalidValue;
@@ -287,29 +724,42 @@ int dispatch(const Args& a, int D, int cache_bf16, int out_bf16, cudaStream_t st
 
 Args make_args(const void* q, void* k, void* v, const int* lengths, const int* qpos,
                const float* bias, const float* alibi, const void* k_new,
-               const void* v_new, const int* appos, void* out, int R, int Q, int H,
-               int KH, int S, float scale, int causal) {
+               const void* v_new, const int* appos, void* out, float* part_o,
+               float* part_ml, int R, int Q, int H, int KH, int S, int n_split, int tps,
+               float scale, int causal) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.lengths = lengths; a.qpos = qpos;
   a.bias = bias; a.alibi = alibi; a.k_new = k_new; a.v_new = v_new;
-  a.appos = appos; a.out = out;
+  a.appos = appos; a.out = out; a.part_o = part_o; a.part_ml = part_ml;
   a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S;
+  a.n_split = n_split; a.tps = tps;
   a.scale = scale; a.causal = causal;
   return a;
+}
+
+bool plan_ok(int S, int n_split, int tps, const float* part_o, const float* part_ml) {
+  if (n_split < 1 || tps < 1 || (long long)n_split * tps * BS < S) return false;
+  return n_split == 1 || (part_o && part_ml);
 }
 
 }  // namespace
 
 // Both entries take the same arguments (K1 ignores k_new/v_new/appos) and
-// return cudaGetLastError() after the launch: 0 on success.
+// return cudaGetLastError() after the launch(es): 0 on success. The S
+// range is cut into n_split splits of tps 64-position tiles; with
+// n_split > 1, part_o [n_split, R, Q, H, D] and part_ml [n_split, R, Q,
+// H, 2] (fp32) hold the partials and a combine kernel follows.
 extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengths,
                                const int* qpos, const float* bias, const float* alibi,
                                const void* k_new, const void* v_new, const int* appos,
-                               void* out, int R, int Q, int H, int KH, int S, int D,
+                               void* out, float* part_o, float* part_ml, int R, int Q,
+                               int H, int KH, int S, int D, int n_split, int tps,
                                float scale, int causal, int cache_bf16, int out_bf16,
                                void* stream) {
-  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr,
-                           nullptr, out, R, Q, H, KH, S, scale, causal);
+  if (!plan_ok(S, n_split, tps, part_o, part_ml)) return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr, nullptr,
+                           out, part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale,
+                           causal);
   return dispatch<false>(a, D, cache_bf16, out_bf16, (cudaStream_t)stream);
 }
 
@@ -317,11 +767,13 @@ extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
                                       const int* lengths, const int* qpos,
                                       const float* bias, const float* alibi,
                                       const void* k_new, const void* v_new,
-                                      const int* appos, void* out, int R, int Q, int H,
-                                      int KH, int S, int D, float scale, int causal,
+                                      const int* appos, void* out, float* part_o,
+                                      float* part_ml, int R, int Q, int H, int KH, int S,
+                                      int D, int n_split, int tps, float scale, int causal,
                                       int cache_bf16, int out_bf16, void* stream) {
-  if (!k_new || !v_new || !appos) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos,
-                           out, R, Q, H, KH, S, scale, causal);
+  if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, part_o, part_ml))
+    return (int)cudaErrorInvalidValue;
+  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos, out,
+                           part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale, causal);
   return dispatch<true>(a, D, cache_bf16, out_bf16, (cudaStream_t)stream);
 }

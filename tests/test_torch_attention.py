@@ -9,6 +9,8 @@ and ``reference_attend``. Outputs are compared on active rows only
 only on a card; their test skips here.
 """
 
+import inspect
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -26,7 +28,7 @@ _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _case(name):
     """numpy inputs of one flash_attend case (the cases of
     tests/test_pallas_kernels.py)."""
-    rng = np.random.RandomState(CASES.index(name))
+    rng = np.random.RandomState((CASES + SPLIT_CASES).index(name))
     c = dict(dtype="float32", causal=True, bias=None, alibi=None,
              append=None, layer_idx=None)
 
@@ -68,6 +70,21 @@ def _case(name):
         c["lengths"] = np.array([300, 5, 512, 257], np.int32)
         c["qpos"] = (c["lengths"] - 1)[:, None]
         c["dtype"] = "bfloat16"
+    elif name.startswith("split"):
+        # R * KH = 4 streams over S = 512: split_plan cuts 2 splits of 256
+        qkv(2, 8, 4, 2, 128, 512)
+        lengths = {"split-lengths-zero": [0, 200],
+                   "split-at-boundary": [256, 512],
+                   "split-over-S": [600, 257],
+                   "split-append-later": [301, 11]}[name]
+        c["lengths"] = np.array(lengths, np.int32)
+        last = np.minimum(c["lengths"], 512).clip(1) - 1
+        c["qpos"] = last[:, None] + np.arange(8, dtype=np.int32)[None]
+        if name == "split-append-later":  # appos 300 lies in split 1 of 2
+            appos = c["lengths"] - 1
+            c["append"] = (rng.randn(2, 1, 2, 128).astype(np.float32),
+                           rng.randn(2, 1, 2, 128).astype(np.float32), appos)
+            c["dtype"] = "bfloat16"
     elif name.startswith("append"):
         stacked = name == "append-stacked"
         R, KH = (2, 4) if stacked else (4, 4)
@@ -88,6 +105,11 @@ def _case(name):
 CASES = ["decode-float32", "decode-bfloat16", "prefill-causal",
          "tree-bias-alibi", "gqa", "lengths-clamped", "d64-decode-bf16",
          "append-per-layer", "append-stacked"]
+# split-S cases: lengths 0, exactly at the split boundary, past S, and the
+# appended row in the second split
+SPLIT_CASES = ["split-lengths-zero", "split-at-boundary", "split-over-S",
+               "split-append-later"]
+MANY_SMS = 132   # an H100's SM count: R * KH = 4 streams leave it idle
 
 
 def _appended(cache, append, layer_idx, which):
@@ -177,6 +199,73 @@ def test_supports_shapes_and_block_size_fixed():
     assert tatt.BLOCK_S == 64
 
 
+def test_split_plan_depends_on_shapes_only():
+    # its inputs are the shapes and the SM count: no query width, no lengths
+    assert list(inspect.signature(tatt.split_plan).parameters) == [
+        "R", "KH", "S", "sms"]
+    # the slice's shapes: 8 rows x 32 kv heads fill 132 SMs, one split
+    assert tatt.split_plan(8, 32, 256, 132) == (1, 4)
+    assert tatt.split_plan(8, 32, 4096, 132) == (1, 64)
+    # one row of LLaMA-2-7B over a 4096-position cache: 8 splits of 8 tiles
+    assert tatt.split_plan(1, 32, 4096, 132) == (8, 8)
+    for R, KH, S in ((1, 1, 64), (2, 2, 512), (1, 8, 32768), (3, 4, 200)):
+        n, tps = tatt.split_plan(R, KH, S, 132)
+        tiles = -(-S // tatt.BLOCK_S)
+        assert (n - 1) * tps < tiles <= n * tps   # whole tiles, no empty split
+        assert n == 1 or tps >= tatt.SPLIT_MIN_TILES
+
+
+def _np32(a):
+    return (a.float().numpy() if torch.is_tensor(a)
+            else np.asarray(jnp.asarray(a, jnp.float32)))
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_attend_matches_jax(name):
+    """The plain split-S arithmetic (64-position tiles, a partial (m, l, O)
+    per split, combined in order) against the JAX package's Pallas kernel
+    (interpret mode) and its oracle."""
+    c = _case(name)
+    dt = c["dtype"]
+    tol = TOL[dt]
+    act = c["lengths"] > 0
+    plan = tatt.split_plan(2, 2, 512, MANY_SMS)
+    assert plan == (2, 4)
+
+    def j(a, f=True):
+        return None if a is None else jnp.asarray(a, _JNP[dt] if f else None)
+
+    def t(a, f=True):
+        return torch.tensor(a).to(_TORCH[dt]) if f else torch.tensor(a)
+
+    jap = None if c["append"] is None else (
+        j(c["append"][0]), j(c["append"][1]), j(c["append"][2], False))
+    jres = jatt.flash_attend(j(c["q"]), j(c["k"]), j(c["v"]),
+                             j(c["lengths"], False), j(c["qpos"], False),
+                             append_kv=jap, interpret=True)
+    jout = jres if jap is None else jres[0]
+    kc, vc = c["k"], c["v"]
+    tkc, tvc = t(kc), t(vc)
+    if c["append"] is not None:
+        kc = _appended(kc, c["append"], None, 0)
+        vc = _appended(vc, c["append"], None, 1)
+        tatt.append_at(tkc, tvc, t(c["append"][0]), t(c["append"][1]),
+                       t(c["append"][2], False))
+    jlen = np.minimum(c["lengths"], 512)
+    jref = jatt.reference_attend(j(c["q"]), j(kc), j(vc), j(jlen, False),
+                                 j(c["qpos"], False))
+    args = (t(c["q"]), tkc, tvc, t(c["lengths"], False), t(c["qpos"], False))
+    tout = tatt.split_attend(*args, plan=plan)
+    for ref in (jout, jref):
+        np.testing.assert_allclose(_np32(tout)[act], _np32(ref)[act],
+                                   atol=tol, rtol=tol)
+    assert (_np32(tout)[~act] == 0).all()     # length-0 rows: zeros
+    # one split of every tile: the same function
+    one = tatt.split_attend(*args, plan=(1, 8))
+    np.testing.assert_allclose(_np32(one)[act], _np32(tout)[act], atol=tol,
+                               rtol=tol)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -184,27 +273,43 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def test_cuda_kernels_match_plain_version(cuda_device):
-    """On a card: K1 and K2 against their plain versions (chip_smoke.py
-    phase 3 runs the full set of cases)."""
-    c = _case("append-stacked")
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["append-stacked", "split-append-later"])
+def test_cuda_kernels_match_plain_version(cuda_device, name):
+    """On a card: K1 and K2 against their plain versions, on the stacked
+    cache and with split-S (chip_smoke.py phase 3 runs the full set)."""
+    c = _case(name)
     dev = cuda_device
+    dt = _TORCH[c["dtype"]]
+    tol = TOL[c["dtype"]]
+    if name.startswith("split"):
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        assert tatt.split_plan(2, 2, 512, sms)[0] > 1
 
-    def t(a):
-        return torch.tensor(a, device=dev)
+    def t(a, f=True):
+        return torch.tensor(a, device=dev).to(dt) if f else torch.tensor(
+            a, device=dev)
+
+    li = c["layer_idx"]
+    l0 = None if li is None else 0
+
+    def lay(x, i):
+        return x if i is None else x[i]
 
     q, k, v = t(c["q"]), t(c["k"]), t(c["v"])
-    lengths, qpos = t(c["lengths"]), t(c["qpos"])
-    k1 = tatt.flash_attend(q, k, v, lengths, qpos, layer_idx=0)
-    ref1 = tatt.reference_attend(q, k[0], v[0], lengths, qpos)
-    kn, vn, appos = (t(a) for a in c["append"])
+    lengths, qpos = t(c["lengths"], False), t(c["qpos"], False)
+    k1 = tatt.flash_attend(q, k, v, lengths, qpos, layer_idx=l0)
+    ref1 = tatt.reference_attend(q, lay(k, l0), lay(v, l0), lengths, qpos)
+    kn, vn = t(c["append"][0]), t(c["append"][1])
+    appos = t(c["append"][2], False)
     k_ref, v_ref = k.clone(), v.clone()
     out, k_out, v_out = tatt.flash_attend(q, k, v, lengths, qpos,
                                           append_kv=(kn, vn, appos),
-                                          layer_idx=1)
-    tatt.append_at(k_ref, v_ref, kn, vn, appos, layer_idx=1)
-    ref2 = tatt.reference_attend(q, k_ref[1], v_ref[1], lengths, qpos)
+                                          layer_idx=li)
+    tatt.append_at(k_ref, v_ref, kn, vn, appos, layer_idx=li)
+    ref2 = tatt.reference_attend(q, lay(k_ref, li), lay(v_ref, li), lengths,
+                                 qpos)
     torch.cuda.synchronize()
-    torch.testing.assert_close(k1, ref1, atol=2e-5, rtol=2e-5)
-    torch.testing.assert_close(out, ref2, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(k1, ref1, atol=tol, rtol=tol)
+    torch.testing.assert_close(out, ref2, atol=tol, rtol=tol)
     assert torch.equal(k_out, k_ref) and torch.equal(v_out, v_ref)
