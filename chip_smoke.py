@@ -9,24 +9,37 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      with nvcc for sm_90a (one nvcc per source, all started together);
   3. kernel parity: K1 (``flash_attend``) and K2 (``flash_attend`` with
      the fused append) against their plain PyTorch versions on the card,
-     at the serving path's shapes and on small shapes for the rest of
-     their contract, split-S included (ragged lengths, the appended row
-     in a later split, D = 64, fp32); the bitwise check that a width-1
+     at the serving path's shapes (prefill, decode, and the tree verify
+     pass: K1 with a chain tree's bias) and on small shapes for the rest
+     of their contract, split-S included (ragged lengths, the appended row
+     in a later split, D = 64, fp32); the bitwise checks that a width-1
      decode, a width-8 decode and a K1 call give identical rows for the
-     same query; each kernel timed beside its bound, its plain version
-     and ``scaled_dot_product_attention`` as a yardstick, then three
-     long-cache rows (S 4096, lengths 4000) with bound share and GB/s,
-     and beside every row the same timer around a PyTorch sum of the
-     row's bytes (what the timer gives a pure read of that size);
+     same query, and that K1 with a chain tree's bias gives the rows of
+     K1 causal and of the width-8 decode; each kernel timed beside its
+     bound, its plain version and ``scaled_dot_product_attention`` as a
+     yardstick, then three long-cache rows (S 4096, lengths 4000) with
+     bound share and GB/s, and beside every row the same timer around a
+     PyTorch sum of the row's bytes (what the timer gives a pure read of
+     that size);
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
-     seeded numpy draw); the tokens must agree;
+     seeded numpy draw); the tokens must agree; then speculative
+     inference on the card (the tree engine, one 1-layer draft, depth 4)
+     must give the CPU's incremental tokens, 128 of 128;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
      tokens/s and peak memory, and checks that every attention call of
      the run launched K1 or K2 (L per step) and none ran the plain
-     version.
+     version;
+  6. SpecInfer at full size, as ``bench.py`` runs it: the same verifier
+     weights with deep layers damped, a 2-layer draft on the verifier's
+     tensors, depth 7, through ``LLM(...).compile(ssms=[SSM(...)])``; an
+     incremental and a spec pass (tokens/s, rounds, tokens per round,
+     controller parks, spec_matches_incr, launches, peak memory); the
+     first 30 tokens must match 8/8 and every verify round must launch
+     K1 with the tree bias once per layer. The chain engine and a
+     two-draft tree are timed and reported, not asserted.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -36,6 +49,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import gc
 import json
 import os
@@ -56,6 +70,10 @@ K2_REPLACES = "flexflow_tpu/kernels/attention.py:514"
 # the slice at full size: LLaMA-2-7B geometry
 VOCAB, HIDDEN, INTER, LAYERS, HEADS, KV_HEADS = 32000, 4096, 11008, 32, 32, 32
 REQUESTS, PROMPT_LEN, MAX_SEQ, NEW_TOKENS = 8, 32, 256, 64
+# phase 6 (bench.py:103-130): 2-layer truncation draft, deep layers damped,
+# depth 7 (a B = 1 tree of 8 nodes: the decode width), 64 rounds a call
+DRAFT_LAYERS, EPS, SPEC_DEPTH, SPEC_ROUNDS = 2, 0.01, 7, 64
+VERIFY_START = 92      # phase 3's verify row: a chain staged at 92..99
 
 
 def log(*a):
@@ -101,12 +119,12 @@ class Timer:
 
 
 def attention_bound_ms(torch, q, lengths, qpos, S, KH, causal, cache_dtype,
-                       extra_bytes=0):
+                       extra_bytes=0, bias=None):
     """Least time for the work this call's data needs: each valid cache
     row of K and V read once, q read and the output written once, plus
-    ``extra_bytes``; against the visible (query, key) pairs' FLOPs (q.k and
-    p.v, 2 each per element of D). Returns (ms, "bytes"|"operations",
-    the bytes counted)."""
+    ``extra_bytes`` and the bias read once; against the visible (query,
+    key) pairs' FLOPs (q.k and p.v, 2 each per element of D). Returns
+    (ms, "bytes"|"operations", the bytes counted)."""
     R, Q, H, D = q.shape
     L = lengths.clamp(0, S).to(torch.int64)
     isz = torch.empty((), dtype=cache_dtype).element_size()
@@ -116,6 +134,9 @@ def attention_bound_ms(torch, q, lengths, qpos, S, KH, causal, cache_dtype,
     vis = s[None, None, :] < L[:, None, None]
     if causal:
         vis = vis & (s[None, None, :] <= qpos[:, :, None])
+    if bias is not None:
+        nbytes += bias.numel() * bias.element_size()
+        vis = vis & (bias == 0)
     flops = 4 * D * H * int(vis.sum())
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[str(cache_dtype).replace("torch.", "")]
@@ -126,12 +147,30 @@ def attention_bound_ms(torch, q, lengths, qpos, S, KH, causal, cache_dtype,
 # ----------------------------------------------------------------------
 # phase 3: kernel parity
 # ----------------------------------------------------------------------
+def chain_tree_bias(torch, start, S, T=8):
+    """The verify pass's [R, T, S] bias for a chain of T nodes staged at
+    ``start`` (what the tree engine at B = 1 builds), from the port's own
+    functions."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.inc_attention import tree_bias
+    from flexflow_tpu_torch.serve.batch_config import \
+        ancestor_mask_from_parents
+
+    parent = np.arange(-1, T - 1)[None].repeat(start.shape[0], 0)
+    anc = torch.tensor(ancestor_mask_from_parents(parent),
+                       device=start.device)
+    return tree_bias(anc, start, S)
+
+
 def invariance_check(torch, ivec, mk):
     """Bitwise: over the same post-append cache, the real query's rows of a
     width-1 decode (K2), a width-8 decode (K2) and a K1 call (causal=False,
-    zero bias) are identical — speculative verify against incremental
-    decode rests on it. At the slice's shape (one split) and at a split-S
-    shape with GQA (the real rows sit at other rows of the tile)."""
+    zero bias) are identical, and a K1 call with a chain tree's bias gives
+    the rows of a causal K1 call on all 8 queries and the width-8 decode's
+    row 0 — speculative verify against incremental decode rests on it. At
+    the slice's shape (one split) and at a split-S shape with GQA (the
+    real rows sit at other rows of the tile)."""
     from flexflow_tpu_torch.kernels.attention import append_at, flash_attend
 
     dev = "cuda"
@@ -162,6 +201,20 @@ def invariance_check(torch, ivec, mk):
             f"bitwise: {same} {'PASS' if same else 'FAIL'}")
         if not same:
             raise AssertionError("width/K1-vs-K2 bitwise invariance failed")
+        # the chain tree staged at appos..appos+7, as the verify pass does
+        lens8 = appos + 8
+        outb = flash_attend(q8, k, v, lens8, qpos8, causal=False,
+                            bias=chain_tree_bias(torch, appos, S))
+        outc = flash_attend(q8, k, v, lens8, qpos8)
+        torch.cuda.synchronize()
+        same = (torch.equal(outb, outc)
+                and torch.equal(outb[:, 0], out8[:, 0]))
+        log(f"  invariance R{R} H{H} KH{KH} S{S}: K1 chain-tree bias == K1 "
+            f"causal (8 rows) == width-8 decode (row 0) bitwise: {same} "
+            f"{'PASS' if same else 'FAIL'}")
+        if not same:
+            raise AssertionError("tree-bias vs causal bitwise invariance "
+                                 "failed")
 
 
 def kernel_phase(torch, timer):
@@ -268,6 +321,15 @@ def kernel_phase(torch, timer):
     k2_err, k2_args = k2_case("K2 decode  R8 Q8 stacked L32 idx5", R, 8, H,
                               KH, D, S, bf, appos_main, 2, L=LAYERS,
                               layer_idx=5)
+    # tree verify: a depth-7 chain staged at 92..99 (lengths 100)
+    vstart = ivec([VERIFY_START] * R)
+    v_qpos = vstart[:, None] + torch.arange(8, dtype=torch.int32,
+                                            device=dev)[None]
+    v_len = vstart + 8
+    v_bias = chain_tree_bias(torch, vstart, S)
+    kv_err, (qv, kv, vv) = k1_case("K1 verify R8 Q8 chain-tree bias", R, 8,
+                                   H, KH, D, S, bf, v_len, v_qpos, 20,
+                                   bias=v_bias, causal=False)
     # --- the rest of the contract, small shapes ---
     k1_case("K1 GQA G=4 S=200 (ragged tile)", 3, 5, 16, 4, 128, 200, bf,
             ivec([200, 77, 1]), ivec([[195 + i for i in range(5)],
@@ -326,11 +388,12 @@ def kernel_phase(torch, timer):
         "before each launch)")
     rows = []
 
-    def sdpa_call(q, kc, vc, lengths, qpos):
+    def sdpa_call(q, kc, vc, lengths, qpos, bias=None):
         qh = q.transpose(1, 2)                          # [R, H, Q, D]
         s = torch.arange(kc.shape[-2], device=dev)
-        mask = ((s[None, None, :] < lengths[:, None, None])
-                & (s[None, None, :] <= qpos[:, :, None]))[:, None]
+        mask = s[None, None, :] < lengths[:, None, None]
+        mask = (mask & (s[None, None, :] <= qpos[:, :, None])
+                if bias is None else mask & (bias == 0))[:, None]
         gqa = q.shape[2] != kc.shape[1]
         return lambda: F.scaled_dot_product_attention(
             qh, kc, vc, attn_mask=mask, enable_gqa=gqa)
@@ -362,6 +425,17 @@ def kernel_phase(torch, timer):
                      source=K1_SOURCE, replaces=K2_REPLACES,
                      max_abs_err=k2_err, ms=ms2, plain_ms=pl2, bound_ms=b2,
                      bound_by=by2, library_ms=lib2))
+    msv = timer(lambda: flash_attend(qv, kv, vv, v_len, v_qpos, bias=v_bias,
+                                     causal=False))
+    plv = timer(lambda: reference_attend(qv, kv, vv, v_len, v_qpos,
+                                         bias=v_bias, causal=False))
+    libv = timer(sdpa_call(qv, kv, vv, v_len, v_qpos, bias=v_bias))
+    bv, byv, nbv = attention_bound_ms(torch, qv, v_len, v_qpos, S, KH, False,
+                                      bf, bias=v_bias)
+    rows.append(dict(name="flash_attend_bias", route="cuda",
+                     source=K1_SOURCE, replaces=K1_REPLACES,
+                     max_abs_err=kv_err, ms=msv, plain_ms=plv, bound_ms=bv,
+                     bound_by=byv, library_ms=libv))
     # what this timer gives work that is not attention: a one-element
     # kernel, and a PyTorch sum reading a row's bytes once
     tiny = torch.zeros(1, device=dev)
@@ -374,12 +448,12 @@ def kernel_phase(torch, timer):
         return ms
 
     log(f"  timer floor (one-element kernel): {floor_ms:.4f} ms")
-    for r, nb_ in zip(rows, (nb1, nb2)):
+    for r, nb_ in zip(rows, (nb1, nb2, nbv)):
         log(f"  {r['name']:20s} kernel {r['ms']:.4f} ms | bound "
             f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | plain "
             f"{r['plain_ms']:.4f} ms | sdpa {r['library_ms']:.4f} ms | "
             f"sum over the same bytes {read_floor(nb_):.4f} ms")
-    del q1, k1, v1, k2_args, q2, k2, v2
+    del q1, k1, v1, k2_args, q2, k2, v2, qv, kv, vv
 
     # --- long caches at LLaMA-2-7B's 4096-position context (timed only,
     #     beside SDPA; each also checked once against the plain version) ---
@@ -437,8 +511,10 @@ def kernel_phase(torch, timer):
 def e2e_parity_phase(torch):
     import numpy as np
 
-    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch import FFConfig, FFModel, GenerationConfig
+    from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.convert import load_params, params_from_jax
+    from flexflow_tpu_torch.ffconst import InferenceMode
     from flexflow_tpu_torch.models.llama import (LLAMAConfig,
                                                  create_llama_model)
     from flexflow_tpu_torch.serve.request_manager import RequestManager
@@ -454,14 +530,20 @@ def e2e_parity_phase(torch):
                for _ in range(REQUESTS)]
     pnp = None
     outs = {}
-    for device in ("cpu", "cuda"):
+
+    def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2):
         cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
                        max_sequence_length=MAX_SEQ,
                        max_tokens_per_batch=REQUESTS * PROMPT_LEN,
                        kv_cache_dtype="float32", compute_dtype="float32")
         m = FFModel(cfg)
-        create_llama_model(m, lc)
+        create_llama_model(m, dataclasses.replace(
+            lc, num_hidden_layers=layers), mode=mode)
         m.compile()
+        return m
+
+    for device in ("cpu", "cuda"):
+        m = model(device)
         if pnp is None:     # one seeded numpy draw, carried to both
             pnp = {
                 layer: {w: (np.ones(t.shape, np.float32) if "norm" in layer
@@ -497,19 +579,49 @@ def e2e_parity_phase(torch):
     if same_req < REQUESTS - 1 or any(len(a) != 16 for a in outs["cuda"]):
         raise AssertionError("end-to-end card/CPU token parity failed")
 
+    # speculative inference on the card (the tree engine at B = 1, depth
+    # 4, controller off so that every round drafts and verifies; a 1-layer
+    # draft on the verifier's own tensors) against incremental decoding
+    # on the CPU
+    llm = model("cuda", InferenceMode.TREE_VERIFY_MODE)
+    load_params(llm, params_from_jax(pnp, device="cuda"))
+    ssm = model("cuda", InferenceMode.BEAM_SEARCH_MODE, layers=1)
+    share_params(ssm, llm)
+    rm = RequestManager()
+    guids = [rm.register_new_request(p, max_new_tokens=16) for p in prompts]
+    kernels.reset_counts()
+    t0 = time.perf_counter()
+    rm.generate_spec_infer(llm, [ssm], spec_depth=4,
+                           generation_config=GenerationConfig(
+                               adaptive_spec=False))
+    spec = [rm.results[g].output_tokens for g in guids]
+    counts = dict(kernels.counts)
+    same_tok = sum(x == y for a, b in zip(outs["cpu"], spec)
+                   for x, y in zip(a, b))
+    log(f"  spec (tree engine, B=1, depth 4) on the card: "
+        f"{time.perf_counter() - t0:.2f} s, {rm.spec_stats['rounds']} "
+        f"rounds; tokens equal to CPU incremental decoding {same_tok}/{tot}; "
+        f"launches {counts}")
+    if (spec != outs["cpu"] or counts["plain_attend_cuda"]
+            or counts["flash_attend_bias"] != 2 * rm.spec_stats["rounds"]
+            or not rm.spec_stats["rounds"]):
+        raise AssertionError("card speculative inference vs CPU incremental "
+                             "decoding parity failed")
+
 
 # ----------------------------------------------------------------------
 # phase 5: the slice at full size
 # ----------------------------------------------------------------------
-def profile_decode(torch, llm, prompts, card):
+def profile_decode(torch, llm, prompts, card, new_tokens=16):
     """Device busy share and device time by kernel over one short
-    generate call (torch.profiler; the launch counts were read before)."""
+    generate call, incremental or speculative as ``llm`` serves
+    (torch.profiler; the launch counts were read before)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        llm.generate(prompts, max_new_tokens=16)
+        llm.generate(prompts, max_new_tokens=new_tokens)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -521,7 +633,8 @@ def profile_decode(torch, llm, prompts, card):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(r[2] for r in rows)
-    log(f"  profile of generate(16 new tokens): wall {wall_us / 1e3:.2f} ms, "
+    log(f"  profile of generate({new_tokens} new tokens): wall "
+        f"{wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
         f"idle {100 - 100 * busy / wall_us:.1f}%  [{card}]")
     for key, n, us in sorted(rows, key=lambda r: -r[2])[:15]:
@@ -529,21 +642,16 @@ def profile_decode(torch, llm, prompts, card):
             f"{key[:90]}")
 
 
-def full_size_phase(torch, card, profile=False):
-    import numpy as np
-
-    from flexflow_tpu_torch import LLM, DataType, kernels
+def seven_b(torch, layers=LAYERS):
+    """(hf config, state dict) of LLaMA-2-7B geometry cut to ``layers``,
+    with random bf16 weights on the card from one seeded generator (the
+    same tensors for every call: a draft's are the verifier's first)."""
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
-    from flexflow_tpu_torch.serve.inference_manager import InferenceManager
 
-    log(f"phase 5: LLaMA-2-7B geometry, bf16 weights and cache, "
-        f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} "
-        f"new tokens  [{card}]")
     hf = dict(model_type="llama", vocab_size=VOCAB, hidden_size=HIDDEN,
-              intermediate_size=INTER, num_hidden_layers=LAYERS,
+              intermediate_size=INTER, num_hidden_layers=layers,
               num_attention_heads=HEADS, num_key_value_heads=KV_HEADS,
               max_position_embeddings=MAX_SEQ)
-    lc = LLAMAConfig.from_hf_config(hf)
     hd = HIDDEN // HEADS
     shapes = {"embed_tokens": (VOCAB, HIDDEN), "lm_head": (VOCAB, HIDDEN),
               "q_proj": (HEADS * hd, HIDDEN), "k_proj": (KV_HEADS * hd, HIDDEN),
@@ -552,20 +660,44 @@ def full_size_phase(torch, card, profile=False):
               "down_proj": (HIDDEN, INTER)}
     g = torch.Generator(device="cuda").manual_seed(1234)
     sd = {}
-    for key in hf_weight_map(lc):
+    for key in hf_weight_map(LLAMAConfig.from_hf_config(hf)):
         if key.endswith("norm.weight"):
             sd[key] = torch.ones(HIDDEN, dtype=torch.bfloat16, device="cuda")
             continue
         part = key.split(".")[-2]
         sd[key] = torch.empty(shapes[part], dtype=torch.bfloat16,
                               device="cuda").normal_(0.0, 0.02, generator=g)
-    t0 = time.perf_counter()
-    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
-    del sd
-    llm.compile(max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
+    return hf, sd
+
+
+def share_params(draft, llm):
+    """Point every weight of the draft FFModel at the verifier's tensor of
+    the same name (no copies; the draft's own are freed)."""
+    for lname, lp in draft.params.items():
+        for w in lp:
+            lp[w] = llm.params[lname][w]
+
+
+SERVE_7B = dict(max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
                 max_tokens_per_batch=REQUESTS * PROMPT_LEN,
                 kv_cache_dtype="bfloat16", compute_dtype="bfloat16",
                 device="cuda", seed=7)
+
+
+def full_size_phase(torch, card, profile=False):
+    import numpy as np
+
+    from flexflow_tpu_torch import LLM, DataType, kernels
+    from flexflow_tpu_torch.serve.inference_manager import InferenceManager
+
+    log(f"phase 5: LLaMA-2-7B geometry, bf16 weights and cache, "
+        f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} "
+        f"new tokens  [{card}]")
+    hf, sd = seven_b(torch)
+    t0 = time.perf_counter()
+    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
+    del sd
+    llm.compile(**SERVE_7B)
     torch.cuda.synchronize()
     log(f"  build + load: {time.perf_counter() - t0:.2f} s")
     m = llm.ffmodel
@@ -623,7 +755,7 @@ def full_size_phase(torch, card, profile=False):
         raise AssertionError("full-size run produced wrong token counts/ids")
     want = {"flash_attend": LAYERS * stats["prefill_steps"],
             "flash_attend_append": LAYERS * stats["decode_steps"],
-            "plain_attend_cuda": 0}
+            "flash_attend_bias": 0, "plain_attend_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
         raise AssertionError(f"kernel launch counts {counts} != {want}")
     if profile:
@@ -632,13 +764,162 @@ def full_size_phase(torch, card, profile=False):
                         tokens_per_s=n_tok / wall, peak_gib=peak)
 
 
+# ----------------------------------------------------------------------
+# phase 6: speculative inference at full size
+# ----------------------------------------------------------------------
+def spec_phase(torch, card, profile=False):
+    """SpecInfer as ``bench.py`` runs it (bench.py:103-130, 198-234), at
+    LLaMA-2-7B geometry in bf16: phase 5's weights with the deep layers'
+    residual writes damped, a 2-layer draft on the verifier's own tensors,
+    depth 7, the adaptive controller on. An incremental pass and a spec
+    pass on the same verifier; then the chain engine and a two-draft tree,
+    reported only."""
+    import numpy as np
+
+    from flexflow_tpu_torch import (LLM, SSM, DataType, FFModel,
+                                    GenerationConfig, kernels)
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    log(f"phase 6: SpecInfer, LLaMA-2-7B geometry, bf16, {DRAFT_LAYERS}-layer "
+        f"draft on the verifier's tensors, depth {SPEC_DEPTH}, {REQUESTS} "
+        f"requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  "
+        f"[{card}]")
+    hf, sd = seven_b(torch)
+    for i in range(DRAFT_LAYERS, LAYERS):
+        sd[f"model.layers.{i}.self_attn.o_proj.weight"].mul_(EPS)
+        sd[f"model.layers.{i}.mlp.down_proj.weight"].mul_(EPS)
+    hf_d = dict(hf, num_hidden_layers=DRAFT_LAYERS)
+    sd_d = {k: sd[k] for k in seven_b_keys(hf_d)}
+    t0 = time.perf_counter()
+    ssm = SSM((hf_d, sd_d), data_type=DataType.DT_BFLOAT16)
+    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
+    del sd, sd_d
+    # depth 7 through the generation config: LLM.generate's default depth
+    # (8) makes a 9-node tree, padded to width 16 — not the decode's 8
+    llm.compile(generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
+                **SERVE_7B, decode_block_steps=NEW_TOKENS + 32,
+                spec_rounds_per_call=SPEC_ROUNDS, ssms=[ssm])
+    share_params(ssm.ffmodel, llm.ffmodel)
+    torch.cuda.synchronize()
+    log(f"  build + load: {time.perf_counter() - t0:.2f} s")
+    verifier = llm.ffmodel
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+
+    def timed(run, new_tokens, what):
+        """(results, tokens/s, launch counts) of one pass over ``prompts``."""
+        rm = RequestManager()
+        guids = [rm.register_new_request(p, max_new_tokens=new_tokens)
+                 for p in prompts]
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run(rm)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        res = [rm.results[g].output_tokens for g in guids]
+        n_tok = sum(len(r) for r in res)
+        log(f"  {what}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+            f"tokens/s  [{card}]")
+        return res, n_tok / wall, dict(kernels.counts), rm
+
+    def matches(res, incr, n):
+        return sum(a[:n] == b[:n] for a, b in zip(res, incr))
+
+    # warm-up (cuBLAS handles, allocator pools) on both paths
+    timed(lambda rm: rm.generate_incr_decoding(verifier), 8, "warm-up incr")
+    llm.generate(prompts, max_new_tokens=16)
+    incr, incr_tps, incr_counts, _ = timed(
+        lambda rm: rm.generate_incr_decoding(verifier), NEW_TOKENS,
+        "incremental")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = llm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(kernels.counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spec = [r.output_tokens for r in res]
+    n_tok = sum(len(r) for r in spec)
+    st = llm.rm.spec_stats
+    spec_tps = n_tok / wall
+    m30, m_full = matches(spec, incr, 30), matches(spec, incr, NEW_TOKENS)
+    log(f"  spec (tree engine, B=1, tree width "
+        f"{verifier._multi_engine.tree_width}, through LLM.generate): "
+        f"{n_tok} tokens in "
+        f"{wall:.3f} s = {spec_tps:.1f} tokens/s  [{card}]")
+    log(f"  spec/incr tokens/s: {spec_tps / incr_tps:.3f}; verify rounds "
+        f"{st['rounds']}; committed tokens per request-round "
+        f"{st['committed'] / max(1, st['request_rounds']):.3f} "
+        f"({st['committed']} over {st['request_rounds']}); controller parks "
+        f"{st['parked']}")
+    log(f"  spec_matches_incr_first30 {m30}/{REQUESTS}; full length "
+        f"({NEW_TOKENS}) {m_full}/{REQUESTS}")
+    log(f"  launches: incremental {incr_counts}; spec {counts}")
+    log(f"  peak device memory of the spec pass {peak:.2f} GiB  [{card}]")
+    if m30 != REQUESTS:
+        raise AssertionError("spec_matches_incr_first30 below 8/8")
+    if counts["plain_attend_cuda"] or incr_counts["plain_attend_cuda"]:
+        raise AssertionError("plain attention ran on the card")
+    if counts["flash_attend_bias"] != LAYERS * st["rounds"] or not all(
+            counts[k] for k in ("flash_attend", "flash_attend_append",
+                                "flash_attend_bias")):
+        raise AssertionError(f"spec launch counts {counts} for "
+                             f"{st['rounds']} verify rounds")
+    if n_tok != REQUESTS * NEW_TOKENS or not all(
+            0 <= t < VOCAB for r in spec for t in r):
+        raise AssertionError("spec run produced wrong token counts/ids")
+    if profile:
+        profile_decode(torch, llm, prompts, card, NEW_TOKENS)
+
+    # reported, not asserted: the chain engine, and a two-draft tree
+    chain, chain_tps, _, _ = timed(
+        lambda rm: rm._generate_spec_chain(verifier, ssm.ffmodel,
+                                           spec_depth=SPEC_DEPTH),
+        NEW_TOKENS, "chain engine (reported)")
+    log(f"  chain engine: spec/incr {chain_tps / incr_tps:.3f}, matches "
+        f"first30 {matches(chain, incr, 30)}/{REQUESTS}")
+    draft3 = FFModel(verifier.config)
+    create_llama_model(draft3, LLAMAConfig.from_hf_config(
+        dict(hf, num_hidden_layers=DRAFT_LAYERS + 1)),
+        mode=InferenceMode.BEAM_SEARCH_MODE, data_type=DataType.DT_BFLOAT16)
+    draft3.compile()
+    share_params(draft3, verifier)
+    multi, multi_tps, multi_counts, mrm = timed(
+        lambda rm: rm.generate_spec_infer(verifier, [ssm.ffmodel, draft3],
+                                          spec_depth=SPEC_DEPTH), 32,
+        f"two drafts ({DRAFT_LAYERS} and {DRAFT_LAYERS + 1} layers), 32 "
+        f"new tokens (reported)")
+    log(f"  two drafts: tree width {verifier._multi_engine.tree_width}, "
+        f"{mrm.spec_stats['rounds']} rounds, matches "
+        f"incremental (first 32) {matches(multi, incr, 32)}/{REQUESTS}; "
+        f"launches {multi_counts}")
+    if multi_counts["plain_attend_cuda"]:
+        raise AssertionError("plain attention ran on the card")
+    return counts, dict(spec_tokens_per_s=spec_tps, incr_tokens_per_s=incr_tps,
+                        matches_first30=m30, matches_full=m_full)
+
+
+def seven_b_keys(hf):
+    from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
+
+    return hf_weight_map(LLAMAConfig.from_hf_config(hf))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5",
+    ap.add_argument("--phases", default="1,2,3,4,5,6",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="phase 5 also traces one short generate call with "
-                         "torch.profiler (device busy share, time by kernel)")
+                    help="phases 5 and 6 also trace one short generate call "
+                         "with torch.profiler (device busy share, time by "
+                         "kernel)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
 
@@ -687,10 +968,21 @@ def main(argv=None) -> int:
     if 4 in phases:
         e2e_parity_phase(torch)
         gc.collect()
+    by_path = {}
     if 5 in phases:
-        counts, _ = full_size_phase(torch, card, profile=args.profile)
-        for r in rows:
-            r["launches"] = counts[r["name"]]
+        by_path["incr"], _ = full_size_phase(torch, card,
+                                             profile=args.profile)
+        gc.collect()
+    if 6 in phases:
+        by_path["spec"], _ = spec_phase(torch, card, profile=args.profile)
+        gc.collect()
+    for r in rows:
+        # each kernel's launches on the path it serves: K1 (prefill) and
+        # K2 (decode) on incremental decoding, K1's bias mode on spec
+        path = "spec" if r["name"] == "flash_attend_bias" else "incr"
+        if path in by_path:
+            r["launches"] = by_path[path][r["name"]]
+        r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,20 +8,25 @@ a ported path has a hand-written CUDA kernel under ``kernels/csrc`` with a
 plain PyTorch version beside it: CUDA tensors launch the kernel, CPU
 tensors take the plain version.
 
-This slice serves LLaMA-family models by incremental decoding::
+It serves LLaMA-family models by incremental decoding or, with draft
+models attached, by speculative inference::
 
-    from flexflow_tpu_torch import LLM
+    from flexflow_tpu_torch import LLM, SSM
     llm = LLM((hf_config_dict, state_dict)).compile(
         max_requests_per_batch=8, max_seq_length=256)   # device="cuda"
     results = llm.generate([[1, 2, 3], [4, 5]], max_new_tokens=16)
+    spec = LLM((hf_config_dict, state_dict)).compile(
+        max_requests_per_batch=8, max_seq_length=256,
+        ssms=[SSM((draft_hf_config_dict, draft_state_dict))])
 """
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.model import FFModel
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, InferenceMode, OpType)
-from flexflow_tpu_torch.serve import GenerationConfig, LLM, RequestManager
+from flexflow_tpu_torch.serve import (SSM, GenerationConfig, LLM,
+                                     RequestManager)
 
 __all__ = ["ActiMode", "AggrMode", "CompMode", "DataType", "FFConfig",
            "FFModel", "GenerationConfig", "InferenceMode", "LLM", "OpType",
-           "RequestManager"]
+           "RequestManager", "SSM"]

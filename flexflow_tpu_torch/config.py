@@ -29,8 +29,13 @@ class FFConfig:
     max_tokens_per_batch: int = 128
     max_sequence_length: int = 256
     kv_cache_dtype: str = "bfloat16"
-    # decode steps per host readback (serve/engine.py decode block)
+    # decode steps / speculation rounds per host readback (serve/engine.py
+    # decode block and speculative engines)
     decode_block_steps: int = 8
+    spec_rounds_per_call: int = 4
+    # draft beam width (reference BeamSearchBatchConfig::MAX_BEAM_WIDTH);
+    # the port drafts greedy chains only, so widths above 1 raise
+    max_beam_width: int = 1
     # incremental-decode step width; 0 = auto: the padded verify width (8)
     # where the CUDA kernel serves the config, 1 elsewhere
     # (InferenceManager._resolve_decode_width)

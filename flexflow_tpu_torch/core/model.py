@@ -175,6 +175,13 @@ class FFModel:
             OpType.SPEC_INC_MULTIHEAD_SELF_ATTENTION, input, embed_dim,
             num_q_heads, num_kv_heads, **kw)
 
+    def tree_inc_multiquery_self_attention(self, input: Tensor,
+                                           embed_dim: int, num_q_heads: int,
+                                           num_kv_heads: int, **kw) -> Tensor:
+        return self._serving_attention(
+            OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION, input, embed_dim,
+            num_q_heads, num_kv_heads, **kw)
+
     def add(self, x: Tensor, y: Tensor, name=None) -> Tensor:
         return self._add_layer(OpType.EW_ADD, [x, y], {}, name)
 
@@ -245,7 +252,8 @@ class FFModel:
         return self
 
     def _consolidate_kv_caches(self):
-        """Stack homogeneous per-layer KV caches into two [L, ...] tensors;
+        """Stack homogeneous per-layer KV caches (every serving-attention
+        op: incremental, draft and tree verify) into two [L, ...] tensors;
         layers get attrs["cache_layer_idx"] (ops/inc_attention.py reads
         and appends through it, and the attention kernels stream one layer
         of the stack from its base pointer)."""

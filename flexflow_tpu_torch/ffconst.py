@@ -93,4 +93,5 @@ class OpType(enum.Enum):
     EW_ADD = enum.auto()
     INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     SPEC_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
+    TREE_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     ARGMAX = enum.auto()

@@ -6,14 +6,17 @@ only for tensors on the CPU; on CUDA tensors it launches the kernel or
 raises — nothing falls back.
 
 ``counts`` holds one plain integer per kernel, bumped where the wrapper
-launches it, plus ``plain_attend_cuda``: calls of the plain attention on
-CUDA tensors, which the serving path never makes (``chip_smoke.py``
-checks it reads 0 after a full serving run).
+launches it; ``flash_attend_bias`` counts the K1 launches that carry an
+additive bias (tree verification), which ``flash_attend`` counts too.
+``plain_attend_cuda`` counts calls of the plain attention on CUDA
+tensors, which the serving path never makes (``chip_smoke.py`` checks it
+reads 0 after a full serving run).
 """
 
 from __future__ import annotations
 
-counts = {"flash_attend": 0, "flash_attend_append": 0, "plain_attend_cuda": 0}
+counts = {"flash_attend": 0, "flash_attend_append": 0,
+          "flash_attend_bias": 0, "plain_attend_cuda": 0}
 
 
 def reset_counts():

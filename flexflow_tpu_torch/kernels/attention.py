@@ -317,4 +317,6 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
     kernels.counts[key] += 1
+    if b is not None and append_kv is None:
+        kernels.counts["flash_attend_bias"] += 1
     return out

@@ -55,10 +55,15 @@ def create_llama_model(model, config: LLAMAConfig,
                        mode: InferenceMode = InferenceMode.INC_DECODING_MODE,
                        generation_config: Optional[GenerationConfig] = None,
                        data_type: DataType = DataType.DT_FLOAT):
-    """Record the LLaMA decoder graph into ``model`` (an FFModel)."""
-    if mode == InferenceMode.TREE_VERIFY_MODE:
+    """Record the LLaMA decoder graph into ``model`` (an FFModel): tree
+    attention in TREE_VERIFY_MODE (the speculative verifier), draft
+    attention in BEAM_SEARCH_MODE, incremental attention otherwise."""
+    if (mode == InferenceMode.BEAM_SEARCH_MODE
+            and model.config.max_beam_width > 1):
         raise NotImplementedError(
-            "tree verification arrives with speculative inference")
+            "beam drafting (max_beam_width > 1) arrives with the next slice "
+            "of the port (ArgTopK output, BeamSpecEngine); the port drafts "
+            "greedy chains")
     gen = generation_config or GenerationConfig()
     if gen.do_sample:
         raise NotImplementedError(
@@ -69,9 +74,12 @@ def create_llama_model(model, config: LLAMAConfig,
 
     h = model.embedding(tokens, c.vocab_size, c.hidden_size,
                         dtype=data_type, name="embed_tokens")
-    attn_builder = (model.spec_inc_multiquery_self_attention
-                    if mode == InferenceMode.BEAM_SEARCH_MODE
-                    else model.inc_multiquery_self_attention)
+    if mode == InferenceMode.TREE_VERIFY_MODE:
+        attn_builder = model.tree_inc_multiquery_self_attention
+    elif mode == InferenceMode.BEAM_SEARCH_MODE:
+        attn_builder = model.spec_inc_multiquery_self_attention
+    else:
+        attn_builder = model.inc_multiquery_self_attention
     for i in range(c.num_hidden_layers):
         x = model.rms_norm(h, eps=c.rms_norm_eps, dim=c.hidden_size,
                            name=f"layers.{i}.input_layernorm")

@@ -36,6 +36,9 @@ class OpContext:
     # serving-engine promises (serve/engine.py forward_with_meta)
     kv_contiguous: bool = False
     kv_append_q: Optional[int] = None
+    # the tree-verify pass's [R, T, S] additive mask: built by the first
+    # tree-attention layer of a forward, reused by the others
+    tree_bias: Any = None
 
 
 class OpImpl:

@@ -16,8 +16,11 @@ Differences from the JAX package, by design:
 * There is no kernel switch: ``_attend`` always calls
   ``kernels.attention.flash_attend``, which launches the CUDA kernel for
   CUDA tensors and runs the plain version for CPU tensors.
+* Tree verification builds its additive ``[R, T, S]`` mask once per
+  forward (``OpContext.tree_bias``) rather than once per layer.
 
-Tree attention and ``commit_tree_kv`` arrive with speculative inference.
+``commit_tree_kv`` (the host tree path's KV compaction) is not ported
+yet; the fused engines of ``serve/engine.py`` compact in place.
 """
 
 from __future__ import annotations
@@ -109,13 +112,16 @@ def append_kv_contiguous(cache, layer_idx, new, start_pos, active):
     start_pos[r] (clipped to [0, S - Q]); inactive rows are left as they
     are. Only valid under the engines' guarantee that every ACTIVE row has
     start_pos + Q <= S; padding tokens land beyond the valid extent, where
-    ``lengths`` masks them until a real append overwrites them."""
+    ``lengths`` masks them until a real append overwrites them. An
+    inactive row rewrites its own run unchanged, so that no host read
+    picks the active rows: the engines' forwards stay asynchronous."""
     c = cache if layer_idx is None else cache[layer_idx]
-    Q, S = new.shape[1], c.shape[-2]
-    rows = active.bool().nonzero().flatten()
-    start = start_pos[rows].long().clamp(0, S - Q)
-    cols = start[:, None] + torch.arange(Q, device=c.device)[None, :]
-    c[rows[:, None], :, cols] = new[rows].to(c.dtype)
+    R, Q, S = new.shape[0], new.shape[1], c.shape[-2]
+    rows = torch.arange(R, device=c.device)[:, None]
+    cols = (start_pos.long().clamp(0, S - Q)[:, None]
+            + torch.arange(Q, device=c.device)[None, :])
+    c[rows, :, cols] = torch.where(active.bool()[:, None, None, None],
+                                   new.to(c.dtype), c[rows, :, cols])
     return cache
 
 
@@ -248,6 +254,23 @@ def append_and_ref(ctx, attrs, k, v, start_pos, num_tokens, active):
     return kc, vc, idx
 
 
+def tree_bias(ancestor: torch.Tensor, start_pos: torch.Tensor,
+              S: int) -> torch.Tensor:
+    """fp32 [R, T, S] additive tree mask: 0 on the committed prefix
+    (s < start_pos) and on each node's ancestor-or-self columns (node j
+    is staged at start_pos + j), NEG_INF everywhere else."""
+    from flexflow_tpu_torch.kernels.attention import NEG_INF
+
+    R, T = ancestor.shape[0], ancestor.shape[1]
+    node = (torch.arange(S, device=ancestor.device)[None, :]
+            - start_pos.long()[:, None])                           # [R, S]
+    in_tree = (node >= 0) & (node < T)
+    anc = torch.gather(ancestor, 2,
+                       node.clamp(0, T - 1)[:, None, :].expand(R, T, S))
+    visible = (node < 0)[:, None, :] | (in_tree[:, None, :] & anc)
+    return torch.where(visible, 0.0, NEG_INF).to(torch.float32)
+
+
 @register_op_as(OpType.INC_MULTIHEAD_SELF_ATTENTION,
                 OpType.SPEC_INC_MULTIHEAD_SELF_ATTENTION)
 class IncMultiHeadSelfAttention(OpImpl):
@@ -308,4 +331,48 @@ class IncMultiHeadSelfAttention(OpImpl):
             ctx, attrs, k, v, meta.start_pos, meta.num_tokens, meta.active)
         out = _attend(attrs, q, k_ref, v_ref, lengths, q_abs, x.dtype, ctx,
                       causal=True, layer_idx=layer_idx)
+        return [_project_out(attrs, params, ctx, out)]
+
+
+@register_op_as(OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION)
+class TreeIncMultiHeadSelfAttention(OpImpl):
+    """Verification attention over a speculated token tree (reference
+    tree_inc_multihead_self_attention.cu): every node's KV is staged into
+    the cache past the committed prefix, at start_pos + node index, and
+    each node attends to the committed prefix plus its ancestor chain.
+    The mask is K1's additive bias (``causal=False``); the fused decode
+    append is never taken here, so a tree of any width goes through K1.
+    A plain ``BatchMeta`` (prompt prefill, or a chain engine's causal
+    verify) runs as incremental attention."""
+
+    op_type = OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION
+    infer_output_specs = staticmethod(
+        IncMultiHeadSelfAttention.infer_output_specs)
+    weight_specs = staticmethod(_weight_specs)
+    init_state = staticmethod(_init_kv_state)
+
+    @staticmethod
+    def forward(attrs, params, inputs, ctx):
+        x = inputs[0]
+        meta = ctx.batch_config
+        if not hasattr(meta, "ancestor"):
+            return IncMultiHeadSelfAttention.forward(attrs, params, inputs,
+                                                     ctx)
+        q, k, v = _qkv(attrs, params, x, ctx.compute_dtype)
+        if attrs.get("apply_rotary_embedding", False):
+            cos, sin = rotary_cos_sin(meta.positions, attrs["head_dim"],
+                                      attrs.get("rope_theta", 10000.0),
+                                      q.dtype)
+            q = apply_rotary(q, cos, sin)
+            k = apply_rotary(k, cos, sin)
+        k_ref, v_ref, layer_idx = append_and_ref(
+            ctx, attrs, k, v, meta.start_pos, meta.num_nodes, meta.active)
+        S = k_ref.shape[-2]
+        if ctx.tree_bias is None or ctx.tree_bias.shape[-1] != S:
+            ctx.tree_bias = tree_bias(meta.ancestor, meta.start_pos, S)
+        lengths = torch.where(meta.active, meta.start_pos + meta.num_nodes,
+                              torch.zeros_like(meta.start_pos))
+        out = _attend(attrs, q, k_ref, v_ref, lengths, meta.positions,
+                      x.dtype, ctx, bias=ctx.tree_bias, causal=False,
+                      layer_idx=layer_idx)
         return [_project_out(attrs, params, ctx, out)]

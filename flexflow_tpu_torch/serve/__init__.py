@@ -1,9 +1,11 @@
 """Serving layer of the PyTorch/CUDA port: batch descriptors, the step
-dispatcher, the continuous-batching request manager and the ``LLM`` API."""
+dispatcher, the speculative engines, the continuous-batching request
+manager and the ``LLM``/``SSM`` API."""
 
-from flexflow_tpu_torch.serve.api import LLM
+from flexflow_tpu_torch.serve.api import LLM, SSM
 from flexflow_tpu_torch.serve.batch_config import (BatchMeta,
                                                    GenerationConfig,
+                                                   TreeBatchMeta,
                                                    make_batch_meta)
 from flexflow_tpu_torch.serve.inference_manager import InferenceManager
 from flexflow_tpu_torch.serve.request_manager import (GenerationResult,
@@ -11,5 +13,5 @@ from flexflow_tpu_torch.serve.request_manager import (GenerationResult,
                                                       RequestManager)
 
 __all__ = ["BatchMeta", "GenerationConfig", "GenerationResult",
-           "InferenceManager", "LLM", "Request", "RequestManager",
-           "make_batch_meta"]
+           "InferenceManager", "LLM", "Request", "RequestManager", "SSM",
+           "TreeBatchMeta", "make_batch_meta"]

@@ -1,12 +1,18 @@
-"""User-facing serving API: ``LLM`` (counterpart of
-``flexflow_tpu/serve/api.py``).
+"""User-facing serving API: ``LLM`` and its draft model ``SSM``
+(counterpart of ``flexflow_tpu/serve/api.py``).
 
 An LLM is built from a ``(hf_config, state_dict)`` pair: the config (a
 dict or an object with the HF attribute names) picks the model family,
 ``compile`` records the serving graph on ``device``, initializes it and
 copies the HF weights in, and ``generate`` runs the continuous-batching
-incremental decoder. No server, checkpoint loading or transformers
-import in this slice.
+incremental decoder or, with SSMs attached at ``compile``, speculative
+inference::
+
+    ssm = SSM((draft_hf_config, draft_state_dict))
+    llm = LLM((hf_config, state_dict)).compile(ssms=[ssm])
+    results = llm.generate(prompts, max_new_tokens=64)
+
+No server, checkpoint loading or transformers import in this slice.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ class LLM:
         self.data_type = data_type
         self.tokenizer = tokenizer
         self.ffmodel = None
+        self.ssms: List["SSM"] = []
         self.rm: Optional[RequestManager] = None
         self.family = family_for_hf_config(self.hf_config)
         self.model_config = self.family.config_cls.from_hf_config(
@@ -43,19 +50,25 @@ class LLM:
 
     def compile(self, generation_config: Optional[GenerationConfig] = None,
                 max_requests_per_batch: int = 1, max_seq_length: int = 256,
-                max_tokens_per_batch: int = 64, **ffconfig_kwargs):
+                max_tokens_per_batch: int = 64,
+                ssms: Sequence["SSM"] = (), **ffconfig_kwargs):
         """Build the serving graph, initialize it on ``device`` (an
-        FFConfig field, "cuda" by default) and load the weights."""
+        FFConfig field, "cuda" by default) and load the weights. With
+        ``ssms`` the graph is the tree verifier (TREE_VERIFY_MODE) and
+        each draft model compiles with the same batch geometry and
+        FFConfig fields, so that request slots line up across caches."""
         from flexflow_tpu_torch.core.model import FFModel
 
         self.generation_config = generation_config or GenerationConfig()
+        self.ssms = list(ssms)
+        mode = (InferenceMode.TREE_VERIFY_MODE if self.ssms
+                else self.inference_mode)
         config = FFConfig(max_requests_per_batch=max_requests_per_batch,
                           max_sequence_length=max_seq_length,
                           max_tokens_per_batch=max_tokens_per_batch,
                           **ffconfig_kwargs)
         self.ffmodel = FFModel(config)
-        self.family.build(self.ffmodel, self.model_config,
-                          mode=self.inference_mode,
+        self.family.build(self.ffmodel, self.model_config, mode=mode,
                           generation_config=self.generation_config,
                           data_type=self.data_type)
         self.ffmodel.compile(comp_mode=CompMode.COMP_MODE_INFERENCE)
@@ -69,13 +82,20 @@ class LLM:
             get = (self.hf_config.get if isinstance(self.hf_config, dict)
                    else lambda k, d=None: getattr(self.hf_config, k, d))
             self.rm.eos_token_id = get("eos_token_id", None)
+        for ssm in self.ssms:
+            ssm.compile(generation_config=self.generation_config,
+                        max_requests_per_batch=max_requests_per_batch,
+                        max_seq_length=max_seq_length,
+                        max_tokens_per_batch=max_tokens_per_batch,
+                        **ffconfig_kwargs)
         return self
 
     def generate(self, requests_or_prompts: Union[str, Sequence],
                  max_new_tokens: int = 128, max_length: int = 0
                  ) -> Union[GenerationResult, List[GenerationResult]]:
         """Generate for one prompt (a string or a list of token ids) or a
-        list of prompts; results come back in prompt order."""
+        list of prompts; results come back in prompt order. Speculative
+        inference when SSMs were attached at ``compile``."""
         if self.ffmodel is None:
             raise RuntimeError("call LLM.compile() before generate()")
         single = isinstance(requests_or_prompts, str) or (
@@ -87,7 +107,19 @@ class LLM:
         guids = [self.rm.register_new_request(
             p, max_new_tokens=max_new_tokens, max_sequence_length=max_length)
             for p in prompts]
-        self.rm.generate_incr_decoding(
-            self.ffmodel, generation_config=self.generation_config)
+        if self.ssms:
+            self.rm.generate_spec_infer(
+                self.ffmodel, [s.ffmodel for s in self.ssms],
+                generation_config=self.generation_config)
+        else:
+            self.rm.generate_incr_decoding(
+                self.ffmodel, generation_config=self.generation_config)
         results = [self.rm.results[g] for g in guids]
         return results[0] if single else results
+
+
+class SSM(LLM):
+    """Small speculative model: a draft model (reference
+    serve/serve.py SSM), built in BEAM_SEARCH_MODE."""
+
+    inference_mode = InferenceMode.BEAM_SEARCH_MODE

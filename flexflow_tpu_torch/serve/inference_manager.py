@@ -13,11 +13,28 @@ import torch
 
 from flexflow_tpu_torch.ffconst import torch_dtype
 
-# Token width of the speculative verify pass for one draft model at the
-# default depth 4 (1 + 4 nodes, padded to 8). Incremental decode runs at
-# this width wherever the attention kernel serves the model, so decode and
-# verify share shapes and near-tie argmaxes resolve alike in both.
+# The port's verify-width quantum. The tree engine rounds its verify
+# width (1 + B * depth nodes) up to a multiple of it, and incremental
+# decode runs at it wherever the attention kernel serves the model: one
+# draft model at depth 1-7 then verifies at exactly the decode width, so
+# decode and verify run the same GEMM shapes and near-tie argmaxes
+# resolve alike in both.
 VERIFY_WIDTH = 8
+
+
+def kernel_serves(model) -> bool:
+    """Does the CUDA attention kernel serve every serving-attention layer
+    of ``model``? (a CUDA device, and a head dim and cache length the
+    kernel takes). Decides the incremental decode width and which engine
+    a single draft model speculates through."""
+    from flexflow_tpu_torch.kernels.attention import supports_shapes
+
+    if model.device.type != "cuda":
+        return False
+    S = model.config.max_sequence_length
+    dims = {layer.attrs["head_dim"] for layer in model.layers
+            if "head_dim" in layer.attrs and "num_kv_heads" in layer.attrs}
+    return bool(dims) and all(supports_shapes(S, d) for d in dims)
 
 
 class InferenceManager:
@@ -33,27 +50,17 @@ class InferenceManager:
     def _resolve_decode_width(self, cfg) -> int:
         """Step width of incremental decode (config.decode_width; 0 = auto).
 
-        Auto gives the verify width when the CUDA attention kernel serves
-        every serving-attention layer of the model (a CUDA device and a
-        head dim and cache length the kernel takes), and 1 elsewhere: the
-        CPU path is the plain fp32 version, where wide queries would be
-        pure waste. The JAX rule is the same with the Pallas kernel."""
+        Auto gives the verify width where the CUDA attention kernel
+        serves the model (``kernel_serves``), and 1 elsewhere: the CPU
+        path is the plain fp32 version, where wide queries would be pure
+        waste. The JAX rule is the same with the Pallas kernel."""
         if cfg.decode_width:
             return int(cfg.decode_width)
-        from flexflow_tpu_torch.kernels.attention import supports_shapes
-
-        if self.model.device.type != "cuda":
-            return 1
-        S = cfg.max_sequence_length
-        dims = {layer.attrs["head_dim"] for layer in self.model.layers
-                if "head_dim" in layer.attrs
-                and "num_kv_heads" in layer.attrs}
-        if dims and all(supports_shapes(S, d) for d in dims):
-            return VERIFY_WIDTH
-        return 1
+        return VERIFY_WIDTH if kernel_serves(self.model) else 1
 
     def step(self, meta, want_output: bool = True):
-        """Run one serving step over ``meta`` (numpy or tensor fields).
+        """Run one serving step over ``meta``, a BatchMeta or a
+        TreeBatchMeta (numpy or tensor fields).
         Returns the op outputs as numpy (token ids [R, Q] for graphs
         ending in argmax), or None with ``want_output=False`` (no host
         readback: prefill chunks whose outputs are discarded stay

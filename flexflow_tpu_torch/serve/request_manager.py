@@ -10,9 +10,14 @@ Slot convention: a request's ``tokens`` are prompt + generated;
 ``cache_depth`` counts the tokens whose KV is in the cache, and the last
 token is always pending (it is fed to produce the next one).
 
+Speculative inference (``generate_spec_infer``) keeps the JAX package's
+two fused scheduler loops: the chain engine and the tree engine, with the
+adaptive speculation controller. Per request, ``ssm_cache_depth[i]``
+counts the tokens whose KV is in draft model i's cache.
+
 Not in this slice: the native C++ scheduler, the shared-prefix cache,
-telemetry, admission control, preemption, deadlines and speculative
-inference.
+telemetry, admission control, preemption, deadlines, beam drafting and
+the host-stepped tree path.
 """
 
 from __future__ import annotations
@@ -21,12 +26,16 @@ import dataclasses
 import itertools
 import time
 from collections import deque
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
 from flexflow_tpu_torch.serve.batch_config import BatchMeta, GenerationConfig
-from flexflow_tpu_torch.serve.inference_manager import InferenceManager
+from flexflow_tpu_torch.serve.inference_manager import (InferenceManager,
+                                                        kernel_serves)
+
+# Reference include/flexflow/batch_config.h:126 (MAX_BEAM_DEPTH)
+MAX_SPEC_DEPTH = 8
 
 
 @dataclasses.dataclass
@@ -39,7 +48,8 @@ class Request:
     max_sequence_length: int = 0          # 0 -> model max_sequence_length
     tokens: List[int] = dataclasses.field(default_factory=list)
     slot: int = -1
-    cache_depth: int = 0
+    cache_depth: int = 0                  # verifier/incr cache depth
+    ssm_cache_depth: Dict[int, int] = dataclasses.field(default_factory=dict)
     finished: bool = False
     # time.perf_counter() stamps: admission, slot grant, first token
     arrival_s: float = 0.0
@@ -84,6 +94,11 @@ class RequestManager:
         self.eos_token_id = eos_token_id
         self.pending: deque = deque()
         self.results: Dict[int, GenerationResult] = {}
+        self.max_spec_depth = MAX_SPEC_DEPTH
+        # counts of the last generate_spec_infer call: verify passes
+        # ("rounds"), (request, round) pairs that committed tokens and the
+        # tokens they committed, and the controller's parks
+        self.spec_stats: Dict[str, int] = {}
 
     def register_tokenizer(self, tokenizer, eos_token_id=None):
         self.tokenizer = tokenizer
@@ -173,6 +188,19 @@ class RequestManager:
                           limit - len(req.tokens)))
 
     @staticmethod
+    def _ifm(model) -> InferenceManager:
+        """The model's InferenceManager, made at first use."""
+        ifm = getattr(model, "_inference_manager", None)
+        if ifm is None:
+            ifm = model._inference_manager = InferenceManager(model)
+        return ifm
+
+    @staticmethod
+    def _note_first_token(req: Request):
+        if not req.first_token_s and req.num_generated > 0:
+            req.first_token_s = time.perf_counter()
+
+    @staticmethod
     def _meta_from_rows(R: int, Q: int, rows) -> BatchMeta:
         """rows: list of (slot, tokens_chunk, start_pos)."""
         tokens = np.zeros((R, Q), np.int32)
@@ -219,9 +247,7 @@ class RequestManager:
         if generation_config is not None and generation_config.do_sample:
             raise NotImplementedError(
                 "sampling is not ported yet; the slice decodes greedily")
-        ifm = getattr(model, "_inference_manager", None)
-        if ifm is None:
-            ifm = model._inference_manager = InferenceManager(model)
+        ifm = self._ifm(model)
         cfg = model.config
         R = cfg.max_requests_per_batch
         max_seq = cfg.max_sequence_length
@@ -269,12 +295,407 @@ class RequestManager:
                         req.tokens.append(int(toks[req.slot, j]))
                         if self._finish_if_done(req, max_seq):
                             break
-                    if not req.first_token_s and req.num_generated > 0:
-                        req.first_token_s = time.perf_counter()
+                    self._note_first_token(req)
                     req.cache_depth = len(req.tokens) - 1
-            for slot in range(R):
-                req = active[slot]
-                if req is not None and req.finished:
-                    done.append(self._collect(req))
-                    active[slot] = None
+            self._collect_finished(active, done)
         return done
+
+    # =====================================================================
+    # Speculative inference (reference generate_spec_infer)
+    # =====================================================================
+    def generate_spec_infer(self, llm, ssms: List[Any],
+                            spec_depth: Optional[int] = None,
+                            beam_width: Optional[int] = None,
+                            generation_config:
+                            Optional[GenerationConfig] = None
+                            ) -> List[GenerationResult]:
+        """The LLM verifies the greedy chains the draft SSMs propose.
+
+        Each round every draft model proposes a depth-``spec_depth`` chain
+        per request, the LLM scores them in one step, and the longest
+        chain prefix that matches the LLM's own argmax is accepted, plus
+        one bonus token: the output is the LLM's greedy continuation,
+        identical to incremental decoding. ``generation_config`` carries
+        the adaptive-speculation policy (on by default); its
+        ``spec_depth``, when set, overrides the argument.
+
+        One draft model speculates through the chain engine unless the
+        CUDA attention kernel serves the LLM (``kernel_serves``): there
+        the tree engine at B = 1 takes it, whose verify pass at depth <= 7
+        has the incremental decode's width, so both give the same tokens
+        (the JAX package's rule with its Pallas kernel). Several draft
+        models always take the tree engine."""
+        gc = generation_config
+        if gc is not None and gc.do_sample:
+            raise NotImplementedError(
+                "sampling is not ported yet; the slice decodes greedily")
+        if gc is not None and gc.spec_depth:
+            spec_depth = gc.spec_depth
+        if (beam_width or 1) > 1 or any(s.config.max_beam_width > 1
+                                        for s in ssms):
+            raise NotImplementedError(
+                "beam drafting (beam_width > 1) arrives with the next slice "
+                "of the port (BeamSpecEngine); the port drafts greedy "
+                "chains")
+        if len(ssms) == 1 and not kernel_serves(llm):
+            return self._generate_spec_chain(llm, ssms[0],
+                                             spec_depth=spec_depth,
+                                             generation_config=gc)
+        return self._generate_spec_tree_fused(llm, ssms,
+                                              spec_depth=spec_depth,
+                                              generation_config=gc)
+
+    # -- adaptive speculation support (serve/spec_controller.py) ----------
+    @staticmethod
+    def _spec_controller(gc: Optional[GenerationConfig], llm, ssms,
+                         engine_depth: int):
+        """(the per-request adaptive controller, or None when the policy
+        disables it; the resolved GenerationConfig)."""
+        gc = gc or GenerationConfig()
+        if not gc.adaptive_spec:
+            return None, gc
+        from flexflow_tpu_torch.serve.spec_controller import SpecController
+
+        return SpecController.from_generation_config(
+            gc, llm, ssms, engine_depth=engine_depth), gc
+
+    @staticmethod
+    def _partition_spec(ctrl, roomy, rounds):
+        """Split the roomy requests into (draftable, parked) by the
+        controller, and shrink a tick that only probes parked requests to
+        one round. Returns (draftable, parked, rounds)."""
+        if ctrl is None:
+            return roomy, [], rounds
+        draftable = [req for req in roomy if ctrl.wants_draft(req.guid)]
+        draft_guids = {req.guid for req in draftable}
+        parked = [req for req in roomy if req.guid not in draft_guids]
+        if draftable and all(ctrl.in_fallback(r.guid) for r in draftable):
+            rounds = 1
+        return draftable, parked, rounds
+
+    def _fallback_decode(self, llm_ifm, reqs, R, max_seq, cfg) -> int:
+        """Incremental decode block for the requests the controller parked:
+        the program generate_incr_decoding drives, so a parked request
+        pays the incremental cost and emits the same greedy tokens. Draft
+        caches are left stale; the prefill cycle heals them when the
+        request probes back into drafting."""
+        block = min(max(self._remaining_budget(r, max_seq) for r in reqs),
+                    cfg.decode_block_steps)
+        tok = np.zeros((R,), np.int32)
+        pos = np.zeros((R,), np.int32)
+        act = np.zeros((R,), bool)
+        for req in reqs:
+            tok[req.slot] = req.tokens[-1]
+            pos[req.slot] = len(req.tokens) - 1
+            act[req.slot] = True
+        block = max(1, min(block, max_seq - 1 - int(pos[act].max())))
+        toks = llm_ifm.decode_block(tok, pos, act, block)
+        for req in reqs:
+            for j in range(block):
+                req.tokens.append(int(toks[req.slot, j]))
+                if self._finish_if_done(req, max_seq):
+                    break
+            self._note_first_token(req)
+            req.cache_depth = len(req.tokens) - 1
+        return block
+
+    def _cramped_step(self, llm_ifm, cramped, R, max_seq, n_ssms):
+        """One width-1 verifier step for requests whose cache has no room
+        for a speculation round; their draft caches fall behind."""
+        rows = [(req.slot, req.tokens[-1:], len(req.tokens) - 1)
+                for req in cramped]
+        out = llm_ifm.step(self._meta_from_rows(R, 1, rows))
+        for req in cramped:
+            sp = len(req.tokens) - 1
+            req.tokens.append(int(out[req.slot, 0]))
+            req.cache_depth = sp + 1
+            for i in range(n_ssms):
+                req.ssm_cache_depth[i] = min(req.ssm_cache_depth.get(i, 0),
+                                             sp)
+            self._note_first_token(req)
+            self._finish_if_done(req, max_seq)
+
+    def _engine_inputs(self, draftable, R, max_seq, ctrl, depth):
+        """(tok, pos, active, remaining, depth vector or None) of a block."""
+        tok = np.zeros((R,), np.int32)
+        pos = np.zeros((R,), np.int32)
+        act = np.zeros((R,), bool)
+        remaining = np.zeros((R,), np.int32)
+        depth_vec = None if ctrl is None else np.full((R,), depth, np.int32)
+        for req in draftable:
+            tok[req.slot] = req.tokens[-1]
+            pos[req.slot] = len(req.tokens) - 1
+            act[req.slot] = True
+            remaining[req.slot] = self._remaining_budget(req, max_seq)
+            if ctrl is not None:
+                depth_vec[req.slot] = ctrl.depth_for(req.guid)
+        return tok, pos, act, remaining, depth_vec
+
+    def _take_rounds(self, req, rounds, n_acc, d_used, tokens_of, max_seq):
+        """Append what ``req`` committed in each round of a block, trimmed
+        at its budget and at EOS (where incremental decoding would have
+        stopped). ``tokens_of(k, n)`` is round k's committed tokens.
+        Returns ([(depth_used, n_acc)] of the rounds it ran, its last
+        round's root position)."""
+        observed = []
+        last_rpos = len(req.tokens) - 1
+        for k in range(rounds):
+            n = int(n_acc[req.slot, k])
+            if n < 0:             # the request drafted nothing this round
+                continue
+            observed.append((int(d_used[req.slot, k]), n))
+            self.spec_stats["request_rounds"] += 1
+            self.spec_stats["committed"] += n + 1
+            last_rpos = len(req.tokens) - 1
+            new_toks = tokens_of(k, n)
+            new_toks = new_toks[:max(0, req.max_new_tokens
+                                     - req.num_generated)]
+            if (self.eos_token_id is not None
+                    and self.eos_token_id in new_toks):
+                new_toks = new_toks[:new_toks.index(self.eos_token_id) + 1]
+            req.tokens.extend(new_toks)
+            if self._finish_if_done(req, max_seq):
+                break
+        self._note_first_token(req)
+        return observed, last_rpos
+
+    def _generate_spec_chain(self, llm, ssm,
+                             spec_depth: Optional[int] = None,
+                             generation_config:
+                             Optional[GenerationConfig] = None
+                             ) -> List[GenerationResult]:
+        """Single-SSM speculation through ``SpecChainEngine``.
+
+        Each engine call runs up to ``spec_rounds_per_call`` rounds; the
+        host commits ``a[slot, k, :n_acc + 1]`` per round and reconciles
+        EOS and length limits. Every loop turn runs, in order: one bounded
+        prefill chunk per model, the cramped requests' single steps, the
+        parked requests' incremental block, the draftable requests' block.
+        """
+        from flexflow_tpu_torch.serve.engine import SpecChainEngine
+
+        llm_ifm, ssm_ifm = self._ifm(llm), self._ifm(ssm)
+        cfg = llm.config
+        R = cfg.max_requests_per_batch
+        max_seq = cfg.max_sequence_length
+        depth = min(spec_depth or self.max_spec_depth, self.max_spec_depth)
+        ctrl, gc = self._spec_controller(generation_config, llm, [ssm],
+                                         engine_depth=depth)
+        engine = getattr(llm, "_chain_engine", None)
+        if engine is None or engine.ssm is not ssm or engine.depth != depth:
+            engine = llm._chain_engine = SpecChainEngine(
+                llm, ssm, depth, max_rounds=cfg.spec_rounds_per_call)
+        # the host gate is at least as strict as the engine's live mask, or
+        # a request the engine masks dead every round would be rescheduled
+        # forever
+        room_needed = depth + 1
+        chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
+        active: List[Optional[Request]] = [None] * R
+        done: List[GenerationResult] = []
+        self.spec_stats = dict.fromkeys(
+            ("rounds", "request_rounds", "committed", "parked"), 0)
+        rounds0 = engine.rounds_run
+
+        while self.pending or any(a is not None for a in active):
+            self._fill_slots(active, max_seq, done)
+            # one bounded prefill chunk per model; caught-up slots draft or
+            # decode below in the same turn
+            prefilled = False
+            for ifm, depth_of in ((llm_ifm, lambda r: r.cache_depth),
+                                  (ssm_ifm,
+                                   lambda r: r.ssm_cache_depth.get(0, 0))):
+                rows = self._prefill_rows(active, chunk, depth_of,
+                                          cfg.max_tokens_per_batch)
+                if ifm is ssm_ifm:
+                    # the draft cache catches up only for requests that can
+                    # still draft: a full round of room left, and not
+                    # parked by the controller
+                    rows = [(slot, toks, sp) for slot, toks, sp in rows
+                            if max_seq - len(active[slot].tokens) - 1
+                            >= room_needed
+                            and (ctrl is None
+                                 or ctrl.wants_draft(active[slot].guid))]
+                if rows:
+                    ifm.step(self._meta_from_rows(R, chunk, rows),
+                             want_output=False)
+                    for slot, toks, sp in rows:
+                        if ifm is llm_ifm:
+                            active[slot].cache_depth = sp + len(toks)
+                        else:
+                            active[slot].ssm_cache_depth[0] = sp + len(toks)
+                    prefilled = True
+            live = [req for req in active
+                    if req is not None and not req.finished]
+            # only slots whose verifier cache has caught up run this turn
+            ready = [req for req in live
+                     if req.cache_depth == len(req.tokens) - 1]
+            if ready:
+                roomy = [req for req in ready
+                         if max_seq - len(req.tokens) - 1 >= room_needed]
+                cramped = [req for req in ready
+                           if max_seq - len(req.tokens) - 1 < room_needed]
+                draftable, parked, rounds = self._partition_spec(
+                    ctrl, roomy, min(cfg.spec_rounds_per_call,
+                                     engine.max_rounds))
+                if prefilled:
+                    rounds = 1    # prefill pending: back to the next chunk
+                # a draft cache still catching up drafts next turn
+                draftable = [req for req in draftable
+                             if req.ssm_cache_depth.get(0, 0)
+                             == len(req.tokens) - 1]
+                if cramped:
+                    self._cramped_step(llm_ifm, cramped, R, max_seq, 1)
+                if parked:
+                    self._fallback_decode(llm_ifm, parked, R, max_seq, cfg)
+                    for req in parked:
+                        ctrl.note_fallback_block(req.guid)
+                if draftable:
+                    tok, pos, act, remaining, depth_vec = \
+                        self._engine_inputs(draftable, R, max_seq, ctrl,
+                                            depth)
+                    a, n_acc, d_used = engine.run_block(
+                        tok, pos, act, rounds, remaining, depth=depth_vec,
+                        min_depth=gc.min_spec_depth)
+                    for req in draftable:
+                        observed, _ = self._take_rounds(
+                            req, rounds, n_acc, d_used,
+                            lambda k, n, s=req.slot:
+                            [int(t) for t in a[s, k, :n + 1]], max_seq)
+                        if ctrl is not None:
+                            ctrl.observe_block(req.guid, observed)
+                        d = len(req.tokens) - 1
+                        req.cache_depth = d
+                        req.ssm_cache_depth[0] = d
+            self._collect_finished(active, done, ctrl)
+        self.spec_stats.update(
+            rounds=engine.rounds_run - rounds0,
+            parked=ctrl.fallback_entries_total if ctrl is not None else 0)
+        return done
+
+    def _generate_spec_tree_fused(self, llm, ssms: List[Any],
+                                  spec_depth: Optional[int] = None,
+                                  generation_config:
+                                  Optional[GenerationConfig] = None
+                                  ) -> List[GenerationResult]:
+        """Tree speculation through ``MultiSpecEngine`` (any number of
+        draft models; one on the CUDA path).
+
+        The same loop as ``_generate_spec_chain``, with the differences
+        that are real: every draft model prefills, a request drafts only
+        with the engine's whole padded tree window of room, and a round's
+        committed tokens are ``toks[slot, k, :n_acc]`` plus the bonus at
+        ``toks[slot, k, depth]``. A fix to one loop almost certainly
+        belongs in the other.
+        """
+        from flexflow_tpu_torch.serve.engine import MultiSpecEngine
+
+        llm_ifm = self._ifm(llm)
+        ssm_ifms = [self._ifm(s) for s in ssms]
+        cfg = llm.config
+        R = cfg.max_requests_per_batch
+        max_seq = cfg.max_sequence_length
+        B = len(ssms)
+        depth = min(spec_depth or self.max_spec_depth, self.max_spec_depth)
+        ctrl, gc = self._spec_controller(generation_config, llm, ssms,
+                                         engine_depth=depth)
+        engine = getattr(llm, "_multi_engine", None)
+        if (engine is None or engine.ssms != list(ssms)
+                or engine.depth != depth):
+            engine = llm._multi_engine = MultiSpecEngine(
+                llm, ssms, depth, max_rounds=cfg.spec_rounds_per_call)
+        chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
+        active: List[Optional[Request]] = [None] * R
+        done: List[GenerationResult] = []
+        # a request drafts only with the engine's whole staging window of
+        # room: its live mask reserves the padded verify width, and a
+        # looser host gate would reschedule a request the engine masks
+        # dead every round, forever
+        room_needed = engine.tree_width
+        self.spec_stats = dict.fromkeys(
+            ("rounds", "request_rounds", "committed", "parked"), 0)
+        rounds0 = engine.rounds_run
+
+        while self.pending or any(a is not None for a in active):
+            self._fill_slots(active, max_seq, done)
+            prefilled = False
+            rows = self._prefill_rows(active, chunk, lambda r: r.cache_depth,
+                                      cfg.max_tokens_per_batch)
+            if rows:
+                llm_ifm.step(self._meta_from_rows(R, chunk, rows),
+                             want_output=False)
+                for slot, toks, sp in rows:
+                    active[slot].cache_depth = sp + len(toks)
+                prefilled = True
+            for i, ifm in enumerate(ssm_ifms):
+                rows = self._prefill_rows(
+                    active, chunk, lambda r, i=i: r.ssm_cache_depth.get(i, 0),
+                    cfg.max_tokens_per_batch)
+                rows = [(slot, toks, sp) for slot, toks, sp in rows
+                        if max_seq - len(active[slot].tokens) >= room_needed
+                        and (ctrl is None
+                             or ctrl.wants_draft(active[slot].guid))]
+                if rows:
+                    ifm.step(self._meta_from_rows(R, chunk, rows),
+                             want_output=False)
+                    for slot, toks, sp in rows:
+                        active[slot].ssm_cache_depth[i] = sp + len(toks)
+                    prefilled = True
+            live = [req for req in active
+                    if req is not None and not req.finished]
+            ready = [req for req in live
+                     if req.cache_depth == len(req.tokens) - 1]
+            if not ready:
+                continue
+            roomy = [req for req in ready
+                     if max_seq - len(req.tokens) >= room_needed]
+            cramped = [req for req in ready
+                       if max_seq - len(req.tokens) < room_needed]
+            draftable, parked, rounds = self._partition_spec(
+                ctrl, roomy, min(cfg.spec_rounds_per_call, engine.max_rounds))
+            if prefilled:
+                rounds = 1
+            draftable = [req for req in draftable
+                         if all(req.ssm_cache_depth.get(i, 0)
+                                == len(req.tokens) - 1 for i in range(B))]
+            if cramped:
+                self._cramped_step(llm_ifm, cramped, R, max_seq, B)
+            if parked:
+                self._fallback_decode(llm_ifm, parked, R, max_seq, cfg)
+                for req in parked:
+                    ctrl.note_fallback_block(req.guid)
+            if draftable:
+                tok, pos, act, remaining, depth_vec = self._engine_inputs(
+                    draftable, R, max_seq, ctrl, depth)
+                toks, n_acc, d_used = engine.run_block(
+                    tok, pos, act, rounds, remaining, depth=depth_vec,
+                    min_depth=gc.min_spec_depth)
+                for req in draftable:
+                    observed, last_rpos = self._take_rounds(
+                        req, rounds, n_acc, d_used,
+                        lambda k, n, s=req.slot:
+                        [int(t) for t in toks[s, k, :n]]
+                        + [int(toks[s, k, depth])], max_seq)
+                    if ctrl is not None:
+                        ctrl.observe_block(req.guid, observed)
+                    d = len(req.tokens) - 1
+                    # the verifier committed through the last accepted
+                    # prefix in-engine; a draft cache is right only through
+                    # the last round's catch-up (a losing branch's cache
+                    # holds its own chain), and the prefill cycle feeds
+                    # the gap
+                    req.cache_depth = d
+                    for i in range(B):
+                        req.ssm_cache_depth[i] = min(last_rpos + 1, d)
+            self._collect_finished(active, done, ctrl)
+        self.spec_stats.update(
+            rounds=engine.rounds_run - rounds0,
+            parked=ctrl.fallback_entries_total if ctrl is not None else 0)
+        return done
+
+    def _collect_finished(self, active, done, ctrl=None):
+        for slot, req in enumerate(active):
+            if req is not None and req.finished:
+                if ctrl is not None:
+                    ctrl.drop(req.guid)
+                done.append(self._collect(req))
+                active[slot] = None
