@@ -2,6 +2,7 @@
 """Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
 
     python3 chip_smoke.py            # every phase, one card
+    python3 chip_smoke.py --phases 1,2,7   # one phase (1 and 2 build)
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -10,7 +11,8 @@ Phases (each fails loudly; the run exits non-zero if any fails):
   3. kernel parity: K1 (``flash_attend``) and K2 (``flash_attend`` with
      the fused append) against their plain PyTorch versions on the card,
      at the serving path's shapes (prefill, decode, and the tree verify
-     pass: K1 with a chain tree's bias) and on small shapes for the rest
+     pass: K1 with a chain tree's bias, and with a width-2 beam tree's,
+     whose siblings are masked) and on small shapes for the rest
      of their contract, split-S included (ragged lengths, the appended row
      in a later split, D = 64, fp32); the bitwise checks that a width-1
      decode, a width-8 decode and a K1 call give identical rows for the
@@ -24,8 +26,12 @@ Phases (each fails loudly; the run exits non-zero if any fails):
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
      seeded numpy draw); the tokens must agree; then speculative
-     inference on the card (the tree engine, one 1-layer draft, depth 4)
-     must give the CPU's incremental tokens, 128 of 128;
+     inference on the card must give the CPU's incremental tokens, 128
+     of 128, through the tree engine (one 1-layer draft, depth 4), the
+     beam engine (a 1-layer beam draft of width 2, depth 3) and the host
+     tree path (two beam drafts); and top-p sampling through
+     ``LLM.generate`` must repeat its draws under one seed and, at
+     top_p 1e-9 and temperature 1.0, give the card's greedy tokens;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -39,7 +45,20 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      controller parks, spec_matches_incr, launches, peak memory); the
      first 30 tokens must match 8/8 and every verify round must launch
      K1 with the tree bias once per layer. The chain engine and a
-     two-draft tree are timed and reported, not asserted.
+     two-draft tree are timed and reported, not asserted;
+  7. beam drafting and sampling at full size, on phase 6's verifier (no
+     second 7B model): a greedy incremental pass; the beam engine (phase
+     6's draft built as a width-2 beam draft, depth 3, the controller
+     on) with tokens/s, rounds, tokens per request-round, parks, the
+     match with incremental decoding (and the verifier's top-2 logit gap
+     where it first differs) and peak memory, its K1-bias launches
+     asserted at 32 a verify round + 2 a staged beam level and 0 plain
+     calls; top-p sampling (topp 0.6, temperature 0.8) twice under one
+     seed, which must repeat, with decode ms/step beside the greedy
+     pass's; reported: the beam engine with the controller off (ms a
+     round) beside the chain engine at the same depth (what beam search
+     prunes), the device time of the argmax, top-p and beam heads on
+     one step's logits, and the host tree path with two beam drafts.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -73,6 +92,9 @@ REQUESTS, PROMPT_LEN, MAX_SEQ, NEW_TOKENS = 8, 32, 256, 64
 # phase 6 (bench.py:103-130): 2-layer truncation draft, deep layers damped,
 # depth 7 (a B = 1 tree of 8 nodes: the decode width), 64 rounds a call
 DRAFT_LAYERS, EPS, SPEC_DEPTH, SPEC_ROUNDS = 2, 0.01, 7, 64
+# phase 7: phase 6's draft as a beam draft of width 2, depth 3 (7 nodes:
+# the decode width 8 once padded)
+BEAM_WIDTH, BEAM_DEPTH = 2, 3
 VERIFY_START = 92      # phase 3's verify row: a chain staged at 92..99
 
 
@@ -161,6 +183,33 @@ def chain_tree_bias(torch, start, S, T=8):
     anc = torch.tensor(ancestor_mask_from_parents(parent),
                        device=start.device)
     return tree_bias(anc, start, S)
+
+
+def beam_tree_bias(torch, start, S, width=2, depth=3, seed=0):
+    """A beam tree's [R, T, S] bias and node depths [T] (T = the tree
+    padded to 8): node 0 the root, level t's ``width`` nodes at
+    1 + t*width, each child of a node of the level before, picked per
+    row from a seeded draw; a node sees the prefix and its own path, not
+    its siblings' subtrees. Built by the port's own functions."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.inc_attention import tree_bias
+    from flexflow_tpu_torch.serve.batch_config import \
+        ancestor_mask_from_parents
+
+    R, T = start.shape[0], -(-(1 + width * depth) // 8) * 8
+    rng = np.random.default_rng(seed)
+    parent = np.full((R, T), -1, np.int64)
+    node_depth = np.zeros((T,), np.int32)
+    for t in range(depth):
+        lvl = 1 + t * width
+        prev = [0] if t == 0 else list(range(lvl - width, lvl))
+        parent[:, lvl:lvl + width] = rng.choice(prev, (R, width))
+        node_depth[lvl:lvl + width] = t + 1
+    anc = torch.tensor(ancestor_mask_from_parents(parent),
+                       device=start.device)
+    return (tree_bias(anc, start, S),
+            torch.tensor(node_depth, device=start.device))
 
 
 def invariance_check(torch, ivec, mk):
@@ -330,6 +379,16 @@ def kernel_phase(torch, timer):
     kv_err, (qv, kv, vv) = k1_case("K1 verify R8 Q8 chain-tree bias", R, 8,
                                    H, KH, D, S, bf, v_len, v_qpos, 20,
                                    bias=v_bias, causal=False)
+    # the beam engine's verify: a width-2 depth-3 beam tree (7 nodes of
+    # the 8-wide pass; siblings' subtrees masked) staged at the same place
+    for name, R_, H_, KH_, D_, S_, dt, st in (
+            ("K1 verify R8 Q8 beam-tree bias", R, H, KH, D, S, bf, vstart),
+            ("K1 beam-tree bias fp32 GQA", 3, 8, 4, 64, 128, f32,
+             ivec([40, 7, 100]))):
+        b_bias, b_depth = beam_tree_bias(torch, st, S_, seed=R_)
+        k1_case(name, R_, 8, H_, KH_, D_, S_, dt, st + 7,
+                st[:, None] + b_depth[None], 23 + R_, bias=b_bias,
+                causal=False)
     # --- the rest of the contract, small shapes ---
     k1_case("K1 GQA G=4 S=200 (ragged tile)", 3, 5, 16, 4, 128, 200, bf,
             ivec([200, 77, 1]), ivec([[195 + i for i in range(5)],
@@ -511,12 +570,13 @@ def kernel_phase(torch, timer):
 def e2e_parity_phase(torch):
     import numpy as np
 
-    from flexflow_tpu_torch import FFConfig, FFModel, GenerationConfig
+    from flexflow_tpu_torch import LLM, FFConfig, FFModel, GenerationConfig
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.convert import load_params, params_from_jax
     from flexflow_tpu_torch.ffconst import InferenceMode
     from flexflow_tpu_torch.models.llama import (LLAMAConfig,
-                                                 create_llama_model)
+                                                 create_llama_model,
+                                                 hf_weight_map)
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
     log("phase 4: end-to-end parity, 2-layer LLaMA at 7B width, fp32, "
@@ -531,11 +591,13 @@ def e2e_parity_phase(torch):
     pnp = None
     outs = {}
 
-    def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2):
+    def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2,
+              width=1):
         cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
                        max_sequence_length=MAX_SEQ,
                        max_tokens_per_batch=REQUESTS * PROMPT_LEN,
-                       kv_cache_dtype="float32", compute_dtype="float32")
+                       kv_cache_dtype="float32", compute_dtype="float32",
+                       max_beam_width=width)
         m = FFModel(cfg)
         create_llama_model(m, dataclasses.replace(
             lc, num_hidden_layers=layers), mode=mode)
@@ -607,6 +669,84 @@ def e2e_parity_phase(torch):
             or not rm.spec_stats["rounds"]):
         raise AssertionError("card speculative inference vs CPU incremental "
                              "decoding parity failed")
+
+    # beam drafting on the card (width 2, depth 3): the beam engine with a
+    # 1-layer beam draft, then the host tree path merging two beam drafts
+    # (1 and 2 layers, all on the verifier's tensors)
+    beams = []
+    for layers in (1, 2):
+        beams.append(model("cuda", InferenceMode.BEAM_SEARCH_MODE,
+                           layers=layers, width=2))
+        share_params(beams[-1], llm)
+    for what, ssms in (("beam engine, W=2 depth 3, 1-layer draft",
+                        beams[:1]),
+                       ("host tree path, two beam drafts", beams)):
+        rm = RequestManager()
+        guids = [rm.register_new_request(p, max_new_tokens=16)
+                 for p in prompts]
+        levels0 = getattr(getattr(llm, "_beam_engine", None), "levels_run",
+                          0)
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rm.generate_spec_infer(llm, ssms, spec_depth=3,
+                               generation_config=GenerationConfig(
+                                   adaptive_spec=False))
+        spec = [rm.results[g].output_tokens for g in guids]
+        counts = dict(kernels.counts)
+        same_tok = sum(x == y for a, b in zip(outs["cpu"], spec)
+                       for x, y in zip(a, b))
+        rounds = rm.spec_stats["rounds"]
+        log(f"  spec ({what}) on the card: "
+            f"{time.perf_counter() - t0:.2f} s, {rounds} rounds; tokens "
+            f"equal to CPU incremental decoding {same_tok}/{tot}; launches "
+            f"{counts}")
+        want_bias = None
+        if len(ssms) == 1:
+            # 2 verifier layers a round, 1 draft layer a staged level
+            want_bias = 2 * rounds + (llm._beam_engine.levels_run - levels0)
+        if (spec != outs["cpu"] or counts["plain_attend_cuda"] or not rounds
+                or (want_bias is not None
+                    and counts["flash_attend_bias"] != want_bias)):
+            raise AssertionError(f"card beam speculation ({what}) vs CPU "
+                                 "incremental decoding parity failed")
+    del beams, llm, ssm
+    gc.collect()
+
+    # top-p sampling on the card through LLM.generate: one seed gives the
+    # same draws twice; top_p 1e-9 at temperature 1.0 is greedy
+    sd = {key: (pnp[layer][w].T if tr else pnp[layer][w])
+          for key, (layer, w, tr) in hf_weight_map(lc).items()}
+    hf = dict(model_type="llama", **dataclasses.asdict(lc))
+    serve = dict(max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
+                 max_tokens_per_batch=REQUESTS * PROMPT_LEN,
+                 kv_cache_dtype="float32", compute_dtype="float32",
+                 device="cuda", seed=3)
+    draws = []
+    sampler = LLM((hf, dict(sd))).compile(
+        generation_config=GenerationConfig(do_sample=True), **serve)
+    for _ in range(2):
+        res = sampler.generate(prompts, max_new_tokens=16)
+        draws.append([r.output_tokens for r in res])
+        sampler.ffmodel._inference_manager.generator.manual_seed(3)
+    del sampler
+    gc.collect()
+    sampler = LLM((hf, dict(sd))).compile(
+        generation_config=GenerationConfig(do_sample=True, topp=1e-9,
+                                           temperature=1.0), **serve)
+    tiny_p = [r.output_tokens
+              for r in sampler.generate(prompts, max_new_tokens=16)]
+    del sampler
+    n_greedy = sum(x == y for a, b in zip(draws[0], outs["cuda"])
+                   for x, y in zip(a, b))
+    log(f"  sampling (topp 0.6, temperature 0.8) through LLM.generate on "
+        f"the card: same draws under one seed {draws[0] == draws[1]}; "
+        f"tokens equal to greedy {n_greedy}/{tot}; top_p 1e-9 at "
+        f"temperature 1.0 equals the card's greedy tokens "
+        f"{tiny_p == outs['cuda']}")
+    if (draws[0] != draws[1] or tiny_p != outs["cuda"]
+            or any(len(a) != 16 for a in draws[0])):
+        raise AssertionError("card sampling: not reproducible, or top_p "
+                             "1e-9 is not greedy")
 
 
 # ----------------------------------------------------------------------
@@ -765,28 +905,19 @@ def full_size_phase(torch, card, profile=False):
 
 
 # ----------------------------------------------------------------------
-# phase 6: speculative inference at full size
+# phases 6 and 7: speculative inference at full size
 # ----------------------------------------------------------------------
-def spec_phase(torch, card, profile=False):
-    """SpecInfer as ``bench.py`` runs it (bench.py:103-130, 198-234), at
-    LLaMA-2-7B geometry in bf16: phase 5's weights with the deep layers'
-    residual writes damped, a 2-layer draft on the verifier's own tensors,
-    depth 7, the adaptive controller on. An incremental pass and a spec
-    pass on the same verifier; then the chain engine and a two-draft tree,
-    reported only."""
+def spec_models(torch):
+    """Phase 6's models, which phase 7 reuses: phase 5's weights with the
+    deep layers' residual writes damped (bench.py:103-130, 198-234), the
+    verifier compiled through ``LLM(...).compile(ssms=[SSM(...)])`` with
+    a 2-layer draft on the verifier's own tensors, and the prompts."""
+    import types
+
     import numpy as np
 
-    from flexflow_tpu_torch import (LLM, SSM, DataType, FFModel,
-                                    GenerationConfig, kernels)
-    from flexflow_tpu_torch.ffconst import InferenceMode
-    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
-                                                 create_llama_model)
-    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch import LLM, SSM, DataType, GenerationConfig
 
-    log(f"phase 6: SpecInfer, LLaMA-2-7B geometry, bf16, {DRAFT_LAYERS}-layer "
-        f"draft on the verifier's tensors, depth {SPEC_DEPTH}, {REQUESTS} "
-        f"requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  "
-        f"[{card}]")
     hf, sd = seven_b(torch)
     for i in range(DRAFT_LAYERS, LAYERS):
         sd[f"model.layers.{i}.self_attn.o_proj.weight"].mul_(EPS)
@@ -805,30 +936,55 @@ def spec_phase(torch, card, profile=False):
     share_params(ssm.ffmodel, llm.ffmodel)
     torch.cuda.synchronize()
     log(f"  build + load: {time.perf_counter() - t0:.2f} s")
-    verifier = llm.ffmodel
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
                for _ in range(REQUESTS)]
+    return types.SimpleNamespace(llm=llm, ssm=ssm, verifier=llm.ffmodel,
+                                 hf=hf, prompts=prompts)
+
+
+def timed_pass(torch, card, prompts, run, new_tokens, what):
+    """(results, tokens/s, launch counts, manager) of one pass over
+    ``prompts``: ``run(rm)`` on a fresh RequestManager, host clock around
+    work that ends in a synchronize."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    rm = RequestManager()
+    guids = [rm.register_new_request(p, max_new_tokens=new_tokens)
+             for p in prompts]
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    run(rm)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    res = [rm.results[g].output_tokens for g in guids]
+    n_tok = sum(len(r) for r in res)
+    log(f"  {what}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
+        f"tokens/s  [{card}]")
+    return res, n_tok / wall, dict(kernels.counts), rm
+
+
+def matches(res, incr, n):
+    """Requests whose first ``n`` tokens equal incremental decoding's."""
+    return sum(a[:n] == b[:n] for a, b in zip(res, incr))
+
+
+def spec_phase(torch, card, sm, profile=False):
+    """SpecInfer as ``bench.py`` runs it, at LLaMA-2-7B geometry in bf16
+    (``spec_models``): depth 7, the adaptive controller on. An
+    incremental pass and a spec pass on the same verifier; then the chain
+    engine and a two-draft tree, reported only."""
+    from flexflow_tpu_torch import DataType, FFModel, kernels
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+
+    llm, ssm, verifier, prompts = sm.llm, sm.ssm, sm.verifier, sm.prompts
 
     def timed(run, new_tokens, what):
-        """(results, tokens/s, launch counts) of one pass over ``prompts``."""
-        rm = RequestManager()
-        guids = [rm.register_new_request(p, max_new_tokens=new_tokens)
-                 for p in prompts]
-        kernels.reset_counts()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        run(rm)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        res = [rm.results[g].output_tokens for g in guids]
-        n_tok = sum(len(r) for r in res)
-        log(f"  {what}: {n_tok} tokens in {wall:.3f} s = {n_tok / wall:.1f} "
-            f"tokens/s  [{card}]")
-        return res, n_tok / wall, dict(kernels.counts), rm
-
-    def matches(res, incr, n):
-        return sum(a[:n] == b[:n] for a, b in zip(res, incr))
+        return timed_pass(torch, card, prompts, run, new_tokens, what)
 
     # warm-up (cuBLAS handles, allocator pools) on both paths
     timed(lambda rm: rm.generate_incr_decoding(verifier), 8, "warm-up incr")
@@ -887,7 +1043,7 @@ def spec_phase(torch, card, profile=False):
         f"first30 {matches(chain, incr, 30)}/{REQUESTS}")
     draft3 = FFModel(verifier.config)
     create_llama_model(draft3, LLAMAConfig.from_hf_config(
-        dict(hf, num_hidden_layers=DRAFT_LAYERS + 1)),
+        dict(sm.hf, num_hidden_layers=DRAFT_LAYERS + 1)),
         mode=InferenceMode.BEAM_SEARCH_MODE, data_type=DataType.DT_BFLOAT16)
     draft3.compile()
     share_params(draft3, verifier)
@@ -906,6 +1062,278 @@ def spec_phase(torch, card, profile=False):
                         matches_first30=m30, matches_full=m_full)
 
 
+def decode_timer(ifm):
+    """Wrap ``ifm.decode_block`` (an instance attribute over the class's
+    method; ``del ifm.decode_block`` unwraps) to add up its wall time and
+    steps (each block ends in a host readback); returns the stats dict."""
+    stats = {"s": 0.0, "steps": 0}
+    block = ifm.decode_block
+
+    def timed_block(tok, pos, act, n):
+        t = time.perf_counter()
+        out = block(tok, pos, act, n)
+        stats["s"] += time.perf_counter() - t
+        stats["steps"] += min(int(n), ifm.model.config.decode_block_steps)
+        return out
+
+    ifm.decode_block = timed_block
+    return stats
+
+
+def sampled_twin(model, gen):
+    """An FFModel running ``model``'s layers, weights and KV caches with a
+    top-p Sampling head (``gen.topp``, ``gen.temperature``) on its fp32
+    logits in place of its argmax: the sampled incremental graph of the
+    same model, without a second copy of the weights."""
+    from flexflow_tpu_torch import FFModel
+
+    twin = FFModel(model.config)
+    twin.input_tensors = model.input_tensors
+    twin.layers = list(model.layers[:-1])
+    assert twin.layers[-1].name == "lm_head", twin.layers[-1].name
+    twin._final_tensor = twin.sampling(twin.layers[-1].outputs[0],
+                                       top_p=gen.topp,
+                                       temperature=gen.temperature)
+    twin.params, twin.op_state = model.params, model.op_state
+    return twin
+
+
+def top2_gap(torch, model, seq):
+    """The verifier's two best next tokens after ``seq`` and their logit
+    gap: one causal forward of the whole sequence in slot 0 (overwrites
+    that slot's cache)."""
+    import numpy as np
+
+    from flexflow_tpu_torch.ops.base import OpContext
+    from flexflow_tpu_torch.serve.batch_config import make_batch_meta
+
+    R, Q = model.config.max_requests_per_batch, len(seq)
+    tokens = np.zeros((R, Q), np.int32)
+    tokens[0] = seq
+    num = np.zeros((R,), np.int32)
+    num[0] = Q
+    meta = make_batch_meta(
+        R, Q, tokens=tokens,
+        positions=np.tile(np.arange(Q, dtype=np.int32), (R, 1)),
+        num_tokens=num, active=num > 0, device=model.device)
+    lm_head = next(layer for layer in model.layers if layer.name == "lm_head")
+    values, model.op_state = model._run_graph(
+        model.params, {model.input_tensors[0].tensor_id: meta.tokens},
+        OpContext(compute_dtype=torch.bfloat16, batch_config=meta),
+        model.op_state)
+    top = values[lm_head.outputs[0].tensor_id][0, Q - 1].float().topk(2)
+    return top.indices.tolist(), float(top.values[0] - top.values[1])
+
+
+def head_times(torch, card):
+    """Device time of the three serving heads on one decode step's fp32
+    logits [R, 8, VOCAB] (CUDA events, median of 20 warm calls, no L2
+    flush: the logits were just written): argmax, top-p Sampling, and a
+    beam draft's ArgTopK + cast + concat."""
+    from flexflow_tpu_torch.ops.reduction_ops import ArgTopK
+    from flexflow_tpu_torch.ops.sampling_ops import top_p_sampling
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    logits = torch.randn((REQUESTS, 8, VOCAB), generator=g, device="cuda")
+
+    def packed():
+        p, i = ArgTopK.forward(dict(k=BEAM_WIDTH, speculative_decoding=True),
+                               {}, [logits], None)
+        return torch.cat([p, i.float()], dim=-1)
+
+    times = {}
+    for name, fn in (("argmax", lambda: logits.argmax(-1)),
+                     ("top-p sampling", lambda: top_p_sampling(
+                         logits, g, 0.6, 0.8)),
+                     ("beam ArgTopK head", packed)):
+        for _ in range(3):
+            fn()
+        ts = []
+        for _ in range(20):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b))
+        times[name] = statistics.median(ts)
+    log(f"  head device time on [{REQUESTS}, 8, {VOCAB}] fp32 logits: "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"  [{card}]")
+    return times
+
+
+def beam_phase(torch, card, sm):
+    """Beam drafting and sampling at LLaMA-2-7B geometry in bf16, on phase
+    6's verifier (``spec_models``): a greedy incremental pass (the
+    baseline), the beam engine (phase 6's 2-layer draft compiled as a
+    width-2 beam draft, depth 3, the adaptive controller on), the sampled
+    incremental graph (twice under one seed), and the host tree path with
+    two beam drafts (reported)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import DataType, FFModel, GenerationConfig
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    log(f"phase 7: beam drafting (W {BEAM_WIDTH}, depth {BEAM_DEPTH}) and "
+        f"top-p sampling, LLaMA-2-7B geometry, bf16, phase 6's verifier, "
+        f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new "
+        f"tokens  [{card}]")
+    verifier, prompts = sm.verifier, sm.prompts
+
+    def timed(run, new_tokens, what):
+        return timed_pass(torch, card, prompts, run, new_tokens, what)
+
+    def beam_draft(layers):
+        m = FFModel(dataclasses.replace(verifier.config,
+                                        max_beam_width=BEAM_WIDTH))
+        create_llama_model(m, LLAMAConfig.from_hf_config(
+            dict(sm.hf, num_hidden_layers=layers)),
+            mode=InferenceMode.BEAM_SEARCH_MODE,
+            data_type=DataType.DT_BFLOAT16)
+        m.compile()
+        share_params(m, verifier)
+        return m
+
+    greedy_ifm = RequestManager._ifm(verifier)
+    dec = decode_timer(greedy_ifm)
+    timed(lambda rm: rm.generate_incr_decoding(verifier), 8, "warm-up incr")
+    dec.update(s=0.0, steps=0)
+    incr, incr_tps, _, _ = timed(
+        lambda rm: rm.generate_incr_decoding(verifier), NEW_TOKENS,
+        "greedy incremental (baseline)")
+    greedy_ms = dec["s"] * 1e3 / max(1, dec["steps"])
+    del greedy_ifm.decode_block          # the class's own, unwrapped
+
+    # --- the beam engine ---
+    draft = beam_draft(DRAFT_LAYERS)
+
+    def beam_run(rm):
+        rm.generate_spec_infer(verifier, [draft], spec_depth=BEAM_DEPTH,
+                               beam_width=BEAM_WIDTH)
+
+    timed(beam_run, 8, "warm-up beam")
+    engine = verifier._beam_engine
+    levels0 = engine.levels_run
+    torch.cuda.reset_peak_memory_stats()
+    beam, beam_tps, counts, rm = timed(beam_run, NEW_TOKENS,
+                                       f"beam engine (tree width "
+                                       f"{engine.tree_width})")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    levels = engine.levels_run - levels0
+    st = rm.spec_stats
+    n_tok = sum(len(r) for r in beam)
+    m30, m_full = matches(beam, incr, 30), matches(beam, incr, NEW_TOKENS)
+    log(f"  beam/incr tokens/s: {beam_tps / incr_tps:.3f}; verify rounds "
+        f"{st['rounds']}; beam levels staged {levels}; committed tokens per "
+        f"request-round {st['committed'] / max(1, st['request_rounds']):.3f} "
+        f"({st['committed']} over {st['request_rounds']}); controller parks "
+        f"{st['parked']}")
+    log(f"  spec_matches_incr_first30 {m30}/{REQUESTS}; full length "
+        f"({NEW_TOKENS}) {m_full}/{REQUESTS}")
+    log(f"  launches {counts}; flash_attend_bias {counts['flash_attend_bias']}"
+        f" = {LAYERS} x {st['rounds']} rounds + {DRAFT_LAYERS} x {levels} "
+        f"levels: {counts['flash_attend_bias'] == LAYERS * st['rounds'] + DRAFT_LAYERS * levels}")
+    log(f"  peak device memory of the beam pass {peak:.2f} GiB  [{card}]")
+    for i, (a, b) in enumerate(zip(beam, incr)):
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is not None and j < 30:
+            ids, gap = top2_gap(torch, verifier, prompts[i] + b[:j])
+            log(f"  first difference: request {i} position {j}: beam {a[j]} "
+                f"vs incremental {b[j]}; the verifier's top-2 there {ids}, "
+                f"logit gap {gap:.4f}")
+            break
+    if counts["plain_attend_cuda"]:
+        raise AssertionError("plain attention ran on the card")
+    if (counts["flash_attend_bias"]
+            != LAYERS * st["rounds"] + DRAFT_LAYERS * levels
+            or not st["rounds"] or not levels):
+        raise AssertionError(f"beam launch counts {counts} for "
+                             f"{st['rounds']} rounds, {levels} levels")
+    if n_tok != REQUESTS * NEW_TOKENS or not all(
+            0 <= t < VOCAB for r in beam for t in r):
+        raise AssertionError("beam run produced wrong token counts/ids")
+
+    # --- sampled incremental decoding, twice under one seed ---
+    gen = GenerationConfig(do_sample=True)
+    twin = sampled_twin(verifier, gen)
+    ifm = RequestManager._ifm(twin)
+    dec = decode_timer(ifm)
+    draws = []
+    for k in range(2):
+        ifm.generator.manual_seed(verifier.config.seed)
+        dec.update(s=0.0, steps=0)
+        res, tps, s_counts, _ = timed(
+            lambda rm: rm.generate_incr_decoding(twin), NEW_TOKENS,
+            f"sampled incremental (topp {gen.topp}, temperature "
+            f"{gen.temperature}), pass {k + 1}")
+        draws.append(res)
+        if k == 0:
+            sample_counts, sample_tps = s_counts, tps
+            sample_ms = dec["s"] * 1e3 / max(1, dec["steps"])
+    same = draws[0] == draws[1]
+    n_greedy = sum(x == y for a, b in zip(draws[0], incr)
+                   for x, y in zip(a, b))
+    log(f"  decode ms/step: sampled {sample_ms:.3f}, greedy {greedy_ms:.3f}; "
+        f"tokens/s: sampled {sample_tps:.1f}, greedy {incr_tps:.1f}  [{card}]")
+    log(f"  sampled draws equal under one seed: {same}; tokens equal to "
+        f"greedy {n_greedy}/{REQUESTS * NEW_TOKENS}; launches "
+        f"{sample_counts}")
+    if (not same or sample_counts["plain_attend_cuda"]
+            or any(len(r) != NEW_TOKENS for r in draws[0])):
+        raise AssertionError("sampled decoding not reproducible under one "
+                             "seed, or wrong")
+    del twin, ifm
+
+    # --- reported: what a beam round costs and what the beam prunes ---
+    # the beam engine with the controller off (every round drafts, no
+    # fallback decode between them), and the chain engine at the same
+    # depth with the same draft weights (its graph ends in argmax)
+    static = GenerationConfig(adaptive_spec=False)
+    _, st_tps, _, srm = timed(
+        lambda rm: rm.generate_spec_infer(
+            verifier, [draft], spec_depth=BEAM_DEPTH, beam_width=BEAM_WIDTH,
+            generation_config=static), NEW_TOKENS,
+        "beam engine, controller off (reported)")
+    sst = srm.spec_stats
+    chain_draft = sm.ssm.ffmodel
+    _, ch_tps, _, crm = timed(
+        lambda rm: rm._generate_spec_chain(verifier, chain_draft,
+                                           spec_depth=BEAM_DEPTH,
+                                           generation_config=static),
+        NEW_TOKENS, f"chain engine, depth {BEAM_DEPTH}, controller off "
+        f"(reported)")
+    cst = crm.spec_stats
+    st_wall = REQUESTS * NEW_TOKENS / st_tps
+    log(f"  controller off: beam {sst['rounds']} rounds, "
+        f"{1e3 * st_wall / max(1, sst['rounds']):.1f} ms a round (wall, "
+        f"prefill included), committed tokens per request-round "
+        f"{sst['committed'] / max(1, sst['request_rounds']):.3f}; chain "
+        f"{cst['rounds']} rounds, committed tokens per request-round "
+        f"{cst['committed'] / max(1, cst['request_rounds']):.3f}; "
+        f"beam/incr {st_tps / incr_tps:.3f}, chain/incr "
+        f"{ch_tps / incr_tps:.3f}")
+    head_times(torch, card)
+
+    # --- reported: the host tree path with two beam drafts ---
+    draft2 = beam_draft(DRAFT_LAYERS + 1)
+    host, host_tps, host_counts, hrm = timed(
+        lambda rm: rm.generate_spec_infer(verifier, [draft, draft2],
+                                          spec_depth=BEAM_DEPTH), 16,
+        f"host tree path, two beam drafts ({DRAFT_LAYERS} and "
+        f"{DRAFT_LAYERS + 1} layers), 16 new tokens (reported)")
+    log(f"  host path: {hrm.spec_stats['rounds']} rounds, committed "
+        f"{hrm.spec_stats['committed']}, matches incremental (first 16) "
+        f"{matches(host, incr, 16)}/{REQUESTS}; launches {host_counts}")
+    if host_counts["plain_attend_cuda"]:
+        raise AssertionError("plain attention ran on the card")
+    return counts, sample_counts
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -914,7 +1342,7 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5 and 6 also trace one short generate call "
@@ -973,8 +1401,20 @@ def main(argv=None) -> int:
         by_path["incr"], _ = full_size_phase(torch, card,
                                              profile=args.profile)
         gc.collect()
-    if 6 in phases:
-        by_path["spec"], _ = spec_phase(torch, card, profile=args.profile)
+    if phases & {6, 7}:
+        log(f"phases 6-7: SpecInfer models, LLaMA-2-7B geometry, bf16, "
+            f"{DRAFT_LAYERS}-layer draft on the verifier's tensors  [{card}]")
+        sm = spec_models(torch)
+        if 6 in phases:
+            log(f"phase 6: SpecInfer, depth {SPEC_DEPTH}, {REQUESTS} "
+                f"requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new "
+                f"tokens  [{card}]")
+            by_path["spec"], _ = spec_phase(torch, card, sm,
+                                            profile=args.profile)
+            gc.collect()
+        if 7 in phases:
+            by_path["beam"], by_path["sample"] = beam_phase(torch, card, sm)
+        del sm
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

@@ -8,8 +8,10 @@ a ported path has a hand-written CUDA kernel under ``kernels/csrc`` with a
 plain PyTorch version beside it: CUDA tensors launch the kernel, CPU
 tensors take the plain version.
 
-It serves LLaMA-family models by incremental decoding or, with draft
-models attached, by speculative inference::
+It serves LLaMA-family models by incremental decoding (greedy, or top-p
+sampling with ``GenerationConfig(do_sample=True)``) or, with draft models
+attached, by speculative inference (greedy chains, or beams with
+``compile(..., max_beam_width=2)``)::
 
     from flexflow_tpu_torch import LLM, SSM
     llm = LLM((hf_config_dict, state_dict)).compile(

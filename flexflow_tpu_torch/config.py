@@ -33,8 +33,9 @@ class FFConfig:
     # decode block and speculative engines)
     decode_block_steps: int = 8
     spec_rounds_per_call: int = 4
-    # draft beam width (reference BeamSearchBatchConfig::MAX_BEAM_WIDTH);
-    # the port drafts greedy chains only, so widths above 1 raise
+    # draft beam width (reference BeamSearchBatchConfig::MAX_BEAM_WIDTH):
+    # a BEAM_SEARCH_MODE graph built at a width above 1 ends in the packed
+    # [top-W probs, top-W ids] head that beam drafting reads
     max_beam_width: int = 1
     # incremental-decode step width; 0 = auto: the padded verify width (8)
     # where the CUDA kernel serves the config, 1 elsewhere

@@ -185,8 +185,60 @@ class FFModel:
     def add(self, x: Tensor, y: Tensor, name=None) -> Tensor:
         return self._add_layer(OpType.EW_ADD, [x, y], {}, name)
 
-    def argmax(self, input: Tensor, name=None) -> Tensor:
-        return self._add_layer(OpType.ARGMAX, [input], {}, name)
+    # --- shape ---
+    def concat(self, tensors: List[Tensor], axis: int, name=None) -> Tensor:
+        return self._add_layer(OpType.CONCAT, list(tensors), dict(axis=axis),
+                               name)
+
+    def split(self, input: Tensor, sizes, axis: int,
+              name=None) -> List[Tensor]:
+        if isinstance(sizes, int):
+            sizes = [input.dims[axis] // sizes] * sizes
+        return self._add_layer(OpType.SPLIT, [input],
+                               dict(sizes=list(sizes), axis=axis), name)
+
+    def reshape(self, input: Tensor, shape: Sequence[int],
+                name=None) -> Tensor:
+        return self._add_layer(OpType.RESHAPE, [input],
+                               dict(shape=tuple(shape)), name)
+
+    def transpose(self, input: Tensor, perm: Sequence[int],
+                  name=None) -> Tensor:
+        return self._add_layer(OpType.TRANSPOSE, [input],
+                               dict(perm=tuple(perm)), name)
+
+    def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
+        return self._add_layer(OpType.CAST, [input], dict(dtype=dtype), name)
+
+    # --- selection and the serving heads ---
+    def top_k(self, input: Tensor, k: int, sorted: bool = True,
+              name=None) -> List[Tensor]:
+        return self._add_layer(OpType.TOPK, [input],
+                               dict(k=k, sorted=sorted), name)
+
+    def arg_top_k(self, input: Tensor, k: int, sorted: bool = True,
+                  speculative_decoding: bool = False,
+                  name=None) -> Union[Tensor, List[Tensor]]:
+        return self._add_layer(OpType.ARG_TOPK, [input], dict(
+            k=k, sorted=sorted, speculative_decoding=speculative_decoding),
+            name)
+
+    def argmax(self, input: Tensor, beam_search: bool = False,
+               name=None) -> Union[Tensor, List[Tensor]]:
+        return self._add_layer(OpType.ARGMAX, [input],
+                               dict(beam_search=beam_search), name)
+
+    def sampling(self, input: Tensor, top_p: float = 1.0,
+                 temperature: float = 1.0, name=None) -> Tensor:
+        return self._add_layer(OpType.SAMPLING, [input],
+                               dict(top_p=top_p, temperature=temperature),
+                               name)
+
+    def beam_top_k(self, input: Tensor, max_beam_width: int,
+                   sorted: bool = True, name=None) -> List[Tensor]:
+        return self._add_layer(OpType.BEAM_TOPK, [input],
+                               dict(max_beam_width=max_beam_width,
+                                    sorted=sorted), name)
 
     # ==================================================================
     # Graph execution

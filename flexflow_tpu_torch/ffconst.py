@@ -94,4 +94,20 @@ class OpType(enum.Enum):
     INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     SPEC_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     TREE_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
+    CONCAT = enum.auto()
+    SPLIT = enum.auto()
+    RESHAPE = enum.auto()
+    SLICE = enum.auto()
+    TRANSPOSE = enum.auto()
+    REVERSE = enum.auto()
+    FLAT = enum.auto()
+    CAST = enum.auto()
+    REDUCE_SUM = enum.auto()
+    REDUCE_MEAN = enum.auto()
+    MEAN = enum.auto()
+    GATHER = enum.auto()
+    TOPK = enum.auto()
+    ARG_TOPK = enum.auto()
     ARGMAX = enum.auto()
+    SAMPLING = enum.auto()
+    BEAM_TOPK = enum.auto()

@@ -1,7 +1,8 @@
 """LLaMA-family decoder for serving (counterpart of
 ``flexflow_tpu/models/llama.py``): embedding -> N x (RMSNorm -> rotary
 GQA attention -> residual -> RMSNorm -> SwiGLU MLP -> residual) -> final
-RMSNorm -> lm_head (fp32 logits) -> argmax.
+RMSNorm -> lm_head (fp32 logits) -> a head by mode: top-p Sampling,
+a beam draft's packed top-W, or argmax.
 
 Layer names follow the HF checkpoint layout (``layers.{i}.self_attn``
 etc.), so ``hf_weight_map`` is a mechanical rename and both packages name
@@ -57,17 +58,12 @@ def create_llama_model(model, config: LLAMAConfig,
                        data_type: DataType = DataType.DT_FLOAT):
     """Record the LLaMA decoder graph into ``model`` (an FFModel): tree
     attention in TREE_VERIFY_MODE (the speculative verifier), draft
-    attention in BEAM_SEARCH_MODE, incremental attention otherwise."""
-    if (mode == InferenceMode.BEAM_SEARCH_MODE
-            and model.config.max_beam_width > 1):
-        raise NotImplementedError(
-            "beam drafting (max_beam_width > 1) arrives with the next slice "
-            "of the port (ArgTopK output, BeamSpecEngine); the port drafts "
-            "greedy chains")
-    gen = generation_config or GenerationConfig()
-    if gen.do_sample:
-        raise NotImplementedError(
-            "sampling is not ported yet; the slice decodes greedily")
+    attention in BEAM_SEARCH_MODE, incremental attention otherwise.
+
+    The head: top-p Sampling in INC_DECODING_MODE with ``do_sample``; in
+    BEAM_SEARCH_MODE at ``max_beam_width`` W > 1 one fp32 tensor
+    ``[..., 2W]`` = [top-W probabilities, top-W ids as floats] (ids are
+    exact in fp32 below 2^24); argmax otherwise."""
     c = config
     R = model.config.max_requests_per_batch
     tokens = model.create_tensor([R, 1], DataType.DT_INT32)  # Q is dynamic
@@ -103,6 +99,16 @@ def create_llama_model(model, config: LLAMAConfig,
     logits = model.dense(x, c.vocab_size, use_bias=False,
                          datatype=data_type, keep_f32_logits=True,
                          name="lm_head")
+    gen = generation_config or GenerationConfig()
+    width = model.config.max_beam_width
+    if gen.do_sample and mode == InferenceMode.INC_DECODING_MODE:
+        return model.sampling(logits, top_p=gen.topp,
+                              temperature=gen.temperature)
+    if mode == InferenceMode.BEAM_SEARCH_MODE and width > 1:
+        probs, ids = model.arg_top_k(logits, k=width,
+                                     speculative_decoding=True)
+        return model.concat([probs, model.cast(ids, DataType.DT_FLOAT)],
+                            axis=-1)
     return model.argmax(logits)
 
 

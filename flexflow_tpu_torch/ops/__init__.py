@@ -3,7 +3,7 @@ registers every ported op with ``ops.base``'s registry."""
 
 from flexflow_tpu_torch.ops import (elementwise, embedding,  # noqa: F401
                                     inc_attention, linear, norm,
-                                    sampling_ops)
+                                    reduction_ops, sampling_ops, shape_ops)
 from flexflow_tpu_torch.ops.base import (OpContext, OpImpl, get_op_impl,
                                          register_op, register_op_as)
 

@@ -39,6 +39,9 @@ class OpContext:
     # the tree-verify pass's [R, T, S] additive mask: built by the first
     # tree-attention layer of a forward, reused by the others
     tree_bias: Any = None
+    # torch.Generator on the model's device for the forward's random draws
+    # (the JAX package's rng key); the InferenceManager owns and seeds it
+    generator: Any = None
 
 
 class OpImpl:

@@ -18,9 +18,9 @@ Differences from the JAX package, by design:
   CUDA tensors and runs the plain version for CPU tensors.
 * Tree verification builds its additive ``[R, T, S]`` mask once per
   forward (``OpContext.tree_bias``) rather than once per layer.
-
-``commit_tree_kv`` (the host tree path's KV compaction) is not ported
-yet; the fused engines of ``serve/engine.py`` compact in place.
+* ``commit_tree_kv`` compacts in place; invalid (row, node) pairs are
+  selected away before the move, where the JAX scatter drops them at a
+  sentinel index that torch would reject.
 """
 
 from __future__ import annotations
@@ -294,6 +294,12 @@ class IncMultiHeadSelfAttention(OpImpl):
         x = inputs[0]
         meta = ctx.batch_config
         assert meta is not None, "serving ops need ctx.batch_config"
+        if hasattr(meta, "ancestor"):
+            # beam drafting stages its frontier as tree nodes on the draft
+            # model: tree attention over the staged region gives each node
+            # its ancestor path, with no per-beam cache
+            return TreeIncMultiHeadSelfAttention.forward(attrs, params,
+                                                         inputs, ctx)
         q, k, v = _qkv(attrs, params, x, ctx.compute_dtype)
         if attrs.get("apply_rotary_embedding", False):
             cos, sin = rotary_cos_sin(meta.positions, attrs["head_dim"],
@@ -376,3 +382,41 @@ class TreeIncMultiHeadSelfAttention(OpImpl):
                       x.dtype, ctx, bias=ctx.tree_bias, causal=False,
                       layer_idx=layer_idx)
         return [_project_out(attrs, params, ctx, out)]
+
+
+def commit_tree_kv(op_state, src_node: torch.Tensor,
+                   num_commit: torch.Tensor, start_pos: torch.Tensor,
+                   active: torch.Tensor):
+    """Compact accepted tree nodes into the committed cache region, in
+    place, for every KV-cache layer: cache[r, start + i] <-
+    cache[r, start + src_node[r, i]] for i < num_commit[r] on active rows
+    (sources clipped to the cache, destinations past its end dropped, as
+    the JAX scatter does). Returns ``op_state``.
+
+    The valid (row, i) pairs are selected first with ``nonzero``, which
+    waits for the device (once per verify round of the host tree path
+    and of the fused engines that commit), and every source is gathered
+    before the first write, so no move reads a slot another overwrote.
+    Reference: commit_tokens_kernel (tree_inc_multihead_self_attention.cu).
+    """
+    S = next(st[n] for st in op_state.values() if isinstance(st, dict)
+             for n in ("k", "k_cache") if n in st).shape[-2]
+    C = src_node.shape[1]
+    i = torch.arange(C, device=src_node.device)
+    dst = start_pos.long()[:, None] + i[None, :]
+    valid = ((i[None, :] < num_commit[:, None]) & active.bool()[:, None]
+             & (dst < S))
+    rows, cols = valid.nonzero(as_tuple=True)
+    src = (start_pos.long()[rows] + src_node.long()[rows, cols]).clamp(
+        0, S - 1)
+    dst = dst[rows, cols]
+    for st in op_state.values():
+        if not isinstance(st, dict):
+            continue
+        for name in ("k", "v", "k_cache", "v_cache"):
+            if name in st:
+                # the stacked [L, R, KH, S, D] pair or one layer's
+                # [R, KH, S, D]
+                c = st[name] if st[name].dim() == 5 else st[name][None]
+                c[:, rows, :, dst] = c[:, rows, :, src]
+    return op_state

@@ -12,6 +12,14 @@ inference::
     llm = LLM((hf_config, state_dict)).compile(ssms=[ssm])
     results = llm.generate(prompts, max_new_tokens=64)
 
+``compile(..., max_beam_width=2)`` builds the drafts as beam drafts of
+width 2 (the FFConfig field reaches every model; the verifier ignores
+it), and ``generate`` then drafts beams through the fused beam engine
+(one draft) or the host tree path (several). ``compile(generation_config=
+GenerationConfig(do_sample=True))`` without SSMs makes incremental
+decoding sample (top-p at ``topp``, ``temperature``); speculation stays
+greedy.
+
 No server, checkpoint loading or transformers import in this slice.
 """
 

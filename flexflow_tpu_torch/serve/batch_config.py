@@ -19,15 +19,19 @@ import torch
 
 @dataclasses.dataclass
 class GenerationConfig:
-    """Sampling and speculation policy. The port decodes greedily (the
-    default); ``do_sample`` and its temperature/top-p arrive with the
-    Sampling op. The ``spec_*`` knobs drive the adaptive speculation
-    controller (serve/spec_controller.py), on by default: it tunes each
-    request's draft depth from its observed acceptance and parks requests
-    whose estimated speedup falls below incremental decoding. Tokens are
-    the same either way; only the wall clock changes."""
+    """Sampling and speculation policy. Greedy by default; ``do_sample``
+    makes an incremental-decoding graph end in top-p Sampling at
+    ``temperature`` and ``topp`` (speculation stays greedy: its verifier
+    graph always ends in argmax). The ``spec_*`` knobs drive the adaptive
+    speculation controller (serve/spec_controller.py), on by default: it
+    tunes each request's draft depth from its observed acceptance and
+    parks requests whose estimated speedup falls below incremental
+    decoding. Tokens are the same either way; only the wall clock
+    changes."""
 
     do_sample: bool = False
+    temperature: float = 0.8
+    topp: float = 0.6
     adaptive_spec: bool = True
     spec_depth: int = 0             # 0 = caller's depth / engine max
     min_spec_depth: int = 1

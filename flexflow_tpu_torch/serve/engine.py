@@ -9,13 +9,16 @@ input tensor directly. A decode block reads back once, at its end. A
 speculation round reads one small tensor first: the round's draft depth,
 which is 0 when no row is live (the loop's exit test). Each block's
 packed ``[R, max_rounds, depth+3]`` result is read once, at its end.
-Greedy decoding uses no random numbers, so the JAX engines' RNG keys have
-no counterpart. CUDA graphs for these loops are later work.
+A sampled graph draws from the ``torch.Generator`` passed in (the JAX
+engines' RNG key); speculation is greedy and draws nothing. CUDA graphs
+for these loops are later work.
 
 Engines:
 
-* ``make_decode_block``: n greedy decode steps per call (incremental
-  decoding, and the controller's fallback for parked requests);
+* ``make_decode_block``: n decode steps per call (incremental decoding,
+  and the controller's fallback for parked requests);
+* ``make_draft_chain``: a greedy draft chain of fixed depth (the host
+  tree path's draft step);
 * ``SpecChainEngine``: one draft model, a greedy chain verified by a
   causal width-(depth+1) pass (K1 causal); accepted tokens are already
   contiguous in both caches;
@@ -23,7 +26,11 @@ Engines:
   tree padded to a multiple of ``VERIFY_WIDTH`` (K1 with the tree bias);
   the best branch's KV is compacted into the committed region when
   B > 1. At B = 1 its verify pass has the incremental decode's width, so
-  both run the same GEMM shapes and near-tie argmaxes resolve alike.
+  both run the same GEMM shapes and near-tie argmaxes resolve alike;
+* ``BeamSpecEngine``: one draft model drafting a beam of width W; the
+  beam tree's node layout is fixed, its parents and ancestor mask are
+  data; the verifier checks the whole tree in one K1-bias pass and the
+  accepted path's KV is compacted into the committed region.
 """
 
 from __future__ import annotations
@@ -35,12 +42,14 @@ import torch
 
 from flexflow_tpu_torch.ffconst import torch_dtype
 from flexflow_tpu_torch.ops.base import OpContext
+from flexflow_tpu_torch.ops.inc_attention import commit_tree_kv
+from flexflow_tpu_torch.ops.reduction_ops import stable_top_k
 from flexflow_tpu_torch.serve.batch_config import BatchMeta, TreeBatchMeta
 from flexflow_tpu_torch.serve.inference_manager import VERIFY_WIDTH
 
 
 def forward_with_meta(model, params, state, meta, compute_dtype,
-                      kv_contiguous=False, kv_append_q=None):
+                      kv_contiguous=False, kv_append_q=None, generator=None):
     """One serving forward over a BatchMeta (or TreeBatchMeta) of device
     tensors.
 
@@ -48,39 +57,42 @@ def forward_with_meta(model, params, state, meta, compute_dtype,
     [start, start+Q) is in bounds (the contiguous KV append applies).
     ``kv_append_q`` declares that only the first kv_append_q tokens per
     row are real: with 1, the KV append fuses into the attention kernel.
-    Returns (final output, new_state)."""
+    ``generator`` feeds a sampled graph's draws. Returns (final output,
+    new_state)."""
     ctx = OpContext(compute_dtype=compute_dtype, batch_config=meta,
-                    kv_contiguous=kv_contiguous, kv_append_q=kv_append_q)
+                    kv_contiguous=kv_contiguous, kv_append_q=kv_append_q,
+                    generator=generator)
     feeds = {model.input_tensors[0].tensor_id: meta.tokens}
     values, new_state = model._run_graph(params, feeds, ctx, state)
     return values[model._final_tensor.tensor_id], new_state
 
 
 def _forward_tokens(model, params, state, tokens, positions, start_pos,
-                    num_tokens, active, compute_dtype):
+                    num_tokens, active, compute_dtype, generator=None):
     """One engine-issued forward over [R, Q] tokens; returns (out,
     new_state). Engine forwards stage contiguous, in-bounds KV runs (each
     engine's live mask reserves the whole staging window)."""
     meta = BatchMeta(tokens=tokens, positions=positions, start_pos=start_pos,
                      num_tokens=num_tokens, active=active)
     return forward_with_meta(model, params, state, meta, compute_dtype,
-                             kv_contiguous=True)
+                             kv_contiguous=True, generator=generator)
 
 
 def make_decode_block(model, compute_dtype, max_steps: int, width: int = 1):
     """The multi-step decode program for ``model``.
 
-    Signature: (params, op_state, tok [R], pos [R], active [R], n) ->
-    (tokens [R, max_steps], new_op_state, last_tok [R]), all device
-    tensors; only the first ``n <= max_steps`` columns are meaningful.
-    ``pos[r]`` is the sequence index of the pending token ``tok[r]``.
+    Signature: (params, op_state, tok [R], pos [R], active [R], n,
+    generator=None) -> (tokens [R, max_steps], new_op_state, last_tok
+    [R]), all device tensors; only the first ``n <= max_steps`` columns
+    are meaningful. ``pos[r]`` is the sequence index of the pending token
+    ``tok[r]``; ``generator`` feeds a sampled graph's draws.
 
     ``width > 1`` runs each step at the speculative verify pass's token
     width with one real token per row (verify-consistent decode); only
     the real token's KV is appended (kv_append_q=1), fused into the
     attention kernel."""
 
-    def block(params, op_state, tok, pos, active, n):
+    def block(params, op_state, tok, pos, active, n, generator=None):
         R = tok.shape[0]
         num = active.to(torch.int32)
         out = torch.zeros((R, max_steps), dtype=torch.int32,
@@ -89,7 +101,7 @@ def make_decode_block(model, compute_dtype, max_steps: int, width: int = 1):
             if width == 1:
                 o, op_state = _forward_tokens(
                     model, params, op_state, tok[:, None], pos[:, None], pos,
-                    num, active, compute_dtype)
+                    num, active, compute_dtype, generator)
             else:
                 toks = torch.zeros((R, width), dtype=torch.int32,
                                    device=tok.device)
@@ -100,13 +112,39 @@ def make_decode_block(model, compute_dtype, max_steps: int, width: int = 1):
                                  num_tokens=num, active=active)
                 o, op_state = forward_with_meta(
                     model, params, op_state, meta, compute_dtype,
-                    kv_append_q=1)
+                    kv_append_q=1, generator=generator)
             tok = o[:, 0].to(torch.int32)
             out[:, i] = tok
             pos = pos + 1
         return out, op_state, tok
 
     return block
+
+
+def make_draft_chain(model, compute_dtype, depth: int):
+    """The greedy draft-chain program of one draft model, for the host
+    tree path.
+
+    Signature: (params, op_state, tok [R], pos [R], active [R]) ->
+    (chain [R, depth], new_op_state): ``depth`` width-1 steps from the
+    pending token ``tok`` at ``pos``, each feeding its argmax to the
+    next, with one readback (by the caller). The drafted tokens' KV is
+    tentative: later rounds overwrite it past the accepted point."""
+
+    def chain(params, op_state, tok, pos, active):
+        num = active.to(torch.int32)
+        toks = torch.zeros((tok.shape[0], depth), dtype=torch.int32,
+                           device=tok.device)
+        for i in range(depth):
+            out, op_state = _forward_tokens(
+                model, params, op_state, tok[:, None], pos[:, None], pos,
+                num, active, compute_dtype)
+            tok = out[:, 0].to(torch.int32)
+            toks[:, i] = tok
+            pos = pos + 1
+        return toks, op_state
+
+    return chain
 
 
 # ----------------------------------------------------------------------
@@ -302,8 +340,10 @@ class MultiSpecEngine(_SpecEngineBase):
       for the engine, so they are built once;
     * greedy acceptance picks the branch with the longest matching prefix;
     * with B > 1 the accepted nodes' KV moves from branch j's slots to the
-      committed region (the reference's commit_tokens_kernel), every
-      layer at once. Branch 0's slots already are that region.
+      committed region (``commit_tree_kv``, the reference's
+      commit_tokens_kernel), every layer at once; its ``nonzero`` waits
+      for the device, once a round. Branch 0's slots already are that
+      region.
 
     The committed tokens of slot r in round k are ``toks[r, k, :n_acc]``
     plus the bonus token at the fixed index ``toks[r, k, depth]``.
@@ -375,26 +415,6 @@ class MultiSpecEngine(_SpecEngineBase):
             p = p + 1
         return chain
 
-    def _commit(self, best_j, n_acc, r_pos, active):
-        """cache[r, :, r_pos+1+i] <- cache[r, :, r_pos+1+best_j*d+i] for
-        i < n_acc, every layer. The valid (row, i) pairs are selected
-        first and their sources gathered before the scatter, so no index
-        points past the cache and no write lands on an unread source."""
-        d = self.depth
-        i = torch.arange(d, device=n_acc.device)[None, :]
-        rows, cols = ((i < n_acc[:, None]) & active[:, None]).nonzero(
-            as_tuple=True)
-        r0 = r_pos.long()[rows] + 1 + cols
-        src = r0 + best_j.long()[rows] * d
-        for st in self.llm.op_state.values():
-            if not isinstance(st, dict):
-                continue
-            for name in ("k", "v", "k_cache", "v_cache"):
-                if name in st:
-                    # [L, R, KH, S, D], or one layer's [R, KH, S, D]
-                    c = st[name] if st[name].dim() == 5 else st[name][None]
-                    c[:, rows, :, r0] = c[:, rows, :, src]
-
     def _round(self, tks, nblk, base, active, depth_r, d_run):
         d, B, llm = self.depth, len(self.ssms), self.llm
         R = tks.shape[0]
@@ -429,7 +449,11 @@ class MultiSpecEngine(_SpecEngineBase):
         best_chain = torch.stack(chains, dim=1)[torch.arange(R, device=dev),
                                                 best_j.long()]
         if B > 1:
-            self._commit(best_j, n_acc, r_pos, active)
+            # cache[r, r_pos+1+i] <- cache[r, r_pos+1+best_j*d+i], i < n_acc
+            commit_tree_kv(
+                llm.op_state,
+                best_j[:, None] * d + torch.arange(d, device=dev)[None, :],
+                n_acc, r_pos + 1, active)
         # next round's accepted block: [accepted chain prefix, bonus]
         idx = torch.arange(d + 1, device=dev)[None, :]
         blk = torch.where(
@@ -467,6 +491,195 @@ class MultiSpecEngine(_SpecEngineBase):
             remaining = remaining - torch.where(act_i, n_acc + 1, 0)
             packed[:, i, :d] = chain
             packed[:, i, d] = bonus
+            packed[:, i, d + 1] = torch.where(act_i, n_acc, -1)
+            packed[:, i, d + 2] = torch.where(act_i, depth_v, -1)
+            depth_v, alive = _adapt_depth_rule(adapt, act_i, n_acc, depth_v,
+                                               alive, min_depth, d)
+        return packed
+
+
+class BeamSpecEngine(_SpecEngineBase):
+    """Beam speculation with one draft model of beam width W, fused per
+    block (the host-stepped twin is ``RequestManager._draft_beams`` on
+    the host tree path).
+
+    The node layout is fixed: node 0 is the root, beam level t's W
+    selected children are nodes [1 + t*W, 1 + (t+1)*W). Parent pointers,
+    the ancestor mask and the cumulative log-probabilities are data on
+    that layout, so the frontier is always the newest W nodes. Per round:
+
+    * the draft's catch-up over last round's accepted block (one causal
+      width depth+1 pass) doubles as the root's expansion: the draft's
+      packed [top-W probs, top-W ids] at the block's last real token;
+    * each further beam level stages the tree grown so far on the draft
+      (tree attention gives every frontier node its ancestor path; no
+      per-beam KV) and keeps the W best of W x W candidates by
+      cumulative log-probability, ties to the lower (frontier, child)
+      index, as the host path's stable sort orders them. Levels past the
+      round's deepest depth bound are skipped (the one host read of the
+      round decides how many run);
+    * the verifier checks the whole tree in one K1-bias pass; greedy
+      acceptance walks the levels (a child survives if its parent is on
+      the accepted path and its token is the verifier's argmax there);
+    * the accepted nodes' KV moves from their staged slots into the
+      committed region (the reference's commit_tokens_kernel).
+
+    Same packed contract as ``SpecChainEngine``: the committed tokens of
+    slot r in round k are ``toks[r, k, :n_acc + 1]``.
+    """
+
+    def __init__(self, llm, ssm, depth: int = 4, width: int = 2,
+                 max_rounds: int = 16):
+        super().__init__(llm, depth, max_rounds)
+        self.ssm = ssm
+        self.width = width
+        self.T = 1 + depth * width                  # real tree nodes
+        self.tree_width = round_up(max(self.T, depth + 1), VERIFY_WIDTH)
+        nd = np.zeros((self.tree_width,), np.int32)
+        for t in range(depth):
+            nd[1 + t * width: 1 + (t + 1) * width] = t + 1
+        self._depth_of = torch.as_tensor(nd, device=llm.device)
+        # beam levels staged on the draft so far (levels past the first;
+        # each is one tree forward of the draft)
+        self.levels_run = 0
+
+    def _select(self, cand, ids_flat, par_flat):
+        """The W best candidates: (cum [R, W], tokens [R, W], parents
+        [R, W]); equal scores keep their flat index order."""
+        cum, idx = stable_top_k(cand, self.width)
+        tok = ids_flat.gather(1, idx).to(torch.int32)
+        par = par_flat.gather(1, idx).to(torch.int32)
+        return cum, tok, par
+
+    def _place_level(self, t, tree, cand, ids_flat, par_flat):
+        """Select level t's W nodes and write them into their fixed slots
+        of ``tree`` = (tokens, parent, anc) in place; returns the new
+        cumulative scores."""
+        tokens, parent, anc = tree
+        W, Tp = self.width, self.tree_width
+        R = tokens.shape[0]
+        cum, tok, par = self._select(cand, ids_flat, par_flat)
+        lvl0 = 1 + t * W
+        tokens[:, lvl0:lvl0 + W] = tok
+        parent[:, lvl0:lvl0 + W] = par
+        # a child's ancestor row is its parent's row plus itself
+        par_rows = anc.gather(
+            1, par.clamp(min=0).long()[:, :, None].expand(R, W, Tp))
+        par_rows[:, :, lvl0:lvl0 + W] |= torch.eye(W, dtype=torch.bool,
+                                                   device=anc.device)
+        anc[:, lvl0:lvl0 + W] = par_rows
+        return cum
+
+    def _round(self, tks, nblk, base, active, depth_r, d_run):
+        d, W, T, Tp = self.depth, self.width, self.T, self.tree_width
+        llm, ssm = self.llm, self.ssm
+        R = tks.shape[0]
+        dev = tks.device
+        r_pos = base + nblk - 1
+        last = (nblk - 1).clamp(min=0).long()
+        rows = torch.arange(R, device=dev)
+        # catch-up + root expansion: one causal pass of width d + 1
+        pos = base[:, None] + torch.arange(d + 1, dtype=torch.int32,
+                                           device=dev)[None, :]
+        out0, ssm.op_state = _forward_tokens(
+            ssm, ssm.params, ssm.op_state, tks, pos, base,
+            torch.where(active, nblk, 0), active, self._compute_dtype)
+        root_out = out0[rows, last]                              # [R, 2W]
+        tokens = torch.zeros((R, Tp), dtype=torch.int32, device=dev)
+        tokens[:, 0] = tks[rows, last]
+        parent = torch.full((R, Tp), -1, dtype=torch.int32, device=dev)
+        anc = torch.zeros((R, Tp, Tp), dtype=torch.bool, device=dev)
+        anc[:, 0, 0] = True
+        tree = (tokens, parent, anc)
+        positions = r_pos[:, None] + self._depth_of[None, :]
+        cum = self._place_level(
+            0, tree, torch.log(root_out[:, :W].float().clamp(min=1e-20)),
+            root_out[:, W:2 * W], torch.zeros((R, W), dtype=torch.int32,
+                                              device=dev))
+        for t in range(1, min(d, d_run)):
+            meta = TreeBatchMeta(
+                tokens=tokens, positions=positions, parent=parent,
+                ancestor=anc, start_pos=r_pos,
+                num_nodes=torch.where(active, 1 + t * W, 0).to(torch.int32),
+                active=active)
+            out, ssm.op_state = forward_with_meta(
+                ssm, ssm.params, ssm.op_state, meta, self._compute_dtype,
+                kv_contiguous=True)                            # [R, Tp, 2W]
+            self.levels_run += 1
+            f0 = 1 + (t - 1) * W
+            probs = out[:, f0:f0 + W, :W].float()
+            # candidate (frontier i, child j) at flat index i * W + j
+            cand = (cum[:, :, None]
+                    + torch.log(probs.clamp(min=1e-20))).reshape(R, W * W)
+            par_flat = (f0 + torch.arange(W, dtype=torch.int32, device=dev)
+                        )[None, :, None].expand(R, W, W).reshape(R, W * W)
+            cum = self._place_level(t, tree, cand,
+                                    out[:, f0:f0 + W, W:2 * W].reshape(
+                                        R, W * W), par_flat)
+        # verify the whole tree on the LLM
+        meta = TreeBatchMeta(
+            tokens=tokens, positions=positions, parent=parent, ancestor=anc,
+            start_pos=r_pos,
+            num_nodes=torch.where(active, T, 0).to(torch.int32),
+            active=active)
+        out, llm.op_state = forward_with_meta(
+            llm, llm.params, llm.op_state, meta, self._compute_dtype,
+            kv_contiguous=True)
+        o = out.to(torch.int32)                                   # [R, Tp]
+        # greedy acceptance walk over the levels
+        cur = torch.zeros((R,), dtype=torch.long, device=dev)
+        alive = active.clone()
+        n_acc = torch.zeros((R,), dtype=torch.int32, device=dev)
+        path = torch.zeros((R, d), dtype=torch.long, device=dev)
+        for t in range(d):
+            lvl0 = 1 + t * W
+            want = o.gather(1, cur[:, None])
+            ok = ((parent[:, lvl0:lvl0 + W] == cur[:, None])
+                  & (tokens[:, lvl0:lvl0 + W] == want)
+                  & (alive & (depth_r > t))[:, None])
+            has = ok.any(dim=1)
+            nxt = lvl0 + ok.to(torch.int32).argmax(dim=1)
+            path[:, t] = torch.where(has, nxt, 0)
+            cur = torch.where(has, nxt, cur)
+            n_acc = n_acc + has.to(torch.int32)
+            alive = alive & has
+        bonus = o.gather(1, cur[:, None])[:, 0]
+        # the accepted nodes' KV: cache[r, r_pos+1+i] <- cache[r,
+        # r_pos+path[r, i]] for i < n_acc
+        commit_tree_kv(llm.op_state, path - 1, n_acc, r_pos + 1, active)
+        chain = tokens.gather(1, path)                             # [R, d]
+        idx = torch.arange(d + 1, device=dev)[None, :]
+        blk = torch.where(
+            idx < n_acc[:, None], torch.nn.functional.pad(chain, (0, 1)),
+            torch.where(idx == n_acc[:, None], bonus[:, None], 0))
+        return blk.to(torch.int32), n_acc
+
+    def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
+               min_depth, adapt):
+        R, d = tok.shape[0], self.depth
+        max_seq = self.llm.config.max_sequence_length
+        Tp = self.tree_width
+        packed = self._packed0(R, tok.device)
+        # call-boundary invariant: the accepted block is the pending root
+        tks = torch.zeros((R, d + 1), dtype=torch.int32, device=tok.device)
+        tks[:, 0] = tok
+        nblk = torch.ones_like(tok)
+        base = pos
+        alive = active.clone()
+        for i in range(n_rounds):
+            # reserve the padded tree's whole staging window
+            act_i = (active & (remaining > 0)
+                     & (base + nblk - 1 + Tp <= max_seq - 1) & alive)
+            d_run = _round_depth(act_i, depth_v)
+            if d_run == 0:
+                break
+            blk, n_acc = self._round(tks, nblk, base, act_i, depth_v, d_run)
+            self.rounds_run += 1
+            tks = torch.where(act_i[:, None], blk, tks)
+            base = torch.where(act_i, base + nblk, base)
+            nblk = torch.where(act_i, n_acc + 1, nblk)
+            remaining = remaining - torch.where(act_i, n_acc + 1, 0)
+            packed[:, i, :d + 1] = blk
             packed[:, i, d + 1] = torch.where(act_i, n_acc, -1)
             packed[:, i, d + 2] = torch.where(act_i, depth_v, -1)
             depth_v, alive = _adapt_depth_rule(adapt, act_i, n_acc, depth_v,

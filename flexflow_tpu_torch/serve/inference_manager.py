@@ -3,7 +3,10 @@ of ``flexflow_tpu/serve/inference_manager.py``).
 
 PyTorch runs eagerly, so a step is a direct call of the serving forward;
 the KV caches are updated in place and ``model.op_state`` keeps naming the
-same tensors.
+same tensors. The manager owns the model's random stream: one
+``torch.Generator`` on the model's device, seeded from ``FFConfig.seed``
+(a CPU generator cannot drive draws on the card), which every step and
+decode block hands to the forward; a sampled graph advances it.
 """
 
 from __future__ import annotations
@@ -44,6 +47,8 @@ class InferenceManager:
         self.model = model
         cfg = model.config
         self._compute_dtype = torch_dtype(cfg.compute_dtype)
+        self.generator = torch.Generator(device=model.device)
+        self.generator.manual_seed(cfg.seed)
         self._decode_block = None
         self.decode_width = self._resolve_decode_width(cfg)
 
@@ -62,14 +67,16 @@ class InferenceManager:
         """Run one serving step over ``meta``, a BatchMeta or a
         TreeBatchMeta (numpy or tensor fields).
         Returns the op outputs as numpy (token ids [R, Q] for graphs
-        ending in argmax), or None with ``want_output=False`` (no host
+        ending in argmax or sampling; the packed [R, Q, 2W] top-W of a
+        beam draft), or None with ``want_output=False`` (no host
         readback: prefill chunks whose outputs are discarded stay
         asynchronous)."""
         from flexflow_tpu_torch.serve.engine import forward_with_meta
 
         m = self.model
         out, m.op_state = forward_with_meta(
-            m, m.params, m.op_state, meta.to(m.device), self._compute_dtype)
+            m, m.params, m.op_state, meta.to(m.device), self._compute_dtype,
+            generator=self.generator)
         if not want_output:
             return None
         return out.cpu().numpy()
@@ -91,5 +98,6 @@ class InferenceManager:
             m.params, m.op_state,
             torch.as_tensor(tok, dtype=torch.int32, device=dev),
             torch.as_tensor(pos, dtype=torch.int32, device=dev),
-            torch.as_tensor(active, dtype=torch.bool, device=dev), n_steps)
+            torch.as_tensor(active, dtype=torch.bool, device=dev), n_steps,
+            self.generator)
         return toks[:, :n_steps].cpu().numpy()

@@ -11,27 +11,38 @@ Slot convention: a request's ``tokens`` are prompt + generated;
 token is always pending (it is fed to produce the next one).
 
 Speculative inference (``generate_spec_infer``) keeps the JAX package's
-two fused scheduler loops: the chain engine and the tree engine, with the
-adaptive speculation controller. Per request, ``ssm_cache_depth[i]``
-counts the tokens whose KV is in draft model i's cache.
+scheduler loops: the fused chain, tree and beam engines with the
+adaptive speculation controller, and the host-stepped tree path (beam
+drafts of several draft models merged into one tree, verified, and its
+accepted path's KV compacted by ``commit_tree_kv``). Per request,
+``ssm_cache_depth[i]`` counts the tokens whose KV is in draft model i's
+cache. Speculation is greedy; sampling is a property of an incremental
+decoding graph (``GenerationConfig.do_sample``).
 
 Not in this slice: the native C++ scheduler, the shared-prefix cache,
-telemetry, admission control, preemption, deadlines, beam drafting and
-the host-stepped tree path.
+telemetry, admission control, preemption, deadlines and the
+``inference_debugging`` per-op dumps.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import itertools
+import math
 import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
+import torch
 
-from flexflow_tpu_torch.serve.batch_config import BatchMeta, GenerationConfig
-from flexflow_tpu_torch.serve.inference_manager import (InferenceManager,
+from flexflow_tpu_torch.ops.inc_attention import commit_tree_kv
+from flexflow_tpu_torch.serve.batch_config import (BatchMeta,
+                                                   GenerationConfig,
+                                                   TreeBatchMeta,
+                                                   ancestor_mask_from_parents)
+from flexflow_tpu_torch.serve.inference_manager import (VERIFY_WIDTH,
+                                                        InferenceManager,
                                                         kernel_serves)
 
 # Reference include/flexflow/batch_config.h:126 (MAX_BEAM_DEPTH)
@@ -95,6 +106,8 @@ class RequestManager:
         self.pending: deque = deque()
         self.results: Dict[int, GenerationResult] = {}
         self.max_spec_depth = MAX_SPEC_DEPTH
+        # the host tree path's KV compaction (in place)
+        self._commit = commit_tree_kv
         # counts of the last generate_spec_infer call: verify passes
         # ("rounds"), (request, round) pairs that committed tokens and the
         # tokens they committed, and the controller's parks
@@ -244,9 +257,10 @@ class RequestManager:
                                generation_config:
                                Optional[GenerationConfig] = None
                                ) -> List[GenerationResult]:
-        if generation_config is not None and generation_config.do_sample:
-            raise NotImplementedError(
-                "sampling is not ported yet; the slice decodes greedily")
+        """Greedy or sampled as ``model``'s graph was built
+        (``GenerationConfig.do_sample`` at graph build time, as in the JAX
+        package); ``generation_config`` is accepted for the API's
+        symmetry."""
         ifm = self._ifm(model)
         cfg = model.config
         R = cfg.max_requests_per_batch
@@ -309,34 +323,48 @@ class RequestManager:
                             generation_config:
                             Optional[GenerationConfig] = None
                             ) -> List[GenerationResult]:
-        """The LLM verifies the greedy chains the draft SSMs propose.
+        """The LLM verifies the token trees the draft SSMs propose.
 
-        Each round every draft model proposes a depth-``spec_depth`` chain
-        per request, the LLM scores them in one step, and the longest
-        chain prefix that matches the LLM's own argmax is accepted, plus
-        one bonus token: the output is the LLM's greedy continuation,
-        identical to incremental decoding. ``generation_config`` carries
-        the adaptive-speculation policy (on by default); its
-        ``spec_depth``, when set, overrides the argument.
+        Each round every draft model proposes a depth-``spec_depth`` tree
+        per request (a greedy chain at beam width 1, a ``beam_width``-wide
+        beam search above it), the LLM scores the tree in one step, and
+        the longest root path whose every node matches the LLM's own
+        argmax is accepted, plus one bonus token: the output is the LLM's
+        greedy continuation, identical to incremental decoding.
+        ``generation_config`` carries the adaptive-speculation policy (on
+        by default); its ``spec_depth``, when set, overrides the argument.
+        Its ``do_sample`` is ignored: speculation is greedy, as in the
+        JAX package.
 
-        One draft model speculates through the chain engine unless the
-        CUDA attention kernel serves the LLM (``kernel_serves``): there
-        the tree engine at B = 1 takes it, whose verify pass at depth <= 7
-        has the incremental decode's width, so both give the same tokens
-        (the JAX package's rule with its Pallas kernel). Several draft
-        models always take the tree engine."""
+        ``beam_width`` (default: the drafts' compiled ``max_beam_width``)
+        must equal every draft's compiled width, which fixes its graph's
+        output layout; a mismatch raises ``ValueError``. At width > 1 one
+        draft model goes through the fused beam engine and several
+        through the host tree path, which merges their beams into one
+        tree. At width 1, one draft model speculates through the chain
+        engine unless the CUDA attention kernel serves the LLM
+        (``kernel_serves``): there the tree engine at B = 1 takes it,
+        whose verify pass at depth <= 7 has the incremental decode's
+        width, so both give the same tokens (the JAX package's rule with
+        its Pallas kernel). Several draft models take the tree engine."""
         gc = generation_config
-        if gc is not None and gc.do_sample:
-            raise NotImplementedError(
-                "sampling is not ported yet; the slice decodes greedily")
         if gc is not None and gc.spec_depth:
             spec_depth = gc.spec_depth
-        if (beam_width or 1) > 1 or any(s.config.max_beam_width > 1
-                                        for s in ssms):
-            raise NotImplementedError(
-                "beam drafting (beam_width > 1) arrives with the next slice "
-                "of the port (BeamSpecEngine); the port drafts greedy "
-                "chains")
+        widths = [s.config.max_beam_width for s in ssms]
+        W = beam_width or max(widths)
+        if any(w != W for w in widths):
+            raise ValueError(
+                f"beam_width={W} but the draft models were compiled with "
+                f"max_beam_width={widths}; rebuild the SSMs with the "
+                f"requested width (FFConfig.max_beam_width)")
+        if W > 1:
+            if len(ssms) == 1:
+                return self._generate_spec_chain(
+                    llm, ssms[0], spec_depth=spec_depth, beam_width=W,
+                    generation_config=gc)
+            return self._generate_spec_tree_host(llm, ssms,
+                                                 spec_depth=spec_depth,
+                                                 beam_width=W)
         if len(ssms) == 1 and not kernel_serves(llm):
             return self._generate_spec_chain(llm, ssms[0],
                                              spec_depth=spec_depth,
@@ -348,7 +376,7 @@ class RequestManager:
     # -- adaptive speculation support (serve/spec_controller.py) ----------
     @staticmethod
     def _spec_controller(gc: Optional[GenerationConfig], llm, ssms,
-                         engine_depth: int):
+                         engine_depth: int, beam_width: int = 1):
         """(the per-request adaptive controller, or None when the policy
         disables it; the resolved GenerationConfig)."""
         gc = gc or GenerationConfig()
@@ -357,7 +385,8 @@ class RequestManager:
         from flexflow_tpu_torch.serve.spec_controller import SpecController
 
         return SpecController.from_generation_config(
-            gc, llm, ssms, engine_depth=engine_depth), gc
+            gc, llm, ssms, engine_depth=engine_depth,
+            beam_width=beam_width), gc
 
     @staticmethod
     def _partition_spec(ctrl, roomy, rounds):
@@ -461,10 +490,13 @@ class RequestManager:
 
     def _generate_spec_chain(self, llm, ssm,
                              spec_depth: Optional[int] = None,
+                             beam_width: int = 1,
                              generation_config:
                              Optional[GenerationConfig] = None
                              ) -> List[GenerationResult]:
-        """Single-SSM speculation through ``SpecChainEngine``.
+        """Single-SSM speculation through ``SpecChainEngine`` at beam
+        width 1, ``BeamSpecEngine`` above it (both share the packed
+        contract).
 
         Each engine call runs up to ``spec_rounds_per_call`` rounds; the
         host commits ``a[slot, k, :n_acc + 1]`` per round and reconciles
@@ -472,7 +504,8 @@ class RequestManager:
         prefill chunk per model, the cramped requests' single steps, the
         parked requests' incremental block, the draftable requests' block.
         """
-        from flexflow_tpu_torch.serve.engine import SpecChainEngine
+        from flexflow_tpu_torch.serve.engine import (BeamSpecEngine,
+                                                     SpecChainEngine)
 
         llm_ifm, ssm_ifm = self._ifm(llm), self._ifm(ssm)
         cfg = llm.config
@@ -480,15 +513,26 @@ class RequestManager:
         max_seq = cfg.max_sequence_length
         depth = min(spec_depth or self.max_spec_depth, self.max_spec_depth)
         ctrl, gc = self._spec_controller(generation_config, llm, [ssm],
-                                         engine_depth=depth)
-        engine = getattr(llm, "_chain_engine", None)
-        if engine is None or engine.ssm is not ssm or engine.depth != depth:
-            engine = llm._chain_engine = SpecChainEngine(
-                llm, ssm, depth, max_rounds=cfg.spec_rounds_per_call)
+                                         engine_depth=depth,
+                                         beam_width=beam_width)
         # the host gate is at least as strict as the engine's live mask, or
         # a request the engine masks dead every round would be rescheduled
-        # forever
-        room_needed = depth + 1
+        # forever: the beam engine stages its whole padded tree a round
+        if beam_width > 1:
+            engine = getattr(llm, "_beam_engine", None)
+            if (engine is None or engine.ssm is not ssm
+                    or engine.depth != depth or engine.width != beam_width):
+                engine = llm._beam_engine = BeamSpecEngine(
+                    llm, ssm, depth, beam_width,
+                    max_rounds=cfg.spec_rounds_per_call)
+            room_needed = engine.tree_width
+        else:
+            engine = getattr(llm, "_chain_engine", None)
+            if (engine is None or engine.ssm is not ssm
+                    or engine.depth != depth):
+                engine = llm._chain_engine = SpecChainEngine(
+                    llm, ssm, depth, max_rounds=cfg.spec_rounds_per_call)
+            room_needed = depth + 1
         chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
         active: List[Optional[Request]] = [None] * R
         done: List[GenerationResult] = []
@@ -691,6 +735,289 @@ class RequestManager:
             rounds=engine.rounds_run - rounds0,
             parked=ctrl.fallback_entries_total if ctrl is not None else 0)
         return done
+
+    # =====================================================================
+    # The host tree path (beam drafts of several draft models)
+    # =====================================================================
+    def _generate_spec_tree_host(self, llm, ssms: List[Any],
+                                 spec_depth: Optional[int] = None,
+                                 beam_width: int = 1
+                                 ) -> List[GenerationResult]:
+        """Host-stepped tree speculation: per round each draft model
+        proposes greedy chains (``_draft_chains``) or ``beam_width``-wide
+        beams (``_draft_beams``), the host merges them into one token
+        tree per request (shared prefixes dedup), the LLM verifies it in
+        one step and the accepted path's KV is compacted
+        (``_verify_and_commit``). One dispatch per phase, so slower than
+        the fused engines; it is the route for beams of several drafts.
+        Static depth; every turn either prefills (all models, then the
+        next turn) or runs one round."""
+        llm_ifm = self._ifm(llm)
+        ssm_ifms = [self._ifm(s) for s in ssms]
+        cfg = llm.config
+        R = cfg.max_requests_per_batch
+        max_seq = cfg.max_sequence_length
+        depth = min(spec_depth or self.max_spec_depth, self.max_spec_depth)
+        chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
+        # tree capacity: root + depth nodes per surviving branch
+        T = 1 + depth * len(ssms) * beam_width
+        active: List[Optional[Request]] = [None] * R
+        done: List[GenerationResult] = []
+        self.spec_stats = dict.fromkeys(
+            ("rounds", "request_rounds", "committed", "parked"), 0)
+
+        while self.pending or any(a is not None for a in active):
+            self._fill_slots(active, max_seq, done)
+            prefilled = False
+            for ifm, depth_of, setter in (
+                    [(llm_ifm, lambda r: r.cache_depth, None)]
+                    + [(m, lambda r, i=i: r.ssm_cache_depth.get(i, 0), i)
+                       for i, m in enumerate(ssm_ifms)]):
+                rows = self._prefill_rows(active, chunk, depth_of,
+                                          cfg.max_tokens_per_batch)
+                if rows:
+                    ifm.step(self._meta_from_rows(R, chunk, rows),
+                             want_output=False)
+                    for slot, toks, sp in rows:
+                        if setter is None:
+                            active[slot].cache_depth = sp + len(toks)
+                        else:
+                            active[slot].ssm_cache_depth[setter] = \
+                                sp + len(toks)
+                    prefilled = True
+            if prefilled:
+                continue
+            live = [req for req in active
+                    if req is not None and not req.finished]
+            if live:
+                # per branch: slot -> drafted tokens
+                chains: List[Dict[int, List[int]]] = []
+                for i, ifm in enumerate(ssm_ifms):
+                    if beam_width > 1:
+                        chains.extend(self._draft_beams(
+                            ifm, i, live, R, depth, beam_width))
+                    else:
+                        chains.append(self._draft_chains(ifm, i, live, R,
+                                                         depth))
+                trees = {req.slot: self._merge_tree(req, chains, max_seq)
+                         for req in live}
+                self._verify_and_commit(llm, llm_ifm, live, trees, R, T,
+                                        max_seq)
+            self._collect_finished(active, done)
+        return done
+
+    @staticmethod
+    def _merge_tree(req: Request, chains, max_seq: int):
+        """One request's drafted chains -> (node tokens, node parents): a
+        token tree rooted at the pending token, shared prefixes merged.
+        Chains are clamped so tree positions never pass the KV cache end
+        or the request's length limit, and the merged tree is capped to
+        the cache slots left (parents precede children, so a truncated
+        suffix keeps a valid tree)."""
+        limit = min(req.max_sequence_length or max_seq, max_seq)
+        room = max(0, limit - len(req.tokens) - 1)
+        node_tok, node_parent = [req.tokens[-1]], [-1]
+        for c in chains:
+            cur = 0
+            for t in c.get(req.slot, [])[:room]:
+                child = next((j for j in range(len(node_tok))
+                              if node_parent[j] == cur and node_tok[j] == t),
+                             None)
+                if child is None:
+                    node_tok.append(t)
+                    node_parent.append(cur)
+                    child = len(node_tok) - 1
+                cur = child
+        cap = max_seq - (len(req.tokens) - 1)
+        return node_tok[:cap], node_parent[:cap]
+
+    def _draft_chains(self, ifm, ssm_idx, live, R, depth):
+        """A greedy depth-``depth`` chain per live request on one draft
+        model, in one program call (``engine.make_draft_chain``) and one
+        readback. The prefill cycle has caught the draft cache up to one
+        pending token; it commits that token's KV (+1), and the drafted
+        tokens' KV is tentative."""
+        from flexflow_tpu_torch.serve.engine import make_draft_chain
+
+        model = ifm.model
+        fn = getattr(model, "_draft_chain_fn", None)
+        if fn is None or model._draft_chain_depth != depth:
+            fn = make_draft_chain(model, ifm._compute_dtype, depth)
+            model._draft_chain_fn = fn
+            model._draft_chain_depth = depth
+        tok = np.zeros((R,), np.int32)
+        pos = np.zeros((R,), np.int32)
+        act = np.zeros((R,), bool)
+        for req in live:
+            d = req.ssm_cache_depth.get(ssm_idx, 0)
+            assert d == len(req.tokens) - 1, (d, len(req.tokens))
+            tok[req.slot] = req.tokens[-1]
+            pos[req.slot] = d
+            act[req.slot] = True
+        dev = model.device
+        toks, model.op_state = fn(
+            model.params, model.op_state,
+            torch.as_tensor(tok, device=dev), torch.as_tensor(pos, device=dev),
+            torch.as_tensor(act, device=dev))
+        toks = toks.cpu().numpy()
+        chains = {}
+        for req in live:
+            chains[req.slot] = [int(t) for t in toks[req.slot]]
+            req.ssm_cache_depth[ssm_idx] = \
+                req.ssm_cache_depth.get(ssm_idx, 0) + 1
+        return chains
+
+    def _draft_beams(self, ifm, ssm_idx, live, R, depth, width):
+        """Beam search of width ``width`` on one draft model; returns
+        ``width`` chain dicts (the surviving beam paths, best first, root
+        excluded) for tree merging.
+
+        Each step stages the whole beam tree so far as tree nodes on the
+        draft (tree attention gives each frontier node its ancestor
+        path; no per-beam KV), at a width padded to ``VERIFY_WIDTH``. The
+        draft's BEAM_SEARCH_MODE graph emits packed [top-W probs, top-W
+        ids] per node; the host keeps the cumulative log-probabilities
+        and ranks the W x W candidates by a stable sort (ties to the
+        lower (frontier, child) index). Staging near the cache end is
+        safe: out-of-range KV writes are dropped, and a garbage proposal
+        there fails verification."""
+        assert ifm.model.config.max_beam_width == width, \
+            (ifm.model.config.max_beam_width, width)
+        W = width
+        # per slot: node tokens, parents, depths in the tree, cumulative
+        # log-probabilities by node, the frontier's nodes, the root's
+        # cache position
+        nodes, parents, ndepth, scores, frontier, start = (
+            {}, {}, {}, {}, {}, {})
+        for req in live:
+            s = req.slot
+            d = req.ssm_cache_depth.get(ssm_idx, 0)
+            assert d == len(req.tokens) - 1, (d, len(req.tokens))
+            nodes[s], parents[s], ndepth[s] = [req.tokens[-1]], [-1], [0]
+            scores[s], frontier[s], start[s] = {0: 0.0}, [0], d
+        for _t in range(depth):
+            T = -(-max(len(nodes[req.slot]) for req in live)
+                  // VERIFY_WIDTH) * VERIFY_WIDTH
+            tokens = np.zeros((R, T), np.int32)
+            positions = np.zeros((R, T), np.int32)
+            parent = np.full((R, T), -1, np.int32)
+            sp = np.zeros((R,), np.int32)
+            num = np.zeros((R,), np.int32)
+            act = np.zeros((R,), bool)
+            for req in live:
+                s = req.slot
+                n = len(nodes[s])
+                tokens[s, :n] = nodes[s]
+                parent[s, :n] = parents[s]
+                positions[s, :n] = start[s] + np.asarray(ndepth[s])
+                sp[s], num[s], act[s] = start[s], n, True
+            out = ifm.step(TreeBatchMeta(
+                tokens=tokens, positions=positions, parent=parent,
+                ancestor=ancestor_mask_from_parents(parent), start_pos=sp,
+                num_nodes=num, active=act))               # [R, T, 2W]
+            probs, ids = out[..., :W], out[..., W:].astype(np.int32)
+            for req in live:
+                s = req.slot
+                cands = []
+                for fi in frontier[s]:
+                    for j in range(W):
+                        p = max(float(probs[s, fi, j]), 1e-20)
+                        cands.append((scores[s][fi] + math.log(p),
+                                      int(ids[s, fi, j]), fi))
+                cands.sort(key=lambda c: -c[0])
+                frontier[s] = []
+                for sc, tok, fi in cands[:W]:
+                    nodes[s].append(tok)
+                    parents[s].append(fi)
+                    ndepth[s].append(ndepth[s][fi] + 1)
+                    scores[s][len(nodes[s]) - 1] = sc
+                    frontier[s].append(len(nodes[s]) - 1)
+        out_chains: List[Dict[int, List[int]]] = [dict() for _ in range(W)]
+        for req in live:
+            s = req.slot
+            order = sorted(frontier[s], key=lambda i: -scores[s][i])
+            for b, leaf in enumerate(order):
+                path, cur = [], leaf
+                while cur != 0:
+                    path.append(nodes[s][cur])
+                    cur = parents[s][cur]
+                out_chains[b][s] = path[::-1]
+            # the first step committed the pending root's KV; the staged
+            # nodes beyond it are tentative
+            req.ssm_cache_depth[ssm_idx] = start[s] + 1
+        return out_chains
+
+    def _verify_and_commit(self, llm, ifm, live, trees, R, T, max_seq):
+        """Verify each live request's merged tree in one LLM step (width
+        ``T`` padded to ``VERIFY_WIDTH``), accept the longest root path
+        whose nodes match the verifier's argmax plus the bonus token, and
+        compact the accepted nodes' KV (``self._commit``) where the path
+        is not already contiguous."""
+        T = -(-T // VERIFY_WIDTH) * VERIFY_WIDTH
+        tokens = np.zeros((R, T), np.int32)
+        positions = np.zeros((R, T), np.int32)
+        parent = np.full((R, T), -1, np.int32)
+        start = np.zeros((R,), np.int32)
+        num = np.zeros((R,), np.int32)
+        act = np.zeros((R,), bool)
+        node_depth = np.zeros((R, T), np.int32)
+        for req in live:
+            ntok, npar = trees[req.slot]
+            n = len(ntok)
+            sp = len(req.tokens) - 1
+            assert req.cache_depth == sp, (req.cache_depth, sp)
+            tokens[req.slot, :n] = ntok
+            parent[req.slot, :n] = npar
+            for j in range(1, n):
+                node_depth[req.slot, j] = node_depth[req.slot, npar[j]] + 1
+            positions[req.slot, :n] = sp + node_depth[req.slot, :n]
+            start[req.slot], num[req.slot], act[req.slot] = sp, n, True
+        out = ifm.step(TreeBatchMeta(
+            tokens=tokens, positions=positions, parent=parent,
+            ancestor=ancestor_mask_from_parents(parent), start_pos=start,
+            num_nodes=num, active=act))                   # [R, T] argmax
+        self.spec_stats["rounds"] += 1
+        src_node = np.zeros((R, self.max_spec_depth + 1), np.int32)
+        ncommit = np.zeros((R,), np.int32)
+        needs_commit = False
+        for req in live:
+            ntok, npar = trees[req.slot]
+            cur, path = 0, []
+            while True:
+                want = int(out[req.slot, cur])
+                child = next((j for j in range(cur + 1, len(ntok))
+                              if npar[j] == cur and ntok[j] == want), None)
+                if child is None:
+                    break
+                path.append(child)
+                cur = child
+            # the verifier's cache: path nodes must land at start+1..
+            if path != list(range(1, len(path) + 1)):
+                needs_commit = True
+            src_node[req.slot, :len(path)] = [j - 1 for j in path]
+            ncommit[req.slot] = len(path)
+            self.spec_stats["request_rounds"] += 1
+            self.spec_stats["committed"] += len(path) + 1
+            # trim at the budget and at EOS, where incremental decoding
+            # would have stopped
+            new_toks = [ntok[j] for j in path] + [int(out[req.slot, cur])]
+            new_toks = new_toks[:max(0, req.max_new_tokens
+                                     - req.num_generated)]
+            if (self.eos_token_id is not None
+                    and self.eos_token_id in new_toks):
+                new_toks = new_toks[:new_toks.index(self.eos_token_id) + 1]
+            req.tokens.extend(new_toks)
+            self._note_first_token(req)
+            req.cache_depth = min(start[req.slot] + 1 + len(path),
+                                  len(req.tokens) - 1)
+            self._finish_if_done(req, max_seq)
+        if needs_commit:
+            dev = llm.device
+            llm.op_state = self._commit(
+                llm.op_state, torch.as_tensor(src_node, device=dev),
+                torch.as_tensor(ncommit, device=dev),
+                torch.as_tensor(start + 1, device=dev),
+                torch.as_tensor(act, device=dev))
 
     def _collect_finished(self, active, done, ctrl=None):
         for slot, req in enumerate(active):

@@ -221,9 +221,12 @@ class SpecController:
 
     @classmethod
     def from_generation_config(cls, gc, llm, ssms: Sequence,
-                               engine_depth: int) -> "SpecController":
-        ratio = (gc.spec_draft_cost_ratio
-                 or estimate_draft_cost_ratio(llm, ssms))
+                               engine_depth: int,
+                               beam_width: int = 1) -> "SpecController":
+        """A beam draft stages ``beam_width`` nodes a level, so its
+        estimated cost per drafted token scales with the width."""
+        ratio = gc.spec_draft_cost_ratio or (
+            estimate_draft_cost_ratio(llm, ssms) * max(1, beam_width))
         policy = ControllerPolicy(
             min_depth=max(1, min(gc.min_spec_depth, engine_depth)),
             max_depth=engine_depth,

@@ -15,7 +15,8 @@ adaptive; ``generate_spec_infer`` end to end in the scenarios of
 ``tests/test_serving.py`` (tokens equal to the JAX package's and to the
 port's own incremental decoding); the controller's cost model and its
 park-on-zero-acceptance path; ``LLM(...).compile(ssms=[SSM(...)])``; and
-the engine routing rule.
+the engine routing rule, beam widths included (beam drafting itself is
+``tests/test_torch_beam.py``'s).
 """
 
 import numpy as np
@@ -432,25 +433,40 @@ def test_llm_with_ssm_generate_matches_jax():
 
 
 # ----------------------------------------------------------------------
-# 7. engine routing and what is not ported
+# 7. engine routing
 # ----------------------------------------------------------------------
 def test_single_ssm_routing_and_beam_width_raises(monkeypatch):
+    """Width 1: one draft -> the chain engine on the CPU, the fused tree
+    engine where the kernel serves; several -> the fused tree engine.
+    Width 2 (a beam-mode draft built at max_beam_width 2, whose graph
+    ends in the packed top-2 head): one draft -> the beam engine through
+    _generate_spec_chain, several -> the host tree path. A width the
+    drafts were not built with raises ValueError."""
     _, tllm = _verifier()
     _, ssm = _draft("trunc")
     taken = []
-    for name in ("_generate_spec_chain", "_generate_spec_tree_fused"):
-        monkeypatch.setattr(RequestManager, name,
-                            lambda self, *a, _n=name, **k: taken.append(_n))
+    for name in ("_generate_spec_chain", "_generate_spec_tree_fused",
+                 "_generate_spec_tree_host"):
+        monkeypatch.setattr(
+            RequestManager, name,
+            lambda self, *a, _n=name, **k: taken.append(
+                (_n, k.get("beam_width", 1))))
     rm = RequestManager()
     rm.generate_spec_infer(tllm, [ssm])
-    assert taken == ["_generate_spec_chain"]           # the CPU: chain
+    assert taken == [("_generate_spec_chain", 1)]       # the CPU: chain
     monkeypatch.setattr(trm, "kernel_serves", lambda model: True)
     rm.generate_spec_infer(tllm, [ssm])
     rm.generate_spec_infer(tllm, [ssm, ssm])
-    assert taken[1:] == ["_generate_spec_tree_fused"] * 2
-    with pytest.raises(NotImplementedError, match="next slice"):
-        rm.generate_spec_infer(tllm, [ssm], beam_width=2)
+    assert taken[1:] == [("_generate_spec_tree_fused", 1)] * 2
     m = fft.FFModel(fft.FFConfig(device="cpu", max_beam_width=2))
-    with pytest.raises(NotImplementedError, match="next slice"):
-        create_llama_model(m, LLAMAConfig(**TINY),
-                           mode=InferenceMode.BEAM_SEARCH_MODE)
+    create_llama_model(m, LLAMAConfig(**TINY),
+                       mode=InferenceMode.BEAM_SEARCH_MODE)
+    assert m.layers[-1].op_type == fft.OpType.CONCAT
+    assert m.layers[-1].outputs[0].dims[-1] == 4
+    del taken[:]
+    rm.generate_spec_infer(tllm, [m], beam_width=2)
+    rm.generate_spec_infer(tllm, [m, m])
+    assert taken == [("_generate_spec_chain", 2),
+                     ("_generate_spec_tree_host", 2)]
+    with pytest.raises(ValueError, match="max_beam_width"):
+        rm.generate_spec_infer(tllm, [ssm], beam_width=2)
