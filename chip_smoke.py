@@ -22,7 +22,13 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      yardstick, then three long-cache rows (S 4096, lengths 4000) with
      bound share and GB/s, and beside every row the same timer around a
      PyTorch sum of the row's bytes (what the timer gives a pure read of
-     that size);
+     that size); then K3 (``quant.qmatmul`` on a QuantizedWeight) against
+     its plain version: int8 and int4, bf16 and fp32 operands and
+     results, M in {1, 8, 64, 256}, the 7B int8 path's (K, N) plus an
+     odd-K int4 case and N = 1000; rows of an M = 64 product bitwise
+     equal to the same rows at M = 8 and M = 1; timed rows at M = 64 and
+     256 beside the bound, the read floor, the plain version and
+     ``torch.matmul`` on a dequantized bf16 copy of the weight;
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
      seeded numpy draw); the tokens must agree; then speculative
@@ -31,7 +37,11 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      beam engine (a 1-layer beam draft of width 2, depth 3) and the host
      tree path (two beam drafts); and top-p sampling through
      ``LLM.generate`` must repeat its draws under one seed and, at
-     top_p 1e-9 and temperature 1.0, give the card's greedy tokens;
+     top_p 1e-9 and temperature 1.0, give the card's greedy tokens; then
+     int8 weights (the same draw, quantized on each device): incremental
+     decoding, the chain engine (1-layer draft on the verifier's leaves,
+     depth 4) and incremental decoding with gemm fusion on the card must
+     each give the CPU's int8 incremental tokens, 128 of 128;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -58,7 +68,17 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      pass's; reported: the beam engine with the controller off (ms a
      round) beside the chain engine at the same depth (what beam search
      prunes), the device time of the argmax, top-p and beam heads on
-     one step's logits, and the host tree path with two beam drafts.
+     one step's logits, and the host tree path with two beam drafts;
+  8. bench.py's headline: LLaMA-2-7B geometry with int8 weights through
+     ``LLM(...).compile(quantization_type="int8", ssms=[SSM(...)])``
+     (quantized per layer at compile; the deep layers damped through
+     dequantize -> scale -> re-quantize; a 2-layer draft on the
+     verifier's int8 leaves; depth 7, the controller on): incremental
+     and spec passes with tokens/s, decode ms/step beside phase 5's bf16
+     step and peak memory; gates: spec_matches_incr_first30 8/8, 7 x 32
+     + 1 K3 launches a forward, no plain call of K1/K2/K3 on the card;
+     reported: an int4 incremental pass and an int8 pass with gemm
+     fusion.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -85,6 +105,8 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # atol = rtol, as the CPU tests
 K1_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attend.cu"
 K1_REPLACES = "flexflow_tpu/kernels/attention.py:483"
 K2_REPLACES = "flexflow_tpu/kernels/attention.py:514"
+K3_SOURCE = "flexflow_tpu_torch/kernels/csrc/qmatmul.cu"
+K3_REPLACES = "flexflow_tpu/quant.py:138"
 
 # the slice at full size: LLaMA-2-7B geometry
 VOCAB, HIDDEN, INTER, LAYERS, HEADS, KV_HEADS = 32000, 4096, 11008, 32, 32, 32
@@ -560,8 +582,124 @@ def kernel_phase(torch, timer):
     for name, met in targets:
         log(f"  target: {name}: {'met' if met else 'MISSED'}")
     log(json.dumps({"long_cache_rows": long_rows}))
+    rows.append(k3_phase(torch, timer, read_floor))
     kernels.reset_counts()
     return rows
+
+
+# K3 at the shapes of the 7B int8 path: (K, N) of wq/wk/wv/wo, gate/up,
+# down, lm_head (fp32 out), the fused wqkv and gate|up; then an odd-K
+# int4 case and an N that is not a multiple of the 128-column tile
+K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
+             (4096, 12288), (4096, 22016), (4095, 4096), (4096, 1000))
+K3_TIMED = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+K3_TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # of max|y|, by out dtype
+
+
+def k3_bound_ms(M, K, N, out_dtype):
+    """(ms, "bytes"|"operations", bytes) of y = (x @ q) * scale: the int8
+    payload, the fp32 scale, the bf16 x and the output each moved once,
+    against 2*M*K*N bf16 tensor-core operations."""
+    out_size = 4 if out_dtype == "float32" else 2
+    nbytes = K * N + 4 * N + 2 * M * K + out_size * M * N
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = 2 * M * K * N / PEAK_FLOPS["bfloat16"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes)
+
+
+def k3_phase(torch, timer, read_floor):
+    """K3 (``quant.qmatmul`` on a QuantizedWeight) against its plain
+    version on the card: int8 and int4 payloads, bf16 and fp32 operands,
+    bf16 and fp32 results, M in {1, 8, 64, 256}, every shape of
+    ``K3_SHAPES``; rows of an M = 64 product bitwise equal to the same
+    rows computed at M = 8 and M = 1 (two places); then timed rows at
+    M = 64 and 256. Returns the kernel table's K3 row (M = 64, 4096 x
+    4096, int8, bf16 out: a decode projection)."""
+    from flexflow_tpu_torch.kernels.qmatmul import qmatmul_plain, split_plan
+    from flexflow_tpu_torch.quant import dequantize_array, qmatmul, \
+        quantize_array
+
+    dev = "cuda"
+    bf, f32 = torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    g = torch.Generator(device=dev).manual_seed(50)
+    log(f"  K3 qmatmul parity (|y - plain| / max|plain| <= {K3_TOL['bfloat16']:g}"
+        f" for bf16 out, {K3_TOL['float32']:g} for fp32 out) and row "
+        f"invariance (M 64 rows == M 8 rows == M 1 row, bitwise)")
+    errs = {}
+    for qt in ("int8", "int4"):
+        for K, N in K3_SHAPES:
+            w = torch.empty((K, N), device=dev).normal_(0, 0.02, generator=g)
+            leaf = quantize_array(w.to(bf), qt)
+            del w
+            worst, inv_ok = 0.0, True
+            for cd, od in ((bf, bf), (bf, f32), (f32, f32), (f32, bf)):
+                odn = str(od).replace("torch.", "")
+                for M in (1, 8, 64, 256):
+                    x = torch.randn((M, K), generator=g, device=dev).to(cd)
+                    y = qmatmul(x, leaf, cd, od)
+                    torch.cuda.synchronize()
+                    ref = qmatmul_plain(x, leaf, cd, od)
+                    err = float((y.float() - ref.float()).abs().max())
+                    rel = err / max(float(ref.float().abs().max()), 1e-30)
+                    ok = (rel <= K3_TOL[odn]
+                          and bool(torch.isfinite(y.float()).all()))
+                    worst = max(worst, rel / K3_TOL[odn])
+                    if (qt, K, N, cd, od, M) == ("int8", 4096, 4096, bf, bf,
+                                                 64):
+                        errs["decode"] = err
+                    if not ok:
+                        log(f"  K3 {qt} K{K} N{N} {cd} -> {od} M{M}: "
+                            f"rel err {rel:.3e} FAIL")
+                        raise AssertionError("K3 parity failed")
+                    if M == 64:
+                        inv_ok &= (
+                            torch.equal(y[8:16], qmatmul(
+                                x[8:16].contiguous(), leaf, cd, od))
+                            and torch.equal(y[61:62], qmatmul(
+                                x[61:62].contiguous(), leaf, cd, od))
+                            and torch.equal(y[:8], qmatmul(
+                                x[:8].contiguous(), leaf, cd, od)))
+            log(f"  K3 {qt} K{K:5d} N{N:5d} plan {split_plan(K, N, sms)}: "
+                f"16 cases, worst err / tol {worst:.3f}; row invariance "
+                f"{'PASS' if inv_ok else 'FAIL'}")
+            if not inv_ok:
+                raise AssertionError("K3 row invariance failed")
+            del leaf
+    log("  K3 timed rows: int8, bf16 x (median of 20, L2 flushed before "
+        "each launch); library = torch.matmul on a dequantized bf16 copy")
+    k3_rows, row = [], None
+    for K, N in K3_TIMED:
+        od = f32 if N == 32000 else bf        # the logits head keeps fp32
+        odn = str(od).replace("torch.", "")
+        w = torch.empty((K, N), device=dev).normal_(0, 0.02, generator=g)
+        leaf = quantize_array(w.to(bf), "int8")
+        wd = dequantize_array(leaf, bf)
+        del w
+        for M in (64, 256):
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            ms = timer(lambda: qmatmul(x, leaf, bf, od))
+            pl = timer(lambda: qmatmul_plain(x, leaf, bf, od))
+            lib = timer(lambda: torch.matmul(x, wd))
+            b, by, nb = k3_bound_ms(M, K, N, odn)
+            rd = read_floor(nb)
+            r = dict(M=M, K=K, N=N, out=odn, ms=ms, bound_ms=b, bound_by=by,
+                     read_floor_ms=rd, plain_ms=pl, library_ms=lib,
+                     bound_share=b / ms, gb_per_s=nb / ms / 1e6)
+            k3_rows.append(r)
+            log(f"  K3 M{M:3d} K{K:5d} N{N:5d} -> {odn:8s} kernel {ms:.4f} "
+                f"ms | bound {b:.4f} ms ({by}), {100 * b / ms:.1f}% | "
+                f"{nb / ms / 1e6:.0f} GB/s | sum over the same bytes "
+                f"{rd:.4f} ms | plain {pl:.4f} ms | bf16 matmul {lib:.4f} ms")
+            if (M, K, N) == (64, 4096, 4096):
+                row = dict(name="qmatmul", route="cuda", source=K3_SOURCE,
+                           replaces=K3_REPLACES,
+                           max_abs_err=errs["decode"], ms=ms, plain_ms=pl,
+                           bound_ms=b, bound_by=by, library_ms=lib)
+        del leaf, wd
+    log(json.dumps({"k3_rows": k3_rows}))
+    return row
 
 
 # ----------------------------------------------------------------------
@@ -592,12 +730,13 @@ def e2e_parity_phase(torch):
     outs = {}
 
     def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2,
-              width=1):
+              width=1, quant=None, fusion=False):
         cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
                        max_sequence_length=MAX_SEQ,
                        max_tokens_per_batch=REQUESTS * PROMPT_LEN,
                        kv_cache_dtype="float32", compute_dtype="float32",
-                       max_beam_width=width)
+                       max_beam_width=width, quantization_type=quant,
+                       gemm_fusion=fusion)
         m = FFModel(cfg)
         create_llama_model(m, dataclasses.replace(
             lc, num_hidden_layers=layers), mode=mode)
@@ -748,6 +887,56 @@ def e2e_parity_phase(torch):
         raise AssertionError("card sampling: not reproducible, or top_p "
                              "1e-9 is not greedy")
 
+    # int8 weights (the same numpy draw, quantized on each device: the
+    # scheme gives the same bits on both), card against CPU: incremental
+    # decoding through K3's fp32 path, the chain engine with a 1-layer
+    # draft on the verifier's leaves, and incremental decoding with the
+    # fused qkv and gate|up GEMMs
+    def q_incr(device, fusion=False, mode=InferenceMode.INC_DECODING_MODE):
+        m = model(device, mode, quant="int8", fusion=fusion)
+        load_params(m, params_from_jax(pnp, device=device))
+        rm = RequestManager()
+        guids = [rm.register_new_request(p, max_new_tokens=16)
+                 for p in prompts]
+        kernels.reset_counts()
+        t0 = time.perf_counter()
+        rm.generate_incr_decoding(m)
+        return m, [rm.results[g].output_tokens for g in guids], \
+            time.perf_counter() - t0, dict(kernels.counts)
+
+    _, q_cpu, s_cpu, _ = q_incr("cpu")
+    log(f"  int8 cpu: {s_cpu:.2f} s")
+    llm, q_card, s_card, q_counts = q_incr(
+        "cuda", mode=InferenceMode.TREE_VERIFY_MODE)
+    checks = [("int8 incremental", q_card, q_counts)]
+    ssm = model("cuda", InferenceMode.BEAM_SEARCH_MODE, layers=1,
+                quant="int8")
+    share_params(ssm, llm)
+    rm = RequestManager()
+    guids = [rm.register_new_request(p, max_new_tokens=16) for p in prompts]
+    kernels.reset_counts()
+    rm._generate_spec_chain(llm, ssm, spec_depth=4,
+                            generation_config=GenerationConfig(
+                                adaptive_spec=False))
+    checks.append(("int8 chain engine, depth 4, 1-layer draft",
+                   [rm.results[g].output_tokens for g in guids],
+                   dict(kernels.counts)))
+    del llm, ssm
+    fused, q_fused, _, f_counts = q_incr("cuda", fusion=True)
+    checks.append(("int8 incremental, gemm_fusion", q_fused, f_counts))
+    assert "wqkv" in fused.params["layers.0.self_attn"]
+    del fused
+    gc.collect()
+    for what, toks, counts in checks:
+        same_tok = sum(x == y for a, b in zip(q_cpu, toks)
+                       for x, y in zip(a, b))
+        log(f"  {what} on the card: tokens equal to the CPU's int8 "
+            f"incremental decoding {same_tok}/{tot}; launches {counts}")
+        if (toks != q_cpu or not counts["qmatmul"]
+                or counts["qmatmul_plain_cuda"]
+                or counts["plain_attend_cuda"]):
+            raise AssertionError(f"card {what} vs CPU parity failed")
+
 
 # ----------------------------------------------------------------------
 # phase 5: the slice at full size
@@ -895,7 +1084,8 @@ def full_size_phase(torch, card, profile=False):
         raise AssertionError("full-size run produced wrong token counts/ids")
     want = {"flash_attend": LAYERS * stats["prefill_steps"],
             "flash_attend_append": LAYERS * stats["decode_steps"],
-            "flash_attend_bias": 0, "plain_attend_cuda": 0}
+            "flash_attend_bias": 0, "plain_attend_cuda": 0,
+            "qmatmul": 0, "qmatmul_plain_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
         raise AssertionError(f"kernel launch counts {counts} != {want}")
     if profile:
@@ -1334,6 +1524,173 @@ def beam_phase(torch, card, sm):
     return counts, sample_counts
 
 
+# ----------------------------------------------------------------------
+# phase 8: bench.py's headline, LLaMA-2-7B geometry with int8 weights
+# ----------------------------------------------------------------------
+def quantized_llm(torch, qtype, ssm_layers=None, **kw):
+    """LLaMA-2-7B geometry with ``qtype`` weights through
+    ``LLM(...).compile(quantization_type=qtype)`` (each layer quantized as
+    it is initialized, then the loaded weights re-quantized), from
+    ``seven_b``'s bf16 weights; with ``ssm_layers`` a draft of that many
+    layers compiles beside it and then shares the verifier's leaves.
+    Returns (llm, ssm or None, seconds)."""
+    from flexflow_tpu_torch import LLM, SSM, DataType
+
+    hf, sd = seven_b(torch)
+    t0 = time.perf_counter()
+    ssms = []
+    if ssm_layers:
+        hf_d = dict(hf, num_hidden_layers=ssm_layers)
+        ssms = [SSM((hf_d, {k: sd[k] for k in seven_b_keys(hf_d)}),
+                    data_type=DataType.DT_BFLOAT16)]
+    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
+    del sd
+    llm.compile(**SERVE_7B, quantization_type=qtype, ssms=ssms, **kw)
+    if ssms:
+        share_params(ssms[0].ffmodel, llm.ffmodel)
+    gc.collect()
+    torch.cuda.synchronize()
+    return llm, (ssms[0] if ssms else None), time.perf_counter() - t0
+
+
+def int8_phase(torch, card, bf16_decode_ms=None, profile=False):
+    """``bench.py``'s headline: LLaMA-2-7B geometry, bf16 compute and
+    cache, int8 weights quantized per layer at compile; deep layers
+    damped through dequantize -> scale -> re-quantize (bench.py:218-234);
+    a 2-layer draft on the verifier's int8 leaves, depth 7, the
+    controller on. An incremental and a spec pass with the gates; then an
+    int4 incremental pass and an int8 pass with gemm_fusion (reported)."""
+    import types
+
+    import numpy as np
+
+    from flexflow_tpu_torch import GenerationConfig, kernels
+    from flexflow_tpu_torch.quant import (dequantize_array, quantized_nbytes,
+                                          requantize_into)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    llm, ssm, secs = quantized_llm(
+        torch, "int8", ssm_layers=DRAFT_LAYERS,
+        generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
+        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+    verifier = llm.ffmodel
+    for i in range(DRAFT_LAYERS, LAYERS):
+        for lname, w in ((f"layers.{i}.self_attn", "wo"),
+                         (f"layers.{i}.mlp.down_proj", "kernel")):
+            leaf = verifier.params[lname][w]
+            requantize_into(leaf, dequantize_array(leaf) * EPS)
+    wbytes = quantized_nbytes(verifier.params)
+    log(f"  build + load + quantize: {secs:.2f} s; verifier weights "
+        f"{wbytes / 1e9:.3f} GB (payload + scale)  [{card}]")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+
+    def timed(run, new_tokens, what):
+        return timed_pass(torch, card, prompts, run, new_tokens, what)
+
+    ifm = RequestManager._ifm(verifier)
+    dec = decode_timer(ifm)
+    timed(lambda rm: rm.generate_incr_decoding(verifier), 8, "warm-up incr")
+    llm.generate(prompts, max_new_tokens=16)
+    dec.update(s=0.0, steps=0)
+    torch.cuda.reset_peak_memory_stats()
+    incr, incr_tps, incr_counts, _ = timed(
+        lambda rm: rm.generate_incr_decoding(verifier), NEW_TOKENS,
+        "int8 incremental")
+    incr_peak = torch.cuda.max_memory_allocated() / 2**30
+    dec_ms = dec["s"] * 1e3 / max(1, dec["steps"])
+    del ifm.decode_block
+    # every forward of the pass (prefill chunk or decode step) runs K1 or
+    # K2 once a layer and K3 for the 7 projections a layer + lm_head
+    per_fwd = 7 * LAYERS + 1
+    fwds = (incr_counts["flash_attend"]
+            + incr_counts["flash_attend_append"]) / LAYERS
+    log(f"  decode {dec['steps']} steps, {dec_ms:.3f} ms/step (bf16 "
+        f"phase 5: {'%.3f' % bf16_decode_ms if bf16_decode_ms else 'not run'}"
+        f"); peak device memory {incr_peak:.2f} GiB  [{card}]")
+    log(f"  launches: {incr_counts}; qmatmul per forward "
+        f"{incr_counts['qmatmul'] / max(1, fwds):.1f} (want {per_fwd})")
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = llm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(kernels.counts)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    spec = [r.output_tokens for r in res]
+    spec_tps = sum(len(r) for r in spec) / wall
+    st = llm.rm.spec_stats
+    m30 = matches(spec, incr, 30)
+    log(f"  spec (tree engine, B=1, depth {SPEC_DEPTH}, through "
+        f"LLM.generate): {spec_tps:.1f} tokens/s; spec/incr "
+        f"{spec_tps / incr_tps:.3f}; verify rounds {st['rounds']}; "
+        f"committed tokens per request-round "
+        f"{st['committed'] / max(1, st['request_rounds']):.3f}; controller "
+        f"parks {st['parked']}; peak device memory {peak:.2f} GiB  [{card}]")
+    log(f"  spec_matches_incr_first30 {m30}/{REQUESTS}; full length "
+        f"({NEW_TOKENS}) {matches(spec, incr, NEW_TOKENS)}/{REQUESTS}; "
+        f"launches {counts}")
+    if m30 != REQUESTS:
+        raise AssertionError("int8 spec_matches_incr_first30 below 8/8")
+    if incr_counts["qmatmul"] != per_fwd * fwds or not fwds:
+        raise AssertionError(f"int8 incremental: {incr_counts['qmatmul']} "
+                             f"K3 launches for {fwds} forwards")
+    for c in (incr_counts, counts):
+        if c["qmatmul_plain_cuda"] or c["plain_attend_cuda"]:
+            raise AssertionError("a plain version ran on the card")
+    if not counts["qmatmul"] or counts["flash_attend_bias"] != LAYERS * st[
+            "rounds"]:
+        raise AssertionError(f"int8 spec launch counts {counts}")
+    if sum(len(r) for r in spec) != REQUESTS * NEW_TOKENS or not all(
+            0 <= t < VOCAB for r in spec for t in r):
+        raise AssertionError("int8 spec run produced wrong token counts/ids")
+    if profile:
+        def incr_generate(prompts_, max_new_tokens):
+            rm = RequestManager()
+            for p in prompts_:
+                rm.register_new_request(p, max_new_tokens=max_new_tokens)
+            rm.generate_incr_decoding(verifier)
+
+        log("  incremental:")
+        profile_decode(torch, types.SimpleNamespace(generate=incr_generate),
+                       prompts, card)
+        log("  spec:")
+        profile_decode(torch, llm, prompts, card, NEW_TOKENS)
+    del llm, ssm, verifier
+    gc.collect()
+
+    # reported: int4 incremental (tokens/s), int8 with gemm fusion (ms/step)
+    out = dict(incr_tokens_per_s=incr_tps, spec_tokens_per_s=spec_tps,
+               decode_ms_per_step=dec_ms, peak_gib=peak,
+               incr_peak_gib=incr_peak, matches_first30=m30)
+    for what, qt, kw in (("int4 incremental", "int4", {}),
+                         ("int8 incremental, gemm_fusion", "int8",
+                          dict(gemm_fusion=True))):
+        other, _, _ = quantized_llm(torch, qt, decode_block_steps=NEW_TOKENS
+                                    + 32, **kw)
+        m = other.ffmodel
+        ifm = RequestManager._ifm(m)
+        dec = decode_timer(ifm)
+        timed(lambda rm: rm.generate_incr_decoding(m), 8, f"warm-up {what}")
+        dec.update(s=0.0, steps=0)
+        _, tps, c, _ = timed(lambda rm: rm.generate_incr_decoding(m),
+                             NEW_TOKENS, f"{what} (reported)")
+        ms = dec["s"] * 1e3 / max(1, dec["steps"])
+        log(f"  {what}: decode {ms:.3f} ms/step; weights "
+            f"{quantized_nbytes(m.params) / 1e9:.3f} GB; launches {c}  "
+            f"[{card}]")
+        if c["qmatmul_plain_cuda"] or c["plain_attend_cuda"]:
+            raise AssertionError("a plain version ran on the card")
+        out[qt + ("_fused" if kw else "") + "_decode_ms_per_step"] = ms
+        out[qt + ("_fused" if kw else "") + "_tokens_per_s"] = tps
+        del other, m, ifm
+        gc.collect()
+    return incr_counts, out
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -1342,10 +1699,10 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="phases 5 and 6 also trace one short generate call "
+                    help="phases 5, 6 and 8 also trace a generate call "
                          "with torch.profiler (device busy share, time by "
                          "kernel)")
     args = ap.parse_args(argv)
@@ -1397,9 +1754,11 @@ def main(argv=None) -> int:
         e2e_parity_phase(torch)
         gc.collect()
     by_path = {}
+    bf16_decode_ms = None
     if 5 in phases:
-        by_path["incr"], _ = full_size_phase(torch, card,
-                                             profile=args.profile)
+        by_path["incr"], bf16 = full_size_phase(torch, card,
+                                                profile=args.profile)
+        bf16_decode_ms = bf16["decode_ms_per_step"]
         gc.collect()
     if phases & {6, 7}:
         log(f"phases 6-7: SpecInfer models, LLaMA-2-7B geometry, bf16, "
@@ -1416,10 +1775,20 @@ def main(argv=None) -> int:
             by_path["beam"], by_path["sample"] = beam_phase(torch, card, sm)
         del sm
         gc.collect()
+    if 8 in phases:
+        log(f"phase 8: LLaMA-2-7B geometry with int8 weights (bench.py's "
+            f"headline), bf16 compute and cache, {REQUESTS} requests x "
+            f"{PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  [{card}]")
+        by_path["int8"], int8 = int8_phase(torch, card, bf16_decode_ms,
+                                           profile=args.profile)
+        log(json.dumps({"int8_phase": int8}))
+        gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and
-        # K2 (decode) on incremental decoding, K1's bias mode on spec
-        path = "spec" if r["name"] == "flash_attend_bias" else "incr"
+        # K2 (decode) on incremental decoding, K1's bias mode on spec, K3
+        # on the int8 model's incremental decoding
+        path = {"flash_attend_bias": "spec", "qmatmul": "int8"}.get(
+            r["name"], "incr")
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

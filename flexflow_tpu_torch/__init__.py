@@ -11,7 +11,9 @@ tensors take the plain version.
 It serves LLaMA-family models by incremental decoding (greedy, or top-p
 sampling with ``GenerationConfig(do_sample=True)``) or, with draft models
 attached, by speculative inference (greedy chains, or beams with
-``compile(..., max_beam_width=2)``)::
+``compile(..., max_beam_width=2)``), with float weights or int8/int4
+weight-only quantized ones (``compile(..., quantization_type="int8")``,
+served on the card by the dequant-GEMM K3, ``kernels/csrc/qmatmul.cu``)::
 
     from flexflow_tpu_torch import LLM, SSM
     llm = LLM((hf_config_dict, state_dict)).compile(

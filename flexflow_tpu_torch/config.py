@@ -1,5 +1,5 @@
-"""FFConfig of the PyTorch/CUDA port: the serving fields of
-``flexflow_tpu.config.FFConfig`` plus ``device``.
+"""FFConfig of the PyTorch/CUDA port: the serving, quantization and
+fusion fields of ``flexflow_tpu.config.FFConfig`` plus ``device``.
 
 The device alone decides the attention path: CUDA tensors go to the
 hand-written kernels, CPU tensors to their plain PyTorch versions. There
@@ -11,8 +11,11 @@ fallback — asking for ``cuda`` where CUDA is missing raises
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
+
+from flexflow_tpu_torch.quant import normalize_qtype
 
 
 @dataclasses.dataclass
@@ -41,6 +44,22 @@ class FFConfig:
     # where the CUDA kernel serves the config, 1 elsewhere
     # (InferenceManager._resolve_decode_width)
     decode_width: int = 0
+
+    # --- weights ---
+    # weight-only quantization of the serving matmul weights: None | "int8"
+    # | "int4" (normalized from the aliases quant.normalize_qtype takes);
+    # each layer is quantized as it is initialized, and LLM.compile
+    # quantizes again after loading (quant.py)
+    quantization_type: Optional[str] = None
+    # runtime fusion switch (the reference's --fusion); gemm_fusion needs it
+    enable_fusion: bool = True
+    # serving gemm fusion: wq|wk|wv -> one wqkv, SwiGLU gate|up -> one
+    # [E, 2I] Linear (serve/gemm_fusion.py). Off by default, as in the JAX
+    # package, where it measured slower end to end
+    gemm_fusion: bool = False
+
+    def __post_init__(self):
+        self.quantization_type = normalize_qtype(self.quantization_type)
 
 
 def resolve_device(name) -> torch.device:

@@ -5,8 +5,12 @@ The op-builder methods record a layer graph; ``compile`` (inference mode
 only) initializes every weight on ``config.device`` from a
 ``torch.Generator`` seeded per weight, allocates each serving op's KV
 caches and stacks them into one ``[L, R, KH, S, D]`` pair; ``_run_graph``
-walks the layers eagerly. There is no mesh, strategy search, branch plan,
-pipeline, offload or quantization in this slice.
+walks the layers eagerly. With ``config.quantization_type`` each layer's
+eligible weights are quantized as the layer is initialized (``quant.py``),
+so the device never holds the float model; ``finalize_gemm_fusion`` fuses
+the serving GEMMs after the weights are loaded (``serve/gemm_fusion.py``).
+There is no mesh, strategy search, branch plan, pipeline or offload in
+this slice.
 """
 
 from __future__ import annotations
@@ -23,6 +27,10 @@ from flexflow_tpu_torch.core.tensor import Tensor
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, OpType)
 from flexflow_tpu_torch.ops.base import OpContext, get_op_impl, stable_hash
+from flexflow_tpu_torch.quant import (dequantize_array,
+                                      dequantize_layer_params, is_quantized,
+                                      normalize_qtype, quantize_params,
+                                      requantize_into)
 
 
 def weight_seed(seed: int, layer_name: str, weight_name: str) -> int:
@@ -43,6 +51,8 @@ class FFModel:
         self.op_state: Dict[str, Any] = {}
         self._final_tensor: Optional[Tensor] = None
         self._layer_name_counts: Dict[str, int] = {}
+        self.comp_mode: Optional[CompMode] = None
+        self._gemm_fusion_done = False
 
     # ==================================================================
     # Tensor / layer creation
@@ -248,7 +258,10 @@ class FFModel:
         impl = get_op_impl(layer.op_type)
         ins = [values[t.tensor_id] for t in layer.inputs]
         ctx.layer_name = layer.name
-        outs = impl.forward(layer.attrs, params.get(layer.name, {}), ins, ctx)
+        lp = params.get(layer.name, {})
+        if not impl.quant_aware:
+            lp = dequantize_layer_params(lp, ctx.compute_dtype)
+        outs = impl.forward(layer.attrs, lp, ins, ctx)
         for t, v in zip(layer.outputs, outs):
             values[t.tensor_id] = v
 
@@ -277,7 +290,8 @@ class FFModel:
             raise NotImplementedError(
                 "the PyTorch port compiles COMP_MODE_INFERENCE only")
         dev = self.device
-        params: Dict[str, Dict[str, torch.Tensor]] = {}
+        qtype = self.config.quantization_type
+        params: Dict[str, Dict[str, Any]] = {}
         for layer in self.layers:
             if not layer.weights:
                 continue
@@ -288,8 +302,14 @@ class FFModel:
                                             w.name))
                 lp[w.name] = w.initializer(gen, tuple(w.shape),
                                            w.dtype.to_torch(), dev)
+            if qtype:
+                # quantize each layer as it is initialized: the device
+                # holds one float layer at a time, never the float model
+                lp = quantize_params({layer.name: lp}, qtype)[layer.name]
             params[layer.name] = lp
         self.params = params
+        self.comp_mode = comp_mode
+        self._gemm_fusion_done = False
 
         self.op_state = {}
         for layer in self.layers:
@@ -326,21 +346,64 @@ class FFModel:
             del self.op_state[n]
         self.op_state["kv_cache"] = {"k": k, "v": v}
 
+    def finalize_gemm_fusion(self):
+        """Fuse the serving decode GEMMs (qkv, SwiGLU gate|up) in place
+        where ``serve/gemm_fusion.py`` finds the model eligible. Called
+        after the weights are loaded (``LLM.compile``, the
+        InferenceManager, the speculative engines); idempotent. A call
+        before ``compile`` decides nothing."""
+        from flexflow_tpu_torch.serve.gemm_fusion import (apply_gemm_fusion,
+                                                          fusion_eligible)
+
+        if self._gemm_fusion_done or self.comp_mode is None:
+            return self
+        if fusion_eligible(self):
+            apply_gemm_fusion(self)
+        self._gemm_fusion_done = True
+        return self
+
+    def quantize_weights(self, qtype: str):
+        """Quantize every eligible weight to int8/int4 on its device
+        (inference only; leaves already quantized stay as they are)."""
+        self.params = quantize_params(self.params, normalize_qtype(qtype))
+        return self
+
     # ==================================================================
     # Parameter access
     # ==================================================================
     def get_parameter_by_key(self, key: Tuple[str, str]) -> np.ndarray:
+        """The parameter as fp32 numpy: dequantized when quantized, sliced
+        out of its fused leaf when gemm fusion folded it into one."""
+        from flexflow_tpu_torch.serve.gemm_fusion import fused_param_get
+
         layer_name, weight_name = key
-        return self.params[layer_name][weight_name].detach().float().cpu() \
-            .numpy()
+        if weight_name not in self.params.get(layer_name, {}):
+            got = fused_param_get(self, layer_name, weight_name)
+            if got is not None:
+                return got
+        leaf = self.params[layer_name][weight_name]
+        if is_quantized(leaf):
+            leaf = dequantize_array(leaf)
+        return leaf.detach().float().cpu().numpy()
 
     def set_parameter_by_key(self, key: Tuple[str, str], value):
         """Copy ``value`` (numpy array or tensor) into the parameter, in the
-        parameter's dtype and on its device."""
+        parameter's dtype and on its device, in place (a model sharing the
+        leaf sees the new value). A quantized parameter is re-quantized; a
+        parameter folded into a fused leaf is spliced back into its
+        columns."""
+        from flexflow_tpu_torch.serve.gemm_fusion import fused_param_set
+
         layer_name, weight_name = key
+        if (weight_name not in self.params.get(layer_name, {})
+                and fused_param_set(self, layer_name, weight_name, value)):
+            return
         old = self.params[layer_name][weight_name]
         new = torch.as_tensor(value)
         if tuple(new.shape) != tuple(old.shape):
             raise ValueError(f"{key}: shape {tuple(new.shape)} != "
                              f"{tuple(old.shape)}")
+        if is_quantized(old):
+            requantize_into(old, new)
+            return
         old.copy_(new)

@@ -26,9 +26,12 @@ class DataType(enum.Enum):
         if self == DataType.DT_NONE:
             raise ValueError("DT_NONE has no torch dtype")
         if self == DataType.DT_INT4:
-            # int4 weights are stored packed two per int8 byte; they arrive
-            # with the quantization slice of the port
-            raise NotImplementedError("int4 weights are not ported yet")
+            # torch has no 4-bit tensor dtype: int4 weights exist only as
+            # the packed payload of a quant.QuantizedWeight (two rows a
+            # byte, int8 storage)
+            raise ValueError("DT_INT4 has no torch dtype: int4 weights are "
+                             "stored as a packed quant.QuantizedWeight "
+                             "(FFConfig(quantization_type='int4'))")
         return _DT_TO_TORCH[self.value]
 
     @staticmethod

@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 KERNEL_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = KERNEL_DIR / "csrc"
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("flash_attend",)
+SOURCES = ("flash_attend", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

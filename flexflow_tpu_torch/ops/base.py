@@ -46,6 +46,9 @@ class OpContext:
 
 class OpImpl:
     op_type: OpType = None
+    # quant-aware ops read QuantizedWeight leaves themselves (quant.qmatmul,
+    # quant.qtake); the others get dequantized params from the graph walker
+    quant_aware: bool = False
 
     @staticmethod
     def infer_output_specs(attrs: Dict[str, Any],

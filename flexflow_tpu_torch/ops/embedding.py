@@ -1,5 +1,6 @@
 """Embedding operator (counterpart of ``flexflow_tpu/ops/embedding.py``):
-row gather with aggregation modes NONE/SUM/AVG."""
+row gather with aggregation modes NONE/SUM/AVG. A quantized table gathers
+packed rows and dequantizes only those (``quant.qtake``)."""
 
 from __future__ import annotations
 
@@ -7,11 +8,13 @@ from flexflow_tpu_torch.core.initializer import NormInitializer
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import AggrMode, DataType, OpType
 from flexflow_tpu_torch.ops.base import OpImpl, register_op
+from flexflow_tpu_torch.quant import qtake
 
 
 @register_op
 class Embedding(OpImpl):
     op_type = OpType.EMBEDDING
+    quant_aware = True
 
     @staticmethod
     def infer_output_specs(attrs, input_specs):
@@ -32,7 +35,7 @@ class Embedding(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
-        out = params["weight"][inputs[0].long()]
+        out = qtake(params["weight"], inputs[0])
         aggr = attrs.get("aggr", AggrMode.AGGR_MODE_NONE)
         if aggr == AggrMode.AGGR_MODE_SUM:
             out = out.sum(dim=-2)

@@ -34,7 +34,7 @@ from flexflow_tpu_torch.core.initializer import (ZeroInitializer,
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import OpType, torch_dtype
 from flexflow_tpu_torch.ops.base import OpImpl, register_op_as
-from flexflow_tpu_torch.ops.linear import qmatmul
+from flexflow_tpu_torch.quant import qmatmul
 
 
 # ----------------------------------------------------------------------
@@ -126,19 +126,27 @@ def append_kv_contiguous(cache, layer_idx, new, start_pos, active):
 
 
 def _qkv(attrs, params, x, compute_dtype):
-    """Project x [R, Q, E] -> q [R,Q,H,D], k/v [R,Q,KH,D] (separate
-    unquantized wq/wk/wv; the fused wqkv arrives with gemm fusion)."""
+    """Project x [R, Q, E] -> q [R,Q,H,D], k/v [R,Q,KH,D]: three products,
+    or one over the fused ``wqkv`` (serve/gemm_fusion.py) sliced after.
+    Weights may be quantized (``quant.qmatmul``)."""
     H, KH, D = attrs["num_q_heads"], attrs["num_kv_heads"], attrs["head_dim"]
-    q = qmatmul(x, params["wq"])
-    k = qmatmul(x, params["wk"])
-    v = qmatmul(x, params["wv"])
-    n_bias = sum(k_ in params for k_ in ("bq", "bk", "bv"))
-    if n_bias == 3:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    elif n_bias:
-        raise ValueError(
-            "attention qkv bias set must be all-present or all-absent; "
-            f"got {sorted(k_ for k_ in ('bq', 'bk', 'bv') if k_ in params)}")
+    if "wqkv" in params:
+        qkv = qmatmul(x, params["wqkv"])
+        if "bqkv" in params:
+            qkv = qkv + params["bqkv"]
+        hd, khd = H * D, KH * D
+        q, k, v = qkv[..., :hd], qkv[..., hd:hd + khd], qkv[..., hd + khd:]
+    else:
+        q = qmatmul(x, params["wq"])
+        k = qmatmul(x, params["wk"])
+        v = qmatmul(x, params["wv"])
+        n_bias = sum(k_ in params for k_ in ("bq", "bk", "bv"))
+        if n_bias == 3:
+            q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+        elif n_bias:
+            raise ValueError(
+                "attention qkv bias set must be all-present or all-absent; "
+                f"got {sorted(k_ for k_ in ('bq', 'bk', 'bv') if k_ in params)}")
     R, Q = x.shape[0], x.shape[1]
     return (q.reshape(R, Q, H, D), k.reshape(R, Q, KH, D),
             v.reshape(R, Q, KH, D))
@@ -279,6 +287,7 @@ class IncMultiHeadSelfAttention(OpImpl):
     model owns its own cache."""
 
     op_type = OpType.INC_MULTIHEAD_SELF_ATTENTION
+    quant_aware = True
 
     @staticmethod
     def infer_output_specs(attrs, input_specs):
@@ -352,6 +361,7 @@ class TreeIncMultiHeadSelfAttention(OpImpl):
     verify) runs as incremental attention."""
 
     op_type = OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION
+    quant_aware = True
     infer_output_specs = staticmethod(
         IncMultiHeadSelfAttention.infer_output_specs)
     weight_specs = staticmethod(_weight_specs)

@@ -2,8 +2,9 @@
 
 Weight layout: kernel [in_dim, out_dim] (activations @ kernel), bias
 [out_dim] — the JAX package's layout, so parameters cross over unchanged.
-The products are plain ``torch.matmul``: the JAX package leaves them to
-XLA, and they are not TPU kernels.
+The product is ``quant.qmatmul``: a plain ``torch.matmul`` for a float
+kernel (the JAX package leaves it to XLA; no TPU kernel), the dequant-GEMM
+K3 for a quantized one on the card.
 """
 
 from __future__ import annotations
@@ -16,23 +17,7 @@ from flexflow_tpu_torch.core.initializer import (default_bias_initializer,
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import ActiMode, DataType, OpType
 from flexflow_tpu_torch.ops.base import OpImpl, register_op
-
-
-def qmatmul(x, w, compute_dtype=None, out_dtype=None):
-    """``x @ w`` with the semantics of the unquantized
-    ``flexflow_tpu.quant.qmatmul``: operands in ``compute_dtype``, fp32
-    accumulation, result cast to ``out_dtype``.
-
-    With an fp32 result from narrower operands (the logits head), the
-    product runs on fp32 copies of the rounded operands: the product of
-    two bf16 values is exact in fp32, so this is the fp32 accumulator of
-    the bf16 gemm, unrounded."""
-    cd = compute_dtype or x.dtype
-    od = out_dtype or cd
-    x, w = x.to(cd), w.to(cd)
-    if od != cd:
-        return torch.matmul(x.to(od), w.to(od))
-    return torch.matmul(x, w)
+from flexflow_tpu_torch.quant import qmatmul
 
 
 def apply_activation(x, mode: ActiMode):
@@ -52,6 +37,7 @@ def apply_activation(x, mode: ActiMode):
 @register_op
 class Linear(OpImpl):
     op_type = OpType.LINEAR
+    quant_aware = True
 
     @staticmethod
     def infer_output_specs(attrs, input_specs):
@@ -80,7 +66,8 @@ class Linear(OpImpl):
         x = inputs[0]
         compute_dtype = ctx.compute_dtype or x.dtype
         # logits heads keep the gemm's fp32 accumulator: bf16 ties between
-        # near-equal logits would flip greedy argmax between programs
+        # near-equal logits would flip greedy argmax between programs. A
+        # quantized head does so inside K3, with no fp32 copy of the weight
         out_dtype = torch.float32 if attrs.get("keep_f32_logits") else None
         y = qmatmul(x, params["kernel"], compute_dtype, out_dtype=out_dtype)
         if attrs.get("use_bias", True):

@@ -65,7 +65,8 @@ class ResidualRMSNorm(OpImpl):
 
 @register_op
 class SigmoidSiluMulti(OpImpl):
-    """silu(x1) * x2 — the SwiGLU gate."""
+    """silu(x1) * x2 — the SwiGLU gate (one packed [..., 2I] input with
+    attrs["packed"])."""
 
     op_type = OpType.SIGMOID_SILU_MULTI
 
@@ -75,4 +76,10 @@ class SigmoidSiluMulti(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
+        if attrs.get("packed"):
+            # gemm fusion rewired the (gate, up) pair into one packed
+            # [..., 2I] input (serve/gemm_fusion.py): split it in halves
+            x = inputs[0]
+            half = x.shape[-1] // 2
+            return [F.silu(x[..., :half]) * x[..., half:]]
         return [F.silu(inputs[0]) * inputs[1]]

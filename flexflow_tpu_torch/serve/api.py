@@ -12,7 +12,11 @@ inference::
     llm = LLM((hf_config, state_dict)).compile(ssms=[ssm])
     results = llm.generate(prompts, max_new_tokens=64)
 
-``compile(..., max_beam_width=2)`` builds the drafts as beam drafts of
+``compile(..., quantization_type="int8")`` (or ``"int4"``) serves
+weight-only quantized weights through the dequant-GEMM K3, and
+``compile(..., gemm_fusion=True)`` fuses the qkv and SwiGLU GEMMs; the
+drafts compile with the same fields. ``compile(..., max_beam_width=2)``
+builds the drafts as beam drafts of
 width 2 (the FFConfig field reaches every model; the verifier ignores
 it), and ``generate`` then drafts beams through the fused beam engine
 (one draft) or the host tree path (several). ``compile(generation_config=
@@ -83,6 +87,11 @@ class LLM:
         self.family.load_hf(self.ffmodel, self.model_config,
                             self._state_dict)
         self._state_dict = None     # the weights now live in the model
+        if config.quantization_type:
+            # post-load quantization (the reference's --8bit/--4bit flags);
+            # the leaves compile already quantized stay as they are
+            self.ffmodel.quantize_weights(config.quantization_type)
+        self.ffmodel.finalize_gemm_fusion()
         self.rm = RequestManager()
         if self.tokenizer is not None:
             self.rm.register_tokenizer(self.tokenizer)

@@ -197,6 +197,7 @@ class _SpecEngineBase:
 
     def __init__(self, llm, depth: int, max_rounds: int):
         self.llm = llm
+        llm.finalize_gemm_fusion()
         self.depth = depth
         self.max_rounds = max_rounds
         self._compute_dtype = torch_dtype(llm.config.compute_dtype)
@@ -264,6 +265,7 @@ class SpecChainEngine(_SpecEngineBase):
     def __init__(self, llm, ssm, depth: int = 4, max_rounds: int = 16):
         super().__init__(llm, depth, max_rounds)
         self.ssm = ssm
+        ssm.finalize_gemm_fusion()
 
     def _round(self, tok, pos, active, depth_r, d_run):
         d, llm, ssm = self.depth, self.llm, self.ssm
@@ -352,6 +354,8 @@ class MultiSpecEngine(_SpecEngineBase):
     def __init__(self, llm, ssms, depth: int = 4, max_rounds: int = 16):
         super().__init__(llm, depth, max_rounds)
         self.ssms = list(ssms)
+        for s in self.ssms:
+            s.finalize_gemm_fusion()
         self._consts = None
 
     @property
@@ -532,6 +536,7 @@ class BeamSpecEngine(_SpecEngineBase):
                  max_rounds: int = 16):
         super().__init__(llm, depth, max_rounds)
         self.ssm = ssm
+        ssm.finalize_gemm_fusion()
         self.width = width
         self.T = 1 + depth * width                  # real tree nodes
         self.tree_width = round_up(max(self.T, depth + 1), VERIFY_WIDTH)

@@ -45,6 +45,7 @@ class InferenceManager:
 
     def __init__(self, model):
         self.model = model
+        model.finalize_gemm_fusion()   # serving gemm fusion (gemm_fusion.py)
         cfg = model.config
         self._compute_dtype = torch_dtype(cfg.compute_dtype)
         self.generator = torch.Generator(device=model.device)

@@ -1,6 +1,6 @@
 """Adaptive speculation controller: speculative decoding that never
 loses to incremental decoding (the port's own copy of
-``flexflow_tpu/serve/spec_controller.py``, pure Python).
+``flexflow_tpu/serve/spec_controller.py``: host-side Python).
 
 Static-depth drafting loses to plain incremental decoding once draft
 acceptance drops: every round still pays ``depth`` draft forwards plus a
@@ -42,6 +42,8 @@ from __future__ import annotations
 
 import dataclasses
 from typing import Dict, Iterable, List, Sequence, Tuple
+
+from flexflow_tpu_torch.quant import quantized_nbytes
 
 # ---------------------------------------------------------------------------
 # pure cost model
@@ -96,10 +98,10 @@ def estimate_draft_cost_ratio(llm, ssms: Sequence) -> float:
     dispatch work inside the fused loop."""
 
     def pbytes(m) -> int:
-        # {layer: {weight: tensor}}; a tensor a draft shares with its
-        # verifier still costs the draft its read
-        return sum(int(t.nbytes) for lp in m.params.values()
-                   for t in lp.values())
+        # payload + scale for a quantized leaf: what a forward reads; a
+        # leaf a draft shares with its verifier still costs the draft its
+        # read
+        return quantized_nbytes(m.params)
 
     denom = max(1, pbytes(llm))
     return max(0.02, sum(pbytes(s) for s in ssms) / denom)
