@@ -22,13 +22,22 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      yardstick, then three long-cache rows (S 4096, lengths 4000) with
      bound share and GB/s, and beside every row the same timer around a
      PyTorch sum of the row's bytes (what the timer gives a pure read of
-     that size); then K3 (``quant.qmatmul`` on a QuantizedWeight) against
-     its plain version: int8 and int4, bf16 and fp32 operands and
-     results, M in {1, 8, 64, 256}, the 7B int8 path's (K, N) plus an
-     odd-K int4 case and N = 1000; rows of an M = 64 product bitwise
-     equal to the same rows at M = 8 and M = 1; timed rows at M = 64 and
-     256 beside the bound, the read floor, the plain version and
-     ``torch.matmul`` on a dequantized bf16 copy of the weight;
+     that size); fp16 caches (prefill, decode, tree bias, ALiBi, GQA,
+     split-S), each also showing that its limit rejects the same case
+     computed at bf16 precision; every cache dtype with every other out
+     dtype (K1, and K2 through split-S); head dims 32, 80 and 160
+     (through the padded cache) and 256, fp32 among them, against the
+     plain version on the unpadded inputs, with timed fp16 and D = 256
+     rows; then K3 (``quant.qmatmul`` on a QuantizedWeight)
+     against its plain version: int8 and int4, bf16, fp16 and fp32
+     operands and results (all nine pairs), M in {1, 8, 64, 256}, the 7B
+     int8 path's (K, N) plus an odd-K int4 case and N = 1000, the worst
+     error of each pair and the bf16-precision controls that the fp16-
+     and fp32-out limits must reject; rows of an
+     M = 64 product bitwise equal to the same rows at M = 8 and M = 1;
+     timed rows at M = 8, 64 and 256 beside the bound, the read floor,
+     the plain version and ``torch.matmul`` on a dequantized bf16 copy of
+     the weight;
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
      seeded numpy draw); the tokens must agree; then speculative
@@ -41,7 +50,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      int8 weights (the same draw, quantized on each device): incremental
      decoding, the chain engine (1-layer draft on the verifier's leaves,
      depth 4) and incremental decoding with gemm fusion on the card must
-     each give the CPU's int8 incremental tokens, 128 of 128;
+     each give the CPU's int8 incremental tokens, 128 of 128; then fp16
+     weights, activations and cache (at most one request may differ, as
+     the fp32 incremental pass) and head dim 32 (128 heads, fp32, the
+     card's cache padded to 64; 128 of 128) against the CPU;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -68,7 +80,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      pass's; reported: the beam engine with the controller off (ms a
      round) beside the chain engine at the same depth (what beam search
      prunes), the device time of the argmax, top-p and beam heads on
-     one step's logits, and the host tree path with two beam drafts;
+     one step's logits, and the host tree path with two beam drafts; for
+     the beam engine and the host tree path, where they first differ
+     from incremental decoding (any position), the verifier's top-2
+     logit gap there and the accepted nodes' staged cache positions;
   8. bench.py's headline: LLaMA-2-7B geometry with int8 weights through
      ``LLM(...).compile(quantization_type="int8", ssms=[SSM(...)])``
      (quantized per layer at compile; the deep layers damped through
@@ -100,8 +115,12 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12                  # H100 SXM, NVIDIA data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,           # dense tensor-core rate
+              "float16": 989e12,
               "float32": 67e12}             # fp32 outside the tensor cores
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # atol = rtol, as the CPU tests
+# atol = rtol, as the CPU tests. fp16: two fp16 ulps of the output at any
+# magnitude (2^-9 |y|) pass; a bf16-precision computation on the same fp16
+# inputs must fail (each fp16 case checks its bf16 control against it)
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}
 K1_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attend.cu"
 K1_REPLACES = "flexflow_tpu/kernels/attention.py:483"
 K2_REPLACES = "flexflow_tpu/kernels/attention.py:514"
@@ -288,6 +307,63 @@ def invariance_check(torch, ivec, mk):
                                  "failed")
 
 
+def head_dim_cases(torch, ivec, mk, compare, bf16_control):
+    """K1 and K2 at head dims the kernels take directly (256) and through
+    the padded cache (32 -> 64, 80 -> 128, 160 -> 256:
+    ``ops/inc_attention.py`` ``cache_head_dim``), bf16, fp16 and fp32
+    (fp32 at D = 256: the scalar kernel's largest shared-memory tile),
+    each against the plain version on the same unpadded inputs (softmax
+    scale 1/sqrt(D) of the real D)."""
+    from flexflow_tpu_torch.kernels.attention import (append_at,
+                                                      flash_attend,
+                                                      reference_attend)
+    from flexflow_tpu_torch.ops.inc_attention import (cache_head_dim,
+                                                      pad_head_dim)
+
+    dev = "cuda"
+    for D, dt in ((32, torch.bfloat16), (80, torch.float16),
+                  (256, torch.bfloat16), (256, torch.float16),
+                  (256, torch.float32), (160, torch.float32)):
+        Dp = cache_head_dim(D, pad=True)
+        R, Q, H, KH, S = 4, 16, 8, 4, 512
+        q, k, v = mk(R, Q, H, KH, D, S, dt, 70 + D)
+        lengths = ivec([300, 17, 512, 64])
+        qpos = lengths[:, None] - Q + torch.arange(
+            Q, dtype=torch.int32, device=dev)[None]
+        scale = 1.0 / D ** 0.5
+        kp, vp = pad_head_dim(k, Dp), pad_head_dim(v, Dp)
+        out = flash_attend(pad_head_dim(q, Dp), kp, vp, lengths, qpos,
+                           qk_scale=scale)
+        out = out.reshape(R, Q, H, Dp)[..., :D].reshape(R, Q, H * D)
+        torch.cuda.synchronize()
+        ref = reference_attend(q, k, v, lengths, qpos, qk_scale=scale)
+        h16 = dt == torch.float16
+        compare(f"K1 D={D} (cache D {Dp}) {str(dt)[6:]}", ref, out, lengths,
+                dt, bf16_control(q, k, v, lengths, qpos, qk_scale=scale)
+                if h16 else None)
+        g = torch.Generator(device=dev).manual_seed(80 + D)
+        kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
+        vn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
+        appos = lengths - 1
+        q1 = q[:, :1].contiguous()
+        out, _, _ = flash_attend(pad_head_dim(q1, Dp), kp, vp, lengths,
+                                 appos[:, None].contiguous(),
+                                 append_kv=(pad_head_dim(kn, Dp),
+                                            pad_head_dim(vn, Dp), appos),
+                                 qk_scale=scale)
+        out = out.reshape(R, 1, H, Dp)[..., :D].reshape(R, 1, H * D)
+        torch.cuda.synchronize()
+        append_at(k, v, kn, vn, appos)
+        if not (torch.equal(kp[..., :D], k) and bool((kp[..., D:] == 0).all())):
+            raise AssertionError(f"K2 D={D}: padded cache after the append "
+                                 "differs from the plain append")
+        ref = reference_attend(q1, k, v, lengths, appos[:, None],
+                               qk_scale=scale)
+        compare(f"K2 D={D} (cache D {Dp}) {str(dt)[6:]}", ref, out, lengths,
+                dt, bf16_control(q1, k, v, lengths, appos[:, None],
+                                 qk_scale=scale) if h16 else None)
+
+
 def kernel_phase(torch, timer):
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.kernels.attention import (NEG_INF, append_at,
@@ -311,19 +387,47 @@ def kernel_phase(torch, timer):
     def ivec(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
 
-    def compare(name, ref, out, lengths, dtype):
+    def compare(name, ref, out, lengths, dtype, control=None):
+        """out against ref, |err| <= tol (1 + |ref|) on active rows. With
+        ``control`` (a bf16-precision computation of the same fp16 case),
+        also show that the same limit rejects it."""
         act = lengths > 0
-        err = (ref.float()[act] - out.float()[act]).abs()
         tol = TOL[str(dtype).replace("torch.", "")]
-        bad = err > tol + tol * ref.float()[act].abs()
-        ok = not bool(bad.any()) and bool(torch.isfinite(out.float()).all())
+        rf = ref.float()[act]
+
+        def min_tol(o):   # the least tol at which o passes
+            return float(((rf - o.float()[act]).abs() / (1 + rf.abs())).max())
+
+        err = (rf - out.float()[act]).abs()
+        ok = (not bool((err > tol + tol * rf.abs()).any())
+              and bool(torch.isfinite(out.float()).all()))
         zeros_ok = bool((out[~act] == 0).all())
+        ctl = "" if control is None else (
+            f" bf16_control_min_tol={min_tol(control):.3e}")
+        ctl_ok = control is None or min_tol(control) > tol
         log(f"  {name:34s} max_abs_err={float(err.max()):.3e} "
-            f"tol={tol:g} len0_rows_zero={zeros_ok} "
-            f"{'PASS' if ok and zeros_ok else 'FAIL'}")
+            f"min_tol={min_tol(out):.3e} tol={tol:g}{ctl} "
+            f"len0_rows_zero={zeros_ok} "
+            f"{'PASS' if ok and zeros_ok and ctl_ok else 'FAIL'}")
         if not (ok and zeros_ok):
             raise AssertionError(f"kernel parity failed: {name}")
+        if not ctl_ok:
+            raise AssertionError(f"{name}: the fp16 limit does not reject "
+                                 "a bf16-precision computation")
         return float(err.max())
+
+    def coarser(dtype, out_dtype):
+        """The dtype whose tolerance holds a cache-dtype result rounded to
+        out_dtype: the coarser of the two."""
+        rank = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
+        return max(dtype, out_dtype or dtype, key=rank.__getitem__)
+
+    def bf16_control(q, k, v, lengths, qpos, **kw):
+        """The plain version at bf16 precision on fp16 inputs (q, K, V, P
+        and the output rounded to bf16; out in fp16)."""
+        b16 = torch.bfloat16
+        return reference_attend(q.to(b16), k.to(b16), v.to(b16), lengths,
+                                qpos, out_dtype=torch.float16, **kw)
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -338,19 +442,25 @@ def kernel_phase(torch, timer):
                     out, lengths, dtype)
 
     def k1_case(name, R, Q, H, KH, D, S, dtype, lengths, qpos, seed,
-                bias=None, alibi=None, causal=True):
+                bias=None, alibi=None, causal=True, out_dtype=None):
         q, k, v = mk(R, Q, H, KH, D, S, dtype, seed)
         out = flash_attend(q, k, v, lengths, qpos, bias=bias, alibi=alibi,
-                           causal=causal)
+                           causal=causal, out_dtype=out_dtype)
         torch.cuda.synchronize()
+        kw = dict(bias=bias, alibi=alibi, causal=causal)
         ref = reference_attend(q, k, v, lengths.clamp(max=S), qpos,
-                               bias=bias, alibi=alibi, causal=causal)
-        split_check(name, q, k, v, lengths, qpos, out, dtype, bias=bias,
-                    alibi=alibi, causal=causal)
-        return compare(name, ref, out, lengths, dtype), (q, k, v)
+                               out_dtype=out_dtype, **kw)
+        if out.dtype != (out_dtype or dtype):
+            raise AssertionError(f"{name}: out is {out.dtype}")
+        tdt = coarser(dtype, out_dtype)
+        split_check(name, q, k, v, lengths, qpos, out, tdt,
+                    out_dtype=out_dtype, **kw)
+        ctl = (bf16_control(q, k, v, lengths.clamp(max=S), qpos, **kw)
+               if dtype == torch.float16 and out_dtype is None else None)
+        return compare(name, ref, out, lengths, tdt, ctl), (q, k, v)
 
     def k2_case(name, R, Q, H, KH, D, S, dtype, appos, seed, L=None,
-                layer_idx=None):
+                layer_idx=None, out_dtype=None):
         q, k, v = mk(R, Q, H, KH, D, S, dtype, seed, L)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dtype)
@@ -361,19 +471,27 @@ def kernel_phase(torch, timer):
         k_ref, v_ref = k.clone(), v.clone()
         out, k_out, v_out = flash_attend(q, k, v, lengths, qpos,
                                          append_kv=(kn, vn, appos),
-                                         layer_idx=layer_idx)
+                                         layer_idx=layer_idx,
+                                         out_dtype=out_dtype)
         torch.cuda.synchronize()
         append_at(k_ref, v_ref, kn, vn, appos, layer_idx=layer_idx)
         kl = k_ref if layer_idx is None else k_ref[layer_idx]
         vl = v_ref if layer_idx is None else v_ref[layer_idx]
-        ref = reference_attend(q, kl, vl, lengths, qpos)
+        ref = reference_attend(q, kl, vl, lengths, qpos, out_dtype=out_dtype)
+        if out.dtype != (out_dtype or dtype):
+            raise AssertionError(f"{name}: out is {out.dtype}")
         if not (torch.equal(k_out, k_ref) and torch.equal(v_out, v_ref)):
             raise AssertionError(f"{name}: cache after the fused append "
                                  "differs from the plain append")
         if k_out.data_ptr() != k.data_ptr():
             raise AssertionError(f"{name}: the append was not in place")
-        split_check(name, q, kl, vl, lengths, qpos, out, dtype)
-        err = compare(name + " (cache bitwise ok)", ref, out, lengths, dtype)
+        tdt = coarser(dtype, out_dtype)
+        split_check(name, q, kl, vl, lengths, qpos, out, tdt,
+                    out_dtype=out_dtype)
+        ctl = (bf16_control(q, kl, vl, lengths, qpos)
+               if dtype == torch.float16 and out_dtype is None else None)
+        err = compare(name + " (cache bitwise ok)", ref, out, lengths, tdt,
+                      ctl)
         return err, (q, k, v, kn, vn, lengths, qpos)
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -462,6 +580,39 @@ def kernel_phase(torch, timer):
                 NEG_INF, 0.0), causal=False)
     k2_case("K2 split-S fp32 appos=-1 row", 2, 8, 8, 4, 64, 1024, f32,
             ivec([777, -1]), 17)
+    # --- fp16 caches: the serving shapes, then the rest of the contract ---
+    h16 = torch.float16
+    k1_case("K1 fp16 prefill R8 Q64 H32 D128", R, Qp, H, KH, D, S, h16,
+            pre_len, pre_qpos, 60)
+    k2_case("K2 fp16 decode R8 Q8 stacked idx5", R, 8, H, KH, D, S, h16,
+            appos_main, 61, L=LAYERS, layer_idx=5)
+    k1_case("K1 fp16 verify chain-tree bias", R, 8, H, KH, D, S, h16, v_len,
+            v_qpos, 62, bias=v_bias, causal=False)
+    k1_case("K1 fp16 tree bias + ALiBi", 2, 16, 8, 4, 128, 256, h16,
+            ivec([100, 60]),
+            ivec([[i + 40 for i in range(16)], [i + 20 for i in range(16)]]),
+            63, bias=torch.tensor(tb, device=dev),
+            alibi=torch.tensor((rng.rand(8) * 0.2).astype(np.float32),
+                               device=dev), causal=False)
+    k1_case("K1 fp16 GQA G=4 S=200 (ragged tile)", 3, 5, 16, 4, 128, 200,
+            h16, ivec([200, 77, 1]), ivec([[195 + i for i in range(5)],
+                                           [72 + i for i in range(5)],
+                                           [0] * 5]), 64)
+    k2_case("K2 fp16 split-S GQA D=64", 2, 8, 8, 4, 64, 1024, h16,
+            ivec([700, 130]), 65)
+    # --- every cache dtype with every other out dtype (the serving path's
+    #     out is the activations' dtype, the cache's is kv_cache_dtype) ---
+    for i, (cdt, odt) in enumerate((c, o) for c in (bf, h16, f32)
+                                   for o in (bf, h16, f32) if c != o):
+        tag = f"{str(cdt)[6:]} cache -> {str(odt)[6:]} out"
+        k1_case(f"K1 {tag}", 2, 16, 8, 4, 128, 256, cdt, ivec([100, 60]),
+                ivec([[j + 84 for j in range(16)],
+                      [j + 44 for j in range(16)]]), 90 + i,
+                out_dtype=odt)
+        # split-S: the combine launch writes out
+        k2_case(f"K2 split-S {tag}", 3, 1, 8, 2, 64, 1024, cdt,
+                ivec([5, 700, 1000]), 100 + i, out_dtype=odt)
+    head_dim_cases(torch, ivec, mk, compare, bf16_control)
     invariance_check(torch, ivec, mk)
 
     # --- times at the serving path's shapes ---
@@ -582,6 +733,44 @@ def kernel_phase(torch, timer):
     for name, met in targets:
         log(f"  target: {name}: {'met' if met else 'MISSED'}")
     log(json.dumps({"long_cache_rows": long_rows}))
+
+    # --- fp16 caches and head dim 256 at the serving shapes (timed only,
+    #     each also checked once against the plain version): the same
+    #     cache bytes as the bf16 D = 128 rows above (D 256: 16 heads) ---
+    log("  fp16 and D = 256 rows (median of 20, L2 flushed before each "
+        "launch)")
+    dim_rows = []
+    for dt, H_, D_ in ((h16, H, D), (bf, H // 2, 2 * D), (h16, H // 2, 2 * D)):
+        tag = f"{str(dt)[6:]} H{H_} D{D_}"
+        _, (q, k, v) = k1_case(f"K1 prefill {tag}", R, Qp, H_, H_, D_, S, dt,
+                               pre_len, pre_qpos, 90 + D_)
+        b, by, nbytes = attention_bound_ms(torch, q, pre_len, pre_qpos, S, H_,
+                                           True, dt)
+        dim_rows.append(dict(
+            name=f"K1 prefill R8 Q64 {tag} S256", ms=timer(
+                lambda: flash_attend(q, k, v, pre_len, pre_qpos)),
+            plain_ms=timer(lambda: reference_attend(q, k, v, pre_len,
+                                                    pre_qpos)),
+            sdpa_ms=timer(sdpa_call(q, k, v, pre_len, pre_qpos)),
+            bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes)))
+        _, (q, k, v, kn_, vn_, ln, qp) = k2_case(
+            f"K2 decode {tag}", R, 8, H_, H_, D_, S, dt, appos_main, 95 + D_)
+        b, by, nbytes = attention_bound_ms(torch, q, ln, qp, S, H_, True, dt,
+                                           extra_bytes=4 * kn_.numel() * 2)
+        dim_rows.append(dict(
+            name=f"K2 decode R8 Q8 {tag} S256", ms=timer(
+                lambda: flash_attend(q, k, v, ln, qp,
+                                     append_kv=(kn_, vn_, appos_main))),
+            plain_ms=timer(lambda: reference_attend(q, k, v, ln, qp)),
+            sdpa_ms=timer(sdpa_call(q, k, v, ln, qp)),
+            bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes)))
+        del q, k, v
+    for r in dim_rows:
+        log(f"  {r['name']:34s} kernel {r['ms']:.4f} ms | bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | plain "
+            f"{r['plain_ms']:.4f} ms | sdpa {r['sdpa_ms']:.4f} ms | sum over "
+            f"the same bytes {r['read_floor_ms']:.4f} ms")
+    log(json.dumps({"dtype_dim_rows": dim_rows}))
     rows.append(k3_phase(torch, timer, read_floor))
     kernels.reset_counts()
     return rows
@@ -593,7 +782,9 @@ def kernel_phase(torch, timer):
 K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
              (4096, 12288), (4096, 22016), (4095, 4096), (4096, 1000))
 K3_TIMED = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
-K3_TOL = {"bfloat16": 1e-2, "float32": 1e-5}   # of max|y|, by out dtype
+# of max|y|, by out dtype. fp16: above one fp16 ulp of max|y| (2^-10),
+# below an fp16 product rounded to bf16 (k3_phase checks that control)
+K3_TOL = {"bfloat16": 1e-2, "float16": 1.5e-3, "float32": 1e-5}
 
 
 def k3_bound_ms(M, K, N, out_dtype):
@@ -610,31 +801,38 @@ def k3_bound_ms(M, K, N, out_dtype):
 
 def k3_phase(torch, timer, read_floor):
     """K3 (``quant.qmatmul`` on a QuantizedWeight) against its plain
-    version on the card: int8 and int4 payloads, bf16 and fp32 operands,
-    bf16 and fp32 results, M in {1, 8, 64, 256}, every shape of
-    ``K3_SHAPES``; rows of an M = 64 product bitwise equal to the same
-    rows computed at M = 8 and M = 1 (two places); then timed rows at
-    M = 64 and 256. Returns the kernel table's K3 row (M = 64, 4096 x
+    version on the card: int8 and int4 payloads, bf16, fp16 and fp32
+    operands and results (all nine pairs), M in {1, 8, 64, 256}, every
+    shape of ``K3_SHAPES``; rows of an M = 64 product bitwise equal to the
+    same rows computed at M = 8 and M = 1 (two places); then timed rows
+    at M = 8, 64 and 256. Returns the kernel table's K3 row (M = 64, 4096 x
     4096, int8, bf16 out: a decode projection)."""
     from flexflow_tpu_torch.kernels.qmatmul import qmatmul_plain, split_plan
     from flexflow_tpu_torch.quant import dequantize_array, qmatmul, \
         quantize_array
 
     dev = "cuda"
-    bf, f32 = torch.bfloat16, torch.float32
+    bf, h16, f32 = torch.bfloat16, torch.float16, torch.float32
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     g = torch.Generator(device=dev).manual_seed(50)
     log(f"  K3 qmatmul parity (|y - plain| / max|plain| <= {K3_TOL['bfloat16']:g}"
-        f" for bf16 out, {K3_TOL['float32']:g} for fp32 out) and row "
-        f"invariance (M 64 rows == M 8 rows == M 1 row, bitwise)")
-    errs = {}
+        f" for bf16, {K3_TOL['float16']:g} for fp16, {K3_TOL['float32']:g} for "
+        f"fp32 out) and row invariance (M 64 rows == M 8 rows == M 1 row, "
+        f"bitwise)")
+    errs, pair_worst, ctl_least = {}, {}, {}
+
+    def rel_err(y, ref):
+        return float((y.float() - ref.float()).abs().max()) / max(
+            float(ref.float().abs().max()), 1e-30)
+
     for qt in ("int8", "int4"):
         for K, N in K3_SHAPES:
             w = torch.empty((K, N), device=dev).normal_(0, 0.02, generator=g)
             leaf = quantize_array(w.to(bf), qt)
             del w
             worst, inv_ok = 0.0, True
-            for cd, od in ((bf, bf), (bf, f32), (f32, f32), (f32, bf)):
+            for cd, od in [(c, o) for c in (bf, h16, f32)
+                           for o in (bf, h16, f32)]:
                 odn = str(od).replace("torch.", "")
                 for M in (1, 8, 64, 256):
                     x = torch.randn((M, K), generator=g, device=dev).to(cd)
@@ -642,7 +840,9 @@ def k3_phase(torch, timer, read_floor):
                     torch.cuda.synchronize()
                     ref = qmatmul_plain(x, leaf, cd, od)
                     err = float((y.float() - ref.float()).abs().max())
-                    rel = err / max(float(ref.float().abs().max()), 1e-30)
+                    rel = rel_err(y, ref)
+                    pair = (str(cd)[6:], odn)
+                    pair_worst[pair] = max(pair_worst.get(pair, 0.0), rel)
                     ok = (rel <= K3_TOL[odn]
                           and bool(torch.isfinite(y.float()).all()))
                     worst = max(worst, rel / K3_TOL[odn])
@@ -661,12 +861,33 @@ def k3_phase(torch, timer, read_floor):
                                 x[61:62].contiguous(), leaf, cd, od))
                             and torch.equal(y[:8], qmatmul(
                                 x[:8].contiguous(), leaf, cd, od)))
+            # bf16-precision controls on fp16 x (M = 64): the product
+            # rounded to bf16 (held by the fp16-out limit), x rounded to
+            # bf16 (held by the fp32-out limit)
+            x = torch.randn((64, K), generator=g, device=dev).to(h16)
+            for name, ref, ctl in (
+                    ("float16", qmatmul_plain(x, leaf, h16, h16),
+                     qmatmul_plain(x, leaf, h16, bf)),
+                    ("float32", qmatmul_plain(x, leaf, h16, f32),
+                     qmatmul_plain(x, leaf, bf, f32))):
+                ctl_least[name] = min(ctl_least.get(name, 1.0),
+                                      rel_err(ctl, ref))
             log(f"  K3 {qt} K{K:5d} N{N:5d} plan {split_plan(K, N, sms)}: "
-                f"16 cases, worst err / tol {worst:.3f}; row invariance "
+                f"36 cases, worst err / tol {worst:.3f}; row invariance "
                 f"{'PASS' if inv_ok else 'FAIL'}")
             if not inv_ok:
                 raise AssertionError("K3 row invariance failed")
             del leaf
+    log("  K3 worst |y - plain| / max|plain| by x -> out dtype: " + ", ".join(
+        f"{c} -> {o} {v:.3e}" for (c, o), v in sorted(pair_worst.items())))
+    ctl_ok = all(ctl_least[o] > K3_TOL[o] for o in ctl_least)
+    log(f"  K3 bf16-precision controls on fp16 x, least over shapes: out "
+        f"rounded to bf16 {ctl_least['float16']:.3e} (fp16-out limit "
+        f"{K3_TOL['float16']:g}), x rounded to bf16 {ctl_least['float32']:.3e}"
+        f" (fp32-out limit {K3_TOL['float32']:g}): rejected "
+        f"{'PASS' if ctl_ok else 'FAIL'}")
+    if not ctl_ok:
+        raise AssertionError("a K3 limit does not reject its bf16 control")
     log("  K3 timed rows: int8, bf16 x (median of 20, L2 flushed before "
         "each launch); library = torch.matmul on a dequantized bf16 copy")
     k3_rows, row = [], None
@@ -677,7 +898,7 @@ def k3_phase(torch, timer, read_floor):
         leaf = quantize_array(w.to(bf), "int8")
         wd = dequantize_array(leaf, bf)
         del w
-        for M in (64, 256):
+        for M in (8, 64, 256):
             x = torch.randn((M, K), generator=g, device=dev).to(bf)
             ms = timer(lambda: qmatmul(x, leaf, bf, od))
             pl = timer(lambda: qmatmul_plain(x, leaf, bf, od))
@@ -708,7 +929,8 @@ def k3_phase(torch, timer, read_floor):
 def e2e_parity_phase(torch):
     import numpy as np
 
-    from flexflow_tpu_torch import LLM, FFConfig, FFModel, GenerationConfig
+    from flexflow_tpu_torch import (LLM, DataType, FFConfig, FFModel,
+                                    GenerationConfig)
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.convert import load_params, params_from_jax
     from flexflow_tpu_torch.ffconst import InferenceMode
@@ -730,16 +952,19 @@ def e2e_parity_phase(torch):
     outs = {}
 
     def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2,
-              width=1, quant=None, fusion=False):
+              width=1, quant=None, fusion=False, dtype="float32",
+              heads=HEADS):
         cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
                        max_sequence_length=MAX_SEQ,
                        max_tokens_per_batch=REQUESTS * PROMPT_LEN,
-                       kv_cache_dtype="float32", compute_dtype="float32",
+                       kv_cache_dtype=dtype, compute_dtype=dtype,
                        max_beam_width=width, quantization_type=quant,
                        gemm_fusion=fusion)
         m = FFModel(cfg)
         create_llama_model(m, dataclasses.replace(
-            lc, num_hidden_layers=layers), mode=mode)
+            lc, num_hidden_layers=layers, num_attention_heads=heads,
+            num_key_value_heads=heads), mode=mode,
+            data_type=DataType(dtype))
         m.compile()
         return m
 
@@ -936,6 +1161,47 @@ def e2e_parity_phase(torch):
                 or counts["qmatmul_plain_cuda"]
                 or counts["plain_attend_cuda"]):
             raise AssertionError(f"card {what} vs CPU parity failed")
+
+    # fp16 weights, activations and cache (the same draw), and head dim 32
+    # (128 heads of 32, fp32: the card pads the cache to 64), each served
+    # greedily on the card and on the CPU
+    for what, kw, strict in (
+            ("fp16", dict(dtype="float16"), False),
+            ("head dim 32 (128 heads), fp32", dict(heads=128), True)):
+        toks = {}
+        for device in ("cpu", "cuda"):
+            m = model(device, **kw)
+            load_params(m, params_from_jax(pnp, device=device))
+            rm = RequestManager()
+            guids = [rm.register_new_request(p, max_new_tokens=16)
+                     for p in prompts]
+            kernels.reset_counts()
+            rm.generate_incr_decoding(m)
+            toks[device] = [rm.results[g].output_tokens for g in guids]
+            counts = dict(kernels.counts)
+            cache = m.op_state["kv_cache"]["k"]
+            del m
+        same_req = sum(a == b for a, b in zip(toks["cpu"], toks["cuda"]))
+        same_tok = sum(x == y for a, b in zip(toks["cpu"], toks["cuda"])
+                       for x, y in zip(a, b))
+        log(f"  {what} on the card: tokens equal to the CPU's {same_tok}/"
+            f"{tot}, identical requests {same_req}/{REQUESTS}; card cache "
+            f"{tuple(cache.shape)} {cache.dtype}; launches {counts}")
+        for i, (a, b) in enumerate(zip(toks["cpu"], toks["cuda"])):
+            if a != b:
+                j = next(k for k, (x, y) in enumerate(zip(a, b)) if x != y)
+                log(f"    first divergence: request {i} token {j}: cpu "
+                    f"{a[j]} vs cuda {b[j]}")
+                break
+        # fp32: every token; fp16: at most one request may diverge (a
+        # near-tie flips one argmax, as in the fp32 incremental pass above)
+        bad = (toks["cpu"] != toks["cuda"]) if strict else (
+            same_req < REQUESTS - 1)
+        if (bad or not counts["flash_attend_append"]
+                or counts["plain_attend_cuda"]):
+            raise AssertionError(f"card {what} vs CPU parity failed")
+        del cache
+        gc.collect()
 
 
 # ----------------------------------------------------------------------
@@ -1315,6 +1581,55 @@ def top2_gap(torch, model, seq):
     return top.indices.tolist(), float(top.values[0] - top.values[1])
 
 
+def classify_difference(torch, what, res, incr, verifier, prompts, run,
+                        new_tokens=NEW_TOKENS):
+    """Reported, not gated: where ``res`` first differs from incremental
+    decoding (any position), the verifier's top-2 logit gap there (a
+    near-tie in bf16 is not a fault), and the staged cache positions of
+    the nodes accepted around it, from a rerun of ``run`` that records
+    every ``commit_tree_kv`` (source -> destination positions; a source
+    that is not its destination is a node staged off the chain)."""
+    from flexflow_tpu_torch.serve import engine, request_manager
+
+    diff = [(i, next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     None)) for i, (a, b) in enumerate(zip(res, incr))]
+    diff = [(i, j) for i, j in diff if j is not None]
+    if not diff:
+        log(f"  {what}: no difference from incremental decoding")
+        return
+    i, j = min(diff, key=lambda d: d[1])
+    ids, gap = top2_gap(torch, verifier, prompts[i] + incr[i][:j])
+    log(f"  {what}: {len(diff)} request(s) differ; first difference at "
+        f"request {i} position {j} (sequence position {len(prompts[i]) + j})"
+        f": {res[i][j]} vs incremental {incr[i][j]}; the verifier's top-2 "
+        f"after incremental's prefix {ids}, logit gap {gap:.4f}")
+    commits = []
+    base = engine.commit_tree_kv
+
+    def logged(op_state, src_node, num_commit, start_pos, active):
+        n, st = int(num_commit[i]), int(start_pos[i])
+        if bool(active[i]) and n:
+            src = (st + src_node[i, :n].long()).tolist()
+            commits.append((list(range(st, st + n)), src))
+        return base(op_state, src_node, num_commit, start_pos, active)
+
+    engine.commit_tree_kv = logged
+    try:
+        rm = request_manager.RequestManager()
+        rm._commit = logged
+        for p in prompts:
+            rm.register_new_request(p, max_new_tokens=new_tokens)
+        run(rm)
+    finally:
+        engine.commit_tree_kv = base
+    pos = len(prompts[i]) + j
+    near = [(d, s_) for d, s_ in commits if d[0] - 8 <= pos <= d[-1] + 8]
+    log(f"    request {i}: {len(commits)} commits; the accepted nodes' "
+        f"staged positions (destination <- source) near position {pos}: "
+        + ("; ".join(", ".join(f"{a}<-{b}" for a, b in zip(d, s_))
+                     for d, s_ in near) or "none"))
+
+
 def head_times(torch, card):
     """Device time of the three serving heads on one decode step's fp32
     logits [R, 8, VOCAB] (CUDA events, median of 20 warm calls, no L2
@@ -1429,14 +1744,8 @@ def beam_phase(torch, card, sm):
         f" = {LAYERS} x {st['rounds']} rounds + {DRAFT_LAYERS} x {levels} "
         f"levels: {counts['flash_attend_bias'] == LAYERS * st['rounds'] + DRAFT_LAYERS * levels}")
     log(f"  peak device memory of the beam pass {peak:.2f} GiB  [{card}]")
-    for i, (a, b) in enumerate(zip(beam, incr)):
-        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
-        if j is not None and j < 30:
-            ids, gap = top2_gap(torch, verifier, prompts[i] + b[:j])
-            log(f"  first difference: request {i} position {j}: beam {a[j]} "
-                f"vs incremental {b[j]}; the verifier's top-2 there {ids}, "
-                f"logit gap {gap:.4f}")
-            break
+    classify_difference(torch, "beam engine", beam, incr, verifier, prompts,
+                        beam_run)
     if counts["plain_attend_cuda"]:
         raise AssertionError("plain attention ran on the card")
     if (counts["flash_attend_bias"]
@@ -1519,6 +1828,10 @@ def beam_phase(torch, card, sm):
     log(f"  host path: {hrm.spec_stats['rounds']} rounds, committed "
         f"{hrm.spec_stats['committed']}, matches incremental (first 16) "
         f"{matches(host, incr, 16)}/{REQUESTS}; launches {host_counts}")
+    classify_difference(
+        torch, "host tree path", host, [r[:16] for r in incr], verifier,
+        prompts, lambda rm: rm.generate_spec_infer(
+            verifier, [draft, draft2], spec_depth=BEAM_DEPTH), 16)
     if host_counts["plain_attend_cuda"]:
         raise AssertionError("plain attention ran on the card")
     return counts, sample_counts
@@ -1740,9 +2053,19 @@ def main(argv=None) -> int:
     libs = build.build_all()
     log(f"phase 2: built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in libs:
-        for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {line.strip()}")
+        lines = build.build_log(name).splitlines()
+        regs = [int(w) for line in lines if "registers" in line
+                for w, nxt in zip(line.split(), line.split()[1:])
+                if nxt == "registers,"]
+        spills, fn = [], ""
+        for line in lines:   # ptxas -v: "Function properties for <name>"
+            if "Function properties for" in line:
+                fn = line.split("for", 1)[1].strip()
+            elif ("spill" in line and
+                  " 0 bytes spill stores, 0 bytes spill loads" not in line):
+                spills.append(f"{fn}: {line.strip()}")
+        log(f"  {name}: {len(regs)} kernels, at most {max(regs, default=0)} "
+            f"registers a thread; spills: {spills or 'none'}")
 
     timer = Timer(torch)
     rows = kernel_phase(torch, timer) if 3 in phases else []

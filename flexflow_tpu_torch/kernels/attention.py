@@ -37,13 +37,31 @@ import torch
 NEG_INF = -1e30  # finite "minus infinity": keeps the online softmax NaN-free
 BLOCK_S = 64     # cache positions per kernel tile (csrc/flash_attend.cu BS)
 SPLIT_MIN_TILES = 4  # a split streams at least this many tiles
-SUPPORTED_HEAD_DIMS = (64, 128)
-_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# cache and output dtypes the kernels take, as csrc/flash_attend.cu's codes
+_KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def supports_shapes(S: int, D: int) -> bool:
     """Can the CUDA kernels serve a cache of length S and head dim D?"""
     return S > 0 and D in SUPPORTED_HEAD_DIMS
+
+
+def padded_head_dim(D: int) -> int:
+    """The cache head dim that serves head dim D on the card: D rounded up
+    to the next kernel head dim (64, 128 or 256), the counterpart of
+    ``flexflow_tpu/ops/inc_attention.py:312 padded_head_dim``. A D past
+    256 is returned as it is: no kernel serves it, and ``_launch`` raises
+    on it."""
+    return next((d for d in SUPPORTED_HEAD_DIMS if d >= D), D)
+
+
+def kernel_takes(device, S: int, D: int, dtype) -> bool:
+    """Does a kernel launch serve a cache of S positions, head dim D (the
+    cache's own, padded or not) and ``dtype`` on ``device``? The one
+    predicate behind ``_launch``'s checks and ``kernel_serves``."""
+    return (torch.device(device).type == "cuda" and dtype in _KERNEL_DTYPES
+            and supports_shapes(S, D))
 
 
 @functools.lru_cache(maxsize=None)
@@ -257,12 +275,12 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     Q, H = q.shape[1], q.shape[2]
     if H % KH:
         raise ValueError(f"{H} query heads do not group over {KH} kv heads")
-    if not supports_shapes(S, D):
-        raise ValueError(f"flash_attend kernel takes head dim "
-                         f"{SUPPORTED_HEAD_DIMS}, got D={D}")
     cdt = kc.dtype
-    if cdt not in _KERNEL_DTYPES or vc.dtype != cdt:
-        raise ValueError(f"cache dtype {cdt} not in {list(_KERNEL_DTYPES)}")
+    if not kernel_takes(dev, S, D, cdt) or vc.dtype != cdt:
+        raise ValueError(
+            f"flash_attend kernel takes a cache of head dim "
+            f"{SUPPORTED_HEAD_DIMS} (pad a smaller one: padded_head_dim) in "
+            f"{list(_KERNEL_DTYPES)}, got D={D} {cdt} / {vc.dtype}")
     if out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"out dtype {out_dtype} not in {list(_KERNEL_DTYPES)}")
     for name, t in (("k_cache", kc), ("v_cache", vc)):

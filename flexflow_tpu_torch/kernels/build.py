@@ -23,7 +23,7 @@ SOURCE_DIR = KERNEL_DIR / "csrc"
 BUILD_DIR = KERNEL_DIR / "_build"
 SOURCES = ("flash_attend", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

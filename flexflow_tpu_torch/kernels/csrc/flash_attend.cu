@@ -54,31 +54,47 @@
 //    each row's arithmetic depends only on that row: a width-1 decode, a
 //    width-8 decode and a K1 call over the same cache give bitwise equal
 //    rows for the same query.
+// The fp16 cache takes the same tensor-core body with the f16 form of the
+// mma (P rounded to fp16, the reference's p.to(dt)). Head dims 64, 128
+// and 256: at D = 256 a 64 x 256 K+V stage is 64 KiB, so the ring has two
+// stages, one block an SM, and q is kept in shared memory (read by
+// ldmatrix at every k-step) instead of 64 registers a thread beside the
+// 128 of O. Other head dims are served by a cache padded to the next of
+// these (ops/inc_attention.py cache_head_dim).
 // The fp32 cache type keeps scalar FMA (TF32 tensor cores would lose the
 // 2e-5 parity) with the same grid, split plan, causal cut and append.
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr int BS = 64;     // cache positions per S-tile (never depends on Q)
 constexpr int QM = 64;     // query rows per block (a grid dimension)
-constexpr int NT_MMA = 128;   // bf16 kernel: four warps of 16 query rows
-constexpr int NSTAGE = 3;     // bf16 kernel: K/V ring depth
+constexpr int NT_MMA = 128;   // 16-bit kernel: four warps of 16 query rows
 constexpr int NT_SIMT = 256;  // fp32 kernel
 using bf16 = __nv_bfloat16;
+using f16 = __half;
+
+// 16-bit kernel: K/V ring depth, and blocks an SM, by head dim
+template <int D> __host__ __device__ constexpr int nstage() { return D > 128 ? 2 : 3; }
+template <int D> __host__ __device__ constexpr int min_blocks() { return D > 128 ? 1 : 2; }
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
   return __float2bfloat16(x);
 }
+template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
 
 // x rounded to the cache type T and widened back to fp32
 template <typename T> __device__ __forceinline__ float round_to(float x) {
@@ -103,6 +119,7 @@ struct Args {
   int n_split, tps;    // S-splits of tps tiles each
   float scale;
   int causal;
+  int out_dt;          // out's dtype code: 0 fp32, 1 bf16, 2 fp16
 };
 
 // What one block streams: (row r, kv head kh, query tile qt, split),
@@ -172,15 +189,23 @@ __device__ __forceinline__ size_t out_row(const Args& a, const Block& b, int gq)
   return ((size_t)b.r * a.Q + qi) * a.H + b.kh * b.G + g;
 }
 
+// Element i of an output of dtype code dt. The output type is read at
+// run time (one branch a store, the same for the whole grid): a template
+// parameter would triple the instantiations for an epilogue alone.
+__device__ __forceinline__ void put_out(void* out, size_t i, int dt, float x) {
+  if (dt == 0) reinterpret_cast<float*>(out)[i] = x;
+  else if (dt == 1) reinterpret_cast<bf16*>(out)[i] = from_f<bf16>(x);
+  else reinterpret_cast<f16*>(out)[i] = from_f<f16>(x);
+}
+
 // One output element of a finished row: normalised and rounded like the
 // reference (to the cache type, then to the output type) when there is
 // one split, else the split's unnormalised fp32 partial.
-template <typename T, typename OutT>
+template <typename T>
 __device__ __forceinline__ void store_out(const Args& a, const Block& b, size_t row, int D,
                                           int d, float o, float l) {
   if (a.n_split == 1) {
-    reinterpret_cast<OutT*>(a.out)[row * D + d] =
-        from_f<OutT>(round_to<T>(o / fmaxf(l, 1e-30f)));
+    put_out(a.out, row * D + d, a.out_dt, round_to<T>(o / fmaxf(l, 1e-30f)));
   } else {
     a.part_o[((size_t)b.split * a.R * a.Q * a.H + row) * D + d] = o;
   }
@@ -207,7 +232,7 @@ __device__ __forceinline__ float score(const Args& a, const Block& b, float dot,
 }
 
 // ---------------------------------------------------------------------
-// bf16 cache: tensor cores (mma.sync.m16n8k16), cp.async ring
+// bf16 / fp16 cache: tensor cores (mma.sync.m16n8k16), cp.async ring
 // ---------------------------------------------------------------------
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -237,19 +262,33 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t* r, const void* p) {
                : "r"(smem_addr(p)));
 }
 
-// c[16x8] += a[16x16] . b[16x8], bf16 operands, fp32 accumulate
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// c[16x8] += a[16x16] . b[16x8], T (bf16 or fp16) operands, fp32 accumulate
+template <typename T>
+__device__ __forceinline__ void mma16(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  } else {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  }
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const uint32_t*>(&v);
+// two fp32 values rounded to T (bf16 or fp16), packed lo | hi << 16
+template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  if constexpr (std::is_same<T, bf16>::value) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  } else {
+    const __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<const uint32_t*>(&v);
+  }
 }
 
 // element offset of 16-byte chunk `ch` of tile row `row` ([BS][D] tile,
@@ -259,19 +298,46 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return row * D + ((ch ^ (row & 7)) << 3);
 }
 
+// the K/V ring, then (D > 128) the block's 64 query rows
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return sizeof(bf16) * NSTAGE * 2 * BS * D;
+  return 2 * ((size_t)nstage<D>() * 2 * BS * D + (D > 128 ? QM * D : 0));
+}
+
+// 16 staged fp32 rows (row stride D + 4) out to dst(row) as E, in
+// 16-byte stores
+template <typename E, int D, typename Dst>
+__device__ __forceinline__ void copy_rows(const float* st, int lane, int rows, Dst dst) {
+  constexpr int EPC = 16 / (int)sizeof(E);  // elements per 16-byte chunk
+  constexpr int CPR = D / EPC;              // chunks per row
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int row = c / CPR, ch = c % CPR;
+    if (row >= rows) continue;
+    const float4* src = reinterpret_cast<const float4*>(st + row * (D + 4) + ch * EPC);
+    uint4 v;
+    if constexpr (EPC == 4) {
+      v = *reinterpret_cast<const uint4*>(src);
+    } else {
+      const float4 x0 = src[0], x1 = src[1];
+      E* e = reinterpret_cast<E*>(&v);
+      e[0] = from_f<E>(x0.x); e[1] = from_f<E>(x0.y); e[2] = from_f<E>(x0.z);
+      e[3] = from_f<E>(x0.w); e[4] = from_f<E>(x1.x); e[5] = from_f<E>(x1.y);
+      e[6] = from_f<E>(x1.z); e[7] = from_f<E>(x1.w);
+    }
+    reinterpret_cast<uint4*>(dst(row))[ch] = v;
+  }
 }
 
 // A warp's 16 finished rows (mma accumulator layout) go through shared
-// memory `st` (padded rows: conflict-free) and out to dst(row) with
-// 16-byte stores; normalised and rounded like store_out when `normalise`.
-template <typename T, typename E, int D, typename Dst>
-__device__ __forceinline__ void warp_store(E* st, const float (&o)[D / 8][4], const float* l,
-                                           bool normalise, int lane, int rows, Dst dst) {
-  constexpr int LD = D + 16 / (int)sizeof(E);
-  constexpr int CPR = D * (int)sizeof(E) / 16;  // 16-byte chunks per row
+// memory `st` as fp32 (padded rows: conflict-free) and out to dst(row), a
+// row of dtype code dt, in 16-byte stores; normalised and rounded like
+// store_out when `normalise`. The accumulators are dead once staged, so
+// the branch on dt costs the main loop no registers.
+template <typename T, int D, typename Dst>
+__device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4], const float* l,
+                                           bool normalise, int lane, int rows, int dt,
+                                           Dst dst) {
+  constexpr int LD = D + 4;
   const int gid = lane >> 2, tig = lane & 3;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -281,20 +347,47 @@ __device__ __forceinline__ void warp_store(E* st, const float (&o)[D / 8][4], co
       for (int e = 0; e < 2; ++e) {
         float x = o[n][2 * i + e];
         if (normalise) x = round_to<T>(x / fmaxf(l[i], 1e-30f));
-        st[(gid + 8 * i) * LD + n * 8 + tig * 2 + e] = from_f<E>(x);
+        st[(gid + 8 * i) * LD + n * 8 + tig * 2 + e] = x;
       }
   __syncwarp();
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int row = c / CPR, ch = c % CPR;
-    if (row < rows)
-      reinterpret_cast<uint4*>(dst(row))[ch] = reinterpret_cast<const uint4*>(st + row * LD)[ch];
+  if (dt == 0) copy_rows<float, D>(st, lane, rows, dst);
+  else if (dt == 1) copy_rows<bf16, D>(st, lane, rows, dst);
+  else copy_rows<f16, D>(st, lane, rows, dst);
+}
+
+// A block's finished rows: the ring is idle (last loop barrier passed, no
+// copy pending), so each warp stages its rows in its own 16 x D slice of it
+template <typename T, int D>
+__device__ __forceinline__ void mma_epilogue(const Args& a, const Block& b,
+                                             unsigned char* smem_raw, int warp, int lane,
+                                             int wrow, const float (&o)[D / 8][4],
+                                             const float* m, const float* l, const bool* rok,
+                                             const size_t* orow) {
+  const int nrows = min(16, b.GQ - wrow);
+  float* st = reinterpret_cast<float*>(smem_raw) + warp * 16 * (D + 4);
+  if (a.n_split == 1) {
+    const size_t esize = a.out_dt == 0 ? 4 : 2;
+    warp_store<T, D>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
+      return static_cast<void*>(static_cast<char*>(a.out) +
+                                out_row(a, b, wrow + row) * D * esize);
+    });
+  } else {
+    const size_t base = (size_t)b.split * a.R * a.Q * a.H;
+    warp_store<T, D>(st, o, l, false, lane, nrows, 0, [&](int row) {
+      return static_cast<void*>(a.part_o + (base + out_row(a, b, wrow + row)) * D);
+    });
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      if (rok[i] && (lane & 3) == 0) store_ml(a, b, orow[i], m[i], l[i]);
   }
 }
 
-template <typename OutT, int D, bool APPEND>
-__global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
+template <typename T, int D, bool APPEND>
+__global__ void __launch_bounds__(NT_MMA, min_blocks<D>()) attend_mma_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw);  // [NSTAGE][K|V][BS][D]
+  constexpr int NSTAGE = nstage<D>();
+  constexpr bool QSMEM = D > 128;                  // q in shared memory, not registers
+  T* ring = reinterpret_cast<T*>(smem_raw);        // [NSTAGE][K|V][BS][D]
   constexpr int CH = D / 8;                        // 16-byte chunks per row
   constexpr int KS = D / 16;                       // k-steps of q.k
   constexpr int ND = D / 8;                        // n-tiles of p.v
@@ -303,18 +396,18 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
-  const bf16* kc = reinterpret_cast<const bf16*>(a.k) + head;
-  const bf16* vc = reinterpret_cast<const bf16*>(a.v) + head;
+  const T* kc = reinterpret_cast<const T*>(a.k) + head;
+  const T* vc = reinterpret_cast<const T*>(a.v) + head;
   const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
-  const bf16* kn = APPEND ? reinterpret_cast<const bf16*>(a.k_new) + nsrc : nullptr;
-  const bf16* vn = APPEND ? reinterpret_cast<const bf16*>(a.v_new) + nsrc : nullptr;
+  const T* kn = APPEND ? reinterpret_cast<const T*>(a.k_new) + nsrc : nullptr;
+  const T* vn = APPEND ? reinterpret_cast<const T*>(a.v_new) + nsrc : nullptr;
 
   auto load_tile = [&](int t, int st) {
-    bf16* ks_ = ring + (size_t)st * 2 * BS * D;
-    bf16* vs_ = ks_ + BS * D;
+    T* ks_ = ring + (size_t)st * 2 * BS * D;
+    T* vs_ = ks_ + BS * D;
     for (int c = tid; c < BS * CH; c += NT_MMA) {
       const int row = c / CH, ch = c % CH, pos = t * BS + row;
-      const bf16 *ksrc = kc, *vsrc = vc;
+      const T *ksrc = kc, *vsrc = vc;
       int bytes = 16;
       if (pos == b.app) {
         ksrc = kn + ch * 8;
@@ -345,7 +438,7 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
   float slope[2];
   const float* brow[2];
   size_t orow[2];
-  const bf16* qrow[2];
+  const T* qrow[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int gq = wrow + gid + 8 * i;
@@ -356,17 +449,31 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
     slope[i] = a.alibi ? a.alibi[b.kh * b.G + g] : 0.f;
     brow[i] = a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr;
     orow[i] = out_row(a, b, gqc);
-    qrow[i] = reinterpret_cast<const bf16*>(a.q) + orow[i] * D;
+    qrow[i] = reinterpret_cast<const T*>(a.q) + orow[i] * D;
   }
-  // q as mma A fragments, kept in registers for the whole stream
-  uint32_t qa[KS][4];
-#pragma unroll
-  for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = e & 1, d = ks * 16 + tig * 2 + 8 * (e >> 1);
-      qa[ks][e] = rok[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + d) : 0u;
+  // q as mma A fragments: kept in registers for the whole stream, or
+  // (D > 128) in this warp's 16 x D slice of shared memory past the ring
+  uint32_t qa[QSMEM ? 1 : KS][4];
+  T* qs = ring + (size_t)NSTAGE * 2 * BS * D + warp * 16 * D;
+  if constexpr (QSMEM) {
+    for (int c = lane; c < 16 * CH; c += 32) {
+      const int row = c / CH, ch = c % CH, gq = wrow + row;
+      uint4 v = make_uint4(0u, 0u, 0u, 0u);
+      if (gq < b.GQ)
+        v = *reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.q) +
+                                            out_row(a, b, gq) * D + ch * 8);
+      *reinterpret_cast<uint4*>(qs + swz<D>(row, ch)) = v;
     }
+    __syncwarp();
+  } else {
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e & 1, d = ks * 16 + tig * 2 + 8 * (e >> 1);
+        qa[ks][e] = rok[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + d) : 0u;
+      }
+  }
 
   float o[ND][4];
 #pragma unroll
@@ -381,8 +488,8 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
     cp_async_wait<NSTAGE - 1>();  // tile j has landed (this thread's part)
     __syncthreads();              // ... and every thread's
     if (wactive) {
-      const bf16* ks_ = ring + (size_t)(j % NSTAGE) * 2 * BS * D;
-      const bf16* vs_ = ks_ + BS * D;
+      const T* ks_ = ring + (size_t)(j % NSTAGE) * 2 * BS * D;
+      const T* vs_ = ks_ + BS * D;
       const int s0 = (b.t0 + j) * BS;
       // S = q . k^T: 16 rows x 64 keys, 8 n-tiles of 8 keys
       float s[8][4];
@@ -391,15 +498,23 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks)
+      for (int ks = 0; ks < KS; ++ks) {
+        uint32_t qf[4];
+        if constexpr (QSMEM) {
+          ldmatrix_x4(qf, qs + swz<D>(lane & 15, ks * 2 + (lane >> 4)));
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qf[e] = qa[ks][e];
+        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t kb[4];
           const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
           ldmatrix_x4(kb, ks_ + swz<D>(key, ks * 2 + ((lane >> 3) & 1)));
-          mma_bf16(s[2 * np], qa[ks], kb[0], kb[1]);
-          mma_bf16(s[2 * np + 1], qa[ks], kb[2], kb[3]);
+          mma16<T>(s[2 * np], qf, kb[0], kb[1]);
+          mma16<T>(s[2 * np + 1], qf, kb[2], kb[3]);
         }
+      }
       // online softmax; row i of this thread = accumulator elements 2i, 2i+1
       float corr[2];
 #pragma unroll
@@ -451,46 +566,31 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
         o[n][2] *= corr[1];
         o[n][3] *= corr[1];
       }
-      // O += P . V: P (rounded to bf16) as A fragments, 4 k-steps of 16 keys
+      // O += P . V: P (rounded to T) as A fragments, 4 k-steps of 16 keys
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk) {
         uint32_t pa[4];
-        pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+        pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+        pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+        pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
 #pragma unroll
         for (int dp = 0; dp < ND / 2; ++dp) {
           uint32_t vb[4];
           const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
           ldmatrix_x4_trans(vb, vs_ + swz<D>(key, dp * 2 + (lane >> 4)));
-          mma_bf16(o[2 * dp], pa, vb[0], vb[1]);
-          mma_bf16(o[2 * dp + 1], pa, vb[2], vb[3]);
+          mma16<T>(o[2 * dp], pa, vb[0], vb[1]);
+          mma16<T>(o[2 * dp + 1], pa, vb[2], vb[3]);
         }
       }
     }
     __syncthreads();  // the next iteration refills this stage
   }
 
-  if (APPEND) append_store<bf16, D>(a, b);  // off the critical path: no block reads it
-  if (!wactive) return;
-  // the ring is idle now (last loop barrier passed, no copy pending):
-  // each warp stages its rows in its own 16 x D slice of it
-  const int nrows = min(16, b.GQ - wrow);
-  if (a.n_split == 1) {
-    warp_store<bf16, OutT, D>(
-        reinterpret_cast<OutT*>(smem_raw) + warp * 16 * (D + 16 / sizeof(OutT)), o, l, true,
-        lane, nrows,
-        [&](int row) { return reinterpret_cast<OutT*>(a.out) + out_row(a, b, wrow + row) * D; });
-  } else {
-    const size_t base = (size_t)b.split * a.R * a.Q * a.H;
-    warp_store<bf16, float, D>(
-        reinterpret_cast<float*>(smem_raw) + warp * 16 * (D + 4), o, l, false, lane, nrows,
-        [&](int row) { return a.part_o + (base + out_row(a, b, wrow + row)) * D; });
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (rok[i] && tig == 0) store_ml(a, b, orow[i], m[i], l[i]);
-  }
+  if (wactive) mma_epilogue<T, D>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow);
+  // after the rows are out, when O's registers are free (no block reads
+  // the appended row)
+  if (APPEND) append_store<T, D>(a, b);
 }
 
 // ---------------------------------------------------------------------
@@ -505,7 +605,7 @@ constexpr size_t simt_smem_bytes() {
          sizeof(int) * QM;
 }
 
-template <typename OutT, int D, bool APPEND>
+template <int D, bool APPEND>
 __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
   extern __shared__ float smem[];
   constexpr int KS = D + 1;  // padded K row stride: conflict-free column reads
@@ -637,7 +737,7 @@ __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
     const int row = row0 + i * RSTEP, gq = b.q0 + row;
     if (gq >= b.GQ) continue;
     const size_t orow = out_row(a, b, gq);
-    store_out<float, OutT>(a, b, orow, D, my_d, acc[i], l_s[row]);
+    store_out<float>(a, b, orow, D, my_d, acc[i], l_s[row]);
     if (my_d == 0) store_ml(a, b, orow, m_s[row], l_s[row]);
   }
 }
@@ -647,9 +747,9 @@ __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
 // over the splits in order (deterministic). One block per (r, qi, h).
 // ---------------------------------------------------------------------
 
-template <typename T, typename OutT>
-__global__ void combine_kernel(const float* part_o, const float* part_ml, OutT* out,
-                               int rows, int D, int n_split) {
+template <typename T>
+__global__ void combine_kernel(const float* part_o, const float* part_ml, void* out,
+                               int out_dt, int rows, int D, int n_split) {
   extern __shared__ float ml_s[];  // [n_split][2]: (m, l), then (weight, l)
   __shared__ float l_tot;
   const size_t row = blockIdx.x;
@@ -673,7 +773,7 @@ __global__ void combine_kernel(const float* part_o, const float* part_ml, OutT* 
 #pragma unroll 8
     for (int s = 0; s < n_split; ++s)
       o += ml_s[2 * s] * part_o[((size_t)s * rows + row) * D + d];
-    out[row * D + d] = from_f<OutT>(round_to<T>(o / l_tot));
+    put_out(out, row * D + d, out_dt, round_to<T>(o / l_tot));
   }
 }
 
@@ -681,11 +781,16 @@ __global__ void combine_kernel(const float* part_o, const float* part_ml, OutT* 
 // launch
 // ---------------------------------------------------------------------
 
-template <typename T, typename OutT, int D, bool APPEND>
+template <typename T, int D, bool APPEND>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr bool MMA = sizeof(T) == 2;  // bf16 cache: tensor cores
+  constexpr bool MMA = sizeof(T) == 2;  // bf16 / fp16 cache: tensor cores
   constexpr size_t smem = MMA ? mma_smem_bytes<D>() : simt_smem_bytes<D>();
-  auto kern = MMA ? attend_mma_kernel<OutT, D, APPEND> : attend_simt_kernel<OutT, D, APPEND>;
+  // if constexpr: a bf16/fp16 cache never instantiates the fp32 kernel's
+  // twin, nor fp32 the tensor-core one
+  auto kern = [] {
+    if constexpr (MMA) return attend_mma_kernel<T, D, APPEND>;
+    else return attend_simt_kernel<D, APPEND>;
+  }();
   static bool smem_set = false;  // one attribute call per instantiation
   cudaError_t err = cudaSuccess;
   if (!smem_set) {
@@ -699,26 +804,27 @@ int launch(const Args& a, cudaStream_t stream) {
   err = cudaGetLastError();
   if (err != cudaSuccess || a.n_split == 1) return (int)err;
   const int rows = a.R * a.Q * a.H;
-  combine_kernel<T, OutT><<<rows, D, 2 * a.n_split * sizeof(float), stream>>>(a.part_o, a.part_ml,
-                                                  reinterpret_cast<OutT*>(a.out), rows, D,
-                                                  a.n_split);
+  combine_kernel<T><<<rows, D, 2 * a.n_split * sizeof(float), stream>>>(
+      a.part_o, a.part_ml, a.out, a.out_dt, rows, D, a.n_split);
   return (int)cudaGetLastError();
 }
 
+// dtype codes: 0 fp32, 1 bf16, 2 fp16 (kernels/attention.py _KERNEL_DTYPES);
+// one kernel per (cache dtype, head dim, append), out's dtype at run time
+template <int D, bool APPEND>
+int dispatch_cache(const Args& a, int cache_dt, cudaStream_t st) {
+  if (cache_dt == 0) return launch<float, D, APPEND>(a, st);
+  if (cache_dt == 1) return launch<bf16, D, APPEND>(a, st);
+  if (cache_dt == 2) return launch<f16, D, APPEND>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
 template <bool APPEND>
-int dispatch(const Args& a, int D, int cache_bf16, int out_bf16, cudaStream_t st) {
-  if (D == 128) {
-    if (cache_bf16 && out_bf16) return launch<bf16, bf16, 128, APPEND>(a, st);
-    if (cache_bf16) return launch<bf16, float, 128, APPEND>(a, st);
-    if (out_bf16) return launch<float, bf16, 128, APPEND>(a, st);
-    return launch<float, float, 128, APPEND>(a, st);
-  }
-  if (D == 64) {
-    if (cache_bf16 && out_bf16) return launch<bf16, bf16, 64, APPEND>(a, st);
-    if (cache_bf16) return launch<bf16, float, 64, APPEND>(a, st);
-    if (out_bf16) return launch<float, bf16, 64, APPEND>(a, st);
-    return launch<float, float, 64, APPEND>(a, st);
-  }
+int dispatch(const Args& a, int D, int cache_dt, cudaStream_t st) {
+  if (a.out_dt < 0 || a.out_dt > 2) return (int)cudaErrorInvalidValue;
+  if (D == 64) return dispatch_cache<64, APPEND>(a, cache_dt, st);
+  if (D == 128) return dispatch_cache<128, APPEND>(a, cache_dt, st);
+  if (D == 256) return dispatch_cache<256, APPEND>(a, cache_dt, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -726,14 +832,14 @@ Args make_args(const void* q, void* k, void* v, const int* lengths, const int* q
                const float* bias, const float* alibi, const void* k_new,
                const void* v_new, const int* appos, void* out, float* part_o,
                float* part_ml, int R, int Q, int H, int KH, int S, int n_split, int tps,
-               float scale, int causal) {
+               float scale, int causal, int out_dt) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.lengths = lengths; a.qpos = qpos;
   a.bias = bias; a.alibi = alibi; a.k_new = k_new; a.v_new = v_new;
   a.appos = appos; a.out = out; a.part_o = part_o; a.part_ml = part_ml;
   a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S;
   a.n_split = n_split; a.tps = tps;
-  a.scale = scale; a.causal = causal;
+  a.scale = scale; a.causal = causal; a.out_dt = out_dt;
   return a;
 }
 
@@ -748,19 +854,20 @@ bool plan_ok(int S, int n_split, int tps, const float* part_o, const float* part
 // return cudaGetLastError() after the launch(es): 0 on success. The S
 // range is cut into n_split splits of tps 64-position tiles; with
 // n_split > 1, part_o [n_split, R, Q, H, D] and part_ml [n_split, R, Q,
-// H, 2] (fp32) hold the partials and a combine kernel follows.
+// H, 2] (fp32) hold the partials and a combine kernel follows. D is 64,
+// 128 or 256; cache_dt and out_dt are dtype codes (0 fp32, 1 bf16, 2 fp16).
 extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengths,
                                const int* qpos, const float* bias, const float* alibi,
                                const void* k_new, const void* v_new, const int* appos,
                                void* out, float* part_o, float* part_ml, int R, int Q,
                                int H, int KH, int S, int D, int n_split, int tps,
-                               float scale, int causal, int cache_bf16, int out_bf16,
+                               float scale, int causal, int cache_dt, int out_dt,
                                void* stream) {
   if (!plan_ok(S, n_split, tps, part_o, part_ml)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr, nullptr,
                            out, part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale,
-                           causal);
-  return dispatch<false>(a, D, cache_bf16, out_bf16, (cudaStream_t)stream);
+                           causal, out_dt);
+  return dispatch<false>(a, D, cache_dt, (cudaStream_t)stream);
 }
 
 extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
@@ -770,10 +877,11 @@ extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
                                       const int* appos, void* out, float* part_o,
                                       float* part_ml, int R, int Q, int H, int KH, int S,
                                       int D, int n_split, int tps, float scale, int causal,
-                                      int cache_bf16, int out_bf16, void* stream) {
+                                      int cache_dt, int out_dt, void* stream) {
   if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, part_o, part_ml))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos, out,
-                           part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale, causal);
-  return dispatch<true>(a, D, cache_bf16, out_bf16, (cudaStream_t)stream);
+                           part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale, causal,
+                           out_dt);
+  return dispatch<true>(a, D, cache_dt, (cudaStream_t)stream);
 }

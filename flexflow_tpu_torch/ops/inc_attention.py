@@ -11,8 +11,12 @@ Differences from the JAX package, by design:
   caches functionally and relies on donation + aliasing. ``state_out``
   still names the updated caches, but they are the tensors ``state_in``
   already held.
-* The cache head dim is exactly ``head_dim``: the TPU's 128-lane padding
-  (``padded_head_dim``/``_pad_d``) has no counterpart here.
+* On the card the cache head dim is ``head_dim`` rounded up to the next
+  kernel head dim (64, 128 or 256: ``cache_head_dim``), where the JAX
+  package pads to the TPU's 128 lanes (``padded_head_dim``/``_pad_d``).
+  q and the new K/V are zero-padded to the cache's dim and the output
+  sliced back; the softmax scale stays ``1/sqrt(head_dim)``. On the CPU
+  the cache is allocated at exactly ``head_dim``.
 * There is no kernel switch: ``_attend`` always calls
   ``kernels.attention.flash_attend``, which launches the CUDA kernel for
   CUDA tensors and runs the plain version for CPU tensors.
@@ -125,6 +129,22 @@ def append_kv_contiguous(cache, layer_idx, new, start_pos, active):
     return cache
 
 
+def cache_head_dim(D: int, pad: bool) -> int:
+    """Head dim of the KV cache allocated for head dim D: padded for the
+    CUDA kernels (``kernels.attention.padded_head_dim``) when ``pad``
+    (the model lives on the card), else D. Padding is a layout chosen
+    here, once: the kernels never retry a shape."""
+    from flexflow_tpu_torch.kernels.attention import padded_head_dim
+
+    return padded_head_dim(D) if pad else D
+
+
+def pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:
+    """x [..., D] zero-padded to [..., Dp] (``_pad_d`` of the JAX package)."""
+    D = x.shape[-1]
+    return x if D == Dp else torch.nn.functional.pad(x, (0, Dp - D))
+
+
 def _qkv(attrs, params, x, compute_dtype):
     """Project x [R, Q, E] -> q [R,Q,H,D], k/v [R,Q,KH,D]: three products,
     or one over the fused ``wqkv`` (serve/gemm_fusion.py) sliced after.
@@ -154,21 +174,33 @@ def _qkv(attrs, params, x, compute_dtype):
 
 def _attend(attrs, q, k_cache, v_cache, lengths, qpos, out_dtype, ctx,
             bias=None, causal=True, layer_idx=None, append_kv=None):
-    """q [R,Q,H,D] x cache [R,KH,S,D] (or layer ``layer_idx`` of the stacked
-    [L,R,KH,S,D] buffers) -> [R, Q, H*D]; with ``append_kv`` the decode
-    append is fused into the kernel and (out, k_cache, v_cache) returns."""
+    """q [R,Q,H,D] x cache [R,KH,S,Dp] (or layer ``layer_idx`` of the
+    stacked [L,R,KH,S,Dp] buffers) -> [R, Q, H*D]; with ``append_kv`` the
+    decode append is fused into the kernel and (out, k_cache, v_cache)
+    returns. A padded cache (Dp > D) takes q and the new K/V zero-padded
+    and its output sliced back to D."""
     from flexflow_tpu_torch.kernels.attention import flash_attend
 
     D = attrs["head_dim"]
+    Dp = k_cache.shape[-1]
     scale = (1.0 / math.sqrt(D)) if attrs.get("qk_prod_scaling", True) else 1.0
     if attrs.get("scaling_query", False):
         scale = scale * attrs.get("scaling_factor", 1.0)
     alibi = (alibi_slopes(attrs["num_q_heads"], device=q.device)
              if attrs.get("position_bias", False) else None)
-    return flash_attend(q, k_cache, v_cache, lengths, qpos, bias=bias,
-                        alibi=alibi, append_kv=append_kv, causal=causal,
-                        qk_scale=scale, out_dtype=out_dtype,
-                        layer_idx=layer_idx)
+    if append_kv is not None:
+        k_new, v_new, appos = append_kv
+        append_kv = (pad_head_dim(k_new, Dp), pad_head_dim(v_new, Dp), appos)
+    res = flash_attend(pad_head_dim(q, Dp), k_cache, v_cache, lengths, qpos,
+                       bias=bias, alibi=alibi, append_kv=append_kv,
+                       causal=causal, qk_scale=scale, out_dtype=out_dtype,
+                       layer_idx=layer_idx)
+    if Dp == D:
+        return res
+    out = res if append_kv is None else res[0]
+    R, Q, H = q.shape[0], q.shape[1], q.shape[2]
+    out = out.reshape(R, Q, H, Dp)[..., :D].reshape(R, Q, H * D)
+    return out if append_kv is None else (out,) + tuple(res[1:])
 
 
 def _weight_specs(attrs, input_specs):
@@ -192,7 +224,9 @@ def _weight_specs(attrs, input_specs):
 
 def _init_kv_state(attrs, input_specs, device):
     R, S = attrs["max_requests"], attrs["max_seq_length"]
-    KH, D = attrs["num_kv_heads"], attrs["head_dim"]
+    KH = attrs["num_kv_heads"]
+    D = cache_head_dim(attrs["head_dim"],
+                       pad=torch.device(device).type == "cuda")
     dt = torch_dtype(attrs.get("cache_dtype", "bfloat16"))
     return {"k_cache": torch.zeros((R, KH, S, D), dtype=dt, device=device),
             "v_cache": torch.zeros((R, KH, S, D), dtype=dt, device=device)}
@@ -249,6 +283,7 @@ def append_and_ref(ctx, attrs, k, v, start_pos, num_tokens, active):
         kc, vc = st["k_cache"], st["v_cache"]
     else:
         kc, vc = st["k"], st["v"]
+    k, v = pad_head_dim(k, kc.shape[-1]), pad_head_dim(v, vc.shape[-1])
     if ctx.kv_contiguous and k.shape[1] != 1:
         append_kv_contiguous(kc, idx, k, start_pos, active)
         append_kv_contiguous(vc, idx, v, start_pos, active)

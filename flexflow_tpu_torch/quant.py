@@ -177,6 +177,12 @@ def qmatmul(x, w, compute_dtype=None, out_dtype=None):
     x, w = x.to(cd), w.to(cd)
     if od != cd:
         return torch.matmul(x.to(od), w.to(od))
+    if cd == torch.float16 and not x.is_cuda:
+        # PyTorch's CPU fp16 GEMM accumulates in fp32 but runs orders of
+        # magnitude slower than its fp32 one in some builds: the product
+        # of the widened operands, rounded once, is the same
+        # fp32-accumulated product
+        return torch.matmul(x.float(), w.float()).to(cd)
     return torch.matmul(x, w)
 
 

@@ -26,18 +26,19 @@ VERIFY_WIDTH = 8
 
 
 def kernel_serves(model) -> bool:
-    """Does the CUDA attention kernel serve every serving-attention layer
-    of ``model``? (a CUDA device, and a head dim and cache length the
-    kernel takes). Decides the incremental decode width and which engine
-    a single draft model speculates through."""
-    from flexflow_tpu_torch.kernels.attention import supports_shapes
+    """Does the CUDA attention kernel serve every KV cache of ``model``?
+    Asked of each cache tensor as allocated (its device, dtype, length and
+    head dim, padded on the card: ``ops/inc_attention.py``
+    ``cache_head_dim``) through ``kernels.attention.kernel_takes``, the
+    predicate the kernel wrapper checks. Decides the incremental decode
+    width and which engine a single draft model speculates through."""
+    from flexflow_tpu_torch.kernels.attention import kernel_takes
 
-    if model.device.type != "cuda":
-        return False
-    S = model.config.max_sequence_length
-    dims = {layer.attrs["head_dim"] for layer in model.layers
-            if "head_dim" in layer.attrs and "num_kv_heads" in layer.attrs}
-    return bool(dims) and all(supports_shapes(S, d) for d in dims)
+    caches = [st[n] for st in model.op_state.values() if isinstance(st, dict)
+              for n in ("k", "k_cache") if n in st]
+    return bool(caches) and all(
+        kernel_takes(c.device, c.shape[-2], c.shape[-1], c.dtype)
+        for c in caches)
 
 
 class InferenceManager:

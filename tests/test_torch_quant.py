@@ -144,18 +144,21 @@ def test_qmatmul_plain_is_the_cpu_path(qtype):
 
 
 def test_split_plan_depends_on_k_n_and_sms_only():
-    """The split plan covers K with no empty split, keeps within two
-    blocks an SM, and splits K where the N tiles alone leave SMs idle
-    (the 7B projections' plans on 132 SMs)."""
+    """The split plan covers K with no empty split, keeps within 1.5
+    blocks an SM and within one thread-block cluster (8), and splits K
+    where the 128-column N tiles alone leave SMs idle (the 7B
+    projections' plans on 132 SMs)."""
     for K, N in ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
                  (4096, 12288), (4096, 22016), (4095, 1000), (64, 128)):
         splits, cps = split_plan(K, N, 132)
         chunks = -(-K // 64)
         assert splits * cps >= chunks > (splits - 1) * cps
-        assert splits == 1 or -(-N // 256) * splits <= 2 * 132
-    assert split_plan(4096, 4096, 132) == (8, 8)
-    assert split_plan(11008, 4096, 132) == (16, 11)
-    assert split_plan(4096, 32000, 132) == (2, 32)
+        assert splits <= 8
+        assert splits == 1 or -(-N // 128) * splits <= 3 * 132 // 2
+    assert split_plan(4096, 4096, 132) == (6, 11)
+    assert split_plan(11008, 4096, 132) == (6, 29)
+    assert split_plan(4096, 11008, 132) == (2, 32)
+    assert split_plan(4096, 32000, 132) == (1, 64)
     assert split_plan(64, 128, 132) == (1, 1)
 
 
