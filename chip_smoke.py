@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,2,7   # one phase (1 and 2 build)
+    python3 chip_smoke.py --phases 1,2,9   # online serving alone
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -25,10 +26,12 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      that size); fp16 caches (prefill, decode, tree bias, ALiBi, GQA,
      split-S), each also showing that its limit rejects the same case
      computed at bf16 precision; every cache dtype with every other out
-     dtype (K1, and K2 through split-S); head dims 32, 80 and 160
-     (through the padded cache) and 256, fp32 among them, against the
-     plain version on the unpadded inputs, with timed fp16 and D = 256
-     rows; then K3 (``quant.qmatmul`` on a QuantizedWeight)
+     dtype (K1, and K2 through split-S); head dims 32, 80, 160 and 320
+     (through the padded cache) and 256, 512 and 768, fp32 among them,
+     against the plain version on the unpadded inputs, with timed fp16,
+     D = 256 and D = 320/512/768 rows (the last at R 8, S 256, H = 4096
+     // D), and the bitwise invariance checks at D = 256, 512, 768 too;
+     then K3 (``quant.qmatmul`` on a QuantizedWeight)
      against its plain version: int8 and int4, bf16, fp16 and fp32
      operands and results (all nine pairs), M in {1, 8, 64, 256}, the 7B
      int8 path's (K, N) plus an odd-K int4 case and N = 1000, the worst
@@ -52,8 +55,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      depth 4) and incremental decoding with gemm fusion on the card must
      each give the CPU's int8 incremental tokens, 128 of 128; then fp16
      weights, activations and cache (at most one request may differ, as
-     the fp32 incremental pass) and head dim 32 (128 heads, fp32, the
-     card's cache padded to 64; 128 of 128) against the CPU;
+     the fp32 incremental pass), head dim 32 (128 heads, fp32, the
+     card's cache padded to 64; 128 of 128) and head dim 320 (12 heads,
+     hidden 3840, fp32, the card's cache padded to 512 and served by the
+     wide kernels; 128 of 128) against the CPU;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -93,7 +98,28 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      step and peak memory; gates: spec_matches_incr_first30 8/8, 7 x 32
      + 1 K3 launches a forward, no plain call of K1/K2/K3 on the card;
      reported: an int4 incremental pass and an int8 pass with gemm
-     fusion.
+     fusion;
+  9. online serving on phase 8's models (built again), through the
+     port's ``start_server`` and ``serve/loadgen.py`` with ``bench.py``'s
+     traffic. An offline int8 incremental pass over every scheduled
+     prompt gives the reference tokens and the incremental rate
+     (base_rps = tokens/s / 64, deadline = 3 x 64 x 8 / tokens/s). 9a: a
+     Poisson knee sweep through the SpecInfer server at 0.5x, 1x and 2x
+     base_rps, 8 requests a step (resolved 1.0, every ok request's first
+     30 tokens equal to the offline tokens); 9b: 16 requests at 2x the
+     knee, premium (priority 1) and besteffort (rate-limited) tenants
+     behind admission (resolved 1.0, peak queue depth <= 16, first 30
+     tokens); 9c: two 96-token shared prefixes through the incremental
+     server with the prefix pool off, then on (identical tokens, hits on
+     every warm request, fewer prefill tokens, and prefix lengths 13 and
+     21 equal to offline); 9d: a mid-stream cancel (latency against a
+     decode block), a timeout mid-generation, a deadline-at-risk
+     priority-1 arrival preempting a running request (the victim's
+     tokens equal an unpreempted run), ``stop_server`` with 8 requests in
+     flight, and ``LLM.cancel`` on the SpecInfer server (reported); K1,
+     K2 and K3 launched by the server-driven runs (counted from a reset
+     just before each to a read just after it, the offline reference
+     passes left out), no plain call anywhere in the phase.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -264,8 +290,13 @@ def invariance_check(torch, ivec, mk):
     from flexflow_tpu_torch.kernels.attention import append_at, flash_attend
 
     dev = "cuda"
-    for R, H, KH, S, app in ((8, 32, 32, 256, 63), (2, 8, 4, 1024, 700)):
-        D, bf = 128, torch.bfloat16
+    for R, H, KH, S, app, D in ((8, 32, 32, 256, 63, 128),
+                                (2, 8, 4, 1024, 700, 128),
+                                (8, 16, 16, 256, 63, 256),
+                                (8, 8, 8, 256, 63, 512),
+                                (2, 8, 4, 1024, 700, 512),
+                                (4, 4, 4, 256, 63, 768)):
+        bf = torch.bfloat16
         q8, k, v = mk(R, 8, H, KH, D, S, bf, 21)
         g = torch.Generator(device=dev).manual_seed(22)
         kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(bf)
@@ -287,8 +318,8 @@ def invariance_check(torch, ivec, mk):
         torch.cuda.synchronize()
         same = (torch.equal(out1[:, 0], out8[:, 0])
                 and torch.equal(out8[:, 0], outk1[:, 0]))
-        log(f"  invariance R{R} H{H} KH{KH} S{S}: width-1 == width-8 == K1 "
-            f"bitwise: {same} {'PASS' if same else 'FAIL'}")
+        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}: width-1 == width-8 "
+            f"== K1 bitwise: {same} {'PASS' if same else 'FAIL'}")
         if not same:
             raise AssertionError("width/K1-vs-K2 bitwise invariance failed")
         # the chain tree staged at appos..appos+7, as the verify pass does
@@ -299,7 +330,7 @@ def invariance_check(torch, ivec, mk):
         torch.cuda.synchronize()
         same = (torch.equal(outb, outc)
                 and torch.equal(outb[:, 0], out8[:, 0]))
-        log(f"  invariance R{R} H{H} KH{KH} S{S}: K1 chain-tree bias == K1 "
+        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}: K1 chain-tree bias == K1 "
             f"causal (8 rows) == width-8 decode (row 0) bitwise: {same} "
             f"{'PASS' if same else 'FAIL'}")
         if not same:
@@ -308,12 +339,13 @@ def invariance_check(torch, ivec, mk):
 
 
 def head_dim_cases(torch, ivec, mk, compare, bf16_control):
-    """K1 and K2 at head dims the kernels take directly (256) and through
-    the padded cache (32 -> 64, 80 -> 128, 160 -> 256:
-    ``ops/inc_attention.py`` ``cache_head_dim``), bf16, fp16 and fp32
-    (fp32 at D = 256: the scalar kernel's largest shared-memory tile),
+    """K1 and K2 at head dims the wide kernels take directly (256, 512
+    and 768) and through the padded cache (32 -> 64, 80 -> 128, 160 ->
+    256, 320 -> 512: ``ops/inc_attention.py`` ``cache_head_dim``), bf16,
+    fp16 and fp32 (fp32 at D = 256 and 320: the wide scalar kernel),
     each against the plain version on the same unpadded inputs (softmax
-    scale 1/sqrt(D) of the real D)."""
+    scale 1/sqrt(D) of the real D). R4 x KH4 streams on S 512 split S, so
+    the wide kernels' split partials and combine run too."""
     from flexflow_tpu_torch.kernels.attention import (append_at,
                                                       flash_attend,
                                                       reference_attend)
@@ -323,7 +355,9 @@ def head_dim_cases(torch, ivec, mk, compare, bf16_control):
     dev = "cuda"
     for D, dt in ((32, torch.bfloat16), (80, torch.float16),
                   (256, torch.bfloat16), (256, torch.float16),
-                  (256, torch.float32), (160, torch.float32)):
+                  (256, torch.float32), (160, torch.float32),
+                  (320, torch.bfloat16), (512, torch.bfloat16),
+                  (320, torch.float32), (768, torch.bfloat16)):
         Dp = cache_head_dim(D, pad=True)
         R, Q, H, KH, S = 4, 16, 8, 4, 512
         q, k, v = mk(R, Q, H, KH, D, S, dt, 70 + D)
@@ -362,6 +396,107 @@ def head_dim_cases(torch, ivec, mk, compare, bf16_control):
         compare(f"K2 D={D} (cache D {Dp}) {str(dt)[6:]}", ref, out, lengths,
                 dt, bf16_control(q1, k, v, lengths, appos[:, None],
                                  qk_scale=scale) if h16 else None)
+
+
+def wide_head_dim_rows(torch, timer, read_floor, ivec, compare, sdpa_call,
+                       pre_len, pre_qpos, appos_main):
+    """Head dims past 256 at the serving shapes (R 8, S 256; prefill Q 64
+    and decode Q 8; H = 4096 // D heads, kv heads alike): K1 and K2 on
+    the padded cache the serving path allocates (320 -> 512), each
+    checked once against the plain version on the unpadded inputs, then
+    timed beside its bound and read floor (the bytes the unpadded q, k
+    and v hold: the work the function needs), the plain version and SDPA
+    on the unpadded tensors. Where the cache is padded, the read floor of
+    the padded bytes the kernel moves is shown beside them."""
+    from flexflow_tpu_torch.kernels.attention import (append_at,
+                                                      flash_attend,
+                                                      reference_attend)
+    from flexflow_tpu_torch.ops.inc_attention import (cache_head_dim,
+                                                      pad_head_dim)
+
+    dev = "cuda"
+    log("  head dims past 256 (median of 20, L2 flushed before each launch)")
+    out_rows = []
+    for dt, D in ((torch.bfloat16, 320), (torch.bfloat16, 512),
+                  (torch.float32, 320), (torch.bfloat16, 768)):
+        R, H, S = REQUESTS, 4096 // D, MAX_SEQ
+        Dp = cache_head_dim(D, pad=True)
+        scale = 1.0 / D ** 0.5
+        g = torch.Generator(device=dev).manual_seed(D)
+
+        def r(*shape):
+            return torch.randn(shape, generator=g, device=dev).to(dt)
+
+        k, v = r(R, H, S, D), r(R, H, S, D)
+        kp, vp = pad_head_dim(k, Dp), pad_head_dim(v, Dp)
+        tag = f"{str(dt)[6:]} H{H} D{D} (cache D {Dp})"
+        # K1 prefill
+        q = r(R, 64, H, D)
+        qp = pad_head_dim(q, Dp)
+        out = flash_attend(qp, kp, vp, pre_len, pre_qpos, qk_scale=scale)
+        out = out.reshape(R, 64, H, Dp)[..., :D].reshape(R, 64, H * D)
+        torch.cuda.synchronize()
+        err = compare(f"K1 prefill {tag}", reference_attend(
+            q, k, v, pre_len, pre_qpos, qk_scale=scale), out, pre_len, dt)
+        b, by, nbytes = attention_bound_ms(torch, q, pre_len, pre_qpos, S,
+                                           H, True, dt)
+        _, _, padded = attention_bound_ms(torch, qp, pre_len, pre_qpos, S,
+                                          H, True, dt)
+        out_rows.append(dict(
+            name=f"K1 prefill R8 Q64 {tag} S256", max_abs_err=err,
+            ms=timer(lambda: flash_attend(qp, kp, vp, pre_len, pre_qpos,
+                                          qk_scale=scale)),
+            plain_ms=timer(lambda: reference_attend(
+                q, k, v, pre_len, pre_qpos, qk_scale=scale)),
+            sdpa_ms=timer(sdpa_call(q, k, v, pre_len, pre_qpos)),
+            bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes),
+            padded_read_floor_ms=read_floor(padded)))
+        # K2 decode at the slice's mid-generation step
+        q1 = r(R, 8, H, D)
+        kn, vn = r(R, 1, H, D), r(R, 1, H, D)
+        q1p, knp, vnp = (pad_head_dim(t, Dp) for t in (q1, kn, vn))
+        ln = appos_main + 1
+        qpos = appos_main[:, None] + torch.arange(
+            8, dtype=torch.int32, device=dev)[None]
+        kpc, vpc = kp.clone(), vp.clone()
+        out = flash_attend(q1p, kpc, vpc, ln, qpos,
+                           append_kv=(knp, vnp, appos_main),
+                           qk_scale=scale)[0]
+        out = out.reshape(R, 8, H, Dp)[..., :D].reshape(R, 8, H * D)
+        torch.cuda.synchronize()
+        kr, vr = k.clone(), v.clone()
+        append_at(kr, vr, kn, vn, appos_main)
+        if not (torch.equal(kpc[..., :D], kr)
+                and bool((kpc[..., D:] == 0).all())):
+            raise AssertionError(f"K2 {tag}: padded cache after the append "
+                                 "differs from the plain append")
+        err = compare(f"K2 decode {tag} (cache bitwise ok)",
+                      reference_attend(q1, kr, vr, ln, qpos,
+                                       qk_scale=scale), out, ln, dt)
+        b, by, nbytes = attention_bound_ms(
+            torch, q1, ln, qpos, S, H, True, dt,
+            extra_bytes=4 * kn.numel() * kn.element_size())
+        _, _, padded = attention_bound_ms(
+            torch, q1p, ln, qpos, S, H, True, dt,
+            extra_bytes=4 * knp.numel() * knp.element_size())
+        out_rows.append(dict(
+            name=f"K2 decode R8 Q8 {tag} S256", max_abs_err=err,
+            ms=timer(lambda: flash_attend(q1p, kpc, vpc, ln, qpos,
+                                          append_kv=(knp, vnp, appos_main),
+                                          qk_scale=scale)),
+            plain_ms=timer(lambda: reference_attend(q1, kr, vr, ln, qpos,
+                                                    qk_scale=scale)),
+            sdpa_ms=timer(sdpa_call(q1, kr, vr, ln, qpos)),
+            bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes),
+            padded_read_floor_ms=read_floor(padded)))
+        del k, v, kp, vp, kpc, vpc, kr, vr
+    for row in out_rows:
+        log(f"  {row['name']:44s} kernel {row['ms']:.4f} ms | bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}) | plain "
+            f"{row['plain_ms']:.4f} ms | sdpa {row['sdpa_ms']:.4f} ms | sum "
+            f"over the same bytes {row['read_floor_ms']:.4f} ms | over the "
+            f"padded cache's {row['padded_read_floor_ms']:.4f} ms")
+    return out_rows
 
 
 def kernel_phase(torch, timer):
@@ -771,6 +906,10 @@ def kernel_phase(torch, timer):
             f"{r['plain_ms']:.4f} ms | sdpa {r['sdpa_ms']:.4f} ms | sum over "
             f"the same bytes {r['read_floor_ms']:.4f} ms")
     log(json.dumps({"dtype_dim_rows": dim_rows}))
+    wide_rows = wide_head_dim_rows(torch, timer, read_floor, ivec, compare,
+                                   sdpa_call, pre_len, pre_qpos,
+                                   appos_main)
+    log(json.dumps({"wide_head_dim_rows": wide_rows}))
     rows.append(k3_phase(torch, timer, read_floor))
     kernels.reset_counts()
     return rows
@@ -953,7 +1092,7 @@ def e2e_parity_phase(torch):
 
     def model(device, mode=InferenceMode.INC_DECODING_MODE, layers=2,
               width=1, quant=None, fusion=False, dtype="float32",
-              heads=HEADS):
+              heads=HEADS, hidden=HIDDEN):
         cfg = FFConfig(device=device, max_requests_per_batch=REQUESTS,
                        max_sequence_length=MAX_SEQ,
                        max_tokens_per_batch=REQUESTS * PROMPT_LEN,
@@ -962,21 +1101,25 @@ def e2e_parity_phase(torch):
                        gemm_fusion=fusion)
         m = FFModel(cfg)
         create_llama_model(m, dataclasses.replace(
-            lc, num_hidden_layers=layers, num_attention_heads=heads,
-            num_key_value_heads=heads), mode=mode,
+            lc, hidden_size=hidden, num_hidden_layers=layers,
+            num_attention_heads=heads, num_key_value_heads=heads), mode=mode,
             data_type=DataType(dtype))
         m.compile()
         return m
 
-    for device in ("cpu", "cuda"):
-        m = model(device)
-        if pnp is None:     # one seeded numpy draw, carried to both
-            pnp = {
-                layer: {w: (np.ones(t.shape, np.float32) if "norm" in layer
+    def draw(m, rng):
+        """One seeded numpy draw of ``m``'s weights, carried to both
+        devices."""
+        return {layer: {w: (np.ones(t.shape, np.float32) if "norm" in layer
                             else 0.02 * rng.standard_normal(
                                 t.shape, dtype=np.float32))
                         for w, t in lp.items()}
                 for layer, lp in m.params.items()}
+
+    for device in ("cpu", "cuda"):
+        m = model(device)
+        if pnp is None:
+            pnp = draw(m, rng)
         load_params(m, params_from_jax(pnp, device=device))
         rm = RequestManager()
         guids = [rm.register_new_request(p, max_new_tokens=16)
@@ -1162,16 +1305,23 @@ def e2e_parity_phase(torch):
                 or counts["plain_attend_cuda"]):
             raise AssertionError(f"card {what} vs CPU parity failed")
 
-    # fp16 weights, activations and cache (the same draw), and head dim 32
-    # (128 heads of 32, fp32: the card pads the cache to 64), each served
-    # greedily on the card and on the CPU
+    # fp16 weights, activations and cache (the same draw), head dim 32
+    # (128 heads of 32, fp32: the card pads the cache to 64) and head dim
+    # 320 (12 heads, hidden 3840, fp32, a draw of its own: the card pads
+    # the cache to 512, served by the wide kernels), each served greedily
+    # on the card and on the CPU
     for what, kw, strict in (
             ("fp16", dict(dtype="float16"), False),
-            ("head dim 32 (128 heads), fp32", dict(heads=128), True)):
+            ("head dim 32 (128 heads), fp32", dict(heads=128), True),
+            ("head dim 320 (12 heads, hidden 3840), fp32",
+             dict(heads=12, hidden=3840), True)):
         toks = {}
+        wts = None if "hidden" in kw else pnp
         for device in ("cpu", "cuda"):
             m = model(device, **kw)
-            load_params(m, params_from_jax(pnp, device=device))
+            if wts is None:
+                wts = draw(m, np.random.default_rng(13))
+            load_params(m, params_from_jax(wts, device=device))
             rm = RequestManager()
             guids = [rm.register_new_request(p, max_new_tokens=16)
                      for p in prompts]
@@ -2004,6 +2154,477 @@ def int8_phase(torch, card, bf16_decode_ms=None, profile=False):
     return incr_counts, out
 
 
+# ----------------------------------------------------------------------
+# phase 9: online serving at full width (bench.py's serving sections)
+# ----------------------------------------------------------------------
+LONG_TOKENS = 192      # 9d: requests that span three decode blocks
+
+
+def generating(rm, guid) -> bool:
+    """The request has tokens (or has already finished)."""
+    req = rm.inflight.get(guid)
+    return req is None or req.num_generated > 0
+
+
+def wait_until(pred, what, timeout=120.0):
+    """Poll ``pred`` (a cheap host read of the manager's state) until it
+    holds; fail after ``timeout`` seconds."""
+    t = time.monotonic()
+    while not pred():
+        if time.monotonic() - t > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.002)
+
+
+def online_phase(torch, card):
+    """Phase 8's models (LLaMA-2-7B geometry, int8 weights, bf16 compute
+    and cache, the 2-layer draft, depth 7, the controller on) served
+    online through the port's ``start_server`` and ``loadgen``, with
+    ``bench.py``'s traffic: 9a a Poisson knee sweep (SpecInfer server),
+    9b 2x the knee behind admission control, 9c shared prefixes with the
+    pool off and on (incremental server), 9d the lifecycle (cancel,
+    timeout, preemption, flush). Tokens are gated against an offline
+    int8 incremental pass of the same prompts, launches against the
+    plain versions. Returns (the server-driven runs' launch counts,
+    report)."""
+    import contextlib
+    import threading
+
+    from flexflow_tpu_torch import GenerationConfig, kernels
+    from flexflow_tpu_torch.quant import dequantize_array, requantize_into
+    from flexflow_tpu_torch.serve.admission import AdmissionPolicy
+    from flexflow_tpu_torch.serve.loadgen import (EngineHandle, LoadRunner,
+                                                  TenantSpec, WorkloadSpec,
+                                                  build_schedule,
+                                                  format_report,
+                                                  overload_run, summarize,
+                                                  sweep)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    t_phase = time.perf_counter()
+    llm, ssm, secs = quantized_llm(
+        torch, "int8", ssm_layers=DRAFT_LAYERS,
+        generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
+        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+    verifier = llm.ffmodel
+    for i in range(DRAFT_LAYERS, LAYERS):
+        for lname, w in ((f"layers.{i}.self_attn", "wo"),
+                         (f"layers.{i}.mlp.down_proj", "kernel")):
+            leaf = verifier.params[lname][w]
+            requantize_into(leaf, dequantize_array(leaf) * EPS)
+    log(f"  build + load + quantize: {secs:.2f} s  [{card}]")
+    report = {}
+    # the launches of the server-driven runs alone: the offline reference
+    # passes run outside these windows
+    online = dict.fromkeys(kernels.counts, 0)
+
+    @contextlib.contextmanager
+    def served():
+        """Zero the counts before a server-driven run and add them to
+        ``online`` after it (its server stopped: no launch comes later)."""
+        kernels.reset_counts()
+        try:
+            yield
+        finally:
+            for k, v in kernels.counts.items():
+                online[k] += v
+
+    def load_spec(deadline):
+        return WorkloadSpec(
+            prompt_lens=(PROMPT_LEN // 2, PROMPT_LEN),
+            output_lens=(NEW_TOKENS // 2, NEW_TOKENS),
+            tenants=(TenantSpec("default", 1.0, deadline_s=deadline),),
+            vocab_size=VOCAB)
+
+    def over_spec(deadline):
+        return WorkloadSpec(
+            prompt_lens=(PROMPT_LEN // 2, PROMPT_LEN),
+            output_lens=(NEW_TOKENS // 2, NEW_TOKENS),
+            tenants=(TenantSpec("premium", 1.0, deadline_s=deadline,
+                                priority=1),
+                     TenantSpec("besteffort", 1.0, priority=0,
+                                timeout_s=None if deadline is None
+                                else 2.0 * deadline)),
+            vocab_size=VOCAB)
+
+    def offline(prompts, n, what):
+        """Offline int8 incremental tokens of ``prompts`` (n new each), and
+        the pass's tokens/s and decode ms/step. Outside the counting
+        windows, it still may call no plain version."""
+        plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
+        before = [kernels.counts[k] for k in plain]
+        rm = RequestManager()
+        guids = [rm.register_new_request(list(p), max_new_tokens=n)
+                 for p in prompts]
+        ifm = RequestManager._ifm(verifier)
+        dec = decode_timer(ifm)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rm.generate_incr_decoding(verifier)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        del ifm.decode_block
+        if [kernels.counts[k] for k in plain] != before:
+            raise AssertionError(f"{what}: plain versions called "
+                                 f"{dict(kernels.counts)}")
+        out = {tuple(p): rm.results[g].output_tokens
+               for p, g in zip(prompts, guids)}
+        n_tok = sum(len(o) for o in out.values())
+        ms = dec["s"] * 1e3 / max(1, dec["steps"])
+        log(f"  {what}: {len(prompts)} prompts, {n_tok} tokens in "
+            f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s; decode {ms:.3f} "
+            f"ms/step  [{card}]")
+        return out, n_tok / wall, ms
+
+    def by_prompt(rm, prompts):
+        """The manager's results for ``prompts`` (absent: rejected at the
+        door)."""
+        res = {tuple(r.input_tokens): r for r in rm.results.values()}
+        return [res.get(tuple(p)) for p in prompts]
+
+    def first30(results, prompts, ref):
+        ok = [(r, p) for r, p in zip(results, prompts)
+              if r is not None and r.status == "ok"]
+        m30 = sum(r.output_tokens[:30] == ref[tuple(p)][:30] for r, p in ok)
+        full = sum(r.output_tokens == ref[tuple(p)][:len(r.output_tokens)]
+                   for r, p in ok)
+        return m30, full, len(ok)
+
+    # the schedules' prompts do not depend on the rate or the deadlines:
+    # draw them first, for the offline reference
+    sched_a = [build_schedule(load_spec(None), REQUESTS, 1.0, seed=i)
+               for i in range(3)]
+    sched_b = build_schedule(over_spec(None), 2 * REQUESTS, 1.0, seed=0)
+    prompts = list(dict.fromkeys(
+        tuple(r.prompt) for s in sched_a + [sched_b] for r in s))
+    offline([prompts[0], prompts[1]], 4, "warm-up")
+    ref, incr_tps, dec_ms = offline(prompts, NEW_TOKENS,
+                                    "offline int8 incremental reference")
+    base_rps = max(incr_tps / NEW_TOKENS, 0.25)
+    deadline = 3.0 * NEW_TOKENS * REQUESTS / incr_tps
+    report.update(incr_tokens_per_s=incr_tps, decode_ms_per_step=dec_ms,
+                  base_rps=base_rps, deadline_s=deadline)
+
+    # --- 9a: the knee sweep through the SpecInfer server ---
+    rates = [0.5 * base_rps, base_rps, 2.0 * base_rps]
+    log(f"phase 9a: load sweep, SpecInfer server (depth {SPEC_DEPTH}, "
+        f"controller on), Poisson, {REQUESTS} requests a step at "
+        f"{', '.join('%.3f' % r for r in rates)} req/s (base_rps "
+        f"{base_rps:.3f} = incremental {incr_tps:.1f} tokens/s / "
+        f"{NEW_TOKENS}); deadline {deadline:.3f} s  [{card}]")
+    with served():
+        try:
+            load = sweep(llm, load_spec(deadline), rates=rates,
+                         n_per_step=REQUESTS, seed=0, process="poisson",
+                         p99_ttft_bound_s=deadline / 2, timeout_s=600.0)
+        finally:
+            llm.stop_server(flush_timeout_s=120.0)
+    log(format_report(load))
+    steps = []
+    for i, (st, rate) in enumerate(zip(load["steps"], rates)):
+        ps = [r.prompt for r in build_schedule(load_spec(deadline),
+                                               REQUESTS, rate, seed=i)]
+        m30, full, n_ok = first30(by_prompt(llm.rm, ps), ps, ref)
+        steps.append({k: st[k] for k in (
+            "offered_rps", "achieved_rps", "throughput_tokens_per_s",
+            "goodput_tokens_per_s", "ttft_p50_s", "ttft_p99_s",
+            "latency_p50_s", "latency_p99_s", "queue_wait_mean_s",
+            "resolved_fraction", "n_ok")})
+        steps[-1].update(first30_match=m30, full_length_match=full)
+        log(f"  step {i}: offered {rate:.3f} req/s; resolved "
+            f"{st['resolved_fraction']}; ok {n_ok}; first-30 match with "
+            f"offline incremental {m30}/{n_ok}; full length {full}/{n_ok}")
+        if st["resolved_fraction"] != 1.0 or m30 != n_ok:
+            raise AssertionError(f"9a step {i}: resolved "
+                                 f"{st['resolved_fraction']}, first-30 "
+                                 f"{m30}/{n_ok}")
+    report["load"] = dict(steps=steps, knee_rps=load["knee_rps"],
+                          peak_tokens_per_s=load["peak_tokens_per_s"],
+                          peak_goodput_tokens_per_s=load[
+                              "peak_goodput_tokens_per_s"])
+    log(f"  knee {load['knee_rps']} req/s  [{card}]")
+
+    # --- 9b: overload at 2x the knee, behind admission control ---
+    knee = load["knee_rps"] or base_rps
+    policy = AdmissionPolicy(
+        max_queue_depth=2 * REQUESTS,
+        tenant_rates={"besteffort": (max(0.5 * knee, 0.1),
+                                     max(2.0, 0.5 * knee))})
+    log(f"phase 9b: overload, {2 * REQUESTS} requests at 2 x {knee:.3f} "
+        f"req/s; premium (priority 1, deadline {deadline:.3f} s) and "
+        f"besteffort (timeout {2 * deadline:.3f} s, admission rate "
+        f"{policy.tenant_rates['besteffort']}); max queue depth "
+        f"{policy.max_queue_depth}  [{card}]")
+    with served():
+        try:
+            over = overload_run(llm, over_spec(deadline), knee,
+                                multiple=2.0, n_requests=2 * REQUESTS,
+                                seed=0, timeout_s=600.0, admission=policy)
+        finally:
+            llm.stop_server(flush_timeout_s=120.0)
+    ps = [r.prompt for r in build_schedule(over_spec(deadline),
+                                           2 * REQUESTS, 2.0 * knee, seed=0)]
+    res_b = by_prompt(llm.rm, ps)
+    m30, full, n_ok = first30(res_b, ps, ref)
+    peak = over["admission"]["peak_queue_depth"]
+    preempted = sum(r.preemptions for r in res_b if r is not None)
+    report["overload"] = dict(
+        priority_goodput=over["priority_goodput"],
+        besteffort_shed_fraction=over["besteffort_shed_fraction"],
+        resolved_fraction=over["resolved_fraction"], peak_queue_depth=peak,
+        preemptions=preempted, first30_match=m30, n_ok=n_ok,
+        admission=over["admission"], slo=over["slo"])
+    log(f"  priority_goodput {over['priority_goodput']}; besteffort shed "
+        f"{over['besteffort_shed_fraction']}; resolved "
+        f"{over['resolved_fraction']}; peak queue depth {peak}; "
+        f"preemptions {preempted}; ok {n_ok}, first-30 match {m30}/{n_ok}")
+    log(f"  admission {over['admission']}")
+    log(f"  slo {over['slo']}")
+    if (over["resolved_fraction"] != 1.0 or peak > policy.max_queue_depth
+            or m30 != n_ok):
+        raise AssertionError("9b overload gates failed")
+
+    # --- 9c: shared prefixes, the pool off then on (incremental server) ---
+    spec_c = WorkloadSpec(shared_prefix_groups=2, shared_prefix_len=96,
+                          prompt_lens=(4, 8), output_lens=(2, 4),
+                          vocab_size=VOCAB)
+    sched_c = build_schedule(spec_c, 2 * REQUESTS, base_rps, seed=0)
+    log(f"phase 9c: shared prefixes (2 groups of 96 tokens, suffixes 4-8, "
+        f"2-4 new tokens), {2 * REQUESTS} requests at {base_rps:.3f} req/s, "
+        f"incremental server, the pool off then on  [{card}]")
+    runs = {}
+    for on in (False, True):
+        handle = EngineHandle(verifier, generation_config=GenerationConfig(
+            prefix_cache=on))
+        with served():
+            try:
+                recs = LoadRunner(handle).run(sched_c, timeout_s=600.0)
+            finally:
+                handle.stop_server(flush_timeout_s=120.0)
+        rep = summarize(recs, offered_rps=base_rps,
+                        n_scheduled=len(sched_c))
+        res = by_prompt(handle.rm, [r.prompt for r in sched_c])
+        runs[on] = (handle, recs, rep, res)
+        ok = [r for r in recs if r.status == "ok"]
+        log(f"  pool {'on ' if on else 'off'}: ttft p50 "
+            f"{rep['ttft_p50_s']:.4f} s; prefill (slot grant -> first "
+            f"token) mean {1e3 * statistics.mean(r.prefill_s for r in ok):.3f}"
+            f" ms; prefill tokens a request "
+            f"{rep['prefill_tokens_per_request']}; hit tokens "
+            f"{rep['prefix_hit_tokens_total']}  [{card}]")
+    (h_on, recs_on, rep_on, res_on), (_, _, rep_off, res_off) = \
+        runs[True], runs[False]
+    same = [a is not None and b is not None and a.status == b.status == "ok"
+            and a.output_tokens == b.output_tokens
+            for a, b in zip(res_on, res_off)]
+    # warm: an earlier request of its group finished before it arrived
+    warm = []
+    for r in recs_on:
+        grp = tuple(sched_c[r.idx].prompt[:96])
+        warm.append(any(tuple(sched_c[e.idx].prompt[:96]) == grp
+                        and e.submitted_s + e.latency_s < r.scheduled_s
+                        for e in recs_on if e.idx < r.idx))
+    warm_hit = [r.prefix_hit_tokens > 0 for r, w in zip(recs_on, warm) if w]
+    pc = h_on.rm.prefix_cache
+    pooled, n_pooled, pool_tokens = pc.pool_bytes(), len(pc), pc.pool_tokens
+    if not 0 < pooled <= pc.max_bytes:
+        raise AssertionError(f"9c pool: {pooled} bytes against a byte "
+                             f"budget of {pc.max_bytes}")
+    # bytes a pooled cache position: the prompts padded to _PAD positions
+    per_pos = pooled / sum(-(-e.length // 8) * 8 for e in pc._entries)
+    # a prefix length that is not a multiple of the 8-position pad: a
+    # prompt sharing 13 (and 21) leading tokens with a pooled one
+    base = sched_c[0].prompt
+    odd = [base[:13] + [5, 6, 7, 8, 9], base[:21] + [9, 8, 7]]
+    want, _, _ = offline(odd, 8, "offline reference, odd prefix lengths")
+    rm = h_on.rm
+    guids = [rm.register_new_request(p, max_new_tokens=8) for p in odd]
+    rm.generate_incr_decoding(verifier, generation_config=GenerationConfig(
+        prefix_cache=True))
+    odd_ok = [rm.results[g].output_tokens == want[tuple(p)]
+              and rm.results[g].prefix_hit_tokens == n
+              for g, p, n in zip(guids, odd, (13, 21))]
+    report["prefix"] = dict(
+        ttft_p50_s_on=rep_on["ttft_p50_s"], ttft_p50_s_off=rep_off["ttft_p50_s"],
+        prefill_tokens_per_request_on=rep_on["prefill_tokens_per_request"],
+        prefill_tokens_per_request_off=rep_off["prefill_tokens_per_request"],
+        prefill_ms_on=1e3 * statistics.mean(r.prefill_s for r in recs_on
+                                            if r.status == "ok"),
+        prefill_ms_off=1e3 * statistics.mean(
+            r.prefill_s for r in runs[False][1] if r.status == "ok"),
+        hit_tokens_total=rep_on["prefix_hit_tokens_total"],
+        pooled_entries=n_pooled, pooled_tokens=pool_tokens,
+        pooled_bytes=pooled, pool_budget_bytes=pc.max_bytes,
+        bytes_per_position=per_pos, warm=sum(warm),
+        warm_hit=sum(warm_hit),
+        identical=sum(same), odd_prefix_ok=odd_ok)
+    log(f"  tokens identical pool on/off {sum(same)}/{len(same)}; warm "
+        f"requests {sum(warm)}, with hits {sum(warm_hit)}; pooled "
+        f"{n_pooled} prompts, {pool_tokens} tokens, {pooled} bytes "
+        f"({per_pos / 1024:.0f} KiB a pooled cache position) of a "
+        f"{pc.max_bytes}-byte budget (a quarter of the device memory "
+        f"free at the first insert); odd prefix "
+        f"lengths 13, 21 tokens equal offline "
+        f"with those hits: {odd_ok}")
+    if (not all(same) or not warm_hit or not all(warm_hit)
+            or rep_on["prefill_tokens_per_request"]
+            >= rep_off["prefill_tokens_per_request"] or not all(odd_ok)):
+        raise AssertionError("9c prefix-pool gates failed")
+    del runs, h_on, rm
+
+    # --- 9d: the lifecycle on the card ---
+    log(f"phase 9d: lifecycle, incremental server and the SpecInfer "
+        f"server, {LONG_TOKENS}-token requests; decode_block_steps "
+        f"{verifier.config.decode_block_steps}  [{card}]")
+    lprompts = [r.prompt for r in sched_a[0]]
+    block_ms = dec_ms * verifier.config.decode_block_steps
+    life = {}
+    with served():
+        handle = EngineHandle(verifier)
+        handle.start_server()
+        srv, rm = handle._server, handle.rm
+        try:
+            # mid-stream cancel
+            guids, ev = srv.submit([lprompts[0]], LONG_TOKENS, 0)
+            wait_until(lambda: generating(rm, guids[0]), "the first tokens")
+            t = time.perf_counter()
+            rm.cancel(guids[0])
+            if not ev.wait(120.0):
+                raise AssertionError("cancel did not resolve")
+            life["cancel_to_resolve_ms"] = 1e3 * (time.perf_counter() - t)
+            res = rm.results[guids[0]]
+            life["cancel_tokens"] = len(res.output_tokens)
+            n = min(len(res.output_tokens), NEW_TOKENS)
+            if not (res.status == "cancelled" and 0 < len(res.output_tokens)
+                    < LONG_TOKENS and res.output_tokens[:n]
+                    == ref[tuple(lprompts[0])][:n]):
+                raise AssertionError(f"9d cancel: {res.status}, "
+                                     f"{len(res.output_tokens)} tokens")
+            # a deadline that passes inside the first decode block
+            timeout = 0.25 * NEW_TOKENS * dec_ms / 1e3
+            guids, ev = srv.submit([lprompts[1]], LONG_TOKENS, 0,
+                                   timeout_s=timeout)
+            if not ev.wait(120.0):
+                raise AssertionError("timeout did not resolve")
+            res = rm.results[guids[0]]
+            life["timeout_s"] = timeout
+            life["timeout_tokens"] = len(res.output_tokens)
+            n = min(len(res.output_tokens), NEW_TOKENS)
+            if not (res.status == "timed_out" and res.timed_out
+                    and 0 < len(res.output_tokens) < LONG_TOKENS
+                    and res.output_tokens[:n]
+                    == ref[tuple(lprompts[1])][:n]):
+                raise AssertionError(f"9d timeout: {res.status}, "
+                                     f"{len(res.output_tokens)} tokens")
+            # a deadline-at-risk priority-1 arrival preempts a running
+            # request
+            subs = [srv.submit([p], LONG_TOKENS, 0) for p in lprompts]
+            wait_until(lambda: all(generating(rm, g[0]) for g, _ in subs),
+                       "every slot generating")
+            gc_, evc = srv.submit([lprompts[0][:20]], 8, 0, priority=1,
+                                  timeout_s=600.0)
+            with srv._work:
+                # its deadline budget mostly burned upstream: the arrival
+                # shifted into the past, the whole real deadline left
+                rm.inflight[gc_[0]].arrival_s -= 1200.0
+            for _, e in subs + [(gc_, evc)]:
+                if not e.wait(300.0):
+                    raise AssertionError("preemption run did not resolve")
+            rc = rm.results[gc_[0]]
+            victims = [(p, rm.results[g[0]])
+                       for p, (g, _) in zip(lprompts, subs)
+                       if rm.results[g[0]].preemptions]
+            life["preemptions"] = sum(r.preemptions for _, r in victims)
+            # its time to first token from the moment it was submitted
+            life["priority_ttft_s"] = rc.ttft_s - 1200.0
+        finally:
+            handle.stop_server(flush_timeout_s=120.0)
+    want, _, _ = offline([p for p, _ in victims], LONG_TOKENS,
+                         "offline reference of the preempted requests")
+    vic_ok = [r.status == "ok" and r.output_tokens == want[tuple(p)]
+              for p, r in victims]
+    life["victims_identical"] = sum(vic_ok)
+    if rc.status != "ok" or not victims or not all(vic_ok):
+        raise AssertionError(f"9d preemption: priority-1 {rc.status}, "
+                             f"victims {len(victims)}, identical {vic_ok}")
+    # stop_server with work in flight: every waiter resolves when it
+    # returns; the stragglers' results come once their block ends
+    with served():
+        handle = EngineHandle(verifier)
+        handle.start_server()
+        srv, rm = handle._server, handle.rm
+        subs = [srv.submit([p], LONG_TOKENS, 0) for p in lprompts]
+        wait_until(lambda: all(generating(rm, g[0]) for g, _ in subs),
+                   "every slot generating")
+        t = time.perf_counter()
+        handle.stop_server(flush_timeout_s=1.0)
+        life["stop_s"] = time.perf_counter() - t
+        resolved = all(e.is_set() for _, e in subs)
+        srv._thread.join(120.0)
+    statuses = [rm.results[g[0]].status if g[0] in rm.results else None
+                for g, _ in subs]
+    life["stop_statuses"] = statuses
+    if (not resolved or srv._thread.is_alive()
+            or not all(s in ("cancelled", "ok") for s in statuses)):
+        raise AssertionError(f"9d flush: waiters resolved {resolved}, "
+                             f"{statuses}")
+    # LLM.cancel on the SpecInfer server (reported: a request may finish
+    # inside the engine call that is running when the cancel comes)
+    with served():
+        llm.start_server()
+        out = []
+        th = threading.Thread(target=lambda: out.append(llm.generate(
+            lprompts[2], max_new_tokens=LONG_TOKENS)))
+        th.start()
+        try:
+            wait_until(lambda: any(r.num_generated > 0
+                                   for r in list(llm.rm.inflight.values())),
+                       "the spec server's first tokens")
+            guid = next(iter(llm.rm.inflight))
+            t = time.perf_counter()
+            llm.cancel(guid)
+            th.join(120.0)
+            life["spec_cancel_to_resolve_ms"] = 1e3 * (
+                time.perf_counter() - t)
+        finally:
+            llm.stop_server(flush_timeout_s=120.0)
+    res = out[0] if out else None
+    n = min(len(res.output_tokens), NEW_TOKENS) if res else 0
+    if (th.is_alive() or res is None
+            or res.status not in ("cancelled", "ok")
+            or res.output_tokens[:n] != ref[tuple(lprompts[2])][:n]):
+        raise AssertionError("9d LLM.cancel on the spec server failed")
+    life["spec_cancel_status"] = res.status
+    life["spec_cancel_tokens"] = len(res.output_tokens)
+    report["lifecycle"] = life
+    log(f"  cancel -> resolve {life['cancel_to_resolve_ms']:.1f} ms "
+        f"(incremental; decode {dec_ms:.3f} ms/step x "
+        f"{verifier.config.decode_block_steps} steps a block = "
+        f"{block_ms:.1f} ms), {life['cancel_tokens']} tokens kept; spec "
+        f"server {life['spec_cancel_to_resolve_ms']:.1f} ms, "
+        f"{life['spec_cancel_status']} with "
+        f"{life['spec_cancel_tokens']} tokens; timeout "
+        f"{timeout:.3f} s -> timed_out with {life['timeout_tokens']} "
+        f"tokens; preemptions {life['preemptions']}, victims identical to "
+        f"an unpreempted run {life['victims_identical']}/{len(victims)}, "
+        f"priority-1 ttft {life['priority_ttft_s']:.3f} s from its "
+        f"submission; stop_server(1.0) with "
+        f"{len(subs)} in flight: {life['stop_s']:.3f} s, {statuses}  "
+        f"[{card}]")
+
+    counts = dict(online)
+    log(f"  phase 9 launches (the server-driven runs): {counts}")
+    if (not counts["flash_attend"] or not counts["flash_attend_append"]
+            or not counts["qmatmul"] or counts["plain_attend_cuda"]
+            or counts["qmatmul_plain_cuda"]):
+        raise AssertionError(f"phase 9 launch gates: {counts}")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 9: {report['seconds']:.1f} s  [{card}]")
+    del llm, ssm, verifier, handle
+    gc.collect()
+    return counts, report
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -2012,7 +2633,7 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call "
@@ -2105,6 +2726,13 @@ def main(argv=None) -> int:
         by_path["int8"], int8 = int8_phase(torch, card, bf16_decode_ms,
                                            profile=args.profile)
         log(json.dumps({"int8_phase": int8}))
+        gc.collect()
+    if 9 in phases:
+        log(f"phase 9: online serving, LLaMA-2-7B geometry with int8 "
+            f"weights (phase 8's models), {REQUESTS} slots, MAX_SEQ "
+            f"{MAX_SEQ}  [{card}]")
+        by_path["online"], online = online_phase(torch, card)
+        log(json.dumps({"online_phase": online}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

@@ -22,15 +22,24 @@ served on the card by the dequant-GEMM K3, ``kernels/csrc/qmatmul.cu``)::
     spec = LLM((hf_config_dict, state_dict)).compile(
         max_requests_per_batch=8, max_seq_length=256,
         ssms=[SSM((draft_hf_config_dict, draft_state_dict))])
+
+Online: ``llm.start_server()`` runs the continuous batch on a background
+thread that concurrent ``generate`` calls join (with ``timeout_s``,
+``tenant``, ``priority``; ``llm.cancel(guid)``), ``AdmissionPolicy``
+bounds its front door, ``GenerationConfig(prefix_cache=True)`` reuses
+shared prompt prefixes' KV, and ``serve.loadgen`` drives open-loop
+traffic through it and reports TTFT, latency and goodput.
 """
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.model import FFModel
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, InferenceMode, OpType)
-from flexflow_tpu_torch.serve import (SSM, GenerationConfig, LLM,
-                                     RequestManager)
+from flexflow_tpu_torch.serve import (SSM, AdmissionPolicy, EngineHandle,
+                                     GenerationConfig, LLM, RejectedError,
+                                     RequestManager, WorkloadSpec)
 
-__all__ = ["ActiMode", "AggrMode", "CompMode", "DataType", "FFConfig",
-           "FFModel", "GenerationConfig", "InferenceMode", "LLM", "OpType",
-           "RequestManager", "SSM"]
+__all__ = ["ActiMode", "AdmissionPolicy", "AggrMode", "CompMode",
+           "DataType", "EngineHandle", "FFConfig", "FFModel",
+           "GenerationConfig", "InferenceMode", "LLM", "OpType",
+           "RejectedError", "RequestManager", "SSM", "WorkloadSpec"]

@@ -38,22 +38,27 @@ NEG_INF = -1e30  # finite "minus infinity": keeps the online softmax NaN-free
 BLOCK_S = 64     # cache positions per kernel tile (csrc/flash_attend.cu BS)
 SPLIT_MIN_TILES = 4  # a split streams at least this many tiles
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
+# the wide kernels take 256 and any multiple of it (csrc/flash_attend.cu
+# DC: one block per WIDE_HEAD_DIM-column slice of the output)
+WIDE_HEAD_DIM = 256
 # cache and output dtypes the kernels take, as csrc/flash_attend.cu's codes
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 
 
 def supports_shapes(S: int, D: int) -> bool:
     """Can the CUDA kernels serve a cache of length S and head dim D?"""
-    return S > 0 and D in SUPPORTED_HEAD_DIMS
+    return S > 0 and (D in SUPPORTED_HEAD_DIMS
+                      or (D > WIDE_HEAD_DIM and D % WIDE_HEAD_DIM == 0))
 
 
 def padded_head_dim(D: int) -> int:
     """The cache head dim that serves head dim D on the card: D rounded up
-    to the next kernel head dim (64, 128 or 256), the counterpart of
-    ``flexflow_tpu/ops/inc_attention.py:312 padded_head_dim``. A D past
-    256 is returned as it is: no kernel serves it, and ``_launch`` raises
-    on it."""
-    return next((d for d in SUPPORTED_HEAD_DIMS if d >= D), D)
+    to the next kernel head dim (64, 128 or 256, then multiples of 256),
+    the counterpart of ``flexflow_tpu/ops/inc_attention.py:312
+    padded_head_dim``."""
+    if D > WIDE_HEAD_DIM:
+        return -(-D // WIDE_HEAD_DIM) * WIDE_HEAD_DIM
+    return next(d for d in SUPPORTED_HEAD_DIMS if d >= D)
 
 
 def kernel_takes(device, S: int, D: int, dtype) -> bool:
@@ -279,8 +284,9 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     if not kernel_takes(dev, S, D, cdt) or vc.dtype != cdt:
         raise ValueError(
             f"flash_attend kernel takes a cache of head dim "
-            f"{SUPPORTED_HEAD_DIMS} (pad a smaller one: padded_head_dim) in "
-            f"{list(_KERNEL_DTYPES)}, got D={D} {cdt} / {vc.dtype}")
+            f"{SUPPORTED_HEAD_DIMS} or a multiple of {WIDE_HEAD_DIM} past it "
+            f"(pad another: padded_head_dim) in {list(_KERNEL_DTYPES)}, got "
+            f"D={D} {cdt} / {vc.dtype}")
     if out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"out dtype {out_dtype} not in {list(_KERNEL_DTYPES)}")
     for name, t in (("k_cache", kc), ("v_cache", vc)):

@@ -55,12 +55,11 @@
 //    width-8 decode and a K1 call over the same cache give bitwise equal
 //    rows for the same query.
 // The fp16 cache takes the same tensor-core body with the f16 form of the
-// mma (P rounded to fp16, the reference's p.to(dt)). Head dims 64, 128
-// and 256: at D = 256 a 64 x 256 K+V stage is 64 KiB, so the ring has two
-// stages, one block an SM, and q is kept in shared memory (read by
-// ldmatrix at every k-step) instead of 64 registers a thread beside the
-// 128 of O. Other head dims are served by a cache padded to the next of
-// these (ops/inc_attention.py cache_head_dim).
+// mma (P rounded to fp16, the reference's p.to(dt)). Head dims 64 and 128
+// here; 256 and its multiples are served by the wide kernels (one block
+// per 256-column slice of O, q and K staged in 256-column chunks; see
+// their section). Other head dims are served by a cache padded to the
+// next of these (ops/inc_attention.py cache_head_dim).
 // The fp32 cache type keeps scalar FMA (TF32 tensor cores would lose the
 // 2e-5 parity) with the same grid, split plan, causal cut and append.
 
@@ -81,9 +80,7 @@ constexpr int NT_SIMT = 256;  // fp32 kernel
 using bf16 = __nv_bfloat16;
 using f16 = __half;
 
-// 16-bit kernel: K/V ring depth, and blocks an SM, by head dim
-template <int D> __host__ __device__ constexpr int nstage() { return D > 128 ? 2 : 3; }
-template <int D> __host__ __device__ constexpr int min_blocks() { return D > 128 ? 1 : 2; }
+constexpr int NSTAGE = 3;     // 16-bit kernel: K/V ring depth
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
@@ -116,6 +113,7 @@ struct Args {
   float* part_o;       // [n_split, R, Q, H, D] when n_split > 1
   float* part_ml;      // [n_split, R, Q, H, 2]
   int R, Q, H, KH, S;
+  int D;               // the cache's head dim (the wide kernels read it)
   int n_split, tps;    // S-splits of tps tiles each
   float scale;
   int causal;
@@ -129,14 +127,16 @@ struct Block {
 };
 
 // Every thread of the block calls this (it synchronises).
+// bx is the block's (query tile x split) index: blockIdx.x, or blockIdx.x
+// over the column slices of the wide kernels.
 template <bool APPEND>
-__device__ Block block_setup(const Args& a) {
+__device__ Block block_setup(const Args& a, int bx) {
   __shared__ int qmax;
   Block b;
   b.r = blockIdx.z;
   b.kh = blockIdx.y;
-  b.qt = blockIdx.x / a.n_split;
-  b.split = blockIdx.x % a.n_split;
+  b.qt = bx / a.n_split;
+  b.split = bx % a.n_split;
   b.G = a.H / a.KH;
   b.GQ = b.G * a.Q;
   b.q0 = b.qt * QM;
@@ -164,13 +164,14 @@ __device__ Block block_setup(const Args& a) {
   return b;
 }
 
-// K2: the block of query tile 0 in the split that owns appos[r] writes
-// k_new/v_new into the cache (16-byte stores). No block reads that row
-// of the cache: the streams take it from k_new/v_new.
-template <typename T, int D>
-__device__ void append_store(const Args& a, const Block& b) {
+// K2: the block of query tile 0 in the split that owns appos[r] (and, in
+// the wide kernels, of column slice 0) writes the whole row of k_new/v_new
+// into the cache (16-byte stores), once. No block reads that row of the
+// cache: the streams take it from k_new/v_new.
+template <typename T>
+__device__ void append_store(const Args& a, const Block& b, int D) {
   if (b.app < 0 || b.qt != 0 || b.split != (b.app / BS) / a.tps) return;
-  constexpr int CH = D * (int)sizeof(T) / 16;
+  const int CH = D * (int)sizeof(T) / 16;
   const size_t src = ((size_t)b.r * a.KH + b.kh) * D;
   const size_t dst = (((size_t)b.r * a.KH + b.kh) * a.S + b.app) * D;
   const uint4* kn = reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.k_new) + src);
@@ -298,10 +299,10 @@ __device__ __forceinline__ int swz(int row, int ch) {
   return row * D + ((ch ^ (row & 7)) << 3);
 }
 
-// the K/V ring, then (D > 128) the block's 64 query rows
+// the K/V ring
 template <int D>
 constexpr size_t mma_smem_bytes() {
-  return 2 * ((size_t)nstage<D>() * 2 * BS * D + (D > 128 ? QM * D : 0));
+  return 2 * (size_t)NSTAGE * 2 * BS * D;
 }
 
 // 16 staged fp32 rows (row stride D + 4) out to dst(row) as E, in
@@ -356,43 +357,127 @@ __device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4]
 }
 
 // A block's finished rows: the ring is idle (last loop barrier passed, no
-// copy pending), so each warp stages its rows in its own 16 x D slice of it
-template <typename T, int D>
+// copy pending), so each warp stages its rows in its own 16 x DW slice of
+// it. The rows are columns [c0, c0 + DW) of head dim D (c0 = 0, DW = D but
+// in the wide kernels); the split's (m, l) go out with column slice 0.
+template <typename T, int DW>
 __device__ __forceinline__ void mma_epilogue(const Args& a, const Block& b,
                                              unsigned char* smem_raw, int warp, int lane,
-                                             int wrow, const float (&o)[D / 8][4],
+                                             int wrow, const float (&o)[DW / 8][4],
                                              const float* m, const float* l, const bool* rok,
-                                             const size_t* orow) {
+                                             const size_t* orow, int D, int c0) {
   const int nrows = min(16, b.GQ - wrow);
-  float* st = reinterpret_cast<float*>(smem_raw) + warp * 16 * (D + 4);
+  float* st = reinterpret_cast<float*>(smem_raw) + warp * 16 * (DW + 4);
   if (a.n_split == 1) {
     const size_t esize = a.out_dt == 0 ? 4 : 2;
-    warp_store<T, D>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
+    warp_store<T, DW>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
       return static_cast<void*>(static_cast<char*>(a.out) +
-                                out_row(a, b, wrow + row) * D * esize);
+                                (out_row(a, b, wrow + row) * D + c0) * esize);
     });
   } else {
     const size_t base = (size_t)b.split * a.R * a.Q * a.H;
-    warp_store<T, D>(st, o, l, false, lane, nrows, 0, [&](int row) {
-      return static_cast<void*>(a.part_o + (base + out_row(a, b, wrow + row)) * D);
+    warp_store<T, DW>(st, o, l, false, lane, nrows, 0, [&](int row) {
+      return static_cast<void*>(a.part_o + (base + out_row(a, b, wrow + row)) * D + c0);
     });
+    if (c0 == 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      if (rok[i] && (lane & 3) == 0) store_ml(a, b, orow[i], m[i], l[i]);
+      for (int i = 0; i < 2; ++i)
+        if (rok[i] && (lane & 3) == 0) store_ml(a, b, orow[i], m[i], l[i]);
+    }
+  }
+}
+
+// One S-tile's online softmax over this warp's scores s (16 rows x 64
+// keys, mma accumulator layout: row i of this thread = elements 2i, 2i+1),
+// then O += P . V with P rounded to T and V the tile's [BS][DW] slice in
+// shared memory (swizzled). Every row's arithmetic depends on that row only.
+template <typename T, int DW>
+__device__ __forceinline__ void tile_softmax_pv(const Args& a, const Block& b, float (&s)[8][4],
+                                                float (&o)[DW / 8][4], float* m, float* l,
+                                                const bool* rok, const int* qp,
+                                                const float* slope, const float* const* brow,
+                                                int s0, const T* vs_, int lane) {
+  constexpr int ND = DW / 8;
+  const int tig = lane & 3;
+  float corr[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    // every key of the tile visible to this row and nothing added:
+    // the same scaled product score() returns, without its tests
+    const bool plain = rok[i] && s0 + BS <= b.len && (!a.causal || s0 + BS - 1 <= qp[i]) &&
+                       !a.alibi && !a.bias;
+    if (plain) {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) s[n][2 * i + e] = s[n][2 * i + e] * a.scale;
+    } else {
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          s[n][2 * i + e] = score(a, b, s[n][2 * i + e], rok[i], qp[i], slope[i], brow[i],
+                                  s0 + n * 8 + tig * 2 + e);
+    }
+    float mx = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[n][2 * i + e]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    float sum = 0.f;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float p = __expf(s[n][2 * i + e] - m_new);
+        s[n][2 * i + e] = p;
+        sum += p;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    corr[i] = __expf(m[i] - m_new);
+    l[i] = l[i] * corr[i] + sum;
+    m[i] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < ND; ++n) {
+    o[n][0] *= corr[0];
+    o[n][1] *= corr[0];
+    o[n][2] *= corr[1];
+    o[n][3] *= corr[1];
+  }
+  // O += P . V: P (rounded to T) as A fragments, 4 k-steps of 16 keys
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+#pragma unroll
+    for (int dp = 0; dp < ND / 2; ++dp) {
+      uint32_t vb[4];
+      const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
+      ldmatrix_x4_trans(vb, vs_ + swz<DW>(key, dp * 2 + (lane >> 4)));
+      mma16<T>(o[2 * dp], pa, vb[0], vb[1]);
+      mma16<T>(o[2 * dp + 1], pa, vb[2], vb[3]);
+    }
   }
 }
 
 template <typename T, int D, bool APPEND>
-__global__ void __launch_bounds__(NT_MMA, min_blocks<D>()) attend_mma_kernel(const Args a) {
+__global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
+  static_assert(D <= 128, "D = 256 and past: the wide kernel");
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int NSTAGE = nstage<D>();
-  constexpr bool QSMEM = D > 128;                  // q in shared memory, not registers
   T* ring = reinterpret_cast<T*>(smem_raw);        // [NSTAGE][K|V][BS][D]
   constexpr int CH = D / 8;                        // 16-byte chunks per row
   constexpr int KS = D / 16;                       // k-steps of q.k
   constexpr int ND = D / 8;                        // n-tiles of p.v
 
-  const Block b = block_setup<APPEND>(a);
+  const Block b = block_setup<APPEND>(a, blockIdx.x);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
@@ -451,29 +536,15 @@ __global__ void __launch_bounds__(NT_MMA, min_blocks<D>()) attend_mma_kernel(con
     orow[i] = out_row(a, b, gqc);
     qrow[i] = reinterpret_cast<const T*>(a.q) + orow[i] * D;
   }
-  // q as mma A fragments: kept in registers for the whole stream, or
-  // (D > 128) in this warp's 16 x D slice of shared memory past the ring
-  uint32_t qa[QSMEM ? 1 : KS][4];
-  T* qs = ring + (size_t)NSTAGE * 2 * BS * D + warp * 16 * D;
-  if constexpr (QSMEM) {
-    for (int c = lane; c < 16 * CH; c += 32) {
-      const int row = c / CH, ch = c % CH, gq = wrow + row;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (gq < b.GQ)
-        v = *reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.q) +
-                                            out_row(a, b, gq) * D + ch * 8);
-      *reinterpret_cast<uint4*>(qs + swz<D>(row, ch)) = v;
+  // q as mma A fragments, kept in registers for the whole stream
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int ks = 0; ks < KS; ++ks)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e & 1, d = ks * 16 + tig * 2 + 8 * (e >> 1);
+      qa[ks][e] = rok[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + d) : 0u;
     }
-    __syncwarp();
-  } else {
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e & 1, d = ks * 16 + tig * 2 + 8 * (e >> 1);
-        qa[ks][e] = rok[i] ? *reinterpret_cast<const uint32_t*>(qrow[i] + d) : 0u;
-      }
-  }
 
   float o[ND][4];
 #pragma unroll
@@ -499,98 +570,168 @@ __global__ void __launch_bounds__(NT_MMA, min_blocks<D>()) attend_mma_kernel(con
         for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
 #pragma unroll
       for (int ks = 0; ks < KS; ++ks) {
-        uint32_t qf[4];
-        if constexpr (QSMEM) {
-          ldmatrix_x4(qf, qs + swz<D>(lane & 15, ks * 2 + (lane >> 4)));
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) qf[e] = qa[ks][e];
-        }
 #pragma unroll
         for (int np = 0; np < 4; ++np) {
           uint32_t kb[4];
           const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
           ldmatrix_x4(kb, ks_ + swz<D>(key, ks * 2 + ((lane >> 3) & 1)));
-          mma16<T>(s[2 * np], qf, kb[0], kb[1]);
-          mma16<T>(s[2 * np + 1], qf, kb[2], kb[3]);
+          mma16<T>(s[2 * np], qa[ks], kb[0], kb[1]);
+          mma16<T>(s[2 * np + 1], qa[ks], kb[2], kb[3]);
         }
       }
-      // online softmax; row i of this thread = accumulator elements 2i, 2i+1
-      float corr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        // every key of the tile visible to this row and nothing added:
-        // the same scaled product score() returns, without its tests
-        const bool plain = rok[i] && s0 + BS <= b.len && (!a.causal || s0 + BS - 1 <= qp[i]) &&
-                           !a.alibi && !a.bias;
-        if (plain) {
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) s[n][2 * i + e] = s[n][2 * i + e] * a.scale;
-        } else {
-#pragma unroll
-          for (int n = 0; n < 8; ++n)
-#pragma unroll
-            for (int e = 0; e < 2; ++e)
-              s[n][2 * i + e] = score(a, b, s[n][2 * i + e], rok[i], qp[i], slope[i], brow[i],
-                                      s0 + n * 8 + tig * 2 + e);
-        }
-        float mx = NEG_INF;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[n][2 * i + e]);
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[i], mx);
-        float sum = 0.f;
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float p = __expf(s[n][2 * i + e] - m_new);
-            s[n][2 * i + e] = p;
-            sum += p;
-          }
-        sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-        sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-        corr[i] = __expf(m[i] - m_new);
-        l[i] = l[i] * corr[i] + sum;
-        m[i] = m_new;
-      }
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        o[n][0] *= corr[0];
-        o[n][1] *= corr[0];
-        o[n][2] *= corr[1];
-        o[n][3] *= corr[1];
-      }
-      // O += P . V: P (rounded to T) as A fragments, 4 k-steps of 16 keys
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack2<T>(s[2 * kk][0], s[2 * kk][1]);
-        pa[1] = pack2<T>(s[2 * kk][2], s[2 * kk][3]);
-        pa[2] = pack2<T>(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[3] = pack2<T>(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-#pragma unroll
-        for (int dp = 0; dp < ND / 2; ++dp) {
-          uint32_t vb[4];
-          const int key = kk * 16 + (lane & 7) + (((lane >> 3) & 1) << 3);
-          ldmatrix_x4_trans(vb, vs_ + swz<D>(key, dp * 2 + (lane >> 4)));
-          mma16<T>(o[2 * dp], pa, vb[0], vb[1]);
-          mma16<T>(o[2 * dp + 1], pa, vb[2], vb[3]);
-        }
-      }
+      tile_softmax_pv<T, D>(a, b, s, o, m, l, rok, qp, slope, brow, s0, vs_, lane);
     }
     __syncthreads();  // the next iteration refills this stage
   }
 
-  if (wactive) mma_epilogue<T, D>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow);
+  if (wactive) mma_epilogue<T, D>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow, D, 0);
   // after the rows are out, when O's registers are free (no block reads
   // the appended row)
-  if (APPEND) append_store<T, D>(a, b);
+  if (APPEND) append_store<T>(a, b, D);
+}
+
+// ---------------------------------------------------------------------
+// head dims 256 and past (a multiple of DC = 256): the wide kernels
+// ---------------------------------------------------------------------
+// A block owns one DC-column slice of O for its (row, kv head, query
+// tile, split): grid x = query tiles x splits x D / DC. Its scores run
+// over the full D: per S-tile, the D / DC chunks of q and K are staged
+// through shared memory one after another (q chunk beside K chunk) and
+// their products summed in order, then the tile's V slice is staged for
+// P . V. Every column slice computes the same scores, so each of them
+// normalises its slice alike; slice 0 writes the split's (m, l) and K2's
+// append. The 16-bit ring holds WSTAGE stages of two [BS][DC] halves:
+// (q chunk, K chunk) or (V slice, unused), 192 KiB whatever D is.
+
+constexpr int DC = 256;     // head-dim columns a wide block owns
+constexpr int WSTAGE = 3;   // wide 16-bit ring depth
+
+constexpr size_t wide_mma_smem_bytes() { return (size_t)WSTAGE * 2 * BS * DC * 2; }
+
+template <typename T, bool APPEND>
+__global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ring = reinterpret_cast<T*>(smem_raw);  // [WSTAGE][2][BS][DC]
+  constexpr int CH = DC / 8;                 // 16-byte chunks per staged row
+  constexpr int KS = DC / 16;                // k-steps of one chunk's q.k
+  constexpr int ND = DC / 8;                 // n-tiles of p.v (the slice)
+  const int D = a.D, nch = D / DC;
+  const int col = blockIdx.x % nch;
+  const Block b = block_setup<APPEND>(a, blockIdx.x / nch);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int gid = lane >> 2;
+  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
+  const T* kc = reinterpret_cast<const T*>(a.k) + head;
+  const T* vc = reinterpret_cast<const T*>(a.v) + head;
+  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
+  const T* kn = APPEND ? reinterpret_cast<const T*>(a.k_new) + nsrc : nullptr;
+  const T* vn = APPEND ? reinterpret_cast<const T*>(a.v_new) + nsrc : nullptr;
+  const T* qg = reinterpret_cast<const T*>(a.q);
+
+  // sub-step u of the stream: tile u / (nch + 1); part p = u % (nch + 1)
+  // is (q, K) chunk p for p < nch, else the tile's V slice
+  auto load_sub = [&](int u, int st) {
+    const int t = b.t0 + u / (nch + 1), p = u % (nch + 1);
+    T* lo = ring + (size_t)st * 2 * BS * DC;
+    T* hi = lo + BS * DC;
+    for (int c = tid; c < BS * CH; c += NT_MMA) {
+      const int row = c / CH, ch = c % CH, pos = t * BS + row;
+      if (p < nch) {
+        const int cofs = p * DC + ch * 8, gq = b.q0 + row;
+        cp_async16(lo + swz<DC>(row, ch), gq < b.GQ ? qg + out_row(a, b, gq) * D + cofs : qg,
+                   gq < b.GQ ? 16 : 0);
+        const T* ksrc = kc;
+        int bytes = 16;
+        if (pos == b.app) ksrc = kn + cofs;
+        else if (pos < b.len) ksrc = kc + (size_t)pos * D + cofs;
+        else bytes = 0;  // past the valid prefix: zeros, nothing read
+        cp_async16(hi + swz<DC>(row, ch), ksrc, bytes);
+      } else {
+        const int cofs = col * DC + ch * 8;
+        const T* vsrc = vc;
+        int bytes = 16;
+        if (pos == b.app) vsrc = vn + cofs;
+        else if (pos < b.len) vsrc = vc + (size_t)pos * D + cofs;
+        else bytes = 0;
+        cp_async16(lo + swz<DC>(row, ch), vsrc, bytes);
+      }
+    }
+  };
+  const int nsub = max(b.t1 - b.t0, 0) * (nch + 1);
+#pragma unroll
+  for (int i = 0; i < WSTAGE - 1; ++i) {
+    if (i < nsub) load_sub(i, i);
+    cp_async_commit();
+  }
+
+  const int wrow = b.q0 + warp * 16;
+  const bool wactive = wrow < b.GQ;
+  bool rok[2];
+  int qp[2];
+  float slope[2];
+  const float* brow[2];
+  size_t orow[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int gq = wrow + gid + 8 * i;
+    rok[i] = gq < b.GQ;
+    const int gqc = rok[i] ? gq : 0;
+    const int g = gqc / a.Q, qi = gqc % a.Q;
+    qp[i] = a.qpos[b.r * a.Q + qi];
+    slope[i] = a.alibi ? a.alibi[b.kh * b.G + g] : 0.f;
+    brow[i] = a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr;
+    orow[i] = out_row(a, b, gqc);
+  }
+
+  float o[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
+  float s[8][4];
+
+  for (int u = 0; u < nsub; ++u) {
+    if (u + WSTAGE - 1 < nsub) load_sub(u + WSTAGE - 1, (u + WSTAGE - 1) % WSTAGE);
+    cp_async_commit();
+    cp_async_wait<WSTAGE - 1>();
+    __syncthreads();
+    if (wactive) {
+      const T* lo = ring + (size_t)(u % WSTAGE) * 2 * BS * DC;
+      const int p = u % (nch + 1);
+      if (p < nch) {
+        // S += q[:, chunk p] . K[:, chunk p]^T, the chunks in order
+        if (p == 0) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+        }
+        const T* ks_ = lo + BS * DC;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t qf[4];
+          ldmatrix_x4(qf, lo + swz<DC>(warp * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            uint32_t kb[4];
+            const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
+            ldmatrix_x4(kb, ks_ + swz<DC>(key, ks * 2 + ((lane >> 3) & 1)));
+            mma16<T>(s[2 * np], qf, kb[0], kb[1]);
+            mma16<T>(s[2 * np + 1], qf, kb[2], kb[3]);
+          }
+        }
+      } else {
+        tile_softmax_pv<T, DC>(a, b, s, o, m, l, rok, qp, slope, brow,
+                               (b.t0 + u / (nch + 1)) * BS, lo, lane);
+      }
+    }
+    __syncthreads();  // the next sub-step refills this stage
+  }
+
+  if (wactive)
+    mma_epilogue<T, DC>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow, D, col * DC);
+  if (APPEND && col == 0) append_store<T>(a, b, D);
 }
 
 // ---------------------------------------------------------------------
@@ -619,7 +760,7 @@ __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
   float* c_s = l_s + QM;           // [QM]
   int* qp_s = reinterpret_cast<int*>(c_s + QM);  // [QM]
 
-  const Block b = block_setup<APPEND>(a);
+  const Block b = block_setup<APPEND>(a, blockIdx.x);
   const int tid = threadIdx.x;
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
   const float* kc = reinterpret_cast<const float*>(a.k) + head;
@@ -731,7 +872,7 @@ __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
     __syncthreads();  // the next tile overwrites k_s / v_s / p_s
   }
 
-  if (APPEND) append_store<float, D>(a, b);
+  if (APPEND) append_store<float>(a, b, D);
 #pragma unroll
   for (int i = 0; i < NACC; ++i) {
     const int row = row0 + i * RSTEP, gq = b.q0 + row;
@@ -739,6 +880,144 @@ __global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
     const size_t orow = out_row(a, b, gq);
     store_out<float>(a, b, orow, D, my_d, acc[i], l_s[row]);
     if (my_d == 0) store_ml(a, b, orow, m_s[row], l_s[row]);
+  }
+}
+
+// fp32 cache, D = 256 and past: the scalar kernel's tiles at DC columns. Per
+// S-tile the q and K chunks are staged one after another and the dots
+// summed over them in order (the same d order as one D-wide pass), then
+// the tile's V slice; the block owns O's columns [col * DC, col * DC + DC).
+template <bool APPEND>
+__global__ void __launch_bounds__(NT_SIMT) attend_simt_wide_kernel(const Args a) {
+  extern __shared__ float smem[];
+  constexpr int KS = DC + 1;
+  constexpr int NWARPS = NT_SIMT / 32;
+  float* q_s = smem;               // [QM][DC]
+  float* k_s = q_s + QM * DC;      // [BS][KS]
+  float* v_s = k_s + BS * KS;      // [BS][DC]
+  float* p_s = v_s + BS * DC;      // [QM][BS]
+  float* m_s = p_s + QM * BS;      // [QM]
+  float* l_s = m_s + QM;           // [QM]
+  float* c_s = l_s + QM;           // [QM]
+  int* qp_s = reinterpret_cast<int*>(c_s + QM);  // [QM]
+
+  const int D = a.D, nch = D / DC;
+  const int col = blockIdx.x % nch;
+  const Block b = block_setup<APPEND>(a, blockIdx.x / nch);
+  const int tid = threadIdx.x;
+  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
+  const float* kc = reinterpret_cast<const float*>(a.k) + head;
+  const float* vc = reinterpret_cast<const float*>(a.v) + head;
+  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
+  const float* qg = reinterpret_cast<const float*>(a.q);
+
+  static_assert(NT_SIMT == DC, "thread tid owns column tid of every query row");
+  constexpr int NACC = QM;
+  const int my_d = tid % DC;
+  constexpr int SSTEP = NT_SIMT / BS;
+  constexpr int NSC = QM / SSTEP;
+  const int sc = tid % BS, srow0 = tid / BS;
+
+  for (int row = tid; row < QM; row += NT_SIMT) {
+    const int gq = b.q0 + row;
+    qp_s[row] = gq < b.GQ ? a.qpos[b.r * a.Q + gq % a.Q] : 0;
+    m_s[row] = NEG_INF;
+    l_s[row] = 0.f;
+  }
+  float acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
+  __syncthreads();
+
+  for (int t = b.t0; t < b.t1; ++t) {
+    const int s0 = t * BS;
+    float dots[NSC];
+#pragma unroll
+    for (int i = 0; i < NSC; ++i) dots[i] = 0.f;
+    for (int c = 0; c < nch; ++c) {
+      for (int e = tid; e < QM * DC; e += NT_SIMT) {
+        const int row = e / DC, d = e % DC, gq = b.q0 + row;
+        q_s[e] = gq < b.GQ ? qg[out_row(a, b, gq) * D + c * DC + d] : 0.f;
+      }
+      for (int e = tid; e < BS * DC; e += NT_SIMT) {
+        const int sp = e / DC, d = e % DC, pos = s0 + sp;
+        float kv = 0.f;
+        if (pos == b.app) kv = reinterpret_cast<const float*>(a.k_new)[nsrc + c * DC + d];
+        else if (pos < b.len) kv = kc[(size_t)pos * D + c * DC + d];
+        k_s[sp * KS + d] = kv;
+      }
+      __syncthreads();
+      for (int d = 0; d < DC; ++d) {
+        const float kd = k_s[sc * KS + d];
+#pragma unroll
+        for (int i = 0; i < NSC; ++i) dots[i] += q_s[(srow0 + i * SSTEP) * DC + d] * kd;
+      }
+      __syncthreads();  // the next chunk overwrites q_s / k_s
+    }
+#pragma unroll
+    for (int i = 0; i < NSC; ++i) {
+      const int row = srow0 + i * SSTEP, gq = b.q0 + row;
+      const bool ok = gq < b.GQ;
+      const int qi = ok ? gq % a.Q : 0, g = ok ? gq / a.Q : 0;
+      p_s[row * BS + sc] =
+          score(a, b, dots[i], ok, qp_s[row], a.alibi ? a.alibi[b.kh * b.G + g] : 0.f,
+                a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr, s0 + sc);
+    }
+    for (int e = tid; e < BS * DC; e += NT_SIMT) {
+      const int sp = e / DC, d = e % DC, pos = s0 + sp;
+      float vv = 0.f;
+      if (pos == b.app) vv = reinterpret_cast<const float*>(a.v_new)[nsrc + col * DC + d];
+      else if (pos < b.len) vv = vc[(size_t)pos * D + col * DC + d];
+      v_s[sp * DC + d] = vv;
+    }
+    __syncthreads();
+
+    const int warp = tid / 32, lane = tid % 32;
+    for (int row = warp; row < QM; row += NWARPS) {
+      const float x0 = p_s[row * BS + lane], x1 = p_s[row * BS + lane + 32];
+      float mx = fmaxf(x0, x1);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      const float m_old = m_s[row];
+      const float m_new = fmaxf(m_old, mx);
+      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
+      float sum = p0 + p1;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      p_s[row * BS + lane] = p0;
+      p_s[row * BS + lane + 32] = p1;
+      if (lane == 0) {
+        const float corr = expf(m_old - m_new);
+        l_s[row] = l_s[row] * corr + sum;
+        m_s[row] = m_new;
+        c_s[row] = corr;
+      }
+    }
+    __syncthreads();
+
+    {
+      float pv[NACC];
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) pv[i] = 0.f;
+      for (int sp = 0; sp < BS; ++sp) {
+        const float vv = v_s[sp * DC + my_d];
+#pragma unroll
+        for (int i = 0; i < NACC; ++i) pv[i] += p_s[i * BS + sp] * vv;
+      }
+#pragma unroll
+      for (int i = 0; i < NACC; ++i) acc[i] = acc[i] * c_s[i] + pv[i];
+    }
+    __syncthreads();  // the next tile overwrites k_s / v_s / p_s
+  }
+
+  if (APPEND && col == 0) append_store<float>(a, b, D);
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) {
+    const int gq = b.q0 + i;
+    if (gq >= b.GQ) continue;
+    const size_t orow = out_row(a, b, gq);
+    store_out<float>(a, b, orow, D, col * DC + my_d, acc[i], l_s[i]);
+    if (col == 0 && my_d == 0) store_ml(a, b, orow, m_s[i], l_s[i]);
   }
 }
 
@@ -781,6 +1060,29 @@ __global__ void combine_kernel(const float* part_o, const float* part_ml, void* 
 // launch
 // ---------------------------------------------------------------------
 
+// One attention launch (grid x = query tiles x splits x nx column
+// slices), its dynamic shared-memory limit raised once per kernel, then
+// the split-S combine when there are splits.
+template <typename T, typename Kern>
+int launch_with(Kern kern, size_t smem, bool& smem_set, int nx, int threads, int D,
+                const Args& a, cudaStream_t stream) {
+  cudaError_t err = cudaSuccess;
+  if (!smem_set) {
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid((unsigned)(((a.H / a.KH) * a.Q + QM - 1) / QM * a.n_split * nx),
+                  (unsigned)a.KH, (unsigned)a.R);
+  kern<<<grid, threads, smem, stream>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  const int rows = a.R * a.Q * a.H;
+  combine_kernel<T><<<rows, D < DC ? D : DC, 2 * a.n_split * sizeof(float), stream>>>(
+      a.part_o, a.part_ml, a.out, a.out_dt, rows, D, a.n_split);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D, bool APPEND>
 int launch(const Args& a, cudaStream_t stream) {
   constexpr bool MMA = sizeof(T) == 2;  // bf16 / fp16 cache: tensor cores
@@ -792,21 +1094,20 @@ int launch(const Args& a, cudaStream_t stream) {
     else return attend_simt_kernel<D, APPEND>;
   }();
   static bool smem_set = false;  // one attribute call per instantiation
-  cudaError_t err = cudaSuccess;
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  const dim3 grid((unsigned)(((a.H / a.KH) * a.Q + QM - 1) / QM * a.n_split),
-                  (unsigned)a.KH, (unsigned)a.R);
-  kern<<<grid, MMA ? NT_MMA : NT_SIMT, smem, stream>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 1) return (int)err;
-  const int rows = a.R * a.Q * a.H;
-  combine_kernel<T><<<rows, D, 2 * a.n_split * sizeof(float), stream>>>(
-      a.part_o, a.part_ml, a.out, a.out_dt, rows, D, a.n_split);
-  return (int)cudaGetLastError();
+  return launch_with<T>(kern, smem, smem_set, 1, MMA ? NT_MMA : NT_SIMT, D, a, stream);
+}
+
+// D a multiple of DC: one block per DC-column slice of O
+template <typename T, bool APPEND>
+int launch_wide(const Args& a, cudaStream_t stream) {
+  constexpr bool MMA = sizeof(T) == 2;
+  constexpr size_t smem = MMA ? wide_mma_smem_bytes() : simt_smem_bytes<DC>();
+  auto kern = [] {
+    if constexpr (MMA) return attend_mma_wide_kernel<T, APPEND>;
+    else return attend_simt_wide_kernel<APPEND>;
+  }();
+  static bool smem_set = false;
+  return launch_with<T>(kern, smem, smem_set, a.D / DC, MMA ? NT_MMA : NT_SIMT, a.D, a, stream);
 }
 
 // dtype codes: 0 fp32, 1 bf16, 2 fp16 (kernels/attention.py _KERNEL_DTYPES);
@@ -820,24 +1121,32 @@ int dispatch_cache(const Args& a, int cache_dt, cudaStream_t st) {
 }
 
 template <bool APPEND>
+int dispatch_wide(const Args& a, int cache_dt, cudaStream_t st) {
+  if (cache_dt == 0) return launch_wide<float, APPEND>(a, st);
+  if (cache_dt == 1) return launch_wide<bf16, APPEND>(a, st);
+  if (cache_dt == 2) return launch_wide<f16, APPEND>(a, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+template <bool APPEND>
 int dispatch(const Args& a, int D, int cache_dt, cudaStream_t st) {
   if (a.out_dt < 0 || a.out_dt > 2) return (int)cudaErrorInvalidValue;
   if (D == 64) return dispatch_cache<64, APPEND>(a, cache_dt, st);
   if (D == 128) return dispatch_cache<128, APPEND>(a, cache_dt, st);
-  if (D == 256) return dispatch_cache<256, APPEND>(a, cache_dt, st);
+  if (D >= DC && D % DC == 0) return dispatch_wide<APPEND>(a, cache_dt, st);
   return (int)cudaErrorInvalidValue;
 }
 
 Args make_args(const void* q, void* k, void* v, const int* lengths, const int* qpos,
                const float* bias, const float* alibi, const void* k_new,
                const void* v_new, const int* appos, void* out, float* part_o,
-               float* part_ml, int R, int Q, int H, int KH, int S, int n_split, int tps,
-               float scale, int causal, int out_dt) {
+               float* part_ml, int R, int Q, int H, int KH, int S, int D, int n_split,
+               int tps, float scale, int causal, int out_dt) {
   Args a;
   a.q = q; a.k = k; a.v = v; a.lengths = lengths; a.qpos = qpos;
   a.bias = bias; a.alibi = alibi; a.k_new = k_new; a.v_new = v_new;
   a.appos = appos; a.out = out; a.part_o = part_o; a.part_ml = part_ml;
-  a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S;
+  a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S; a.D = D;
   a.n_split = n_split; a.tps = tps;
   a.scale = scale; a.causal = causal; a.out_dt = out_dt;
   return a;
@@ -855,7 +1164,8 @@ bool plan_ok(int S, int n_split, int tps, const float* part_o, const float* part
 // range is cut into n_split splits of tps 64-position tiles; with
 // n_split > 1, part_o [n_split, R, Q, H, D] and part_ml [n_split, R, Q,
 // H, 2] (fp32) hold the partials and a combine kernel follows. D is 64,
-// 128 or 256; cache_dt and out_dt are dtype codes (0 fp32, 1 bf16, 2 fp16).
+// 128 or a multiple of 256; cache_dt and out_dt are dtype codes (0
+// fp32, 1 bf16, 2 fp16).
 extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengths,
                                const int* qpos, const float* bias, const float* alibi,
                                const void* k_new, const void* v_new, const int* appos,
@@ -865,7 +1175,7 @@ extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengt
                                void* stream) {
   if (!plan_ok(S, n_split, tps, part_o, part_ml)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr, nullptr,
-                           out, part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale,
+                           out, part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale,
                            causal, out_dt);
   return dispatch<false>(a, D, cache_dt, (cudaStream_t)stream);
 }
@@ -881,7 +1191,7 @@ extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
   if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, part_o, part_ml))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos, out,
-                           part_o, part_ml, R, Q, H, KH, S, n_split, tps, scale, causal,
+                           part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale, causal,
                            out_dt);
   return dispatch<true>(a, D, cache_dt, (cudaStream_t)stream);
 }

@@ -24,12 +24,31 @@ GenerationConfig(do_sample=True))`` without SSMs makes incremental
 decoding sample (top-p at ``topp``, ``temperature``); speculation stays
 greedy.
 
-No server, checkpoint loading or transformers import in this slice.
+Online serving: ``start_server`` starts a background thread that owns
+the device and runs the continuous batch; concurrent ``generate`` calls
+from any thread join it, each blocking until its own requests resolve::
+
+    llm.start_server(admission=AdmissionPolicy(max_queue_depth=16))
+    res = llm.generate(prompt, max_new_tokens=64, timeout_s=2.0,
+                       tenant="premium", priority=1)   # any thread
+    llm.cancel(guid)                                   # any thread
+    llm.stop_server(flush_timeout_s=30.0)
+
+``generate(..., timeout_s=...)`` bounds a request's wall clock (past it
+the result comes back ``timed_out`` with its partial tokens); ``priority``
+orders slot grants and lets an at-risk request preempt a lower-priority
+one; ``GenerationConfig(prefix_cache=True)`` pools finished prompts' KV
+and installs shared prefixes instead of prefilling them. In server mode
+an ``admission`` policy (serve/admission.py) rejects over-limit
+submissions with ``RejectedError``.
+
+No checkpoint loading or transformers import in this slice.
 """
 
 from __future__ import annotations
 
-from typing import Any, List, Optional, Sequence, Union
+import threading
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.ffconst import CompMode, DataType, InferenceMode
@@ -56,6 +75,7 @@ class LLM:
         self.ffmodel = None
         self.ssms: List["SSM"] = []
         self.rm: Optional[RequestManager] = None
+        self._server: Optional[_BackgroundServer] = None
         self.family = family_for_hf_config(self.hf_config)
         self.model_config = self.family.config_cls.from_hf_config(
             self.hf_config)
@@ -108,11 +128,21 @@ class LLM:
         return self
 
     def generate(self, requests_or_prompts: Union[str, Sequence],
-                 max_new_tokens: int = 128, max_length: int = 0
+                 max_new_tokens: int = 128, max_length: int = 0,
+                 timeout_s: Optional[float] = None,
+                 tenant: str = "default", priority: int = 0
                  ) -> Union[GenerationResult, List[GenerationResult]]:
         """Generate for one prompt (a string or a list of token ids) or a
         list of prompts; results come back in prompt order. Speculative
-        inference when SSMs were attached at ``compile``."""
+        inference when SSMs were attached at ``compile``.
+
+        ``timeout_s`` (default: ``GenerationConfig.timeout_s``, 0 = none)
+        bounds each request's wall clock: past it the request is resolved
+        between decode rounds with ``timed_out=True`` and its partial
+        output. ``tenant`` and ``priority`` feed admission control and
+        slot scheduling. With a server running, the requests join its
+        continuous batch and the call blocks until they resolve; an
+        over-limit submission raises ``RejectedError``."""
         if self.ffmodel is None:
             raise RuntimeError("call LLM.compile() before generate()")
         single = isinstance(requests_or_prompts, str) or (
@@ -120,19 +150,244 @@ class LLM:
         prompts = ([requests_or_prompts] if single
                    else list(requests_or_prompts))
         if not prompts:
+            # an empty submission would leave a waiter nothing releases
             return []
-        guids = [self.rm.register_new_request(
-            p, max_new_tokens=max_new_tokens, max_sequence_length=max_length)
-            for p in prompts]
-        if self.ssms:
-            self.rm.generate_spec_infer(
-                self.ffmodel, [s.ffmodel for s in self.ssms],
-                generation_config=self.generation_config)
+        if timeout_s is None and self.generation_config.timeout_s > 0:
+            timeout_s = self.generation_config.timeout_s
+        if self._server is not None:
+            srv = self._server
+            guids, ev = srv.submit(prompts, max_new_tokens, max_length,
+                                   timeout_s=timeout_s, tenant=tenant,
+                                   priority=priority)
+            ev.wait()
+            if srv._error is not None:
+                raise RuntimeError("serving loop died") from srv._error
+            missing = [g for g in guids if g not in self.rm.results]
+            if missing:
+                # stop_server()'s flush window closed before these
+                # finished: an explicit error, never a silent drop
+                raise RuntimeError(
+                    f"server stopped before request(s) {missing} resolved")
         else:
-            self.rm.generate_incr_decoding(
-                self.ffmodel, generation_config=self.generation_config)
+            guids = [self.rm.register_new_request(
+                p, max_new_tokens=max_new_tokens,
+                max_sequence_length=max_length, timeout_s=timeout_s,
+                tenant=tenant, priority=priority) for p in prompts]
+            _run_loop(self, self.rm)
         results = [self.rm.results[g] for g in guids]
         return results[0] if single else results
+
+    def cancel(self, request_id: int) -> bool:
+        """Cancel a registered request by guid, from any thread. The
+        serving loop reaps the flag at its next between-rounds seam; the
+        result resolves with ``cancelled=True`` and the tokens generated
+        so far. False when the guid is unknown or already finished."""
+        if self.rm is None:
+            return False
+        return self.rm.cancel(request_id)
+
+    def start_server(self, admission=None):
+        """Start the background server: a thread owns the generation loop
+        and the device, and concurrent ``generate`` calls join its
+        continuous batch. ``admission`` (an ``AdmissionPolicy`` or an
+        ``AdmissionController``, serve/admission.py) bounds the front
+        door."""
+        if self.ffmodel is None:
+            raise RuntimeError("call LLM.compile() before start_server()")
+        return _start_server(self, admission)
+
+    def stop_server(self, flush_timeout_s: Optional[float] = 30.0):
+        """Drain outstanding requests and stop the server: wait up to
+        ``flush_timeout_s`` (None = forever); past it every outstanding
+        request is cancelled (reaped within one decode block), the call
+        waits for the server thread to end that block (at most
+        ``STRAGGLER_JOIN_S``), and every waiter is resolved rather than
+        dropped. A server whose thread outlives that wait stays attached,
+        refusing submissions, until its thread ends."""
+        return _stop_server(self, flush_timeout_s)
+
+
+def _run_loop(llm, rm: RequestManager) -> List[GenerationResult]:
+    """One generation loop over everything ``rm`` has queued, through the
+    speculative loops when ``llm`` has draft models (``llm`` is an LLM or
+    a ``loadgen.EngineHandle``)."""
+    gen_cfg = getattr(llm, "generation_config", None)
+    if llm.ssms:
+        return rm.generate_spec_infer(
+            llm.ffmodel, [s.ffmodel for s in llm.ssms],
+            generation_config=gen_cfg)
+    return rm.generate_incr_decoding(llm.ffmodel, generation_config=gen_cfg)
+
+
+# how long stop_server waits, after cancelling the stragglers, for the
+# server thread to end its block (on the card a block takes well under a
+# second; past this the device is taken to be hung)
+STRAGGLER_JOIN_S = 120.0
+
+
+def _start_server(llm, admission=None):
+    srv = llm._server
+    if srv is not None and (srv._stopping or not srv._thread.is_alive()):
+        # a stopped server is replaced only once its thread has ended: two
+        # loops must never share the manager and its in-place caches
+        srv._thread.join(STRAGGLER_JOIN_S)
+        if srv._thread.is_alive():
+            raise RuntimeError("the stopped server's thread is still "
+                               "running its block; cannot start another")
+        llm._server = None
+    if llm._server is None:
+        ctrl = admission
+        if ctrl is not None:
+            from flexflow_tpu_torch.serve.admission import (
+                AdmissionController, AdmissionPolicy)
+
+            if isinstance(ctrl, AdmissionPolicy):
+                ctrl = AdmissionController(ctrl)
+        llm._server = _BackgroundServer(llm, admission=ctrl)
+        llm._server.start()
+    return llm
+
+
+def _stop_server(llm, flush_timeout_s: Optional[float] = 30.0):
+    """Stop the server; it is forgotten only once its thread has ended
+    (until then ``start_server`` refuses and submissions raise)."""
+    if llm._server is not None and llm._server.stop(flush_timeout_s):
+        llm._server = None
+    return llm
+
+
+class _BackgroundServer:
+    """The background serving loop (counterpart of the JAX package's,
+    without its telemetry). Submitter threads register requests under the
+    condition lock and wait on a per-submission event; the server thread
+    runs generation loops whenever work is queued, and requests that
+    arrive while a loop runs join its continuous batch at the next slot
+    fill. Every device call is made on the server thread.
+
+    With an ``admission`` controller, a submission is admitted or rejected
+    under the same lock that registers it, so the queue-depth check and
+    the registration are atomic; the realized queue waits of each loop
+    feed the controller's windowed p99, which its retry-after hints use.
+
+    Torch state that belongs to a thread (grad mode, the current device)
+    is set on the server thread itself: grad off, and the model's device
+    current. Kernels launch on that thread's current stream, the default
+    stream, as on a thread that entered no stream context."""
+
+    def __init__(self, llm, admission=None):
+        import torch
+
+        self.llm = llm
+        self.admission = admission
+        # the model's device, its index resolved here: the server thread's
+        # current device is its own, and "cuda" means the caller's
+        dev = torch.device(llm.ffmodel.device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self._device = dev
+        self._work = threading.Condition()
+        self._stopping = False
+        # (remaining-guid-set, event) per submission
+        self._waiters: List[Tuple[set, threading.Event]] = []
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="flexflow-torch-serve")
+        self._error: Optional[BaseException] = None
+
+    def start(self):
+        self._thread.start()
+
+    def submit(self, prompts, max_new_tokens: int, max_length: int,
+               timeout_s: Optional[float] = None, tenant: str = "default",
+               priority: int = 0) -> Tuple[List[int], threading.Event]:
+        ev = threading.Event()
+        with self._work:
+            if self._error is not None:
+                raise RuntimeError("serving loop died") from self._error
+            if self._stopping or not self._thread.is_alive():
+                raise RuntimeError(
+                    "server is stopping/stopped; submit raced stop_server()")
+            if self.admission is not None:
+                self.admission.admit(tenant, len(self.llm.rm.pending),
+                                     n=len(prompts))
+            guids = [self.llm.rm.register_new_request(
+                p, max_new_tokens=max_new_tokens,
+                max_sequence_length=max_length, timeout_s=timeout_s,
+                tenant=tenant, priority=priority) for p in prompts]
+            self._waiters.append((set(guids), ev))
+            self._work.notify_all()
+        return guids, ev
+
+    def stop(self, flush_timeout_s: Optional[float] = 30.0) -> bool:
+        """Flush, then cancel the stragglers and wait for the thread to
+        end its block; every waiter resolves. True when the thread has
+        ended."""
+        with self._work:
+            self._stopping = True
+            self._work.notify_all()
+        self._thread.join(flush_timeout_s)
+        if self._thread.is_alive():
+            # the flush window closed mid-batch: cancel everything still
+            # outstanding; the loops reap cancellations between decode
+            # rounds, so the thread ends with its current block
+            rm = self.llm.rm
+            for guid in list(rm.inflight):
+                rm.cancel(guid)
+            self._thread.join(STRAGGLER_JOIN_S)
+        # every waiter resolves, even if its guids never produced results
+        # (LLM.generate turns a missing result into an explicit error)
+        with self._work:
+            for _, ev in self._waiters:
+                ev.set()
+            self._waiters.clear()
+        return not self._thread.is_alive()
+
+    def _run(self):
+        import torch
+
+        try:
+            if self._device.type == "cuda":
+                torch.cuda.set_device(self._device)
+            with torch.no_grad():
+                self._serve()
+        except BaseException as e:       # surface to submitters
+            # fail every in-flight and queued request with this error (each
+            # gets a status="error" result), then release every waiter:
+            # submitters raise instead of hanging, and the manager is clean
+            # for a restarted server
+            with self._work:
+                self.llm.rm.abort_outstanding(e)
+                self._error = e
+                for _, ev in self._waiters:
+                    ev.set()
+                self._waiters.clear()
+            raise
+
+    def _serve(self):
+        rm = self.llm.rm
+        while True:
+            with self._work:
+                while not rm.pending and not self._stopping:
+                    self._work.wait(timeout=0.05)
+                if self._stopping and not rm.pending:
+                    # release any waiters for already-finished guids
+                    for _, ev in self._waiters:
+                        ev.set()
+                    return
+            done = _run_loop(self.llm, rm)
+            with self._work:
+                if self.admission is not None:
+                    for res in done or ():
+                        if res.queue_wait_s > 0.0:
+                            self.admission.observe_queue_wait(
+                                res.queue_wait_s)
+                done_guids = set(rm.results)
+                fire, keep = [], []
+                for guids, ev in self._waiters:
+                    guids -= done_guids
+                    (keep if guids else fire).append((guids, ev))
+                self._waiters = keep
+            for _, ev in fire:
+                ev.set()
 
 
 class SSM(LLM):

@@ -27,12 +27,22 @@ class GenerationConfig:
     tunes each request's draft depth from its observed acceptance and
     parks requests whose estimated speedup falls below incremental
     decoding. Tokens are the same either way; only the wall clock
-    changes."""
+    changes.
+
+    ``timeout_s`` is the default per-request wall-clock bound (0 = none)
+    that ``LLM.generate`` applies when a call gives none (in the JAX
+    package only its embedded C host applies it). ``prefix_cache`` arms the
+    shared-prefix KV pool (serve/prefix_cache.py): admission-time
+    longest-prefix match, grant-time KV install (those prefill tokens
+    skipped), insert-on-finish; token-identical to the pool off.
+    ``prefix_cache_tokens`` is its budget in tokens (0 = the default); the
+    pool also holds a byte budget of its own (serve/prefix_cache.py)."""
 
     do_sample: bool = False
     temperature: float = 0.8
     topp: float = 0.6
     adaptive_spec: bool = True
+    timeout_s: float = 0.0
     spec_depth: int = 0             # 0 = caller's depth / engine max
     min_spec_depth: int = 1
     spec_fallback_margin: float = 0.95   # park below this est. speedup
@@ -40,6 +50,8 @@ class GenerationConfig:
     spec_probe_every: int = 4            # fallback blocks between probes
     spec_ewma_alpha: float = 0.4
     spec_draft_cost_ratio: float = 0.0   # 0 = estimate from param bytes
+    prefix_cache: bool = False
+    prefix_cache_tokens: int = 0
 
 
 _FIELD_DTYPES = {"tokens": torch.int32, "positions": torch.int32,

@@ -19,9 +19,24 @@ accepted path's KV compacted by ``commit_tree_kv``). Per request,
 cache. Speculation is greedy; sampling is a property of an incremental
 decoding graph (``GenerationConfig.do_sample``).
 
-Not in this slice: the native C++ scheduler, the shared-prefix cache,
-telemetry, admission control, preemption, deadlines and the
-``inference_debugging`` per-op dumps.
+The request lifecycle is the JAX package's: a request may carry a
+deadline (``timeout_s`` relative to arrival, or an absolute
+``deadline_s``), a tenant and a priority, and may be cancelled from any
+thread (``cancel``). Every scheduler loop runs the same seams at the top
+of each turn: ``_reap_expired`` resolves expired and cancelled requests
+with their partial tokens, ``_fill_slots`` grants free slots by priority
+then FIFO and, when every slot is taken, lets a pending request whose
+deadline is at risk preempt a lower-priority one (``_maybe_preempt``: the
+victim is re-queued and re-prefilled, so its tokens do not change), and
+``_prefix_install`` copies a pooled shared prefix's KV into a fresh slot
+(serve/prefix_cache.py). Finished prompts are pooled by
+``_prefix_store``. Cancellation and deadlines are therefore reaped
+between decode blocks and speculation rounds, never inside one.
+
+This Python loop is the only scheduler: the port has no native C++
+scheduler (the JAX package takes its Python loop too whenever
+priorities, deadlines or the prefix pool are in use). Not in this slice:
+telemetry hooks and the ``inference_debugging`` per-op dumps.
 """
 
 from __future__ import annotations
@@ -66,8 +81,22 @@ class Request:
     arrival_s: float = 0.0
     prefill_start_s: float = 0.0
     first_token_s: float = 0.0
-    status: str = "ok"                    # ok | rejected
+    # tenant/priority drive admission and slot scheduling; deadline_s is
+    # an absolute time.perf_counter() instant (0.0 = none)
+    tenant: str = "default"
+    priority: int = 0
+    deadline_s: float = 0.0
+    status: str = "ok"            # ok|timed_out|cancelled|error|rejected
     error: str = ""
+    cancel_requested: bool = False
+    preemptions: int = 0
+    # shared-prefix KV pool: the refcounted entry of the admission-time
+    # match (released at _collect), how many leading prompt positions it
+    # covers, and whether the lookup ran
+    prefix_entry: Any = None
+    prefix_len: int = 0
+    prefix_hit_tokens: int = 0
+    prefix_checked: bool = False
 
     def __post_init__(self):
         if not self.tokens:
@@ -91,8 +120,21 @@ class GenerationResult:
     ttft_s: float = 0.0
     queue_wait_s: float = 0.0
     prefill_s: float = 0.0
+    # terminal disposition: "ok", "timed_out" (deadline expired between
+    # rounds; output_tokens holds the partial prefix), "cancelled",
+    # "error" (the serving loop died; ``error`` says why) or "rejected"
+    # (the prompt can never fit). Every registered request gets a result.
     status: str = "ok"
+    timed_out: bool = False
+    cancelled: bool = False
     error: str = ""
+    tenant: str = "default"
+    preemptions: int = 0
+    # re-dispatches to another replica (the JAX package's replica pool);
+    # always 0 here, so loadgen.summarize accounts as it does there
+    failovers: int = 0
+    # leading prompt tokens served from the shared-prefix KV pool
+    prefix_hit_tokens: int = 0
 
 
 class RequestManager:
@@ -105,6 +147,18 @@ class RequestManager:
         self.eos_token_id = eos_token_id
         self.pending: deque = deque()
         self.results: Dict[int, GenerationResult] = {}
+        # every registered-but-unfinished request, pending or slotted: the
+        # cancel/abort surface (entries removed at _collect)
+        self.inflight: Dict[int, Request] = {}
+        # deadline-aware preemption: a pending request whose deadline has
+        # burned down past preempt_risk of its total budget may evict a
+        # strictly-lower-priority running request
+        self.preempt_enabled = True
+        self.preempt_risk = 0.5
+        # the shared-prefix KV pool (serve/prefix_cache.PrefixCache), or
+        # None: attached directly or at the first generate call whose
+        # GenerationConfig asks for it, and kept across calls
+        self.prefix_cache = None
         self.max_spec_depth = MAX_SPEC_DEPTH
         # the host tree path's KV compaction (in place)
         self._commit = commit_tree_kv
@@ -121,7 +175,15 @@ class RequestManager:
 
     def register_new_request(self, prompt: Union[str, Sequence[int]],
                              max_new_tokens: int = 128,
-                             max_sequence_length: int = 0) -> int:
+                             max_sequence_length: int = 0,
+                             timeout_s: Optional[float] = None,
+                             deadline_s: Optional[float] = None,
+                             tenant: str = "default",
+                             priority: int = 0) -> int:
+        """Register one request. ``timeout_s`` is relative to arrival;
+        ``deadline_s`` is an absolute time.perf_counter() instant (wins
+        when both are given). An expired request is resolved between
+        decode rounds with its partial output (``timed_out=True``)."""
         if isinstance(prompt, str):
             assert self.tokenizer is not None, "string prompts need a tokenizer"
             toks = list(self.tokenizer.encode(prompt))
@@ -129,11 +191,50 @@ class RequestManager:
             toks = [int(t) for t in prompt]
         assert toks, "empty prompt"
         guid = next(self._guid_counter)
-        self.pending.append(Request(guid=guid, prompt_tokens=toks,
-                                    max_new_tokens=max_new_tokens,
-                                    max_sequence_length=max_sequence_length,
-                                    arrival_s=time.perf_counter()))
+        arrival = time.perf_counter()
+        if deadline_s is None and timeout_s is not None:
+            deadline_s = arrival + timeout_s
+        req = Request(guid=guid, prompt_tokens=toks,
+                      max_new_tokens=max_new_tokens,
+                      max_sequence_length=max_sequence_length,
+                      arrival_s=arrival, tenant=tenant, priority=priority,
+                      deadline_s=deadline_s or 0.0)
+        if self.prefix_cache is not None:
+            # the radix lookup and its refcount happen at admission, so
+            # eviction before the slot grant cannot pull the segment away
+            self._prefix_match(req)
+        self.pending.append(req)
+        self.inflight[guid] = req
         return guid
+
+    def cancel(self, guid: int) -> bool:
+        """Ask for a request's cancellation. Safe from any thread: it only
+        sets a flag, which the serving loop reaps at its next
+        between-rounds seam on every scheduler path. False when the guid
+        is unknown or already finished."""
+        req = self.inflight.get(guid)
+        if req is None or req.finished:
+            return False
+        req.cancel_requested = True
+        return True
+
+    def abort_outstanding(self, error: BaseException
+                          ) -> List[GenerationResult]:
+        """Fail every registered-but-unfinished request with ``error``
+        (status "error", partial tokens kept). Called when the serving
+        loop dies, so that no submitter waits on a result that will never
+        come; leaves the manager clean for a server restart."""
+        self.pending.clear()
+        out = []
+        for req in list(self.inflight.values()):
+            if req.finished:
+                continue
+            req.status = "error"
+            req.error = f"{type(error).__name__}: {error}"
+            req.finished = True
+            req.slot = -1
+            out.append(self._collect(req))
+        return out
 
     # -- scheduling helpers ------------------------------------------------
     def _finish_if_done(self, req: Request, max_seq: int) -> bool:
@@ -148,6 +249,11 @@ class RequestManager:
         return req.finished
 
     def _collect(self, req: Request) -> GenerationResult:
+        if req.prefix_entry is not None and self.prefix_cache is not None:
+            # drop the pool reference taken at admission (every terminal
+            # path goes through here, so no handle leaks)
+            self.prefix_cache.release(req.prefix_entry)
+            req.prefix_entry = None
         out = req.tokens[len(req.prompt_tokens):]
         now = time.perf_counter()
         res = GenerationResult(
@@ -160,7 +266,11 @@ class RequestManager:
             if req.prefill_start_s else 0.0,
             prefill_s=(req.first_token_s - req.prefill_start_s)
             if req.first_token_s and req.prefill_start_s else 0.0,
-            status=req.status, error=req.error)
+            status=req.status, timed_out=req.status == "timed_out",
+            cancelled=req.status == "cancelled", error=req.error,
+            tenant=req.tenant, preemptions=req.preemptions,
+            prefix_hit_tokens=req.prefix_hit_tokens)
+        self.inflight.pop(req.guid, None)
         if self.tokenizer is not None:
             try:
                 res.input_text = self.tokenizer.decode(res.input_tokens)
@@ -187,18 +297,193 @@ class RequestManager:
         active[slot] = req
         return True
 
+    def _next_pending(self) -> Optional[Request]:
+        """Dequeue the next request to grant a slot: highest priority
+        first, FIFO within a priority class. Submitter threads append to
+        ``pending`` while the loop runs, so it is read through a snapshot
+        (taking ``list`` of a deque runs without a thread switch)."""
+        queue = list(self.pending)
+        if not queue:
+            return None
+        best = queue[0]
+        for r in queue:
+            if r.priority > best.priority:
+                best = r
+        self.pending.remove(best)
+        return best
+
     def _fill_slots(self, active: List[Optional[Request]], max_seq: int,
-                    done: List[GenerationResult]):
+                    done: List[GenerationResult], parked=()):
         for slot in range(len(active)):
             while active[slot] is None and self.pending:
-                if self._grant(self.pending.popleft(), slot, active, max_seq,
+                if self._grant(self._next_pending(), slot, active, max_seq,
                                done):
                     break
+        if self.pending and self.preempt_enabled:
+            # every slot taken and requests still waiting: deadline-aware
+            # preemption may evict a lower-priority victim
+            self._maybe_preempt(active, max_seq, done, parked)
+
+    def _maybe_preempt(self, active, max_seq: int,
+                       done: List[GenerationResult], parked=()):
+        """At the slot-grant seam: if a pending request's deadline is at
+        risk (more than ``preempt_risk`` of its budget already burned
+        waiting), evict a strictly-lower-priority running request,
+        preferring one the speculation controller parked (``parked``:
+        guids), then the fewest generated tokens (the cheapest
+        re-prefill). The victim is re-queued, not killed: its prompt and
+        generated tokens are prefilled again at its next grant, so its
+        final tokens are the same (greedy decoding depends only on the
+        token prefix)."""
+        now = time.perf_counter()
+        while self.pending:
+            cand = None
+            for r in list(self.pending):
+                if r.deadline_s <= 0 or r.cancel_requested:
+                    continue
+                total = max(r.deadline_s - r.arrival_s, 1e-9)
+                if (r.deadline_s - now) > self.preempt_risk * total:
+                    continue
+                if cand is None or r.priority > cand.priority:
+                    cand = r
+            if cand is None:
+                return
+            victims = [r for r in active
+                       if r is not None and not r.finished
+                       and r.priority < cand.priority]
+            if not victims:
+                return
+            victim = min(victims, key=lambda r: (r.guid not in parked,
+                                                 r.priority,
+                                                 r.num_generated))
+            slot = victim.slot
+            victim.slot = -1
+            victim.cache_depth = 0
+            victim.ssm_cache_depth.clear()
+            victim.preemptions += 1
+            victim.prefill_start_s = 0.0
+            active[slot] = None
+            self.pending.remove(cand)
+            self.pending.append(victim)
+            self._grant(cand, slot, active, max_seq, done)
+
+    def _reap_expired(self, active, max_seq: int,
+                      done: List[GenerationResult], ctrl=None):
+        """The between-rounds timeout/cancel seam: resolve every pending or
+        slotted request whose deadline expired or whose host asked for
+        its cancellation (slot freed, partial result collected with the
+        matching status). Runs at the top of every scheduler-loop turn on
+        every path."""
+        now = time.perf_counter()
+
+        def expired(r):
+            return r.cancel_requested or (r.deadline_s
+                                          and now >= r.deadline_s)
+
+        def resolve(r):
+            r.status = "cancelled" if r.cancel_requested else "timed_out"
+            r.finished = True
+            done.append(self._collect(r))
+
+        for req in [r for r in list(self.pending) if expired(r)]:
+            self.pending.remove(req)
+            resolve(req)
+        for slot, req in enumerate(active):
+            if req is not None and not req.finished and expired(req):
+                if ctrl is not None:
+                    ctrl.drop(req.guid)
+                resolve(req)
+                active[slot] = None
 
     def _remaining_budget(self, req: Request, max_seq: int) -> int:
         limit = min(req.max_sequence_length or max_seq, max_seq)
         return max(1, min(req.max_new_tokens - req.num_generated,
                           limit - len(req.tokens)))
+
+    # -- shared-prefix KV pool (serve/prefix_cache.py) --------------------
+    def _resolve_prefix_cache(self, gc: Optional[GenerationConfig]):
+        """Attach the pool when the generation config asks for it (requests
+        registered before that are matched at their slot grant)."""
+        if (gc is not None and gc.prefix_cache
+                and self.prefix_cache is None):
+            from flexflow_tpu_torch.serve.prefix_cache import PrefixCache
+
+            self.prefix_cache = PrefixCache(
+                max_tokens=gc.prefix_cache_tokens)
+
+    def _prefix_match(self, req: Request):
+        """Longest-prefix radix lookup for one request (admission time, or
+        grant time for requests admitted before the pool existed)."""
+        pc = self.prefix_cache
+        req.prefix_checked = True
+        if pc is None:
+            return
+        shared, entry = pc.match(req.prompt_tokens)
+        if entry is not None:
+            req.prefix_entry = entry
+            req.prefix_len = shared
+            req.prefix_hit_tokens = shared
+
+    def _prefix_install(self, active, pairs):
+        """Grant-time KV install: a slotted request holding a pool handle
+        with an empty cache (a fresh grant, or a preemption re-queue that
+        reset ``cache_depth``) gets the shared positions copied into its
+        slot's caches in place, and its depths advanced past them: those
+        prefill tokens are skipped. ``pairs`` is the loop's ordered
+        [("llm", ifm), ("ssm0", ifm), ...]; a model whose cache does not
+        take the stored segment prefills the prefix itself."""
+        pc = self.prefix_cache
+        if pc is None:
+            return
+        from flexflow_tpu_torch.serve import prefix_cache as pcm
+
+        for req in active:
+            if req is None or req.finished or req.slot < 0:
+                continue
+            if not req.prefix_checked:
+                self._prefix_match(req)
+            entry = req.prefix_entry
+            if entry is None or req.cache_depth != 0:
+                continue
+            n = min(req.prefix_len, len(req.tokens) - 1)
+            if n <= 0:
+                continue
+            for key, ifm in pairs:
+                segs = entry.segments.get(key)
+                if segs is None or not pcm.prefix_compatible(
+                        ifm.model.op_state, segs, n):
+                    continue
+                pcm.install_prefix_kv(ifm.model.op_state, req.slot, segs, n)
+                if key == "llm":
+                    req.cache_depth = n
+                else:
+                    req.ssm_cache_depth[int(key[3:])] = n
+
+    def _prefix_store(self, req: Request, pairs):
+        """Insert-on-finish: pool the finished request's prompt KV from its
+        still-intact slot (called before the slot is cleared). A model
+        whose cache never covered the whole prompt (a draft the
+        controller parked) is left out; a later reuse prefills it."""
+        pc = self.prefix_cache
+        if pc is None or req.slot < 0 or req.status != "ok":
+            return
+        prompt = req.prompt_tokens
+        if req.cache_depth < len(prompt) or not pc.would_store(prompt):
+            return
+        from flexflow_tpu_torch.serve import prefix_cache as pcm
+
+        segments = {}
+        for key, ifm in pairs:
+            depth = (req.cache_depth if key == "llm"
+                     else req.ssm_cache_depth.get(int(key[3:]), 0))
+            if depth < len(prompt):
+                continue
+            segs = pcm.extract_prefix_kv(ifm.model.op_state, req.slot,
+                                         len(prompt))
+            if segs is not None:
+                segments[key] = segs
+        if "llm" in segments:
+            pc.insert(prompt, segments)
 
     @staticmethod
     def _ifm(model) -> InferenceManager:
@@ -263,14 +548,18 @@ class RequestManager:
         symmetry."""
         ifm = self._ifm(model)
         cfg = model.config
+        self._resolve_prefix_cache(generation_config)
         R = cfg.max_requests_per_batch
         max_seq = cfg.max_sequence_length
         chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
         active: List[Optional[Request]] = [None] * R
         done: List[GenerationResult] = []
+        pairs = (("llm", ifm),)
 
         while self.pending or any(a is not None for a in active):
+            self._reap_expired(active, max_seq, done)
             self._fill_slots(active, max_seq, done)
+            self._prefix_install(active, pairs)
             # decode-interleaved chunked prefill: at most ONE bounded
             # prefill chunk per round, then the decode block for the
             # slots that have caught up
@@ -311,7 +600,7 @@ class RequestManager:
                             break
                     self._note_first_token(req)
                     req.cache_depth = len(req.tokens) - 1
-            self._collect_finished(active, done)
+            self._collect_finished(active, done, pairs=pairs)
         return done
 
     # =====================================================================
@@ -348,6 +637,7 @@ class RequestManager:
         width, so both give the same tokens (the JAX package's rule with
         its Pallas kernel). Several draft models take the tree engine."""
         gc = generation_config
+        self._resolve_prefix_cache(gc)
         if gc is not None and gc.spec_depth:
             spec_depth = gc.spec_depth
         widths = [s.config.max_beam_width for s in ssms]
@@ -539,9 +829,12 @@ class RequestManager:
         self.spec_stats = dict.fromkeys(
             ("rounds", "request_rounds", "committed", "parked"), 0)
         rounds0 = engine.rounds_run
+        pairs = (("llm", llm_ifm), ("ssm0", ssm_ifm))
 
         while self.pending or any(a is not None for a in active):
-            self._fill_slots(active, max_seq, done)
+            self._reap_expired(active, max_seq, done, ctrl)
+            self._fill_slots(active, max_seq, done, self._parked(ctrl, active))
+            self._prefix_install(active, pairs)
             # one bounded prefill chunk per model; caught-up slots draft or
             # decode below in the same turn
             prefilled = False
@@ -610,7 +903,7 @@ class RequestManager:
                         d = len(req.tokens) - 1
                         req.cache_depth = d
                         req.ssm_cache_depth[0] = d
-            self._collect_finished(active, done, ctrl)
+            self._collect_finished(active, done, ctrl, pairs)
         self.spec_stats.update(
             rounds=engine.rounds_run - rounds0,
             parked=ctrl.fallback_entries_total if ctrl is not None else 0)
@@ -658,9 +951,13 @@ class RequestManager:
         self.spec_stats = dict.fromkeys(
             ("rounds", "request_rounds", "committed", "parked"), 0)
         rounds0 = engine.rounds_run
+        pairs = (("llm", llm_ifm),
+                 *((f"ssm{i}", m) for i, m in enumerate(ssm_ifms)))
 
         while self.pending or any(a is not None for a in active):
-            self._fill_slots(active, max_seq, done)
+            self._reap_expired(active, max_seq, done, ctrl)
+            self._fill_slots(active, max_seq, done, self._parked(ctrl, active))
+            self._prefix_install(active, pairs)
             prefilled = False
             rows = self._prefill_rows(active, chunk, lambda r: r.cache_depth,
                                       cfg.max_tokens_per_batch)
@@ -730,7 +1027,7 @@ class RequestManager:
                     req.cache_depth = d
                     for i in range(B):
                         req.ssm_cache_depth[i] = min(last_rpos + 1, d)
-            self._collect_finished(active, done, ctrl)
+            self._collect_finished(active, done, ctrl, pairs)
         self.spec_stats.update(
             rounds=engine.rounds_run - rounds0,
             parked=ctrl.fallback_entries_total if ctrl is not None else 0)
@@ -767,6 +1064,7 @@ class RequestManager:
             ("rounds", "request_rounds", "committed", "parked"), 0)
 
         while self.pending or any(a is not None for a in active):
+            self._reap_expired(active, max_seq, done)
             self._fill_slots(active, max_seq, done)
             prefilled = False
             for ifm, depth_of, setter in (
@@ -1019,10 +1317,23 @@ class RequestManager:
                 torch.as_tensor(start + 1, device=dev),
                 torch.as_tensor(act, device=dev))
 
-    def _collect_finished(self, active, done, ctrl=None):
+    @staticmethod
+    def _parked(ctrl, active):
+        """Guids the speculation controller has parked on fallback decode:
+        preemption's preferred victims."""
+        if ctrl is None:
+            return ()
+        return {req.guid for req in active
+                if req is not None and ctrl.in_fallback(req.guid)}
+
+    def _collect_finished(self, active, done, ctrl=None, pairs=()):
+        """Collect every finished slotted request (pooling its prompt's KV
+        first when ``pairs`` names the loop's models) and free its slot."""
         for slot, req in enumerate(active):
             if req is not None and req.finished:
                 if ctrl is not None:
                     ctrl.drop(req.guid)
+                if pairs:
+                    self._prefix_store(req, pairs)
                 done.append(self._collect(req))
                 active[slot] = None

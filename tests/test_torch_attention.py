@@ -195,6 +195,12 @@ def test_flash_attend_matches_jax(name):
 def test_supports_shapes_and_block_size_fixed():
     assert tatt.supports_shapes(256, 128) and tatt.supports_shapes(200, 64)
     assert not tatt.supports_shapes(256, 96)
+    # past 256: the wide kernels take multiples of 256
+    assert tatt.supports_shapes(256, 512) and tatt.supports_shapes(64, 768)
+    assert not tatt.supports_shapes(256, 320)
+    assert [tatt.padded_head_dim(d) for d in (32, 80, 160, 256, 257, 320,
+                                               512, 600)] == [
+        64, 128, 256, 256, 512, 512, 512, 768]
     # the S-tile is one constant, whatever the query width
     assert tatt.BLOCK_S == 64
 

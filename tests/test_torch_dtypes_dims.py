@@ -11,6 +11,8 @@ Same numpy inputs through both packages:
 * a tiny LLaMA (``tests/conftest.py``'s geometry: hidden 64, 4 heads of 16)
   served by the port with the padded cache layout forced on the CPU
   against the JAX package's tokens (identical);
+* the same with head dim 320 (hidden 640, 2 heads), on the 512-wide
+  cache the card's wide kernels serve (identical);
 * the same tiny LLaMA in fp16 (weights, activations, cache) through the
   port's plain path against the JAX package in fp16: identical tokens, or
   a difference at a stated near-tie of the JAX logits;
@@ -72,7 +74,7 @@ def test_padded_cache_layout(D, Dp):
     assert tia.cache_head_dim(D, pad=True) == Dp
     assert tia.cache_head_dim(D, pad=False) == D
     assert tatt.padded_head_dim(Dp) == Dp
-    assert tatt.padded_head_dim(300) == 300   # not served: _launch raises
+    assert tatt.padded_head_dim(300) == 512   # the wide kernels' layout
     attrs = dict(max_requests=2, max_seq_length=32, num_kv_heads=2,
                  head_dim=D, cache_dtype="float32")
     st = tia._init_kv_state(attrs, [], "cpu")
@@ -127,22 +129,24 @@ def test_attend_on_padded_cache_matches_jax(D, mode):
 _models = {}
 
 
-def _pair(dtype, padded=False, monkeypatch=None):
+def _pair(dtype, padded=False, monkeypatch=None, **geometry):
     """The tiny LLaMA in both packages with the JAX package's weights;
-    ``padded`` allocates the port's cache in the card's padded layout."""
-    key = (dtype, padded)
+    ``padded`` allocates the port's cache in the card's padded layout;
+    ``geometry`` overrides fields of TINY."""
+    key = (dtype, padded, tuple(sorted(geometry.items())))
     if key not in _models:
+        tiny = dict(TINY, **geometry)
         serve = dict(max_requests_per_batch=2, max_sequence_length=64,
                      max_tokens_per_batch=16, kv_cache_dtype=dtype, seed=0)
         jm = ff.FFModel(ff.FFConfig(use_native_scheduler=False,
                                     compute_dtype=dtype, **serve))
-        jax_create_llama(jm, JLlamaConfig(**TINY),
+        jax_create_llama(jm, JLlamaConfig(**tiny),
                          mode=JMode.INC_DECODING_MODE,
                          data_type=JDataType(dtype))
         jm.compile(comp_mode=ff.CompMode.COMP_MODE_INFERENCE)
         pm = fft.FFModel(fft.FFConfig(device="cpu", compute_dtype=dtype,
                                       **serve))
-        create_llama_model(pm, LLAMAConfig(**TINY),
+        create_llama_model(pm, LLAMAConfig(**tiny),
                            mode=InferenceMode.INC_DECODING_MODE,
                            data_type=DataType(dtype))
         if padded:
@@ -165,6 +169,20 @@ def test_tiny_llama_on_padded_cache_matches_jax(monkeypatch):
     forced on the CPU): the JAX package's tokens, exactly (fp32)."""
     jm, pm = _pair("float32", padded=True, monkeypatch=monkeypatch)
     assert pm.op_state["kv_cache"]["k"].shape[-1] == 64
+    jout = _gen(JRM(), lambda rm: rm.generate_incr_decoding(jm))
+    tout = _gen(RequestManager(), lambda rm: rm.generate_incr_decoding(pm))
+    assert tout == jout
+    assert all(len(t) == n for t, (_, n) in zip(tout, REQS))
+
+
+def test_tiny_llama_head_dim_320_on_padded_cache_matches_jax(monkeypatch):
+    """Head dim 320 (2 heads, 1 kv head) served from a cache padded to 512
+    (the wide kernels' layout on the card, forced on the CPU): the JAX
+    package's tokens, exactly (fp32)."""
+    jm, pm = _pair("float32", padded=True, monkeypatch=monkeypatch,
+                   hidden_size=640, num_attention_heads=2,
+                   num_key_value_heads=1)
+    assert pm.op_state["kv_cache"]["k"].shape[-1] == 512
     jout = _gen(JRM(), lambda rm: rm.generate_incr_decoding(jm))
     tout = _gen(RequestManager(), lambda rm: rm.generate_incr_decoding(pm))
     assert tout == jout
@@ -224,7 +242,8 @@ class _Meta:
 @pytest.mark.parametrize("dtype, D, want", [
     (torch.float16, 64, True), (torch.bfloat16, 256, True),
     (torch.float32, 128, True), (torch.float16, 80, False),
-    (torch.float64, 64, False), (torch.bfloat16, 512, False)])
+    (torch.float64, 64, False), (torch.bfloat16, 512, True),
+    (torch.float32, 768, True), (torch.bfloat16, 320, False)])
 def test_kernel_serves_asks_the_wrapper_predicate(dtype, D, want):
     """``kernel_serves`` answers from ``kernel_takes`` on each cache as
     allocated: a device, a dtype and a (padded) head dim; never on the

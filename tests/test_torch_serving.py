@@ -201,6 +201,12 @@ def test_port_sources_import_no_jax_and_no_flexflow_tpu():
     files = sorted((REPO / "flexflow_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    # the online-serving modules are among them
+    port = REPO / "flexflow_tpu_torch"
+    for rel in ("serve/admission.py", "serve/prefix_cache.py",
+                "serve/loadgen.py", "telemetry/__init__.py",
+                "telemetry/metrics.py", "telemetry/slo.py"):
+        assert port / rel in files, rel
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text(), str(f))):
