@@ -4,6 +4,7 @@
     python3 chip_smoke.py            # every phase, one card
     python3 chip_smoke.py --phases 1,2,7   # one phase (1 and 2 build)
     python3 chip_smoke.py --phases 1,2,9   # online serving alone
+    python3 chip_smoke.py --phases 1,2,10  # OPT, Falcon, MPT, StarCoder
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -31,7 +32,14 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      against the plain version on the unpadded inputs, with timed fp16,
      D = 256 and D = 320/512/768 rows (the last at R 8, S 256, H = 4096
      // D), and the bitwise invariance checks at D = 256, 512, 768 too;
-     then K3 (``quant.qmatmul`` on a QuantizedWeight)
+     phase 10's families' shapes in bf16 at R 8, S 256 (Falcon-7B's 71
+     query heads on one KV head at D 64, StarCoder's 48 on one at D 128,
+     MPT-7B's ALiBi, OPT-6.7B's query-side scale: prefill, decode and
+     chain-tree verify each against the plain version; the bitwise
+     invariance checks at G = 71 and 48 and with ALiBi; timed rows for
+     Falcon's prefill, decode and verify, StarCoder's decode and MPT's
+     decode, beside the bound, the read floor, the plain version and
+     SDPA); then K3 (``quant.qmatmul`` on a QuantizedWeight)
      against its plain version: int8 and int4, bf16, fp16 and fp32
      operands and results (all nine pairs), M in {1, 8, 64, 256}, the 7B
      int8 path's (K, N) plus an odd-K int4 case and N = 1000, the worst
@@ -40,7 +48,9 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      M = 64 product bitwise equal to the same rows at M = 8 and M = 1;
      timed rows at M = 8, 64 and 256 beside the bound, the read floor,
      the plain version and ``torch.matmul`` on a dequantized bf16 copy of
-     the weight;
+     the weight; and K3 int8 at every (K, N) of phase 10's families (M 8,
+     64, 256, row invariance), timed at Falcon's 4544 x 64 and 4544 x
+     65024;
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
      seeded numpy draw); the tokens must agree; then speculative
@@ -119,7 +129,22 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      flight, and ``LLM.cancel`` on the SpecInfer server (reported); K1,
      K2 and K3 launched by the server-driven runs (counted from a reset
      just before each to a read just after it, the offline reference
-     passes left out), no plain call anywhere in the phase.
+     passes left out), no plain call anywhere in the phase;
+ 10. the other families: OPT-6.7B, Falcon-7B, MPT-7B and StarCoder
+     (their published HF configs). 10a: a 2-layer model at the family's
+     full width in fp32, one seeded numpy draw of weights on both
+     devices, 8 requests x 16-token prompts, 16 new tokens: incremental
+     decoding, SpecInfer (the tree engine, a 1-layer draft, depth 4) and
+     int8 incremental decoding on the card each equal to the CPU's, 128
+     of 128 (the CPU references run on worker threads beside the card's
+     work); 10c: a tiny checkpoint written by ``save_tiny_checkpoint`` on
+     the card, cold-started with ``LLM.from_checkpoint``, float and int8,
+     tokens equal to the in-memory build's, ``cold_start_s``; then 10b,
+     with the host to itself: the published geometry in bf16 through
+     ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
+     prompts, 32 new tokens), prefill ms, decode ms/step, tokens/s and
+     peak memory, K1 launched L times a prefill chunk, K2 L times a
+     decode step, no plain call.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -286,17 +311,27 @@ def invariance_check(torch, ivec, mk):
     the rows of a causal K1 call on all 8 queries and the width-8 decode's
     row 0 — speculative verify against incremental decode rests on it. At
     the slice's shape (one split) and at a split-S shape with GQA (the
-    real rows sit at other rows of the tile)."""
+    real rows sit at other rows of the tile); at the multi-query shapes
+    of Falcon-7B (71 query heads on one KV head, D 64: 9 query tiles of 64
+    rows at width 8) and StarCoder (48 on one, D 128: 6 tiles); and at
+    MPT-7B's with its ALiBi slopes on every call."""
     from flexflow_tpu_torch.kernels.attention import append_at, flash_attend
+    from flexflow_tpu_torch.ops.inc_attention import alibi_slopes
 
     dev = "cuda"
-    for R, H, KH, S, app, D in ((8, 32, 32, 256, 63, 128),
-                                (2, 8, 4, 1024, 700, 128),
-                                (8, 16, 16, 256, 63, 256),
-                                (8, 8, 8, 256, 63, 512),
-                                (2, 8, 4, 1024, 700, 512),
-                                (4, 4, 4, 256, 63, 768)):
+    for R, H, KH, S, app, D, alibi in (
+            (8, 32, 32, 256, 63, 128, False),
+            (2, 8, 4, 1024, 700, 128, False),
+            (8, 16, 16, 256, 63, 256, False),
+            (8, 8, 8, 256, 63, 512, False),
+            (2, 8, 4, 1024, 700, 512, False),
+            (4, 4, 4, 256, 63, 768, False),
+            (8, 71, 1, 256, 63, 64, False),
+            (8, 48, 1, 256, 63, 128, False),
+            (8, 32, 32, 256, 63, 128, True)):
         bf = torch.bfloat16
+        al = alibi_slopes(H, device=dev) if alibi else None
+        tag = " ALiBi" if alibi else ""
         q8, k, v = mk(R, 8, H, KH, D, S, bf, 21)
         g = torch.Generator(device=dev).manual_seed(22)
         kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(bf)
@@ -307,31 +342,33 @@ def invariance_check(torch, ivec, mk):
                                               device=dev)[None]
         k1c, v1c = k.clone(), v.clone()
         out1 = flash_attend(q8[:, :1].contiguous(), k1c, v1c, lengths,
-                            appos[:, None].contiguous(),
+                            appos[:, None].contiguous(), alibi=al,
                             append_kv=(kn, vn, appos))[0]
         k8c, v8c = k.clone(), v.clone()
-        out8 = flash_attend(q8, k8c, v8c, lengths, qpos8,
+        out8 = flash_attend(q8, k8c, v8c, lengths, qpos8, alibi=al,
                             append_kv=(kn, vn, appos))[0]
         append_at(k, v, kn, vn, appos)
         outk1 = flash_attend(q8, k, v, lengths, qpos8, causal=False,
-                             bias=torch.zeros((R, 8, S), device=dev))
+                             bias=torch.zeros((R, 8, S), device=dev),
+                             alibi=al)
         torch.cuda.synchronize()
         same = (torch.equal(out1[:, 0], out8[:, 0])
                 and torch.equal(out8[:, 0], outk1[:, 0]))
-        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}: width-1 == width-8 "
-            f"== K1 bitwise: {same} {'PASS' if same else 'FAIL'}")
+        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}{tag}: width-1 == "
+            f"width-8 == K1 bitwise: {same} {'PASS' if same else 'FAIL'}")
         if not same:
             raise AssertionError("width/K1-vs-K2 bitwise invariance failed")
         # the chain tree staged at appos..appos+7, as the verify pass does
         lens8 = appos + 8
         outb = flash_attend(q8, k, v, lens8, qpos8, causal=False,
-                            bias=chain_tree_bias(torch, appos, S))
-        outc = flash_attend(q8, k, v, lens8, qpos8)
+                            bias=chain_tree_bias(torch, appos, S), alibi=al)
+        outc = flash_attend(q8, k, v, lens8, qpos8, alibi=al)
         torch.cuda.synchronize()
         same = (torch.equal(outb, outc)
                 and torch.equal(outb[:, 0], out8[:, 0]))
-        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}: K1 chain-tree bias == K1 "
-            f"causal (8 rows) == width-8 decode (row 0) bitwise: {same} "
+        log(f"  invariance R{R} H{H} KH{KH} S{S} D{D}{tag}: K1 chain-tree "
+            f"bias == K1 causal (8 rows) == width-8 decode (row 0) "
+            f"bitwise: {same} "
             f"{'PASS' if same else 'FAIL'}")
         if not same:
             raise AssertionError("tree-bias vs causal bitwise invariance "
@@ -499,6 +536,107 @@ def wide_head_dim_rows(torch, timer, read_floor, ivec, compare, sdpa_call,
     return out_rows
 
 
+# the attention shapes of phase 10's families at R 8, S 256: (name, H, KH,
+# D, ALiBi); OPT-6.7B has LLaMA-2-7B's, with the scale passed on q's side
+FAMILY_ATTENTION = (("Falcon-7B", 71, 1, 64, False),
+                    ("StarCoder", 48, 1, 128, False),
+                    ("MPT-7B", 32, 32, 128, True))
+
+
+def family_attention_rows(torch, timer, read_floor, ivec, k1_case, k2_case,
+                          pre_len, pre_qpos, appos_main, vstart):
+    """K1 and K2 at the serving shapes of phase 10's families, bf16, R 8,
+    S 256, each against the plain version: prefill (Q 64), decode (Q 8,
+    the fused append into layer 5 of a 32-layer stack) and the chain-tree
+    verify; MPT's with its ALiBi slopes, OPT's with its query-side scale.
+    Then timed rows beside the bound, the read floor, the plain version
+    and SDPA (``enable_gqa`` for multi-query; ALiBi as a float mask)."""
+    import torch.nn.functional as F
+
+    from flexflow_tpu_torch.kernels.attention import (flash_attend,
+                                                      reference_attend)
+    from flexflow_tpu_torch.ops.inc_attention import alibi_slopes
+
+    dev, bf, R, S = "cuda", torch.bfloat16, REQUESTS, MAX_SEQ
+    v_qpos = vstart[:, None] + torch.arange(8, dtype=torch.int32,
+                                            device=dev)[None]
+    v_len = vstart + 8
+    v_bias = chain_tree_bias(torch, vstart, S)
+    log("  the families' attention shapes (phase 10), bf16, R 8, S 256")
+    k1_case("K1 OPT prefill H32 D128 q-scale", R, 64, 32, 32, 128, S, bf,
+            pre_len, pre_qpos, 70, qk_scale=1.0 * 128 ** -0.5)
+    k2_case("K2 OPT decode H32 D128", R, 8, 32, 32, 128, S, bf, appos_main,
+            71, L=LAYERS, layer_idx=5)
+
+    def sdpa(q, kc, vc, lengths, qpos, bias=None, alibi=None):
+        qh = q.transpose(1, 2)                          # [R, H, Q, D]
+        s = torch.arange(kc.shape[-2], device=dev)
+        vis = s[None, None, :] < lengths[:, None, None]
+        vis = (vis & (s[None, None, :] <= qpos[:, :, None])
+               if bias is None else vis & (bias == 0))[:, None]
+        if alibi is not None:   # the additive form: -slope * (qpos - s)
+            dist = (qpos[:, :, None] - s[None, None, :]).float()[:, None]
+            mask = torch.where(vis, -alibi[None, :, None, None] * dist,
+                               float("-inf")).to(q.dtype)
+        else:
+            mask = vis
+        gqa = q.shape[2] != kc.shape[1]
+        return lambda: F.scaled_dot_product_attention(
+            qh, kc, vc, attn_mask=mask, enable_gqa=gqa)
+
+    rows = []
+
+    def timed(name, fn, plain, lib, bound, err):
+        b, by, nbytes = bound
+        rows.append(dict(name=name, max_abs_err=err, ms=timer(fn),
+                         plain_ms=timer(plain), sdpa_ms=timer(lib),
+                         bound_ms=b, bound_by=by,
+                         read_floor_ms=read_floor(nbytes)))
+
+    for fam, H, KH, D, use_alibi in FAMILY_ATTENTION:
+        al = alibi_slopes(H, device=dev) if use_alibi else None
+        tag = f"{fam} H{H} KH{KH} D{D}" + (" ALiBi" if use_alibi else "")
+        seed = 72 + 4 * len(rows)
+        err, (q, k, v) = k1_case(f"K1 prefill {tag}", R, 64, H, KH, D, S, bf,
+                                 pre_len, pre_qpos, seed, alibi=al)
+        if fam == "Falcon-7B":
+            timed(f"K1 prefill R8 Q64 {tag} S256",
+                  lambda: flash_attend(q, k, v, pre_len, pre_qpos),
+                  lambda: reference_attend(q, k, v, pre_len, pre_qpos),
+                  sdpa(q, k, v, pre_len, pre_qpos),
+                  attention_bound_ms(torch, q, pre_len, pre_qpos, S, KH,
+                                     True, bf), err)
+        err, (q, k, v, kn, vn, ln, qp) = k2_case(
+            f"K2 decode {tag}", R, 8, H, KH, D, S, bf, appos_main, seed + 1,
+            L=LAYERS, layer_idx=5, alibi=al)
+        timed(f"K2 decode R8 Q8 {tag} S256, stacked",
+              lambda: flash_attend(q, k, v, ln, qp, alibi=al, layer_idx=5,
+                                   append_kv=(kn, vn, appos_main)),
+              lambda: reference_attend(q, k[5], v[5], ln, qp, alibi=al),
+              sdpa(q, k[5], v[5], ln, qp, alibi=al),
+              attention_bound_ms(torch, q, ln, qp, S, KH, True, bf,
+                                 extra_bytes=4 * kn.numel() * 2), err)
+        err, (q, k, v) = k1_case(f"K1 verify chain-tree bias {tag}", R, 8, H,
+                                 KH, D, S, bf, v_len, v_qpos, seed + 2,
+                                 bias=v_bias, alibi=al, causal=False)
+        if fam == "Falcon-7B":
+            timed(f"K1 verify R8 Q8 chain-tree bias {tag} S256",
+                  lambda: flash_attend(q, k, v, v_len, v_qpos, bias=v_bias,
+                                       causal=False),
+                  lambda: reference_attend(q, k, v, v_len, v_qpos,
+                                           bias=v_bias, causal=False),
+                  sdpa(q, k, v, v_len, v_qpos, bias=v_bias),
+                  attention_bound_ms(torch, q, v_len, v_qpos, S, KH, False,
+                                     bf, bias=v_bias), err)
+        del q, k, v
+    for r in rows:
+        log(f"  {r['name']:52s} kernel {r['ms']:.4f} ms | bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']}) | plain "
+            f"{r['plain_ms']:.4f} ms | sdpa {r['sdpa_ms']:.4f} ms | sum over "
+            f"the same bytes {r['read_floor_ms']:.4f} ms")
+    return rows
+
+
 def kernel_phase(torch, timer):
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.kernels.attention import (NEG_INF, append_at,
@@ -577,12 +715,12 @@ def kernel_phase(torch, timer):
                     out, lengths, dtype)
 
     def k1_case(name, R, Q, H, KH, D, S, dtype, lengths, qpos, seed,
-                bias=None, alibi=None, causal=True, out_dtype=None):
+                bias=None, alibi=None, causal=True, out_dtype=None,
+                qk_scale=None):
         q, k, v = mk(R, Q, H, KH, D, S, dtype, seed)
-        out = flash_attend(q, k, v, lengths, qpos, bias=bias, alibi=alibi,
-                           causal=causal, out_dtype=out_dtype)
+        kw = dict(bias=bias, alibi=alibi, causal=causal, qk_scale=qk_scale)
+        out = flash_attend(q, k, v, lengths, qpos, out_dtype=out_dtype, **kw)
         torch.cuda.synchronize()
-        kw = dict(bias=bias, alibi=alibi, causal=causal)
         ref = reference_attend(q, k, v, lengths.clamp(max=S), qpos,
                                out_dtype=out_dtype, **kw)
         if out.dtype != (out_dtype or dtype):
@@ -595,7 +733,7 @@ def kernel_phase(torch, timer):
         return compare(name, ref, out, lengths, tdt, ctl), (q, k, v)
 
     def k2_case(name, R, Q, H, KH, D, S, dtype, appos, seed, L=None,
-                layer_idx=None, out_dtype=None):
+                layer_idx=None, out_dtype=None, alibi=None):
         q, k, v = mk(R, Q, H, KH, D, S, dtype, seed, L)
         g = torch.Generator(device=dev).manual_seed(seed + 1)
         kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dtype)
@@ -607,12 +745,13 @@ def kernel_phase(torch, timer):
         out, k_out, v_out = flash_attend(q, k, v, lengths, qpos,
                                          append_kv=(kn, vn, appos),
                                          layer_idx=layer_idx,
-                                         out_dtype=out_dtype)
+                                         out_dtype=out_dtype, alibi=alibi)
         torch.cuda.synchronize()
         append_at(k_ref, v_ref, kn, vn, appos, layer_idx=layer_idx)
         kl = k_ref if layer_idx is None else k_ref[layer_idx]
         vl = v_ref if layer_idx is None else v_ref[layer_idx]
-        ref = reference_attend(q, kl, vl, lengths, qpos, out_dtype=out_dtype)
+        ref = reference_attend(q, kl, vl, lengths, qpos, out_dtype=out_dtype,
+                               alibi=alibi)
         if out.dtype != (out_dtype or dtype):
             raise AssertionError(f"{name}: out is {out.dtype}")
         if not (torch.equal(k_out, k_ref) and torch.equal(v_out, v_ref)):
@@ -622,8 +761,8 @@ def kernel_phase(torch, timer):
             raise AssertionError(f"{name}: the append was not in place")
         tdt = coarser(dtype, out_dtype)
         split_check(name, q, kl, vl, lengths, qpos, out, tdt,
-                    out_dtype=out_dtype)
-        ctl = (bf16_control(q, kl, vl, lengths, qpos)
+                    out_dtype=out_dtype, alibi=alibi)
+        ctl = (bf16_control(q, kl, vl, lengths, qpos, alibi=alibi)
                if dtype == torch.float16 and out_dtype is None else None)
         err = compare(name + " (cache bitwise ok)", ref, out, lengths, tdt,
                       ctl)
@@ -910,6 +1049,10 @@ def kernel_phase(torch, timer):
                                    sdpa_call, pre_len, pre_qpos,
                                    appos_main)
     log(json.dumps({"wide_head_dim_rows": wide_rows}))
+    fam_rows = family_attention_rows(torch, timer, read_floor, ivec,
+                                     k1_case, k2_case, pre_len, pre_qpos,
+                                     appos_main, vstart)
+    log(json.dumps({"family_attention_rows": fam_rows}))
     rows.append(k3_phase(torch, timer, read_floor))
     kernels.reset_counts()
     return rows
@@ -921,6 +1064,15 @@ def kernel_phase(torch, timer):
 K3_SHAPES = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000),
              (4096, 12288), (4096, 22016), (4095, 4096), (4096, 1000))
 K3_TIMED = ((4096, 4096), (4096, 11008), (11008, 4096), (4096, 32000))
+# K3 at the (K, N) of phase 10's families: Falcon-7B (k/v 4544 x 64, one
+# N tile; q/o, MLP, head), StarCoder (k/v 6144 x 128; ...), OPT-6.7B's MLP
+# and head (50272 columns: not a multiple of the 128-column tile) and
+# MPT-7B's head; the heads (N > 32000) keep fp32 logits
+K3_FAMILY_SHAPES = ((4544, 64), (4544, 4544), (4544, 18176), (18176, 4544),
+                    (4544, 65024), (6144, 128), (6144, 6144), (6144, 24576),
+                    (24576, 6144), (6144, 49152), (4096, 16384),
+                    (16384, 4096), (4096, 50272), (4096, 50432))
+K3_FAMILY_TIMED = ((4544, 64), (4544, 65024))
 # of max|y|, by out dtype. fp16: above one fp16 ulp of max|y| (2^-10),
 # below an fp16 product rounded to bf16 (k3_phase checks that control)
 K3_TOL = {"bfloat16": 1e-2, "float16": 1.5e-3, "float32": 1e-5}
@@ -1059,7 +1211,71 @@ def k3_phase(torch, timer, read_floor):
                            bound_ms=b, bound_by=by, library_ms=lib)
         del leaf, wd
     log(json.dumps({"k3_rows": k3_rows}))
+    log(json.dumps({"k3_family_rows": k3_family_rows(
+        torch, timer, read_floor, g, rel_err)}))
     return row
+
+
+def k3_family_rows(torch, timer, read_floor, g, rel_err):
+    """K3 at every (K, N) of ``K3_FAMILY_SHAPES`` against its plain
+    version (int8, bf16 x, M 8, 64 and 256; fp32 out for the heads) with
+    the row invariance at M = 64; then timed rows at ``K3_FAMILY_TIMED``,
+    M 8 and 64, beside the bound, the read floor, the plain version and
+    ``torch.matmul`` on a dequantized bf16 copy."""
+    from flexflow_tpu_torch.kernels.qmatmul import qmatmul_plain, split_plan
+    from flexflow_tpu_torch.quant import dequantize_array, qmatmul, \
+        quantize_array
+
+    dev, bf, f32 = "cuda", torch.bfloat16, torch.float32
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rows = []
+    for K, N in K3_FAMILY_SHAPES:
+        od = f32 if N > 32000 else bf
+        odn = str(od).replace("torch.", "")
+        w = torch.empty((K, N), device=dev).normal_(0, 0.02, generator=g)
+        leaf = quantize_array(w.to(bf), "int8")
+        del w
+        worst, inv_ok = 0.0, True
+        for M in (8, 64, 256):
+            x = torch.randn((M, K), generator=g, device=dev).to(bf)
+            y = qmatmul(x, leaf, bf, od)
+            torch.cuda.synchronize()
+            rel = rel_err(y, qmatmul_plain(x, leaf, bf, od))
+            worst = max(worst, rel / K3_TOL[odn])
+            if rel > K3_TOL[odn] or not bool(torch.isfinite(y.float()).all()):
+                log(f"  K3 family K{K} N{N} M{M}: rel err {rel:.3e} FAIL")
+                raise AssertionError("K3 parity failed at a family shape")
+            if M == 64:
+                inv_ok &= (torch.equal(y[8:16], qmatmul(
+                    x[8:16].contiguous(), leaf, bf, od))
+                    and torch.equal(y[61:62], qmatmul(
+                        x[61:62].contiguous(), leaf, bf, od)))
+        log(f"  K3 int8 K{K:5d} N{N:5d} -> {odn:8s} plan "
+            f"{split_plan(K, N, sms)}: M 8/64/256 worst err / tol "
+            f"{worst:.3f}; row invariance {'PASS' if inv_ok else 'FAIL'}")
+        if not inv_ok:
+            raise AssertionError("K3 row invariance failed at a family "
+                                 "shape")
+        if (K, N) in K3_FAMILY_TIMED:
+            wd = dequantize_array(leaf, bf)
+            for M in (8, 64):
+                x = torch.randn((M, K), generator=g, device=dev).to(bf)
+                b, by, nb = k3_bound_ms(M, K, N, odn)
+                r = dict(M=M, K=K, N=N, out=odn,
+                         ms=timer(lambda: qmatmul(x, leaf, bf, od)),
+                         plain_ms=timer(lambda: qmatmul_plain(x, leaf, bf,
+                                                              od)),
+                         library_ms=timer(lambda: torch.matmul(x, wd)),
+                         bound_ms=b, bound_by=by, read_floor_ms=read_floor(nb))
+                rows.append(r)
+                log(f"  K3 M{M:3d} K{K:5d} N{N:5d} -> {odn:8s} kernel "
+                    f"{r['ms']:.4f} ms | bound {b:.4f} ms ({by}) | sum over "
+                    f"the same bytes {r['read_floor_ms']:.4f} ms | plain "
+                    f"{r['plain_ms']:.4f} ms | bf16 matmul "
+                    f"{r['library_ms']:.4f} ms")
+            del wd
+        del leaf
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -1432,8 +1648,7 @@ SERVE_7B = dict(max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
 def full_size_phase(torch, card, profile=False):
     import numpy as np
 
-    from flexflow_tpu_torch import LLM, DataType, kernels
-    from flexflow_tpu_torch.serve.inference_manager import InferenceManager
+    from flexflow_tpu_torch import LLM, DataType
 
     log(f"phase 5: LLaMA-2-7B geometry, bf16 weights and cache, "
         f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} "
@@ -1445,6 +1660,23 @@ def full_size_phase(torch, card, profile=False):
     llm.compile(**SERVE_7B)
     torch.cuda.synchronize()
     log(f"  build + load: {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    return serve_and_time(torch, card, llm, prompts, NEW_TOKENS, LAYERS,
+                          VOCAB, profile=profile)
+
+
+def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
+                   profile=False):
+    """A warm-up ``generate`` (8 new tokens), then the measured one: prefill
+    ms per chunk, decode ms/step, tokens/s, peak memory and the kernel
+    launches of the measured run. Gates: every token counted and in the
+    vocabulary; K1 launched ``layers`` times a prefill chunk and K2 a
+    decode step; no K1 bias, K3 or plain call. Returns (counts, metrics)."""
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.inference_manager import InferenceManager
+
     m = llm.ffmodel
     ifm = m._inference_manager = InferenceManager(m)
     log(f"  decode width {ifm.decode_width}")
@@ -1469,9 +1701,6 @@ def full_size_phase(torch, card, profile=False):
         return out
 
     ifm.step, ifm.decode_block = timed_step, timed_block
-    rng = np.random.default_rng(5)
-    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
-               for _ in range(REQUESTS)]
     llm.generate(prompts, max_new_tokens=8)         # warm-up (cuBLAS, ...)
     for k in stats:
         stats[k] = [] if k == "prefill_s" else 0
@@ -1479,13 +1708,13 @@ def full_size_phase(torch, card, profile=False):
     kernels.reset_counts()        # counts of the measured run only
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = llm.generate(prompts, max_new_tokens=NEW_TOKENS)
+    res = llm.generate(prompts, max_new_tokens=new_tokens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(kernels.counts)
     n_tok = sum(len(r.output_tokens) for r in res)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    pre_ms = [s * 1e3 for s in stats["prefill_s"]]
+    pre_ms = [x * 1e3 for x in stats["prefill_s"]]
     dec_ms = stats["decode_s"] * 1e3 / max(1, stats["decode_steps"])
     log(f"  prefill: {stats['prefill_steps']} chunk(s), "
         f"{', '.join(f'{x:.2f}' for x in pre_ms)} ms  [{card}]")
@@ -1495,11 +1724,11 @@ def full_size_phase(torch, card, profile=False):
         f"{n_tok / wall:.1f} tokens/s  [{card}]")
     log(f"  peak device memory {peak:.2f} GiB  [{card}]")
     log(f"  kernel launches in the measured run: {counts}")
-    if n_tok != REQUESTS * NEW_TOKENS or not all(
-            0 <= t < VOCAB for r in res for t in r.output_tokens):
+    if n_tok != len(prompts) * new_tokens or not all(
+            0 <= t < vocab for r in res for t in r.output_tokens):
         raise AssertionError("full-size run produced wrong token counts/ids")
-    want = {"flash_attend": LAYERS * stats["prefill_steps"],
-            "flash_attend_append": LAYERS * stats["decode_steps"],
+    want = {"flash_attend": layers * stats["prefill_steps"],
+            "flash_attend_append": layers * stats["decode_steps"],
             "flash_attend_bias": 0, "plain_attend_cuda": 0,
             "qmatmul": 0, "qmatmul_plain_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
@@ -2625,6 +2854,352 @@ def online_phase(torch, card):
     return counts, report
 
 
+# ----------------------------------------------------------------------
+# phase 10: the other families
+# ----------------------------------------------------------------------
+# the published configurations (HF config.json names): facebook/opt-6.7b,
+# tiiuae/falcon-7b, mosaicml/mpt-7b, bigcode/starcoder; each with the key
+# that holds its depth
+FAMILY_CONFIGS = {
+    "opt": (dict(model_type="opt", vocab_size=50272, hidden_size=4096,
+                 ffn_dim=16384, num_hidden_layers=32, num_attention_heads=32,
+                 max_position_embeddings=2048, word_embed_proj_dim=4096,
+                 do_layer_norm_before=True, enable_bias=True),
+            "num_hidden_layers"),
+    "falcon": (dict(model_type="falcon", vocab_size=65024, hidden_size=4544,
+                    num_hidden_layers=32, num_attention_heads=71,
+                    multi_query=True, parallel_attn=True, bias=False,
+                    new_decoder_architecture=False, layer_norm_epsilon=1e-5),
+               "num_hidden_layers"),
+    "mpt": (dict(model_type="mpt", vocab_size=50432, d_model=4096, n_heads=32,
+                 n_layers=32, expansion_ratio=4, max_seq_len=2048,
+                 no_bias=True), "n_layers"),
+    "gpt_bigcode": (dict(model_type="gpt_bigcode", vocab_size=49152,
+                         n_embd=6144, n_inner=24576, n_layer=40, n_head=48,
+                         n_positions=8192, multi_query=True), "n_layer"),
+}
+FAMILY_NAMES = {"opt": "OPT-6.7B", "falcon": "Falcon-7B", "mpt": "MPT-7B",
+                "gpt_bigcode": "StarCoder"}
+FAM_PROMPT, FAM_NEW = 16, 16      # 10a: 8 requests x 16 prompt, 16 new
+FAM_NEW_FULL = 32                 # 10b: 8 x 32-token prompts, 32 new
+
+
+def family_hf(family, layers=None):
+    """The family's published HF config, its depth cut to ``layers``."""
+    hf, key = FAMILY_CONFIGS[family]
+    return dict(hf) if layers is None else dict(hf, **{key: layers})
+
+
+def family_model(torch, family, hf, device, mode, dtype="float32",
+                 quant=None):
+    """An FFModel of ``family`` at ``hf``'s geometry, compiled on
+    ``device`` with 8 request slots and a 256-position cache."""
+    from flexflow_tpu_torch import DataType, FFConfig, FFModel
+    from flexflow_tpu_torch.models import FAMILIES
+
+    fam = FAMILIES[family]
+    m = FFModel(FFConfig(device=device, max_requests_per_batch=REQUESTS,
+                         max_sequence_length=MAX_SEQ,
+                         max_tokens_per_batch=REQUESTS * PROMPT_LEN,
+                         kv_cache_dtype=dtype, compute_dtype=dtype,
+                         quantization_type=quant))
+    fam.build(m, fam.config_cls.from_hf_config(hf), mode=mode,
+              data_type=DataType(dtype))
+    return m.compile()
+
+
+def family_shapes(family, hf):
+    """{layer: {weight: shape}} of ``family`` at ``hf``'s geometry, from
+    the graph it records (nothing is allocated)."""
+    from flexflow_tpu_torch import FFConfig, FFModel
+    from flexflow_tpu_torch.models import FAMILIES
+
+    fam = FAMILIES[family]
+    shell = FFModel(FFConfig(device="cpu", max_requests_per_batch=REQUESTS,
+                             max_sequence_length=MAX_SEQ))
+    fam.build(shell, fam.config_cls.from_hf_config(hf))
+    return {layer.name: {w.name: tuple(w.shape) for w in layer.weights}
+            for layer in shell.layers if layer.weights}
+
+
+def draw_family(shapes, seed):
+    """One seeded numpy draw of a model's weights: LayerNorm gamma 1 and
+    beta 0, everything else N(0, 0.02) in fp32. Each 16M-value chunk of
+    each leaf comes from its own generator, seeded by (seed, leaf, chunk),
+    so the values do not depend on the threads that fill them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    out, jobs = {}, []
+    for i, (layer, lp) in enumerate(sorted(shapes.items())):
+        out[layer] = {}
+        for j, (w, shape) in enumerate(sorted(lp.items())):
+            if w in ("gamma", "beta"):
+                out[layer][w] = np.full(shape, float(w == "gamma"),
+                                        np.float32)
+                continue
+            a = out[layer][w] = np.empty(shape, np.float32)
+            flat = a.reshape(-1)
+            for c, lo in enumerate(range(0, flat.size, 1 << 24)):
+                jobs.append(((seed, i, j, c), flat[lo:lo + (1 << 24)]))
+
+    def fill(job):
+        key, view = job
+        np.random.default_rng(list(key)).standard_normal(
+            out=view, dtype=np.float32)
+        view *= 0.02
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(fill, jobs))
+    return out
+
+
+def place_params(torch, m, pnp):
+    """Point ``m``'s fp32 leaves at the draw's values, on ``m``'s device
+    (no copy on the CPU)."""
+    for layer, lp in pnp.items():
+        for w, a in lp.items():
+            m.params[layer][w] = torch.from_numpy(a).to(m.device)
+
+
+def family_state_dict(torch, family, hf):
+    """A random bf16 HF state dict of ``family`` at ``hf``'s geometry on
+    the card, from one seeded generator: the split q/k/v keys the
+    family's weight map reads (the fused HF layouts cross the disk in
+    10c), LayerNorms at gamma 1 and beta 0, the head left tied to the
+    token embedding. Shapes come from the graph the family records."""
+    from flexflow_tpu_torch.models import FAMILIES
+
+    fam = FAMILIES[family]
+    shapes = family_shapes(family, hf)
+    g = torch.Generator(device="cuda").manual_seed(4321)
+    sd = {}
+    for key, (layer, w, tr) in fam.hf_weight_map(
+            fam.config_cls.from_hf_config(hf)).items():
+        if key == "lm_head.weight":
+            continue
+        shape = shapes[layer][w][::-1] if tr else shapes[layer][w]
+        if w in ("gamma", "beta"):
+            sd[key] = torch.full(shape, float(w == "gamma"),
+                                 dtype=torch.bfloat16, device="cuda")
+        else:
+            sd[key] = torch.empty(shape, dtype=torch.bfloat16,
+                                  device="cuda").normal_(0.0, 0.02,
+                                                         generator=g)
+    return sd
+
+
+def incr_tokens(model, prompts, new_tokens):
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    rm = RequestManager()
+    guids = [rm.register_new_request(p, max_new_tokens=new_tokens)
+             for p in prompts]
+    rm.generate_incr_decoding(model)
+    return [rm.results[g].output_tokens for g in guids]
+
+
+def family_prompts(family):
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    return [rng.integers(0, FAMILY_CONFIGS[family][0]["vocab_size"],
+                         FAM_PROMPT).tolist() for _ in range(REQUESTS)]
+
+
+def cpu_references(torch, family, pnp):
+    """10a's references on the CPU: incremental decoding of the 2-layer
+    fp32 model on the draw, then of the same leaves quantized to int8 in
+    place (the bits an int8-compiled model loading the draw holds).
+    Returns (tokens, int8 tokens, seconds)."""
+    from flexflow_tpu_torch.ffconst import InferenceMode
+
+    t0 = time.perf_counter()
+    m = family_model(torch, family, family_hf(family, layers=2), "cpu",
+                     InferenceMode.INC_DECODING_MODE)
+    place_params(torch, m, pnp)
+    prompts = family_prompts(family)
+    ref = incr_tokens(m, prompts, FAM_NEW)
+    ref8 = incr_tokens(m.quantize_weights("int8"), prompts, FAM_NEW)
+    return ref, ref8, time.perf_counter() - t0
+
+
+def card_parity(torch, family, pnp):
+    """10a on the card, for ``cpu_references`` to hold: incremental
+    decoding and SpecInfer (the tree engine, a 1-layer draft on the
+    verifier's tensors, depth 4, controller off) on the fp32 draw, then
+    incremental decoding on the same leaves quantized to int8. Returns
+    [(what, "fp32"|"int8", tokens, launches, spec rounds)]."""
+    from flexflow_tpu_torch import GenerationConfig, kernels
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    prompts = family_prompts(family)
+    llm = family_model(torch, family, family_hf(family, layers=2), "cuda",
+                       InferenceMode.TREE_VERIFY_MODE)
+    place_params(torch, llm, pnp)
+    out = []
+    kernels.reset_counts()
+    out.append(("incremental", "fp32", incr_tokens(llm, prompts, FAM_NEW),
+                dict(kernels.counts), 0))
+    ssm = family_model(torch, family, family_hf(family, layers=1), "cuda",
+                       InferenceMode.BEAM_SEARCH_MODE)
+    share_params(ssm, llm)
+    rm = RequestManager()
+    guids = [rm.register_new_request(p, max_new_tokens=FAM_NEW)
+             for p in prompts]
+    kernels.reset_counts()
+    rm.generate_spec_infer(llm, [ssm], spec_depth=4,
+                           generation_config=GenerationConfig(
+                               adaptive_spec=False))
+    rounds = rm.spec_stats["rounds"]
+    out.append((f"SpecInfer (tree engine, depth 4, {rounds} rounds)",
+                "fp32", [rm.results[g].output_tokens for g in guids],
+                dict(kernels.counts), rounds))
+    del ssm
+    llm.quantize_weights("int8")
+    gc.collect()
+    kernels.reset_counts()
+    out.append(("int8 incremental", "int8",
+                incr_tokens(llm, prompts, FAM_NEW), dict(kernels.counts), 0))
+    del llm
+    gc.collect()
+    return out
+
+
+def check_parity(family, card, ref, ref8):
+    """10a's gates: every card run 128 of 128 against its CPU reference,
+    the kernels launched (K1 with the tree bias twice a verify round, K3
+    on int8) and no plain call on the card."""
+    tot = REQUESTS * FAM_NEW
+    for what, kind, got, counts, rounds in card:
+        want = ref8 if kind == "int8" else ref
+        same = sum(x == y for a, b in zip(want, got) for x, y in zip(a, b))
+        log(f"  10a {family} {what} on the card: tokens equal to the "
+            f"CPU's {same}/{tot}; launches {counts}")
+        bad = (got != want or any(len(a) != FAM_NEW for a in got)
+               or counts["plain_attend_cuda"] or counts["qmatmul_plain_cuda"]
+               or not counts["flash_attend_append"])
+        if what.startswith("SpecInfer"):
+            bad |= not rounds or counts["flash_attend_bias"] != 2 * rounds
+        if kind == "int8":
+            bad |= not counts["qmatmul"]
+        if bad:
+            raise AssertionError(f"phase 10a {family}: {what} on the card "
+                                 "differs from the CPU")
+
+
+def family_full_size(torch, card, family):
+    """10b: the published geometry in bf16 (weights, cache and compute)
+    through ``LLM(...).compile(...).generate(...)``, 8 requests x 32-token
+    prompts, 32 new tokens; ``serve_and_time``'s figures and gates."""
+    import numpy as np
+
+    from flexflow_tpu_torch import LLM, DataType
+
+    hf = family_hf(family)
+    layers = hf[FAMILY_CONFIGS[family][1]]
+    t0 = time.perf_counter()
+    sd = family_state_dict(torch, family, hf)
+    llm = LLM((hf, sd), data_type=DataType.DT_BFLOAT16)
+    del sd
+    llm.compile(**SERVE_7B)
+    gc.collect()
+    torch.cuda.synchronize()
+    log(f"  10b {FAMILY_NAMES[family]} ({layers} layers): build + load "
+        f"{time.perf_counter() - t0:.2f} s, weights "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB on the card")
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, hf["vocab_size"], PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    counts, metrics = serve_and_time(torch, card, llm, prompts,
+                                     FAM_NEW_FULL, layers, hf["vocab_size"])
+    del llm
+    gc.collect()
+    return counts, dict(metrics, layers=layers)
+
+
+def family_cold_start(torch, family, tmp):
+    """10c: a tiny checkpoint written by the port's ``save_tiny_checkpoint``
+    on the card, cold-started with ``LLM.from_checkpoint(...,
+    device="cuda")``: its tokens equal the in-memory build's, float and
+    with ``quantize="int8"``. Returns the cold start's seconds."""
+    from flexflow_tpu_torch import LLM
+    from flexflow_tpu_torch.models import checkpoint_store as cs
+
+    d = os.path.join(tmp, family)
+    cs.save_tiny_checkpoint(family, d, seed=0, device="cuda")
+    mem, _ = cs.build_tiny(family, seed=0, device="cuda")
+    prompts = [[3, 5, 7], list(range(1, 21)), [100, 5, 17, 42]]
+    want = incr_tokens(mem, prompts, 12)
+    mem.quantize_weights("int8")
+    want8 = incr_tokens(mem, prompts, 12)
+    del mem
+    kw = dict(max_requests_per_batch=2, max_seq_length=64,
+              max_tokens_per_batch=16, kv_cache_dtype="float32",
+              device="cuda")
+    got = {}
+    for q in (None, "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        llm = LLM.from_checkpoint(d, quantize=q).compile(**kw)
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        got[q] = [r.output_tokens
+                  for r in llm.generate(prompts, max_new_tokens=12)]
+        del llm
+        log(f"  10c {family} cold start{' int8' if q else ''}: "
+            f"cold_start_s {cold:.3f}; tokens equal to the in-memory "
+            f"build's {got[q] == (want8 if q else want)}")
+    if got[None] != want or got["int8"] != want8:
+        raise AssertionError(f"phase 10c {family}: cold-start tokens differ "
+                             "from the in-memory build's")
+
+
+def families_phase(torch, card):
+    """Phase 10 for OPT, Falcon, MPT and StarCoder. 10a's CPU references
+    run on a worker thread per family while the card runs 10a and 10c
+    (each reference's model initialization runs on one core); 10b runs
+    after them, with the host to itself. Returns (the launches of 10b's
+    measured runs, summed, and a report)."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    t_phase = time.perf_counter()
+    report = {f: {} for f in FAMILY_CONFIGS}
+    log(f"phase 10: {', '.join(FAMILY_NAMES.values())}  [{card}]")
+    with ThreadPoolExecutor(len(FAMILY_CONFIGS)) as pool, \
+            tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        draws = {f: draw_family(family_shapes(f, family_hf(f, layers=2)),
+                                seed=17) for f in FAMILY_CONFIGS}
+        log(f"  10a numpy draws (2-layer models at full width, fp32): "
+            f"{time.perf_counter() - t0:.1f} s")
+        refs = {f: pool.submit(cpu_references, torch, f, draws[f])
+                for f in FAMILY_CONFIGS}
+        cards = {}
+        for f in FAMILY_CONFIGS:
+            cards[f] = card_parity(torch, f, draws[f])
+            family_cold_start(torch, f, tmp)
+        for f in FAMILY_CONFIGS:
+            ref, ref8, secs = refs[f].result()
+            log(f"  10a {f}: CPU references {secs:.1f} s")
+            check_parity(f, cards[f], ref, ref8)
+        del draws, cards
+        gc.collect()
+    log(f"  10a and 10c: {time.perf_counter() - t_phase:.1f} s")
+    total = {}
+    for f in FAMILY_CONFIGS:
+        log(f"phase 10b {FAMILY_NAMES[f]} ({f})  [{card}]")
+        counts, report[f] = family_full_size(torch, card, f)
+        for k, n in counts.items():
+            total[k] = total.get(k, 0) + n
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 10: {report['seconds']:.1f} s  [{card}]")
+    return total, report
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -2633,7 +3208,7 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call "
@@ -2733,6 +3308,10 @@ def main(argv=None) -> int:
             f"{MAX_SEQ}  [{card}]")
         by_path["online"], online = online_phase(torch, card)
         log(json.dumps({"online_phase": online}))
+        gc.collect()
+    if 10 in phases:
+        by_path["families"], fams = families_phase(torch, card)
+        log(json.dumps({"families_phase": fams}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

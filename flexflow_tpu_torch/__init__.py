@@ -8,8 +8,11 @@ a ported path has a hand-written CUDA kernel under ``kernels/csrc`` with a
 plain PyTorch version beside it: CUDA tensors launch the kernel, CPU
 tensors take the plain version.
 
-It serves LLaMA-family models by incremental decoding (greedy, or top-p
-sampling with ``GenerationConfig(do_sample=True)``) or, with draft models
+It serves the JAX package's five model families (LLaMA, OPT, Falcon, MPT
+and StarCoder; ``models.FAMILIES``), from an HF ``(config, state_dict)``
+pair or an HF-layout checkpoint directory (``LLM.from_checkpoint``), by
+incremental decoding (greedy, or top-p sampling with
+``GenerationConfig(do_sample=True)``) or, with draft models
 attached, by speculative inference (greedy chains, or beams with
 ``compile(..., max_beam_width=2)``), with float weights or int8/int4
 weight-only quantized ones (``compile(..., quantization_type="int8")``,

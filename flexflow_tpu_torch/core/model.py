@@ -53,6 +53,11 @@ class FFModel:
         self._layer_name_counts: Dict[str, int] = {}
         self.comp_mode: Optional[CompMode] = None
         self._gemm_fusion_done = False
+        # the serving position input of models with learned position
+        # embeddings (OPT, StarCoder): fed with positions + offset
+        # (serve/engine.py build_feeds)
+        self.position_input_tensor: Optional[Tensor] = None
+        self.position_offset: int = 0
 
     # ==================================================================
     # Tensor / layer creation
@@ -65,6 +70,16 @@ class FFModel:
                    model=self)
         self.input_tensors.append(t)
         return t
+
+    def create_position_tensor(self, dims: Sequence[int]) -> Tensor:
+        """Input fed with each token's absolute position + the offset."""
+        t = self.create_tensor(dims, DataType.DT_INT32, name="position_input")
+        self.position_input_tensor = t
+        return t
+
+    def set_position_offset(self, offset: int):
+        """What the feed adds to every position (OPT: 2)."""
+        self.position_offset = offset
 
     def _add_layer(self, op_type: OpType, inputs: List[Tensor],
                    attrs: Dict[str, Any], name: Optional[str] = None
@@ -108,6 +123,40 @@ class FFModel:
             kernel_initializer=kernel_initializer,
             bias_initializer=bias_initializer,
             keep_f32_logits=keep_f32_logits), name)
+
+    def layer_norm(self, input: Tensor, axes: Sequence[int],
+                   elementwise_affine: bool = True, eps: float = 1e-5,
+                   use_bias: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OpType.LAYERNORM, [input], dict(
+            axes=tuple(axes), elementwise_affine=elementwise_affine, eps=eps,
+            use_bias=use_bias), name)
+
+    def residual_layer_norm(self, input: Tensor, residual1: Tensor,
+                            residual2: Optional[Tensor] = None,
+                            use_two_residuals: bool = False,
+                            axes: Sequence[int] = (-1,),
+                            elementwise_affine: bool = True,
+                            eps: float = 1e-5, use_bias: bool = True,
+                            name: Optional[str] = None) -> List[Tensor]:
+        inputs = [input, residual1] + ([residual2] if use_two_residuals
+                                       else [])
+        return self._add_layer(OpType.RESIDUAL_LAYERNORM, inputs, dict(
+            axes=tuple(a % input.num_dims for a in axes),
+            elementwise_affine=elementwise_affine, eps=eps,
+            use_bias=use_bias), name)
+
+    def add_bias_residual_layer_norm(self, input: Tensor, residual: Tensor,
+                                     axes: Sequence[int] = (-1,),
+                                     elementwise_affine: bool = True,
+                                     eps: float = 1e-5, use_bias: bool = True,
+                                     name: Optional[str] = None
+                                     ) -> List[Tensor]:
+        return self._add_layer(
+            OpType.ADD_BIAS_RESIDUAL_LAYERNORM, [input, residual], dict(
+                axes=tuple(a % input.num_dims for a in axes),
+                elementwise_affine=elementwise_affine, eps=eps,
+                use_bias=use_bias), name)
 
     def rms_norm(self, input: Tensor, eps: float = 1e-6,
                  dim: Optional[int] = None,
@@ -171,6 +220,24 @@ class FFModel:
             max_seq_length=self.config.max_sequence_length,
             cache_dtype=self.config.kv_cache_dtype), name)
 
+    # the multi-head builders: num_kv_heads = num_q_heads
+    def inc_multihead_self_attention(self, input: Tensor, embed_dim: int,
+                                     num_heads: int, **kw) -> Tensor:
+        return self.inc_multiquery_self_attention(input, embed_dim,
+                                                  num_heads, num_heads, **kw)
+
+    def spec_inc_multihead_self_attention(self, input: Tensor,
+                                          embed_dim: int, num_heads: int,
+                                          **kw) -> Tensor:
+        return self.spec_inc_multiquery_self_attention(
+            input, embed_dim, num_heads, num_heads, **kw)
+
+    def tree_inc_multihead_self_attention(self, input: Tensor,
+                                          embed_dim: int, num_heads: int,
+                                          **kw) -> Tensor:
+        return self.tree_inc_multiquery_self_attention(
+            input, embed_dim, num_heads, num_heads, **kw)
+
     def inc_multiquery_self_attention(self, input: Tensor, embed_dim: int,
                                       num_q_heads: int, num_kv_heads: int,
                                       **kw) -> Tensor:
@@ -192,8 +259,83 @@ class FFModel:
             OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION, input, embed_dim,
             num_q_heads, num_kv_heads, **kw)
 
+    # --- elementwise binary ---
     def add(self, x: Tensor, y: Tensor, name=None) -> Tensor:
         return self._add_layer(OpType.EW_ADD, [x, y], {}, name)
+
+    def subtract(self, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EW_SUB, [x, y], {}, name)
+
+    def multiply(self, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EW_MUL, [x, y], {}, name)
+
+    def divide(self, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EW_DIV, [x, y], {}, name)
+
+    def max(self, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EW_MAX, [x, y], {}, name)
+
+    def min(self, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EW_MIN, [x, y], {}, name)
+
+    # --- elementwise unary ---
+    def relu(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.RELU, [x], {}, name)
+
+    def sigmoid(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.SIGMOID, [x], {}, name)
+
+    def tanh(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.TANH, [x], {}, name)
+
+    def elu(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.ELU, [x], {}, name)
+
+    def gelu(self, x: Tensor, approximate: bool = False,
+             name=None) -> Tensor:
+        """Exact (erf) by default; the tanh form with ``approximate=True``
+        (HF ``gelu_pytorch_tanh``, StarCoder's)."""
+        return self._add_layer(OpType.GELU, [x],
+                               dict(approximate=approximate), name)
+
+    def identity(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.IDENTITY, [x], {}, name)
+
+    def exp(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.EXP, [x], {}, name)
+
+    def sin(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.SIN, [x], {}, name)
+
+    def cos(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.COS, [x], {}, name)
+
+    def rsqrt(self, x: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.RSQRT, [x], {}, name)
+
+    def pow(self, x: Tensor, exponent: float, name=None) -> Tensor:
+        return self._add_layer(OpType.POW, [x], dict(exponent=exponent),
+                               name)
+
+    def scalar_multiply(self, x: Tensor, scalar: float, inplace: bool = True,
+                        name=None) -> Tensor:
+        return self._add_layer(OpType.SCALAR_MULTIPLY, [x],
+                               dict(scalar=scalar), name)
+
+    def scalar_add(self, x: Tensor, scalar: float, inplace: bool = True,
+                   name=None) -> Tensor:
+        return self._add_layer(OpType.SCALAR_ADD, [x], dict(scalar=scalar),
+                               name)
+
+    def scalar_sub(self, x: Tensor, scalar: float, inplace: bool = True,
+                   name=None) -> Tensor:
+        return self._add_layer(OpType.SCALAR_SUB, [x], dict(scalar=scalar),
+                               name)
+
+    def scalar_true_divide(self, x: Tensor, scalar: float,
+                           inplace: bool = True, name=None) -> Tensor:
+        return self._add_layer(OpType.SCALAR_TRUE_DIV, [x],
+                               dict(scalar=scalar), name)
 
     # --- shape ---
     def concat(self, tensors: List[Tensor], axis: int, name=None) -> Tensor:
@@ -319,6 +461,12 @@ class FFModel:
                 self.op_state[layer.name] = impl.init_state(
                     layer.attrs, input_specs, dev)
         self._consolidate_kv_caches()
+        # rows of the smallest table the position input indexes (None
+        # without one): serve/engine.build_feeds clamps positions below it
+        rows = [layer.attrs["num_entries"] for layer in self.layers
+                if layer.op_type == OpType.EMBEDDING
+                and self.position_input_tensor in layer.inputs]
+        self._position_rows = min(rows) if rows else None
         self._final_tensor = (self.layers[-1].outputs[0]
                               if self.layers else None)
         return self

@@ -27,5 +27,9 @@ class Tensor:
         self.owner_idx = owner_idx
         self.model = model
 
+    @property
+    def num_dims(self) -> int:
+        return len(self.dims)
+
     def __repr__(self):
         return f"Tensor({self.name}, dims={self.dims}, dtype={self.dtype.name})"

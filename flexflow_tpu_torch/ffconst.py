@@ -89,11 +89,37 @@ class OpType(enum.Enum):
     the port implements (each later slice adds the ones it ports)."""
 
     EMBEDDING = enum.auto()
+    LAYERNORM = enum.auto()
+    RESIDUAL_LAYERNORM = enum.auto()
+    ADD_BIAS_RESIDUAL_LAYERNORM = enum.auto()
     RMS_NORM = enum.auto()
     RESIDUAL_RMS_NORM = enum.auto()
     SIGMOID_SILU_MULTI = enum.auto()
     LINEAR = enum.auto()
+    # elementwise binary
     EW_ADD = enum.auto()
+    EW_SUB = enum.auto()
+    EW_MUL = enum.auto()
+    EW_DIV = enum.auto()
+    EW_MAX = enum.auto()
+    EW_MIN = enum.auto()
+    # elementwise unary
+    RELU = enum.auto()
+    GELU = enum.auto()
+    SIGMOID = enum.auto()
+    TANH = enum.auto()
+    ELU = enum.auto()
+    EXP = enum.auto()
+    SIN = enum.auto()
+    COS = enum.auto()
+    RSQRT = enum.auto()
+    IDENTITY = enum.auto()
+    POW = enum.auto()
+    # elementwise with a scalar
+    SCALAR_MULTIPLY = enum.auto()
+    SCALAR_ADD = enum.auto()
+    SCALAR_SUB = enum.auto()
+    SCALAR_TRUE_DIV = enum.auto()
     INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     SPEC_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()
     TREE_INC_MULTIHEAD_SELF_ATTENTION = enum.auto()

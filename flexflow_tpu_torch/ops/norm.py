@@ -1,17 +1,34 @@
 """Normalization operators of the serving path (counterpart of
-``flexflow_tpu/ops/norm.py``): RMSNorm, ResidualRMSNorm and the SwiGLU gate
-SigmoidSiluMulti. Bandwidth-bound elementwise + reduce passes left to
-PyTorch's own kernels, as the JAX package leaves them to XLA."""
+``flexflow_tpu/ops/norm.py``): LayerNorm, ResidualLayerNorm and
+AddBiasResidualLayerNorm (OPT, Falcon, MPT, StarCoder), RMSNorm,
+ResidualRMSNorm and the SwiGLU gate SigmoidSiluMulti (LLaMA).
+Bandwidth-bound elementwise + reduce passes left to PyTorch's own kernels,
+as the JAX package leaves them to XLA."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from flexflow_tpu_torch.core.initializer import ConstantInitializer
+from flexflow_tpu_torch.core.initializer import (ConstantInitializer,
+                                                 ZeroInitializer)
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import OpType
 from flexflow_tpu_torch.ops.base import OpImpl, register_op
+
+
+def _layer_norm(x, gamma, beta, eps, axes):
+    # in x's own dtype, statistics included (the JAX package's
+    # _layer_norm), unlike _rms_norm's fp32 statistics
+    dims = tuple(axes)
+    mean = x.mean(dim=dims, keepdim=True)
+    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    y = (x - mean) * torch.rsqrt(var + eps)
+    if gamma is not None:
+        y = y * gamma
+    if beta is not None:
+        y = y + beta
+    return y
 
 
 def _rms_norm(x, weight, eps):
@@ -22,6 +39,84 @@ def _rms_norm(x, weight, eps):
     var = xf.square().mean(dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y.to(dtype) * weight).to(dtype)
+
+
+@register_op
+class LayerNorm(OpImpl):
+    """``elementwise_affine=False``: no weights; ``use_bias=False``: gamma
+    only."""
+
+    op_type = OpType.LAYERNORM
+
+    @staticmethod
+    def infer_output_specs(attrs, input_specs):
+        return [input_specs[0]]
+
+    @staticmethod
+    def weight_specs(attrs, input_specs):
+        if not attrs.get("elementwise_affine", True):
+            return []
+        (shape, dtype) = input_specs[0]
+        norm_shape = tuple(shape[a] for a in attrs["axes"])
+        specs = [WeightSpec("gamma", norm_shape, dtype,
+                            ConstantInitializer(1.0))]
+        if attrs.get("use_bias", True):
+            specs.append(WeightSpec("beta", norm_shape, dtype,
+                                    ZeroInitializer()))
+        return specs
+
+    @staticmethod
+    def forward(attrs, params, inputs, ctx):
+        return [_layer_norm(inputs[0], params.get("gamma"),
+                            params.get("beta"), attrs.get("eps", 1e-5),
+                            attrs["axes"])]
+
+
+@register_op
+class ResidualLayerNorm(OpImpl):
+    """Returns (x + residual1 [+ residual2], layer_norm of that sum)."""
+
+    op_type = OpType.RESIDUAL_LAYERNORM
+
+    @staticmethod
+    def infer_output_specs(attrs, input_specs):
+        return [input_specs[0], input_specs[0]]
+
+    weight_specs = staticmethod(LayerNorm.weight_specs)
+
+    @staticmethod
+    def forward(attrs, params, inputs, ctx):
+        added = inputs[0]
+        for r in inputs[1:]:
+            added = added + r
+        return [added, _layer_norm(added, params.get("gamma"),
+                                   params.get("beta"),
+                                   attrs.get("eps", 1e-5), attrs["axes"])]
+
+
+@register_op
+class AddBiasResidualLayerNorm(OpImpl):
+    """Returns (x + attn_bias + residual, layer_norm of that sum)."""
+
+    op_type = OpType.ADD_BIAS_RESIDUAL_LAYERNORM
+
+    @staticmethod
+    def infer_output_specs(attrs, input_specs):
+        return [input_specs[0], input_specs[0]]
+
+    @staticmethod
+    def weight_specs(attrs, input_specs):
+        (shape, dtype) = input_specs[0]
+        return ([WeightSpec("attn_bias", (shape[-1],), dtype,
+                            ZeroInitializer())]
+                + LayerNorm.weight_specs(attrs, input_specs))
+
+    @staticmethod
+    def forward(attrs, params, inputs, ctx):
+        added = inputs[0] + params["attn_bias"] + inputs[1]
+        return [added, _layer_norm(added, params.get("gamma"),
+                                   params.get("beta"),
+                                   attrs.get("eps", 1e-5), attrs["axes"])]
 
 
 @register_op

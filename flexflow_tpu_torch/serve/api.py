@@ -42,7 +42,11 @@ and installs shared prefixes instead of prefilling them. In server mode
 an ``admission`` policy (serve/admission.py) rejects over-limit
 submissions with ``RejectedError``.
 
-No checkpoint loading or transformers import in this slice.
+``LLM.from_checkpoint(dir, quantize="int8")`` (and ``SSM``'s) cold-starts
+from an HF-layout checkpoint on disk (``models/checkpoint_store.py``),
+quantizing on load when asked. Every family of ``models.FAMILIES`` serves
+this way: LLaMA, OPT, Falcon, MPT and StarCoder. Building from a model
+name through ``transformers`` (it downloads) is not in the port.
 """
 
 from __future__ import annotations
@@ -76,9 +80,30 @@ class LLM:
         self.ssms: List["SSM"] = []
         self.rm: Optional[RequestManager] = None
         self._server: Optional[_BackgroundServer] = None
+        self.checkpoint_dir: Optional[str] = None
+        self._quantize_on_load: Optional[str] = None
         self.family = family_for_hf_config(self.hf_config)
         self.model_config = self.family.config_cls.from_hf_config(
             self.hf_config)
+
+    @classmethod
+    def from_checkpoint(cls, checkpoint_dir: str,
+                        quantize: Optional[str] = None, **kwargs) -> "LLM":
+        """Cold-start from an HF-layout checkpoint directory (config.json
+        + model.safetensors or pytorch_model.bin): read the config, build
+        the family's graph and load the weights at ``compile()``, then
+        with ``quantize`` ("int8" or "int4") quantize right after the
+        weights land. Gives the tokens of the in-memory build it was
+        saved from."""
+        from flexflow_tpu_torch.models.checkpoint_store import \
+            load_checkpoint
+        from flexflow_tpu_torch.quant import normalize_qtype
+
+        cfg_dict, state_dict = load_checkpoint(checkpoint_dir)
+        llm = cls((cfg_dict, state_dict), **kwargs)
+        llm.checkpoint_dir = checkpoint_dir
+        llm._quantize_on_load = normalize_qtype(quantize)
+        return llm
 
     def compile(self, generation_config: Optional[GenerationConfig] = None,
                 max_requests_per_batch: int = 1, max_seq_length: int = 256,
@@ -111,6 +136,10 @@ class LLM:
             # post-load quantization (the reference's --8bit/--4bit flags);
             # the leaves compile already quantized stay as they are
             self.ffmodel.quantize_weights(config.quantization_type)
+        elif self._quantize_on_load:
+            # from_checkpoint(quantize=...): the same post-load step,
+            # asked for at the checkpoint door
+            self.ffmodel.quantize_weights(self._quantize_on_load)
         self.ffmodel.finalize_gemm_fusion()
         self.rm = RequestManager()
         if self.tokenizer is not None:

@@ -48,6 +48,24 @@ from flexflow_tpu_torch.serve.batch_config import BatchMeta, TreeBatchMeta
 from flexflow_tpu_torch.serve.inference_manager import VERIFY_WIDTH
 
 
+def build_feeds(model, meta):
+    """The feeds of one serving forward, the one place they are built: the
+    tokens, and for a model with learned position embeddings (OPT,
+    StarCoder) ``meta.positions + model.position_offset`` clamped into the
+    position table. Real tokens' positions lie inside the table whenever
+    the cache does; the clamp keeps padding tokens, tree nodes past a
+    row's end and inactive rows inside it too, where the JAX package's
+    ``jnp.take`` fills NaN and a CUDA gather would stop the process."""
+    feeds = {model.input_tensors[0].tensor_id: meta.tokens}
+    pos_t = model.position_input_tensor
+    if pos_t is not None:
+        pos = meta.positions + model.position_offset
+        rows = model._position_rows
+        feeds[pos_t.tensor_id] = (pos if rows is None
+                                  else pos.clamp(0, rows - 1))
+    return feeds
+
+
 def forward_with_meta(model, params, state, meta, compute_dtype,
                       kv_contiguous=False, kv_append_q=None, generator=None):
     """One serving forward over a BatchMeta (or TreeBatchMeta) of device
@@ -62,8 +80,8 @@ def forward_with_meta(model, params, state, meta, compute_dtype,
     ctx = OpContext(compute_dtype=compute_dtype, batch_config=meta,
                     kv_contiguous=kv_contiguous, kv_append_q=kv_append_q,
                     generator=generator)
-    feeds = {model.input_tensors[0].tensor_id: meta.tokens}
-    values, new_state = model._run_graph(params, feeds, ctx, state)
+    values, new_state = model._run_graph(params, build_feeds(model, meta),
+                                         ctx, state)
     return values[model._final_tensor.tensor_id], new_state
 
 
