@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases 1,2,7   # one phase (1 and 2 build)
     python3 chip_smoke.py --phases 1,2,9   # online serving alone
     python3 chip_smoke.py --phases 1,2,10  # OPT, Falcon, MPT, StarCoder
+    python3 chip_smoke.py --phases 1,2,11  # training: BERT, ResNet-50
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -144,7 +145,29 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 32 new tokens), prefill ms, decode ms/step, tokens/s and
      peak memory, K1 launched L times a prefill chunk, K2 L times a
-     decode step, no plain call.
+     decode step, no plain call;
+ 11. training, ``bench_train.py``'s two models through
+     ``FFModel.compile(optimizer=, loss_type=)`` and its train verbs
+     (autograd backward, in-place optimizer updates; no TPU kernel lies
+     on this path, so it launches none of K1-K3). 11a, card vs CPU in
+     fp32 with TF32 off (the CPU references on a worker thread): BERT at
+     full width (hidden 1024, 16 heads, vocab 30522, seq 128) cut to 2
+     layers and batch 8, 3 SGD steps and, from the same start, 3 Adam
+     steps; ResNet-50 cut to the stem, the max pool and stage 1 at 64x64,
+     batch 8, 10 classes, 2 SGD steps; each step's loss within 1e-4
+     relative of the CPU's; the largest parameter difference and the
+     BatchNorm running statistics against the CPU reported. 11b, full
+     size in bf16: BERT-large (24 x 1024, batch 64, seq 128, vocab 30522,
+     SGD lr 1e-3) and ResNet-50 (batch 256, 224x224), 2 warm steps then 3
+     blocks through ``train_batches`` (10 steps a block for BERT,
+     ``RESNET_UNROLL`` = 4 for ResNet; one host read a block): step ms
+     (median, min, max), TFLOPS from ``bench_train.py``'s model-FLOP
+     counts, MFU against the H100 SXM's 989 TFLOP/s dense bf16 (NVIDIA
+     data sheet), the loss of each block and the peak memory; gates:
+     finite losses falling from the first block to the last on the fixed
+     batch, every parameter, gradient and optimizer-state tensor on the
+     card, finite running statistics. ``--profile`` adds the device busy
+     share of one BERT train step.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -154,6 +177,7 @@ repository beside it, the script exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -1577,12 +1601,20 @@ def profile_decode(torch, llm, prompts, card, new_tokens=16):
     """Device busy share and device time by kernel over one short
     generate call, incremental or speculative as ``llm`` serves
     (torch.profiler; the launch counts were read before)."""
+    profile_window(torch, lambda: llm.generate(
+        prompts, max_new_tokens=new_tokens),
+        f"generate({new_tokens} new tokens)", card)
+
+
+def profile_window(torch, fn, what, card):
+    """Device busy share and device time by kernel over one call of
+    ``fn`` (torch.profiler), against its wall time to a synchronize."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        llm.generate(prompts, max_new_tokens=new_tokens)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     from torch.autograd import DeviceType
@@ -1594,13 +1626,14 @@ def profile_decode(torch, llm, prompts, card, new_tokens=16):
             if e.device_type == DeviceType.CUDA
             and e.self_device_time_total > 0]
     busy = sum(r[2] for r in rows)
-    log(f"  profile of generate({new_tokens} new tokens): wall "
+    log(f"  profile of {what}: wall "
         f"{wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
         f"idle {100 - 100 * busy / wall_us:.1f}%  [{card}]")
     for key, n, us in sorted(rows, key=lambda r: -r[2])[:15]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<6d} "
             f"{key[:90]}")
+    return busy / wall_us
 
 
 def seven_b(torch, layers=LAYERS):
@@ -3200,6 +3233,326 @@ def families_phase(torch, card):
     return total, report
 
 
+# ----------------------------------------------------------------------
+# phase 11: training, bench_train.py's two models
+# ----------------------------------------------------------------------
+# bench_train.py:31-36: BERT-large at the phase-1 pretraining length
+BERT_VOCAB, BERT_HIDDEN, BERT_LAYERS, BERT_HEADS = 30522, 1024, 24, 16
+BERT_SEQ, BERT_BATCH, BERT_BLOCK = 128, 64, 10
+# bench_train.py:170-172: ResNet-50 at the ImageNet per-device batch
+RESNET_BATCH, RESNET_IMG, RESNET_UNROLL = 256, 224, 4
+RESNET_STAGES = ((64, 3, 1), (128, 4, 2), (256, 6, 2), (512, 3, 2))
+TRAIN_LR, TRAIN_BLOCKS = 1e-3, 3          # bench_train.py's SGD rate
+# 11a's cuts (the CPU runs the same steps): BERT at full width, 2 layers,
+# batch 8; ResNet-50's stem, max pool and stage 1 at 64x64, batch 8,
+# 10 classes
+CUT_LAYERS, CUT_BATCH, CUT_IMG, CUT_CLASSES = 2, 8, 64, 10
+CUT_STEPS = {"bert": 3, "resnet": 2}
+# the H100 SXM's dense bf16 tensor-core rate (NVIDIA data sheet)
+H100_BF16_PEAK = PEAK_FLOPS["bfloat16"]
+
+
+def bert_flops_per_step(batch, layers=BERT_LAYERS):
+    """``bench_train.py:40-46``'s model FLOPs: 6 x matmul params x tokens
+    (fwd + bwd), attention score and value matmuls included."""
+    tokens = batch * BERT_SEQ
+    per_layer = 4 * BERT_HIDDEN * BERT_HIDDEN + 2 * BERT_HIDDEN * 4 \
+        * BERT_HIDDEN
+    matmul_params = layers * per_layer + BERT_VOCAB * BERT_HIDDEN
+    attn = layers * 2 * BERT_SEQ * BERT_SEQ * BERT_HIDDEN * batch
+    return 6.0 * matmul_params * tokens + 6.0 * attn
+
+
+def bert_model(device, dtype, layers, batch):
+    """``bench_train.py:build_model`` through the port's builders (no
+    ``auto_parallel``: the search is not ported)."""
+    import flexflow_tpu_torch as ff
+
+    m = ff.FFModel(ff.FFConfig(batch_size=batch, compute_dtype=dtype,
+                               device=device))
+    tokens = m.create_tensor([batch, BERT_SEQ], ff.DataType.DT_INT32)
+    x = m.embedding(tokens, BERT_VOCAB, BERT_HIDDEN, name="embed")
+    for i in range(layers):
+        attn = m.multihead_attention(x, x, x, embed_dim=BERT_HIDDEN,
+                                     num_heads=BERT_HEADS,
+                                     name=f"enc.{i}.attn")
+        x = m.layer_norm(m.add(attn, x), axes=[-1], name=f"enc.{i}.ln1")
+        h = m.dense(x, 4 * BERT_HIDDEN, ff.ActiMode.AC_MODE_GELU,
+                    name=f"enc.{i}.fc1")
+        h = m.dense(h, BERT_HIDDEN, name=f"enc.{i}.fc2")
+        x = m.layer_norm(m.add(h, x), axes=[-1], name=f"enc.{i}.ln2")
+    logits = m.dense(x, BERT_VOCAB, name="mlm_head")
+    m.softmax(m.reshape(logits, [batch * BERT_SEQ, BERT_VOCAB]))
+    return m, bert_flops_per_step(batch, layers)
+
+
+def resnet_model(device, dtype, batch, img, classes, stages):
+    """``bench_train.py:build_resnet50`` through the port's builders, with
+    its layer-by-layer model FLOPs (convs and the head, fwd 1x + bwd 2x);
+    ``stages`` cuts the depth."""
+    import flexflow_tpu_torch as ff
+
+    m = ff.FFModel(ff.FFConfig(batch_size=batch, compute_dtype=dtype,
+                               device=device))
+    flops = [0.0]
+
+    def conv(x, c_out, k, s, pad):
+        y = m.conv2d(x, c_out, k, k, s, s, pad, pad, use_bias=False)
+        flops[0] += 2.0 * k * k * x.dims[1] * c_out * y.dims[2] \
+            * y.dims[3] * batch
+        return y
+
+    def bottleneck(x, c_mid, stride):
+        c_out = 4 * c_mid
+        y = m.batch_norm(conv(x, c_mid, 1, 1, 0), relu=True)
+        y = m.batch_norm(conv(y, c_mid, 3, stride, 1), relu=True)
+        y = m.batch_norm(conv(y, c_out, 1, 1, 0), relu=False)
+        sc = x
+        if stride != 1 or x.dims[1] != c_out:
+            sc = m.batch_norm(conv(x, c_out, 1, stride, 0), relu=False)
+        return m.relu(m.add(y, sc))
+
+    t = m.create_tensor([batch, 3, img, img], ff.DataType.DT_FLOAT)
+    x = m.batch_norm(conv(t, 64, 7, 2, 3), relu=True)
+    x = m.pool2d(x, 3, 3, 2, 2, 1, 1)
+    for c_mid, blocks, stride in stages:
+        for b in range(blocks):
+            x = bottleneck(x, c_mid, stride if b == 0 else 1)
+    x = m.pool2d(x, x.dims[2], x.dims[3], 1, 1, 0, 0, ff.PoolType.POOL_AVG)
+    x = m.dense(m.flat(x), classes)
+    flops[0] += 2.0 * x.owner_layer.inputs[0].dims[1] * classes * batch
+    m.softmax(x)
+    return m, 3.0 * flops[0]
+
+
+def train_compile(m, optimizer):
+    import flexflow_tpu_torch as ff
+
+    opt = (ff.SGDOptimizer(m, lr=TRAIN_LR) if optimizer == "sgd"
+           else ff.AdamOptimizer(m, alpha=TRAIN_LR))
+    m.compile(optimizer=opt,
+              loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY)
+    return m
+
+
+@contextlib.contextmanager
+def tf32_off(torch):
+    """fp32 matmuls and convolutions in fp32 on the card (cuDNN allows
+    TF32 by default), the flags restored after."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
+
+
+def cut_model(kind, device):
+    if kind == "bert":
+        return bert_model(device, "float32", CUT_LAYERS, CUT_BATCH)[0]
+    return resnet_model(device, "float32", CUT_BATCH, CUT_IMG, CUT_CLASSES,
+                        RESNET_STAGES[:1])[0]
+
+
+def cut_data(kind):
+    """11a's batches, one seeded numpy draw: [steps, batch, ...] inputs
+    and their labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(29)
+    n = CUT_STEPS[kind]
+    if kind == "bert":
+        x = rng.integers(0, BERT_VOCAB, (n, CUT_BATCH, BERT_SEQ),
+                         dtype=np.int32)
+        y = rng.integers(0, BERT_VOCAB, (n, CUT_BATCH * BERT_SEQ, 1),
+                         dtype=np.int32)
+    else:
+        x = rng.standard_normal((n, CUT_BATCH, 3, CUT_IMG, CUT_IMG),
+                                dtype=np.float32)
+        y = rng.integers(0, CUT_CLASSES, (n, CUT_BATCH, 1), dtype=np.int32)
+    return x, y
+
+
+def cut_run(kind, optimizer, device, init, data):
+    """11a's steps on ``device`` from the parameters ``init``: (losses,
+    {(layer, weight): CPU tensor}, {(layer, stat): CPU tensor},
+    seconds)."""
+    from flexflow_tpu_torch.convert import load_params
+
+    t0 = time.perf_counter()
+    m = train_compile(cut_model(kind, device), optimizer)
+    load_params(m, init)
+    x, y = data
+    losses = [m.train_one_batch([x[i]], y[i]) for i in range(len(y))]
+    params = {(ln, w): p.detach().cpu() for ln, lp in m.params.items()
+              for w, p in lp.items()}
+    state = {(ln, k): v.cpu() for ln, st in m.op_state.items()
+             for k, v in st.items()}
+    return losses, params, state, time.perf_counter() - t0
+
+
+def train_parity(torch, card):
+    """11a: each cut's steps on the card (fp32, TF32 off) and on the CPU
+    (a worker thread) from one start; the losses within 1e-4 relative."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    runs = (("bert", "sgd"), ("bert", "adam"), ("resnet", "sgd"))
+    data = {k: cut_data(k) for k in CUT_STEPS}
+    init = {}
+    for kind in CUT_STEPS:      # one start: the CPU model's seeded init
+        m = cut_model(kind, "cpu").compile()
+        init[kind] = {ln: {w: p.clone() for w, p in lp.items()}
+                      for ln, lp in m.params.items()}
+        del m
+    report = {}
+    with ThreadPoolExecutor(1) as pool:
+        refs = {r: pool.submit(cut_run, r[0], r[1], "cpu", init[r[0]],
+                               data[r[0]]) for r in runs}
+        with tf32_off(torch):
+            cards = {r: cut_run(r[0], r[1], "cuda", init[r[0]], data[r[0]])
+                     for r in runs}
+        for r in runs:
+            ref_l, ref_p, ref_s, ref_secs = refs[r].result()
+            got_l, got_p, got_s, secs = cards[r]
+            rel = max(abs(a - b) / abs(b) for a, b in zip(got_l, ref_l))
+            dp = max((got_p[k] - ref_p[k]).abs().max().item()
+                     for k in ref_p)
+            line = (f"  11a {r[0]} {r[1].upper()} x {len(got_l)}: losses "
+                    f"card {[f'{v:.7f}' for v in got_l]} CPU "
+                    f"{[f'{v:.7f}' for v in ref_l]}, largest relative "
+                    f"difference {rel:.2e}; largest parameter difference "
+                    f"{dp:.3e}")
+            if got_s:
+                ds = max((got_s[k] - ref_s[k]).abs().max().item()
+                         for k in ref_s)
+                line += (f"; BatchNorm running statistics ({len(got_s)} "
+                         f"tensors) largest difference {ds:.3e}")
+            log(line + f"; card {secs:.1f} s, CPU {ref_secs:.1f} s  [{card}]")
+            report[f"{r[0]}_{r[1]}"] = {"loss_rel": rel, "param_diff": dp}
+            if not rel <= 1e-4:
+                raise AssertionError(f"phase 11a {r}: card losses {got_l} "
+                                     f"differ from the CPU's {ref_l}")
+    return report
+
+
+def on_card(tree) -> bool:
+    """Every tensor in a nested dict of tensors lies on the card."""
+    import torch
+
+    if isinstance(tree, dict):
+        return all(on_card(v) for v in tree.values())
+    return not isinstance(tree, torch.Tensor) or tree.device.type == "cuda"
+
+
+def full_train(torch, card, kind, profile=False):
+    """11b: one model at bench_train.py's size in bf16: 2 warm steps, then
+    TRAIN_BLOCKS blocks through ``train_batches`` on one fixed batch, each
+    ending in its one host read. Returns the figures."""
+    import numpy as np
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    if kind == "bert":
+        m, flops = bert_model("cuda", "bfloat16", BERT_LAYERS, BERT_BATCH)
+        x = torch.randint(0, BERT_VOCAB, (BERT_BATCH, BERT_SEQ),
+                          generator=gen, device="cuda", dtype=torch.int32)
+        y = torch.randint(0, BERT_VOCAB, (BERT_BATCH * BERT_SEQ, 1),
+                          generator=gen, device="cuda", dtype=torch.int32)
+        block = BERT_BLOCK
+        what = (f"BERT-large ({BERT_LAYERS} x {BERT_HIDDEN}, {BERT_HEADS} "
+                f"heads, seq {BERT_SEQ}, batch {BERT_BATCH}, vocab "
+                f"{BERT_VOCAB})")
+    else:
+        m, flops = resnet_model("cuda", "bfloat16", RESNET_BATCH,
+                                RESNET_IMG, 1000, RESNET_STAGES)
+        x = torch.randn(RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG,
+                        generator=gen, device="cuda")
+        y = torch.randint(0, 1000, (RESNET_BATCH, 1), generator=gen,
+                          device="cuda", dtype=torch.int32)
+        block = RESNET_UNROLL
+        what = f"ResNet-50 (batch {RESNET_BATCH}, {RESNET_IMG}x{RESNET_IMG})"
+    t0 = time.perf_counter()
+    train_compile(m, "sgd")
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = [m.train_one_batch([x], y) for _ in range(2)]
+    warm_s = time.perf_counter() - t0
+    xs, ys = [x.expand(block, *x.shape)], y.expand(block, *y.shape)
+    step_ms, losses = [], []
+    for _ in range(TRAIN_BLOCKS):
+        t0 = time.perf_counter()
+        losses.append(m.train_batches(xs, ys))     # ends in its one read
+        step_ms.append((time.perf_counter() - t0) * 1e3 / block)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    med = statistics.median(step_ms)
+    tflops = flops / (med / 1e3) / 1e12
+    mfu = flops / (med / 1e3) / H100_BF16_PEAK
+    grads = {ln: {w: p.grad for w, p in lp.items()}
+             for ln, lp in m.params.items()}
+    stats = [v for st in m.op_state.values() for v in st.values()]
+    log(f"  11b {what}, bf16 compute, fp32 weights, SGD lr {TRAIN_LR}: "
+        f"build {build_s:.1f} s, 2 warm steps {warm_s:.1f} s (losses "
+        f"{[round(v, 4) for v in warm]}); step ms median {med:.2f} (min "
+        f"{min(step_ms):.2f}, max {max(step_ms):.2f}) over {TRAIN_BLOCKS} "
+        f"blocks of {block}; {flops / 1e12:.3f} model TFLOP a step -> "
+        f"{tflops:.1f} TFLOPS, MFU {mfu:.4f} of {H100_BF16_PEAK / 1e12:.0f} "
+        f"TFLOP/s (H100 SXM dense bf16, NVIDIA data sheet; fp32 matmul "
+        f"TF32 {torch.backends.cuda.matmul.allow_tf32}); loss by block "
+        f"{[[round(v, 5) for v in b] for b in losses]}; peak memory "
+        f"{peak:.2f} GiB  [{card}]")
+    bad = []
+    if not all(np.isfinite(v) for b in losses for v in b):
+        bad.append("a loss is not finite")
+    if not np.mean(losses[-1]) < np.mean(losses[0]):
+        bad.append("the loss did not fall from the first block to the last")
+    if not (on_card(m.params) and on_card(m.opt_state)
+            and all(g is not None for lp in grads.values()
+                    for g in lp.values()) and on_card(grads)):
+        bad.append("a parameter, gradient or optimizer-state tensor is "
+                   "off the card")
+    if not all(bool(torch.isfinite(v).all()) for v in stats):
+        bad.append("a BatchNorm running statistic is not finite")
+    busy = None
+    if profile and kind == "bert":
+        busy = profile_window(torch, lambda: m.train_one_batch([x], y),
+                              "one BERT-large train step", card)
+    report = {"step_ms": med, "step_ms_min": min(step_ms),
+              "step_ms_max": max(step_ms), "tflops": tflops, "mfu": mfu,
+              "model_tflop_per_step": flops / 1e12, "peak_gib": peak,
+              "block_losses": losses, "busy_share": busy}
+    del m, grads, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"phase 11b {what}: {'; '.join(bad)}")
+    return report
+
+
+def training_phase(torch, card, profile=False):
+    """Phase 11: 11a card vs CPU on the cuts, then 11b at full size."""
+    t_phase = time.perf_counter()
+    log(f"phase 11: training, bench_train.py's BERT-large and ResNet-50  "
+        f"[{card}]")
+    log(f"  11a cuts: BERT {CUT_LAYERS} of {BERT_LAYERS} layers, batch "
+        f"{CUT_BATCH} of {BERT_BATCH} (full width, seq and vocab); "
+        f"ResNet-50 stem + max pool + stage 1 (3 of 16 bottlenecks), "
+        f"{CUT_IMG}x{CUT_IMG} of {RESNET_IMG}, batch {CUT_BATCH} of "
+        f"{RESNET_BATCH}, {CUT_CLASSES} of 1000 classes")
+    report = {"parity": train_parity(torch, card)}
+    log(f"  11a: {time.perf_counter() - t_phase:.1f} s")
+    for kind in ("bert", "resnet"):
+        report[kind] = full_train(torch, card, kind, profile=profile)
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 11: {report['seconds']:.1f} s  [{card}]")
+    return report
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -3208,11 +3561,12 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="phases 5, 6 and 8 also trace a generate call "
-                         "with torch.profiler (device busy share, time by "
+                    help="phases 5, 6 and 8 also trace a generate call, "
+                         "and phase 11 one BERT-large train step, with "
+                         "torch.profiler (device busy share, time by "
                          "kernel)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
@@ -3312,6 +3666,10 @@ def main(argv=None) -> int:
     if 10 in phases:
         by_path["families"], fams = families_phase(torch, card)
         log(json.dumps({"families_phase": fams}))
+        gc.collect()
+    if 11 in phases:
+        log(json.dumps({"training_phase": training_phase(
+            torch, card, profile=args.profile)}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

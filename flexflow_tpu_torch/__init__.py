@@ -32,17 +32,45 @@ thread that concurrent ``generate`` calls join (with ``timeout_s``,
 bounds its front door, ``GenerationConfig(prefix_cache=True)`` reuses
 shared prompt prefixes' KV, and ``serve.loadgen`` drives open-loop
 traffic through it and reports TTFT, latency and goodput.
+
+It trains, through the JAX package's verbs: ``compile(optimizer=,
+loss_type=, metrics=)`` then ``train_one_batch``, ``train_batches``,
+``fit``, ``evaluate`` and ``predict``, with autograd for the backward
+pass and SGD or Adam updating the parameters in place::
+
+    import flexflow_tpu_torch as ff
+    m = ff.FFModel(ff.FFConfig(batch_size=64))          # device="cuda"
+    t = m.create_tensor([64, 784], ff.DataType.DT_FLOAT)
+    m.softmax(m.dense(m.dense(t, 512, ff.ActiMode.AC_MODE_RELU), 10))
+    m.compile(optimizer=ff.SGDOptimizer(m, 0.01),
+              loss_type=ff.LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY,
+              metrics=[ff.MetricsType.METRICS_ACCURACY])
+    history = m.fit(x=X, y=Y, epochs=2)
 """
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.core.model import FFModel
+from flexflow_tpu_torch.core.initializer import (ConstantInitializer,
+                                                 GlorotUniformInitializer,
+                                                 NormInitializer,
+                                                 UniformInitializer,
+                                                 ZeroInitializer)
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
-                                        DataType, InferenceMode, OpType)
+                                        DataType, InferenceMode, LossType,
+                                        MetricsType, OpType,
+                                        ParameterSyncType, PoolType)
 from flexflow_tpu_torch.serve import (SSM, AdmissionPolicy, EngineHandle,
                                      GenerationConfig, LLM, RejectedError,
                                      RequestManager, WorkloadSpec)
+from flexflow_tpu_torch.training.dataloader import SingleDataLoader
+from flexflow_tpu_torch.training.optimizer import (AdamOptimizer,
+                                                   SGDOptimizer)
 
-__all__ = ["ActiMode", "AdmissionPolicy", "AggrMode", "CompMode",
-           "DataType", "EngineHandle", "FFConfig", "FFModel",
-           "GenerationConfig", "InferenceMode", "LLM", "OpType",
-           "RejectedError", "RequestManager", "SSM", "WorkloadSpec"]
+__all__ = ["ActiMode", "AdamOptimizer", "AdmissionPolicy", "AggrMode",
+           "CompMode", "ConstantInitializer", "DataType", "EngineHandle",
+           "FFConfig", "FFModel", "GenerationConfig",
+           "GlorotUniformInitializer", "InferenceMode", "LLM", "LossType",
+           "MetricsType", "NormInitializer", "OpType", "ParameterSyncType",
+           "PoolType", "RejectedError", "RequestManager", "SGDOptimizer",
+           "SSM", "SingleDataLoader", "UniformInitializer", "WorkloadSpec",
+           "ZeroInitializer"]

@@ -1,5 +1,8 @@
-"""FFConfig of the PyTorch/CUDA port: the serving, quantization and
-fusion fields of ``flexflow_tpu.config.FFConfig`` plus ``device``.
+"""FFConfig of the PyTorch/CUDA port: the training batch and epochs and
+the serving, quantization and fusion fields of
+``flexflow_tpu.config.FFConfig``, plus ``device``. There is no
+``auto_parallel`` or ``remat``: the Unity search and rematerialization
+are not ported.
 
 The device alone decides the attention path: CUDA tensors go to the
 hand-written kernels, CPU tensors to their plain PyTorch versions. There
@@ -20,6 +23,11 @@ from flexflow_tpu_torch.quant import normalize_qtype
 
 @dataclasses.dataclass
 class FFConfig:
+    # --- training (the JAX package's defaults): the batch size of fit,
+    # evaluate and SingleDataLoader, and fit's epochs ---
+    batch_size: int = 64
+    epochs: int = 1
+
     # where the model's parameters, KV caches and activations live
     device: str = "cuda"
     seed: int = 0

@@ -7,7 +7,12 @@ the same in both packages, so the port then computes what the JAX model
 computes. A JAX ``QuantizedWeight`` crosses as the port's: the int8
 payload, the fp32 scale, and its rows, dtype and qtype as they are.
 ``load_params`` copies such a dict into a compiled port model; a quantized
-leaf goes into a quantized parameter as it is, not re-quantized.
+leaf goes into a quantized parameter as it is, not re-quantized. The
+training ops' weights (attention ``wq``...``bo`` and ``bias_k``/``bias_v``,
+the conv kernel and bias, BatchNorm ``scale``/``bias``) cross the same
+way; ``load_op_state`` copies the JAX model's op state (BatchNorm's
+``running_mean``/``running_var``) as numpy, so that both packages start a
+training run from the same model.
 """
 
 from __future__ import annotations
@@ -70,5 +75,23 @@ def load_params(model, params: Mapping[str, Mapping[str, object]]) -> int:
                 old.scale.copy_(a.scale)
             else:
                 model.set_parameter_by_key((layer, w), a)
+            n += 1
+    return n
+
+
+def load_op_state(model, state: Mapping[str, Mapping[str, object]]) -> int:
+    """Copy ``{layer: {name: array}}`` (the JAX ``FFModel.op_state`` of a
+    training graph, or numpy arrays) into the compiled ``model``'s op state
+    in place, in the model's dtypes; returns the count. Each leaf must
+    exist in the model with the same shape."""
+    n = 0
+    for layer, st in state.items():
+        for k, a in st.items():
+            old = model.op_state[layer][k]
+            new = torch.tensor(np.asarray(a, dtype=np.float32))
+            if tuple(new.shape) != tuple(old.shape):
+                raise ValueError(f"({layer}, {k}): shape {tuple(new.shape)}"
+                                 f" != {tuple(old.shape)}")
+            old.copy_(new)
             n += 1
     return n

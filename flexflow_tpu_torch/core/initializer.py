@@ -43,6 +43,21 @@ class ConstantInitializer(Initializer):
         return torch.full(shape, self.value, dtype=dtype, device=device)
 
 
+class UniformInitializer(Initializer):
+    """U[min_value, max_value). ``seed`` is kept for the JAX signature; the
+    draw comes from the per-weight generator, as every initializer's."""
+
+    def __init__(self, seed: int = 0, min_value: float = 0.0,
+                 max_value: float = 1.0):
+        self.seed = seed
+        self.min_value = min_value
+        self.max_value = max_value
+
+    def __call__(self, gen, shape, dtype, device):
+        return torch.empty(shape, dtype=dtype, device=device).uniform_(
+            self.min_value, self.max_value, generator=gen)
+
+
 class NormInitializer(Initializer):
     def __init__(self, mean: float = 0.0, stddev: float = 1.0):
         self.mean = mean

@@ -1,16 +1,27 @@
-"""FFModel of the PyTorch/CUDA port: the inference half of
-``flexflow_tpu/core/model.py``.
+"""FFModel of the PyTorch/CUDA port (counterpart of
+``flexflow_tpu/core/model.py``): the serving and the training halves.
 
-The op-builder methods record a layer graph; ``compile`` (inference mode
-only) initializes every weight on ``config.device`` from a
-``torch.Generator`` seeded per weight, allocates each serving op's KV
-caches and stacks them into one ``[L, R, KH, S, D]`` pair; ``_run_graph``
-walks the layers eagerly. With ``config.quantization_type`` each layer's
-eligible weights are quantized as the layer is initialized (``quant.py``),
-so the device never holds the float model; ``finalize_gemm_fusion`` fuses
-the serving GEMMs after the weights are loaded (``serve/gemm_fusion.py``).
-There is no mesh, strategy search, branch plan, pipeline or offload in
-this slice.
+The op-builder methods record a layer graph; ``compile`` initializes
+every weight on ``config.device`` from a ``torch.Generator`` seeded per
+weight and walks the layers eagerly in ``_run_graph``.
+
+Inference (``compile()`` with no optimizer and no loss, the port's
+default): each serving op's KV caches are allocated and stacked into one
+``[L, R, KH, S, D]`` pair; with ``config.quantization_type`` each layer's
+eligible weights are quantized as the layer is initialized
+(``quant.py``); ``finalize_gemm_fusion`` fuses the serving GEMMs after
+the weights are loaded (``serve/gemm_fusion.py``).
+
+Training (``compile(optimizer=..., loss_type=..., metrics=...)``): the
+float parameters require gradients; a train step runs the forward with
+grad enabled, the loss (``training/loss.py``), ``loss.backward()``, the
+optimizer's in-place update and the step metrics, and reads nothing back
+to the host; ``train_one_batch``, ``train_batches``, ``fit``,
+``evaluate`` and ``predict`` read once a call. Dropout draws from the
+model's own ``torch.Generator``, seeded from ``config.seed``.
+
+There is no mesh, strategy search, remat, branch plan, pipeline or
+offload in the port yet.
 """
 
 from __future__ import annotations
@@ -25,12 +36,17 @@ from flexflow_tpu_torch.config import FFConfig, resolve_device
 from flexflow_tpu_torch.core.layer import Layer
 from flexflow_tpu_torch.core.tensor import Tensor
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
-                                        DataType, OpType)
+                                        DataType, LossType, MetricsType,
+                                        OpType, PoolType, torch_dtype)
 from flexflow_tpu_torch.ops.base import OpContext, get_op_impl, stable_hash
 from flexflow_tpu_torch.quant import (dequantize_array,
                                       dequantize_layer_params, is_quantized,
                                       normalize_qtype, quantize_params,
                                       requantize_into)
+from flexflow_tpu_torch.training.dataloader import minibatches
+from flexflow_tpu_torch.training.loss import compute_loss
+from flexflow_tpu_torch.training.metrics import (PerfMetrics,
+                                                 compute_step_metrics)
 
 
 def weight_seed(seed: int, layer_name: str, weight_name: str) -> int:
@@ -38,6 +54,24 @@ def weight_seed(seed: int, layer_name: str, weight_name: str) -> int:
     ``stable_hash(layer, weight)`` the JAX package folds into its key."""
     return ((int(seed) << 31) | stable_hash(layer_name, weight_name)) \
         & 0x7FFF_FFFF_FFFF_FFFF
+
+
+def _normalize_regularizer(reg):
+    """None, one ("l1"|"l2", coeff) pair or a list of them -> None or a
+    non-empty list of pairs; an unknown kind raises."""
+    if reg is None:
+        return None
+    if isinstance(reg, (list, tuple)) and reg \
+            and not isinstance(reg[0], (list, tuple)):
+        reg = [reg]
+    out = []
+    for kind, coeff in reg:
+        if kind not in ("l1", "l2"):
+            raise ValueError(f"unknown regularizer kind {kind!r} "
+                             f"(expected 'l1' or 'l2')")
+        if coeff:
+            out.append((kind, float(coeff)))
+    return out or None
 
 
 class FFModel:
@@ -58,6 +92,19 @@ class FFModel:
         # (serve/engine.py build_feeds)
         self.position_input_tensor: Optional[Tensor] = None
         self.position_offset: int = 0
+        # training (compile with an optimizer or a loss)
+        self.label_tensor: Optional[Tensor] = None
+        self.optimizer = None
+        self.opt_state: Optional[Dict[str, Any]] = None
+        self.loss_type: Optional[LossType] = None
+        self.metrics: List[MetricsType] = []
+        self._logits_tensor: Optional[Tensor] = None
+        self._reg_terms: List[Tuple[str, str, str, float]] = []
+        self._perf = PerfMetrics()
+        self._pending_batch = None
+        # a train step's dropout draws (the JAX package's self._rng)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(self.config.seed)
 
     # ==================================================================
     # Tensor / layer creation
@@ -108,10 +155,12 @@ class FFModel:
               kernel_initializer=None, bias_initializer=None,
               keep_f32_logits: bool = False,
               data_type: Optional[DataType] = None,
+              kernel_regularizer=None,
               name: Optional[str] = None) -> Tensor:
         """``datatype`` and ``data_type`` are synonyms, as in the JAX
         package. ``keep_f32_logits`` emits the gemm's fp32 accumulator
-        (logits heads feeding argmax)."""
+        (logits heads feeding argmax). ``kernel_regularizer``: ("l1" |
+        "l2", coeff) pairs added to the training loss."""
         if (datatype is not None and data_type is not None
                 and datatype != data_type):
             raise ValueError(
@@ -122,7 +171,63 @@ class FFModel:
             data_type=datatype if datatype is not None else data_type,
             kernel_initializer=kernel_initializer,
             bias_initializer=bias_initializer,
-            keep_f32_logits=keep_f32_logits), name)
+            keep_f32_logits=keep_f32_logits,
+            kernel_regularizer=_normalize_regularizer(kernel_regularizer)),
+            name)
+
+    def conv2d(self, input: Tensor, out_channels: int, kernel_h: int,
+               kernel_w: int, stride_h: int, stride_w: int, padding_h: int,
+               padding_w: int, activation: ActiMode = ActiMode.AC_MODE_NONE,
+               groups: int = 1, use_bias: bool = True,
+               kernel_initializer=None, bias_initializer=None,
+               kernel_regularizer=None,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OpType.CONV2D, [input], dict(
+            out_channels=out_channels, kernel_h=kernel_h, kernel_w=kernel_w,
+            stride_h=stride_h, stride_w=stride_w, padding_h=padding_h,
+            padding_w=padding_w, activation=activation, groups=groups,
+            use_bias=use_bias, kernel_initializer=kernel_initializer,
+            bias_initializer=bias_initializer,
+            kernel_regularizer=_normalize_regularizer(kernel_regularizer)),
+            name)
+
+    def pool2d(self, input: Tensor, kernel_h: int, kernel_w: int,
+               stride_h: int, stride_w: int, padding_h: int, padding_w: int,
+               pool_type: PoolType = PoolType.POOL_MAX,
+               activation: ActiMode = ActiMode.AC_MODE_NONE,
+               name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OpType.POOL2D, [input], dict(
+            kernel_h=kernel_h, kernel_w=kernel_w, stride_h=stride_h,
+            stride_w=stride_w, padding_h=padding_h, padding_w=padding_w,
+            pool_type=pool_type, activation=activation), name)
+
+    def batch_norm(self, input: Tensor, relu: bool = True,
+                   name: Optional[str] = None) -> Tensor:
+        return self._add_layer(OpType.BATCHNORM, [input],
+                               dict(relu=relu), name)
+
+    def dropout(self, input: Tensor, rate: float = 0.5, seed: int = 0,
+                name: Optional[str] = None) -> Tensor:
+        """``seed`` is kept for the JAX signature; the draws come from the
+        model's generator."""
+        return self._add_layer(OpType.DROPOUT, [input],
+                               dict(rate=rate, seed=seed), name)
+
+    def multihead_attention(self, query: Tensor, key: Tensor, value: Tensor,
+                            embed_dim: int, num_heads: int,
+                            kdim: int = 0, vdim: int = 0,
+                            dropout: float = 0.0, bias: bool = True,
+                            add_bias_kv: bool = False,
+                            add_zero_attn: bool = False,
+                            kernel_initializer=None, causal: bool = False,
+                            name: Optional[str] = None) -> Tensor:
+        return self._add_layer(
+            OpType.MULTIHEAD_ATTENTION, [query, key, value], dict(
+                embed_dim=embed_dim, num_heads=num_heads,
+                kdim=kdim or embed_dim, vdim=vdim or embed_dim,
+                dropout=dropout, causal=causal, bias=bias,
+                add_bias_kv=add_bias_kv, add_zero_attn=add_zero_attn,
+                kernel_initializer=kernel_initializer), name)
 
     def layer_norm(self, input: Tensor, axes: Sequence[int],
                    elementwise_affine: bool = True, eps: float = 1e-5,
@@ -359,8 +464,15 @@ class FFModel:
         return self._add_layer(OpType.TRANSPOSE, [input],
                                dict(perm=tuple(perm)), name)
 
+    def flat(self, input: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.FLAT, [input], {}, name)
+
     def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
         return self._add_layer(OpType.CAST, [input], dict(dtype=dtype), name)
+
+    def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
+        return self._add_layer(OpType.SOFTMAX, [input], dict(axis=axis),
+                               name)
 
     # --- selection and the serving heads ---
     def top_k(self, input: Tensor, k: int, sorted: bool = True,
@@ -424,15 +536,22 @@ class FFModel:
     # ==================================================================
     # Compile
     # ==================================================================
-    def compile(self, comp_mode: CompMode = CompMode.COMP_MODE_INFERENCE):
-        """Initialize parameters and serving state on ``self.device``.
+    def compile(self, optimizer=None, loss_type: Optional[LossType] = None,
+                metrics: Optional[List[MetricsType]] = None,
+                comp_mode: Optional[CompMode] = None):
+        """Initialize parameters and op state on ``self.device``.
 
-        Only inference is ported; training arrives with a later slice."""
-        if comp_mode != CompMode.COMP_MODE_INFERENCE:
-            raise NotImplementedError(
-                "the PyTorch port compiles COMP_MODE_INFERENCE only")
+        ``comp_mode`` defaults to training when an optimizer or a loss is
+        given, else to inference (the JAX package defaults to training;
+        the port's serving callers compile with no arguments). Quantization
+        at init applies to inference only, as in the JAX package."""
+        if comp_mode is None:
+            comp_mode = (CompMode.COMP_MODE_TRAINING
+                         if optimizer is not None or loss_type is not None
+                         else CompMode.COMP_MODE_INFERENCE)
+        training = comp_mode == CompMode.COMP_MODE_TRAINING
         dev = self.device
-        qtype = self.config.quantization_type
+        qtype = None if training else self.config.quantization_type
         params: Dict[str, Dict[str, Any]] = {}
         for layer in self.layers:
             if not layer.weights:
@@ -444,6 +563,8 @@ class FFModel:
                                             w.name))
                 lp[w.name] = w.initializer(gen, tuple(w.shape),
                                            w.dtype.to_torch(), dev)
+                if training and lp[w.name].is_floating_point():
+                    lp[w.name].requires_grad_(True)
             if qtype:
                 # quantize each layer as it is initialized: the device
                 # holds one float layer at a time, never the float model
@@ -467,8 +588,34 @@ class FFModel:
                 if layer.op_type == OpType.EMBEDDING
                 and self.position_input_tensor in layer.inputs]
         self._position_rows = min(rows) if rows else None
-        self._final_tensor = (self.layers[-1].outputs[0]
-                              if self.layers else None)
+
+        # the label tensor (made from the final output, as the reference's
+        # compile does) and the logits a final Softmax consumes
+        final = self.layers[-1].outputs[0] if self.layers else None
+        self._final_tensor = final
+        self._logits_tensor = None
+        if final is not None and self.layers[-1].op_type == OpType.SOFTMAX:
+            self._logits_tensor = self.layers[-1].inputs[0]
+        if final is not None and self.label_tensor is None:
+            if loss_type == LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+                self.label_tensor = Tensor((final.dims[0], 1),
+                                           DataType.DT_INT32, name="label",
+                                           model=self)
+            else:
+                self.label_tensor = Tensor(final.dims, final.dtype,
+                                           name="label", model=self)
+        self.optimizer = optimizer
+        self.loss_type = loss_type
+        self.metrics = list(metrics or [])
+        self.opt_state = None
+        if optimizer is not None:
+            # set_learning_rate reaches the live state through the model
+            optimizer.ffmodel = self
+            self.opt_state = optimizer.init_state(self.params)
+        self._reg_terms = [(layer.name, "kernel", kind, coeff)
+                           for layer in self.layers
+                           for kind, coeff in
+                           layer.attrs.get("kernel_regularizer") or []]
         return self
 
     def _consolidate_kv_caches(self):
@@ -517,11 +664,240 @@ class FFModel:
         return self
 
     # ==================================================================
+    # Training verbs (the JAX package's train/eval/predict steps, eager)
+    # ==================================================================
+    def _to_device(self, a, dtype: DataType) -> torch.Tensor:
+        return torch.as_tensor(a).to(device=self.device,
+                                     dtype=dtype.to_torch())
+
+    def _feeds_from_arrays(self, xs) -> Dict[int, torch.Tensor]:
+        if len(xs) != len(self.input_tensors):
+            raise ValueError(f"model has {len(self.input_tensors)} inputs, "
+                             f"got {len(xs)}")
+        return {t.tensor_id: self._to_device(x, t.dtype)
+                for t, x in zip(self.input_tensors, xs)}
+
+    def _ctx(self, training: bool) -> OpContext:
+        return OpContext(training=training,
+                         compute_dtype=torch_dtype(self.config.compute_dtype),
+                         generator=self.generator if training else None)
+
+    def _loss_and_out(self, feeds, label, ctx: OpContext):
+        """(loss, final output, new op state) of one forward."""
+        values, new_state = self._run_graph(self.params, feeds, ctx,
+                                            self.op_state)
+        out = values[self._final_tensor.tensor_id]
+        logits = (values[self._logits_tensor.tensor_id]
+                  if self._logits_tensor is not None else None)
+        loss = compute_loss(self.loss_type, out, label, logits=logits)
+        for lname, wname, kind, coeff in self._reg_terms:
+            w = self.params[lname][wname]
+            pen = w.abs().sum() if kind == "l1" else w.square().sum()
+            loss = loss + coeff * pen
+        return loss, out, new_state
+
+    def _train_step(self, feeds, label):
+        """Forward, loss, backward, the optimizer's in-place update and the
+        step metrics; returns (loss, metrics) as device scalars. The
+        gradients stay in each parameter's ``.grad`` until the next step
+        (or ``zero_gradients``)."""
+        self.zero_gradients()
+        with torch.enable_grad():
+            loss, out, new_state = self._loss_and_out(feeds, label,
+                                                      self._ctx(True))
+            loss.backward()
+        grads = {layer: {w: p.grad for w, p in lp.items()}
+                 for layer, lp in self.params.items()}
+        self.optimizer.update_step(self.params, grads, self.opt_state)
+        self.op_state = new_state
+        with torch.no_grad():
+            step_metrics = compute_step_metrics(self.metrics, out.detach(),
+                                                label, self.loss_type)
+        return loss.detach(), step_metrics
+
+    def _check_training(self):
+        if self.optimizer is None or self.loss_type is None:
+            raise RuntimeError("compile(optimizer=..., loss_type=...) "
+                               "before training")
+
+    @staticmethod
+    def _read(losses, mets) -> Tuple[List[float], List[Dict[str, float]]]:
+        """One host read of a block's losses and step metrics."""
+        keys = list(mets[0])
+        flat = torch.stack([torch.stack([l.double()]
+                                        + [m[k].double() for k in keys])
+                            for l, m in zip(losses, mets)]).tolist()
+        return ([row[0] for row in flat],
+                [dict(zip(keys, row[1:])) for row in flat])
+
+    def train_one_batch(self, xs, y) -> float:
+        self._check_training()
+        loss, met = self._train_step(
+            self._feeds_from_arrays(xs),
+            self._to_device(y, self.label_tensor.dtype))
+        (loss,), (met,) = self._read([loss], [met])
+        self._perf.update(met, y.shape[0])
+        return loss
+
+    def train_batches(self, xs, y, unroll: bool = False) -> List[float]:
+        """K train steps with one host read at the end. ``xs``: per-input
+        arrays stacked [K, batch, ...]; ``y``: [K, batch, ...]. Returns
+        the K losses; metrics, parameters, op state and dropout draws end
+        as K ``train_one_batch`` calls leave them. ``unroll`` is accepted
+        for the JAX signature (whose scan lowers convolutions badly); the
+        port's block is the same eager loop either way."""
+        self._check_training()
+        stacked = self._feeds_from_arrays(xs)       # [K, batch, ...] each
+        labels = self._to_device(y, self.label_tensor.dtype)
+        losses, mets = [], []
+        for i in range(labels.shape[0]):
+            loss, met = self._train_step(
+                {tid: v[i] for tid, v in stacked.items()}, labels[i])
+            losses.append(loss)
+            mets.append(met)
+        losses, mets = self._read(losses, mets)
+        for met in mets:
+            self._perf.update(met, y.shape[1])
+        return losses
+
+    def fit(self, x=None, y=None, batch_size: Optional[int] = None,
+            epochs: Optional[int] = None, shuffle: bool = False,
+            initial_epoch: int = 0, steps_per_call: int = 1,
+            unroll: bool = False):
+        """Keras-style fit. ``initial_epoch`` offsets the shuffle seed, so
+        an outer loop calling fit(epochs=1) per epoch still gets a fresh
+        order each epoch; ``steps_per_call`` > 1 groups the batches
+        through ``train_batches`` (an epoch's tail runs step by step)."""
+        xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
+                                      else [x])]
+        y = np.asarray(y)
+        bs = batch_size or self.config.batch_size
+        epochs = epochs or self.config.epochs
+        if y.shape[0] < bs:
+            raise ValueError(
+                f"fit() needs at least one full batch: {y.shape[0]} samples "
+                f"< batch_size {bs}")
+        history = []
+        for epoch in range(epochs):
+            self.reset_metrics()
+            losses: List[float] = []
+            pend: List[Any] = []
+            for *bxs, by in minibatches(xs + [y], bs, shuffle=shuffle,
+                                        seed=self.config.seed
+                                        + initial_epoch + epoch):
+                if steps_per_call <= 1:
+                    losses.append(self.train_one_batch(bxs, by))
+                    continue
+                pend.append((bxs, by))
+                if len(pend) == steps_per_call:
+                    losses.extend(self.train_batches(
+                        [np.stack(a) for a in zip(*(p[0] for p in pend))],
+                        np.stack([p[1] for p in pend]), unroll=unroll))
+                    pend = []
+            for bxs, by in pend:
+                losses.append(self.train_one_batch(bxs, by))
+            history.append({"epoch": epoch, "loss": float(np.mean(losses)),
+                            **self._metrics_summary()})
+            print(f"epoch {epoch}: loss={history[-1]['loss']:.4f} "
+                  f"{self._perf.report()}")
+        return history
+
+    @torch.no_grad()
+    def _eval_step(self, feeds, label):
+        ctx = self._ctx(False)
+        values, _ = self._run_graph(self.params, feeds, ctx, self.op_state)
+        out = values[self._final_tensor.tensor_id]
+        logits = (values[self._logits_tensor.tensor_id]
+                  if self._logits_tensor is not None else None)
+        loss = (compute_loss(self.loss_type, out, label, logits=logits)
+                if self.loss_type else torch.zeros((), device=out.device))
+        return loss, compute_step_metrics(self.metrics, out, label,
+                                          self.loss_type)
+
+    def evaluate(self, x=None, y=None, batch_size: Optional[int] = None):
+        xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
+                                      else [x])]
+        y = np.asarray(y)
+        bs = batch_size or self.config.batch_size
+        if y.shape[0] < bs:
+            raise ValueError(
+                f"evaluate() needs at least one full batch: {y.shape[0]} "
+                f"samples < batch_size {bs}")
+        self.reset_metrics()
+        losses, mets = [], []
+        for *bxs, by in minibatches(xs + [y], bs):
+            loss, met = self._eval_step(
+                self._feeds_from_arrays(bxs),
+                self._to_device(by, self.label_tensor.dtype))
+            losses.append(loss)
+            mets.append(met)
+        losses, mets = self._read(losses, mets)
+        for met in mets:
+            self._perf.update(met, bs)
+        return {"loss": float(np.mean(losses)), **self._metrics_summary()}
+
+    @torch.no_grad()
+    def predict(self, x) -> np.ndarray:
+        """The final output for ``x`` (one batch), as fp32 numpy for a
+        16-bit output (numpy has no bfloat16)."""
+        if self.comp_mode is None:
+            raise RuntimeError("FFModel.compile() must be called before "
+                               "predict/fit/evaluate")
+        xs = x if isinstance(x, (list, tuple)) else [x]
+        values, _ = self._run_graph(self.params,
+                                    self._feeds_from_arrays(xs),
+                                    self._ctx(False), self.op_state)
+        out = values[self._final_tensor.tensor_id]
+        if out.dtype in (torch.bfloat16, torch.float16):
+            out = out.float()
+        return out.cpu().numpy()
+
+    # the reference's manual-loop verbs, with the JAX package's meaning:
+    # forward stages the batch, update(y) runs the whole train step
+    def forward(self, xs=None, seq_length: Optional[int] = None):
+        if xs is not None:
+            self._pending_batch = [np.asarray(a) for a in xs]
+
+    def backward(self, seq_length: Optional[int] = None):
+        pass    # the train step runs the backward pass inside update()
+
+    def update(self, y=None):
+        if y is None:
+            raise ValueError(
+                "the train step runs forward, backward and update together: "
+                "call train_one_batch(xs, y) (or fit), or pass the label "
+                "to update(y)")
+        if self._pending_batch is None:
+            raise ValueError("update(y) needs a prior forward(xs) call to "
+                             "stage the input batch")
+        return self.train_one_batch(self._pending_batch, y)
+
+    def zero_gradients(self):
+        """Drop every parameter's ``.grad`` (a train step does so first)."""
+        for lp in self.params.values():
+            for p in lp.values():
+                if isinstance(p, torch.Tensor):
+                    p.grad = None
+
+    def reset_metrics(self):
+        self._perf = PerfMetrics()
+
+    def _metrics_summary(self):
+        if MetricsType.METRICS_ACCURACY in self.metrics:
+            return {"accuracy": self._perf.accuracy}
+        return {}
+
+    @property
+    def perf_metrics(self) -> PerfMetrics:
+        return self._perf
+
+    # ==================================================================
     # Parameter access
     # ==================================================================
     def get_parameter_by_key(self, key: Tuple[str, str]) -> np.ndarray:
-        """The parameter as fp32 numpy: dequantized when quantized, sliced
-        out of its fused leaf when gemm fusion folded it into one."""
+        """A copy of the parameter as fp32 numpy: dequantized when
+        quantized, sliced out of its fused leaf when gemm fusion folded it
+        into one."""
         from flexflow_tpu_torch.serve.gemm_fusion import fused_param_get
 
         layer_name, weight_name = key
@@ -532,7 +908,8 @@ class FFModel:
         leaf = self.params[layer_name][weight_name]
         if is_quantized(leaf):
             leaf = dequantize_array(leaf)
-        return leaf.detach().float().cpu().numpy()
+        # a copy: a CPU parameter's own storage changes with every step
+        return leaf.detach().to("cpu", torch.float32, copy=True).numpy()
 
     def set_parameter_by_key(self, key: Tuple[str, str], value):
         """Copy ``value`` (numpy array or tensor) into the parameter, in the
@@ -554,4 +931,5 @@ class FFModel:
         if is_quantized(old):
             requantize_into(old, new)
             return
-        old.copy_(new)
+        with torch.no_grad():       # a trainable leaf takes the copy too
+            old.copy_(new)

@@ -73,9 +73,40 @@ class AggrMode(enum.Enum):
     AGGR_MODE_AVG = 22
 
 
+class PoolType(enum.Enum):
+    POOL_MAX = 30
+    POOL_AVG = 31
+
+
+class LossType(enum.Enum):
+    LOSS_CATEGORICAL_CROSSENTROPY = 50
+    LOSS_SPARSE_CATEGORICAL_CROSSENTROPY = 51
+    LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE = 52
+    LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE = 53
+    LOSS_IDENTITY = 54
+
+
+class MetricsType(enum.Enum):
+    METRICS_ACCURACY = 1001
+    METRICS_CATEGORICAL_CROSSENTROPY = 1002
+    METRICS_SPARSE_CATEGORICAL_CROSSENTROPY = 1004
+    METRICS_MEAN_SQUARED_ERROR = 1008
+    METRICS_ROOT_MEAN_SQUARED_ERROR = 1016
+    METRICS_MEAN_ABSOLUTE_ERROR = 1032
+
+
 class CompMode(enum.Enum):
     COMP_MODE_TRAINING = 70
     COMP_MODE_INFERENCE = 71
+
+
+class ParameterSyncType(enum.Enum):
+    """The reference's gradient-sync vocabulary (the JAX package's name
+    set; on one device there is nothing to sync)."""
+
+    NONE = 80
+    PS = 81
+    NCCL = 82
 
 
 class InferenceMode(enum.Enum):
@@ -89,6 +120,12 @@ class OpType(enum.Enum):
     the port implements (each later slice adds the ones it ports)."""
 
     EMBEDDING = enum.auto()
+    CONV2D = enum.auto()
+    POOL2D = enum.auto()
+    BATCHNORM = enum.auto()
+    DROPOUT = enum.auto()
+    MULTIHEAD_ATTENTION = enum.auto()
+    SOFTMAX = enum.auto()
     LAYERNORM = enum.auto()
     RESIDUAL_LAYERNORM = enum.auto()
     ADD_BIAS_RESIDUAL_LAYERNORM = enum.auto()

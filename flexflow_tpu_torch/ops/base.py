@@ -12,6 +12,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, List, Optional, Tuple, Type
 
+import torch
+
 from flexflow_tpu_torch.ffconst import DataType, OpType
 
 TensorSpec = Tuple[Tuple[int, ...], DataType]
@@ -28,6 +30,8 @@ def stable_hash(*parts) -> int:
 class OpContext:
     """Per-call execution context threaded through op forwards."""
 
+    # a train step's forward (dropout draws, BatchNorm batch statistics)
+    training: bool = False
     layer_name: str = ""
     compute_dtype: Any = None            # torch dtype for activations
     batch_config: Any = None             # serving BatchMeta
@@ -41,7 +45,20 @@ class OpContext:
     tree_bias: Any = None
     # torch.Generator on the model's device for the forward's random draws
     # (the JAX package's rng key); the InferenceManager owns and seeds it
+    # for sampling, the FFModel for a train step's dropout
     generator: Any = None
+
+    def keep_mask(self, shape, keep: float, device):
+        """A layer's Bernoulli(``keep``) draw of ``shape`` from
+        ``generator``, or None without one (the counterpart of
+        ``layer_rng``: the layers draw in graph order from the one
+        stateful generator, so a seeded step repeats bit for bit)."""
+        import torch
+
+        if self.generator is None:
+            return None
+        return torch.rand(shape, generator=self.generator,
+                          device=device) < keep
 
 
 class OpImpl:

@@ -1,7 +1,7 @@
-"""Normalization operators of the serving path (counterpart of
-``flexflow_tpu/ops/norm.py``): LayerNorm, ResidualLayerNorm and
-AddBiasResidualLayerNorm (OPT, Falcon, MPT, StarCoder), RMSNorm,
-ResidualRMSNorm and the SwiGLU gate SigmoidSiluMulti (LLaMA).
+"""Normalization operators (counterpart of ``flexflow_tpu/ops/norm.py``):
+LayerNorm, ResidualLayerNorm and AddBiasResidualLayerNorm (OPT, Falcon,
+MPT, StarCoder, BERT), RMSNorm, ResidualRMSNorm and the SwiGLU gate
+SigmoidSiluMulti (LLaMA), and the training path's BatchNorm.
 Bandwidth-bound elementwise + reduce passes left to PyTorch's own kernels,
 as the JAX package leaves them to XLA."""
 
@@ -178,3 +178,76 @@ class SigmoidSiluMulti(OpImpl):
             half = x.shape[-1] // 2
             return [F.silu(x[..., :half]) * x[..., half:]]
         return [F.silu(inputs[0]) * inputs[1]]
+
+
+@register_op
+class BatchNorm(OpImpl):
+    """Batch normalization over NCHW (or [N, C]) input, with the JAX
+    package's arithmetic rather than ``F.batch_norm``'s: fp32 statistics
+    in one pass about the running mean c (E[(x-c)^2] - (mean-c)^2), and
+    the running variance updated with the biased batch variance
+    (momentum 0.1). Eval uses the running statistics. The running
+    statistics are op state (``init_state``); a training forward puts the
+    updated pair in ``ctx.state_out``."""
+
+    op_type = OpType.BATCHNORM
+
+    @staticmethod
+    def infer_output_specs(attrs, input_specs):
+        return [input_specs[0]]
+
+    @staticmethod
+    def weight_specs(attrs, input_specs):
+        (shape, dtype) = input_specs[0]
+        if not attrs.get("relu", False) and not attrs.get("affine", True):
+            return []
+        return [WeightSpec("scale", (shape[1],), dtype,
+                           ConstantInitializer(1.0)),
+                WeightSpec("bias", (shape[1],), dtype, ZeroInitializer())]
+
+    @staticmethod
+    def init_state(attrs, input_specs, device):
+        c = input_specs[0][0][1]
+        return {"running_mean": torch.zeros(c, device=device),
+                "running_var": torch.ones(c, device=device)}
+
+    @staticmethod
+    def forward(attrs, params, inputs, ctx):
+        x = inputs[0]
+        eps = attrs.get("eps", 1e-5)
+        momentum = attrs.get("momentum", 0.1)
+        dims = (0, 2, 3) if x.dim() == 4 else (0,)
+        bshape = (1, -1, 1, 1) if x.dim() == 4 else (1, -1)
+        state = ctx.state_in.get(ctx.layer_name)
+        if ctx.training or state is None:
+            rm = state["running_mean"] if state is not None else None
+            xs = x.float()
+            if rm is not None:
+                xs = xs - rm.reshape(bshape)
+            dmean = xs.mean(dim=dims)
+            mean = dmean + rm if rm is not None else dmean
+            var = torch.clamp_min(xs.square().mean(dim=dims)
+                                  - dmean.square(), 0.0)
+            if state is not None:
+                with torch.no_grad():
+                    ctx.state_out[ctx.layer_name] = {
+                        "running_mean": (1 - momentum) * rm
+                        + momentum * mean,
+                        "running_var": (1 - momentum)
+                        * state["running_var"] + momentum * var}
+        else:
+            mean = state["running_mean"]
+            var = state["running_var"]
+        # normalization and affine folded into one fp32 scale and shift,
+        # then one multiply-add over the activation in its own dtype
+        rstd = torch.rsqrt(var.float() + eps)
+        scale, shift = rstd, -mean.float() * rstd
+        if "scale" in params:
+            g = params["scale"].float()
+            scale = rstd * g
+            shift = shift * g + params["bias"].float()
+        y = x * scale.to(x.dtype).reshape(bshape) \
+            + shift.to(x.dtype).reshape(bshape)
+        if attrs.get("relu", True):
+            y = F.relu(y)
+        return [y]
