@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases 1,2,9   # online serving alone
     python3 chip_smoke.py --phases 1,2,10  # OPT, Falcon, MPT, StarCoder
     python3 chip_smoke.py --phases 1,2,11  # training: BERT, ResNet-50
+    python3 chip_smoke.py --phases 1,2,12  # telemetry, the replica fleet
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -167,7 +168,38 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      finite losses falling from the first block to the last on the fixed
      batch, every parameter, gradient and optimizer-state tensor on the
      card, finite running statistics. ``--profile`` adds the device busy
-     share of one BERT train step.
+     share of one BERT train step;
+ 12. serving telemetry and the replica fleet (no new kernel; K1-K3 serve
+     every path). 12a: phase 8's models serve the 8 x 32-token prompts,
+     64 new tokens, incrementally and by SpecInfer at depth 7, in 3
+     alternating pairs of telemetry off and on (the process-global
+     ``ServingTelemetry``, a JSONL span trace per on pass): tokens/s off
+     and on and the overhead (reported), the fenced prefill, decode and
+     speculation block histograms' p50/p99 and each loop's host share,
+     1 - fenced block seconds / loop wall (reported); gates: tokens on ==
+     off, 8 finished requests and the generated-token counter equal to
+     the outputs a pass, speculation rounds > 0 with one acceptance
+     sample per round span, one admission and one finish span per
+     request, nothing recorded while off, K1, K1-bias, K2 and K3 launched
+     and no plain call. 12b: an HF-layout checkpoint at LLaMA-2-7B widths
+     cut to 4 layers (fp16), a ``ReplicaPool`` of 2 replicas cold-started
+     from it (``checkpoint_replica_factory``, int8 on load, 2 slots, a
+     64-position fp32 cache) behind a ``FleetTelemetry``, with
+     ``bench.py:457-538``'s traffic at vocab 32000: ``failover_run`` (8
+     req/s, 12 requests, a ``FaultInjector`` crash after 6 engine calls)
+     and ``spike_run`` (4 req/s x 16, 8 + 16 requests), a
+     ``MetricsHTTPServer`` over ``aggregate_registry`` scraped once
+     mid-run; gates: every request resolved, the failed-over requests'
+     tokens equal to an undisturbed replica's, a loadable incident
+     report, one trace pid row per replica, the respawn, the scale-up,
+     an alert in the chaos run and none in the steady base,
+     ``check_invariants`` clean, every replica's parameters on the card,
+     K1, K2 and K3 launched and no plain call; reported: each
+     ``cold_start_s``, ``failover_recovery_s``, ``slo_violation_s``, the
+     spike's latency p99. 12c: ``python -m flexflow_tpu_torch.serve`` in
+     a subprocess with 12b's checkpoint and ``--8bit-quantization`` (its
+     tokens equal to ``LLM.from_checkpoint(...).generate`` in process),
+     then with no ``--model``; both exit 0.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -2278,6 +2310,27 @@ def quantized_llm(torch, qtype, ssm_layers=None, **kw):
     return llm, (ssms[0] if ssms else None), time.perf_counter() - t0
 
 
+def headline_int8(torch):
+    """Phase 8's models (``bench.py``'s headline): LLaMA-2-7B geometry,
+    bf16 compute and cache, int8 weights quantized per layer at compile,
+    deep layers damped through dequantize -> scale -> re-quantize
+    (bench.py:218-234), a 2-layer draft on the verifier's int8 leaves,
+    depth 7, the controller on. Returns (llm, ssm, seconds)."""
+    from flexflow_tpu_torch import GenerationConfig
+    from flexflow_tpu_torch.quant import dequantize_array, requantize_into
+
+    llm, ssm, secs = quantized_llm(
+        torch, "int8", ssm_layers=DRAFT_LAYERS,
+        generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
+        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+    for i in range(DRAFT_LAYERS, LAYERS):
+        for lname, w in ((f"layers.{i}.self_attn", "wo"),
+                         (f"layers.{i}.mlp.down_proj", "kernel")):
+            leaf = llm.ffmodel.params[lname][w]
+            requantize_into(leaf, dequantize_array(leaf) * EPS)
+    return llm, ssm, secs
+
+
 def int8_phase(torch, card, bf16_decode_ms=None, profile=False):
     """``bench.py``'s headline: LLaMA-2-7B geometry, bf16 compute and
     cache, int8 weights quantized per layer at compile; deep layers
@@ -2289,21 +2342,12 @@ def int8_phase(torch, card, bf16_decode_ms=None, profile=False):
 
     import numpy as np
 
-    from flexflow_tpu_torch import GenerationConfig, kernels
-    from flexflow_tpu_torch.quant import (dequantize_array, quantized_nbytes,
-                                          requantize_into)
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.quant import quantized_nbytes
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
-    llm, ssm, secs = quantized_llm(
-        torch, "int8", ssm_layers=DRAFT_LAYERS,
-        generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
-        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+    llm, ssm, secs = headline_int8(torch)
     verifier = llm.ffmodel
-    for i in range(DRAFT_LAYERS, LAYERS):
-        for lname, w in ((f"layers.{i}.self_attn", "wo"),
-                         (f"layers.{i}.mlp.down_proj", "kernel")):
-            leaf = verifier.params[lname][w]
-            requantize_into(leaf, dequantize_array(leaf) * EPS)
     wbytes = quantized_nbytes(verifier.params)
     log(f"  build + load + quantize: {secs:.2f} s; verifier weights "
         f"{wbytes / 1e9:.3f} GB (payload + scale)  [{card}]")
@@ -2453,7 +2497,6 @@ def online_phase(torch, card):
     import threading
 
     from flexflow_tpu_torch import GenerationConfig, kernels
-    from flexflow_tpu_torch.quant import dequantize_array, requantize_into
     from flexflow_tpu_torch.serve.admission import AdmissionPolicy
     from flexflow_tpu_torch.serve.loadgen import (EngineHandle, LoadRunner,
                                                   TenantSpec, WorkloadSpec,
@@ -2464,16 +2507,8 @@ def online_phase(torch, card):
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
     t_phase = time.perf_counter()
-    llm, ssm, secs = quantized_llm(
-        torch, "int8", ssm_layers=DRAFT_LAYERS,
-        generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
-        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+    llm, ssm, secs = headline_int8(torch)
     verifier = llm.ffmodel
-    for i in range(DRAFT_LAYERS, LAYERS):
-        for lname, w in ((f"layers.{i}.self_attn", "wo"),
-                         (f"layers.{i}.mlp.down_proj", "kernel")):
-            leaf = verifier.params[lname][w]
-            requantize_into(leaf, dequantize_array(leaf) * EPS)
     log(f"  build + load + quantize: {secs:.2f} s  [{card}]")
     report = {}
     # the launches of the server-driven runs alone: the offline reference
@@ -3553,6 +3588,432 @@ def training_phase(torch, card, profile=False):
     return report
 
 
+# ----------------------------------------------------------------------
+# phase 12: serving telemetry and the replica fleet
+# ----------------------------------------------------------------------
+TEL_PAIRS = 3            # 12a: alternating (off, on) pairs in one process
+# 12b: the fleet's checkpoint, LLaMA-2-7B widths cut to FLEET_LAYERS, and
+# its replicas (checkpoint_replica_factory's JAX defaults: 2 slots, a
+# 64-position fp32 cache, fp32 compute)
+FLEET_LAYERS, FLEET_SLOTS, FLEET_MAX_SEQ = 4, 2, 64
+CLI_NEW = 16             # 12c: new tokens a CLI prompt
+
+
+def hist_pcts(h):
+    """[p50, p99] in ms of a telemetry histogram (None when empty)."""
+    if not h.count:
+        return None
+    return [1e3 * h.percentile(50), 1e3 * h.percentile(99)]
+
+
+def telemetry_phase(torch, card):
+    """12a: phase 8's models (LLaMA-2-7B geometry, int8 weights, bf16
+    compute and cache, the 2-layer draft, SpecInfer at depth 7) serve the
+    8 x 32-token prompts, 64 new tokens, incrementally and speculatively,
+    in TEL_PAIRS alternating pairs of telemetry off and on (the process-
+    global telemetry, a JSONL trace per on pass). Gates: tokens on == off;
+    per on pass 8 finished requests, the generated-token counter equal to
+    the outputs, speculation rounds > 0 and one acceptance sample per
+    round span, one admission and one finish span per request; nothing
+    recorded while off; K1, K1-bias, K2 and K3 launched, no plain call.
+    Reported: tokens/s off and on, the overhead, the block histograms'
+    p50/p99 and each loop's host share. Returns (launch counts, report)."""
+    import tempfile
+
+    import numpy as np
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch.telemetry import (disable_telemetry,
+                                              enable_telemetry,
+                                              get_telemetry, load_jsonl)
+
+    t_phase = time.perf_counter()
+    llm, ssm, secs = headline_int8(torch)
+    verifier, draft = llm.ffmodel, ssm.ffmodel
+    log(f"  build + load + quantize: {secs:.2f} s  [{card}]")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+
+    def one_pass(mode, new_tokens=NEW_TOKENS):
+        rm = RequestManager()
+        guids = [rm.register_new_request(p, max_new_tokens=new_tokens)
+                 for p in prompts]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if mode == "spec":
+            rm.generate_spec_infer(verifier, [draft],
+                                   generation_config=llm.generation_config)
+        else:
+            rm.generate_incr_decoding(verifier)
+        torch.cuda.synchronize()
+        return ([rm.results[g] for g in guids], time.perf_counter() - t)
+
+    disable_telemetry()
+    for mode in ("incr", "spec"):
+        one_pass(mode, 8)                                   # warm-up
+    modes = {m: {"off": [], "on": [], "host": [], "hists": None}
+             for m in ("incr", "spec")}
+    ref = {}
+    prev = None          # the last on pass's telemetry, closed
+    kernels.reset_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for pair in range(TEL_PAIRS):
+            for mode in ("incr", "spec"):
+                st = modes[mode]
+                for on in ((False, True) if pair % 2 == 0
+                           else (True, False)):
+                    if not on:
+                        before = prev.registry.snapshot() if prev else None
+                        disable_telemetry()
+                        res, wall = one_pass(mode)
+                        if get_telemetry() is not None or (
+                                prev and prev.registry.snapshot() != before):
+                            raise AssertionError("12a: telemetry recorded "
+                                                 "while off")
+                        fresh = enable_telemetry()
+                        if any(m.get("value", 0) or m.get("count", 0) for m
+                               in fresh.registry.snapshot().values()):
+                            raise AssertionError("12a: a fresh registry is "
+                                                 "not empty after the off "
+                                                 "pass")
+                        disable_telemetry()
+                    else:
+                        path = os.path.join(tmp, f"{mode}{pair}.jsonl")
+                        tel = enable_telemetry(path)
+                        res, wall = one_pass(mode)
+                        disable_telemetry()        # flushes the trace
+                        prev = tel
+                        check_telemetry_pass(mode, tel, res,
+                                             load_jsonl(path))
+                        r = tel.registry
+                        fenced = (r.get("ffsv_prefill_step_seconds").sum
+                                  + r.get("ffsv_decode_block_seconds").sum
+                                  + r.get("ffsv_spec_block_seconds").sum)
+                        st["host"].append(1.0 - fenced / wall)
+                        st["hists"] = r
+                    toks = [x.output_tokens for x in res]
+                    if ref.setdefault(mode, toks) != toks:
+                        raise AssertionError(f"12a {mode} pair {pair}: "
+                                             f"tokens with telemetry "
+                                             f"{'on' if on else 'off'} "
+                                             f"differ")
+                    n_tok = sum(len(t) for t in toks)
+                    st["on" if on else "off"].append(n_tok / wall)
+                    log(f"  {mode} pair {pair} telemetry "
+                        f"{'on ' if on else 'off'}: {n_tok} tokens in "
+                        f"{wall:.3f} s = {n_tok / wall:.1f} tokens/s  "
+                        f"[{card}]")
+    counts = dict(kernels.counts)
+    report = {}
+    for mode, st in modes.items():
+        off, on = statistics.median(st["off"]), statistics.median(st["on"])
+        over = [1.0 - b / a for a, b in zip(st["off"], st["on"])]
+        r = st["hists"]
+        h = {name: hist_pcts(r.get(f"ffsv_{name}_seconds"))
+             for name in ("prefill_step", "decode_block", "spec_block")}
+        report[mode] = dict(
+            tokens_per_s_off=st["off"], tokens_per_s_on=st["on"],
+            overhead_frac=statistics.median(over),
+            host_share=statistics.median(st["host"]),
+            block_ms_p50_p99=h)
+        log(f"  {mode}: tokens/s off {off:.1f} (median of "
+            f"{['%.1f' % x for x in st['off']]}), on {on:.1f} "
+            f"({['%.1f' % x for x in st['on']]}); overhead_frac "
+            f"{report[mode]['overhead_frac']:.4f} (pairs "
+            f"{['%.4f' % x for x in over]}); host share of the loop "
+            f"{report[mode]['host_share']:.4f} "
+            f"({['%.4f' % x for x in st['host']]})  [{card}]")
+        log(f"    fenced blocks, ms p50/p99 (last on pass): "
+            + "; ".join(f"{k} {v[0]:.3f}/{v[1]:.3f} "
+                        f"(n {r.get(f'ffsv_{k}_seconds').count})"
+                        for k, v in h.items() if v))
+    log(f"  phase 12a launches: {counts}")
+    if (not counts["flash_attend"] or not counts["flash_attend_bias"]
+            or not counts["flash_attend_append"] or not counts["qmatmul"]
+            or counts["plain_attend_cuda"] or counts["qmatmul_plain_cuda"]):
+        raise AssertionError(f"phase 12a launch gates: {counts}")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 12a: {report['seconds']:.1f} s  [{card}]")
+    del llm, ssm, verifier, draft
+    gc.collect()
+    return counts, report
+
+
+def check_telemetry_pass(mode, tel, results, events):
+    """12a's gates on one telemetry-on pass: its registry and its trace."""
+    r = tel.registry
+    n_out = sum(len(x.output_tokens) for x in results)
+    guids = sorted(x.guid for x in results)
+    rounds = [e for e in events if e["name"] == "decode_round"]
+    problems = []
+    if r.get("ffsv_requests_finished_total").value != REQUESTS:
+        problems.append("finished requests")
+    if r.get("ffsv_tokens_generated_total").value != n_out:
+        problems.append("generated tokens")
+    if mode == "spec" and not (
+            r.get("ffsv_spec_rounds_total").value > 0
+            and r.get("ffsv_acceptance_length").count == len(rounds)):
+        problems.append(f"rounds {r.get('ffsv_spec_rounds_total').value}, "
+                        f"acceptance samples "
+                        f"{r.get('ffsv_acceptance_length').count}, round "
+                        f"spans {len(rounds)}")
+    for name in ("admission", "finish"):
+        tids = sorted(e["tid"] for e in events if e["name"] == name)
+        if tids != guids:
+            problems.append(f"{name} spans {tids}")
+    if problems:
+        raise AssertionError(f"12a {mode} telemetry gates: {problems}")
+
+
+def write_fleet_checkpoint(torch, d):
+    """An HF-layout checkpoint (config.json + model.safetensors, fp16) of
+    ``seven_b``'s weights cut to FLEET_LAYERS. Returns the bytes written."""
+    from flexflow_tpu_torch.models import checkpoint_store as cs
+    from flexflow_tpu_torch.models.llama import LLAMAConfig
+
+    hf, sd = seven_b(torch, layers=FLEET_LAYERS)
+    tensors = {k: v.to(torch.float16).cpu().numpy() for k, v in sd.items()}
+    del sd
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, cs.CONFIG_NAME), "w") as f:
+        json.dump(cs.hf_config_dict("llama", LLAMAConfig.from_hf_config(hf)),
+                  f, indent=2, sort_keys=True)
+    return cs.write_safetensors(os.path.join(d, cs.SAFETENSORS_NAME),
+                                tensors, metadata={"format": "pt",
+                                                   "model_type": "llama"})
+
+
+def params_on_card(model) -> int:
+    """The count of the model's parameter tensors (a quantized leaf's
+    payload and scale included); raises if one is not on the card."""
+    import torch
+
+    n = 0
+    for lname, lp in model.params.items():
+        for w, leaf in lp.items():
+            ts = ([leaf] if isinstance(leaf, torch.Tensor)
+                  else [leaf.q, leaf.scale])
+            for t in ts:
+                if t.device.type != "cuda":
+                    raise AssertionError(f"12b: ({lname}, {w}) on "
+                                         f"{t.device}")
+                n += 1
+    return n
+
+
+def fleet_phase(torch, card, tmp):
+    """12b: a ReplicaPool of 2 replicas cold-started from an HF-layout
+    checkpoint at LLaMA-2-7B widths (FLEET_LAYERS layers), int8 on load,
+    behind a FleetTelemetry, with ``bench.py:457-538``'s traffic at vocab
+    32000: a seeded FaultInjector crash (``failover_run``: 8 req/s, 12
+    requests, crash after 6 engine calls), then ``spike_run`` (4 req/s
+    x 16, 8 + 16 requests) with the queue-triggered autoscaler; a
+    MetricsHTTPServer over ``aggregate_registry`` scraped once mid-run.
+    Returns (launch counts, report, checkpoint dir)."""
+    import threading
+    import urllib.request
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.faultinject import check_invariants
+    from flexflow_tpu_torch.serve.loadgen import TenantSpec, WorkloadSpec
+    from flexflow_tpu_torch.serve.replica import (ReplicaPool,
+                                                  checkpoint_replica_factory,
+                                                  failover_run, spike_run)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch.telemetry import (MetricsHTTPServer,
+                                              aggregate_registry,
+                                              load_incident_report)
+    from flexflow_tpu_torch.telemetry.fleet import FleetTelemetry
+    from flexflow_tpu_torch.telemetry.slo import SLOPolicy
+
+    t_phase = time.perf_counter()
+    ckpt = os.path.join(tmp, "fleet_ckpt")
+    t = time.perf_counter()
+    nbytes = write_fleet_checkpoint(torch, ckpt)
+    log(f"  checkpoint: LLaMA-2-7B widths (hidden {HIDDEN}, {HEADS} heads, "
+        f"intermediate {INTER}, vocab {VOCAB}) cut to {FLEET_LAYERS} of "
+        f"{LAYERS} layers, fp16 safetensors, {nbytes / 1e9:.3f} GB written "
+        f"in {time.perf_counter() - t:.2f} s")
+    fleet = FleetTelemetry(trace_dir=os.path.join(tmp, "fleet_obs"))
+    factory = checkpoint_replica_factory(
+        ckpt, slots=FLEET_SLOTS, max_seq=FLEET_MAX_SEQ, quantize="int8",
+        device="cuda")
+    pool = ReplicaPool(factory, n_replicas=2, telemetry=fleet)
+    spec = WorkloadSpec(prompt_lens=(4, 8), output_lens=(24, 32),
+                        vocab_size=VOCAB,
+                        tenants=(TenantSpec("default", 1.0, deadline_s=1.0),))
+    policy = SLOPolicy(name="fleet", fast_burn_threshold=6.0,
+                       slow_burn_threshold=3.0)
+    kernels.reset_counts()
+    pool.start_server()
+    log(f"  pool up: cold starts {pool.stats()['cold_starts_s']} s  [{card}]")
+    metrics = MetricsHTTPServer(aggregate_registry, host="127.0.0.1", port=0)
+    scrape = {}
+
+    def scraper():
+        # once mid-run: after half the failover run's requests resolved
+        stop = time.monotonic() + 300.0
+        while len(pool.rm.results) < 6 and time.monotonic() < stop:
+            time.sleep(0.005)
+        url = f"http://127.0.0.1:{metrics.port}/metrics"
+        with urllib.request.urlopen(url, timeout=30) as resp:
+            scrape.update(status=resp.status, text=resp.read().decode(),
+                          resolved=len(pool.rm.results))
+
+    th = threading.Thread(target=scraper, daemon=True)
+    th.start()
+    try:
+        fo = failover_run(pool, spec, rate_rps=8.0, n_requests=12, seed=0,
+                          crash_after=6, timeout_s=300.0, slo_policy=policy)
+        fo_results = dict(pool.rm.results)
+        th.join(60.0)
+        with pool._work:
+            respawned = pool._work.wait_for(lambda: pool.n_alive() == 2,
+                                            timeout=300.0)
+        sp = spike_run(pool, spec, base_rps=4.0, spike_multiple=16.0,
+                       n_base=8, n_spike=16, seed=1, timeout_s=300.0,
+                       slo_policy=policy)
+        n_params = [params_on_card(r.handle.ffmodel) for r in pool.replicas
+                    if r.alive and r.handle is not None]
+    finally:
+        pool.stop_server(flush_timeout_s=120.0)
+        metrics.stop()
+    counts = dict(kernels.counts)
+    stats = pool.stats()
+    problems = check_invariants(pool)
+    trace = fleet.stitch_chrome_trace(os.path.join(tmp, "fleet_trace.json"))
+    pids = sorted({e["pid"] for e in trace})
+    incidents = [load_incident_report(p) for p in pool.incident_reports]
+    fleet.close()
+    log(f"  failover_run: resolved {fo['resolved_fraction']}, "
+        f"{fo['n_failed_over']} failed over ({fo['failovers_total']} "
+        f"re-dispatches), injector {fo['injector']}, failover_recovery_s "
+        f"{fo['failover_recovery_s']}, alerts fired {fo['alerts_fired']}, "
+        f"respawned {respawned}  [{card}]")
+    log(f"  spike_run: {sp['base_rps']} -> {sp['spike_rps']} req/s, "
+        f"scaled_up {sp['scaled_up']} (trigger at {sp['scale_trigger_s']} "
+        f"s, outstanding >= {sp['scale_threshold']}), scale-up cold start "
+        f"{sp['cold_start_s']} s, slo_violation_s {sp['slo_violation_s']}, "
+        f"spike latency p50/p99 {sp['spike']['latency_p50_s']}/"
+        f"{sp['spike']['latency_p99_s']} s, ttft p99 "
+        f"{sp['spike']['ttft_p99_s']} s, base alerts "
+        f"{sp['slo']['base']['alerts_fired']}, spike alerts "
+        f"{sp['slo']['spike']['alerts_fired']}  [{card}]")
+    log(f"  cold_start_s each {stats['cold_starts_s']} (2 initial, the "
+        f"respawn, the scale-up); replicas {stats['n_replicas']}; incident "
+        f"reports {len(incidents)} ({[h['error'] for h, _ in incidents]}, "
+        f"{[len(e) for _, e in incidents]} events); stitched trace pids "
+        f"{pids}; scrape mid-run: HTTP {scrape.get('status')} after "
+        f"{scrape.get('resolved')} results, "
+        f"{len(scrape.get('text', '').splitlines())} lines; parameters on "
+        f"the card {n_params}; launches {counts}  [{card}]")
+    # the failover run's tokens against an undisturbed replica's
+    ref = factory(99)
+    res = list(fo_results.values())
+    rm = RequestManager()
+    guids = [rm.register_new_request(r.input_tokens,
+                                     max_new_tokens=len(r.output_tokens))
+             for r in res]
+    rm.generate_incr_decoding(ref.ffmodel)
+    same = [r.output_tokens == rm.results[g].output_tokens
+            for r, g in zip(res, guids)]
+    moved = [s for r, s in zip(res, same) if r.failovers]
+    log(f"  tokens equal to an undisturbed replica's: {sum(same)}/"
+        f"{len(same)}, failed-over {sum(moved)}/{len(moved)}")
+    del ref, rm
+    gates = {
+        "resolved 1.0": (fo["resolved_fraction"] == 1.0
+                         and sp["base"]["resolved_fraction"] == 1.0
+                         and sp["spike"]["resolved_fraction"] == 1.0),
+        "failed-over tokens": bool(moved) and all(same),
+        "incident report": len(incidents) >= 1,
+        "one pid per replica": pids == [r.id + 1 for r in pool.replicas],
+        "respawned": respawned,
+        "scaled_up": sp["scaled_up"],
+        "alerts": (fo["alerts_fired"] >= 1
+                   and sp["slo"]["base"]["alerts_fired"] == 0),
+        "check_invariants": problems == [],
+        "on the card": len(n_params) == stats["n_replicas"] and all(
+            n_params),
+        "scrape": (scrape.get("status") == 200
+                   and "ffsv_requests_total" in scrape.get("text", "")),
+        "launches": (counts["flash_attend"] > 0
+                     and counts["flash_attend_append"] > 0
+                     and counts["qmatmul"] > 0
+                     and not counts["plain_attend_cuda"]
+                     and not counts["qmatmul_plain_cuda"]),
+    }
+    failed = [k for k, ok in gates.items() if not ok]
+    if failed:
+        raise AssertionError(f"phase 12b gates failed: {failed}; "
+                             f"invariants {problems}")
+    report = dict(
+        depth_cut=f"{FLEET_LAYERS} of {LAYERS} layers",
+        cold_starts_s=stats["cold_starts_s"],
+        failover_recovery_s=fo["failover_recovery_s"],
+        resolved_fraction=fo["resolved_fraction"],
+        n_failed_over=fo["n_failed_over"],
+        alerts_fired_chaos=fo["alerts_fired"],
+        alerts_fired_steady=sp["slo"]["base"]["alerts_fired"],
+        scale_trigger_s=sp["scale_trigger_s"],
+        slo_violation_s=sp["slo_violation_s"],
+        spike_latency_p99_s=sp["spike"]["latency_p99_s"],
+        seconds=time.perf_counter() - t_phase)
+    log(f"  phase 12b: {report['seconds']:.1f} s  [{card}]")
+    gc.collect()
+    return counts, report, ckpt
+
+
+def cli_phase(torch, card, ckpt):
+    """12c: ``python -m flexflow_tpu_torch.serve`` in a subprocess on the
+    card, with 12b's checkpoint and ``--8bit-quantization`` (its tokens
+    must equal ``LLM.from_checkpoint(...).generate`` in this process),
+    then with no ``--model``; both must exit 0."""
+    from flexflow_tpu_torch import LLM
+
+    prompts = [[1, 5, 9, 23], [VOCAB - 7, 17, 42], [7] * 12]
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    base = [sys.executable, "-m", "flexflow_tpu_torch.serve",
+            "--device", "cuda", "--max-new-tokens", str(CLI_NEW)]
+    out = {}
+    for what, extra in (
+            ("checkpoint", ["--model", ckpt, "--8bit-quantization"]
+             + [a for p in prompts
+                for a in ("--prompt", ",".join(map(str, p)))]),
+            ("built-in", [])):
+        t = time.perf_counter()
+        proc = subprocess.run(base + extra, cwd=HERE, env=env,
+                              capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t
+        toks = [json.loads(line.split("output=", 1)[1])
+                for line in proc.stdout.splitlines()
+                if line.startswith("guid=")]
+        tail = proc.stdout.strip().splitlines()[-1:] or [""]
+        log(f"  CLI ({what}): exit {proc.returncode} in {secs:.1f} s; "
+            f"{tail[0]}  [{card}]")
+        if proc.returncode != 0:
+            raise AssertionError(f"12c CLI ({what}) exited "
+                                 f"{proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        out[what] = toks
+    llm = LLM.from_checkpoint(ckpt).compile(
+        max_requests_per_batch=4, max_seq_length=256,
+        max_tokens_per_batch=64, quantization_type="int8", device="cuda")
+    want = [r.output_tokens for r in llm.generate(prompts,
+                                                  max_new_tokens=CLI_NEW)]
+    del llm
+    gc.collect()
+    log(f"  CLI tokens equal to LLM.from_checkpoint(...).generate in "
+        f"process: {out['checkpoint'] == want}")
+    if out["checkpoint"] != want or not out["built-in"]:
+        raise AssertionError(f"12c: CLI tokens {out['checkpoint']} vs in "
+                             f"process {want}")
+    return {"cli_tokens_match": True}
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -3561,7 +4022,7 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -3670,6 +4131,24 @@ def main(argv=None) -> int:
     if 11 in phases:
         log(json.dumps({"training_phase": training_phase(
             torch, card, profile=args.profile)}))
+        gc.collect()
+    if 12 in phases:
+        import tempfile
+
+        log(f"phase 12a: telemetry on the headline path (phase 8's models), "
+            f"{TEL_PAIRS} alternating pairs off/on, incremental and "
+            f"SpecInfer depth {SPEC_DEPTH}, {REQUESTS} requests x "
+            f"{PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  [{card}]")
+        by_path["telemetry"], tel = telemetry_phase(torch, card)
+        log(json.dumps({"telemetry_phase": tel}))
+        gc.collect()
+        log(f"phase 12b: the replica fleet at LLaMA-2-7B width, int8 on "
+            f"load, {FLEET_SLOTS} slots a replica  [{card}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["fleet"], fleet, ckpt = fleet_phase(torch, card, tmp)
+            log("phase 12c: the serve CLI in a subprocess")
+            fleet["cli"] = cli_phase(torch, card, ckpt)
+        log(json.dumps({"fleet_phase": fleet}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

@@ -31,7 +31,12 @@ thread that concurrent ``generate`` calls join (with ``timeout_s``,
 ``tenant``, ``priority``; ``llm.cancel(guid)``), ``AdmissionPolicy``
 bounds its front door, ``GenerationConfig(prefix_cache=True)`` reuses
 shared prompt prefixes' KV, and ``serve.loadgen`` drives open-loop
-traffic through it and reports TTFT, latency and goodput.
+traffic through it and reports TTFT, latency and goodput. Telemetry
+(``compile(..., telemetry=True)``, ``telemetry/``) records the JAX
+package's ``ffsv_*`` metrics and per-request span traces, served by
+``llm.start_metrics_server``; ``serve.replica.ReplicaPool`` runs replicas
+cold-started from checkpoints behind one front door with crash failover;
+``python -m flexflow_tpu_torch.serve`` is the serving CLI.
 
 It trains, through the JAX package's verbs: ``compile(optimizer=,
 loss_type=, metrics=)`` then ``train_one_batch``, ``train_batches``,

@@ -1,5 +1,5 @@
 """FFConfig of the PyTorch/CUDA port: the training batch and epochs and
-the serving, quantization and fusion fields of
+the serving, quantization, fusion and telemetry fields of
 ``flexflow_tpu.config.FFConfig``, plus ``device``. There is no
 ``auto_parallel`` or ``remat``: the Unity search and rematerialization
 are not ported.
@@ -65,6 +65,14 @@ class FFConfig:
     # [E, 2I] Linear (serve/gemm_fusion.py). Off by default, as in the JAX
     # package, where it measured slower end to end
     gemm_fusion: bool = False
+
+    # --- serving telemetry (flexflow_tpu_torch/telemetry) ---
+    # enables the process-global metrics registry and per-request span
+    # tracing at LLM.compile. Off by default: the disabled decode path
+    # records nothing. telemetry_trace_path writes the JSONL span trace
+    # (Perfetto-loadable through export_chrome_trace).
+    telemetry: bool = False
+    telemetry_trace_path: str = ""
 
     def __post_init__(self):
         self.quantization_type = normalize_qtype(self.quantization_type)

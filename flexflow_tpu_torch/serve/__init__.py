@@ -2,7 +2,9 @@
 dispatcher, the speculative engines, the continuous-batching request
 manager with its request lifecycle (deadlines, cancellation, priorities,
 preemption, the shared-prefix KV pool), the ``LLM``/``SSM`` API with its
-background server, admission control and the load generator."""
+background server, admission control, the load generator, fault
+injection (``faultinject``), the replica pool (``replica``) and the CLI
+(``python -m flexflow_tpu_torch.serve``)."""
 
 from flexflow_tpu_torch.serve.admission import (AdmissionController,
                                                 AdmissionPolicy,

@@ -42,6 +42,12 @@ and installs shared prefixes instead of prefilling them. In server mode
 an ``admission`` policy (serve/admission.py) rejects over-limit
 submissions with ``RejectedError``.
 
+Telemetry: ``compile(..., telemetry=True)`` (an FFConfig field, with
+``telemetry_trace_path`` for the JSONL span trace) enables the
+process-global ``ServingTelemetry`` (flexflow_tpu_torch/telemetry), and
+``llm.start_metrics_server(port)`` serves its registry over HTTP
+(``GET /metrics``, ``GET /metrics.json``).
+
 ``LLM.from_checkpoint(dir, quantize="int8")`` (and ``SSM``'s) cold-starts
 from an HF-layout checkpoint on disk (``models/checkpoint_store.py``),
 quantizing on load when asked. Every family of ``models.FAMILIES`` serves
@@ -56,6 +62,7 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 
 from flexflow_tpu_torch.config import FFConfig
 from flexflow_tpu_torch.ffconst import CompMode, DataType, InferenceMode
+from flexflow_tpu_torch.serve.admission import RejectedError
 from flexflow_tpu_torch.serve.batch_config import GenerationConfig
 from flexflow_tpu_torch.serve.request_manager import (GenerationResult,
                                                       RequestManager)
@@ -124,6 +131,14 @@ class LLM:
                           max_sequence_length=max_seq_length,
                           max_tokens_per_batch=max_tokens_per_batch,
                           **ffconfig_kwargs)
+        if config.telemetry:
+            # enable-or-keep the process-global telemetry (a live
+            # instance's registry survives; the drafts compile with the
+            # same fields, so this runs once per model) and attach the
+            # requested trace path to its tracer
+            from flexflow_tpu_torch.telemetry import ensure_telemetry
+
+            ensure_telemetry(config.telemetry_trace_path or None)
         self.ffmodel = FFModel(config)
         self.family.build(self.ffmodel, self.model_config, mode=mode,
                           generation_config=self.generation_config,
@@ -235,6 +250,31 @@ class LLM:
         refusing submissions, until its thread ends."""
         return _stop_server(self, flush_timeout_s)
 
+    def start_metrics_server(self, port: int = 9600,
+                             host: str = "127.0.0.1"):
+        """Serve the telemetry registry over HTTP: ``GET /metrics``
+        (Prometheus text) and ``GET /metrics.json``. Enables telemetry if
+        it is not on yet (an endpoint over no registry is useless).
+        ``port=0`` binds an ephemeral port; the bound port is on the
+        returned server (``.port``). A port that cannot be bound raises."""
+        from flexflow_tpu_torch.telemetry import (MetricsHTTPServer,
+                                                  ensure_telemetry,
+                                                  get_telemetry)
+
+        ensure_telemetry()
+        if getattr(self, "_metrics_server", None) is None:
+            self._metrics_server = MetricsHTTPServer(
+                lambda: getattr(get_telemetry(), "registry", None),
+                host=host, port=port)
+        return self._metrics_server
+
+    def stop_metrics_server(self):
+        srv = getattr(self, "_metrics_server", None)
+        if srv is not None:
+            srv.stop()
+            self._metrics_server = None
+        return self
+
 
 def _run_loop(llm, rm: RequestManager) -> List[GenerationResult]:
     """One generation loop over everything ``rm`` has queued, through the
@@ -286,8 +326,8 @@ def _stop_server(llm, flush_timeout_s: Optional[float] = 30.0):
 
 
 class _BackgroundServer:
-    """The background serving loop (counterpart of the JAX package's,
-    without its telemetry). Submitter threads register requests under the
+    """The background serving loop (counterpart of the JAX package's).
+    Submitter threads register requests under the
     condition lock and wait on a per-submission event; the server thread
     runs generation loops whenever work is queued, and requests that
     arrive while a loop runs join its continuous batch at the next slot
@@ -297,6 +337,7 @@ class _BackgroundServer:
     under the same lock that registers it, so the queue-depth check and
     the registration are atomic; the realized queue waits of each loop
     feed the controller's windowed p99, which its retry-after hints use.
+    A rejection is noted in the manager's telemetry when it is on.
 
     Torch state that belongs to a thread (grad mode, the current device)
     is set on the server thread itself: grad off, and the model's device
@@ -327,7 +368,13 @@ class _BackgroundServer:
 
     def submit(self, prompts, max_new_tokens: int, max_length: int,
                timeout_s: Optional[float] = None, tenant: str = "default",
-               priority: int = 0) -> Tuple[List[int], threading.Event]:
+               priority: int = 0, trace_id: Optional[str] = None,
+               failovers: int = 0, preemptions: int = 0
+               ) -> Tuple[List[int], threading.Event]:
+        """Register ``prompts`` and return (guids, an event set once all
+        resolve). ``trace_id``, ``failovers`` and ``preemptions`` carry a
+        replica pool's fleet-wide id and earlier lives' counts
+        (RequestManager.register_new_request)."""
         ev = threading.Event()
         with self._work:
             if self._error is not None:
@@ -336,12 +383,20 @@ class _BackgroundServer:
                 raise RuntimeError(
                     "server is stopping/stopped; submit raced stop_server()")
             if self.admission is not None:
-                self.admission.admit(tenant, len(self.llm.rm.pending),
-                                     n=len(prompts))
+                depth = len(self.llm.rm.pending)
+                try:
+                    self.admission.admit(tenant, depth, n=len(prompts))
+                except RejectedError as e:
+                    tel = self.llm.rm._tel()
+                    if tel is not None:
+                        tel.note_rejected(tenant, e.reason, depth)
+                    raise
             guids = [self.llm.rm.register_new_request(
                 p, max_new_tokens=max_new_tokens,
                 max_sequence_length=max_length, timeout_s=timeout_s,
-                tenant=tenant, priority=priority) for p in prompts]
+                tenant=tenant, priority=priority, trace_id=trace_id,
+                failovers=failovers, preemptions=preemptions)
+                for p in prompts]
             self._waiters.append((set(guids), ev))
             self._work.notify_all()
         return guids, ev

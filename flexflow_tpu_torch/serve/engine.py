@@ -13,6 +13,13 @@ A sampled graph draws from the ``torch.Generator`` passed in (the JAX
 engines' RNG key); speculation is greedy and draws nothing. CUDA graphs
 for these loops are later work.
 
+Telemetry: ``run_block`` of every speculative engine records the block
+(``ServingTelemetry.record_spec_block``: its wall time up to the packed
+result's readback, which is the block's one fence, and the per-round
+accepted lengths and depths) in ``engine.telemetry`` or, when that is
+None, the process-global telemetry (``_resolve_tel``). No other host
+sync is added.
+
 Engines:
 
 * ``make_decode_block``: n decode steps per call (incremental decoding,
@@ -35,6 +42,7 @@ Engines:
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -46,6 +54,14 @@ from flexflow_tpu_torch.ops.inc_attention import commit_tree_kv
 from flexflow_tpu_torch.ops.reduction_ops import stable_top_k
 from flexflow_tpu_torch.serve.batch_config import BatchMeta, TreeBatchMeta
 from flexflow_tpu_torch.serve.inference_manager import VERIFY_WIDTH
+from flexflow_tpu_torch.telemetry import get_telemetry
+
+
+def _resolve_tel(explicit):
+    """Engine-side telemetry resolution: an explicitly injected
+    ServingTelemetry (the RequestManager hands its own through
+    ``engine.telemetry``) wins over the process-global one."""
+    return explicit if explicit is not None else get_telemetry()
 
 
 def build_feeds(model, meta):
@@ -221,6 +237,7 @@ class _SpecEngineBase:
         self._compute_dtype = torch_dtype(llm.config.compute_dtype)
         # verify passes run so far (one per round that had a live row)
         self.rounds_run = 0
+        self.telemetry = None   # explicit ServingTelemetry; None -> global
 
     def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
                min_depth, adapt):
@@ -256,9 +273,15 @@ class _SpecEngineBase:
         def t(x, dt=torch.int32):
             return torch.as_tensor(np.asarray(x), dtype=dt, device=dev)
 
+        tel = _resolve_tel(self.telemetry)
+        t0 = time.perf_counter()
         packed = self._block(t(tok), t(pos), t(active, torch.bool),
                              n_rounds, t(remaining), t(depth), min_depth,
                              adapt).cpu().numpy()
+        if tel is not None:     # the readback above is the block's fence
+            tel.record_spec_block(time.perf_counter() - t0,
+                                  packed[:, :, -2], self.depth,
+                                  self.tree_width, depths=packed[:, :, -1])
         return packed[:, :, :-2], packed[:, :, -2], packed[:, :, -1]
 
     def _packed0(self, R, dev):
@@ -284,6 +307,11 @@ class SpecChainEngine(_SpecEngineBase):
         super().__init__(llm, depth, max_rounds)
         self.ssm = ssm
         ssm.finalize_gemm_fusion()
+
+    @property
+    def tree_width(self) -> int:
+        """The verify pass's width: the pending token and the chain."""
+        return self.depth + 1
 
     def _round(self, tok, pos, active, depth_r, d_run):
         d, llm, ssm = self.depth, self.llm, self.ssm

@@ -60,6 +60,7 @@ __all__ = [
     "poisson_arrivals",
     "uniform_arrivals",
     "summarize",
+    "attribute_failover_wait",
     "overload_run",
     "find_knee",
     "sweep",
@@ -263,8 +264,10 @@ class RequestRecord:
     # accounting denominators.
     status: str = "ok"
     # times the request was re-dispatched to a surviving replica after a
-    # crash (the JAX package's replica pool); always 0 in the port
+    # crash (serve/replica.py); 0 on a single-engine run
     failovers: int = 0
+    # the fleet-wide correlation id of its spans (telemetry.tracing)
+    trace_id: str = ""
     # prompt tokens whose KV came from the shared-prefix pool instead of
     # being prefilled (serve/prefix_cache.py); 0 with the cache off
     prefix_hit_tokens: int = 0
@@ -382,6 +385,7 @@ class LoadRunner:
                 queue_wait_s=res.queue_wait_s, prefill_s=res.prefill_s,
                 deadline_s=req.deadline_s, status=res.status,
                 failovers=getattr(res, "failovers", 0),
+                trace_id=getattr(res, "trace_id", ""),
                 prefix_hit_tokens=getattr(res, "prefix_hit_tokens", 0)))
         records.extend(records_rejected)
         records.sort(key=lambda r: r.idx)
@@ -391,6 +395,32 @@ class LoadRunner:
 # ---------------------------------------------------------------------------
 # SLO accounting (pure; exact-number unit tests live on this seam)
 # ---------------------------------------------------------------------------
+
+def attribute_failover_wait(pool_latency_s: float, final_latency_s: float,
+                            final_queue_wait_s: float,
+                            final_prefill_s: float = 0.0):
+    """Split a failed-over request's pool-level latency into
+    (queue_wait_s, ttft_s).
+
+    A request that crashed mid-flight and was re-dispatched spends its
+    life in three places: queued/served on the dead replica (work that
+    was THROWN AWAY), queued on the survivor, and finally served on the
+    survivor. Only the LAST service counts as service time — everything
+    before the survivor's slot grant is wait, else per-replica p99
+    service times would absorb crash recovery and stop meaning "how fast
+    does a healthy replica serve" (the seam ``summarize()``'s
+    queue-wait/service split is built on).
+
+    Pure arithmetic on already-measured durations (unit-tested on a fake
+    clock): the survivor's own service time is
+    ``final_latency_s - final_queue_wait_s``; all remaining pool time is
+    attributed to queue wait, and TTFT restarts with the survivor's
+    re-prefill."""
+    service_s = max(0.0, final_latency_s - final_queue_wait_s)
+    queue_wait_s = max(0.0, pool_latency_s - service_s)
+    ttft_s = queue_wait_s + max(0.0, final_prefill_s)
+    return queue_wait_s, ttft_s
+
 
 def _pcts(values, lo=50, hi=99):
     srt = sorted(values)
@@ -450,8 +480,10 @@ def summarize(records: Sequence[RequestRecord],
         "n_timed_out": n_by.get("timed_out", 0),
         "n_cancelled": n_by.get("cancelled", 0),
         "n_errors": n_by.get("error", 0),
-        # crash-failover visibility (the JAX package's replica pool;
-        # always 0 here, kept so both packages report the same dict)
+        # crash-failover visibility: how many served requests were
+        # re-dispatched at least once, and the total re-dispatch count
+        # (their wait is attributed to queue_wait_s by the pool via
+        # attribute_failover_wait, so the service split stays honest)
         "n_failed_over": sum(r.failovers > 0 for r in recs),
         "failovers_total": sum(r.failovers for r in recs),
         "resolved_fraction": (round(len(recs) / n_scheduled, 4)

@@ -33,10 +33,20 @@ victim is re-queued and re-prefilled, so its tokens do not change), and
 ``_prefix_store``. Cancellation and deadlines are therefore reaped
 between decode blocks and speculation rounds, never inside one.
 
+Telemetry (``flexflow_tpu_torch/telemetry``): every loop resolves
+``_tel()`` (an explicit ``telemetry=``, else the process-global one) once
+a turn and, when it is on, records admissions, slot grants, preemptions,
+prefix lookups and stores, finishes, fenced prefill steps, decode blocks
+(whose tokens' readback is the fence) and speculation rounds; the engines
+record their own blocks. Telemetry off, every site costs one attribute
+read and records nothing, and the prefill steps stay asynchronous.
+Telemetry on or off, the tokens are the same.
+
 This Python loop is the only scheduler: the port has no native C++
-scheduler (the JAX package takes its Python loop too whenever
-priorities, deadlines or the prefix pool are in use). Not in this slice:
-telemetry hooks and the ``inference_debugging`` per-op dumps.
+scheduler. The JAX package takes its Python loop whenever priorities or
+the prefix pool are in use; it reaps deadlines and cancellations on its
+native loop too (``ffs_cancel``). Not in this slice: the
+``inference_debugging`` per-op dumps.
 """
 
 from __future__ import annotations
@@ -59,6 +69,7 @@ from flexflow_tpu_torch.serve.batch_config import (BatchMeta,
 from flexflow_tpu_torch.serve.inference_manager import (VERIFY_WIDTH,
                                                         InferenceManager,
                                                         kernel_serves)
+from flexflow_tpu_torch.telemetry import get_telemetry, mint_trace_id
 
 # Reference include/flexflow/batch_config.h:126 (MAX_BEAM_DEPTH)
 MAX_SPEC_DEPTH = 8
@@ -90,6 +101,14 @@ class Request:
     error: str = ""
     cancel_requested: bool = False
     preemptions: int = 0
+    # fleet failover (serve/replica.py): re-dispatches to a surviving
+    # replica after an engine crash (the pool re-registers the prompt with
+    # the count so far)
+    failovers: int = 0
+    # fleet-wide correlation id (telemetry.mint_trace_id), minted at the
+    # front door; kept across failover re-registration and preemption
+    # re-queues, it joins the request's spans across replicas' trace rows
+    trace_id: str = ""
     # shared-prefix KV pool: the refcounted entry of the admission-time
     # match (released at _collect), how many leading prompt positions it
     # covers, and whether the lookup ran
@@ -130,9 +149,10 @@ class GenerationResult:
     error: str = ""
     tenant: str = "default"
     preemptions: int = 0
-    # re-dispatches to another replica (the JAX package's replica pool);
-    # always 0 here, so loadgen.summarize accounts as it does there
+    # re-dispatches to a surviving replica after a crash (serve/replica.py)
     failovers: int = 0
+    # fleet-wide correlation id (see Request.trace_id)
+    trace_id: str = ""
     # leading prompt tokens served from the shared-prefix KV pool
     prefix_hit_tokens: int = 0
 
@@ -142,7 +162,8 @@ class RequestManager:
 
     _guid_counter = itertools.count(1000000)
 
-    def __init__(self, tokenizer=None, eos_token_id: Optional[int] = None):
+    def __init__(self, tokenizer=None, eos_token_id: Optional[int] = None,
+                 telemetry=None):
         self.tokenizer = tokenizer
         self.eos_token_id = eos_token_id
         self.pending: deque = deque()
@@ -166,6 +187,13 @@ class RequestManager:
         # ("rounds"), (request, round) pairs that committed tokens and the
         # tokens they committed, and the controller's parks
         self.spec_stats: Dict[str, int] = {}
+        # an explicit ServingTelemetry, or None: the process-global one,
+        # resolved once a loop turn (enabling mid-session attaches)
+        self.telemetry = telemetry
+
+    def _tel(self):
+        return self.telemetry if self.telemetry is not None \
+            else get_telemetry()
 
     def register_tokenizer(self, tokenizer, eos_token_id=None):
         self.tokenizer = tokenizer
@@ -179,11 +207,20 @@ class RequestManager:
                              timeout_s: Optional[float] = None,
                              deadline_s: Optional[float] = None,
                              tenant: str = "default",
-                             priority: int = 0) -> int:
+                             priority: int = 0,
+                             trace_id: Optional[str] = None,
+                             failovers: int = 0,
+                             preemptions: int = 0) -> int:
         """Register one request. ``timeout_s`` is relative to arrival;
         ``deadline_s`` is an absolute time.perf_counter() instant (wins
         when both are given). An expired request is resolved between
-        decode rounds with its partial output (``timed_out=True``)."""
+        decode rounds with its partial output (``timed_out=True``).
+
+        ``trace_id`` is the fleet-wide correlation id: the replica pool
+        passes the one it minted at its door (a failed-over request keeps
+        it across replicas; ``failovers`` and ``preemptions`` carry the
+        earlier lives' counts the same way); a lone manager mints its
+        own."""
         if isinstance(prompt, str):
             assert self.tokenizer is not None, "string prompts need a tokenizer"
             toks = list(self.tokenizer.encode(prompt))
@@ -198,13 +235,20 @@ class RequestManager:
                       max_new_tokens=max_new_tokens,
                       max_sequence_length=max_sequence_length,
                       arrival_s=arrival, tenant=tenant, priority=priority,
-                      deadline_s=deadline_s or 0.0)
+                      deadline_s=deadline_s or 0.0,
+                      trace_id=trace_id or mint_trace_id(),
+                      failovers=int(failovers),
+                      preemptions=int(preemptions))
         if self.prefix_cache is not None:
             # the radix lookup and its refcount happen at admission, so
             # eviction before the slot grant cannot pull the segment away
             self._prefix_match(req)
         self.pending.append(req)
         self.inflight[guid] = req
+        tel = self._tel()
+        if tel is not None:
+            tel.note_admission(guid, len(toks), max_new_tokens,
+                               trace_id=req.trace_id)
         return guid
 
     def cancel(self, guid: int) -> bool:
@@ -269,8 +313,16 @@ class RequestManager:
             status=req.status, timed_out=req.status == "timed_out",
             cancelled=req.status == "cancelled", error=req.error,
             tenant=req.tenant, preemptions=req.preemptions,
+            failovers=req.failovers, trace_id=req.trace_id,
             prefix_hit_tokens=req.prefix_hit_tokens)
         self.inflight.pop(req.guid, None)
+        tel = self._tel()
+        if tel is not None:
+            tel.note_finish(req.guid, len(out), res.latency_s, res.ttft_s,
+                            queue_wait_s=res.queue_wait_s,
+                            prefill_s=res.prefill_s, status=req.status,
+                            failovers=req.failovers,
+                            preemptions=req.preemptions)
         if self.tokenizer is not None:
             try:
                 res.input_text = self.tokenizer.decode(res.input_tokens)
@@ -295,6 +347,9 @@ class RequestManager:
         req.slot = slot
         req.prefill_start_s = time.perf_counter()
         active[slot] = req
+        tel = self._tel()
+        if tel is not None:
+            tel.note_slot_grant(req.guid, slot)
         return True
 
     def _next_pending(self) -> Optional[Request]:
@@ -365,6 +420,9 @@ class RequestManager:
             active[slot] = None
             self.pending.remove(cand)
             self.pending.append(victim)
+            tel = self._tel()
+            if tel is not None:
+                tel.note_preempted(victim.guid)
             self._grant(cand, slot, active, max_seq, done)
 
     def _reap_expired(self, active, max_seq: int,
@@ -423,6 +481,9 @@ class RequestManager:
             req.prefix_entry = entry
             req.prefix_len = shared
             req.prefix_hit_tokens = shared
+        tel = self._tel()
+        if tel is not None:
+            tel.note_prefix_lookup(shared, pc.pool_tokens)
 
     def _prefix_install(self, active, pairs):
         """Grant-time KV install: a slotted request holding a pool handle
@@ -482,8 +543,12 @@ class RequestManager:
                                          len(prompt))
             if segs is not None:
                 segments[key] = segs
-        if "llm" in segments:
-            pc.insert(prompt, segments)
+        if "llm" not in segments:
+            return
+        _entry, evicted = pc.insert(prompt, segments)
+        tel = self._tel()
+        if tel is not None:
+            tel.note_prefix_store(evicted, pc.pool_tokens)
 
     @staticmethod
     def _ifm(model) -> InferenceManager:
@@ -493,10 +558,51 @@ class RequestManager:
             ifm = model._inference_manager = InferenceManager(model)
         return ifm
 
+    # -- telemetry hooks (all no-ops when telemetry is disabled) -----------
     @staticmethod
     def _note_first_token(req: Request):
         if not req.first_token_s and req.num_generated > 0:
             req.first_token_s = time.perf_counter()
+
+    def _timed_prefill(self, ifm, meta, tel, rows, active):
+        """One prefill step, wall-clocked when telemetry is on. Its outputs
+        stay on the device (the KV lands in the caches in place), so honest
+        timing needs an explicit fence (``utils/profiling.device_fence`` on
+        the model's caches). The fence runs only with telemetry on; off,
+        the step stays asynchronous. ``rows``/``active`` feed the
+        per-request prefill spans."""
+        if tel is None:
+            ifm.step(meta, want_output=False)
+            return
+        from flexflow_tpu_torch.utils.profiling import device_fence
+
+        t0 = time.perf_counter()
+        ifm.step(meta, want_output=False)
+        device_fence(ifm.model.op_state)
+        tel.record_prefill(time.perf_counter() - t0,
+                           sum(len(chunk) for _, chunk, _ in rows),
+                           [(active[slot].guid, sp, len(chunk))
+                            for slot, chunk, sp in rows])
+
+    def _tel_tick(self, tel, live, slots: int, max_seq: int):
+        """Once per scheduling tick that dispatches decode or speculation
+        work: queue depth, batch occupancy, KV-cache utilization."""
+        if tel is None:
+            return
+        kv = (sum(len(r.tokens) for r in live)
+              / (len(live) * max_seq)) if live else None
+        tel.note_batch(len(self.pending), len(live), slots, kv)
+
+    def _timed_decode(self, ifm, tel, live, tok, pos, act, block):
+        """One decode block; with telemetry on, its wall time (the tokens'
+        readback is the fence) and per-request spans."""
+        if tel is None:
+            return ifm.decode_block(tok, pos, act, block)
+        t0 = time.perf_counter()
+        toks = ifm.decode_block(tok, pos, act, block)
+        tel.record_decode_block(time.perf_counter() - t0, block, len(live),
+                                [r.guid for r in live])
+        return toks
 
     @staticmethod
     def _meta_from_rows(R: int, Q: int, rows) -> BatchMeta:
@@ -557,6 +663,7 @@ class RequestManager:
         pairs = (("llm", ifm),)
 
         while self.pending or any(a is not None for a in active):
+            tel = self._tel()
             self._reap_expired(active, max_seq, done)
             self._fill_slots(active, max_seq, done)
             self._prefix_install(active, pairs)
@@ -567,8 +674,8 @@ class RequestManager:
                                       lambda r: r.cache_depth,
                                       cfg.max_tokens_per_batch)
             if rows:
-                ifm.step(self._meta_from_rows(R, chunk, rows),
-                         want_output=False)
+                self._timed_prefill(ifm, self._meta_from_rows(R, chunk, rows),
+                                    tel, rows, active)
                 for slot, chunk_toks, sp in rows:
                     active[slot].cache_depth = sp + len(chunk_toks)
             live = [req for req in active
@@ -592,7 +699,9 @@ class RequestManager:
                 # never decode past the KV cache end
                 block = max(1, min(block,
                                    max_seq - 1 - int(pos[act].max())))
-                toks = ifm.decode_block(tok, pos, act, block)
+                self._tel_tick(tel, live, R, max_seq)
+                toks = self._timed_decode(ifm, tel, live, tok, pos, act,
+                                          block)
                 for req in live:
                     for j in range(block):
                         req.tokens.append(int(toks[req.slot, j]))
@@ -679,10 +788,19 @@ class RequestManager:
             beam_width=beam_width), gc
 
     @staticmethod
-    def _partition_spec(ctrl, roomy, rounds):
+    def _tick_controller(ctrl, tel, live):
+        if ctrl is None or tel is None:
+            return
+        stats = ctrl.live_stats(r.guid for r in live)
+        tel.note_spec_controller(stats["ewma_mean"], stats["n_fallback"],
+                                 ctrl.take_new_fallbacks())
+
+    def _partition_spec(self, ctrl, tel, live, roomy, rounds):
         """Split the roomy requests into (draftable, parked) by the
-        controller, and shrink a tick that only probes parked requests to
-        one round. Returns (draftable, parked, rounds)."""
+        controller (feeding its telemetry gauges), and shrink a tick that
+        only probes parked requests to one round. Returns (draftable,
+        parked, rounds)."""
+        self._tick_controller(ctrl, tel, live)
         if ctrl is None:
             return roomy, [], rounds
         draftable = [req for req in roomy if ctrl.wants_draft(req.guid)]
@@ -692,7 +810,7 @@ class RequestManager:
             rounds = 1
         return draftable, parked, rounds
 
-    def _fallback_decode(self, llm_ifm, reqs, R, max_seq, cfg) -> int:
+    def _fallback_decode(self, llm_ifm, reqs, R, max_seq, cfg, tel) -> int:
         """Incremental decode block for the requests the controller parked:
         the program generate_incr_decoding drives, so a parked request
         pays the incremental cost and emits the same greedy tokens. Draft
@@ -708,7 +826,8 @@ class RequestManager:
             pos[req.slot] = len(req.tokens) - 1
             act[req.slot] = True
         block = max(1, min(block, max_seq - 1 - int(pos[act].max())))
-        toks = llm_ifm.decode_block(tok, pos, act, block)
+        self._tel_tick(tel, reqs, R, max_seq)
+        toks = self._timed_decode(llm_ifm, tel, reqs, tok, pos, act, block)
         for req in reqs:
             for j in range(block):
                 req.tokens.append(int(toks[req.slot, j]))
@@ -718,12 +837,17 @@ class RequestManager:
             req.cache_depth = len(req.tokens) - 1
         return block
 
-    def _cramped_step(self, llm_ifm, cramped, R, max_seq, n_ssms):
+    def _cramped_step(self, llm_ifm, cramped, R, max_seq, n_ssms, tel):
         """One width-1 verifier step for requests whose cache has no room
         for a speculation round; their draft caches fall behind."""
         rows = [(req.slot, req.tokens[-1:], len(req.tokens) - 1)
                 for req in cramped]
+        t0 = time.perf_counter()
         out = llm_ifm.step(self._meta_from_rows(R, 1, rows))
+        if tel is not None:       # the step's readback is the fence
+            tel.record_decode_block(time.perf_counter() - t0, 1,
+                                    len(cramped),
+                                    [req.guid for req in cramped])
         for req in cramped:
             sp = len(req.tokens) - 1
             req.tokens.append(int(out[req.slot, 0]))
@@ -755,8 +879,9 @@ class RequestManager:
         at its budget and at EOS (where incremental decoding would have
         stopped). ``tokens_of(k, n)`` is round k's committed tokens.
         Returns ([(depth_used, n_acc)] of the rounds it ran, its last
-        round's root position)."""
-        observed = []
+        round's root position, [(round, n_acc, tokens committed)] for the
+        round spans)."""
+        observed, events = [], []
         last_rpos = len(req.tokens) - 1
         for k in range(rounds):
             n = int(n_acc[req.slot, k])
@@ -773,10 +898,11 @@ class RequestManager:
                     and self.eos_token_id in new_toks):
                 new_toks = new_toks[:new_toks.index(self.eos_token_id) + 1]
             req.tokens.extend(new_toks)
+            events.append((k, n, len(new_toks)))
             if self._finish_if_done(req, max_seq):
                 break
         self._note_first_token(req)
-        return observed, last_rpos
+        return observed, last_rpos, events
 
     def _generate_spec_chain(self, llm, ssm,
                              spec_depth: Optional[int] = None,
@@ -832,6 +958,7 @@ class RequestManager:
         pairs = (("llm", llm_ifm), ("ssm0", ssm_ifm))
 
         while self.pending or any(a is not None for a in active):
+            tel = self._tel()
             self._reap_expired(active, max_seq, done, ctrl)
             self._fill_slots(active, max_seq, done, self._parked(ctrl, active))
             self._prefix_install(active, pairs)
@@ -853,8 +980,9 @@ class RequestManager:
                             and (ctrl is None
                                  or ctrl.wants_draft(active[slot].guid))]
                 if rows:
-                    ifm.step(self._meta_from_rows(R, chunk, rows),
-                             want_output=False)
+                    self._timed_prefill(
+                        ifm, self._meta_from_rows(R, chunk, rows), tel, rows,
+                        active)
                     for slot, toks, sp in rows:
                         if ifm is llm_ifm:
                             active[slot].cache_depth = sp + len(toks)
@@ -872,8 +1000,8 @@ class RequestManager:
                 cramped = [req for req in ready
                            if max_seq - len(req.tokens) - 1 < room_needed]
                 draftable, parked, rounds = self._partition_spec(
-                    ctrl, roomy, min(cfg.spec_rounds_per_call,
-                                     engine.max_rounds))
+                    ctrl, tel, live, roomy, min(cfg.spec_rounds_per_call,
+                                                engine.max_rounds))
                 if prefilled:
                     rounds = 1    # prefill pending: back to the next chunk
                 # a draft cache still catching up drafts next turn
@@ -881,25 +1009,36 @@ class RequestManager:
                              if req.ssm_cache_depth.get(0, 0)
                              == len(req.tokens) - 1]
                 if cramped:
-                    self._cramped_step(llm_ifm, cramped, R, max_seq, 1)
+                    self._cramped_step(llm_ifm, cramped, R, max_seq, 1, tel)
                 if parked:
-                    self._fallback_decode(llm_ifm, parked, R, max_seq, cfg)
+                    self._fallback_decode(llm_ifm, parked, R, max_seq, cfg,
+                                          tel)
                     for req in parked:
                         ctrl.note_fallback_block(req.guid)
                 if draftable:
                     tok, pos, act, remaining, depth_vec = \
                         self._engine_inputs(draftable, R, max_seq, ctrl,
                                             depth)
+                    self._tel_tick(tel, draftable, R, max_seq)
+                    # engines are cached on the llm across managers: hand
+                    # THIS manager's explicit telemetry through (None keeps
+                    # the engine on the process-global one)
+                    engine.telemetry = self.telemetry
+                    t0 = time.perf_counter()
                     a, n_acc, d_used = engine.run_block(
                         tok, pos, act, rounds, remaining, depth=depth_vec,
                         min_depth=gc.min_spec_depth)
+                    block_dt = time.perf_counter() - t0
                     for req in draftable:
-                        observed, _ = self._take_rounds(
+                        observed, _, events = self._take_rounds(
                             req, rounds, n_acc, d_used,
                             lambda k, n, s=req.slot:
                             [int(t) for t in a[s, k, :n + 1]], max_seq)
                         if ctrl is not None:
                             ctrl.observe_block(req.guid, observed)
+                        if tel is not None and events:
+                            tel.trace_rounds(req.guid, events, t0, block_dt,
+                                             rounds)
                         d = len(req.tokens) - 1
                         req.cache_depth = d
                         req.ssm_cache_depth[0] = d
@@ -955,6 +1094,7 @@ class RequestManager:
                  *((f"ssm{i}", m) for i, m in enumerate(ssm_ifms)))
 
         while self.pending or any(a is not None for a in active):
+            tel = self._tel()
             self._reap_expired(active, max_seq, done, ctrl)
             self._fill_slots(active, max_seq, done, self._parked(ctrl, active))
             self._prefix_install(active, pairs)
@@ -962,8 +1102,9 @@ class RequestManager:
             rows = self._prefill_rows(active, chunk, lambda r: r.cache_depth,
                                       cfg.max_tokens_per_batch)
             if rows:
-                llm_ifm.step(self._meta_from_rows(R, chunk, rows),
-                             want_output=False)
+                self._timed_prefill(llm_ifm,
+                                    self._meta_from_rows(R, chunk, rows), tel,
+                                    rows, active)
                 for slot, toks, sp in rows:
                     active[slot].cache_depth = sp + len(toks)
                 prefilled = True
@@ -976,8 +1117,9 @@ class RequestManager:
                         and (ctrl is None
                              or ctrl.wants_draft(active[slot].guid))]
                 if rows:
-                    ifm.step(self._meta_from_rows(R, chunk, rows),
-                             want_output=False)
+                    self._timed_prefill(
+                        ifm, self._meta_from_rows(R, chunk, rows), tel, rows,
+                        active)
                     for slot, toks, sp in rows:
                         active[slot].ssm_cache_depth[i] = sp + len(toks)
                     prefilled = True
@@ -992,32 +1134,40 @@ class RequestManager:
             cramped = [req for req in ready
                        if max_seq - len(req.tokens) < room_needed]
             draftable, parked, rounds = self._partition_spec(
-                ctrl, roomy, min(cfg.spec_rounds_per_call, engine.max_rounds))
+                ctrl, tel, live, roomy,
+                min(cfg.spec_rounds_per_call, engine.max_rounds))
             if prefilled:
                 rounds = 1
             draftable = [req for req in draftable
                          if all(req.ssm_cache_depth.get(i, 0)
                                 == len(req.tokens) - 1 for i in range(B))]
             if cramped:
-                self._cramped_step(llm_ifm, cramped, R, max_seq, B)
+                self._cramped_step(llm_ifm, cramped, R, max_seq, B, tel)
             if parked:
-                self._fallback_decode(llm_ifm, parked, R, max_seq, cfg)
+                self._fallback_decode(llm_ifm, parked, R, max_seq, cfg, tel)
                 for req in parked:
                     ctrl.note_fallback_block(req.guid)
             if draftable:
                 tok, pos, act, remaining, depth_vec = self._engine_inputs(
                     draftable, R, max_seq, ctrl, depth)
+                self._tel_tick(tel, draftable, R, max_seq)
+                engine.telemetry = self.telemetry   # see the chain loop
+                t0 = time.perf_counter()
                 toks, n_acc, d_used = engine.run_block(
                     tok, pos, act, rounds, remaining, depth=depth_vec,
                     min_depth=gc.min_spec_depth)
+                block_dt = time.perf_counter() - t0
                 for req in draftable:
-                    observed, last_rpos = self._take_rounds(
+                    observed, last_rpos, events = self._take_rounds(
                         req, rounds, n_acc, d_used,
                         lambda k, n, s=req.slot:
                         [int(t) for t in toks[s, k, :n]]
                         + [int(toks[s, k, depth])], max_seq)
                     if ctrl is not None:
                         ctrl.observe_block(req.guid, observed)
+                    if tel is not None and events:
+                        tel.trace_rounds(req.guid, events, t0, block_dt,
+                                         rounds)
                     d = len(req.tokens) - 1
                     # the verifier committed through the last accepted
                     # prefix in-engine; a draft cache is right only through
@@ -1064,6 +1214,7 @@ class RequestManager:
             ("rounds", "request_rounds", "committed", "parked"), 0)
 
         while self.pending or any(a is not None for a in active):
+            tel = self._tel()
             self._reap_expired(active, max_seq, done)
             self._fill_slots(active, max_seq, done)
             prefilled = False
@@ -1074,8 +1225,9 @@ class RequestManager:
                 rows = self._prefill_rows(active, chunk, depth_of,
                                           cfg.max_tokens_per_batch)
                 if rows:
-                    ifm.step(self._meta_from_rows(R, chunk, rows),
-                             want_output=False)
+                    self._timed_prefill(
+                        ifm, self._meta_from_rows(R, chunk, rows), tel, rows,
+                        active)
                     for slot, toks, sp in rows:
                         if setter is None:
                             active[slot].cache_depth = sp + len(toks)
@@ -1088,6 +1240,10 @@ class RequestManager:
             live = [req for req in active
                     if req is not None and not req.finished]
             if live:
+                self._tel_tick(tel, live, R, max_seq)
+                if tel is not None:
+                    tel.draft_depth.set(depth)
+                    tel.tree_width.set(T)
                 # per branch: slot -> drafted tokens
                 chains: List[Dict[int, List[int]]] = []
                 for i, ifm in enumerate(ssm_ifms):
@@ -1100,7 +1256,7 @@ class RequestManager:
                 trees = {req.slot: self._merge_tree(req, chains, max_seq)
                          for req in live}
                 self._verify_and_commit(llm, llm_ifm, live, trees, R, T,
-                                        max_seq)
+                                        max_seq, tel)
             self._collect_finished(active, done)
         return done
 
@@ -1245,7 +1401,8 @@ class RequestManager:
             req.ssm_cache_depth[ssm_idx] = start[s] + 1
         return out_chains
 
-    def _verify_and_commit(self, llm, ifm, live, trees, R, T, max_seq):
+    def _verify_and_commit(self, llm, ifm, live, trees, R, T, max_seq,
+                           tel=None):
         """Verify each live request's merged tree in one LLM step (width
         ``T`` padded to ``VERIFY_WIDTH``), accept the longest root path
         whose nodes match the verifier's argmax plus the bonus token, and
@@ -1270,10 +1427,13 @@ class RequestManager:
                 node_depth[req.slot, j] = node_depth[req.slot, npar[j]] + 1
             positions[req.slot, :n] = sp + node_depth[req.slot, :n]
             start[req.slot], num[req.slot], act[req.slot] = sp, n, True
+        t0 = time.perf_counter()
         out = ifm.step(TreeBatchMeta(
             tokens=tokens, positions=positions, parent=parent,
             ancestor=ancestor_mask_from_parents(parent), start_pos=start,
             num_nodes=num, active=act))                   # [R, T] argmax
+        if tel is not None:           # the step's readback is the fence
+            tel.spec_block_seconds.observe(time.perf_counter() - t0)
         self.spec_stats["rounds"] += 1
         src_node = np.zeros((R, self.max_spec_depth + 1), np.int32)
         ncommit = np.zeros((R,), np.int32)
@@ -1306,6 +1466,12 @@ class RequestManager:
                 new_toks = new_toks[:new_toks.index(self.eos_token_id) + 1]
             req.tokens.extend(new_toks)
             self._note_first_token(req)
+            if tel is not None:
+                # one host-stepped round: the per-round metrics the fused
+                # engines record in run_block
+                tel.spec_rounds.inc()
+                tel.acceptance_length.observe(len(path))
+                tel.tokens_per_round.observe(len(new_toks))
             req.cache_depth = min(start[req.slot] + 1 + len(path),
                                   len(req.tokens) - 1)
             self._finish_if_done(req, max_seq)

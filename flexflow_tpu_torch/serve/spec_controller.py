@@ -34,14 +34,16 @@ capping acceptance per row. Inside a block the engine also applies the
 grow-on-full-accept / shrink-on-zero-accept rule per round; the host
 re-anchors the vector from the cost model between blocks.
 
-The JAX module's telemetry hooks (``live_stats``, ``take_new_fallbacks``)
-are not ported; ``SpecController.fallback_entries_total`` counts parks.
+``SpecController.fallback_entries_total`` counts parks; the telemetry
+hooks ``take_new_fallbacks`` and ``live_stats`` feed the
+``ffsv_spec_fallback_*`` and ``ffsv_spec_acceptance_ewma`` metrics once a
+scheduling tick.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, List, Sequence, Tuple
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 from flexflow_tpu_torch.quant import quantized_nbytes
 
@@ -220,6 +222,7 @@ class SpecController:
         self.policy = policy
         self.states: Dict[int, ReqState] = {}
         self.fallback_entries_total = 0
+        self._reported_fallbacks = 0
 
     @classmethod
     def from_generation_config(cls, gc, llm, ssms: Sequence,
@@ -248,6 +251,12 @@ class SpecController:
             # fallback entry too
             self.fallback_entries_total += st.fallback_entries
         return st
+
+    def take_new_fallbacks(self) -> int:
+        """Fallback entries since the last call (telemetry counter feed)."""
+        n = self.fallback_entries_total - self._reported_fallbacks
+        self._reported_fallbacks = self.fallback_entries_total
+        return n
 
     def wants_draft(self, guid: int) -> bool:
         st = self._state(guid)
@@ -281,3 +290,14 @@ class SpecController:
 
     def drop(self, guid: int) -> None:
         self.states.pop(guid, None)
+
+    # -- telemetry snapshot -------------------------------------------------
+    def live_stats(self, guids: Optional[Iterable[int]] = None) -> dict:
+        states = ([self.states[g] for g in guids if g in self.states]
+                  if guids is not None else list(self.states.values()))
+        if not states:
+            return {"ewma_mean": None, "n_fallback": 0}
+        return {
+            "ewma_mean": sum(s.acceptance for s in states) / len(states),
+            "n_fallback": sum(1 for s in states if s.fallback),
+        }

@@ -16,14 +16,15 @@ deterministic timelines.
 What counts as a *bad* request is the policy's business
 (:class:`SLOPolicy`): terminal status other than ``ok`` always does;
 crash failovers, missed deadlines, and per-request latency/TTFT bounds
-are opt-in classifiers. The serving harness (``loadgen.overload_run``)
-replays its finished request records through :func:`replay_records` in
-completion order and reports the structured alert timeline.
+are opt-in classifiers. The serving harnesses
+(``loadgen.overload_run``, ``replica.failover_run``/``spike_run``)
+replay their finished request records through :func:`replay_records` in
+completion order and report the structured alert timeline — fired
+alerts during an injected outage, zero in steady state.
 
 The monitor also annotates each evaluation with the live windowed
-goodput/latency/TTFT percentiles from a telemetry object with a
-``registry`` of histograms when one is handed to ``tick`` (the port has
-no telemetry registry yet, so its harness hands none).
+goodput/latency/TTFT percentiles from a :class:`ServingTelemetry` when
+one is handed to ``tick``.
 """
 
 from __future__ import annotations
