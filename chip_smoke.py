@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases 1,2,10  # OPT, Falcon, MPT, StarCoder
     python3 chip_smoke.py --phases 1,2,11  # training: BERT, ResNet-50
     python3 chip_smoke.py --phases 1,2,12  # telemetry, the replica fleet
+    python3 chip_smoke.py --phases 1,2,13  # the host side of serving
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -199,7 +200,29 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      spike's latency p99. 12c: ``python -m flexflow_tpu_torch.serve`` in
      a subprocess with 12b's checkpoint and ``--8bit-quantization`` (its
      tokens equal to ``LLM.from_checkpoint(...).generate`` in process),
-     then with no ``--model``; both exit 0.
+     then with no ``--model``; both exit 0;
+ 13. the host side of serving (no new kernel; K1-K3 serve every path).
+     13a: phase 8's models on the native C++ scheduler and on the Python
+     loop in 3 alternating pairs (decode ms/step and the loop's host
+     share outside the fenced blocks, reported), tokens equal 8/8 at
+     full length in every pass, then a mid-run cancel and a deadline on
+     the native loop (their partial tokens a prefix, the others'
+     unchanged); 13b a local directory at LLaMA-2-7B widths cut to 4
+     layers (2 fp16 shards and an index, a synthetic 32000-piece
+     ``tokenizer.model``) through ``LLM(dir)`` with text prompts: the
+     native SentencePiece ids equal to the oracle's, the tokens to
+     ``LLM.from_checkpoint(dir)``'s, one ``output_file`` record a
+     request; 13e the same directory with ``use_kernels=False`` (plain
+     versions on the card, no K1/K2) then the default (no plain call);
+     13c the ``ffsv_*`` C ABI in process from the port's serve library
+     (int8 on load: tokens equal to the Python path's; a depth-2 spec
+     pair with a non-empty metrics dump), then the unchanged
+     ``examples/c/incr_decoding.c`` compiled with ``cc`` and run on the
+     card; 13d ``inference_debugging`` dumps of a 1-layer cut at 7B
+     widths in fp32, card against CPU: the worst op output within
+     ``DUMP_TOL`` of its largest magnitude. K1/K2 (and K3 with int8
+     weights) launched and no plain call in every serving window but
+     13e's plain pass.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -4014,6 +4037,643 @@ def cli_phase(torch, card, ckpt):
     return {"cli_tokens_match": True}
 
 
+# ----------------------------------------------------------------------
+# phase 13: the host side of serving (the native scheduler, the front
+# door, the C ABI, inference-debugging dumps, use_kernels=False)
+# ----------------------------------------------------------------------
+HOST_PAIRS = 3           # 13a: alternating (native, Python) loop pairs
+HOST_CANCEL_BLOCK = 8    # 13a: the decode block of the cancel pass
+FRONT_NEW = 32           # 13b, 13c: new tokens a request
+# 13d: 2 requests of DUMP_PROMPT tokens, one prefill and one decode step;
+# the gate on the worst op output, card against CPU in fp32 with TF32 off:
+# its largest absolute difference over its largest magnitude (stated in
+# PERF.md before the first run)
+DUMP_PROMPT, DUMP_TOL = 8, 1e-4
+PLAIN_NEW = 16           # 13e: new tokens a request
+FRONT_KW = SERVE_7B
+
+
+def loop_rm(telemetry=None):
+    """A RequestManager that records which incremental loop ran."""
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    class LoopRM(RequestManager):
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.loops = []
+
+        def _generate_incr_native(self, *a):
+            self.loops.append("native")
+            return super()._generate_incr_native(*a)
+
+        def _generate_incr_python(self, *a):
+            self.loops.append("python")
+            return super()._generate_incr_python(*a)
+
+    return LoopRM(telemetry=telemetry)
+
+
+def check_launches(what, counts, k3=False):
+    """K1 and K2 (and K3 with int8 weights) launched, no plain version on
+    the card."""
+    if (not counts["flash_attend"] or not counts["flash_attend_append"]
+            or (k3 and not counts["qmatmul"])
+            or counts["plain_attend_cuda"] or counts["qmatmul_plain_cuda"]):
+        raise AssertionError(f"{what}: launch counts {counts}")
+
+
+def native_scheduler_phase(torch, card):
+    """13a: phase 8's headline model (LLaMA-2-7B geometry, int8 weights,
+    bf16 compute and cache) serves 8 x 32-token prompts, 64 new tokens,
+    on the native loop and on the Python loop in HOST_PAIRS alternating
+    pairs, each pass with its own explicit ServingTelemetry (prefill steps
+    fenced): decode ms/step and the loop's host share outside the fenced
+    blocks, reported. Gates: the native passes ran the native loop and the
+    others the Python loop, tokens equal on 8/8 requests at full length
+    in every pass, K1, K2 and K3 launched and no plain call. Then on the
+    native loop with a decode block of HOST_CANCEL_BLOCK: one request
+    cancelled once it has 16 tokens and one with a deadline of 0.4 x a
+    native pass resolve with a prefix of their tokens, the other six
+    requests' tokens unchanged. Returns (launch counts of the last native
+    pass, report)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch.telemetry import ServingTelemetry
+
+    t_phase = time.perf_counter()
+    llm, ssm, secs = headline_int8(torch)
+    del ssm
+    gc.collect()
+    verifier = llm.ffmodel
+    log(f"  build + load + quantize: {secs:.2f} s  [{card}]")
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    dec = decode_timer(RequestManager._ifm(verifier))
+
+    def one_pass(native, new_tokens=NEW_TOKENS, rm=None, extra=()):
+        verifier.config.use_native_scheduler = native
+        tel = ServingTelemetry()
+        rm = rm or loop_rm(tel)
+        guids = [rm.register_new_request(p, max_new_tokens=new_tokens,
+                                         **kw)
+                 for p, kw in zip(prompts, list(extra) + [{}] * REQUESTS)]
+        dec.update(s=0.0, steps=0)
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        rm.generate_incr_decoding(verifier)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        r = tel.registry
+        fenced = (r.get("ffsv_prefill_step_seconds").sum
+                  + r.get("ffsv_decode_block_seconds").sum)
+        want = ["native" if native else "python"]
+        if getattr(rm, "loops", want) != want:
+            raise AssertionError(f"13a: loops {rm.loops}, want {want}")
+        return ([rm.results[g] for g in guids], wall, dict(kernels.counts),
+                dict(decode_ms=dec["s"] * 1e3 / max(1, dec["steps"]),
+                     host_share=1.0 - fenced / wall))
+
+    for native in (True, False):
+        one_pass(native, 8)                                  # warm-up
+    ref = None
+    stats = {"native": [], "python": []}
+    native_counts = None
+    for pair in range(HOST_PAIRS):
+        for native in ((True, False) if pair % 2 == 0 else (False, True)):
+            res, wall, counts, st = one_pass(native)
+            check_launches("13a", counts, k3=True)
+            toks = [r.output_tokens for r in res]
+            ref = ref or toks
+            same = sum(a == b and len(a) == NEW_TOKENS
+                       for a, b in zip(toks, ref))
+            name = "native" if native else "python"
+            st.update(wall_s=wall, tokens_per_s=sum(map(len, toks)) / wall)
+            stats[name].append(st)
+            if native:
+                native_counts = counts
+            log(f"  pair {pair} {name:6s}: {wall:.3f} s, "
+                f"{st['tokens_per_s']:.1f} tokens/s, decode "
+                f"{st['decode_ms']:.3f} ms/step, host share "
+                f"{st['host_share']:.4f}; tokens equal to the first pass "
+                f"{same}/{REQUESTS}  [{card}]")
+            if same != REQUESTS:
+                raise AssertionError(f"13a pair {pair} {name}: tokens "
+                                     f"equal on {same}/{REQUESTS}")
+    report = {}
+    for name, runs in stats.items():
+        report[name] = {k: statistics.median(r[k] for r in runs)
+                        for k in runs[0]}
+        log(f"  {name} loop (median of {HOST_PAIRS}): decode "
+            f"{report[name]['decode_ms']:.3f} ms/step, host share "
+            f"{report[name]['host_share']:.4f}, "
+            f"{report[name]['tokens_per_s']:.1f} tokens/s  [{card}]")
+
+    # a mid-run cancel and a deadline on the native loop
+    block = verifier.config.decode_block_steps
+    verifier.config.decode_block_steps = HOST_CANCEL_BLOCK
+    timeout = 0.4 * report["native"]["wall_s"]
+
+    class CancelRM(RequestManager):
+        """Cancels the first prompt's request once it has 16 tokens, at
+        the top of a loop turn (where a host's cancel lands)."""
+
+        def _reap_expired(self, active, max_seq, done, ctrl=None):
+            for req in active:
+                if (req is not None and req.prompt_tokens == prompts[0]
+                        and req.num_generated >= 16):
+                    self.cancel(req.guid)
+            return super()._reap_expired(active, max_seq, done, ctrl)
+
+    rm = CancelRM()
+    try:
+        res, wall, counts, _ = one_pass(
+            True, rm=rm, extra=[{}, {"timeout_s": timeout}])
+    finally:
+        verifier.config.decode_block_steps = block
+    check_launches("13a cancel pass", counts, k3=True)
+    toks = [r.output_tokens for r in res]
+    status = [r.status for r in res]
+    log(f"  cancel pass (block {HOST_CANCEL_BLOCK}, deadline "
+        f"{timeout:.3f} s): statuses {status}, lengths "
+        f"{[len(t) for t in toks]}, {wall:.3f} s  [{card}]")
+    if (status[:2] != ["cancelled", "timed_out"]
+            or not 16 <= len(toks[0]) < NEW_TOKENS
+            or len(toks[1]) >= NEW_TOKENS
+            or any(t != r[:len(t)] for t, r in zip(toks[:2], ref[:2]))
+            or toks[2:] != ref[2:] or status[2:] != ["ok"] * (REQUESTS - 2)
+            or rm.pending or rm.inflight):
+        raise AssertionError("13a: the cancel/deadline pass")
+    report["cancel"] = dict(status=status, lengths=[len(t) for t in toks])
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13a: {report['seconds']:.1f} s  [{card}]")
+    del llm, verifier
+    gc.collect()
+    return native_counts, report
+
+
+def synthetic_sp_model(n_pieces=None, seed=0):
+    """(model bytes, words): a unigram SentencePiece model of LLaMA's
+    vocabulary size and layout (<unk>, <s>, </s>, the 256 byte pieces at
+    3..258), then the 26 letters bare and after the whitespace mark, then
+    seeded lowercase words of 2-8 letters, each bare or after the mark,
+    with seeded scores."""
+    import numpy as np
+
+    from flexflow_tpu_torch.native.sp_tokenizer import (BYTE, CONTROL,
+                                                        NORMAL, UNKNOWN,
+                                                        build_model_proto)
+
+    n_pieces = n_pieces or VOCAB
+    rng = np.random.default_rng(seed)
+    pieces = [("<unk>", 0.0, UNKNOWN), ("<s>", 0.0, CONTROL),
+              ("</s>", 0.0, CONTROL)]
+    pieces += [(f"<0x{b:02X}>", 0.0, BYTE) for b in range(256)]
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    names = [c for c in letters] + ["▁" + c for c in letters]
+    seen = set(names)
+    words = []
+    while len(names) < n_pieces - len(pieces):
+        w = "".join(rng.choice(list(letters), rng.integers(2, 9)))
+        p = ("▁" + w) if rng.random() < 0.5 else w
+        if p not in seen:
+            seen.add(p)
+            names.append(p)
+            words.append(w)
+    pieces += [(p, -float(rng.uniform(1.0, 14.0)), NORMAL) for p in names]
+    return build_model_proto(pieces, model_type=1, byte_fallback=True), words
+
+
+def write_sharded_checkpoint(torch, d):
+    """phase 12b's checkpoint (LLaMA-2-7B widths cut to FLEET_LAYERS,
+    fp16) as 2 safetensors shards with their index, plus a synthetic
+    32000-piece tokenizer.model. Returns (bytes, words)."""
+    from flexflow_tpu_torch.models import checkpoint_store as cs
+    from flexflow_tpu_torch.models.llama import LLAMAConfig
+
+    hf, sd = seven_b(torch, layers=FLEET_LAYERS)
+    tensors = {k: v.to(torch.float16).cpu().numpy() for k, v in sd.items()}
+    del sd
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, cs.CONFIG_NAME), "w") as f:
+        json.dump(cs.hf_config_dict("llama", LLAMAConfig.from_hf_config(hf)),
+                  f, indent=2, sort_keys=True)
+    nbytes = cs.write_sharded_safetensors(
+        d, tensors, 2, metadata={"format": "pt", "model_type": "llama"})
+    model, words = synthetic_sp_model()
+    with open(os.path.join(d, "tokenizer.model"), "wb") as f:
+        f.write(model)
+    return nbytes, words
+
+
+def front_door_phase(torch, card, tmp):
+    """13b: a local model directory at LLaMA-2-7B widths (FLEET_LAYERS
+    layers, 2 fp16 shards and their index, a synthetic 32000-piece
+    tokenizer.model) served through ``LLM(dir)`` in bf16 with text
+    prompts (8 requests, FRONT_NEW new tokens) and ``output_file``.
+    Gates: the native SentencePiece ids equal the ``SpModel`` oracle's on
+    every prompt; the tokenizer is the native one; each output text is
+    the decode of its tokens; the tokens equal ``LLM.from_checkpoint
+    (dir)``'s in this process; the output file holds one record a
+    request; K1 and K2 launched, no plain call. Returns (launch counts,
+    report, dir, the LLM, the text prompts, their token ids)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import LLM, DataType, kernels
+    from flexflow_tpu_torch.native.sp_tokenizer import \
+        SentencePieceTokenizer
+
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "llama-2-7b-width")
+    t = time.perf_counter()
+    nbytes, words = write_sharded_checkpoint(torch, d)
+    log(f"  wrote {sorted(os.listdir(d))}: {nbytes / 1e9:.3f} GB in "
+        f"{time.perf_counter() - t:.2f} s")
+    rng = np.random.default_rng(13)
+    texts = [" ".join(rng.choice(words, 10 + 2 * i))
+             for i in range(REQUESTS)]
+    t = time.perf_counter()
+    outf = os.path.join(tmp, "outputs.txt")
+    llm = LLM(d, data_type=DataType.DT_BFLOAT16,
+              output_file=outf).compile(**FRONT_KW)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t
+    tok = llm.tokenizer
+    if not isinstance(tok, SentencePieceTokenizer):
+        raise AssertionError(f"13b: tokenizer {type(tok).__name__}")
+    t = time.perf_counter()
+    oracle = [tok.model.encode_ids(x) for x in texts]
+    oracle_s = time.perf_counter() - t
+    t = time.perf_counter()
+    native_ids = [tok.encode_raw(x) for x in texts]
+    native_s = time.perf_counter() - t
+    if native_ids != oracle:
+        raise AssertionError("13b: native SentencePiece ids differ from "
+                             "the oracle's")
+    kernels.reset_counts()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = llm.generate(texts, max_new_tokens=FRONT_NEW)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    counts = dict(kernels.counts)
+    check_launches("13b", counts)
+    toks = [r.output_tokens for r in res]
+    # the tokenizer's EOS may end a request early
+    if any(r.output_text != tok.decode(r.output_tokens) or not r.output_text
+           or not 0 < len(r.output_tokens) <= FRONT_NEW for r in res):
+        raise AssertionError("13b: output text or lengths")
+    ref = LLM.from_checkpoint(d, data_type=DataType.DT_BFLOAT16,
+                              tokenizer=tok).compile(**FRONT_KW)
+    want = [r.output_tokens for r in ref.generate(
+        [r.input_tokens for r in res], max_new_tokens=FRONT_NEW)]
+    del ref
+    gc.collect()
+    same = sum(a == b for a, b in zip(toks, want))
+    with open(outf) as f:
+        records = f.read().count("output: ")
+    log(f"  LLM(dir): load + compile {load_s:.2f} s; {sum(map(len, toks))} "
+        f"tokens in {wall:.3f} s; prompt lengths "
+        f"{[len(r.input_tokens) for r in res]}; tokenizer ids equal to the "
+        f"oracle on {len(texts)} prompts (native {native_s * 1e3:.2f} ms, "
+        f"oracle {oracle_s * 1e3:.1f} ms); tokens equal to "
+        f"LLM.from_checkpoint(dir) {same}/{REQUESTS}; output file records "
+        f"{records}; launches {counts}  [{card}]")
+    log(f"  first output: {res[0].output_text[:120]!r}")
+    if same != REQUESTS or records != REQUESTS:
+        raise AssertionError("13b: tokens against from_checkpoint or the "
+                             "output file")
+    report = dict(load_s=load_s, wall_s=wall, native_tokenize_ms=native_s
+                  * 1e3, oracle_tokenize_ms=oracle_s * 1e3,
+                  seconds=time.perf_counter() - t_phase)
+    return counts, report, d, llm, texts, [r.input_tokens for r in res]
+
+
+def plain_kernels_phase(torch, card, d, llm, texts):
+    """13e: 13b's directory compiled with ``use_kernels=False`` serves
+    13b's prompts for PLAIN_NEW tokens: the plain versions run on the card
+    (plain_attend_cuda > 0, no K1 or K2 launch); the default pass right
+    after (13b's model) launches K1 and K2 and no plain version. The
+    token match between the two is reported."""
+    from flexflow_tpu_torch import LLM, DataType, kernels
+
+    plain = LLM(d, data_type=DataType.DT_BFLOAT16).compile(
+        **FRONT_KW, use_kernels=False)
+    kernels.reset_counts()
+    res_p = plain.generate(texts, max_new_tokens=PLAIN_NEW)
+    torch.cuda.synchronize()
+    c_plain = dict(kernels.counts)
+    del plain
+    gc.collect()
+    kernels.reset_counts()
+    res_k = llm.generate(texts, max_new_tokens=PLAIN_NEW)
+    torch.cuda.synchronize()
+    c_kern = dict(kernels.counts)
+    same = sum(a.output_tokens == b.output_tokens
+               for a, b in zip(res_p, res_k))
+    log(f"  use_kernels=False: {c_plain}; default pass: {c_kern}; tokens "
+        f"equal {same}/{REQUESTS} (reported)  [{card}]")
+    if (not c_plain["plain_attend_cuda"] or c_plain["flash_attend"]
+            or c_plain["flash_attend_append"]):
+        raise AssertionError(f"13e: use_kernels=False counts {c_plain}")
+    check_launches("13e default pass", c_kern)
+    return c_kern, dict(tokens_equal=same)
+
+
+def ffsv_lib(path):
+    """The port's serve library through ctypes (PyDLL: calls hold the
+    GIL), its signatures declared."""
+    import ctypes as c
+
+    lib = c.PyDLL(path)
+    lib.ffsv_init.argtypes = [c.c_char_p]
+    lib.ffsv_last_error.restype = c.c_char_p
+    for fn in ("ffsv_config_create", "ffsv_llm_create", "ffsv_spec_create",
+               "ffsv_metrics_dump"):
+        getattr(lib, fn).restype = c.c_void_p
+    lib.ffsv_config_set.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p]
+    lib.ffsv_llm_create.argtypes = [c.c_void_p, c.c_char_p]
+    lib.ffsv_spec_create.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p]
+    lib.ffsv_register_request.restype = c.c_long
+    lib.ffsv_register_request.argtypes = [c.c_void_p, c.POINTER(c.c_int32),
+                                          c.c_int, c.c_int]
+    lib.ffsv_generate.argtypes = [c.c_void_p]
+    lib.ffsv_generate_spec.argtypes = [c.c_void_p, c.c_int]
+    lib.ffsv_get_output.argtypes = [c.c_void_p, c.c_long,
+                                    c.POINTER(c.c_int32), c.c_int]
+    lib.ffsv_metrics_dump.argtypes = [c.c_char_p]
+    lib.ffsv_release.argtypes = [c.c_void_p]
+    return lib
+
+
+def capi_phase(torch, card, d, prompts):
+    """13c: the port's C serving ABI on the card, in this process:
+    ``ffsv_llm_create({"checkpoint_dir": <13b's dir>, "quantize":
+    "int8"})`` serves 13b's prompts (as token ids) for FRONT_NEW tokens
+    through ``ffsv_register_request``/``ffsv_generate``/
+    ``ffsv_get_output``. Gates: the tokens equal ``LLM.from_checkpoint
+    (dir, quantize="int8")``'s with the same config, K1, K2 and K3
+    launched, no plain call. Then ``ffsv_spec_create`` with the directory
+    as verifier and draft, telemetry on, ``ffsv_generate_spec`` at depth
+    2, the adaptive controller off (the match with incremental decoding
+    reported; K1 with the tree bias launched) and a non-empty
+    ``ffsv_metrics_dump``; then the unchanged ``examples/c/
+    incr_decoding.c`` compiled with ``cc`` against the library and
+    libpython runs on the card and prints its marker. Returns (launch
+    counts, report)."""
+    import ctypes
+
+    from flexflow_tpu_torch import LLM, kernels, native
+    from flexflow_tpu_torch.telemetry import disable_telemetry
+
+    t_phase = time.perf_counter()
+    t = time.perf_counter()
+    path = native.build_serve_library()
+    lib = ffsv_lib(path)
+    log(f"  serve library {os.path.basename(path)}: "
+        f"{time.perf_counter() - t:.2f} s")
+    if lib.ffsv_init(HERE.encode()) != 0:
+        raise AssertionError(f"13c: ffsv_init: {lib.ffsv_last_error()}")
+    cfg = lib.ffsv_config_create()
+    fields = dict(max_requests_per_batch=REQUESTS,
+                  max_sequence_length=MAX_SEQ, max_tokens_per_batch=256,
+                  kv_cache_dtype="bfloat16", compute_dtype="bfloat16")
+    for k, v in fields.items():
+        if lib.ffsv_config_set(cfg, k.encode(), str(v).encode()) != 0:
+            raise AssertionError(f"13c: ffsv_config_set {k}")
+    spec = json.dumps({"checkpoint_dir": d, "quantize": "int8"}).encode()
+
+    def serve(handle, depth=0):
+        guids = []
+        for p in prompts:
+            arr = (ctypes.c_int32 * len(p))(*p)
+            guids.append(lib.ffsv_register_request(handle, arr, len(p),
+                                                   FRONT_NEW))
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n = (lib.ffsv_generate_spec(handle, depth) if depth
+             else lib.ffsv_generate(handle))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        if n != len(prompts):
+            raise AssertionError(f"13c: generate gave {n}: "
+                                 f"{lib.ffsv_last_error()}")
+        out = []
+        for g in guids:
+            buf = (ctypes.c_int32 * 256)()
+            k = lib.ffsv_get_output(handle, g, buf, 256)
+            out.append(list(buf[:k]))
+        return out, wall, dict(kernels.counts)
+
+    t = time.perf_counter()
+    h = lib.ffsv_llm_create(cfg, spec)
+    if not h:
+        raise AssertionError(f"13c: ffsv_llm_create: "
+                             f"{lib.ffsv_last_error()}")
+    create_s = time.perf_counter() - t
+    toks, wall, counts = serve(h)
+    check_launches("13c ffsv_generate", counts, k3=True)
+    lib.ffsv_release(h)
+    gc.collect()
+    py = LLM.from_checkpoint(d, quantize="int8").compile(
+        max_requests_per_batch=REQUESTS, max_seq_length=MAX_SEQ,
+        max_tokens_per_batch=256, kv_cache_dtype="bfloat16",
+        compute_dtype="bfloat16", device="cuda")
+    want = [r.output_tokens for r in py.generate(prompts,
+                                                 max_new_tokens=FRONT_NEW)]
+    del py
+    gc.collect()
+    same = sum(a == b for a, b in zip(toks, want))
+    log(f"  ffsv_llm_create (checkpoint_dir, int8 on load) "
+        f"{create_s:.2f} s; ffsv_generate {sum(map(len, toks))} tokens in "
+        f"{wall:.3f} s; "
+        f"tokens equal to the Python LLM path {same}/{REQUESTS}; launches "
+        f"{counts}  [{card}]")
+    if same != REQUESTS:
+        raise AssertionError("13c: C ABI tokens differ from the Python path")
+
+    if lib.ffsv_config_set(cfg, b"telemetry", b"true") != 0:
+        raise AssertionError("13c: telemetry flag")
+    try:
+        # the draft is the verifier itself: the adaptive controller would
+        # park every request (draft cost 1), so speculation runs static
+        vspec = json.dumps({"checkpoint_dir": d, "quantize": "int8",
+                            "generation_config": {"adaptive": False}})
+        pair = lib.ffsv_spec_create(cfg, vspec.encode(), spec)
+        if not pair:
+            raise AssertionError(f"13c: ffsv_spec_create: "
+                                 f"{lib.ffsv_last_error()}")
+        spec_toks, spec_wall, spec_counts = serve(pair, depth=2)
+        ptr = lib.ffsv_metrics_dump(b"json")
+        dump = ctypes.string_at(ptr).decode() if ptr else ""
+        lib.ffsv_release(pair)
+    finally:
+        disable_telemetry()
+    gc.collect()
+    spec_same = sum(a == b for a, b in zip(spec_toks, toks))
+    log(f"  ffsv_generate_spec depth 2: {sum(map(len, spec_toks))} tokens "
+        f"in {spec_wall:.3f} s; equal to incremental {spec_same}/{REQUESTS} "
+        f"(reported); metrics dump {len(dump)} bytes; launches "
+        f"{spec_counts}  [{card}]")
+    if "ffsv_requests_total" not in dump or not spec_counts[
+            "flash_attend_bias"] or spec_counts["plain_attend_cuda"]:
+        raise AssertionError("13c: speculation or metrics dump")
+    lib.ffsv_release(cfg)
+
+    import sysconfig
+    import tempfile
+
+    _inc, link = native.python_build_flags()
+    with tempfile.TemporaryDirectory() as exe_dir:
+        exe = os.path.join(exe_dir, "incr_decoding")
+        t = time.perf_counter()
+        subprocess.run(["cc", os.path.join(HERE, "examples", "c",
+                                           "incr_decoding.c"),
+                        "-L" + native.BUILD_DIR,
+                        "-lflexflow_tpu_torch_serve", *link, "-o", exe],
+                       check=True, timeout=300)
+        env = dict(os.environ,
+                   PYTHONPATH=os.pathsep.join(p for p in sys.path if p),
+                   LD_LIBRARY_PATH=os.pathsep.join(
+                       [native.BUILD_DIR,
+                        sysconfig.get_config_var("LIBDIR") or ""]))
+        env.pop("FFSV_DEVICE", None)          # the card, the default
+        proc = subprocess.run([exe, HERE], env=env, capture_output=True,
+                              text=True, timeout=600)
+        c_s = time.perf_counter() - t
+    log(f"  examples/c/incr_decoding.c on the card: exit {proc.returncode} "
+        f"in {c_s:.1f} s (compile + run); "
+        f"{proc.stdout.strip().splitlines()[-1:]}")
+    if proc.returncode != 0 or "C incr_decoding OK" not in proc.stdout:
+        raise AssertionError(f"13c: the C example failed: "
+                             f"{proc.stderr[-2000:]}")
+    report = dict(create_s=create_s, wall_s=wall, spec_wall_s=spec_wall,
+                  spec_equal=spec_same, c_example_s=c_s,
+                  seconds=time.perf_counter() - t_phase)
+    return counts, report
+
+
+def dumps_phase(torch, card, tmp):
+    """13d: ``inference_debugging`` on a 1-layer cut at LLaMA-2-7B widths
+    in fp32 (TF32 off since phase 1), 2 requests of DUMP_PROMPT tokens,
+    one prefill and one decode step at decode width 1, on the card and on
+    the CPU (both the port, one numpy draw of weights). The bytes are
+    reckoned first; the dumps go to ``tmp`` and are deleted. Gates: the
+    same files and keys, the worst op output (``worst_op``) within
+    DUMP_TOL of its largest magnitude, K1 launched and no plain version
+    on the card. The tokens' match and ``compare_dumps``'s count at rtol
+    1e-4 are reported."""
+    import shutil
+
+    import numpy as np
+
+    from flexflow_tpu_torch import LLM, kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch.utils.debugging import compare_dumps, worst_op
+
+    t_phase = time.perf_counter()
+    hf, sd = seven_b(torch, layers=1)
+    sd = {k: v.float().cpu().numpy() for k, v in sd.items()}
+    wbytes = sum(v.nbytes for v in sd.values())
+    need = 2 * 2 * wbytes           # every weight dumped, 2 steps, 2 devices
+    free = shutil.disk_usage(tmp).free
+    log(f"  dumps: about {need / 1e9:.2f} GB of weights (+ activations) "
+        f"for 2 steps on 2 devices; {free / 1e9:.1f} GB free")
+    if free < 2 * need:
+        raise AssertionError("13d: not enough disk for the dumps")
+    rng = np.random.default_rng(21)
+    prompts = [rng.integers(0, VOCAB, DUMP_PROMPT).tolist()
+               for _ in range(2)]
+    toks, dirs, counts = {}, {}, None
+    for name, dev in (("card", "cuda"), ("host", "cpu")):
+        llm = LLM((hf, sd)).compile(
+            max_requests_per_batch=2, max_seq_length=64,
+            max_tokens_per_batch=16, kv_cache_dtype="float32",
+            decode_width=1, device=dev, inference_debugging=True)
+        dirs[name] = os.path.join(tmp, f"dumps_{name}")
+        RequestManager._ifm(llm.ffmodel).debug_dir = dirs[name]
+        kernels.reset_counts()
+        t = time.perf_counter()
+        res = llm.generate(prompts, max_new_tokens=1)
+        if name == "card":
+            torch.cuda.synchronize()
+            counts = dict(kernels.counts)
+        toks[name] = [r.output_tokens for r in res]
+        log(f"  {dev}: one prefill and one decode step with dumps in "
+            f"{time.perf_counter() - t:.2f} s")
+        del llm
+        gc.collect()
+    files = {name: sorted(os.path.relpath(os.path.join(r, f), dirs[name])
+                          for r, _, fs in os.walk(dirs[name]) for f in fs)
+             for name in dirs}
+    t = time.perf_counter()
+    worst = worst_op(dirs["host"], dirs["card"])
+    mism = compare_dumps(dirs["host"], dirs["card"], rtol=1e-4)
+    cmp_s = time.perf_counter() - t
+    dumped = sum(os.path.getsize(os.path.join(r, f))
+                 for name in dirs for r, _, fs in os.walk(dirs[name])
+                 for f in fs)
+    for name in dirs:
+        shutil.rmtree(dirs[name])
+    log(f"  {len(files['card'])} dump files a device, {dumped / 1e9:.2f} GB "
+        f"written; worst op output {worst[0]} {worst[1]}: max abs "
+        f"{worst[2]:.3e}, relative to its largest magnitude "
+        f"{worst[3]:.3e} (gate {DUMP_TOL}); compare_dumps at rtol 1e-4: "
+        f"{len(mism)} arrays ({cmp_s:.1f} s); tokens card == CPU "
+        f"{toks['card'] == toks['host']} (reported); card launches "
+        f"{counts}  [{card}]")
+    if (files["card"] != files["host"] or worst is None
+            or worst[3] > DUMP_TOL or not counts["flash_attend"]
+            or counts["plain_attend_cuda"]):
+        raise AssertionError("13d: dumps")
+    return dict(worst_op=list(worst), mismatches_rtol_1e4=len(mism),
+                files=len(files["card"]), gb_written=dumped / 1e9,
+                seconds=time.perf_counter() - t_phase)
+
+
+def host_side_phase(torch, card):
+    """Phase 13 in order 13a, 13b, 13e (on 13b's model), 13c, 13d; returns
+    each sub-phase's launch counts by name."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    by_path, report = {}, {}
+    log(f"phase 13a: the native scheduler against the Python loop, phase "
+        f"8's headline model, {HOST_PAIRS} alternating pairs, {REQUESTS} "
+        f"requests x {PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  "
+        f"[{card}]")
+    by_path["native"], report["13a"] = native_scheduler_phase(torch, card)
+    gc.collect()
+    with tempfile.TemporaryDirectory() as tmp:
+        log(f"phase 13b: LLM(dir) at LLaMA-2-7B widths, {FLEET_LAYERS} "
+            f"layers, 2 shards, a 32000-piece tokenizer.model, text "
+            f"prompts  [{card}]")
+        by_path["frontdoor"], report["13b"], d, llm, texts, prompts = \
+            front_door_phase(torch, card, tmp)
+        log(f"phase 13e: use_kernels=False on the card, 13b's model, "
+            f"{PLAIN_NEW} new tokens  [{card}]")
+        by_path["default_after_plain"], report["13e"] = plain_kernels_phase(
+            torch, card, d, llm, texts)
+        del llm
+        gc.collect()
+        log(f"phase 13c: the C ABI on the card (the port's serve library, "
+            f"13b's directory, int8 on load)  [{card}]")
+        by_path["capi"], report["13c"] = capi_phase(torch, card, d, prompts)
+        gc.collect()
+        log(f"phase 13d: inference_debugging dumps, 1 layer at LLaMA-2-7B "
+            f"widths, fp32, card against CPU  [{card}]")
+        report["13d"] = dumps_phase(torch, card, tmp)
+        gc.collect()
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 13: {report['seconds']:.1f} s  [{card}]")
+    log(json.dumps({"host_side_phase": report}))
+    return by_path
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -4022,7 +4682,7 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12",
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -4031,6 +4691,7 @@ def main(argv=None) -> int:
                          "kernel)")
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
+    t_script = time.perf_counter()
 
     if not os.path.isdir(os.path.join(HERE, "flexflow_tpu_torch", "kernels",
                                       "csrc")):
@@ -4150,6 +4811,9 @@ def main(argv=None) -> int:
             fleet["cli"] = cli_phase(torch, card, ckpt)
         log(json.dumps({"fleet_phase": fleet}))
         gc.collect()
+    if 13 in phases:
+        by_path.update(host_side_phase(torch, card))
+        gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and
         # K2 (decode) on incremental decoding, K1's bias mode on spec, K3
@@ -4159,6 +4823,8 @@ def main(argv=None) -> int:
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+    log(f"chip_smoke.py: phases {sorted(phases)} in "
+        f"{time.perf_counter() - t_script:.1f} s  [{card}]")
     log(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -36,7 +36,11 @@ traffic through it and reports TTFT, latency and goodput. Telemetry
 package's ``ffsv_*`` metrics and per-request span traces, served by
 ``llm.start_metrics_server``; ``serve.replica.ReplicaPool`` runs replicas
 cold-started from checkpoints behind one front door with crash failover;
-``python -m flexflow_tpu_torch.serve`` is the serving CLI.
+``python -m flexflow_tpu_torch.serve`` is the serving CLI. The host side
+is the JAX package's too: incremental decoding on the native C++
+scheduler (``native/``, built with g++ at first use), the GPT-2 BPE and
+SentencePiece tokenizers, ``LLM("<local HF directory>")``, the ``ffsv_*``
+C serving ABI and ``inference_debugging``'s per-op dumps.
 
 It trains, through the JAX package's verbs: ``compile(optimizer=,
 loss_type=, metrics=)`` then ``train_one_batch``, ``train_batches``,

@@ -1,20 +1,27 @@
 """FFConfig of the PyTorch/CUDA port: the training batch and epochs and
-the serving, quantization, fusion and telemetry fields of
-``flexflow_tpu.config.FFConfig``, plus ``device``. There is no
-``auto_parallel`` or ``remat``: the Unity search and rematerialization
-are not ported.
+the serving, quantization, fusion, telemetry and host-side fields of
+``flexflow_tpu.config.FFConfig``, plus ``device`` and ``use_kernels``.
+There is no ``auto_parallel`` or ``remat``: the Unity search and
+rematerialization are not ported.
 
-The device alone decides the attention path: CUDA tensors go to the
-hand-written kernels, CPU tensors to their plain PyTorch versions. There
-is no switch that puts the plain version on the card, and no silent CPU
-fallback — asking for ``cuda`` where CUDA is missing raises
-(``resolve_device``).
+The device decides the kernel path: CUDA tensors go to the hand-written
+kernels, CPU tensors to their plain PyTorch versions. ``use_kernels``
+(the counterpart of the JAX package's ``use_pallas``) is the one switch
+that puts the plain versions on the card, and only when asked for; the
+launch counters of ``flexflow_tpu_torch.kernels`` show which ran. There
+is no silent CPU fallback: asking for ``cuda`` where CUDA is missing
+raises (``resolve_device``).
+
+``from_args`` parses the JAX package's flag set (the reference's
+``FFConfig::parse_args``). Flags of features the port does not have yet
+raise and name their ROADMAP item instead of being dropped.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 
@@ -74,8 +81,92 @@ class FFConfig:
     telemetry: bool = False
     telemetry_trace_path: str = ""
 
+    # --- host-side serving (serve/request_manager.py) ---
+    # incremental decoding's slot fill, batch assembly and EOS/length
+    # bookkeeping in the native C++ scheduler (native/src/
+    # batch_scheduler.cpp, built by flexflow_tpu_torch/native at first
+    # use); a library that cannot build raises. Requests with priorities
+    # and the shared-prefix pool take the Python loop.
+    use_native_scheduler: bool = True
+    # dump every op's inputs, weights and outputs per serving step to
+    # ./inference_tensors (utils/debugging.py); turns gemm fusion off and
+    # routes speculation through the host tree path, as in the JAX package
+    inference_debugging: bool = False
+    # the hand-written kernels serve CUDA tensors; False puts the plain
+    # PyTorch versions on the card (counted as plain_attend_cuda and
+    # qmatmul_plain_cuda in kernels.counts)
+    use_kernels: bool = True
+
     def __post_init__(self):
         self.quantization_type = normalize_qtype(self.quantization_type)
+
+    # ------------------------------------------------------------------
+    # the JAX package's flag set (reference FFConfig::parse_args)
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_args(cls, argv: Optional[Sequence[str]] = None,
+                  **overrides) -> "FFConfig":
+        """An FFConfig from the JAX package's command-line flags; unknown
+        flags are ignored (``parse_known_args``), as there. The training
+        hyperparameters (``--lr``, ``--wd``), the device count, the data
+        parallel degree and the Unity search flags are accepted and not
+        stored: the port sets the learning rate on its optimizer and has
+        no search. Tensor, pipeline or sequence parallelism above 1 and
+        ``--offload`` raise (ROADMAP Queue A: parallel serving and
+        offload are not ported). ``overrides`` set fields after parsing
+        (``device``, for one)."""
+        p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
+        p.add_argument("-b", "--batch-size", type=int, default=64)
+        p.add_argument("-e", "--epochs", type=int, default=1)
+        p.add_argument("--lr", "--learning-rate", dest="learning_rate",
+                       type=float, default=0.01)
+        p.add_argument("--wd", "--weight-decay", dest="weight_decay",
+                       type=float, default=0.0001)
+        p.add_argument("-ll:gpu", "--devices", dest="num_devices", type=int,
+                       default=None)
+        p.add_argument("--nodes", type=int, default=1)
+        p.add_argument("-dp", "--data-parallelism-degree", type=int,
+                       default=1)
+        p.add_argument("-tp", "--tensor-parallelism-degree", type=int,
+                       default=1)
+        p.add_argument("-pp", "--pipeline-parallelism-degree", type=int,
+                       default=1)
+        p.add_argument("-sp", "--sequence-parallelism-degree", type=int,
+                       default=1)
+        p.add_argument("--only-data-parallel", action="store_true")
+        p.add_argument("--budget", "--search-budget", dest="search_budget",
+                       type=int, default=-1)
+        p.add_argument("--alpha", "--search-alpha", dest="search_alpha",
+                       type=float, default=1.2)
+        p.add_argument("--fusion", dest="enable_fusion", action="store_true",
+                       default=True)
+        p.add_argument("--no-fusion", dest="enable_fusion",
+                       action="store_false")
+        p.add_argument("--profiling", action="store_true")
+        p.add_argument("--offload", dest="cpu_offload", action="store_true")
+        p.add_argument("--4bit-quantization", dest="q4", action="store_true")
+        p.add_argument("--8bit-quantization", dest="q8", action="store_true")
+        p.add_argument("--inference-debugging", action="store_true")
+        p.add_argument("--seed", type=int, default=0)
+        args, _unknown = p.parse_known_args(argv)
+        for flag, degree in (("-tp", args.tensor_parallelism_degree),
+                             ("-pp", args.pipeline_parallelism_degree),
+                             ("-sp", args.sequence_parallelism_degree)):
+            if degree > 1:
+                raise NotImplementedError(
+                    f"{flag} {degree}: parallel serving is not ported "
+                    "(ROADMAP.md Queue A, 'parallel')")
+        if args.cpu_offload:
+            raise NotImplementedError(
+                "--offload: weight offload is not ported (ROADMAP.md "
+                "Queue A, 'offload')")
+        quant = "int4" if args.q4 else ("int8" if args.q8 else None)
+        kw = dict(batch_size=args.batch_size, epochs=args.epochs,
+                  enable_fusion=args.enable_fusion, quantization_type=quant,
+                  inference_debugging=args.inference_debugging,
+                  seed=args.seed)
+        kw.update(overrides)
+        return cls(**kw)
 
 
 def resolve_device(name) -> torch.device:

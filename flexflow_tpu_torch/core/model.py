@@ -523,12 +523,16 @@ class FFModel:
                    state: Optional[Dict[str, Any]] = None):
         """Walk the layer list (creation order is topological order)
         computing every tensor value. Returns (values_by_tensor_id,
-        new_state); KV caches in the state were updated in place."""
+        new_state); KV caches in the state were updated in place. The
+        kernels serve CUDA tensors unless ``config.use_kernels`` is off."""
+        from flexflow_tpu_torch.kernels import use_kernels
+
         values: Dict[int, Any] = dict(feeds)
         ctx.state_in = state or {}
         ctx.state_out = {}
-        for layer in self.layers:
-            self._apply_layer(layer, params, values, ctx)
+        with use_kernels(self.config.use_kernels):
+            for layer in self.layers:
+                self._apply_layer(layer, params, values, ctx)
         new_state = dict(ctx.state_in)
         new_state.update(ctx.state_out)
         return values, new_state

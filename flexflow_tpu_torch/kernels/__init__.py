@@ -5,7 +5,10 @@ kernels of ``flexflow_tpu/kernels``; K3 (``qmatmul.py``,
 ``csrc/qmatmul.cu``) is the weight-only dequant-GEMM that XLA fuses for
 the TPU. Each has a plain PyTorch version beside it. A wrapper takes the
 plain version only for tensors on the CPU; on CUDA tensors it launches
-the kernel or raises — nothing falls back.
+the kernel or raises — nothing falls back. The one exception is asked
+for: ``FFConfig(use_kernels=False)`` runs a model's forwards inside
+``use_kernels(False)``, where the wrappers take the plain versions on
+CUDA tensors too (a context variable, so each thread has its own).
 
 ``counts`` holds one plain integer per kernel, bumped where the wrapper
 launches it; ``flash_attend_bias`` counts the K1 launches that carry an
@@ -17,6 +20,9 @@ versions on CUDA tensors, which the serving path never makes
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
+
 counts = {"flash_attend": 0, "flash_attend_append": 0,
           "flash_attend_bias": 0, "plain_attend_cuda": 0,
           "qmatmul": 0, "qmatmul_plain_cuda": 0}
@@ -27,7 +33,27 @@ def reset_counts():
         counts[k] = 0
 
 
+_enabled = contextvars.ContextVar("flexflow_tpu_torch_kernels",
+                                  default=True)
+
+
+def kernels_enabled() -> bool:
+    """False inside ``use_kernels(False)``: CUDA tensors take the plain
+    versions."""
+    return _enabled.get()
+
+
+@contextlib.contextmanager
+def use_kernels(on: bool = True):
+    tok = _enabled.set(bool(on))
+    try:
+        yield
+    finally:
+        _enabled.reset(tok)
+
+
 from flexflow_tpu_torch.kernels.attention import (  # noqa: E402
     flash_attend, reference_attend)
 
-__all__ = ["counts", "flash_attend", "reference_attend", "reset_counts"]
+__all__ = ["counts", "flash_attend", "kernels_enabled", "reference_attend",
+           "reset_counts", "use_kernels"]

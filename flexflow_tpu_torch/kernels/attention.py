@@ -225,7 +225,9 @@ def flash_attend(q, k_cache, v_cache, lengths, qpos, bias=None, alibi=None,
     if qk_scale is None:
         qk_scale = 1.0 / math.sqrt(q.shape[-1])
     out_dtype = out_dtype or q.dtype
-    if q.is_cuda:
+    from flexflow_tpu_torch.kernels import kernels_enabled
+
+    if q.is_cuda and kernels_enabled():
         out = _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi,
                       append_kv, causal, float(qk_scale), out_dtype,
                       layer_idx)

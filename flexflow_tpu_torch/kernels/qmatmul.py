@@ -71,11 +71,14 @@ def qmatmul_plain(x, w, compute_dtype, out_dtype):
 
 def qmatmul(x, w, compute_dtype, out_dtype):
     """``x [..., K] @ w`` for a QuantizedWeight ``w`` of K rows: K3 on a
-    CUDA tensor, ``qmatmul_plain`` on a CPU one."""
+    CUDA tensor, ``qmatmul_plain`` on a CPU one (and on a CUDA one inside
+    ``kernels.use_kernels(False)``)."""
     if x.shape[-1] != w.rows:
         raise ValueError(f"x has {x.shape[-1]} columns, the weight "
                          f"{w.rows} rows")
-    if not x.is_cuda:
+    from flexflow_tpu_torch.kernels import kernels_enabled
+
+    if not x.is_cuda or not kernels_enabled():
         return qmatmul_plain(x, w, compute_dtype, out_dtype)
     return _launch(x, w, compute_dtype, out_dtype)
 

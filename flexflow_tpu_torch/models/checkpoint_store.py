@@ -5,7 +5,12 @@ a checkpoint written by either package loads in the other).
 A checkpoint directory holds ``config.json`` (HF attribute names) and the
 weights in HF naming and orientation, as ``model.safetensors`` (a
 hand-rolled writer and reader, no safetensors dependency) or
-``pytorch_model.bin`` (``torch.save`` of CPU tensors). The families' name
+``pytorch_model.bin`` (``torch.save`` of CPU tensors), or sharded as
+``transformers.save_pretrained`` writes a large model (published
+LLaMA-2-7B directories are): ``model.safetensors.index.json`` (or
+``pytorch_model.bin.index.json``) whose ``weight_map`` names each
+tensor's shard file (``write_sharded_safetensors``). bf16 tensors read as
+float32 (exact). The families' name
 maps and fused-qkv preprocessors are therefore the loader, and a cold
 start from disk gives the tokens of the in-memory build it was saved
 from: the export inverts each family's qkv fusion exactly (falcon's three
@@ -33,6 +38,8 @@ from flexflow_tpu_torch.models.hf_utils import _to_numpy
 CONFIG_NAME = "config.json"
 SAFETENSORS_NAME = "model.safetensors"
 PYTORCH_NAME = "pytorch_model.bin"
+SAFETENSORS_INDEX = "model.safetensors.index.json"
+PYTORCH_INDEX = "pytorch_model.bin.index.json"
 
 # numpy dtype name <-> safetensors header tag (the writer emits a subset;
 # the reader takes all of them)
@@ -107,6 +114,12 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
         if name == "__metadata__":
             continue
         tag = info["dtype"]
+        if tag == "BF16":   # numpy has no bfloat16: widen to float32
+            lo, hi = info["data_offsets"]
+            u = np.frombuffer(memoryview(data)[lo:hi], dtype="<u2")
+            out[name] = (u.astype(np.uint32) << 16).view(
+                np.float32).reshape(info["shape"])
+            continue
         if tag not in _NP_FROM_ST:
             raise ValueError(f"{path}: unsupported safetensors dtype {tag} "
                              f"for tensor {name!r}")
@@ -114,6 +127,49 @@ def read_safetensors(path: str) -> Dict[str, np.ndarray]:
         out[name] = np.frombuffer(
             memoryview(data)[lo:hi], dtype=np.dtype(_NP_FROM_ST[tag])
         ).reshape(info["shape"])
+    return out
+
+
+def write_sharded_safetensors(checkpoint_dir: str,
+                              tensors: Dict[str, np.ndarray], n_shards: int,
+                              metadata: Optional[Dict[str, str]] = None
+                              ) -> int:
+    """``tensors`` as ``n_shards`` safetensors files named as
+    ``transformers.save_pretrained`` names them
+    (``model-00001-of-00002.safetensors``, ...; tensors in name order,
+    split by count) plus ``model.safetensors.index.json``. Returns the
+    bytes of the shards."""
+    names = sorted(tensors)
+    per = -(-len(names) // max(1, n_shards))
+    weight_map: Dict[str, str] = {}
+    total = nbytes = 0
+    for i in range(n_shards):
+        part = names[i * per:(i + 1) * per]
+        fname = f"model-{i + 1:05d}-of-{n_shards:05d}.safetensors"
+        nbytes += write_safetensors(os.path.join(checkpoint_dir, fname),
+                                    {k: tensors[k] for k in part}, metadata)
+        for k in part:
+            weight_map[k] = fname
+            total += int(np.asarray(tensors[k]).nbytes)
+    with open(os.path.join(checkpoint_dir, SAFETENSORS_INDEX), "w") as f:
+        json.dump({"metadata": {"total_size": total},
+                   "weight_map": weight_map}, f, indent=2, sort_keys=True)
+    return nbytes
+
+
+def _read_sharded(checkpoint_dir: str, index_path: str,
+                  reader) -> Dict[str, np.ndarray]:
+    """Every tensor of an index's shards; a tensor the index names but no
+    shard holds raises."""
+    with open(index_path) as f:
+        weight_map = json.load(f)["weight_map"]
+    out: Dict[str, np.ndarray] = {}
+    for fname in sorted(set(weight_map.values())):
+        out.update(reader(os.path.join(checkpoint_dir, fname)))
+    missing = sorted(set(weight_map) - set(out))
+    if missing:
+        raise ValueError(f"{index_path}: tensors missing from the shards: "
+                         f"{missing[:4]}")
     return out
 
 
@@ -297,17 +353,21 @@ def read_checkpoint_config(checkpoint_dir: str) -> Dict[str, Any]:
 def load_checkpoint(checkpoint_dir: str
                     ) -> Tuple[Dict[str, Any], Dict[str, np.ndarray]]:
     """``(config_dict, hf_state_dict)`` of a checkpoint directory:
-    safetensors where present, else ``pytorch_model.bin``."""
+    safetensors where present (one file, else the sharded index), else
+    ``pytorch_model.bin`` (one file, else its index)."""
     cfg = read_checkpoint_config(checkpoint_dir)
-    st = os.path.join(checkpoint_dir, SAFETENSORS_NAME)
-    if os.path.isfile(st):
-        return cfg, read_safetensors(st)
-    pt = os.path.join(checkpoint_dir, PYTORCH_NAME)
-    if os.path.isfile(pt):
-        return cfg, _read_pytorch_bin(pt)
+    for single, index, reader in (
+            (SAFETENSORS_NAME, SAFETENSORS_INDEX, read_safetensors),
+            (PYTORCH_NAME, PYTORCH_INDEX, _read_pytorch_bin)):
+        path = os.path.join(checkpoint_dir, single)
+        if os.path.isfile(path):
+            return cfg, reader(path)
+        path = os.path.join(checkpoint_dir, index)
+        if os.path.isfile(path):
+            return cfg, _read_sharded(checkpoint_dir, path, reader)
     raise FileNotFoundError(
-        f"{checkpoint_dir}: no weights file ({SAFETENSORS_NAME} or "
-        f"{PYTORCH_NAME})")
+        f"{checkpoint_dir}: no weights file ({SAFETENSORS_NAME}, "
+        f"{SAFETENSORS_INDEX}, {PYTORCH_NAME} or {PYTORCH_INDEX})")
 
 
 def load_checkpoint_into(model, checkpoint_dir: str,

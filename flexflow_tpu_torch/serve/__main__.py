@@ -1,22 +1,27 @@
 """CLI serving entry: ``python -m flexflow_tpu_torch.serve`` (counterpart
-of ``python -m flexflow_tpu.serve``, with its flags plus ``--device``).
+of ``python -m flexflow_tpu.serve``, with its flags plus ``--device`` and
+``--inference-debugging``).
 
 Examples:
-  python -m flexflow_tpu_torch.serve --model <hf-dir> --prompt 1,5,9,23 \
+  python -m flexflow_tpu_torch.serve --model <hf-dir> --prompt "Hello" \
       --max-new-tokens 64
   python -m flexflow_tpu_torch.serve --model <hf-dir> --ssm-model <draft-dir> \
-      --prompt 1,5,9,23                      # speculative decoding
+      --prompt "Hello"                       # speculative decoding
   python -m flexflow_tpu_torch.serve --ssm-model builtin --device cpu
 
-``--model`` is an HF-layout checkpoint directory (config.json +
-model.safetensors or pytorch_model.bin), cold-started through
-``LLM.from_checkpoint``. With no ``--model`` it serves a LLaMA-class
-model of the JAX CLI's default geometry (vocab 1024, hidden 256, 4
-layers; a 2-layer draft on the same weights for ``--ssm-model builtin``)
-with weights drawn from a seeded generator, so the whole stack runs
-anywhere. The port has no tokenizer (it never imports ``transformers``),
-so a ``--prompt`` is a comma-separated list of token ids. The device is
-the card unless ``--device cpu`` is given.
+``--model`` is a local HF model directory (config.json and the weights,
+one file or shards with their index), read through ``LLM(dir)``. A
+``--prompt`` is a comma-separated list of token ids or, where the
+directory has a tokenizer (``tokenizer.model``, or another local one
+where ``transformers`` imports), text; with a tokenizer the outputs are
+printed as text too.
+With no ``--model`` it serves a LLaMA-class model of the JAX CLI's
+default geometry (vocab 1024, hidden 256, 4 layers; a 2-layer draft on
+the same weights for ``--ssm-model builtin``) with weights drawn from a
+seeded generator and no tokenizer, so the whole stack runs anywhere.
+``--inference-debugging`` dumps every op of every step to
+``./inference_tensors``. The device is the card unless ``--device cpu``
+is given.
 """
 
 from __future__ import annotations
@@ -66,15 +71,21 @@ def _draw(torch, key, shapes, E, gen):
         0.0, 0.02, generator=gen)
 
 
-def _prompts(args, p):
+def _prompts(args, p, has_tokenizer: bool):
+    """Each ``--prompt``: comma-separated token ids, else text (which
+    needs the model's tokenizer)."""
     if not args.prompt:
         return [[1, 5, 9, 23], [1, 44, 17]]
-    try:
-        return [[int(t) for t in s.split(",") if t.strip()]
-                for s in args.prompt]
-    except ValueError:
-        p.error("--prompt takes comma-separated token ids (the port has "
-                "no tokenizer)")
+    out = []
+    for s in args.prompt:
+        try:
+            out.append([int(t) for t in s.split(",") if t.strip()])
+        except ValueError:
+            if not has_tokenizer:
+                p.error(f"--prompt {s!r}: the model has no tokenizer, so "
+                        "a prompt is comma-separated token ids")
+            out.append(s)
+    return out
 
 
 def main(argv=None):
@@ -86,7 +97,8 @@ def main(argv=None):
                    help="draft model dir (enables speculative decoding); "
                         "'builtin' for the built-in pair")
     p.add_argument("--prompt", action="append", default=None,
-                   help="comma-separated token ids (repeatable)")
+                   help="comma-separated token ids, or text with a "
+                        "tokenizer (repeatable)")
     p.add_argument("--max-new-tokens", type=int, default=32)
     p.add_argument("--max-requests-per-batch", type=int, default=4)
     p.add_argument("--max-seq-length", type=int, default=256)
@@ -96,6 +108,9 @@ def main(argv=None):
     p.add_argument("--4bit-quantization", dest="q4", action="store_true")
     p.add_argument("--offload", action="store_true")
     p.add_argument("--output-file", default="")
+    p.add_argument("--inference-debugging", action="store_true",
+                   help="dump every op of every step to "
+                        "./inference_tensors")
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
@@ -106,38 +121,34 @@ def main(argv=None):
         p.error("--offload: weight offload is not in the port")
 
     if args.model:
-        llm = LLM.from_checkpoint(args.model)
-        ssms = ([SSM.from_checkpoint(args.ssm_model)]
-                if args.ssm_model else [])
+        llm = LLM(args.model, output_file=args.output_file)
+        ssms = [SSM(args.ssm_model)] if args.ssm_model else []
     else:
         if args.ssm_model and args.ssm_model != "builtin":
             p.error("--ssm-model <dir> requires --model (a real draft "
                     "cannot speculate for the built-in random verifier); "
                     "use '--ssm-model builtin' for the built-in pair")
-        llm = LLM(default_state_dict(4))
+        llm = LLM(default_state_dict(4), output_file=args.output_file)
         ssms = [SSM(default_state_dict(2))] if args.ssm_model else []
     quant = "int4" if args.q4 else ("int8" if args.q8 else None)
     llm.compile(max_requests_per_batch=args.max_requests_per_batch,
                 max_seq_length=args.max_seq_length,
                 max_tokens_per_batch=args.max_tokens_per_batch,
                 ssms=ssms, device=args.device,
+                inference_debugging=args.inference_debugging,
                 **({"quantization_type": quant} if quant else {}))
 
-    prompts = _prompts(args, p)
+    prompts = _prompts(args, p, llm.tokenizer is not None)
     t0 = time.time()
     results = llm.generate(prompts, max_new_tokens=args.max_new_tokens)
     dt = time.time() - t0
     total = sum(len(r.output_tokens) for r in results)
     for r in results:
         print(f"guid={r.guid} output={r.output_tokens}")
+        if llm.tokenizer is not None:
+            print(f"  text: {r.output_text!r}")
     print(f"{total} tokens in {dt:.2f}s ({total / dt:.1f} tok/s)"
           + (" [speculative]" if ssms else ""))
-    if args.output_file:
-        # the JAX RequestManager's per-request output log format
-        with open(args.output_file, "w") as f:
-            for r in results:
-                f.write(f"guid({r.guid})\ninput: {r.input_tokens}\n"
-                        f"output: {r.output_tokens}\n")
     return 0
 
 

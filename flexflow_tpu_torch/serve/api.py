@@ -1,12 +1,28 @@
 """User-facing serving API: ``LLM`` and its draft model ``SSM``
 (counterpart of ``flexflow_tpu/serve/api.py``).
 
-An LLM is built from a ``(hf_config, state_dict)`` pair: the config (a
-dict or an object with the HF attribute names) picks the model family,
-``compile`` records the serving graph on ``device``, initializes it and
-copies the HF weights in, and ``generate`` runs the continuous-batching
-incremental decoder or, with SSMs attached at ``compile``, speculative
-inference::
+An LLM is built from one of three sources, as in the JAX package:
+
+* a ``(hf_config, state_dict)`` pair (the config a dict or an object
+  with the HF attribute names);
+* an in-memory ``transformers`` model (anything with ``config`` and
+  ``state_dict()``);
+* a local HF model directory: ``config.json`` and the weights (one
+  safetensors or ``pytorch_model.bin`` file, or shards with their index)
+  are read by ``models/checkpoint_store.py``, with no ``transformers``
+  import. Its tokenizer is the directory's ``tokenizer.model`` on the
+  native SentencePiece tokenizer, else ``transformers.AutoTokenizer``
+  with ``local_files_only`` where ``transformers`` imports, else none
+  (token-id prompts only). A string that is not a directory raises: the
+  port never downloads (the JAX package fetches a hub name through
+  ``transformers``).
+
+The config picks the model family, ``compile`` records the serving graph
+on ``device``, initializes it and copies the HF weights in, and
+``generate`` runs the continuous-batching incremental decoder or, with
+SSMs attached at ``compile``, speculative inference; with a tokenizer,
+prompts may be text and results carry ``output_text``.
+``LLM(..., output_file=path)`` logs every finished request to ``path``::
 
     ssm = SSM((draft_hf_config, draft_state_dict))
     llm = LLM((hf_config, state_dict)).compile(ssms=[ssm])
@@ -51,12 +67,12 @@ process-global ``ServingTelemetry`` (flexflow_tpu_torch/telemetry), and
 ``LLM.from_checkpoint(dir, quantize="int8")`` (and ``SSM``'s) cold-starts
 from an HF-layout checkpoint on disk (``models/checkpoint_store.py``),
 quantizing on load when asked. Every family of ``models.FAMILIES`` serves
-this way: LLaMA, OPT, Falcon, MPT and StarCoder. Building from a model
-name through ``transformers`` (it downloads) is not in the port.
+this way: LLaMA, OPT, Falcon, MPT and StarCoder.
 """
 
 from __future__ import annotations
 
+import os
 import threading
 from typing import Any, List, Optional, Sequence, Tuple, Union
 
@@ -68,26 +84,84 @@ from flexflow_tpu_torch.serve.request_manager import (GenerationResult,
                                                       RequestManager)
 
 
+def _is_hf_model(obj) -> bool:
+    return hasattr(obj, "state_dict") and hasattr(obj, "config")
+
+
+# the files a transformers tokenizer is loaded from
+_HF_TOKENIZER_FILES = ("tokenizer.json", "tokenizer_config.json",
+                       "vocab.json")
+
+
+def _local_tokenizer(model_dir: str):
+    """The tokenizer of a local model directory: ``tokenizer.model`` on
+    the native SentencePiece tokenizer, else ``transformers.AutoTokenizer``
+    (``local_files_only``) where ``transformers`` imports and the
+    directory holds a tokenizer file of its own, else None. A
+    ``tokenizer.model`` the parser rejects counts as absent, as in the
+    JAX package; a native library that cannot build raises. (Some
+    ``transformers`` versions build a tokenizer for a directory with no
+    tokenizer file; the JAX package takes it, the port does not.)"""
+    sp_path = os.path.join(model_dir, "tokenizer.model")
+    if os.path.exists(sp_path):
+        from flexflow_tpu_torch.native.sp_tokenizer import \
+            SentencePieceTokenizer
+
+        try:
+            return SentencePieceTokenizer(sp_path)
+        except ValueError:
+            pass
+    if not any(os.path.exists(os.path.join(model_dir, f))
+               for f in _HF_TOKENIZER_FILES):
+        return None
+    try:
+        import transformers
+
+        return transformers.AutoTokenizer.from_pretrained(
+            model_dir, local_files_only=True)
+    except Exception:
+        return None
+
+
 class LLM:
-    """A large language model to serve, from ``(hf_config, state_dict)``."""
+    """A large language model to serve: ``model`` is a ``(hf_config,
+    state_dict)`` pair, an in-memory ``transformers`` model, or a local
+    HF model directory."""
 
     inference_mode = InferenceMode.INC_DECODING_MODE
 
     def __init__(self, model: Any, data_type: DataType = DataType.DT_FLOAT,
-                 tokenizer: Any = None):
+                 tokenizer: Any = None, output_file: str = ""):
         from flexflow_tpu_torch.models import family_for_hf_config
 
-        if not (isinstance(model, (tuple, list)) and len(model) == 2):
-            raise TypeError("the PyTorch port builds an LLM from a "
-                            "(hf_config, state_dict) pair")
-        self.hf_config, self._state_dict = model
+        self.checkpoint_dir: Optional[str] = None
+        if isinstance(model, (tuple, list)) and len(model) == 2:
+            self.hf_config, self._state_dict = model
+        elif _is_hf_model(model):
+            self.hf_config = model.config
+            self._state_dict = model.state_dict()
+        elif isinstance(model, str):
+            if not os.path.isdir(model):
+                raise ValueError(
+                    f"{model!r} is not a local model directory; the "
+                    "PyTorch port reads local directories only and never "
+                    "downloads a hub model")
+            from flexflow_tpu_torch.models.checkpoint_store import \
+                load_checkpoint
+
+            self.hf_config, self._state_dict = load_checkpoint(model)
+            self.checkpoint_dir = model
+            if tokenizer is None:
+                tokenizer = _local_tokenizer(model)
+        else:
+            raise TypeError(f"unsupported model source: {type(model)}")
         self.data_type = data_type
         self.tokenizer = tokenizer
+        self.output_file = output_file
         self.ffmodel = None
         self.ssms: List["SSM"] = []
         self.rm: Optional[RequestManager] = None
         self._server: Optional[_BackgroundServer] = None
-        self.checkpoint_dir: Optional[str] = None
         self._quantize_on_load: Optional[str] = None
         self.family = family_for_hf_config(self.hf_config)
         self.model_config = self.family.config_cls.from_hf_config(
@@ -163,6 +237,8 @@ class LLM:
             get = (self.hf_config.get if isinstance(self.hf_config, dict)
                    else lambda k, d=None: getattr(self.hf_config, k, d))
             self.rm.eos_token_id = get("eos_token_id", None)
+        if self.output_file:
+            self.rm.register_output_filepath(self.output_file)
         for ssm in self.ssms:
             ssm.compile(generation_config=self.generation_config,
                         max_requests_per_batch=max_requests_per_batch,

@@ -19,8 +19,10 @@ scale per output column, so column concatenation keeps every column's
 payload and scale bit for bit.
 
 Eligibility in the port: ``enable_fusion and gemm_fusion`` on a compiled
-model (the port compiles for inference only and has no mesh, pipeline,
-offload or debugging dumps, the JAX package's other terms). Off by default, as in
+model without ``inference_debugging`` (per-op dumps keep the separate
+q/k/v and gate/up tensors, as in the JAX package; the port compiles for
+inference only and has no mesh, pipeline or offload, the JAX package's
+other terms). Off by default, as in
 the JAX package, where it measured slower end to end. Applied after the
 weights are loaded (``FFModel.finalize_gemm_fusion``), so checkpoint maps
 keep writing the separate names; ``fused_param_get``/``fused_param_set``
@@ -45,7 +47,9 @@ _ATTN_TYPES = (OpType.INC_MULTIHEAD_SELF_ATTENTION,
 
 def fusion_eligible(model) -> bool:
     """The port compiles for inference only, so the flags decide."""
-    return model.config.enable_fusion and model.config.gemm_fusion
+    cfg = model.config
+    return (cfg.enable_fusion and cfg.gemm_fusion
+            and not cfg.inference_debugging)
 
 
 def _concat_cols(leaves: List):

@@ -7,6 +7,12 @@ same tensors. The manager owns the model's random stream: one
 ``torch.Generator`` on the model's device, seeded from ``FFConfig.seed``
 (a CPU generator cannot drive draws on the card), which every step and
 decode block hands to the forward; a sampled graph advances it.
+
+With ``FFConfig.inference_debugging`` on, every step dumps each op's
+inputs, weights and outputs under ``debug_dir`` (default
+``./inference_tensors``, as the JAX package writes;
+``utils/debugging.py``), and a decode block runs as single steps at the
+block's width so that every decode token is dumped (the same tokens).
 """
 
 from __future__ import annotations
@@ -31,8 +37,13 @@ def kernel_serves(model) -> bool:
     head dim, padded on the card: ``ops/inc_attention.py``
     ``cache_head_dim``) through ``kernels.attention.kernel_takes``, the
     predicate the kernel wrapper checks. Decides the incremental decode
-    width and which engine a single draft model speculates through."""
+    width and which engine a single draft model speculates through. False
+    for a model whose config turns the kernels off (``use_kernels``), as
+    the JAX package's ``use_pallas``."""
     from flexflow_tpu_torch.kernels.attention import kernel_takes
+
+    if not getattr(getattr(model, "config", None), "use_kernels", True):
+        return False
 
     caches = [st[n] for st in model.op_state.values() if isinstance(st, dict)
               for n in ("k", "k_cache") if n in st]
@@ -53,6 +64,10 @@ class InferenceManager:
         self.generator.manual_seed(cfg.seed)
         self._decode_block = None
         self.decode_width = self._resolve_decode_width(cfg)
+        # inference_debugging: where the dumps go, and the next step's
+        # number
+        self.debug_dir = "./inference_tensors"
+        self._debug_step = 0
 
     def _resolve_decode_width(self, cfg) -> int:
         """Step width of incremental decode (config.decode_width; 0 = auto).
@@ -76,9 +91,17 @@ class InferenceManager:
         from flexflow_tpu_torch.serve.engine import forward_with_meta
 
         m = self.model
-        out, m.op_state = forward_with_meta(
-            m, m.params, m.op_state, meta.to(m.device), self._compute_dtype,
-            generator=self.generator)
+        if m.config.inference_debugging:
+            from flexflow_tpu_torch.utils.debugging import dump_serving_step
+
+            out, m.op_state = dump_serving_step(
+                m, meta.to(m.device), self.debug_dir, self._debug_step,
+                generator=self.generator)
+            self._debug_step += 1
+        else:
+            out, m.op_state = forward_with_meta(
+                m, m.params, m.op_state, meta.to(m.device),
+                self._compute_dtype, generator=self.generator)
         if not want_output:
             return None
         return out.cpu().numpy()
@@ -91,6 +114,9 @@ class InferenceManager:
 
         m = self.model
         steps = m.config.decode_block_steps
+        if m.config.inference_debugging:
+            return self._decode_block_debug(tok, pos, active,
+                                            min(int(n_steps), steps))
         if self._decode_block is None:
             self._decode_block = make_decode_block(
                 m, self._compute_dtype, steps, width=self.decode_width)
@@ -103,3 +129,28 @@ class InferenceManager:
             torch.as_tensor(active, dtype=torch.bool, device=dev), n_steps,
             self.generator)
         return toks[:, :n_steps].cpu().numpy()
+
+    def _decode_block_debug(self, tok, pos, active, n_steps: int):
+        """A decode block as ``n_steps`` dumped ``step`` calls at the fused
+        block's width (one real token a row), so the dumped run gives the
+        block's tokens."""
+        from flexflow_tpu_torch.serve.batch_config import BatchMeta
+
+        R = tok.shape[0]
+        W = self.decode_width
+        cur = np.asarray(tok, np.int32).copy()
+        p = np.asarray(pos, np.int32).copy()
+        act = np.asarray(active, bool)
+        out = np.zeros((R, n_steps), np.int32)
+        for j in range(n_steps):
+            toks = np.zeros((R, W), np.int32)
+            toks[:, 0] = cur
+            qpos = p[:, None] + np.arange(W, dtype=np.int32)[None, :]
+            meta = BatchMeta(tokens=toks, positions=qpos, start_pos=p.copy(),
+                             num_tokens=act.astype(np.int32), active=act)
+            nxt = np.asarray(self.step(meta)).reshape(R, -1)[:, 0]
+            nxt = nxt.astype(np.int32)
+            out[:, j] = np.where(act, nxt, 0)
+            cur = np.where(act, nxt, cur)
+            p = p + act.astype(np.int32)
+        return out

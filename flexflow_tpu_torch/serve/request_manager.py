@@ -42,11 +42,34 @@ record their own blocks. Telemetry off, every site costs one attribute
 read and records nothing, and the prefill steps stay asynchronous.
 Telemetry on or off, the tokens are the same.
 
-This Python loop is the only scheduler: the port has no native C++
-scheduler. The JAX package takes its Python loop whenever priorities or
-the prefix pool are in use; it reaps deadlines and cancellations on its
-native loop too (``ffs_cancel``). Not in this slice: the
-``inference_debugging`` per-op dumps.
+Incremental decoding has two loops, chosen as in the JAX package.
+``FFConfig.use_native_scheduler`` (on by default) runs the native C++
+scheduler (``native/scheduler.py`` over ``native/src/
+batch_scheduler.cpp``), which owns slot fill, batch assembly and the
+EOS/length bookkeeping; the Python loop serves requests with priorities
+and the shared-prefix pool (``_needs_host_loop``), and runs when the
+native scheduler is off. Where the native scheduler is asked for and its
+library cannot build, the port raises (``NativeBuildError``); the JAX
+package falls back to its Python loop there. The native loop keeps a
+mirror of the C++ slot table (its slot grants follow ``ffs_fill_slots``'s
+order: lowest free slot, queue order) with every request's tokens, and
+checks it against the C++ state at every batch and every finished
+request. The mirror lets the native loop run the Python loop's seams:
+``_reap_expired`` at the top of each turn (expired and cancelled
+requests leave the C++ table through ``ffs_cancel``), first-token times,
+requests that arrive while it runs (they join its batch), and, when a
+request that needs the Python loop arrives, the handover of the slot
+table to it. Its telemetry is the Python loop's, per-request prefill and
+decode spans included (the mirror knows which request holds each slot):
+a superset of the JAX native loop's, which records no per-request
+spans.
+
+With ``FFConfig.inference_debugging`` every op's inputs, weights and
+outputs are dumped per serving step (``utils/debugging.py``): decode and
+draft chains run step by step, and speculation goes through the host
+tree path except where one draft model takes the chain engine, as in the
+JAX package. ``register_output_filepath`` appends each finished
+request's text (or tokens) to a file, in the JAX package's format.
 """
 
 from __future__ import annotations
@@ -190,6 +213,15 @@ class RequestManager:
         # an explicit ServingTelemetry, or None: the process-global one,
         # resolved once a loop turn (enabling mid-session attaches)
         self.telemetry = telemetry
+        # register_output_filepath's per-request log, or None
+        self.output_filepath: Optional[str] = None
+
+    def register_output_filepath(self, path: str):
+        """Append each finished request's input and output (text where a
+        tokenizer is registered, else token ids) to ``path``, truncated
+        here, in the JAX package's format."""
+        self.output_filepath = path
+        open(path, "w").close()
 
     def _tel(self):
         return self.telemetry if self.telemetry is not None \
@@ -330,6 +362,11 @@ class RequestManager:
             except Exception:
                 pass
         self.results[req.guid] = res
+        if self.output_filepath:
+            with open(self.output_filepath, "a") as f:
+                f.write(f"guid({res.guid})\n"
+                        f"input: {res.input_text or res.input_tokens}\n"
+                        f"output: {res.output_text or res.output_tokens}\n")
         return res
 
     def _grant(self, req: Request, slot: int, active, max_seq: int,
@@ -651,15 +688,42 @@ class RequestManager:
         """Greedy or sampled as ``model``'s graph was built
         (``GenerationConfig.do_sample`` at graph build time, as in the JAX
         package); ``generation_config`` is accepted for the API's
-        symmetry."""
+        symmetry, and attaches the prefix pool when it asks for one. On
+        the native loop when ``use_native_scheduler`` is on and no
+        request needs the Python loop, else on the Python loop."""
         ifm = self._ifm(model)
         cfg = model.config
         self._resolve_prefix_cache(generation_config)
+        active: List[Optional[Request]] = [None] * cfg.max_requests_per_batch
+        done: List[GenerationResult] = []
+        if getattr(cfg, "use_native_scheduler", True):
+            # asked for: a library that cannot build raises here, before
+            # any request leaves the queue
+            from flexflow_tpu_torch.native.scheduler import \
+                NativeBatchScheduler
+
+            sched = NativeBatchScheduler(cfg.max_requests_per_batch,
+                                         cfg.max_sequence_length,
+                                         self.eos_token_id)
+            if not self._generate_incr_native(ifm, cfg, sched, active,
+                                              done):
+                return done
+        return self._generate_incr_python(ifm, cfg, active, done)
+
+    def _needs_host_loop(self) -> bool:
+        """Priorities need the Python loop's preemption and the prefix
+        pool its decode-interleaved prefill: the native scheduler has
+        neither."""
+        return self.prefix_cache is not None or any(
+            r.priority for r in list(self.pending))
+
+    def _generate_incr_python(self, ifm, cfg, active, done
+                              ) -> List[GenerationResult]:
+        """The Python loop, from the slot table ``active`` (empty, or
+        handed over by the native loop)."""
         R = cfg.max_requests_per_batch
         max_seq = cfg.max_sequence_length
         chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
-        active: List[Optional[Request]] = [None] * R
-        done: List[GenerationResult] = []
         pairs = (("llm", ifm),)
 
         while self.pending or any(a is not None for a in active):
@@ -702,15 +766,121 @@ class RequestManager:
                 self._tel_tick(tel, live, R, max_seq)
                 toks = self._timed_decode(ifm, tel, live, tok, pos, act,
                                           block)
-                for req in live:
-                    for j in range(block):
-                        req.tokens.append(int(toks[req.slot, j]))
-                        if self._finish_if_done(req, max_seq):
-                            break
-                    self._note_first_token(req)
-                    req.cache_depth = len(req.tokens) - 1
+                self._take_block(live, toks, block, max_seq)
             self._collect_finished(active, done, pairs=pairs)
         return done
+
+    def _take_block(self, live, toks, block: int, max_seq: int):
+        """Append each live request's tokens of a decode block up to its
+        EOS or length limit (the host-side reconciliation of overshoot)."""
+        for req in live:
+            for j in range(block):
+                req.tokens.append(int(toks[req.slot, j]))
+                if self._finish_if_done(req, max_seq):
+                    break
+            self._note_first_token(req)
+            req.cache_depth = len(req.tokens) - 1
+
+    def _generate_incr_native(self, ifm, cfg, sched, active, done) -> bool:
+        """Incremental decoding with the native scheduler owning slot fill,
+        batch assembly and the EOS/length bookkeeping (the JAX package's
+        ``_generate_incr_native``). A turn whose prefill chunk leaves no
+        prompt mid-prefill also decodes, in a block no longer than the
+        chunk, as the Python loop does (the JAX package's native loop
+        decodes only in turns without prefill); so both loops run the same
+        blocks. ``active`` mirrors the C++ slot table;
+        every disagreement between the two raises. Returns True when a
+        request that needs the Python loop arrived: ``active`` is then the
+        live slot table to continue from (the KV caches stay valid, the
+        slots being the same)."""
+        R = cfg.max_requests_per_batch
+        max_seq = cfg.max_sequence_length
+        chunk = max(1, cfg.max_tokens_per_batch // max(1, min(R, 4)))
+
+        def mismatch(what):
+            raise RuntimeError(f"native scheduler and its slot mirror "
+                               f"disagree: {what}")
+
+        def drain():
+            while True:
+                popped = sched.pop_done()
+                if popped is None:
+                    return
+                guid, tokens, _plen = popped
+                if guid in self.results:
+                    continue    # resolved on the host: rejected or reaped
+                slot = next((s for s, r in enumerate(active)
+                             if r is not None and r.guid == guid), None)
+                if slot is None or active[slot].tokens != tokens:
+                    mismatch(f"request {guid} finished with {tokens}")
+                done.append(self._collect(active[slot]))
+                active[slot] = None
+            if any(r is not None and r.finished for r in active):
+                mismatch("a finished request is still slotted")
+
+        while self.pending or sched.has_work():
+            if self._needs_host_loop():
+                return True
+            tel = self._tel()
+            # the between-rounds seam: expired and cancelled requests are
+            # resolved on the host and taken out of the C++ table
+            slotted = {r.guid for r in active if r is not None}
+            self._reap_expired(active, max_seq, done)
+            for guid in slotted - {r.guid for r in active if r is not None}:
+                if not sched.cancel(guid):
+                    mismatch(f"request {guid} could not be cancelled")
+            # slot grants in ffs_fill_slots's order: the lowest free slot,
+            # the queue's order; a prompt that can never fit is rejected
+            for slot in range(R):
+                while active[slot] is None and self.pending:
+                    req = self.pending.popleft()
+                    sched.add_request(req.guid, req.prompt_tokens,
+                                      req.max_new_tokens,
+                                      req.max_sequence_length)
+                    placed = sched.fill_slots()
+                    if placed != int(self._grant(req, slot, active, max_seq,
+                                                 done)):
+                        mismatch(f"slot grant of request {req.guid}")
+            drain()
+            rows, tokens, positions, start, num, act = \
+                sched.assemble_prefill(chunk, cfg.max_tokens_per_batch, chunk)
+            if rows:
+                prows = []
+                for slot in np.flatnonzero(act):
+                    req, sp, n = active[slot], int(start[slot]), int(num[slot])
+                    if (req is None or req.cache_depth != sp or req.tokens[
+                            sp:sp + n] != tokens[slot, :n].tolist()):
+                        mismatch(f"prefill of slot {slot}")
+                    prows.append((slot, req.tokens[sp:sp + n], sp))
+                    req.cache_depth = sp + n
+                meta = BatchMeta(tokens=tokens, positions=positions,
+                                 start_pos=start, num_tokens=num,
+                                 active=act)
+                self._timed_prefill(ifm, meta, tel, prows, active)
+                if any(r is not None and r.cache_depth < len(r.tokens) - 1
+                       for r in active):
+                    # a prompt is still mid-prefill, and the C++ decode
+                    # batch takes every slotted request: prefill first
+                    continue
+            n_live, tok, pos, act = sched.assemble_decode()
+            if n_live:
+                live = [active[s] for s in np.flatnonzero(act)]
+                if any(r is None or r.tokens[-1] != tok[r.slot]
+                       or len(r.tokens) - 1 != pos[r.slot] for r in live):
+                    mismatch("decode batch")
+                # the Python loop's blocks: short behind a prefill chunk,
+                # so that the next chunk (or a reap) is not starved
+                block = sched.decode_block(
+                    min(cfg.decode_block_steps, chunk) if rows
+                    else cfg.decode_block_steps)
+                self._tel_tick(tel, live, R, max_seq)
+                toks = self._timed_decode(ifm, tel, live, tok, pos, act,
+                                          block)
+                toks = np.asarray(toks)[:, :block]
+                sched.append_block(toks)
+                self._take_block(live, toks, block, max_seq)
+            drain()
+        return False
 
     # =====================================================================
     # Speculative inference (reference generate_spec_infer)
@@ -756,8 +926,9 @@ class RequestManager:
                 f"beam_width={W} but the draft models were compiled with "
                 f"max_beam_width={widths}; rebuild the SSMs with the "
                 f"requested width (FFConfig.max_beam_width)")
+        debugging = llm.config.inference_debugging
         if W > 1:
-            if len(ssms) == 1:
+            if len(ssms) == 1 and not debugging:
                 return self._generate_spec_chain(
                     llm, ssms[0], spec_depth=spec_depth, beam_width=W,
                     generation_config=gc)
@@ -768,9 +939,14 @@ class RequestManager:
             return self._generate_spec_chain(llm, ssms[0],
                                              spec_depth=spec_depth,
                                              generation_config=gc)
-        return self._generate_spec_tree_fused(llm, ssms,
-                                              spec_depth=spec_depth,
-                                              generation_config=gc)
+        if not debugging:
+            return self._generate_spec_tree_fused(llm, ssms,
+                                                  spec_depth=spec_depth,
+                                                  generation_config=gc)
+        # per-op dumps need the host-stepped tree path
+        return self._generate_spec_tree_host(llm, ssms,
+                                             spec_depth=spec_depth,
+                                             beam_width=1)
 
     # -- adaptive speculation support (serve/spec_controller.py) ----------
     @staticmethod
@@ -828,13 +1004,7 @@ class RequestManager:
         block = max(1, min(block, max_seq - 1 - int(pos[act].max())))
         self._tel_tick(tel, reqs, R, max_seq)
         toks = self._timed_decode(llm_ifm, tel, reqs, tok, pos, act, block)
-        for req in reqs:
-            for j in range(block):
-                req.tokens.append(int(toks[req.slot, j]))
-                if self._finish_if_done(req, max_seq):
-                    break
-            self._note_first_token(req)
-            req.cache_depth = len(req.tokens) - 1
+        self._take_block(reqs, toks, block, max_seq)
         return block
 
     def _cramped_step(self, llm_ifm, cramped, R, max_seq, n_ssms, tel):
@@ -1294,6 +1464,8 @@ class RequestManager:
         from flexflow_tpu_torch.serve.engine import make_draft_chain
 
         model = ifm.model
+        if model.config.inference_debugging:
+            return self._draft_chains_debug(ifm, ssm_idx, live, R, depth)
         fn = getattr(model, "_draft_chain_fn", None)
         if fn is None or model._draft_chain_depth != depth:
             fn = make_draft_chain(model, ifm._compute_dtype, depth)
@@ -1317,6 +1489,26 @@ class RequestManager:
         chains = {}
         for req in live:
             chains[req.slot] = [int(t) for t in toks[req.slot]]
+            req.ssm_cache_depth[ssm_idx] = \
+                req.ssm_cache_depth.get(ssm_idx, 0) + 1
+        return chains
+
+    def _draft_chains_debug(self, ifm, ssm_idx, live, R, depth):
+        """The draft chains one ``InferenceManager.step`` a token, so that
+        ``inference_debugging`` dumps every drafted token's ops (the JAX
+        package's ``_draft_chains_debug``); the same tokens and cache
+        depths as ``_draft_chains``."""
+        rows = [(req.slot, req.tokens[-1:], req.ssm_cache_depth.get(ssm_idx,
+                                                                    0))
+                for req in live]
+        chains = {req.slot: [] for req in live}
+        for i in range(depth):
+            out = ifm.step(self._meta_from_rows(R, 1, rows))
+            rows = [(slot, [int(out[slot, 0])], d + 1)
+                    for slot, _tok, d in rows]
+            for slot, tok, _d in rows:
+                chains[slot].append(tok[0])
+        for req in live:
             req.ssm_cache_depth[ssm_idx] = \
                 req.ssm_cache_depth.get(ssm_idx, 0) + 1
         return chains

@@ -7,7 +7,9 @@ refuses graphs it cannot fuse safely, it is gated by ``enable_fusion``
 and off by default, and ``get/set_parameter_by_key`` keep serving the
 pre-fusion names on plain and quantized leaves. A tiny LLaMA (vocab 128,
 hidden 128, intermediate 96, 2 layers, 4 heads; 2 request slots, fp32
-KV cache).
+KV cache); and the other four families (multi-query Falcon, OPT, MPT and
+StarCoder at ``checkpoint_store.TINY_CONFIGS``), whose qkv fuses, each
+against the JAX package's tokens.
 """
 
 import numpy as np
@@ -290,3 +292,39 @@ def test_llm_compile_fuses_verifier_and_drafts():
     prompts = [[5, 9, 23, 44], [7, 3, 11]]
     want = [r.output_tokens for r in plain.generate(prompts, 8)]
     assert [r.output_tokens for r in fused.generate(prompts, 8)] == want
+
+
+# the four other families at checkpoint_store.TINY_CONFIGS (Falcon's
+# TINY geometry is multi-query: one KV head), each fused against the
+# JAX package's unfused tokens for the same weights
+FAMILY_CASES = ["falcon", "opt", "mpt", "gpt_bigcode"]
+
+
+@pytest.mark.parametrize("family", FAMILY_CASES)
+def test_fused_families_match_jax(family):
+    from flexflow_tpu.models import FAMILIES as JFAMILIES
+    from flexflow_tpu_torch.models import FAMILIES
+    from flexflow_tpu_torch.models.checkpoint_store import TINY_CONFIGS
+
+    jfam, fam = JFAMILIES[family], FAMILIES[family]
+    cfg = TINY_CONFIGS[family]
+    serve = dict(SERVE, max_sequence_length=48)
+    jm = ff.FFModel(ff.FFConfig(use_native_scheduler=False, seed=3, **serve))
+    jfam.build(jm, jfam.config_cls(**cfg), mode=JMode.INC_DECODING_MODE)
+    jm.compile(comp_mode=ff.CompMode.COMP_MODE_INFERENCE)
+    rm = JRM()
+    rm.register_new_request(list(PROMPT), max_new_tokens=6)
+    jtok = rm.generate_incr_decoding(jm)[0].output_tokens
+    m = fft.FFModel(fft.FFConfig(device="cpu", gemm_fusion=True, **serve))
+    fam.build(m, fam.config_cls(**cfg), mode=InferenceMode.INC_DECODING_MODE)
+    m.compile()
+    load_params(m, params_from_jax(
+        {ly: {w: np.asarray(a) for w, a in lp.items()}
+         for ly, lp in jm.params.items()}))
+    assert _gen(m) == jtok and len(jtok) == 6
+    attn = [lp for lp in m.params.values() if "wqkv" in lp]
+    assert attn and not any("wq" in lp for lp in m.params.values())
+    if family == "falcon":     # multi-query: q is H*D wide, k and v D
+        E = cfg["hidden_size"]
+        D = E // cfg["num_attention_heads"]
+        assert attn[0]["wqkv"].shape == (E, E + 2 * D)
