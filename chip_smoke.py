@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases 1,2,11  # training: BERT, ResNet-50
     python3 chip_smoke.py --phases 1,2,12  # telemetry, the replica fleet
     python3 chip_smoke.py --phases 1,2,13  # the host side of serving
+    python3 chip_smoke.py --phases 1,2,14  # offload, sharded serving
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -222,7 +223,32 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      widths in fp32, card against CPU: the worst op output within
      ``DUMP_TOL`` of its largest magnitude. K1/K2 (and K3 with int8
      weights) launched and no plain call in every serving window but
-     13e's plain pass.
+     13e's plain pass;
+ 14. CPU weight offload and sharded serving (K1-K3 at per-rank shapes;
+     K1/K2's partials mode under sequence parallelism). 14a: phase 8's model (7B int8, bf16) built twice,
+     offload off and on (``LLM.compile(cpu_offload=True)``, every
+     paged weight checked pinned, prefetch reserve 1 GiB), warm-ups,
+     then 3 alternating off/on pairs of 8 requests x 32 new tokens:
+     tokens equal 8/8 in every pass, bytes paged, max_memory_allocated
+     of each pass (and less the other model's card bytes, gated lower
+     with offload), decode ms/step median/min/max, the host->device
+     GB/s that a step's bytes and time imply, K2/K3 launched and no
+     plain call. 14b (``parallel/launch.run_ranks`` subprocesses, each
+     with a timeout): the collectives on CUDA tensors on 2 ranks
+     (gloo, staged through pinned host buffers) against numpy; then
+     LLaMA-2-7B widths, int8, fp32 compute and cache, 8 requests x 16
+     new tokens on 1 rank (a world-size-1 NCCL group: the final-output
+     broadcast runs on NCCL) and at tp=2, pp=2 and sp=2 on 2 ranks
+     sharing the card (gloo): tokens 8/8 equal to the 1-rank run on
+     every rank, each rank's K1/K2/K3 launches (at sp=2 every K1/K2
+     launch returns its partials, which three collectives reconcile)
+     with the shapes they ran at, peak memory and decode ms/step (two
+     processes sharing one card through the host: not a speed of the
+     parallelism); no plain call. 14c: each kernel at every shape that
+     14a and 14b launched it at, against its plain version (the
+     partials mode over a cache of twice a rank's rows, split in halves
+     at their offsets and combined), and the partials mode's timed row
+     of the kernel table at the sp=2 decode shape.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -1817,8 +1843,8 @@ def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
         raise AssertionError("full-size run produced wrong token counts/ids")
     want = {"flash_attend": layers * stats["prefill_steps"],
             "flash_attend_append": layers * stats["decode_steps"],
-            "flash_attend_bias": 0, "plain_attend_cuda": 0,
-            "qmatmul": 0, "qmatmul_plain_cuda": 0}
+            "flash_attend_bias": 0, "flash_attend_partials": 0,
+            "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
         raise AssertionError(f"kernel launch counts {counts} != {want}")
     if profile:
@@ -2073,12 +2099,12 @@ def classify_difference(torch, what, res, incr, verifier, prompts, run,
     commits = []
     base = engine.commit_tree_kv
 
-    def logged(op_state, src_node, num_commit, start_pos, active):
+    def logged(op_state, src_node, num_commit, start_pos, active, **kw):
         n, st = int(num_commit[i]), int(start_pos[i])
         if bool(active[i]) and n:
             src = (st + src_node[i, :n].long()).tolist()
             commits.append((list(range(st, st + n)), src))
-        return base(op_state, src_node, num_commit, start_pos, active)
+        return base(op_state, src_node, num_commit, start_pos, active, **kw)
 
     engine.commit_tree_kv = logged
     try:
@@ -4674,6 +4700,471 @@ def host_side_phase(torch, card):
     return by_path
 
 
+# ----------------------------------------------------------------------
+# phase 14: CPU weight offload and sharded serving
+# ----------------------------------------------------------------------
+# 14a: phase 8's int8 model, offload on and off; the prefetch reserve is
+# cut to 1 GiB (FFConfig's default, 8 GiB, would hold the whole int8
+# model in flight)
+OFFLOAD_NEW, OFFLOAD_PAIRS, OFFLOAD_RESERVE = 32, 3, 1 << 30
+# 14b: LLaMA-2-7B widths, int8 weights, fp32 compute and cache (greedy
+# tokens compared across layouts whose reductions add in other orders),
+# each config's ranks as subprocesses sharing the card through gloo
+SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, LAYERS, 420
+SHARD_CONFIGS = (("tp2", dict(tensor_parallelism_degree=2)),
+                 ("pp2", dict(pipeline_parallelism_degree=2)),
+                 ("sp2", dict(sequence_parallelism_degree=2)))
+
+
+def _offloaded_nbytes(m) -> int:
+    """Bytes of the weights ``m`` keeps in pinned host memory; checks
+    that each one is pinned and off the card."""
+    n = 0
+    for lname, names in m._offloaded.items():
+        for w in names:
+            leaf = m.params[lname][w]
+            for t in ([leaf.q, leaf.scale] if hasattr(leaf, "q") else [leaf]):
+                if t.is_cuda or not t.is_pinned():
+                    raise AssertionError(f"14a: {lname}.{w} not pinned")
+            n += leaf.nbytes
+    return n
+
+
+def _device_bytes(m) -> int:
+    """Bytes of ``m``'s parameters and caches that live on the card."""
+    from flexflow_tpu_torch.quant import is_quantized
+
+    n = 0
+    for lp in m.params.values():
+        for leaf in lp.values():
+            ts = [leaf.q, leaf.scale] if is_quantized(leaf) else [leaf]
+            n += sum(t.nbytes for t in ts if t.is_cuda)
+    for st in m.op_state.values():
+        if isinstance(st, dict):
+            n += sum(t.nbytes for t in st.values()
+                     if hasattr(t, "is_cuda") and t.is_cuda)
+    return n
+
+
+def offload_phase(torch, card):
+    """14a: phase 8's model (LLaMA-2-7B geometry, int8 weights, bf16
+    compute and cache) twice, offload off and on, in alternating pairs.
+    Returns (the offload-on pass's launch counts, report, the offload-on
+    passes' launch shapes)."""
+    import numpy as np
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    off, _, s_off = quantized_llm(torch, "int8")
+    on, _, s_on = quantized_llm(torch, "int8", cpu_offload=True,
+                                offload_reserve_space_size=OFFLOAD_RESERVE)
+    m_off, m_on = off.ffmodel, on.ffmodel
+    moved = _offloaded_nbytes(m_on)
+    log(f"  built in {s_off:.1f} s (off) and {s_on:.1f} s (on, offload at "
+        f"compile); {moved / 1e9:.3f} GB paged to pinned host memory in "
+        f"{sum(len(v) for v in m_on._offloaded.values())} weights; on the "
+        f"card: {_device_bytes(m_off) / 2**30:.2f} GiB (off) vs "
+        f"{_device_bytes(m_on) / 2**30:.2f} GiB (on)  [{card}]")
+    rng = np.random.default_rng(14)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    others = {id(m_off): _device_bytes(m_on), id(m_on): _device_bytes(m_off)}
+    on_shapes = {}
+
+    def one(m, what, new_tokens=OFFLOAD_NEW):
+        ifm = RequestManager._ifm(m)
+        dec = decode_timer(ifm)
+        pf = m._prefetcher
+        f0 = pf.bytes_fetched if pf is not None else 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with kernels.record_shapes() as sh:
+            res, _tps, counts, _rm = timed_pass(
+                torch, card, prompts,
+                lambda rm: rm.generate_incr_decoding(m), new_tokens, what)
+        if m is m_on:
+            on_shapes.update({k: set(v) for k, v in sh.items()})
+        peak = torch.cuda.max_memory_allocated()
+        del ifm.decode_block
+        fetched = (pf.bytes_fetched - f0) if pf is not None else 0
+        return dict(tokens=res, counts=counts, peak=peak,
+                    own_peak=peak - others[id(m)],
+                    ms=dec["s"] * 1e3 / max(1, dec["steps"]),
+                    fetched=fetched)
+
+    one(m_off, "warm-up, offload off", 8)
+    one(m_on, "warm-up, offload on", 8)
+    passes = {"off": [], "on": []}
+    for i in range(OFFLOAD_PAIRS):
+        passes["off"].append(one(m_off, f"pair {i}: offload off"))
+        passes["on"].append(one(m_on, f"pair {i}: offload on"))
+    ref = passes["off"][0]["tokens"]
+    equal = min(sum(a == b for a, b in zip(p["tokens"], ref))
+                for p in passes["off"] + passes["on"])
+
+    def stats(key, side):
+        v = [p[key] for p in passes[side]]
+        return statistics.median(v), min(v), max(v)
+
+    ms_on, ms_off = stats("ms", "on"), stats("ms", "off")
+    c_on = passes["on"][-1]["counts"]
+    fetched = passes["on"][-1]["fetched"]
+    gbps = moved / (ms_on[0] / 1e3) / 1e9
+    log(f"  tokens equal to the first offload-off pass: {equal}/{REQUESTS} "
+        f"in every pass")
+    log(f"  decode ms/step median/min/max: off {ms_off[0]:.3f}/"
+        f"{ms_off[1]:.3f}/{ms_off[2]:.3f}, on {ms_on[0]:.3f}/{ms_on[1]:.3f}"
+        f"/{ms_on[2]:.3f} ({ms_on[0] / ms_off[0]:.2f}x)  [{card}]")
+    log(f"  max_memory_allocated over a pass (both models resident): off "
+        f"{stats('peak', 'off')[0] / 2**30:.2f} GiB, on "
+        f"{stats('peak', 'on')[0] / 2**30:.2f} GiB; less the other model's "
+        f"card bytes: off {stats('own_peak', 'off')[0] / 2**30:.2f} GiB, on "
+        f"{stats('own_peak', 'on')[0] / 2**30:.2f} GiB  [{card}]")
+    log(f"  host->device: {fetched / 1e9:.2f} GB streamed in the last "
+        f"on pass ({fetched / max(1, moved):.1f} x the paged bytes: one "
+        f"fetch a forward); {moved / 1e9:.3f} GB a decode step at "
+        f"{ms_on[0]:.3f} ms implies {gbps:.1f} GB/s  [{card}]")
+    log(f"  launches, offload on: {c_on}")
+    if (equal != REQUESTS or not c_on["flash_attend_append"]
+            or not c_on["qmatmul"] or c_on["plain_attend_cuda"]
+            or c_on["qmatmul_plain_cuda"]
+            or not stats("own_peak", "on")[0] < stats("own_peak", "off")[0]
+            or not moved):
+        raise AssertionError("14a: offload gates")
+    report = dict(tokens_equal=equal, bytes_moved=moved,
+                  decode_ms_off=list(ms_off), decode_ms_on=list(ms_on),
+                  peak_gib_off=stats("peak", "off")[0] / 2**30,
+                  peak_gib_on=stats("peak", "on")[0] / 2**30,
+                  own_peak_gib_off=stats("own_peak", "off")[0] / 2**30,
+                  own_peak_gib_on=stats("own_peak", "on")[0] / 2**30,
+                  h2d_gb_per_s=gbps, reserve=OFFLOAD_RESERVE)
+    del off, on, m_off, m_on
+    gc.collect()
+    torch.cuda.empty_cache()
+    return c_on, report, on_shapes
+
+
+def _check_collectives(results):
+    """The collectives job's results on an axis of n ranks against
+    numpy (x = rank * 10 + arange(4 n))."""
+    import numpy as np
+
+    n = results[0]["n"]
+    xs = np.stack([r["rank"] * 10 + np.arange(4 * n, dtype=np.float32)
+                   for r in sorted(results, key=lambda r: r["index"])])
+    for r in results:
+        i = r["index"]
+        want = {"psum": xs.sum(0), "pmax": xs.max(0), "pmean": xs.mean(0),
+                "all_gather": np.concatenate([a.reshape(n, 4) for a in xs],
+                                             axis=1),
+                "all_gather_stacked": xs,
+                "reduce_scatter": np.split(xs.sum(0), n)[i],
+                "ppermute": xs[(i - 1) % n], "send_recv": xs[(i - 1) % n],
+                "all_to_all": np.concatenate(
+                    [a.reshape(n, 4)[i:i + 1] for a in xs], axis=1),
+                "broadcast": xs[0]}
+        for k, v in want.items():
+            if not np.allclose(np.asarray(r[k], np.float32), v):
+                raise AssertionError(f"14b: collective {k} on rank "
+                                     f"{r['rank']}")
+    return sorted(want)
+
+
+def sharded_phase(torch, card, work, device="cuda", model=None):
+    """14b: the collectives on the card, then LLaMA-2-7B widths (int8,
+    fp32 compute and cache) on one rank (a world-size-1 NCCL group) and
+    at tp=2, pp=2 and sp=2 (two ranks sharing the card through gloo),
+    each as subprocesses of ``parallel/launch.run_ranks`` (their stores
+    and logs under ``work``). Returns ({config: launch counts summed over
+    its ranks}, report, {config: {kernel: launch shapes of its ranks}})."""
+    import numpy as np
+
+    from flexflow_tpu_torch.parallel.launch import run_ranks
+
+    jobs = "flexflow_tpu_torch.parallel.rank_jobs"
+    test_jobs = os.path.join(HERE, "tests", "torch_rank_jobs.py")
+    t_phase = time.perf_counter()
+    model = model or dict(
+        vocab_size=VOCAB, hidden_size=HIDDEN, intermediate_size=INTER,
+        num_hidden_layers=SHARD_LAYERS, num_attention_heads=HEADS,
+        num_key_value_heads=KV_HEADS, max_position_embeddings=MAX_SEQ)
+    cfg = dict(max_requests_per_batch=REQUESTS, max_sequence_length=SHARD_SEQ,
+               max_tokens_per_batch=REQUESTS * PROMPT_LEN,
+               kv_cache_dtype="float32", compute_dtype="float32",
+               quantization_type="int8", seed=7)
+    rng = np.random.default_rng(15)
+    prompts = [rng.integers(0, model["vocab_size"], PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+
+    def runs(deg):
+        return [dict(name="incr", model=model, config=dict(cfg, **deg),
+                     prompts=prompts, max_new=SHARD_NEW, repeat=2)]
+
+    t = time.perf_counter()
+    names = _check_collectives(run_ranks(
+        f"{test_jobs}:collectives", 2,
+        {"device": device, "axis": "model",
+         "degrees": {"tensor_parallelism_degree": 2}},
+        workdir=os.path.join(work, "collectives"), timeout=SHARD_TIMEOUT,
+        device=device, backend="gloo"))
+    log(f"  collectives on {device} tensors, 2 ranks, gloo through pinned "
+        f"host buffers: {', '.join(names)} equal to numpy "
+        f"({time.perf_counter() - t:.1f} s)")
+    t = time.perf_counter()
+    # a mesh of one rank: the final-output broadcast runs on its group
+    one = dict(mesh_shape=[1], mesh_axis_names=["model"])
+    single = run_ranks(f"{jobs}:serve", 1,
+                       {"device": device, "runs": runs(one)},
+                       workdir=os.path.join(work, "single"),
+                       timeout=SHARD_TIMEOUT, device=device,
+                       backend="nccl" if device == "cuda" else "gloo")[0][0]
+    ref = single["tokens"]
+    log(f"  1 rank ({'NCCL' if device == 'cuda' else 'gloo'} world of 1, "
+        f"{model['num_hidden_layers']} layers): decode ms/step "
+        f"{single['decode_ms_per_step'][-1]:.3f}, peak "
+        f"{single['peak_bytes'] / 2**30:.2f} GiB, launches "
+        f"{single['counts']}, {time.perf_counter() - t:.1f} s  [{card}]")
+    report = {"single": dict(decode_ms=single["decode_ms_per_step"][-1],
+                             peak_gib=single["peak_bytes"] / 2**30,
+                             counts=single["counts"])}
+    by_path, shapes = {}, {}
+    plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
+    for name, deg in SHARD_CONFIGS:
+        t = time.perf_counter()
+        ranks = [r[0] for r in run_ranks(
+            f"{jobs}:serve", 2, {"device": device, "runs": runs(deg)},
+            workdir=os.path.join(work, name), timeout=SHARD_TIMEOUT,
+            device=device, backend="gloo")]
+        rep = []
+        for r in ranks:
+            eq = sum(a == b for a, b in zip(r["tokens"], ref))
+            c = r["counts"]
+            # sp2: every K1 and K2 launch returns its partials
+            part = (c["flash_attend"] + c["flash_attend_append"]
+                    if name == "sp2" else 0)
+            ok = (eq == REQUESTS and c["qmatmul"] > 0
+                  and c["flash_attend"] > 0 and c["flash_attend_append"] > 0
+                  and c["flash_attend_partials"] == part
+                  and not any(c[k] for k in plain))
+            ls = r["launch_shapes"]
+            for kernel, sh in ls.items():
+                shapes.setdefault(name, {}).setdefault(kernel, set()).update(
+                    tuple(x) for x in sh)
+            log(f"  {name} rank {r['rank']} (mesh {r['mesh']}): tokens "
+                f"{eq}/{REQUESTS} equal to 1 rank; launches K1 "
+                f"{c['flash_attend']} K2 {c['flash_attend_append']} (of "
+                f"them partials {c['flash_attend_partials']}) K3 "
+                f"{c['qmatmul']} plain {[c[k] for k in plain]}; held "
+                f"{r['shapes']}; K1 at (R, Q, H, KH, S, D, cache, out, "
+                f"bias) {ls.get('flash_attend', [])}; K2 at "
+                f"{ls.get('flash_attend_append', [])}; K3 at (M, K, N, "
+                f"qtype, compute, out) {ls.get('qmatmul', [])}; peak "
+                f"{r['peak_bytes'] / 2**30:.2f} GiB; decode ms/step "
+                f"{r['decode_ms_per_step'][-1]:.3f}  [{card}]")
+            rep.append(dict(rank=r["rank"], tokens_equal=eq, counts=c,
+                            peak_gib=r["peak_bytes"] / 2**30,
+                            decode_ms=r["decode_ms_per_step"][-1]))
+            if not ok:
+                raise AssertionError(f"14b: {name} rank {r['rank']} gates")
+        log(f"  {name}: {time.perf_counter() - t:.1f} s; its times are two "
+            f"processes sharing one card through host-staged gloo "
+            f"collectives, not a speed of {name[:2].upper()}")
+        report[name] = rep
+        by_path[name] = {k: sum(r["counts"][k] for r in ranks)
+                         for k in ranks[0]["counts"]}
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 14b: {report['seconds']:.1f} s  [{card}]")
+    return by_path, report, shapes
+
+
+def _attention_inputs(torch, shape, g, S=None):
+    """Card tensors for one recorded K1/K2 launch shape (R, Q, H, KH, S,
+    D, cache dtype, out dtype | "partials", bias) over a cache of ``S``
+    rows (default: the shape's): q, k, v, lengths in [Q, S], causal qpos
+    ending at each row's length (or, with a bias, a random 0 / NEG_INF
+    tree mask with column 0 visible), and the new K/V at lengths - 1."""
+    from flexflow_tpu_torch.kernels.attention import NEG_INF
+
+    R, Q, H, KH, S0, D, cdt, _odt, bias = shape
+    S = S or S0
+    dt = getattr(torch, cdt)
+    dev = "cuda"
+
+    def r(*sh):
+        return torch.randn(sh, generator=g, device=dev).to(dt)
+
+    lengths = torch.randint(Q, S + 1, (R,), generator=g, device=dev,
+                            dtype=torch.int32)
+    qpos = (lengths[:, None] - Q + torch.arange(Q, device=dev,
+                                                dtype=torch.int32)[None])
+    b = None
+    if bias:
+        b = torch.where(torch.rand((R, Q, S), generator=g, device=dev) < 0.7,
+                        0.0, NEG_INF)
+        b[..., 0] = 0.0
+    return dict(q=r(R, Q, H, D), k=r(R, KH, S, D), v=r(R, KH, S, D),
+                lengths=lengths, qpos=qpos, bias=b, kn=r(R, 1, KH, D),
+                vn=r(R, 1, KH, D), appos=lengths - 1)
+
+
+def shard_shape_checks(torch, card, shapes_by_run):
+    """Each kernel at every shape phase 14's runs launched it at
+    (``kernels.record_shapes``: each rank of each 14b config, the 14a
+    offload-on pass), on random card tensors, against its plain version.
+    K1 and K2 at TOL of the coarser of the cache and output dtypes; their
+    partials mode (sequence parallelism) on a cache of twice the rank's
+    rows split in halves at their offsets, as two ranks hold it, each
+    half's partials from the kernel and the two combined
+    (``combine_partials``), against the plain version on the whole cache,
+    with the halves' appends equal to the plain append; K3 at K3_TOL.
+    Returns {run: number of shapes checked}."""
+    from flexflow_tpu_torch.kernels.attention import (
+        append_at, combine_partials, flash_attend, flash_attend_partials,
+        reference_attend)
+    from flexflow_tpu_torch.kernels.qmatmul import qmatmul_plain
+    from flexflow_tpu_torch.quant import qmatmul, quantize_array
+
+    g = torch.Generator(device="cuda").manual_seed(140)
+    rank = {"float32": 0, "float16": 1, "bfloat16": 2}
+    done = {}
+    for run, by_kernel in shapes_by_run.items():
+        n = 0
+        worst = {}
+        for kernel, shapes in sorted(by_kernel.items()):
+            for shape in shapes:
+                if kernel == "qmatmul":
+                    M, K, N, qt, cd, od = shape
+                    w = torch.empty((K, N), device="cuda").normal_(
+                        0, 0.02, generator=g)
+                    leaf = quantize_array(w, qt)
+                    x = torch.randn((M, K), generator=g,
+                                    device="cuda").to(getattr(torch, cd))
+                    y = qmatmul(x, leaf, getattr(torch, cd),
+                                getattr(torch, od))
+                    ref = qmatmul_plain(x, leaf, getattr(torch, cd),
+                                        getattr(torch, od))
+                    err = float((y.float() - ref.float()).abs().max()) / max(
+                        float(ref.float().abs().max()), 1e-30)
+                    ratio = err / K3_TOL[od]
+                    del w, leaf, x, y, ref
+                else:
+                    R, Q, H, KH, S, D, cdt, odt, _b = shape
+                    part = odt == "partials"
+                    a = _attention_inputs(torch, shape, g,
+                                          S=2 * S if part else None)
+                    app = kernel == "flash_attend_append"
+                    kw = dict(bias=a["bias"], causal=a["bias"] is None)
+                    k0, v0 = a["k"].clone(), a["v"].clone()
+                    if app:
+                        append_at(k0, v0, a["kn"], a["vn"], a["appos"])
+                    ref = reference_attend(a["q"], k0, v0, a["lengths"],
+                                           a["qpos"], **kw)
+                    if part:
+                        pos, pml = [], []
+                        for off in (0, S):
+                            kh = a["k"][:, :, off:off + S].clone()
+                            vh = a["v"][:, :, off:off + S].clone()
+                            loc = a["appos"] - off
+                            loc = torch.where((loc >= 0) & (loc < S), loc,
+                                              torch.full_like(loc, -1))
+                            b = (None if a["bias"] is None
+                                 else a["bias"][..., off:off + S].contiguous())
+                            po, pm = flash_attend_partials(
+                                a["q"], kh, vh,
+                                (a["lengths"] - off).clamp(0, S),
+                                a["qpos"] - off, bias=b,
+                                causal=kw["causal"],
+                                append_kv=((a["kn"], a["vn"], loc) if app
+                                           else None))
+                            if not (torch.equal(kh, k0[:, :, off:off + S])
+                                    and torch.equal(vh,
+                                                    v0[:, :, off:off + S])):
+                                raise AssertionError(
+                                    f"14: {run} {kernel} partials append")
+                            pos.append(po)
+                            pml.append(pm)
+                        out = combine_partials(torch.cat(pos),
+                                               torch.cat(pml), a["q"].dtype)
+                        tdt = cdt
+                    else:
+                        odt_ = getattr(torch, odt)
+                        k1, v1 = a["k"].clone(), a["v"].clone()
+                        out = flash_attend(
+                            a["q"], k1, v1, a["lengths"], a["qpos"],
+                            append_kv=((a["kn"], a["vn"], a["appos"]) if app
+                                       else None), out_dtype=odt_, **kw)
+                        out = out[0] if app else out
+                        ref = ref.to(odt_)
+                        tdt = max(cdt, odt, key=rank.__getitem__)
+                    tol = TOL[tdt]
+                    rf = ref.float()
+                    ratio = float(((out.float() - rf).abs()
+                                   / (tol + tol * rf.abs())).max())
+                    if not bool(torch.isfinite(out.float()).all()):
+                        ratio = float("inf")
+                    del a, k0, v0, ref, out
+                worst[kernel] = max(worst.get(kernel, 0.0), ratio)
+                n += 1
+                if ratio > 1.0:
+                    log(f"  14 shape check {run} {kernel} {shape}: err / tol "
+                        f"{ratio:.3f} FAIL")
+                    raise AssertionError(f"14: {run} {kernel} {shape} "
+                                         "against plain")
+        log(f"  {run}: {n} launch shapes against the plain versions, worst "
+            f"err / tol by kernel {dict((k, round(v, 4)) for k, v in worst.items())}"
+            f"  PASS  [{card}]")
+        done[run] = n
+    torch.cuda.empty_cache()
+    return done
+
+
+def partials_row(torch, shape, launches):
+    """The kernels line's row of K1/K2's partials mode: K2 (the decode
+    append) at the sp2 rank's decode shape, timed beside its plain
+    version; the bound counts the partials written in fp32. No PyTorch
+    call returns a softmax's unnormalised output and row max and sum:
+    library_ms is null."""
+    from flexflow_tpu_torch.kernels.attention import (
+        append_at, combine_partials, flash_attend_partials,
+        partials_reference, split_plan)
+
+    timer = Timer(torch)
+    g = torch.Generator(device="cuda").manual_seed(141)
+    R, Q, H, KH, S, D, cdt, _o, _b = shape
+    a = _attention_inputs(torch, shape, g)
+    isz = a["q"].element_size()
+    ap = (a["kn"], a["vn"], a["appos"])
+    po, pm = flash_attend_partials(a["q"], a["k"], a["v"], a["lengths"],
+                                   a["qpos"], append_kv=ap)
+
+    def plain():
+        append_at(a["k"], a["v"], *ap)
+        return partials_reference(a["q"], a["k"], a["v"], a["lengths"],
+                                  a["qpos"])
+
+    ro, rm = plain()
+    out = combine_partials(po, pm, a["q"].dtype)
+    ref = combine_partials(ro, rm, a["q"].dtype)
+    err = float((out - ref).abs().max())
+    ms = timer(lambda: flash_attend_partials(
+        a["q"], a["k"], a["v"], a["lengths"], a["qpos"], append_kv=ap))
+    pl = timer(plain)
+    n_split = split_plan(R, KH, S, torch.cuda.get_device_properties(
+        0).multi_processor_count)[0]
+    part_bytes = 4 * n_split * R * Q * H * (D + 2)
+    b, by, _nb = attention_bound_ms(
+        torch, a["q"], a["lengths"], a["qpos"], S, KH, True,
+        getattr(torch, cdt),
+        extra_bytes=4 * a["kn"].numel() * isz + part_bytes
+        - a["q"].numel() * isz)
+    del timer
+    return dict(name="flash_attend_partials", route="cuda", source=K1_SOURCE,
+                replaces=K2_REPLACES, max_abs_err=err, ms=ms, plain_ms=pl,
+                bound_ms=b, bound_by=by, library_ms=None, launches=launches,
+                shape=list(shape))
+
+
 def seven_b_keys(hf):
     from flexflow_tpu_torch.models.llama import LLAMAConfig, hf_weight_map
 
@@ -4682,7 +5173,8 @@ def seven_b_keys(hf):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10,11,12,13",
+    ap.add_argument("--phases",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -4814,12 +5306,47 @@ def main(argv=None) -> int:
     if 13 in phases:
         by_path.update(host_side_phase(torch, card))
         gc.collect()
+    if 14 in phases:
+        log(f"phase 14a: CPU weight offload, phase 8's model (LLaMA-2-7B "
+            f"geometry, int8, bf16), {OFFLOAD_PAIRS} alternating pairs "
+            f"off/on, {REQUESTS} requests x {PROMPT_LEN}-token prompts, "
+            f"{OFFLOAD_NEW} new tokens, prefetch reserve "
+            f"{OFFLOAD_RESERVE >> 20} MiB  [{card}]")
+        by_path["offload"], off, off_shapes = offload_phase(torch, card)
+        log(json.dumps({"offload_phase": off}))
+        gc.collect()
+        log(f"phase 14b: sharded serving, LLaMA-2-7B widths, "
+            f"{SHARD_LAYERS} layers, int8 weights, fp32 compute and cache, "
+            f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {SHARD_NEW} "
+            f"new tokens: 1 rank, then tp=2, pp=2 and sp=2 on 2 ranks "
+            f"sharing the card  [{card}]")
+        import tempfile
+
+        with tempfile.TemporaryDirectory() as tmp:
+            shard_counts, shard, shard_shapes = sharded_phase(torch, card,
+                                                              tmp)
+        by_path.update(shard_counts)
+        log(json.dumps({"sharded_phase": shard}))
+        gc.collect()
+        log(f"phase 14c: the kernels at phase 14's launch shapes against "
+            f"their plain versions  [{card}]")
+        t = time.perf_counter()
+        checked = shard_shape_checks(
+            torch, card, dict(shard_shapes, offload=off_shapes))
+        # the timed row of the partials mode: the sp2 decode shape
+        rows.append(partials_row(
+            torch, max(shard_shapes["sp2"]["flash_attend_append"]),
+            by_path["sp2"]["flash_attend_partials"]))
+        log(json.dumps({"shape_checks": dict(
+            checked, seconds=time.perf_counter() - t)}))
+        gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and
         # K2 (decode) on incremental decoding, K1's bias mode on spec, K3
-        # on the int8 model's incremental decoding
-        path = {"flash_attend_bias": "spec", "qmatmul": "int8"}.get(
-            r["name"], "incr")
+        # on the int8 model's incremental decoding, K1/K2's partials mode
+        # on sequence-parallel serving
+        path = {"flash_attend_bias": "spec", "qmatmul": "int8",
+                "flash_attend_partials": "sp2"}.get(r["name"], "incr")
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -42,6 +42,14 @@ scheduler (``native/``, built with g++ at first use), the GPT-2 BPE and
 SentencePiece tokenizers, ``LLM("<local HF directory>")``, the ``ffsv_*``
 C serving ABI and ``inference_debugging``'s per-op dumps.
 
+It serves in parallel over ``torch.distributed``: with
+``tensor_parallelism_degree``, ``pipeline_parallelism_degree`` or
+``sequence_parallelism_degree`` above 1 each rank (one process, started
+by torchrun or ``parallel/launch.py``) holds its shard of the weights and
+KV caches and runs the same loop (``parallel/``,
+``serve/pipeline_plan.py``); ``compile(..., cpu_offload=True)`` pages
+the serving weights to pinned host memory (``offload.py``).
+
 It trains, through the JAX package's verbs: ``compile(optimizer=,
 loss_type=, metrics=)`` then ``train_one_batch``, ``train_batches``,
 ``fit``, ``evaluate`` and ``predict``, with autograd for the backward

@@ -1,8 +1,12 @@
-"""FFConfig of the PyTorch/CUDA port: the training batch and epochs and
-the serving, quantization, fusion, telemetry and host-side fields of
-``flexflow_tpu.config.FFConfig``, plus ``device`` and ``use_kernels``.
-There is no ``auto_parallel`` or ``remat``: the Unity search and
-rematerialization are not ported.
+"""FFConfig of the PyTorch/CUDA port: the training batch and epochs, the
+parallelism degrees and mesh, and the serving, offload, quantization,
+fusion, telemetry and host-side fields of ``flexflow_tpu.config.FFConfig``,
+plus ``device`` and ``use_kernels``. There is no ``auto_parallel`` or
+``remat``: the Unity search and rematerialization are not ported.
+
+The parallelism degrees lay a mesh over the ranks of the process group
+(``parallel/mesh.py``): each rank is one process, started by torchrun or
+by ``parallel/launch.py``, and serves its shard of the weights and caches.
 
 The device decides the kernel path: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions. ``use_kernels``
@@ -13,8 +17,7 @@ is no silent CPU fallback: asking for ``cuda`` where CUDA is missing
 raises (``resolve_device``).
 
 ``from_args`` parses the JAX package's flag set (the reference's
-``FFConfig::parse_args``). Flags of features the port does not have yet
-raise and name their ROADMAP item instead of being dropped.
+``FFConfig::parse_args``).
 """
 
 from __future__ import annotations
@@ -34,6 +37,18 @@ class FFConfig:
     # evaluate and SingleDataLoader, and fit's epochs ---
     batch_size: int = 64
     epochs: int = 1
+
+    # --- parallelism degrees (reference config.h:156-159; sequence and
+    # expert are the JAX package's additions). Their product is the number
+    # of ranks the mesh lays out; leftover ranks go to data parallelism ---
+    data_parallelism_degree: int = 1
+    tensor_parallelism_degree: int = 1
+    pipeline_parallelism_degree: int = 1
+    sequence_parallelism_degree: int = 1
+    expert_parallelism_degree: int = 1
+    # an explicit mesh overrides the degree-derived one
+    mesh_shape: Optional[Sequence[int]] = None
+    mesh_axis_names: Sequence[str] = ("data", "model")
 
     # where the model's parameters, KV caches and activations live
     device: str = "cuda"
@@ -66,6 +81,11 @@ class FFConfig:
     # each layer is quantized as it is initialized, and LLM.compile
     # quantizes again after loading (quant.py)
     quantization_type: Optional[str] = None
+    # serving weights paged to pinned host memory and streamed back per
+    # layer (offload.py, the reference's -offload); the reserve bounds the
+    # bytes prefetched ahead of the layer that computes
+    cpu_offload: bool = False
+    offload_reserve_space_size: int = 8 * 1024 * 1024 * 1024
     # runtime fusion switch (the reference's --fusion); gemm_fusion needs it
     enable_fusion: bool = True
     # serving gemm fusion: wq|wk|wv -> one wqkv, SwiGLU gate|up -> one
@@ -100,6 +120,14 @@ class FFConfig:
     def __post_init__(self):
         self.quantization_type = normalize_qtype(self.quantization_type)
 
+    @property
+    def total_parallelism_degree(self) -> int:
+        return (self.data_parallelism_degree
+                * self.tensor_parallelism_degree
+                * self.pipeline_parallelism_degree
+                * self.sequence_parallelism_degree
+                * self.expert_parallelism_degree)
+
     # ------------------------------------------------------------------
     # the JAX package's flag set (reference FFConfig::parse_args)
     # ------------------------------------------------------------------
@@ -108,13 +136,11 @@ class FFConfig:
                   **overrides) -> "FFConfig":
         """An FFConfig from the JAX package's command-line flags; unknown
         flags are ignored (``parse_known_args``), as there. The training
-        hyperparameters (``--lr``, ``--wd``), the device count, the data
-        parallel degree and the Unity search flags are accepted and not
-        stored: the port sets the learning rate on its optimizer and has
-        no search. Tensor, pipeline or sequence parallelism above 1 and
-        ``--offload`` raise (ROADMAP Queue A: parallel serving and
-        offload are not ported). ``overrides`` set fields after parsing
-        (``device``, for one)."""
+        hyperparameters (``--lr``, ``--wd``), the device count and the
+        Unity search flags are accepted and not stored: the port sets the
+        learning rate on its optimizer and has no search. The parallelism
+        degrees and ``--offload`` are stored. ``overrides`` set fields
+        after parsing (``device``, for one)."""
         p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
         p.add_argument("-b", "--batch-size", type=int, default=64)
         p.add_argument("-e", "--epochs", type=int, default=1)
@@ -149,22 +175,18 @@ class FFConfig:
         p.add_argument("--inference-debugging", action="store_true")
         p.add_argument("--seed", type=int, default=0)
         args, _unknown = p.parse_known_args(argv)
-        for flag, degree in (("-tp", args.tensor_parallelism_degree),
-                             ("-pp", args.pipeline_parallelism_degree),
-                             ("-sp", args.sequence_parallelism_degree)):
-            if degree > 1:
-                raise NotImplementedError(
-                    f"{flag} {degree}: parallel serving is not ported "
-                    "(ROADMAP.md Queue A, 'parallel')")
-        if args.cpu_offload:
-            raise NotImplementedError(
-                "--offload: weight offload is not ported (ROADMAP.md "
-                "Queue A, 'offload')")
         quant = "int4" if args.q4 else ("int8" if args.q8 else None)
         kw = dict(batch_size=args.batch_size, epochs=args.epochs,
                   enable_fusion=args.enable_fusion, quantization_type=quant,
                   inference_debugging=args.inference_debugging,
-                  seed=args.seed)
+                  seed=args.seed,
+                  data_parallelism_degree=args.data_parallelism_degree,
+                  tensor_parallelism_degree=args.tensor_parallelism_degree,
+                  pipeline_parallelism_degree=(
+                      args.pipeline_parallelism_degree),
+                  sequence_parallelism_degree=(
+                      args.sequence_parallelism_degree),
+                  cpu_offload=args.cpu_offload)
         kw.update(overrides)
         return cls(**kw)
 

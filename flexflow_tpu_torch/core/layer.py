@@ -22,6 +22,14 @@ class WeightSpec:
     shape: Tuple[int, ...]
     dtype: DataType
     initializer: Any = None        # Initializer or None -> op default
+    # mesh axis each dim splits over, e.g. (None, "model") (parallel/spec.py)
+    sharding_dims: Optional[Tuple[Optional[str], ...]] = None
+    # dim i splits only if each rank's chunk is a whole multiple of
+    # shard_multiples[i] (None/1 = any): attention projections set
+    # head_dim, so tensor parallelism splits at whole heads (rotary's
+    # rotate-half never crosses a shard edge, and the kernels take
+    # [*, heads, D] blocks)
+    shard_multiples: Optional[Tuple[Optional[int], ...]] = None
 
 
 class Layer:

@@ -20,8 +20,21 @@ to the host; ``train_one_batch``, ``train_batches``, ``fit``,
 ``evaluate`` and ``predict`` read once a call. Dropout draws from the
 model's own ``torch.Generator``, seeded from ``config.seed``.
 
-There is no mesh, strategy search, remat, branch plan, pipeline or
-offload in the port yet.
+Parallel serving: with a tensor, pipeline or sequence parallelism
+degree above 1 the model joins the process group (``distributed.py``)
+and ``compile`` lays a mesh over its ranks (``parallel/mesh.py``). Each
+rank initializes every weight it holds at full size from the same seed,
+quantizes it, and keeps its slice (``parallel/spec.py``: column shards of
+the projections, whole-head shards of attention, ``S/sp`` rows of the KV
+caches); under a pipeline plan (``serve/pipeline_plan.py``) a rank holds
+only its stage's layers and caches. The ops run their collectives over
+the mesh; a serving forward's final output is broadcast from the rank
+that made it, so every rank reads the same tokens and runs the same host
+loop. ``offload_weights`` pages the serving weights to pinned host
+memory (``offload.py``); ``_apply_layer`` streams them back.
+
+There is no strategy search, remat, branch plan or parallel training in
+the port yet.
 """
 
 from __future__ import annotations
@@ -87,6 +100,14 @@ class FFModel:
         self._layer_name_counts: Dict[str, int] = {}
         self.comp_mode: Optional[CompMode] = None
         self._gemm_fusion_done = False
+        # parallel serving (compile builds them when a degree is above 1)
+        self.mesh = None
+        self.policy = None
+        self._pp_plan = None
+        # offload.py: {layer: {weight: device}} of the paged weights and
+        # the stream that brings them back
+        self._offloaded: Dict[str, Dict[str, Any]] = {}
+        self._prefetcher = None
         # the serving position input of models with learned position
         # embeddings (OPT, StarCoder): fed with positions + offset
         # (serve/engine.py build_feeds)
@@ -504,6 +525,49 @@ class FFModel:
                                dict(max_beam_width=max_beam_width,
                                     sorted=sorted), name)
 
+    # --- parallel ops (reference src/parallel_ops/; parallel/ops.py) ---
+    def repartition(self, input: Tensor, repartition_dim: int,
+                    repartition_degree: int = 0, axis_name: str = "data",
+                    name=None) -> Tensor:
+        return self._add_layer(OpType.REPARTITION, [input],
+                               dict(repartition_dim=repartition_dim,
+                                    repartition_degree=repartition_degree,
+                                    axis_name=axis_name), name)
+
+    def combine(self, input: Tensor, combine_dim: int = 0,
+                combine_degree: int = 0, axis_name: str = "data",
+                name=None) -> Tensor:
+        return self._add_layer(OpType.COMBINE, [input],
+                               dict(combine_dim=combine_dim,
+                                    combine_degree=combine_degree,
+                                    axis_name=axis_name), name)
+
+    def replicate(self, input: Tensor, replicate_dim: int = 0,
+                  replicate_degree: int = 0, name=None) -> Tensor:
+        return self._add_layer(OpType.REPLICATE, [input],
+                               dict(replicate_dim=replicate_dim,
+                                    replicate_degree=replicate_degree), name)
+
+    def reduction(self, input: Tensor, reduction_dim: int = 0,
+                  reduction_degree: int = 0, axis_name: str = "model",
+                  name=None) -> Tensor:
+        return self._add_layer(OpType.REDUCTION, [input],
+                               dict(reduction_dim=reduction_dim,
+                                    reduction_degree=reduction_degree,
+                                    axis_name=axis_name), name)
+
+    def allreduce(self, input: Tensor, axis_name: str = "model",
+                  name=None) -> Tensor:
+        return self._add_layer(OpType.ALLREDUCE, [input],
+                               dict(axis_name=axis_name), name)
+
+    def batch_sharding(self, shape):
+        """The Sharding of a batch of ``shape`` on the mesh (dim 0 over
+        ``data``), or None without a mesh."""
+        if self.policy is None:
+            return None
+        return self.policy.batch_sharding(tuple(shape))
+
     # ==================================================================
     # Graph execution
     # ==================================================================
@@ -513,6 +577,11 @@ class FFModel:
         ins = [values[t.tensor_id] for t in layer.inputs]
         ctx.layer_name = layer.name
         lp = params.get(layer.name, {})
+        if layer.name in self._offloaded:
+            # paged weights stream back first, still compressed
+            from flexflow_tpu_torch.offload import fetch_layer_params
+
+            lp = fetch_layer_params(self, layer.name, lp)
         if not impl.quant_aware:
             lp = dequantize_layer_params(lp, ctx.compute_dtype)
         outs = impl.forward(layer.attrs, lp, ins, ctx)
@@ -527,15 +596,39 @@ class FFModel:
         kernels serve CUDA tensors unless ``config.use_kernels`` is off."""
         from flexflow_tpu_torch.kernels import use_kernels
 
-        values: Dict[int, Any] = dict(feeds)
-        ctx.state_in = state or {}
-        ctx.state_out = {}
-        with use_kernels(self.config.use_kernels):
-            for layer in self.layers:
-                self._apply_layer(layer, params, values, ctx)
-        new_state = dict(ctx.state_in)
-        new_state.update(ctx.state_out)
+        ctx.mesh = self.mesh
+        if self._pp_plan is not None and not ctx.training:
+            from flexflow_tpu_torch.serve.pipeline_plan import run_pp_graph
+
+            with use_kernels(self.config.use_kernels):
+                values, new_state = run_pp_graph(self, params, feeds, ctx,
+                                                 state)
+        else:
+            values: Dict[int, Any] = dict(feeds)
+            ctx.state_in = state or {}
+            ctx.state_out = {}
+            with use_kernels(self.config.use_kernels):
+                for layer in self.layers:
+                    self._apply_layer(layer, params, values, ctx)
+            new_state = dict(ctx.state_in)
+            new_state.update(ctx.state_out)
+        if (self.mesh is not None and self.mesh.device_mesh is not None
+                and ctx.batch_config is not None):
+            self._broadcast_final(values)
         return values, new_state
+
+    def _broadcast_final(self, values):
+        """Every rank takes the final output of the rank that made it (the
+        last pipeline stage, at index 0 of the other axes), so that all
+        ranks read the same tokens and their host loops never diverge
+        (a diverging loop would leave a collective waiting)."""
+        from flexflow_tpu_torch.parallel.collectives import broadcast
+
+        at = {a: 0 for a in self.mesh.axis_names}
+        at["pipe"] = self.mesh.axis_size("pipe") - 1
+        src = self.mesh.rank_at(**at)
+        tid = self._final_tensor.tensor_id
+        values[tid] = broadcast(values.get(tid), src, device=self.device)
 
     # ==================================================================
     # Compile
@@ -555,10 +648,34 @@ class FFModel:
                          else CompMode.COMP_MODE_INFERENCE)
         training = comp_mode == CompMode.COMP_MODE_TRAINING
         dev = self.device
+        self.comp_mode = comp_mode
+        self._gemm_fusion_done = False
+        self._offloaded = {}
+        self._prefetcher = None
+        self._setup_mesh(training)
+
+        self.op_state = {}
+        for layer in self.layers:
+            impl = get_op_impl(layer.op_type)
+            if hasattr(impl, "init_state"):
+                input_specs = [(t.dims, t.dtype) for t in layer.inputs]
+                self.op_state[layer.name] = impl.init_state(
+                    layer.attrs, input_specs, dev)
+        self._consolidate_kv_caches()
+        self._pp_plan = None
+        if self.mesh is not None:
+            self._plan_and_shard_state()
+
         qtype = None if training else self.config.quantization_type
+        shardings = None
+        if self.mesh is not None:
+            from flexflow_tpu_torch.parallel.spec import (
+                layer_weight_shardings, shard_leaf)
+
+            shardings = layer_weight_shardings(self, self.policy)
         params: Dict[str, Dict[str, Any]] = {}
         for layer in self.layers:
-            if not layer.weights:
+            if not layer.weights or not self._holds(layer.name):
                 continue
             lp = {}
             for w in layer.weights:
@@ -573,19 +690,14 @@ class FFModel:
                 # quantize each layer as it is initialized: the device
                 # holds one float layer at a time, never the float model
                 lp = quantize_params({layer.name: lp}, qtype)[layer.name]
+            if shardings is not None:
+                # this rank's slice of the full (quantized) layer: the
+                # values an unsharded run of the same seed holds
+                lp = {w: shard_leaf(a, shardings[layer.name][w],
+                                    self.mesh.coord)
+                      for w, a in lp.items()}
             params[layer.name] = lp
         self.params = params
-        self.comp_mode = comp_mode
-        self._gemm_fusion_done = False
-
-        self.op_state = {}
-        for layer in self.layers:
-            impl = get_op_impl(layer.op_type)
-            if hasattr(impl, "init_state"):
-                input_specs = [(t.dims, t.dtype) for t in layer.inputs]
-                self.op_state[layer.name] = impl.init_state(
-                    layer.attrs, input_specs, dev)
-        self._consolidate_kv_caches()
         # rows of the smallest table the position input indexes (None
         # without one): serve/engine.build_feeds clamps positions below it
         rows = [layer.attrs["num_entries"] for layer in self.layers
@@ -622,6 +734,104 @@ class FFModel:
                            layer.attrs.get("kernel_regularizer") or []]
         return self
 
+    # ==================================================================
+    # Parallel serving: the mesh, the pipeline plan, sharded state
+    # ==================================================================
+    def _setup_mesh(self, training: bool):
+        """Join the process group and lay the mesh when a parallelism
+        degree is above 1 or a mesh shape is given; else no mesh."""
+        cfg = self.config
+        self.mesh = self.policy = None
+        if cfg.total_parallelism_degree == 1 and cfg.mesh_shape is None:
+            return
+        if training:
+            raise NotImplementedError(
+                "parallel training is not ported (ROADMAP.md Queue A item "
+                "5): the port's parallelism serves")
+        from flexflow_tpu_torch import distributed
+        from flexflow_tpu_torch.parallel.mesh import make_mesh
+        from flexflow_tpu_torch.parallel.spec import ShardingPolicy
+
+        distributed.initialize(device=str(self.device))
+        mesh = make_mesh(cfg)
+        for ax in ("data", "expert"):
+            if mesh.axis_size(ax) > 1:
+                raise NotImplementedError(
+                    f"the {ax!r} axis is not ported for serving (ROADMAP.md "
+                    "Queue A item 5): set tensor, pipeline or sequence "
+                    "parallelism degrees whose product is the world size")
+        self.mesh = mesh
+        self.policy = ShardingPolicy(mesh)
+
+    def _plan_and_shard_state(self):
+        """Build the pipeline plan (with a ``pipe`` axis) and keep this
+        rank's part of every KV cache: its stage's layers, its KV heads
+        under tensor parallelism, its S rows under sequence parallelism."""
+        from flexflow_tpu_torch.serve.pipeline_plan import (
+            build_pipeline_plan, shard_stage_state)
+
+        mesh = self.mesh
+        if mesh.axis_size("pipe") > 1:
+            plan = build_pipeline_plan(self, mesh.axis_size("pipe"))
+            if plan is None:
+                raise ValueError(
+                    "pipeline_parallelism_degree > 1 needs a homogeneous "
+                    "transformer-block serving graph (model-zoo style "
+                    "'<prefix>.{i}.' layer naming, num_layers divisible by "
+                    "the degree); this graph has no such decomposition")
+            self._pp_plan = plan
+            shard_stage_state(self, plan, mesh.index("pipe"))
+        for st in self.op_state.values():
+            if not isinstance(st, dict):
+                continue
+            for name in ("k", "v", "k_cache", "v_cache"):
+                if name in st:
+                    sh = self.policy.kv_state_sharding(tuple(st[name].shape))
+                    if not sh.is_replicated:
+                        st[name] = st[name][sh.index(
+                            tuple(st[name].shape), mesh.coord)].clone()
+
+    def _holds(self, layer_name: str) -> bool:
+        """Does this rank hold (and run) ``layer_name``? Every layer but
+        another pipeline stage's."""
+        if self._pp_plan is None:
+            return True
+        from flexflow_tpu_torch.serve.pipeline_plan import stage_holds
+
+        return stage_holds(self._pp_plan, layer_name,
+                           self.mesh.index("pipe"))
+
+    def _weight_sharding(self, layer_name: str, weight_name: str):
+        """The Sharding of a weight under the mesh, or None."""
+        if self.policy is None:
+            return None
+        for layer in self.layers:
+            if layer.name == layer_name:
+                for w in layer.weights:
+                    if w.name == weight_name:
+                        return self.policy.weight_sharding(
+                            w.shape, w.sharding_dims, w.shard_multiples)
+        return None
+
+    def finalize_pipeline(self):
+        """Stack this stage's block weights (no-op without a plan; see
+        ``serve/pipeline_plan.finalize_pipeline``). Call after loading
+        weights; ``LLM.compile`` and the InferenceManager do."""
+        if self._pp_plan is not None:
+            from flexflow_tpu_torch.serve.pipeline_plan import \
+                finalize_pipeline
+
+            finalize_pipeline(self)
+        return self
+
+    def offload_weights(self, min_bytes: int = 1 << 20) -> int:
+        """Page the big serving weights to pinned host memory; the forward
+        streams them back per layer (``offload.py``, the reference's
+        -offload). Returns the bytes moved off the device."""
+        from flexflow_tpu_torch.offload import offload_model_weights
+
+        return offload_model_weights(self, min_bytes=min_bytes)
+
     def _consolidate_kv_caches(self):
         """Stack homogeneous per-layer KV caches (every serving-attention
         op: incremental, draft and tree verify) into two [L, ...] tensors;
@@ -656,6 +866,9 @@ class FFModel:
 
         if self._gemm_fusion_done or self.comp_mode is None:
             return self
+        # a pipeline plan stacks its blocks first (fusion is off under it,
+        # but every caller that finalizes fusion has its weights loaded)
+        self.finalize_pipeline()
         if fusion_eligible(self):
             apply_gemm_fusion(self)
         self._gemm_fusion_done = True
@@ -898,18 +1111,38 @@ class FFModel:
     # ==================================================================
     # Parameter access
     # ==================================================================
+    def _stacked_leaf(self, layer_name: str, weight_name: str):
+        """A finalized pipeline block's weight (views of the stacked
+        leaf), or None."""
+        if self._pp_plan is None:
+            return None
+        from flexflow_tpu_torch.parallel.pipeline import block_slice
+        from flexflow_tpu_torch.serve.pipeline_plan import (
+            PP_PARAMS_KEY, stacked_param_lookup)
+
+        hit = stacked_param_lookup(self, layer_name, weight_name)
+        if hit is None:
+            return None
+        pos, j = hit
+        stack = self.params[PP_PARAMS_KEY][pos][weight_name]
+        return block_slice({weight_name: stack}, j)[weight_name]
+
     def get_parameter_by_key(self, key: Tuple[str, str]) -> np.ndarray:
         """A copy of the parameter as fp32 numpy: dequantized when
         quantized, sliced out of its fused leaf when gemm fusion folded it
-        into one."""
+        into one. Under a mesh, this rank's slice (a pipeline stage has
+        only its own layers)."""
         from flexflow_tpu_torch.serve.gemm_fusion import fused_param_get
 
         layer_name, weight_name = key
-        if weight_name not in self.params.get(layer_name, {}):
+        leaf = self._stacked_leaf(layer_name, weight_name)
+        if leaf is None and weight_name not in self.params.get(layer_name,
+                                                               {}):
             got = fused_param_get(self, layer_name, weight_name)
             if got is not None:
                 return got
-        leaf = self.params[layer_name][weight_name]
+        if leaf is None:
+            leaf = self.params[layer_name][weight_name]
         if is_quantized(leaf):
             leaf = dequantize_array(leaf)
         # a copy: a CPU parameter's own storage changes with every step
@@ -920,15 +1153,42 @@ class FFModel:
         parameter's dtype and on its device, in place (a model sharing the
         leaf sees the new value). A quantized parameter is re-quantized; a
         parameter folded into a fused leaf is spliced back into its
-        columns."""
+        columns. Under a mesh ``value`` is the whole weight or the rank's
+        slice of it: of a whole weight the rank keeps its slice (of the
+        whole weight quantized, for a quantized leaf); a layer of another
+        pipeline stage is skipped."""
         from flexflow_tpu_torch.serve.gemm_fusion import fused_param_set
 
         layer_name, weight_name = key
-        if (weight_name not in self.params.get(layer_name, {})
+        if not self._holds(layer_name):
+            return          # another pipeline stage holds this layer
+        old = self._stacked_leaf(layer_name, weight_name)
+        if (old is None and weight_name not in self.params.get(layer_name,
+                                                               {})
                 and fused_param_set(self, layer_name, weight_name, value)):
             return
-        old = self.params[layer_name][weight_name]
+        if old is None:
+            old = self.params[layer_name][weight_name]
         new = torch.as_tensor(value)
+        sh = self._weight_sharding(layer_name, weight_name)
+        if (sh is not None and not sh.is_replicated
+                and tuple(new.shape) != tuple(old.shape)):
+            # a full value for a sharded leaf: quantize the whole (a row
+            # shard's own scale would differ), then keep this rank's slice
+            from flexflow_tpu_torch.parallel.spec import shard_leaf
+            from flexflow_tpu_torch.quant import quantize_array
+
+            full = new
+            if is_quantized(old):
+                full = quantize_array(new.to(device=old.q.device,
+                                             dtype=torch_dtype(old.dtype)),
+                                      old.qtype)
+            part = shard_leaf(full, sh, self.mesh.coord)
+            if is_quantized(old):
+                old.q.copy_(part.q)
+                old.scale.copy_(part.scale)
+                return
+            new = part
         if tuple(new.shape) != tuple(old.shape):
             raise ValueError(f"{key}: shape {tuple(new.shape)} != "
                              f"{tuple(old.shape)}")

@@ -177,3 +177,9 @@ class OpType(enum.Enum):
     ARGMAX = enum.auto()
     SAMPLING = enum.auto()
     BEAM_TOPK = enum.auto()
+    # parallel ops (PCG nodes in the reference; collectives over the mesh)
+    REPARTITION = enum.auto()
+    COMBINE = enum.auto()
+    REPLICATE = enum.auto()
+    REDUCTION = enum.auto()
+    ALLREDUCE = enum.auto()

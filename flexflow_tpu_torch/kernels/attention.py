@@ -24,6 +24,13 @@ by a second small launch in a fixed order. The plan depends on (R, KH, S,
 SM count) only, never on the query width or on ``lengths`` (no host
 read). ``split_attend`` is its plain version, for tests and the chip
 smoke test.
+
+Partials: ``flash_attend_partials`` launches K1 or K2 with no output and
+returns each split's fp32 partial softmax state (unnormalised O and its
+row max and sum), for a caller that combines them with partials computed
+elsewhere: a sequence-parallel rank holds only some cache rows
+(``parallel/ring_attention.seq_sharded_attend``). ``partials_reference``
+is its plain version.
 """
 
 from __future__ import annotations
@@ -189,6 +196,80 @@ def split_attend(q, k_cache, v_cache, lengths, qpos, bias=None, alibi=None,
     return out.to(out_dtype)
 
 
+def partials_reference(q, k_cache, v_cache, lengths, qpos, bias=None,
+                       alibi=None, *, causal=True, qk_scale=None):
+    """Plain version of the kernels' partials: (part_o [1, R, Q, H, D],
+    part_ml [1, R, Q, H, 2]) in fp32, one split's unnormalised O = P.V and
+    its row max m and sum l over the keys each row sees, with P rounded to
+    q's dtype before its product (as ``reference_attend``). A row that
+    sees no key gives m = NEG_INF, l = 0 and O = 0, where the kernel's l
+    counts the masked keys it streamed; such a row weighs nothing in a
+    combine where some split sees a key."""
+    from flexflow_tpu_torch import kernels
+
+    if q.is_cuda:
+        kernels.counts["plain_attend_cuda"] += 1
+    R, Q, H, D = q.shape
+    if qk_scale is None:
+        qk_scale = 1.0 / math.sqrt(D)
+    dt = q.dtype
+    s = _masked_scores(q, k_cache, lengths, qpos, bias, alibi, causal,
+                       qk_scale)                                 # [R,KH,G,Q,S]
+    m = s.amax(-1)
+    p = torch.where(s > NEG_INF / 2, torch.exp(s - m[..., None]),
+                    torch.zeros((), device=q.device))
+    o = torch.einsum("rkgqs,rksd->rqkgd", p.to(dt).float(),
+                     v_cache.to(dt).float()).reshape(R, Q, H, D)
+    ml = torch.stack([m, p.sum(-1)], -1).permute(0, 3, 1, 2, 4)  # [R,Q,KH,G,2]
+    return o[None], ml.reshape(R, Q, H, 2)[None]
+
+
+def combine_partials(part_o, part_ml, dtype, out_dtype=None, reduce_max=None,
+                     reduce_sum=None):
+    """out [R, Q, H*D] from partials [n, R, Q, H, D] / [n, R, Q, H, 2]:
+    sum_s w_s O_s / sum_s w_s l_s with w_s = exp(m_s - max m), rounded to
+    ``dtype`` (the kernels' combine rounds to the cache type) and then to
+    ``out_dtype``. ``reduce_max``/``reduce_sum``, when given, take the
+    max and the two sums across the holders of other partials too (the
+    collectives of ``parallel/ring_attention.seq_sharded_attend``)."""
+    n, R, Q, H, D = part_o.shape
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    mx = m.amax(0)
+    if reduce_max is not None:
+        mx = reduce_max(mx)
+    w = torch.exp(m - mx)
+    den = (w * l).sum(0)
+    num = (w[..., None] * part_o).sum(0)
+    if reduce_sum is not None:
+        den, num = reduce_sum(den), reduce_sum(num)
+    out = (num / den.clamp(min=1e-30)[..., None]).to(dtype)
+    return out.reshape(R, Q, H * D).to(out_dtype or dtype)
+
+
+def flash_attend_partials(q, k_cache, v_cache, lengths, qpos, bias=None,
+                          alibi=None, append_kv=None, *, causal=True,
+                          qk_scale=None, layer_idx=None):
+    """``flash_attend`` with no output: K1 (or K2 with ``append_kv``, its
+    append done in place) writes every split's partial and no combine
+    runs. Returns (part_o [n, R, Q, H, D], part_ml [n, R, Q, H, 2]) in
+    fp32, for ``combine_partials``. On CPU tensors: ``append_at`` and
+    ``partials_reference``."""
+    if qk_scale is None:
+        qk_scale = 1.0 / math.sqrt(q.shape[-1])
+    from flexflow_tpu_torch.kernels import kernels_enabled
+
+    if q.is_cuda and kernels_enabled():
+        return _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi,
+                       append_kv, causal, float(qk_scale), None, layer_idx)
+    if append_kv is not None:
+        append_at(k_cache, v_cache, *append_kv, layer_idx=layer_idx)
+    kc = k_cache if layer_idx is None else k_cache[layer_idx]
+    vc = v_cache if layer_idx is None else v_cache[layer_idx]
+    return partials_reference(q, kc, vc, lengths.clamp(max=kc.shape[-2]),
+                              qpos, bias=bias, alibi=alibi, causal=causal,
+                              qk_scale=qk_scale)
+
+
 def append_at(k_cache, v_cache, k_new, v_new, appos, layer_idx=None):
     """Plain in-place append, K2's first half: write k_new/v_new
     [R, 1, KH, D] at cache position ``appos[r]`` of each row of
@@ -261,7 +342,9 @@ def _sm_count(dev) -> int:
 def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
             causal, scale, out_dtype, layer_idx):
     """Check everything the kernel assumes, then launch K1 or K2 on the
-    current stream. Raises on what the kernel does not take."""
+    current stream. Raises on what the kernel does not take. With
+    ``out_dtype`` None there is no output: returns the partials
+    (``flash_attend_partials``)."""
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.kernels import build
 
@@ -289,7 +372,8 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
             f"{SUPPORTED_HEAD_DIMS} or a multiple of {WIDE_HEAD_DIM} past it "
             f"(pad another: padded_head_dim) in {list(_KERNEL_DTYPES)}, got "
             f"D={D} {cdt} / {vc.dtype}")
-    if out_dtype not in _KERNEL_DTYPES:
+    partials = out_dtype is None
+    if not partials and out_dtype not in _KERNEL_DTYPES:
         raise ValueError(f"out dtype {out_dtype} not in {list(_KERNEL_DTYPES)}")
     for name, t in (("k_cache", kc), ("v_cache", vc)):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
@@ -318,10 +402,13 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
         kn = small(k_new, cdt, (R, 1, KH, D), "k_new")
         vn = small(v_new, cdt, (R, 1, KH, D), "v_new")
         ap = small(appos, torch.int32, (R,), "appos")
-    out = torch.empty((R, Q, H * D), dtype=out_dtype, device=dev)
+    out = (None if partials else
+           torch.empty((R, Q, H * D), dtype=out_dtype, device=dev))
     n_split, tps = split_plan(R, KH, S, _sm_count(dev))
     part_o = part_ml = None
-    if n_split > 1:   # fp32 partials of each split, combined in the kernel call
+    if n_split > 1 or partials:
+        # fp32 partials of each split: combined in the kernel call, or
+        # returned
         part_o = torch.empty((n_split, R, Q, H, D), dtype=torch.float32,
                              device=dev)
         part_ml = torch.empty((n_split, R, Q, H, 2), dtype=torch.float32,
@@ -338,11 +425,16 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
             _ptr(al), _ptr(kn), _ptr(vn), _ptr(ap), _ptr(out), _ptr(part_o),
             _ptr(part_ml), R, Q, H, KH, S, D, n_split, tps, scale,
             int(bool(causal)),
-            _KERNEL_DTYPES[cdt], _KERNEL_DTYPES[out_dtype],
+            _KERNEL_DTYPES[cdt], _KERNEL_DTYPES[out_dtype or cdt],
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
     kernels.counts[key] += 1
     if b is not None and append_kv is None:
         kernels.counts["flash_attend_bias"] += 1
-    return out
+    if partials:
+        kernels.counts["flash_attend_partials"] += 1
+    kernels.note_shape(key, (R, Q, H, KH, S, D, str(cdt)[6:],
+                             "partials" if partials else str(out_dtype)[6:],
+                             b is not None))
+    return (part_o, part_ml) if partials else out

@@ -45,6 +45,12 @@
 //    the SM count only) cuts the tiles into n_split ranges of tps tiles.
 //    Each split writes a partial (m, l, unnormalised O) in fp32; a second
 //    small kernel combines the splits in a fixed order (deterministic);
+//  * partials out (out == null): every split, one split included, writes
+//    its partial and no combine runs; the caller reconciles them. A
+//    sequence-parallel rank does so across the ranks that hold the other
+//    cache rows (ops/inc_attention.py _seq_attend): its cache is rows
+//    off .. off + S - 1 of the sequence and it passes lengths, qpos and
+//    appos less off, which masks, cuts and applies ALiBi as on the whole;
 //  * K2's fused append: the block of query tile 0 in the split that owns
 //    appos[r] writes k_new/v_new into the cache; every block that streams
 //    position appos[r] copies it from k_new/v_new instead of the cache,
@@ -110,8 +116,9 @@ struct Args {
   const void* v_new;
   const int* appos;    // [R] (K2)
   void* out;           // [R, Q, H*D]
-  float* part_o;       // [n_split, R, Q, H, D] when n_split > 1
+  float* part_o;       // [n_split, R, Q, H, D] when partial
   float* part_ml;      // [n_split, R, Q, H, 2]
+  int partial;         // write part_o/part_ml: n_split > 1 or out == null
   int R, Q, H, KH, S;
   int D;               // the cache's head dim (the wide kernels read it)
   int n_split, tps;    // S-splits of tps tiles each
@@ -201,21 +208,21 @@ __device__ __forceinline__ void put_out(void* out, size_t i, int dt, float x) {
 
 // One output element of a finished row: normalised and rounded like the
 // reference (to the cache type, then to the output type) when there is
-// one split, else the split's unnormalised fp32 partial.
+// one split and an output, else the split's unnormalised fp32 partial.
 template <typename T>
 __device__ __forceinline__ void store_out(const Args& a, const Block& b, size_t row, int D,
                                           int d, float o, float l) {
-  if (a.n_split == 1) {
+  if (!a.partial) {
     put_out(a.out, row * D + d, a.out_dt, round_to<T>(o / fmaxf(l, 1e-30f)));
   } else {
     a.part_o[((size_t)b.split * a.R * a.Q * a.H + row) * D + d] = o;
   }
 }
 
-// The split's running max and sum of a finished row (split-S only).
+// The split's running max and sum of a finished row (partials only).
 __device__ __forceinline__ void store_ml(const Args& a, const Block& b, size_t row, float m,
                                          float l) {
-  if (a.n_split == 1) return;
+  if (!a.partial) return;
   float* p = a.part_ml + ((size_t)b.split * a.R * a.Q * a.H + row) * 2;
   p[0] = m;
   p[1] = l;
@@ -368,7 +375,7 @@ __device__ __forceinline__ void mma_epilogue(const Args& a, const Block& b,
                                              const size_t* orow, int D, int c0) {
   const int nrows = min(16, b.GQ - wrow);
   float* st = reinterpret_cast<float*>(smem_raw) + warp * 16 * (DW + 4);
-  if (a.n_split == 1) {
+  if (!a.partial) {
     const size_t esize = a.out_dt == 0 ? 4 : 2;
     warp_store<T, DW>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
       return static_cast<void*>(static_cast<char*>(a.out) +
@@ -1076,7 +1083,8 @@ int launch_with(Kern kern, size_t smem, bool& smem_set, int nx, int threads, int
                   (unsigned)a.KH, (unsigned)a.R);
   kern<<<grid, threads, smem, stream>>>(a);
   err = cudaGetLastError();
-  if (err != cudaSuccess || a.n_split == 1) return (int)err;
+  // partials out (no output): the caller combines
+  if (err != cudaSuccess || !a.partial || !a.out) return (int)err;
   const int rows = a.R * a.Q * a.H;
   combine_kernel<T><<<rows, D < DC ? D : DC, 2 * a.n_split * sizeof(float), stream>>>(
       a.part_o, a.part_ml, a.out, a.out_dt, rows, D, a.n_split);
@@ -1148,13 +1156,15 @@ Args make_args(const void* q, void* k, void* v, const int* lengths, const int* q
   a.appos = appos; a.out = out; a.part_o = part_o; a.part_ml = part_ml;
   a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S; a.D = D;
   a.n_split = n_split; a.tps = tps;
+  a.partial = n_split > 1 || !out;
   a.scale = scale; a.causal = causal; a.out_dt = out_dt;
   return a;
 }
 
-bool plan_ok(int S, int n_split, int tps, const float* part_o, const float* part_ml) {
+bool plan_ok(int S, int n_split, int tps, const void* out, const float* part_o,
+             const float* part_ml) {
   if (n_split < 1 || tps < 1 || (long long)n_split * tps * BS < S) return false;
-  return n_split == 1 || (part_o && part_ml);
+  return (n_split == 1 && out) || (part_o && part_ml);
 }
 
 }  // namespace
@@ -1163,7 +1173,9 @@ bool plan_ok(int S, int n_split, int tps, const float* part_o, const float* part
 // return cudaGetLastError() after the launch(es): 0 on success. The S
 // range is cut into n_split splits of tps 64-position tiles; with
 // n_split > 1, part_o [n_split, R, Q, H, D] and part_ml [n_split, R, Q,
-// H, 2] (fp32) hold the partials and a combine kernel follows. D is 64,
+// H, 2] (fp32) hold the partials and a combine kernel follows. With out
+// null they hold the partials of every split (n_split = 1 too), the
+// caller combines them and no combine kernel runs. D is 64,
 // 128 or a multiple of 256; cache_dt and out_dt are dtype codes (0
 // fp32, 1 bf16, 2 fp16).
 extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengths,
@@ -1173,7 +1185,7 @@ extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengt
                                int H, int KH, int S, int D, int n_split, int tps,
                                float scale, int causal, int cache_dt, int out_dt,
                                void* stream) {
-  if (!plan_ok(S, n_split, tps, part_o, part_ml)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(S, n_split, tps, out, part_o, part_ml)) return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr, nullptr,
                            out, part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale,
                            causal, out_dt);
@@ -1188,7 +1200,7 @@ extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
                                       float* part_ml, int R, int Q, int H, int KH, int S,
                                       int D, int n_split, int tps, float scale, int causal,
                                       int cache_dt, int out_dt, void* stream) {
-  if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, part_o, part_ml))
+  if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, out, part_o, part_ml))
     return (int)cudaErrorInvalidValue;
   const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos, out,
                            part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale, causal,

@@ -175,4 +175,6 @@ def _launch(x, w, cd, od):
     if rc != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")
     kernels.counts["qmatmul"] += 1
+    kernels.note_shape("qmatmul", (x2.shape[0], K, N, w.qtype, str(cd)[6:],
+                                   str(od)[6:]))
     return out.reshape(*lead, N)

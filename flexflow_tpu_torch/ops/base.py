@@ -43,6 +43,9 @@ class OpContext:
     # the tree-verify pass's [R, T, S] additive mask: built by the first
     # tree-attention layer of a forward, reused by the others
     tree_bias: Any = None
+    # the model's parallel/mesh.Mesh (None for a single process): ops with
+    # sharded weights or caches run their collectives over its axes
+    mesh: Any = None
     # torch.Generator on the model's device for the forward's random draws
     # (the JAX package's rng key); the InferenceManager owns and seeds it
     # for sampling, the FFModel for a train step's dropout

@@ -1,6 +1,9 @@
 """Embedding operator (counterpart of ``flexflow_tpu/ops/embedding.py``):
 row gather with aggregation modes NONE/SUM/AVG. A quantized table gathers
-packed rows and dequantizes only those (``quant.qtake``)."""
+packed rows and dequantizes only those (``quant.qtake``). Under tensor
+parallelism the table is split by columns (``sharding_dims=(None,
+"model")``) and the rows gathered from each shard are concatenated over
+the ``model`` axis."""
 
 from __future__ import annotations
 
@@ -31,7 +34,7 @@ class Embedding(OpImpl):
         dtype = attrs.get("data_type", DataType.DT_FLOAT)
         init = attrs.get("kernel_initializer") or NormInitializer(stddev=0.02)
         return [WeightSpec("weight", (attrs["num_entries"], attrs["out_dim"]),
-                           dtype, init)]
+                           dtype, init, sharding_dims=(None, "model"))]
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
@@ -41,4 +44,8 @@ class Embedding(OpImpl):
             out = out.sum(dim=-2)
         elif aggr == AggrMode.AGGR_MODE_AVG:
             out = out.mean(dim=-2)
+        if params["weight"].shape[1] != attrs["out_dim"]:
+            from flexflow_tpu_torch.ops.linear import gather_columns
+
+            out = gather_columns(out, ctx)
         return [out]

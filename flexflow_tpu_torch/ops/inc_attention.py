@@ -25,6 +25,26 @@ Differences from the JAX package, by design:
 * ``commit_tree_kv`` compacts in place; invalid (row, node) pairs are
   selected away before the move, where the JAX scatter drops them at a
   sentinel index that torch would reject.
+
+Under tensor parallelism (``ctx.mesh`` with a ``model`` axis) each rank
+holds whole heads: column shards of ``wq``/``wk``/``wv`` (the JAX specs,
+``shard_multiples`` = head_dim), a KV cache of its KV heads only, and a
+row shard of ``wo``, whose partial products are summed over the axis
+(``psum``). Rotary, the attention kernels and ALiBi (its slopes sliced to
+the rank's heads) run on the local heads. Where the degree does not
+divide the KV heads, ``wk``/``wv`` and the cache stay whole, as the JAX
+rule has it; the query heads are then gathered, attention runs over all
+heads, and the rank keeps its heads' output for its ``wo`` rows.
+
+Under sequence parallelism a rank's caches hold ``S/sp`` rows (global
+rows ``off = idx*S/sp`` on). The kernels run on those rows in partials
+mode (``kernels.attention.flash_attend_partials``) with lengths, query
+positions and the decode append position taken less ``off``: K2 appends
+a decode token on the rank that holds its row, a prefill or tree verify
+appends by the plain scatter at the rows the rank holds and runs K1, the
+tree mask cut to the rank's columns; ``parallel/ring_attention.
+seq_sharded_attend`` reconciles the ranks' partials (one ``pmax``, two
+``psum``).
 """
 
 from __future__ import annotations
@@ -79,24 +99,26 @@ def alibi_slopes(num_heads: int, device=None) -> torch.Tensor:
 # ----------------------------------------------------------------------
 # KV cache update, in place (reference update_kv_cache_kernel)
 # ----------------------------------------------------------------------
-def _valid_cols(start_pos, num_tokens, active, Q, S):
+def _valid_cols(start_pos, num_tokens, active, Q, S, offset=0):
     """[R, Q] cache columns of each new token and whether it is written:
-    padding tokens, inactive slots and columns past the cache end are
-    dropped (the JAX scatter's mode="drop")."""
+    padding tokens, inactive slots and columns outside the cache (whose
+    first column is global position ``offset``) are dropped (the JAX
+    scatter's mode="drop")."""
     q_idx = torch.arange(Q, device=start_pos.device)
-    cols = start_pos.long()[:, None] + q_idx[None, :]
+    cols = start_pos.long()[:, None] - offset + q_idx[None, :]
     valid = ((q_idx[None, :] < num_tokens[:, None]) & active.bool()[:, None]
-             & (cols < S))
+             & (cols >= 0) & (cols < S))
     return cols, valid
 
 
 def append_kv(cache: torch.Tensor, new: torch.Tensor, start_pos, num_tokens,
-              active) -> torch.Tensor:
+              active, offset: int = 0) -> torch.Tensor:
     """Write new [R, Q, KH, D] into cache [R, KH, S, D] at per-slot offsets,
-    in place; returns ``cache``."""
+    in place; returns ``cache``. ``offset`` is the global position of the
+    cache's first column (a sequence-parallel rank's rows)."""
     R, Q = new.shape[0], new.shape[1]
     cols, valid = _valid_cols(start_pos, num_tokens, active, Q,
-                              cache.shape[2])
+                              cache.shape[2], offset)
     r_idx, q_idx = valid.nonzero(as_tuple=True)
     cache[r_idx, :, cols[r_idx, q_idx]] = new[r_idx, q_idx].to(cache.dtype)
     return cache
@@ -149,7 +171,11 @@ def _qkv(attrs, params, x, compute_dtype):
     """Project x [R, Q, E] -> q [R,Q,H,D], k/v [R,Q,KH,D]: three products,
     or one over the fused ``wqkv`` (serve/gemm_fusion.py) sliced after.
     Weights may be quantized (``quant.qmatmul``)."""
-    H, KH, D = attrs["num_q_heads"], attrs["num_kv_heads"], attrs["head_dim"]
+    D = attrs["head_dim"]
+    H, KH = attrs["num_q_heads"], attrs["num_kv_heads"]
+    if "wq" in params:
+        # this rank's heads (all of them without tensor parallelism)
+        H, KH = params["wq"].shape[1] // D, params["wk"].shape[1] // D
     if "wqkv" in params:
         qkv = qmatmul(x, params["wqkv"])
         if "bqkv" in params:
@@ -183,11 +209,7 @@ def _attend(attrs, q, k_cache, v_cache, lengths, qpos, out_dtype, ctx,
 
     D = attrs["head_dim"]
     Dp = k_cache.shape[-1]
-    scale = (1.0 / math.sqrt(D)) if attrs.get("qk_prod_scaling", True) else 1.0
-    if attrs.get("scaling_query", False):
-        scale = scale * attrs.get("scaling_factor", 1.0)
-    alibi = (alibi_slopes(attrs["num_q_heads"], device=q.device)
-             if attrs.get("position_bias", False) else None)
+    scale, alibi = _scale_alibi(attrs, q, ctx)
     if append_kv is not None:
         k_new, v_new, appos = append_kv
         append_kv = (pad_head_dim(k_new, Dp), pad_head_dim(v_new, Dp), appos)
@@ -203,21 +225,45 @@ def _attend(attrs, q, k_cache, v_cache, lengths, qpos, out_dtype, ctx,
     return out if append_kv is None else (out,) + tuple(res[1:])
 
 
+def _scale_alibi(attrs, q, ctx):
+    """The qk scale and the ALiBi slopes (None without position bias) of
+    q's heads: a tensor-parallel rank's slice of the slopes when q holds
+    only its heads."""
+    D = attrs["head_dim"]
+    scale = (1.0 / math.sqrt(D)) if attrs.get("qk_prod_scaling", True) else 1.0
+    if attrs.get("scaling_query", False):
+        scale = scale * attrs.get("scaling_factor", 1.0)
+    alibi = None
+    if attrs.get("position_bias", False):
+        H, Hq = attrs["num_q_heads"], q.shape[2]
+        alibi = alibi_slopes(H, device=q.device)
+        if Hq != H:
+            h0 = ctx.mesh.index("model") * Hq
+            alibi = alibi[h0:h0 + Hq]
+    return scale, alibi
+
+
 def _weight_specs(attrs, input_specs):
     (shape, d) = input_specs[0]
     E = shape[-1]
     H, KH, D = attrs["num_q_heads"], attrs["num_kv_heads"], attrs["head_dim"]
     dt = attrs.get("data_type") or d
     init = attrs.get("kernel_initializer") or default_kernel_initializer()
-    specs = [WeightSpec("wq", (E, H * D), dt, init),
-             WeightSpec("wk", (E, KH * D), dt, init),
-             WeightSpec("wv", (E, KH * D), dt, init),
-             WeightSpec("wo", (H * D, E), dt, init)]
+    # tensor parallelism splits the projections at whole heads only
+    # (shard_multiples = head_dim), as the JAX specs do
+    col = dict(sharding_dims=(None, "model"), shard_multiples=(None, D))
+    specs = [WeightSpec("wq", (E, H * D), dt, init, **col),
+             WeightSpec("wk", (E, KH * D), dt, init, **col),
+             WeightSpec("wv", (E, KH * D), dt, init, **col),
+             WeightSpec("wo", (H * D, E), dt, init,
+                        sharding_dims=("model", None),
+                        shard_multiples=(D, None))]
     if attrs.get("bias", False):
         zero = ZeroInitializer()
-        specs += [WeightSpec("bq", (H * D,), dt, zero),
-                  WeightSpec("bk", (KH * D,), dt, zero),
-                  WeightSpec("bv", (KH * D,), dt, zero),
+        vec = dict(sharding_dims=("model",), shard_multiples=(D,))
+        specs += [WeightSpec("bq", (H * D,), dt, zero, **vec),
+                  WeightSpec("bk", (KH * D,), dt, zero, **vec),
+                  WeightSpec("bv", (KH * D,), dt, zero, **vec),
                   WeightSpec("bo", (E,), dt, zero)]
     return specs
 
@@ -233,10 +279,89 @@ def _init_kv_state(attrs, input_specs, device):
 
 
 def _project_out(attrs, params, ctx, attn_out):
-    out = qmatmul(attn_out, params["wo"])
+    wo = params["wo"]
+    if wo.shape[0] != attrs["num_q_heads"] * attrs["head_dim"]:
+        # a row shard (tensor parallelism): sum the ranks' partial
+        # products, accumulated in fp32
+        from flexflow_tpu_torch.parallel.collectives import psum
+
+        out = psum(qmatmul(attn_out, wo, out_dtype=torch.float32),
+                   ctx.mesh, "model").to(attn_out.dtype)
+    else:
+        out = qmatmul(attn_out, wo)
     if "bo" in params:
         out = out + params["bo"]
     return out
+
+
+def _tp_query_heads(attrs, q, k, ctx):
+    """Tensor parallelism with the KV heads whole on every rank (the
+    degree does not divide them) but the query heads split: gather the
+    query heads, so attention pairs every head with its KV head. Returns
+    (q, (h0, h1)): the rank's own output heads, or None when q is kept."""
+    if (q.shape[2] == attrs["num_q_heads"]
+            or k.shape[2] != attrs["num_kv_heads"]):
+        return q, None
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+
+    Hl = q.shape[2]
+    h0 = ctx.mesh.index("model") * Hl
+    return all_gather(q, ctx.mesh, "model", axis=2), (h0, h0 + Hl)
+
+
+def _own_heads(out, heads, D):
+    """[R, Q, H*D] -> the rank's heads' columns (``_tp_query_heads``)."""
+    if heads is None:
+        return out
+    return out[..., heads[0] * D:heads[1] * D]
+
+
+def _seq_offset(ctx, attrs, cache):
+    """Global position of the cache's first row when the caches are split
+    over ``seq`` (sequence parallelism), else None."""
+    if ctx.mesh is None or ctx.mesh.axis_size("seq") <= 1:
+        return None
+    SL = cache.shape[-2]
+    if SL == attrs["max_seq_length"]:
+        return None
+    return ctx.mesh.index("seq") * SL
+
+
+def _seq_attend(ctx, attrs, q, k, v, start_pos, num_tokens, active,
+                lengths, qpos, out_dtype, bias=None, causal=True,
+                decode=False):
+    """Sequence-parallel attention over the cache rows this rank holds:
+    with ``decode`` (one real token a row) the append is K2's, fused, on
+    the rank that holds the row; else the plain scatter at the rows the
+    rank holds. ``seq_sharded_attend`` attends and reconciles. Returns
+    [R, Q, H*D]."""
+    from flexflow_tpu_torch.parallel.ring_attention import \
+        seq_sharded_attend
+
+    kc, vc = read_kv(ctx, attrs)
+    Dp = kc.shape[-1]
+    app = None
+    if decode:
+        appos = torch.where(active & (num_tokens > 0), start_pos,
+                            torch.full_like(start_pos, -1))
+        app = (pad_head_dim(k[:, :1], Dp), pad_head_dim(v[:, :1], Dp), appos)
+    else:
+        off = _seq_offset(ctx, attrs, kc)
+        append_kv(kc, pad_head_dim(k, Dp), start_pos, num_tokens, active,
+                  offset=off)
+        append_kv(vc, pad_head_dim(v, Dp), start_pos, num_tokens, active,
+                  offset=off)
+    scale, alibi = _scale_alibi(attrs, q, ctx)
+    out = seq_sharded_attend(
+        pad_head_dim(q, Dp), kc, vc, lengths, qpos, ctx.mesh, bias=bias,
+        alibi=alibi, append_kv=app, seq_len=attrs["max_seq_length"],
+        causal=causal, qk_scale=scale, out_dtype=out_dtype)
+    write_kv(ctx, attrs, kc, vc)
+    D = attrs["head_dim"]
+    if Dp == D:
+        return out
+    R, Q, H = q.shape[0], q.shape[1], q.shape[2]
+    return out.reshape(R, Q, H, Dp)[..., :D].reshape(R, Q, H * D)
 
 
 # ----------------------------------------------------------------------
@@ -298,14 +423,15 @@ def append_and_ref(ctx, attrs, k, v, start_pos, num_tokens, active):
 
 
 def tree_bias(ancestor: torch.Tensor, start_pos: torch.Tensor,
-              S: int) -> torch.Tensor:
-    """fp32 [R, T, S] additive tree mask: 0 on the committed prefix
-    (s < start_pos) and on each node's ancestor-or-self columns (node j
-    is staged at start_pos + j), NEG_INF everywhere else."""
+              S: int, offset: int = 0) -> torch.Tensor:
+    """fp32 [R, T, S] additive tree mask over cache columns offset ..
+    offset + S - 1: 0 on the committed prefix (s < start_pos) and on each
+    node's ancestor-or-self columns (node j is staged at start_pos + j),
+    NEG_INF everywhere else."""
     from flexflow_tpu_torch.kernels.attention import NEG_INF
 
     R, T = ancestor.shape[0], ancestor.shape[1]
-    node = (torch.arange(S, device=ancestor.device)[None, :]
+    node = (torch.arange(offset, offset + S, device=ancestor.device)[None, :]
             - start_pos.long()[:, None])                           # [R, S]
     in_tree = (node >= 0) & (node < T)
     anc = torch.gather(ancestor, 2,
@@ -358,8 +484,16 @@ class IncMultiHeadSelfAttention(OpImpl):
                  + torch.arange(Q, device=x.device, dtype=torch.int32)[None, :])
         lengths = torch.where(meta.active, meta.start_pos + meta.num_tokens,
                               torch.zeros_like(meta.start_pos))
+        q, heads = _tp_query_heads(attrs, q, k, ctx)
+        D = attrs["head_dim"]
         append_q = ctx.kv_append_q
         eff_q = append_q if (append_q is not None and Q > append_q) else Q
+        if _seq_offset(ctx, attrs, read_kv(ctx, attrs)[0]) is not None:
+            out = _seq_attend(ctx, attrs, q, k, v, meta.start_pos,
+                              meta.num_tokens, meta.active, lengths, q_abs,
+                              x.dtype, decode=eff_q == 1)
+            return [_project_out(attrs, params, ctx,
+                                 _own_heads(out, heads, D))]
         if eff_q == 1:
             # one new real token per row (decode; the verify-consistent
             # wide decode has 1 real + padding tokens): the KV append is
@@ -376,12 +510,13 @@ class IncMultiHeadSelfAttention(OpImpl):
                 attrs, q, k0, v0, lengths, q_abs, x.dtype, ctx, causal=True,
                 layer_idx=idx, append_kv=(k[:, :1], v[:, :1], appos))
             write_kv(ctx, attrs, knew, vnew)
-            return [_project_out(attrs, params, ctx, out)]
+            return [_project_out(attrs, params, ctx,
+                                 _own_heads(out, heads, D))]
         k_ref, v_ref, layer_idx = append_and_ref(
             ctx, attrs, k, v, meta.start_pos, meta.num_tokens, meta.active)
         out = _attend(attrs, q, k_ref, v_ref, lengths, q_abs, x.dtype, ctx,
                       causal=True, layer_idx=layer_idx)
-        return [_project_out(attrs, params, ctx, out)]
+        return [_project_out(attrs, params, ctx, _own_heads(out, heads, D))]
 
 
 @register_op_as(OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION)
@@ -416,22 +551,34 @@ class TreeIncMultiHeadSelfAttention(OpImpl):
                                       q.dtype)
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
-        k_ref, v_ref, layer_idx = append_and_ref(
-            ctx, attrs, k, v, meta.start_pos, meta.num_nodes, meta.active)
-        S = k_ref.shape[-2]
-        if ctx.tree_bias is None or ctx.tree_bias.shape[-1] != S:
-            ctx.tree_bias = tree_bias(meta.ancestor, meta.start_pos, S)
+        q, heads = _tp_query_heads(attrs, q, k, ctx)
+        D = attrs["head_dim"]
         lengths = torch.where(meta.active, meta.start_pos + meta.num_nodes,
                               torch.zeros_like(meta.start_pos))
+        cache = read_kv(ctx, attrs)[0]
+        S = cache.shape[-2]
+        off = _seq_offset(ctx, attrs, cache)
+        if ctx.tree_bias is None or ctx.tree_bias.shape[-1] != S:
+            ctx.tree_bias = tree_bias(meta.ancestor, meta.start_pos, S,
+                                      offset=off or 0)
+        if off is not None:
+            out = _seq_attend(ctx, attrs, q, k, v, meta.start_pos,
+                              meta.num_nodes, meta.active, lengths,
+                              meta.positions, x.dtype, bias=ctx.tree_bias,
+                              causal=False)
+            return [_project_out(attrs, params, ctx,
+                                 _own_heads(out, heads, D))]
+        k_ref, v_ref, layer_idx = append_and_ref(
+            ctx, attrs, k, v, meta.start_pos, meta.num_nodes, meta.active)
         out = _attend(attrs, q, k_ref, v_ref, lengths, meta.positions,
                       x.dtype, ctx, bias=ctx.tree_bias, causal=False,
                       layer_idx=layer_idx)
-        return [_project_out(attrs, params, ctx, out)]
+        return [_project_out(attrs, params, ctx, _own_heads(out, heads, D))]
 
 
 def commit_tree_kv(op_state, src_node: torch.Tensor,
                    num_commit: torch.Tensor, start_pos: torch.Tensor,
-                   active: torch.Tensor):
+                   active: torch.Tensor, mesh=None, seq_len=None):
     """Compact accepted tree nodes into the committed cache region, in
     place, for every KV-cache layer: cache[r, start + i] <-
     cache[r, start + src_node[r, i]] for i < num_commit[r] on active rows
@@ -442,26 +589,50 @@ def commit_tree_kv(op_state, src_node: torch.Tensor,
     waits for the device (once per verify round of the host tree path
     and of the fused engines that commit), and every source is gathered
     before the first write, so no move reads a slot another overwrote.
+    Under sequence parallelism (``mesh`` with a ``seq`` axis and caches
+    of fewer rows than ``seq_len``) a move may cross ranks: each rank
+    reads the sources it holds, a ``psum`` over ``seq`` gives every rank
+    all of them, and each writes the destinations it holds.
     Reference: commit_tokens_kernel (tree_inc_multihead_self_attention.cu).
     """
+    from flexflow_tpu_torch.parallel.collectives import psum
+
     S = next(st[n] for st in op_state.values() if isinstance(st, dict)
              for n in ("k", "k_cache") if n in st).shape[-2]
+    # this rank's rows off .. off + S - 1 of seq_len (all S rows unsharded)
+    sharded = (mesh is not None and mesh.axis_size("seq") > 1
+               and seq_len is not None and S != seq_len)
+    off = mesh.index("seq") * S if sharded else 0
+    total = seq_len if sharded else S
     C = src_node.shape[1]
     i = torch.arange(C, device=src_node.device)
     dst = start_pos.long()[:, None] + i[None, :]
     valid = ((i[None, :] < num_commit[:, None]) & active.bool()[:, None]
-             & (dst < S))
+             & (dst < total))
     rows, cols = valid.nonzero(as_tuple=True)
     src = (start_pos.long()[rows] + src_node.long()[rows, cols]).clamp(
-        0, S - 1)
+        0, total - 1)
     dst = dst[rows, cols]
+    if sharded:
+        own_src = (src >= off) & (src < off + S)
+        own_dst = (dst >= off) & (dst < off + S)
     for st in op_state.values():
         if not isinstance(st, dict):
             continue
         for name in ("k", "v", "k_cache", "v_cache"):
-            if name in st:
-                # the stacked [L, R, KH, S, D] pair or one layer's
-                # [R, KH, S, D]
-                c = st[name] if st[name].dim() == 5 else st[name][None]
+            if name not in st:
+                continue
+            # the stacked [L, R, KH, S, D] pair or one layer's [R, KH, S, D]
+            c = st[name] if st[name].dim() == 5 else st[name][None]
+            if not sharded:
                 c[:, rows, :, dst] = c[:, rows, :, src]
+                continue
+            # each rank reads the sources it holds; the psum gives every
+            # rank all of them; each writes the destinations it holds
+            got = c[:, rows[own_src], :, src[own_src] - off]
+            vals = torch.zeros((rows.shape[0],) + tuple(got.shape[1:]),
+                               dtype=c.dtype, device=c.device)
+            vals[own_src] = got
+            vals = psum(vals, mesh, "seq")
+            c[:, rows[own_dst], :, dst[own_dst] - off] = vals[own_dst]
     return op_state

@@ -2,6 +2,11 @@
 
 Weight layout: kernel [in_dim, out_dim] (activations @ kernel), bias
 [out_dim] — the JAX package's layout, so parameters cross over unchanged.
+Under tensor parallelism the kernel and bias are column shards
+(``sharding_dims=(None, "model")``, as in the JAX package): each rank
+computes its columns and an all-gather over the ``model`` axis gives the
+consumer the whole output.
+
 The product is ``quant.qmatmul``: a plain ``torch.matmul`` for a float
 kernel (the JAX package leaves it to XLA; no TPU kernel), the dequant-GEMM
 K3 for a quantized one on the card.
@@ -18,6 +23,13 @@ from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import ActiMode, DataType, OpType
 from flexflow_tpu_torch.ops.base import OpImpl, register_op
 from flexflow_tpu_torch.quant import qmatmul
+
+
+def gather_columns(y, ctx):
+    """Concatenate the ``model``-axis peers' column shards of ``y``."""
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+
+    return all_gather(y, ctx.mesh, "model", axis=-1)
 
 
 def apply_activation(x, mode: ActiMode):
@@ -54,11 +66,13 @@ class Linear(OpImpl):
         wdtype = attrs.get("data_type") or dtype
         specs = [WeightSpec("kernel", (shape[-1], out_dim), wdtype,
                             attrs.get("kernel_initializer")
-                            or default_kernel_initializer())]
+                            or default_kernel_initializer(),
+                            sharding_dims=(None, "model"))]
         if attrs.get("use_bias", True):
             specs.append(WeightSpec("bias", (out_dim,), wdtype,
                                     attrs.get("bias_initializer")
-                                    or default_bias_initializer()))
+                                    or default_bias_initializer(),
+                                    sharding_dims=("model",)))
         return specs
 
     @staticmethod
@@ -69,8 +83,14 @@ class Linear(OpImpl):
         # near-equal logits would flip greedy argmax between programs. A
         # quantized head does so inside K3, with no fp32 copy of the weight
         out_dtype = torch.float32 if attrs.get("keep_f32_logits") else None
-        y = qmatmul(x, params["kernel"], compute_dtype, out_dtype=out_dtype)
+        kernel = params["kernel"]
+        y = qmatmul(x, kernel, compute_dtype, out_dtype=out_dtype)
         if attrs.get("use_bias", True):
             y = y + params["bias"].to(compute_dtype)
-        return [apply_activation(y, attrs.get("activation",
-                                              ActiMode.AC_MODE_NONE))]
+        y = apply_activation(y, attrs.get("activation",
+                                          ActiMode.AC_MODE_NONE))
+        if kernel.shape[1] != attrs["out_dim"]:
+            # a column shard (tensor parallelism): the consumer takes the
+            # whole output
+            y = gather_columns(y, ctx)
+        return [y]

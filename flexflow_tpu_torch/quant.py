@@ -214,7 +214,9 @@ def dequantize_layer_params(ws: Optional[Dict[str, Any]], dtype=None):
 
 
 def quantized_nbytes(params) -> int:
-    """Device bytes of a (possibly quantized) ``{layer: {name: leaf}}``
-    tree: payload + scale for a quantized leaf."""
-    return sum(int(getattr(leaf, "nbytes", 0)) for lp in params.values()
-               for leaf in lp.values())
+    """Bytes of a (possibly quantized) ``{layer: {name: leaf}}`` tree
+    (nested dicts, as a pipeline stage's stacked blocks, are walked):
+    payload + scale for a quantized leaf."""
+    return sum(quantized_nbytes(leaf) if isinstance(leaf, dict)
+               else int(getattr(leaf, "nbytes", 0))
+               for leaf in params.values())

@@ -22,6 +22,17 @@ seeded generator and no tokenizer, so the whole stack runs anywhere.
 ``--inference-debugging`` dumps every op of every step to
 ``./inference_tensors``. The device is the card unless ``--device cpu``
 is given.
+
+Parallel serving: ``-tp``/``-pp``/``-sp`` set the tensor, pipeline and
+sequence parallelism degrees; their product is the number of ranks, one
+process each, started by torchrun (which sets ``RANK``, ``WORLD_SIZE``
+and the rendezvous):
+
+  torchrun --nproc-per-node 2 -m flexflow_tpu_torch.serve -tp 2 \
+      --model <hf-dir> --prompt 1,5,9
+
+Every rank serves the same prompts in lockstep; rank 0 prints.
+``--offload`` pages the serving weights to pinned host memory.
 """
 
 from __future__ import annotations
@@ -103,7 +114,12 @@ def main(argv=None):
     p.add_argument("--max-requests-per-batch", type=int, default=4)
     p.add_argument("--max-seq-length", type=int, default=256)
     p.add_argument("--max-tokens-per-batch", type=int, default=64)
-    p.add_argument("--tensor-parallelism-degree", type=int, default=1)
+    p.add_argument("-tp", "--tensor-parallelism-degree", type=int,
+                   default=1)
+    p.add_argument("-pp", "--pipeline-parallelism-degree", type=int,
+                   default=1)
+    p.add_argument("-sp", "--sequence-parallelism-degree", type=int,
+                   default=1)
     p.add_argument("--8bit-quantization", dest="q8", action="store_true")
     p.add_argument("--4bit-quantization", dest="q4", action="store_true")
     p.add_argument("--offload", action="store_true")
@@ -114,11 +130,6 @@ def main(argv=None):
     p.add_argument("--device", default="cuda",
                    help="cuda (default) or cpu")
     args = p.parse_args(argv)
-    if args.tensor_parallelism_degree != 1:
-        p.error("--tensor-parallelism-degree: the port serves on one "
-                "device")
-    if args.offload:
-        p.error("--offload: weight offload is not in the port")
 
     if args.model:
         llm = LLM(args.model, output_file=args.output_file)
@@ -136,12 +147,21 @@ def main(argv=None):
                 max_tokens_per_batch=args.max_tokens_per_batch,
                 ssms=ssms, device=args.device,
                 inference_debugging=args.inference_debugging,
+                tensor_parallelism_degree=args.tensor_parallelism_degree,
+                pipeline_parallelism_degree=(
+                    args.pipeline_parallelism_degree),
+                sequence_parallelism_degree=(
+                    args.sequence_parallelism_degree),
+                cpu_offload=args.offload,
                 **({"quantization_type": quant} if quant else {}))
 
     prompts = _prompts(args, p, llm.tokenizer is not None)
     t0 = time.time()
     results = llm.generate(prompts, max_new_tokens=args.max_new_tokens)
     dt = time.time() - t0
+    mesh = llm.ffmodel.mesh
+    if mesh is not None and mesh.rank != 0:
+        return 0            # every rank served the same tokens
     total = sum(len(r.output_tokens) for r in results)
     for r in results:
         print(f"guid={r.guid} output={r.output_tokens}")

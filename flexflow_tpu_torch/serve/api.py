@@ -229,6 +229,12 @@ class LLM:
             # from_checkpoint(quantize=...): the same post-load step,
             # asked for at the checkpoint door
             self.ffmodel.quantize_weights(self._quantize_on_load)
+        # the JAX order: stack the pipeline stage's blocks now that the
+        # weights are loaded, then page weights out (offload pages the
+        # stacked leaves), then fuse (off under a plan or offload)
+        self.ffmodel.finalize_pipeline()
+        if config.cpu_offload:
+            self.ffmodel.offload_weights()
         self.ffmodel.finalize_gemm_fusion()
         self.rm = RequestManager()
         if self.tokenizer is not None:

@@ -503,7 +503,9 @@ class MultiSpecEngine(_SpecEngineBase):
             commit_tree_kv(
                 llm.op_state,
                 best_j[:, None] * d + torch.arange(d, device=dev)[None, :],
-                n_acc, r_pos + 1, active)
+                n_acc, r_pos + 1, active,
+                mesh=getattr(llm, "mesh", None),
+                seq_len=llm.config.max_sequence_length)
         # next round's accepted block: [accepted chain prefix, bonus]
         idx = torch.arange(d + 1, device=dev)[None, :]
         blk = torch.where(
@@ -697,7 +699,9 @@ class BeamSpecEngine(_SpecEngineBase):
         bonus = o.gather(1, cur[:, None])[:, 0]
         # the accepted nodes' KV: cache[r, r_pos+1+i] <- cache[r,
         # r_pos+path[r, i]] for i < n_acc
-        commit_tree_kv(llm.op_state, path - 1, n_acc, r_pos + 1, active)
+        commit_tree_kv(llm.op_state, path - 1, n_acc, r_pos + 1, active,
+                       mesh=getattr(llm, "mesh", None),
+                       seq_len=llm.config.max_sequence_length)
         chain = tokens.gather(1, path)                             # [R, d]
         idx = torch.arange(d + 1, device=dev)[None, :]
         blk = torch.where(

@@ -18,12 +18,12 @@ Quantized weights concatenate exactly: the per-column scheme keeps one
 scale per output column, so column concatenation keeps every column's
 payload and scale bit for bit.
 
-Eligibility in the port: ``enable_fusion and gemm_fusion`` on a compiled
-model without ``inference_debugging`` (per-op dumps keep the separate
-q/k/v and gate/up tensors, as in the JAX package; the port compiles for
-inference only and has no mesh, pipeline or offload, the JAX package's
-other terms). Off by default, as in
-the JAX package, where it measured slower end to end. Applied after the
+Eligibility in the port, as in the JAX package: ``enable_fusion and
+gemm_fusion`` on a compiled model without ``inference_debugging`` (per-op
+dumps keep the separate q/k/v and gate/up tensors), without a pipeline
+plan, offload or a tensor-parallel ``model`` axis (the fused leaves
+would cross the shards). Off by default, as in the JAX package, where
+it measured slower end to end. Applied after the
 weights are loaded (``FFModel.finalize_gemm_fusion``), so checkpoint maps
 keep writing the separate names; ``fused_param_get``/``fused_param_set``
 keep ``get/set_parameter_by_key`` working on them.
@@ -46,10 +46,14 @@ _ATTN_TYPES = (OpType.INC_MULTIHEAD_SELF_ATTENTION,
 
 
 def fusion_eligible(model) -> bool:
-    """The port compiles for inference only, so the flags decide."""
     cfg = model.config
+    mesh = getattr(model, "mesh", None)
     return (cfg.enable_fusion and cfg.gemm_fusion
-            and not cfg.inference_debugging)
+            and not cfg.inference_debugging
+            and getattr(model, "_pp_plan", None) is None
+            and not cfg.cpu_offload
+            and not getattr(model, "_offloaded", None)
+            and (mesh is None or mesh.axis_size("model") == 1))
 
 
 def _concat_cols(leaves: List):

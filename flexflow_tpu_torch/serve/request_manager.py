@@ -496,12 +496,20 @@ class RequestManager:
                           limit - len(req.tokens)))
 
     # -- shared-prefix KV pool (serve/prefix_cache.py) --------------------
-    def _resolve_prefix_cache(self, gc: Optional[GenerationConfig]):
+    def _resolve_prefix_cache(self, gc: Optional[GenerationConfig],
+                              model=None):
         """Attach the pool when the generation config asks for it (requests
         registered before that are matched at their slot grant)."""
         if (gc is not None and gc.prefix_cache
                 and self.prefix_cache is None):
             from flexflow_tpu_torch.serve.prefix_cache import PrefixCache
+
+            mesh = getattr(model, "mesh", None)
+            if mesh is not None and mesh.size > 1:
+                raise NotImplementedError(
+                    "the shared-prefix pool is not ported to parallel "
+                    "serving: its byte budget reads each rank's free "
+                    "device memory, so ranks would pool differently")
 
             self.prefix_cache = PrefixCache(
                 max_tokens=gc.prefix_cache_tokens)
@@ -693,7 +701,7 @@ class RequestManager:
         request needs the Python loop, else on the Python loop."""
         ifm = self._ifm(model)
         cfg = model.config
-        self._resolve_prefix_cache(generation_config)
+        self._resolve_prefix_cache(generation_config, model)
         active: List[Optional[Request]] = [None] * cfg.max_requests_per_batch
         done: List[GenerationResult] = []
         if getattr(cfg, "use_native_scheduler", True):
@@ -916,7 +924,7 @@ class RequestManager:
         width, so both give the same tokens (the JAX package's rule with
         its Pallas kernel). Several draft models take the tree engine."""
         gc = generation_config
-        self._resolve_prefix_cache(gc)
+        self._resolve_prefix_cache(gc, llm)
         if gc is not None and gc.spec_depth:
             spec_depth = gc.spec_depth
         widths = [s.config.max_beam_width for s in ssms]
@@ -1673,7 +1681,9 @@ class RequestManager:
                 llm.op_state, torch.as_tensor(src_node, device=dev),
                 torch.as_tensor(ncommit, device=dev),
                 torch.as_tensor(start + 1, device=dev),
-                torch.as_tensor(act, device=dev))
+                torch.as_tensor(act, device=dev),
+                mesh=getattr(llm, "mesh", None),
+                seq_len=llm.config.max_sequence_length)
 
     @staticmethod
     def _parked(ctrl, active):

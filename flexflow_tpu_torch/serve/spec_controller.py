@@ -102,8 +102,20 @@ def estimate_draft_cost_ratio(llm, ssms: Sequence) -> float:
     def pbytes(m) -> int:
         # payload + scale for a quantized leaf: what a forward reads; a
         # leaf a draft shares with its verifier still costs the draft its
-        # read
-        return quantized_nbytes(m.params)
+        # read. Under a mesh, the sum over the ranks: every rank gets the
+        # same ratio, so their controllers decide alike
+        n = quantized_nbytes(m.params)
+        mesh = getattr(m, "mesh", None)
+        if mesh is None or mesh.device_mesh is None:
+            return n
+        import torch
+        import torch.distributed as dist
+
+        t = torch.tensor([float(n)], dtype=torch.float64)
+        if dist.get_backend() == "nccl":
+            t = t.to(m.device)
+        dist.all_reduce(t)
+        return int(t.item())
 
     denom = max(1, pbytes(llm))
     return max(0.02, sum(pbytes(s) for s in ssms) / denom)

@@ -191,8 +191,15 @@ def test_from_args_matches_jax(argv):
 @pytest.mark.parametrize("argv", [["-tp", "2"], ["-pp", "2"], ["-sp", "4"],
                                   ["--offload"]])
 def test_from_args_rejects_unported_features(argv):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fft.FFConfig.from_args(argv)
+    """The parallelism and offload flags, refused before the port had
+    parallel serving and offload, now parse as the JAX package's do."""
+    j = ff.FFConfig.from_args(argv)
+    p = fft.FFConfig.from_args(argv, device="cpu")
+    shared = ("tensor_parallelism_degree", "pipeline_parallelism_degree",
+              "sequence_parallelism_degree", "data_parallelism_degree",
+              "cpu_offload")
+    assert {k: getattr(p, k) for k in shared} == \
+        {k: getattr(j, k) for k in shared}
 
 
 def test_npz_weights_cross_both_ways(hf_llama, jax_tokens, tmp_path):
