@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases 1,2,12  # telemetry, the replica fleet
     python3 chip_smoke.py --phases 1,2,13  # the host side of serving
     python3 chip_smoke.py --phases 1,2,14  # offload, sharded serving
+    python3 chip_smoke.py --phases 1,2,15  # parallel, resumable training
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -3347,13 +3348,12 @@ def bert_flops_per_step(batch, layers=BERT_LAYERS):
     return 6.0 * matmul_params * tokens + 6.0 * attn
 
 
-def bert_model(device, dtype, layers, batch):
-    """``bench_train.py:build_model`` through the port's builders (no
-    ``auto_parallel``: the search is not ported)."""
-    import flexflow_tpu_torch as ff
-
-    m = ff.FFModel(ff.FFConfig(batch_size=batch, compute_dtype=dtype,
-                               device=device))
+def bert_build(ff, config, layers=BERT_LAYERS):
+    """``bench_train.py:build_model`` through a package's builders (no
+    ``auto_parallel``: the search is not ported); ``config.batch_size``
+    sets the batch. Also phase 15's builder on the ranks."""
+    batch = config.batch_size
+    m = ff.FFModel(config)
     tokens = m.create_tensor([batch, BERT_SEQ], ff.DataType.DT_INT32)
     x = m.embedding(tokens, BERT_VOCAB, BERT_HIDDEN, name="embed")
     for i in range(layers):
@@ -3367,18 +3367,25 @@ def bert_model(device, dtype, layers, batch):
         x = m.layer_norm(m.add(h, x), axes=[-1], name=f"enc.{i}.ln2")
     logits = m.dense(x, BERT_VOCAB, name="mlm_head")
     m.softmax(m.reshape(logits, [batch * BERT_SEQ, BERT_VOCAB]))
+    return m
+
+
+def bert_model(device, dtype, layers, batch):
+    import flexflow_tpu_torch as ff
+
+    m = bert_build(ff, ff.FFConfig(batch_size=batch, compute_dtype=dtype,
+                                   device=device), layers)
     return m, bert_flops_per_step(batch, layers)
 
 
-def resnet_model(device, dtype, batch, img, classes, stages):
-    """``bench_train.py:build_resnet50`` through the port's builders, with
-    its layer-by-layer model FLOPs (convs and the head, fwd 1x + bwd 2x);
-    ``stages`` cuts the depth."""
-    import flexflow_tpu_torch as ff
-
-    m = ff.FFModel(ff.FFConfig(batch_size=batch, compute_dtype=dtype,
-                               device=device))
-    flops = [0.0]
+def resnet_build(ff, config, img, classes, stages, flops=None):
+    """``bench_train.py:build_resnet50`` through a package's builders;
+    ``stages`` cuts the depth; ``flops`` (a one-element list) adds up the
+    convolutions' and the head's forward FLOPs. Also phase 15's builder
+    on the ranks."""
+    batch = config.batch_size
+    m = ff.FFModel(config)
+    flops = flops if flops is not None else [0.0]
 
     def conv(x, c_out, k, s, pad):
         y = m.conv2d(x, c_out, k, k, s, s, pad, pad, use_bias=False)
@@ -3406,6 +3413,18 @@ def resnet_model(device, dtype, batch, img, classes, stages):
     x = m.dense(m.flat(x), classes)
     flops[0] += 2.0 * x.owner_layer.inputs[0].dims[1] * classes * batch
     m.softmax(x)
+    return m
+
+
+def resnet_model(device, dtype, batch, img, classes, stages):
+    """``resnet_build`` with its layer-by-layer model FLOPs (convs and the
+    head, fwd 1x + bwd 2x)."""
+    import flexflow_tpu_torch as ff
+
+    flops = [0.0]
+    m = resnet_build(ff, ff.FFConfig(batch_size=batch, compute_dtype=dtype,
+                                     device=device), img, classes, stages,
+                     flops)
     return m, 3.0 * flops[0]
 
 
@@ -5171,10 +5190,295 @@ def seven_b_keys(hf):
     return hf_weight_map(LLAMAConfig.from_hf_config(hf))
 
 
+# ----------------------------------------------------------------------
+# phase 15: parallel and resumable training
+# ----------------------------------------------------------------------
+PAR_STEPS = 3            # 15a-15c: steps a run (ResNet's cut: 2)
+PAR_BOUND = 1e-5         # relative: a parallel run's losses vs one rank's
+MOE_CPU_BOUND = 1e-4     # relative: 15c card vs CPU (phase 11a's bound)
+LARGE_BATCH = 64         # 15a and 15d: BERT-large, bf16 (32 a rank at dp=2)
+REMAT_PAIRS = 2          # 15d: alternating (off, on) pairs
+RESUME_STEPS = 4         # 15e: 2 steps, save, restore, 2 more
+PAR_TIMEOUT = 900.0
+# examples/python/native/moe.py: 64 wide, 4 experts, top-2, its default
+# batch (FFConfig's 64), 10 classes
+MOE_WIDTH, MOE_EXPERTS, MOE_TOP, MOE_CLASSES, MOE_BATCH = 64, 4, 2, 10, 64
+
+
+def moe_build(ff, config):
+    """``examples/python/native/moe.py``'s classifier (the ``moe``
+    composite) through a package's builders."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, MOE_WIDTH], ff.DataType.DT_FLOAT)
+    x = m.dense(t, MOE_WIDTH, ff.ActiMode.AC_MODE_RELU)
+    x = m.moe(x, num_exp=MOE_EXPERTS, num_select=MOE_TOP,
+              expert_hidden_size=MOE_WIDTH)
+    m.softmax(m.dense(x, MOE_CLASSES))
+    return m
+
+
+def _rel(a, b) -> float:
+    return max(abs(x - y) / abs(y) for x, y in zip(a, b))
+
+
+def _dir_bytes(d) -> int:
+    return sum(os.path.getsize(os.path.join(r, f))
+               for r, _d, fs in os.walk(d) for f in fs)
+
+
+def parallel_training_phase(torch, card, work, device="cuda"):
+    """Phase 15: the training path under a mesh, through
+    ``parallel/launch.run_ranks`` and the ``train`` job of
+    ``parallel/rank_jobs.py`` (stores, logs and checkpoints under
+    ``work``). One launch of 2 ranks sharing the card (gloo, staged
+    through pinned host buffers) runs every parallel case; one launch of
+    1 rank (NCCL world of 1, ``CUBLAS_WORKSPACE_CONFIG`` set) runs the
+    references, remat and resume. No kernel of K1-K3 lies on this path.
+    Returns the report; a failed gate raises."""
+    import numpy as np
+
+    from flexflow_tpu_torch.parallel import rank_jobs
+    from flexflow_tpu_torch.parallel.launch import run_ranks
+
+    t_phase = time.perf_counter()
+    me = os.path.abspath(__file__)
+    job = "flexflow_tpu_torch.parallel.rank_jobs:train"
+    rng = np.random.default_rng(31)
+
+    def save(name, x, y):
+        path = os.path.join(work, f"{name}.npz")
+        np.savez(path, x0=x, y=y)
+        return path
+
+    bx, by = cut_data("bert")
+    bert_data = save("bert", bx, by)
+    bx4 = rng.integers(0, BERT_VOCAB, (RESUME_STEPS, CUT_BATCH, BERT_SEQ),
+                       dtype=np.int32)
+    by4 = rng.integers(0, BERT_VOCAB, (RESUME_STEPS, CUT_BATCH * BERT_SEQ,
+                                       1), dtype=np.int32)
+    resume_data = save("resume", bx4, by4)
+    resnet_data = save("resnet", *cut_data("resnet"))
+    large_data = save("large", rng.integers(
+        0, BERT_VOCAB, (PAR_STEPS, LARGE_BATCH, BERT_SEQ), dtype=np.int32),
+        rng.integers(0, BERT_VOCAB, (PAR_STEPS, LARGE_BATCH * BERT_SEQ, 1),
+                     dtype=np.int32))
+    moe_x = rng.standard_normal((PAR_STEPS, MOE_BATCH, MOE_WIDTH),
+                                dtype=np.float32)
+    moe_w = rng.standard_normal((MOE_WIDTH, MOE_CLASSES))
+    moe_data = save("moe", moe_x, np.argmax(moe_x @ moe_w, axis=-1)[
+        ..., None].astype(np.int32))
+
+    sgd = ["sgd", {"lr": TRAIN_LR}]
+
+    def bert(name, layers=CUT_LAYERS, batch=CUT_BATCH, dtype="float32",
+             data=bert_data, deg=None, **kw):
+        return dict(name=name, builder=f"{me}:bert_build",
+                    builder_kw={"layers": layers}, optimizer=sgd,
+                    data=data, config=dict(batch_size=batch, seed=7,
+                                           compute_dtype=dtype,
+                                           **(deg or {})), **kw)
+
+    resnet_kw = {"img": CUT_IMG, "classes": CUT_CLASSES,
+                 "stages": [list(s) for s in RESNET_STAGES[:1]]}
+
+    def resnet(name, **deg):
+        return dict(name=name, builder=f"{me}:resnet_build",
+                    builder_kw=resnet_kw, optimizer=sgd, data=resnet_data,
+                    config=dict(batch_size=CUT_BATCH, seed=7, **deg))
+
+    experts_kw = {"d": MOE_WIDTH, "n": MOE_EXPERTS, "k": MOE_TOP,
+                  "classes": MOE_CLASSES}
+
+    def experts(name, **deg):
+        return dict(name=name, builder=os.path.join(
+            HERE, "tests", "torch_rank_jobs.py:experts_net"),
+            builder_kw=experts_kw, optimizer=["adam", {"alpha": TRAIN_LR}],
+            data=moe_data, config=dict(batch_size=MOE_BATCH, seed=7, **deg))
+
+    tp2_ckpt = os.path.join(work, "ckpt_tp2")
+    two = [bert("bert_dp2", deg=dict(data_parallelism_degree=2)),
+           resnet("resnet_dp2", data_parallelism_degree=2),
+           bert("bert_tp2", deg=dict(tensor_parallelism_degree=2),
+                save={"dir": tp2_ckpt, "step": PAR_STEPS},
+                out=os.path.join(work, "tp2.npz")),
+           bert("bert_sp2", deg=dict(sequence_parallelism_degree=2)),
+           experts("experts_ep2", expert_parallelism_degree=2),
+           bert("large_dp2", layers=BERT_LAYERS, batch=LARGE_BATCH,
+                dtype="bfloat16", data=large_data,
+                deg=dict(data_parallelism_degree=2))]
+    det = dict(deterministic=True)
+    part_ckpt = os.path.join(work, "ckpt_resume")
+    one = [bert("bert_ref"), resnet("resnet_ref"), experts("experts_ref")]
+    for i in range(REMAT_PAIRS):
+        for remat in (False, True):
+            r = bert(f"large_remat{int(remat)}_{i}", layers=BERT_LAYERS,
+                     batch=LARGE_BATCH, dtype="bfloat16", data=large_data,
+                     deg=dict(remat=remat), **det)
+            one.append(r)
+    one += [bert("straight", data=resume_data, steps=RESUME_STEPS,
+                 out=os.path.join(work, "straight.npz"), **det),
+            bert("part", data=resume_data, steps=RESUME_STEPS // 2,
+                 save={"dir": part_ckpt, "step": RESUME_STEPS // 2}, **det),
+            bert("resumed", data=resume_data, restore=part_ckpt,
+                 first_step=RESUME_STEPS // 2, steps=RESUME_STEPS // 2,
+                 out=os.path.join(work, "resumed.npz"), **det),
+            bert("tp2_at_tp1", restore=tp2_ckpt, steps=0,
+                 out=os.path.join(work, "tp2_at_tp1.npz"))]
+
+    t = time.perf_counter()
+    res2 = run_ranks(job, 2, {"device": device, "tf32": False, "runs": two},
+                     workdir=os.path.join(work, "w2"), timeout=PAR_TIMEOUT,
+                     device=device, backend="gloo")
+    s2 = time.perf_counter() - t
+    t = time.perf_counter()
+    res1 = run_ranks(job, 1, {"device": device, "tf32": False, "runs": one},
+                     workdir=os.path.join(work, "w1"), timeout=PAR_TIMEOUT,
+                     device=device,
+                     backend="nccl" if device == "cuda" else "gloo",
+                     env=dict(os.environ,
+                              CUBLAS_WORKSPACE_CONFIG=":4096:8"))[0]
+    s1 = time.perf_counter() - t
+    log(f"  launches: 2 ranks {s2:.1f} s ({len(two)} runs), 1 rank "
+        f"{s1:.1f} s ({len(one)} runs)  [{card}]")
+    by2 = {r["name"]: [rank[i] for rank in res2] for i, r in enumerate(two)}
+    by1 = {r["name"]: r for r in res1}
+    bad, report = [], {}
+
+    def parity(sub, name, ref, what):
+        ranks = by2[name]
+        rel = _rel(ranks[0]["losses"], by1[ref]["losses"])
+        same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
+        peaks = [round(r["peak_bytes"] / 2**30, 3) for r in ranks]
+        log(f"  {sub} {what}: losses {[f'{v:.7f}' for v in ranks[0]['losses']]}"
+            f" vs one rank {[f'{v:.7f}' for v in by1[ref]['losses']]}, "
+            f"largest relative difference {rel:.2e} (bound {PAR_BOUND}); "
+            f"every rank the same numbers: {same}; peak a rank {peaks} GiB "
+            f"(one rank {by1[ref]['peak_bytes'] / 2**30:.3f}); all-reduced "
+            f"{ranks[0]['allreduce_bytes']} B a step  [{card}]")
+        report[name] = dict(loss_rel=rel, peak_gib=peaks,
+                            ref_peak_gib=by1[ref]["peak_bytes"] / 2**30,
+                            allreduce_bytes=ranks[0]["allreduce_bytes"])
+        if not (rel <= PAR_BOUND and same):
+            bad.append(f"{sub} {name}")
+
+    log(f"phase 15a: data parallel, 2 ranks sharing the card  [{card}]")
+    parity("15a", "bert_dp2", "bert_ref",
+           f"BERT cut ({CUT_LAYERS} layers, full width, batch {CUT_BATCH}, "
+           f"fp32) dp=2")
+    parity("15a", "resnet_dp2", "resnet_ref",
+           f"ResNet-50 11a cut (batch {CUT_BATCH}, {CUT_IMG}x{CUT_IMG}, "
+           "global BatchNorm statistics) dp=2")
+    large = by2["large_dp2"]
+    for r in large:
+        log(f"  15a BERT-large ({BERT_LAYERS} layers, bf16, batch "
+            f"{LARGE_BATCH}, {LARGE_BATCH // 2} a rank) dp=2 rank "
+            f"{r['rank']}: step ms {[round(v, 1) for v in r['step_ms']]}, "
+            f"losses {[round(v, 5) for v in r['losses']]}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB, gradients all-reduced "
+            f"{r['allreduce_bytes'] / 2**30:.3f} GiB a step  [{card}]")
+    log("  15a: two ranks on one card through host-staged gloo are not a "
+        "speed of data parallelism (each step stages every gradient "
+        "through host memory)")
+    report["large_dp2"] = dict(
+        step_ms=large[0]["step_ms"], losses=large[0]["losses"],
+        peak_gib=[r["peak_bytes"] / 2**30 for r in large],
+        allreduce_bytes=large[0]["allreduce_bytes"])
+    if not (all(np.isfinite(r["losses"]).all() for r in large)
+            and large[0]["losses"] == large[1]["losses"]):
+        bad.append("15a BERT-large dp=2")
+
+    log(f"phase 15b: tensor and sequence parallel, 2 ranks  [{card}]")
+    parity("15b", "bert_tp2", "bert_ref",
+           f"BERT cut tp=2 ({BERT_HEADS // 2} heads a rank)")
+    parity("15b", "bert_sp2", "bert_ref",
+           f"BERT cut sp=2 ({BERT_SEQ // 2} positions a rank, the ring)")
+
+    log(f"phase 15c: MoE, examples/python/native/moe.py's classifier "
+        f"({MOE_WIDTH} wide, {MOE_EXPERTS} experts, top-{MOE_TOP}, batch "
+        f"{MOE_BATCH})  [{card}]")
+    moe_run = dict(name="moe", builder=f"{me}:moe_build",
+                   optimizer=["adam", {"alpha": TRAIN_LR}], data=moe_data,
+                   config=dict(batch_size=MOE_BATCH, seed=7),
+                   weights=os.path.join(work, "moe_init.pt"))
+    # one start: the CPU model's seeded init (a card generator draws
+    # other values from the same seed)
+    init = rank_jobs.build_trainer(moe_run, torch.device("cpu"))
+    torch.save({ln: {w: p.detach() for w, p in lp.items()}
+                for ln, lp in init.params.items()}, moe_run["weights"])
+    del init
+    with tf32_off(torch):
+        on_card = rank_jobs.train({"device": device, "runs": [moe_run]})[0]
+    on_cpu = rank_jobs.train({"device": "cpu", "runs": [moe_run]})[0]
+    rel = _rel(on_card["losses"], on_cpu["losses"])
+    log(f"  15c moe composite: losses card "
+        f"{[f'{v:.7f}' for v in on_card['losses']]} CPU "
+        f"{[f'{v:.7f}' for v in on_cpu['losses']]}, largest relative "
+        f"difference {rel:.2e} (bound {MOE_CPU_BOUND})  [{card}]")
+    report["moe_card_vs_cpu"] = dict(loss_rel=rel)
+    if not rel <= MOE_CPU_BOUND:
+        bad.append("15c moe card vs CPU")
+    parity("15c", "experts_ep2", "experts_ref",
+           f"an EXPERTS layer ({MOE_EXPERTS} experts, {MOE_EXPERTS // 2} a "
+           "rank) expert=2 vs expert=1")
+
+    log(f"phase 15d: remat, BERT-large ({BERT_LAYERS} layers, bf16, batch "
+        f"{LARGE_BATCH}), {REMAT_PAIRS} alternating pairs off/on, "
+        f"deterministic algorithms  [{card}]")
+    remat = [by1[f"large_remat{int(on)}_{i}"] for i in range(REMAT_PAIRS)
+             for on in (False, True)]
+    for r in remat:
+        log(f"  15d {r['name']}: losses {[f'{v:.6f}' for v in r['losses']]}"
+            f", step ms {[round(v, 1) for v in r['step_ms']]}, peak "
+            f"{r['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
+    equal = all(r["losses"] == remat[0]["losses"] for r in remat)
+    log(f"  15d: remat on == off losses: {equal}")
+    report["remat"] = {r["name"]: dict(step_ms=r["step_ms"],
+                                       peak_gib=r["peak_bytes"] / 2**30)
+                       for r in remat}
+    if not equal:
+        bad.append("15d remat losses")
+
+    log(f"phase 15e: resume, BERT cut, {RESUME_STEPS} steps straight vs "
+        f"{RESUME_STEPS // 2}, save, restore into a fresh model, "
+        f"{RESUME_STEPS // 2} more, deterministic algorithms  [{card}]")
+    straight, resumed = by1["straight"], by1["resumed"]
+    got = by1["part"]["losses"] + resumed["losses"]
+    pa = dict(np.load(os.path.join(work, "straight.npz")))
+    pb = dict(np.load(os.path.join(work, "resumed.npz")))
+    params_eq = pa.keys() == pb.keys() and all(
+        np.array_equal(pa[k], pb[k]) for k in pa)
+    ckpt_b = _dir_bytes(part_ckpt)
+    log(f"  15e: losses straight {[f'{v:.7f}' for v in straight['losses']]}"
+        f" resumed {[f'{v:.7f}' for v in got]}, equal "
+        f"{got == straight['losses']}; parameters equal {params_eq}; "
+        f"checkpoint {ckpt_b / 2**20:.1f} MiB, save "
+        f"{by1['part']['save_seconds']:.2f} s, restore "
+        f"{resumed['restore_seconds']:.2f} s  [{card}]")
+    tp2 = dict(np.load(os.path.join(work, "tp2.npz")))
+    at1 = dict(np.load(os.path.join(work, "tp2_at_tp1.npz")))
+    tp_eq = tp2.keys() == at1.keys() and all(
+        np.array_equal(tp2[k], at1[k]) for k in tp2)
+    log(f"  15e: the tp=2 run's checkpoint ({_dir_bytes(tp2_ckpt) / 2**20:.1f}"
+        f" MiB, saved in {by2['bert_tp2'][0]['save_seconds']:.2f} s) "
+        f"restored at tp=1 in {by1['tp2_at_tp1']['restore_seconds']:.2f} s:"
+        f" parameters equal to the ranks' gathered ones {tp_eq}  [{card}]")
+    report["resume"] = dict(
+        equal=got == straight["losses"], params_equal=params_eq,
+        ckpt_bytes=ckpt_b, save_s=by1["part"]["save_seconds"],
+        restore_s=resumed["restore_seconds"], tp2_at_tp1=tp_eq)
+    if not (got == straight["losses"] and params_eq and tp_eq):
+        bad.append("15e resume")
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 15: {report['seconds']:.1f} s  [{card}]")
+    if bad:
+        raise AssertionError(f"phase 15: {'; '.join(bad)}")
+    return report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -5339,6 +5643,16 @@ def main(argv=None) -> int:
             by_path["sp2"]["flash_attend_partials"]))
         log(json.dumps({"shape_checks": dict(
             checked, seconds=time.perf_counter() - t)}))
+        gc.collect()
+    if 15 in phases:
+        import tempfile
+
+        log(f"phase 15: parallel and resumable training, bench_train.py's "
+            f"BERT-large (cut to {CUT_LAYERS} layers for parity) and the "
+            f"ResNet-50 11a cut on 2 ranks sharing the card  [{card}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            log(json.dumps({"parallel_training_phase":
+                            parallel_training_phase(torch, card, tmp)}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

@@ -79,15 +79,20 @@ from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
 from flexflow_tpu_torch.serve import (SSM, AdmissionPolicy, EngineHandle,
                                      GenerationConfig, LLM, RejectedError,
                                      RequestManager, WorkloadSpec)
+from flexflow_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                    fit_with_recovery,
+                                                    load_weights_npz,
+                                                    save_weights_npz)
 from flexflow_tpu_torch.training.dataloader import SingleDataLoader
 from flexflow_tpu_torch.training.optimizer import (AdamOptimizer,
                                                    SGDOptimizer)
 
 __all__ = ["ActiMode", "AdamOptimizer", "AdmissionPolicy", "AggrMode",
-           "CompMode", "ConstantInitializer", "DataType", "EngineHandle",
+           "CheckpointManager", "CompMode", "ConstantInitializer", "DataType", "EngineHandle",
            "FFConfig", "FFModel", "GenerationConfig",
            "GlorotUniformInitializer", "InferenceMode", "LLM", "LossType",
            "MetricsType", "NormInitializer", "OpType", "ParameterSyncType",
            "PoolType", "RejectedError", "RequestManager", "SGDOptimizer",
            "SSM", "SingleDataLoader", "UniformInitializer", "WorkloadSpec",
-           "ZeroInitializer"]
+           "ZeroInitializer", "fit_with_recovery", "load_weights_npz",
+           "save_weights_npz"]

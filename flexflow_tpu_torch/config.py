@@ -1,12 +1,13 @@
 """FFConfig of the PyTorch/CUDA port: the training batch and epochs, the
 parallelism degrees and mesh, and the serving, offload, quantization,
 fusion, telemetry and host-side fields of ``flexflow_tpu.config.FFConfig``,
-plus ``device`` and ``use_kernels``. There is no ``auto_parallel`` or
-``remat``: the Unity search and rematerialization are not ported.
+plus ``device`` and ``use_kernels``, and ``remat``. There is no
+``auto_parallel``: the Unity search is not ported.
 
 The parallelism degrees lay a mesh over the ranks of the process group
 (``parallel/mesh.py``): each rank is one process, started by torchrun or
-by ``parallel/launch.py``, and serves its shard of the weights and caches.
+by ``parallel/launch.py``, and serves or trains its shard of the weights
+(and caches, or batch).
 
 The device decides the kernel path: CUDA tensors go to the hand-written
 kernels, CPU tensors to their plain PyTorch versions. ``use_kernels``
@@ -52,6 +53,9 @@ class FFConfig:
 
     # where the model's parameters, KV caches and activations live
     device: str = "cuda"
+    # training: recompute each layer's forward in the backward instead of
+    # keeping its activations (torch.utils.checkpoint; core/model.py)
+    remat: bool = False
     seed: int = 0
     # activations compute in compute_dtype; params keep their WeightSpec dtype
     compute_dtype: str = "float32"

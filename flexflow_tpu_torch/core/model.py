@@ -33,12 +33,25 @@ that made it, so every rank reads the same tokens and runs the same host
 loop. ``offload_weights`` pages the serving weights to pinned host
 memory (``offload.py``); ``_apply_layer`` streams them back.
 
-There is no strategy search, remat, branch plan or parallel training in
-the port yet.
+Parallel training: the same degrees, with ``compile(optimizer=...,
+loss_type=...)``, train over the ``data``, ``model``, ``seq`` and
+``expert`` axes. Each rank holds the weights' slices (the JAX layout:
+dense and embedding columns, attention heads, experts) and the optimizer
+state beside them; the graph walk keeps each rank's part of the batch
+(``parallel/placement.py``: ``data`` splits the rows, ``seq`` the
+positions, and the training MHA runs the ring), the loss and metrics are
+the whole batch's on every rank, and the parameters' partial gradients
+are summed over the batch axes before the update. ``config.remat``
+recomputes each layer's forward in the backward. ``training/checkpoint.py``
+saves and resumes the whole training state; ``recompile_on_condition``
+(``core/recompile.py``) rebuilds the model keeping its weights.
+
+There is no strategy search or branch plan in the port yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -97,6 +110,7 @@ class FFModel:
         self.params: Dict[str, Dict[str, torch.Tensor]] = {}
         self.op_state: Dict[str, Any] = {}
         self._final_tensor: Optional[Tensor] = None
+        self._logits_tensor: Optional[Tensor] = None
         self._layer_name_counts: Dict[str, int] = {}
         self.comp_mode: Optional[CompMode] = None
         self._gemm_fusion_done = False
@@ -123,6 +137,10 @@ class FFModel:
         self._reg_terms: List[Tuple[str, str, str, float]] = []
         self._perf = PerfMetrics()
         self._pending_batch = None
+        # parallel training: the last forward's placements
+        # (parallel/placement.Walk) and the gradient all-reduce
+        self._walk = None
+        self._grad_reducer = None
         # a train step's dropout draws (the JAX package's self._rng)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -132,7 +150,9 @@ class FFModel:
     # ==================================================================
     def create_tensor(self, dims: Sequence[int],
                       dtype: DataType = DataType.DT_FLOAT,
-                      name: str = "") -> Tensor:
+                      create_grad: bool = True, name: str = "") -> Tensor:
+        """``create_grad`` is kept for the JAX signature (an input never
+        takes a gradient)."""
         t = Tensor(tuple(dims), dtype,
                    name=name or f"input_{len(self.input_tensors)}",
                    model=self)
@@ -485,8 +505,33 @@ class FFModel:
         return self._add_layer(OpType.TRANSPOSE, [input],
                                dict(perm=tuple(perm)), name)
 
+    def reverse(self, input: Tensor, axis: int, name=None) -> Tensor:
+        return self._add_layer(OpType.REVERSE, [input], dict(axis=axis),
+                               name)
+
     def flat(self, input: Tensor, name=None) -> Tensor:
         return self._add_layer(OpType.FLAT, [input], {}, name)
+
+    def slice_tensor(self, input: Tensor, starts, ends, squeeze_dims=(),
+                     name=None) -> Tensor:
+        """A static slice: ``starts``/``ends`` per dim (None = the whole
+        extent, negatives wrap); ``squeeze_dims`` drops sliced size-1
+        dims (BERT's ``x[:, 0]``)."""
+        return self._add_layer(OpType.SLICE, [input], dict(
+            starts=tuple(starts), ends=tuple(ends),
+            squeeze_dims=tuple(squeeze_dims)), name)
+
+    def squeeze(self, input: Tensor, dim: int, name=None) -> Tensor:
+        dim = dim % input.num_dims
+        if input.dims[dim] != 1:
+            raise ValueError(f"squeeze: dim {dim} of {input.dims} is not 1")
+        return self.reshape(input, [s for d, s in enumerate(input.dims)
+                                    if d != dim], name=name)
+
+    def unsqueeze(self, input: Tensor, dim: int, name=None) -> Tensor:
+        shape = list(input.dims)
+        shape.insert(dim % (input.num_dims + 1), 1)
+        return self.reshape(input, shape, name=name)
 
     def cast(self, input: Tensor, dtype: DataType, name=None) -> Tensor:
         return self._add_layer(OpType.CAST, [input], dict(dtype=dtype), name)
@@ -494,6 +539,131 @@ class FFModel:
     def softmax(self, input: Tensor, axis: int = -1, name=None) -> Tensor:
         return self._add_layer(OpType.SOFTMAX, [input], dict(axis=axis),
                                name)
+
+    # --- algebra and reductions ---
+    def batch_matmul(self, a: Tensor, b: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.BATCH_MATMUL, [a, b], {}, name)
+
+    def reduce_sum(self, input: Tensor, axes, keepdims: bool = False,
+                   name=None) -> Tensor:
+        return self._add_layer(OpType.REDUCE_SUM, [input], dict(
+            axes=tuple(axes), keepdims=keepdims), name)
+
+    def reduce_mean(self, input: Tensor, axes, keepdims: bool = False,
+                    name=None) -> Tensor:
+        return self._add_layer(OpType.REDUCE_MEAN, [input], dict(
+            axes=tuple(axes), keepdims=keepdims), name)
+
+    def mean(self, input: Tensor, dims, keepdims: bool = False,
+             name=None) -> Tensor:
+        return self._add_layer(OpType.MEAN, [input], dict(
+            dims=tuple(dims), keepdims=keepdims), name)
+
+    def gather(self, input: Tensor, index: Tensor, dim: int,
+               name=None) -> Tensor:
+        return self._add_layer(OpType.GATHER, [input, index], dict(dim=dim),
+                               name)
+
+    # --- constants, selection and free parameters ---
+    def constant_tensor(self, value, dtype: Optional[DataType] = None,
+                        name=None) -> Tensor:
+        """An embedded literal tensor (``value``: an array or nested
+        lists; ``dtype`` defaults to the array's)."""
+        arr = np.asarray(value)
+        if dtype is None:
+            dtype = DataType(str(arr.dtype))
+        return self._add_layer(OpType.CONSTANT, [], dict(
+            value=arr.tolist(), dtype=dtype.value, shape=list(arr.shape)),
+            name)
+
+    def parameter(self, dims: Sequence[int],
+                  dtype: DataType = DataType.DT_FLOAT, init: float = 1.0,
+                  name=None) -> Tensor:
+        """A free-standing trainable parameter (the reference PCG's Weight
+        node), initialized to ``init``."""
+        return self._add_layer(OpType.WEIGHT, [], dict(
+            shape=list(dims), dtype=dtype.value, init=init), name)
+
+    def where(self, cond: Tensor, x: Tensor, y: Tensor, name=None) -> Tensor:
+        return self._add_layer(OpType.WHERE, [cond, x, y], {}, name)
+
+    def compare(self, x: Tensor, other, cmp: str, name=None) -> Tensor:
+        """Elementwise ``cmp`` (eq/ne/lt/le/gt/ge) against a Tensor or a
+        scalar."""
+        if isinstance(other, Tensor):
+            return self._add_layer(OpType.COMPARE, [x, other],
+                                   dict(cmp=cmp), name)
+        return self._add_layer(OpType.COMPARE, [x], dict(
+            cmp=cmp, scalar=float(other)), name)
+
+    def broadcast_to(self, input: Tensor, shape: Sequence[int],
+                     name=None) -> Tensor:
+        return self._add_layer(OpType.BROADCAST_TO, [input],
+                               dict(shape=list(shape)), name)
+
+    # --- mixture of experts (ops/moe.py) and the activation cache ---
+    def group_by(self, data: Tensor, assign: Tensor, n: int,
+                 alpha: float = 1.0, name=None) -> List[Tensor]:
+        return self._add_layer(OpType.GROUP_BY, [data, assign], dict(
+            n=n, k=assign.dims[-1], alpha=alpha), name)
+
+    def aggregate(self, gate_preds: Tensor, gate_assign: Tensor,
+                  exp_preds: List[Tensor], n: int, lambda_bal: float = 0.0,
+                  name=None) -> Tensor:
+        return self._add_layer(OpType.AGGREGATE,
+                               [gate_preds, gate_assign] + list(exp_preds),
+                               dict(n=n, lambda_bal=lambda_bal), name)
+
+    def aggregate_spec(self, gate_preds: Tensor, gate_assign: Tensor,
+                       exp_preds: List[Tensor], n: int,
+                       lambda_bal: float = 0.0, name=None) -> Tensor:
+        return self._add_layer(OpType.AGG_SPEC,
+                               [gate_preds, gate_assign] + list(exp_preds),
+                               dict(n=n, lambda_bal=lambda_bal), name)
+
+    def experts(self, input: Tensor, indices: Tensor, gate_weights: Tensor,
+                num_experts: int, experts_start_idx: int,
+                experts_output_dim_size: int, experts_num_layers: int = 1,
+                experts_internal_dim_size: int = 0,
+                activation: ActiMode = ActiMode.AC_MODE_NONE,
+                use_bias: bool = False, name=None) -> Tensor:
+        return self._add_layer(OpType.EXPERTS, [input, indices,
+                                                gate_weights], dict(
+            num_experts=num_experts, experts_start_idx=experts_start_idx,
+            experts_output_dim_size=experts_output_dim_size,
+            experts_num_layers=experts_num_layers,
+            experts_internal_dim_size=experts_internal_dim_size,
+            activation=activation, use_bias=use_bias), name)
+
+    def moe(self, input: Tensor, num_exp: int, num_select: int,
+            expert_hidden_size: int, alpha: float = 2.0,
+            lambda_bal: float = 0.0) -> Tensor:
+        """The composite MoE layer (reference src/ops/moe.cc:44): a
+        softmax gate, its top-k, GROUP_BY, a two-dense expert per
+        bucket, AGGREGATE."""
+        gate = self.softmax(self.dense(input, num_exp))
+        values, assign = self.top_k(gate, num_select)
+        buckets = self.group_by(input, assign, num_exp, alpha)
+        if not isinstance(buckets, list):
+            buckets = [buckets]
+        outs = [self.dense(self.dense(b, expert_hidden_size,
+                                      ActiMode.AC_MODE_RELU),
+                           input.dims[-1]) for b in buckets]
+        return self.aggregate(values, assign, outs, num_exp, lambda_bal)
+
+    def cache(self, input: Tensor, num_batches: int = 1,
+              name=None) -> Tensor:
+        """A cross-batch activation cache with a staleness score
+        (``ops/cache.py``; read by ``get_cache_score``)."""
+        return self._add_layer(OpType.CACHE, [input],
+                               dict(num_batches=num_batches), name)
+
+    def get_cache_score(self, layer_name: str) -> float:
+        """A Cache layer's staleness score, read from the device."""
+        st = (self.op_state or {}).get(layer_name)
+        if st is None or "score" not in st:
+            raise KeyError(f"no cache state for layer {layer_name!r}")
+        return float(st["score"])
 
     # --- selection and the serving heads ---
     def top_k(self, input: Tensor, k: int, sorted: bool = True,
@@ -572,9 +742,15 @@ class FFModel:
     # Graph execution
     # ==================================================================
     def _apply_layer(self, layer: Layer, params, values: Dict[int, Any],
-                     ctx: OpContext):
+                     ctx: OpContext, ins=None, attrs=None):
+        """Run one layer into ``values``: its inputs from ``values`` unless
+        ``ins`` gives them, with ``attrs`` in place of its own when given
+        (a parallel train step's per-rank view, parallel/placement.py)."""
         impl = get_op_impl(layer.op_type)
-        ins = [values[t.tensor_id] for t in layer.inputs]
+        if ins is None:
+            ins = [values[t.tensor_id] for t in layer.inputs]
+        if attrs is None:
+            attrs = layer.attrs
         ctx.layer_name = layer.name
         lp = params.get(layer.name, {})
         if layer.name in self._offloaded:
@@ -584,16 +760,62 @@ class FFModel:
             lp = fetch_layer_params(self, layer.name, lp)
         if not impl.quant_aware:
             lp = dequantize_layer_params(lp, ctx.compute_dtype)
-        outs = impl.forward(layer.attrs, lp, ins, ctx)
+        if ctx.training and self.config.remat and torch.is_grad_enabled():
+            outs = self._remat_forward(impl, attrs, lp, ins, ctx)
+        else:
+            outs = impl.forward(attrs, lp, ins, ctx)
         for t, v in zip(layer.outputs, outs):
             values[t.tensor_id] = v
+
+    @staticmethod
+    def _remat_forward(impl, attrs, lp, ins, ctx: OpContext):
+        """``impl.forward`` under ``torch.utils.checkpoint``: the layer's
+        activations are dropped after the forward and recomputed in the
+        backward. The recompute draws from the generator the state the
+        forward began from (``checkpoint`` restores only the default
+        generators), and writes its op state into a dict that is thrown
+        away, so the step's draws and state are those of one forward."""
+        from torch.utils.checkpoint import checkpoint
+
+        gen = ctx.generator
+        start = gen.get_state() if gen is not None else None
+        again = dataclasses.replace(ctx)    # this layer's name and shards
+        names = list(lp)
+        calls = [0]
+
+        def run(*tensors):
+            p = dict(zip(names, tensors[:len(names)]))
+            x = list(tensors[len(names):])
+            calls[0] += 1
+            if calls[0] == 1:
+                return tuple(impl.forward(attrs, p, x, ctx))
+            now = gen.get_state() if gen is not None else None
+            if gen is not None:
+                gen.set_state(start)
+            try:
+                return tuple(impl.forward(
+                    attrs, p, x, dataclasses.replace(again, state_out={})))
+            finally:
+                if gen is not None:
+                    gen.set_state(now)
+
+        return list(checkpoint(run, *(lp[n] for n in names), *ins,
+                               use_reentrant=False,
+                               preserve_rng_state=False))
+
+    def _splits_batch(self) -> bool:
+        """Does the mesh split the batch (a ``data`` or ``seq`` axis)?"""
+        return self.mesh is not None and (self.mesh.axis_size("data") > 1
+                                          or self.mesh.axis_size("seq") > 1)
 
     def _run_graph(self, params, feeds: Dict[int, Any], ctx: OpContext,
                    state: Optional[Dict[str, Any]] = None):
         """Walk the layer list (creation order is topological order)
         computing every tensor value. Returns (values_by_tensor_id,
         new_state); KV caches in the state were updated in place. The
-        kernels serve CUDA tensors unless ``config.use_kernels`` is off."""
+        kernels serve CUDA tensors unless ``config.use_kernels`` is off.
+        A mesh that splits the batch runs each rank's part
+        (``_run_split``) outside serving."""
         from flexflow_tpu_torch.kernels import use_kernels
 
         ctx.mesh = self.mesh
@@ -608,14 +830,42 @@ class FFModel:
             ctx.state_in = state or {}
             ctx.state_out = {}
             with use_kernels(self.config.use_kernels):
-                for layer in self.layers:
-                    self._apply_layer(layer, params, values, ctx)
+                if self._splits_batch() and ctx.batch_config is None:
+                    self._run_split(params, values, ctx)
+                else:
+                    for layer in self.layers:
+                        self._apply_layer(layer, params, values, ctx)
             new_state = dict(ctx.state_in)
             new_state.update(ctx.state_out)
         if (self.mesh is not None and self.mesh.device_mesh is not None
                 and ctx.batch_config is not None):
             self._broadcast_final(values)
         return values, new_state
+
+    def _run_split(self, params, values: Dict[int, Any], ctx: OpContext):
+        """The walk of a mesh that splits the batch: each batch input
+        keeps this rank's part, and every layer runs on the part its
+        inputs' placements allow (parallel/placement.py); ``self._walk``
+        keeps the placements for the loss and the gradient sums."""
+        from flexflow_tpu_torch.parallel.collectives import split
+        from flexflow_tpu_torch.parallel.placement import (Walk, feed_place,
+                                                           local_attrs)
+
+        walk = Walk(self.mesh, ctx.training)
+        for t in self.input_tensors:
+            if t.tensor_id in values:
+                place = feed_place(self.policy, t.dims)
+                for axis, d in place.items():
+                    values[t.tensor_id] = split(values[t.tensor_id],
+                                                self.mesh, axis, d)
+                walk.places[t.tensor_id] = place
+        for layer in self.layers:
+            ins, active, ctx.row_shards = walk.layer_inputs(layer, values)
+            self._apply_layer(layer, params, values, ctx, ins=ins,
+                              attrs=local_attrs(layer, active, self.mesh))
+            walk.record(layer, active)
+        ctx.row_shards = {}
+        self._walk = walk
 
     def _broadcast_final(self, values):
         """Every rank takes the final output of the rank that made it (the
@@ -684,8 +934,6 @@ class FFModel:
                                             w.name))
                 lp[w.name] = w.initializer(gen, tuple(w.shape),
                                            w.dtype.to_torch(), dev)
-                if training and lp[w.name].is_floating_point():
-                    lp[w.name].requires_grad_(True)
             if qtype:
                 # quantize each layer as it is initialized: the device
                 # holds one float layer at a time, never the float model
@@ -696,6 +944,10 @@ class FFModel:
                 lp = {w: shard_leaf(a, shardings[layer.name][w],
                                     self.mesh.coord)
                       for w, a in lp.items()}
+            if training:
+                for a in lp.values():
+                    if a.is_floating_point():
+                        a.requires_grad_(True)
             params[layer.name] = lp
         self.params = params
         # rows of the smallest table the position input indexes (None
@@ -732,6 +984,7 @@ class FFModel:
                            for layer in self.layers
                            for kind, coeff in
                            layer.attrs.get("kernel_regularizer") or []]
+        self._walk = None
         return self
 
     # ==================================================================
@@ -739,29 +992,44 @@ class FFModel:
     # ==================================================================
     def _setup_mesh(self, training: bool):
         """Join the process group and lay the mesh when a parallelism
-        degree is above 1 or a mesh shape is given; else no mesh."""
+        degree is above 1 or a mesh shape is given; else no mesh.
+        Training takes the ``data``, ``model``, ``seq`` and ``expert``
+        axes; serving the ``model``, ``pipe`` and ``seq`` axes."""
         cfg = self.config
         self.mesh = self.policy = None
+        self._grad_reducer = None
         if cfg.total_parallelism_degree == 1 and cfg.mesh_shape is None:
             return
-        if training:
+        pipe = (cfg.pipeline_parallelism_degree > 1
+                or (cfg.mesh_shape is not None
+                    and "pipe" in tuple(cfg.mesh_axis_names)[
+                        :len(cfg.mesh_shape)]))
+        if training and pipe:
             raise NotImplementedError(
-                "parallel training is not ported (ROADMAP.md Queue A item "
-                "5): the port's parallelism serves")
+                "the pipeline axis serves: the port trains over the data, "
+                "model, seq and expert axes")
         from flexflow_tpu_torch import distributed
         from flexflow_tpu_torch.parallel.mesh import make_mesh
+        from flexflow_tpu_torch.parallel.placement import GradReducer
         from flexflow_tpu_torch.parallel.spec import ShardingPolicy
 
         distributed.initialize(device=str(self.device))
         mesh = make_mesh(cfg)
+        serving = any(layer.op_type in (
+            OpType.INC_MULTIHEAD_SELF_ATTENTION,
+            OpType.SPEC_INC_MULTIHEAD_SELF_ATTENTION,
+            OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION)
+            for layer in self.layers)
         for ax in ("data", "expert"):
-            if mesh.axis_size(ax) > 1:
+            if serving and not training and mesh.axis_size(ax) > 1:
                 raise NotImplementedError(
-                    f"the {ax!r} axis is not ported for serving (ROADMAP.md "
-                    "Queue A item 5): set tensor, pipeline or sequence "
-                    "parallelism degrees whose product is the world size")
+                    f"the {ax!r} axis does not serve: set tensor, pipeline "
+                    "or sequence parallelism degrees whose product is the "
+                    "world size")
         self.mesh = mesh
         self.policy = ShardingPolicy(mesh)
+        if self._splits_batch():
+            self._grad_reducer = GradReducer(mesh)
 
     def _plan_and_shard_state(self):
         """Build the pipeline plan (with a ``pipe`` axis) and keep this
@@ -897,40 +1165,119 @@ class FFModel:
     def _ctx(self, training: bool) -> OpContext:
         return OpContext(training=training,
                          compute_dtype=torch_dtype(self.config.compute_dtype),
-                         generator=self.generator if training else None)
+                         generator=self.generator if training else None,
+                         device=self.device)
 
     def _loss_and_out(self, feeds, label, ctx: OpContext):
-        """(loss, final output, new op state) of one forward."""
+        """One forward: (loss, regularizer terms, output, label, batch,
+        new op state). ``output`` and ``label`` are this rank's rows when
+        a mesh splits the batch, and ``batch`` then is the ``(psum,
+        parts)`` that makes a sum over them the whole batch's (else
+        None); the loss is the whole batch's either way."""
         values, new_state = self._run_graph(self.params, feeds, ctx,
                                             self.op_state)
+        out, logits, label, batch = self._final_rows(values, label)
+        loss = compute_loss(self.loss_type, out, label, logits=logits,
+                            batch=batch)
+        return loss, self._regularizers(), out, label, batch, new_state
+
+    def _final_rows(self, values, label):
+        """(output, logits, label, batch) of a forward: under a split
+        batch the output keeps only a split of its rows (any other split
+        is gathered) and the label is cut to the same rows."""
         out = values[self._final_tensor.tensor_id]
-        logits = (values[self._logits_tensor.tensor_id]
-                  if self._logits_tensor is not None else None)
-        loss = compute_loss(self.loss_type, out, label, logits=logits)
+        lt = self._logits_tensor
+        logits = values[lt.tensor_id] if lt is not None else None
+        if self._walk is None or not self._splits_batch():
+            return out, logits, label, None
+        from flexflow_tpu_torch.parallel.collectives import psum
+
+        walk = self._walk
+        out, place = walk.whole(self._final_tensor.tensor_id, out,
+                                keep_rows=True)
+        if logits is not None:
+            logits, lplace = walk.whole(lt.tensor_id, logits,
+                                        keep_rows=True)
+            if lplace != place:
+                logits, _ = walk.whole(lt.tensor_id, logits)
+                out, _ = walk.whole(self._final_tensor.tensor_id, out)
+                place = {}
+        if not place:
+            return out, logits, label, None
+        (axis, _d), = place.items()
+        n = self.mesh.axis_size(axis)
+        if label.shape[0] != out.shape[0] * n:
+            raise ValueError(f"label rows {label.shape[0]} do not match the "
+                             f"output's {out.shape[0] * n}")
+        label = label.chunk(n, dim=0)[self.mesh.index(axis)]
+        return out, logits, label, (
+            lambda v: psum(v, self.mesh, axis), n)
+
+    def _regularizers(self) -> List[torch.Tensor]:
+        """Each kernel regularizer's term, over the whole weight (a weight
+        split over ``model`` or ``expert`` sums its ranks' penalties)."""
+        from flexflow_tpu_torch.parallel.collectives import psum
+
+        terms = []
         for lname, wname, kind, coeff in self._reg_terms:
             w = self.params[lname][wname]
             pen = w.abs().sum() if kind == "l1" else w.square().sum()
-            loss = loss + coeff * pen
-        return loss, out, new_state
+            sh = self._weight_sharding(lname, wname)
+            for axis in (sh.spec if sh is not None else ()):
+                if axis is not None:
+                    pen = psum(pen, self.mesh, axis)
+            terms.append(coeff * pen)
+        return terms
+
+    @staticmethod
+    def _with_terms(loss, terms):
+        for t in terms:
+            loss = loss + t
+        return loss
+
+    def _step_metrics(self, out, label, batch):
+        mets = compute_step_metrics(self.metrics, out, label, self.loss_type)
+        if batch is not None and mets:
+            keys = list(mets)
+            summed = batch[0](torch.stack([mets[k].double() for k in keys]))
+            mets = dict(zip(keys, summed.unbind()))
+        return mets
 
     def _train_step(self, feeds, label):
         """Forward, loss, backward, the optimizer's in-place update and the
         step metrics; returns (loss, metrics) as device scalars. The
         gradients stay in each parameter's ``.grad`` until the next step
-        (or ``zero_gradients``)."""
+        (or ``zero_gradients``). Under a split batch the parameters'
+        partial gradients are summed over the batch axes before the
+        regularizers' gradients, counted once, are added."""
         self.zero_gradients()
         with torch.enable_grad():
-            loss, out, new_state = self._loss_and_out(feeds, label,
-                                                      self._ctx(True))
-            loss.backward()
+            loss, terms, out, label, batch, new_state = self._loss_and_out(
+                feeds, label, self._ctx(True))
+            if self._grad_reducer is None:
+                loss = self._with_terms(loss, terms)
+                loss.backward()
+            else:
+                loss.backward()
+                self._grad_reducer(self.params, self._walk.layer_axes)
+                if terms:
+                    self._with_terms(terms[0], terms[1:]).backward()
+                loss = self._with_terms(loss.detach(),
+                                        [t.detach() for t in terms])
         grads = {layer: {w: p.grad for w, p in lp.items()}
                  for layer, lp in self.params.items()}
         self.optimizer.update_step(self.params, grads, self.opt_state)
         self.op_state = new_state
         with torch.no_grad():
-            step_metrics = compute_step_metrics(self.metrics, out.detach(),
-                                                label, self.loss_type)
+            step_metrics = self._step_metrics(out.detach(), label, batch)
         return loss.detach(), step_metrics
+
+    @property
+    def grad_allreduce_bytes(self) -> int:
+        """The bytes the last train step all-reduced to sum the gradients
+        over the batch axes (0 without a split batch)."""
+        r = self._grad_reducer
+        return r.bytes_last_step if r is not None else 0
 
     def _check_training(self):
         if self.optimizer is None or self.loss_type is None:
@@ -1021,15 +1368,13 @@ class FFModel:
 
     @torch.no_grad()
     def _eval_step(self, feeds, label):
-        ctx = self._ctx(False)
-        values, _ = self._run_graph(self.params, feeds, ctx, self.op_state)
-        out = values[self._final_tensor.tensor_id]
-        logits = (values[self._logits_tensor.tensor_id]
-                  if self._logits_tensor is not None else None)
-        loss = (compute_loss(self.loss_type, out, label, logits=logits)
+        values, _ = self._run_graph(self.params, feeds, self._ctx(False),
+                                    self.op_state)
+        out, logits, label, batch = self._final_rows(values, label)
+        loss = (compute_loss(self.loss_type, out, label, logits=logits,
+                             batch=batch)
                 if self.loss_type else torch.zeros((), device=out.device))
-        return loss, compute_step_metrics(self.metrics, out, label,
-                                          self.loss_type)
+        return loss, self._step_metrics(out, label, batch)
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None):
         xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
@@ -1056,7 +1401,8 @@ class FFModel:
     @torch.no_grad()
     def predict(self, x) -> np.ndarray:
         """The final output for ``x`` (one batch), as fp32 numpy for a
-        16-bit output (numpy has no bfloat16)."""
+        16-bit output (numpy has no bfloat16); under a mesh, the whole
+        batch's on every rank."""
         if self.comp_mode is None:
             raise RuntimeError("FFModel.compile() must be called before "
                                "predict/fit/evaluate")
@@ -1065,6 +1411,9 @@ class FFModel:
                                     self._feeds_from_arrays(xs),
                                     self._ctx(False), self.op_state)
         out = values[self._final_tensor.tensor_id]
+        if self._walk is not None and self._splits_batch():
+            # every rank returns the whole batch's output
+            out, _ = self._walk.whole(self._final_tensor.tensor_id, out)
         if out.dtype in (torch.bfloat16, torch.float16):
             out = out.float()
         return out.cpu().numpy()
@@ -1126,6 +1475,32 @@ class FFModel:
         pos, j = hit
         stack = self.params[PP_PARAMS_KEY][pos][weight_name]
         return block_slice({weight_name: stack}, j)[weight_name]
+
+    def get_parameter_tensor(self, layer_name: str,
+                             weight_name: str) -> Tensor:
+        """A handle of one parameter (``get_weights``/``set_weights``)."""
+        for layer in self.layers:
+            if layer.name == layer_name:
+                for w in layer.weights:
+                    if w.name == weight_name:
+                        return Tensor(w.shape, w.dtype,
+                                      name=f"{layer_name}.{weight_name}",
+                                      model=self, is_weight=True,
+                                      weight_name=(layer_name, weight_name))
+        raise KeyError((layer_name, weight_name))
+
+    def get_layers(self) -> Dict[int, Layer]:
+        return dict(enumerate(self.layers))
+
+    def get_output_tensor(self) -> Optional[Tensor]:
+        return self._final_tensor
+
+    def recompile_on_condition(self, recompile_state) -> bool:
+        """The reference's dynamic recompilation hook (model.cc:2791;
+        ``core/recompile.py``)."""
+        from flexflow_tpu_torch.core.recompile import recompile_on_condition
+
+        return recompile_on_condition(self, recompile_state)
 
     def get_parameter_by_key(self, key: Tuple[str, str]) -> np.ndarray:
         """A copy of the parameter as fp32 numpy: dequantized when

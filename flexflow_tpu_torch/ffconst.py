@@ -177,6 +177,19 @@ class OpType(enum.Enum):
     ARGMAX = enum.auto()
     SAMPLING = enum.auto()
     BEAM_TOPK = enum.auto()
+    # constants / selection and the free-standing parameter
+    WEIGHT = enum.auto()
+    CONSTANT = enum.auto()
+    WHERE = enum.auto()
+    COMPARE = enum.auto()
+    BROADCAST_TO = enum.auto()
+    BATCH_MATMUL = enum.auto()
+    # MoE and the cross-batch cache
+    GROUP_BY = enum.auto()
+    AGGREGATE = enum.auto()
+    AGG_SPEC = enum.auto()
+    EXPERTS = enum.auto()
+    CACHE = enum.auto()
     # parallel ops (PCG nodes in the reference; collectives over the mesh)
     REPARTITION = enum.auto()
     COMBINE = enum.auto()

@@ -1,8 +1,17 @@
 """Training multi-head attention (counterpart of
 ``flexflow_tpu/ops/attention.py``): plain einsum -> softmax -> einsum,
 as the JAX package computes it outside any Pallas kernel, so the port
-has no kernel here either. The ring-attention branch needs a mesh and is
-not ported.
+has no kernel here either.
+
+Under a mesh it keeps the JAX package's layout. Tensor parallelism splits
+at whole heads: ``wq``/``wk``/``wv`` (and their biases) by columns,
+``wo`` by rows; each rank attends with its heads, and a ``psum`` over
+``model`` adds the ranks' partial outputs before ``bo``. The inputs'
+gradients, partial sums over the rank's heads, are summed over
+``model``. Under sequence parallelism the core is ring attention
+(``parallel/ring_attention.py``) on the condition the JAX package sets
+(``use_ring``); the graph walker (``parallel/placement.py``) then hands
+the op each rank's positions.
 
 Dtypes follow JAX's promotion: a product of a bf16 activation and an
 fp32 weight runs in fp32. The scores are fp32 whatever the operands (the
@@ -36,17 +45,49 @@ def _mm(a, b):
     return a @ b
 
 
+def use_ring(attrs, sq: int, sk: int, mesh, training: bool) -> bool:
+    """The JAX package's condition for the ring branch
+    (``flexflow_tpu/ops/attention.py:55-60``), on the global lengths: a
+    ``seq`` axis above 1, self-attention lengths, no probability dropout
+    in training, no appended k/v rows, and ``sq`` divisible by the
+    degree."""
+    n = 1 if mesh is None else mesh.axis_size("seq")
+    return (n > 1 and sq == sk
+            and not (training and attrs.get("dropout", 0.0) > 0.0)
+            and not attrs.get("add_bias_kv", False)
+            and not attrs.get("add_zero_attn", False)
+            and sq % n == 0)
+
+
 def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
-                training=False, add_zero_attn=False, ctx=None):
+                training=False, add_zero_attn=False, ctx=None,
+                head_dim=None, ring=False):
     """q, k, v: [batch, seq, embed]. Weights: wq/wk/wv [embed, heads *
     head_dim], wo [heads * head_dim, embed]; optional biases bq/bk/bv/bo
     and the appended learnable rows bias_k/bias_v (torch
     MultiheadAttention semantics). Probability dropout draws from
-    ``ctx.keep_mask`` when training."""
+    ``ctx.keep_mask`` when training.
+
+    Under tensor parallelism (``wq`` holds fewer than ``num_heads`` heads
+    of ``head_dim``) the rank attends with its heads and the outputs are
+    summed over ``model``; ``ring`` runs the core as ring attention over
+    ``seq`` on this rank's positions."""
     b, sq, _ = q.shape
     sk = k.shape[1]
     wq = params["wq"]
-    head_dim = wq.shape[1] // num_heads
+    head_dim = head_dim or wq.shape[1] // num_heads
+    heads = wq.shape[1] // head_dim         # this rank's heads
+    mesh = ctx.mesh if ctx is not None else None
+    if heads != num_heads:
+        from flexflow_tpu_torch.parallel.collectives import sum_grads
+
+        # the inputs' gradients are partial sums over this rank's heads
+        # (one sum for an input that is q, k and v at once)
+        summed = {}
+        for t in (q, k, v):
+            if id(t) not in summed:
+                summed[id(t)] = sum_grads(t, mesh, "model")
+        q, k, v = (summed[id(t)] for t in (q, k, v))
     qp, kp, vp = _mm(q, wq), _mm(k, params["wk"]), _mm(v, params["wv"])
     if "bq" in params:
         qp, kp, vp = qp + params["bq"], kp + params["bk"], vp + params["bv"]
@@ -60,9 +101,17 @@ def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
         kp = torch.cat([kp, kp.new_zeros(b, 1, kp.shape[-1])], dim=1)
         vp = torch.cat([vp, vp.new_zeros(b, 1, vp.shape[-1])], dim=1)
         sk += 1
-    qh = qp.reshape(b, sq, num_heads, head_dim)
-    kh = kp.reshape(b, sk, num_heads, head_dim)
-    vh = vp.reshape(b, sk, num_heads, head_dim)
+    vdim = vp.shape[-1] // heads
+    qh = qp.reshape(b, sq, heads, head_dim)
+    kh = kp.reshape(b, sk, heads, head_dim)
+    vh = vp.reshape(b, sk, heads, vdim)
+    if ring:
+        from flexflow_tpu_torch.parallel.ring_attention import \
+            ring_attention_local
+
+        out = ring_attention_local(qh, kh, vh, mesh, "seq", causal=causal)
+        return _out_proj(out.to(q.dtype).reshape(b, sq, heads * vdim),
+                         params, heads != num_heads, mesh)
     scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
     scores = scores / math.sqrt(head_dim)
     if causal:
@@ -72,12 +121,27 @@ def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     if training and dropout > 0.0 and ctx is not None:
         keep = 1.0 - dropout
-        m = ctx.keep_mask(probs.shape, keep, probs.device)
+        # the draw of every head and batch row, this rank's part kept
+        shards = {d: s for d, s in ctx.row_shards.items() if d == 0}
+        if heads != num_heads:
+            shards[1] = ("model", num_heads // heads, mesh.index("model"))
+        m = ctx.keep_mask(probs.shape, keep, probs.device, shards)
         if m is not None:
             probs = probs * m.to(probs.dtype) / keep
     probs, vh = _promoted(probs, vh)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
-    out = _mm(out.reshape(b, sq, num_heads * head_dim), params["wo"])
+    return _out_proj(out.reshape(b, sq, heads * vdim), params,
+                     heads != num_heads, mesh)
+
+
+def _out_proj(out, params, sharded, mesh):
+    """``out @ wo (+ bo)``; a row shard of ``wo`` gives a partial sum,
+    added over ``model`` before the bias."""
+    out = _mm(out, params["wo"])
+    if sharded:
+        from flexflow_tpu_torch.parallel.collectives import psum
+
+        out = psum(out, mesh, "model")
     if "bo" in params:
         out = out + params["bo"]
     return out
@@ -104,15 +168,28 @@ class MultiHeadAttention(OpImpl):
         proj = nh * (kdim // nh)
         vproj = nh * (vdim // nh)
         init = attrs.get("kernel_initializer") or default_kernel_initializer()
-        specs = [WeightSpec("wq", (sq[-1], proj), d, init),
-                 WeightSpec("wk", (sk[-1], proj), d, init),
-                 WeightSpec("wv", (sv[-1], vproj), d, init),
-                 WeightSpec("wo", (vproj, embed), d, init)]
+        # the JAX layout, split at whole heads (a degree that does not
+        # divide the heads leaves the weights whole)
+        kd, vd = kdim // nh, vdim // nh
+        col = dict(sharding_dims=(None, "model"))
+        specs = [WeightSpec("wq", (sq[-1], proj), d, init,
+                            shard_multiples=(None, kd), **col),
+                 WeightSpec("wk", (sk[-1], proj), d, init,
+                            shard_multiples=(None, kd), **col),
+                 WeightSpec("wv", (sv[-1], vproj), d, init,
+                            shard_multiples=(None, vd), **col),
+                 WeightSpec("wo", (vproj, embed), d, init,
+                            sharding_dims=("model", None),
+                            shard_multiples=(vd, None))]
         if attrs.get("bias", True):
             zero = ZeroInitializer()
-            specs += [WeightSpec("bq", (proj,), d, zero),
-                      WeightSpec("bk", (proj,), d, zero),
-                      WeightSpec("bv", (vproj,), d, zero),
+            vec = dict(sharding_dims=("model",))
+            specs += [WeightSpec("bq", (proj,), d, zero,
+                                 shard_multiples=(kd,), **vec),
+                      WeightSpec("bk", (proj,), d, zero,
+                                 shard_multiples=(kd,), **vec),
+                      WeightSpec("bv", (vproj,), d, zero,
+                                 shard_multiples=(vd,), **vec),
                       WeightSpec("bo", (embed,), d, zero)]
         if attrs.get("add_bias_kv", False):
             specs += [WeightSpec("bias_k", (1, proj), d, init),
@@ -122,9 +199,14 @@ class MultiHeadAttention(OpImpl):
     @staticmethod
     def forward(attrs, params, inputs, ctx):
         q, k, v = inputs[0], inputs[1], inputs[2]
-        return [mha_forward(q, k, v, params, attrs["num_heads"],
+        nh = attrs["num_heads"]
+        ring = ctx.row_shards.get(1, ("",))[0] == "seq"
+        return [mha_forward(q, k, v, params, nh,
                             dropout=attrs.get("dropout", 0.0),
                             causal=attrs.get("causal", False),
                             training=ctx.training,
                             add_zero_attn=attrs.get("add_zero_attn", False),
-                            ctx=ctx)]
+                            ctx=ctx,
+                            head_dim=(attrs.get("kdim")
+                                      or attrs["embed_dim"]) // nh,
+                            ring=ring)]

@@ -50,18 +50,42 @@ class OpContext:
     # (the JAX package's rng key); the InferenceManager owns and seeds it
     # for sampling, the FFModel for a train step's dropout
     generator: Any = None
+    # the device the forward computes on (ops that make tensors from
+    # nothing: CONSTANT)
+    device: Any = None
+    # a parallel train step (parallel/placement.py): the dims of the
+    # layer's first input that are split over a batch axis of the mesh,
+    # {dim: (axis, size, this rank's index)}; empty when it is whole
+    row_shards: Dict[int, Tuple[str, int, int]] = dataclasses.field(
+        default_factory=dict)
 
-    def keep_mask(self, shape, keep: float, device):
+    def keep_mask(self, shape, keep: float, device, shards=None):
         """A layer's Bernoulli(``keep``) draw of ``shape`` from
         ``generator``, or None without one (the counterpart of
         ``layer_rng``: the layers draw in graph order from the one
-        stateful generator, so a seeded step repeats bit for bit)."""
+        stateful generator, so a seeded step repeats bit for bit).
+
+        ``shards`` ({dim: (axis, size, index)}, default ``row_shards``)
+        names the dims of ``shape`` that are this rank's part of a larger
+        tensor: the draw is made at the whole shape, as one rank would
+        make it, and the rank keeps its part, so the masks and the
+        generator's next state are those of an unsplit run."""
         import torch
 
         if self.generator is None:
             return None
-        return torch.rand(shape, generator=self.generator,
+        shards = self.row_shards if shards is None else shards
+        whole = list(shape)
+        for d, (_axis, n, _i) in shards.items():
+            whole[d] *= n
+        mask = torch.rand(whole, generator=self.generator,
                           device=device) < keep
+        if shards:
+            mask = mask[tuple(
+                slice(shards[d][2] * s, (shards[d][2] + 1) * s)
+                if d in shards else slice(None)
+                for d, s in enumerate(shape))]
+        return mask
 
 
 class OpImpl:

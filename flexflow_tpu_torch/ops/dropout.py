@@ -1,7 +1,10 @@
 """Dropout operator (counterpart of ``flexflow_tpu/ops/dropout.py``):
 a Bernoulli keep mask scaled by 1/keep, drawn from the context's
 generator; the identity when not training, at rate 0 or without a
-generator. The draws cannot match JAX's (different generators)."""
+generator. The draws cannot match JAX's (different generators). In a
+parallel train step the mask is drawn for the whole batch and each rank
+keeps its rows (``OpContext.keep_mask``), so the masks equal one
+rank's."""
 
 from __future__ import annotations
 

@@ -5,7 +5,11 @@ Weight layout: kernel [in_dim, out_dim] (activations @ kernel), bias
 Under tensor parallelism the kernel and bias are column shards
 (``sharding_dims=(None, "model")``, as in the JAX package): each rank
 computes its columns and an all-gather over the ``model`` axis gives the
-consumer the whole output.
+consumer the whole output. In training the all-gather's backward keeps
+the rank's columns of the gradient, and the input's gradient, a partial
+sum over the rank's columns, is summed over the ``model`` axis
+(``collectives.sum_grads``): the JAX layout, not Megatron's
+column/row pairing.
 
 The product is ``quant.qmatmul``: a plain ``torch.matmul`` for a float
 kernel (the JAX package leaves it to XLA; no TPU kernel), the dequant-GEMM
@@ -84,12 +88,17 @@ class Linear(OpImpl):
         # quantized head does so inside K3, with no fp32 copy of the weight
         out_dtype = torch.float32 if attrs.get("keep_f32_logits") else None
         kernel = params["kernel"]
+        sharded = kernel.shape[1] != attrs["out_dim"]
+        if sharded:
+            from flexflow_tpu_torch.parallel.collectives import sum_grads
+
+            x = sum_grads(x, ctx.mesh, "model")
         y = qmatmul(x, kernel, compute_dtype, out_dtype=out_dtype)
         if attrs.get("use_bias", True):
             y = y + params["bias"].to(compute_dtype)
         y = apply_activation(y, attrs.get("activation",
                                           ActiMode.AC_MODE_NONE))
-        if kernel.shape[1] != attrs["out_dim"]:
+        if sharded:
             # a column shard (tensor parallelism): the consumer takes the
             # whole output
             y = gather_columns(y, ctx)

@@ -188,7 +188,9 @@ class BatchNorm(OpImpl):
     the running variance updated with the biased batch variance
     (momentum 0.1). Eval uses the running statistics. The running
     statistics are op state (``init_state``); a training forward puts the
-    updated pair in ``ctx.state_out``."""
+    updated pair in ``ctx.state_out``. When the batch is split over a
+    mesh axis the statistics are the whole batch's, as under XLA SPMD:
+    every rank updates the running statistics identically."""
 
     op_type = OpType.BATCHNORM
 
@@ -224,10 +226,26 @@ class BatchNorm(OpImpl):
             xs = x.float()
             if rm is not None:
                 xs = xs - rm.reshape(bshape)
-            dmean = xs.mean(dim=dims)
+            shard = ctx.row_shards.get(0)
+            if shard is None:
+                dmean = xs.mean(dim=dims)
+                sq_mean = xs.square().mean(dim=dims)
+            else:
+                # this rank holds some of the batch's rows: the fp32 sum
+                # and sum of squares (about the running mean) are summed
+                # over the axis before normalising, so the statistics are
+                # the whole batch's
+                from flexflow_tpu_torch.parallel.collectives import (
+                    psum, sum_grads)
+
+                axis, n, _i = shard
+                count = xs.numel() // xs.shape[1] * n
+                sums = sum_grads(psum(torch.stack(
+                    [xs.sum(dim=dims), xs.square().sum(dim=dims)]),
+                    ctx.mesh, axis), ctx.mesh, axis) / count
+                dmean, sq_mean = sums[0], sums[1]
             mean = dmean + rm if rm is not None else dmean
-            var = torch.clamp_min(xs.square().mean(dim=dims)
-                                  - dmean.square(), 0.0)
+            var = torch.clamp_min(sq_mean - dmean.square(), 0.0)
             if state is not None:
                 with torch.no_grad():
                     ctx.state_out[ctx.layer_name] = {

@@ -14,6 +14,28 @@ copy, host -> device. That is how two ranks sharing one card talk (NCCL
 refuses two ranks on one device); it moves the same bytes and computes
 the same values, it is not a fallback of the compute. Gloo also has no
 reduce-scatter: ``reduce_scatter`` is an all-reduce and a slice there.
+
+Autograd. ``psum``, ``all_gather``, ``reduce_scatter`` and
+``ppermute_shift`` are differentiable, with the transposes JAX's
+autodiff gives them inside a parallel train step, where a value is
+either replicated over an axis (every peer holds the same value, and its
+gradient is the whole derivative, the same on every peer) or split over
+it (each peer holds its part and the derivative of its part):
+
+  psum           partials -> replicated;  backward: the identity
+  all_gather     split -> replicated;     backward: this peer's slice
+  reduce_scatter partials -> split;       backward: an all-gather
+  ppermute_shift                          backward: the inverse shift
+  sum_grads      replicated value entering a computation each peer does
+                 on its own part (identity); backward: a psum of the
+                 peers' partial gradients (Megatron's ``f``)
+  split          replicated -> split (this peer's chunk); backward: an
+                 all-gather
+
+A backward runs the same collectives in the same order on every peer,
+since every peer records the same graph. On CUDA, autograd runs the
+backward on its own thread: each staged copy is made on the current
+stream and waited for before gloo reads the host buffer.
 """
 
 from __future__ import annotations
@@ -72,8 +94,48 @@ def _reduce(x, mesh, axis_name, op):
     return _run(x, group, lambda t: dist.all_reduce(t, op=op, group=group))
 
 
+def _differentiable(x) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _PSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name):
+        return _reduce(x, mesh, axis_name, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _SumGrads(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name):
+        ctx.mesh, ctx.axis_name = mesh, axis_name
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce(g, ctx.mesh, ctx.axis_name,
+                       dist.ReduceOp.SUM), None, None
+
+
 def psum(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """The sum over the peers along ``axis_name`` (backward: the
+    identity)."""
+    if _differentiable(x):
+        return _PSum.apply(x, mesh, axis_name)
     return _reduce(x, mesh, axis_name, dist.ReduceOp.SUM)
+
+
+def sum_grads(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """``x`` itself; its backward sums the peers' gradients along
+    ``axis_name``. A replicated value goes through it where each peer
+    computes on its own part of the work, so that every peer's gradient
+    of the value is the whole one."""
+    if axis_size(mesh, axis_name) <= 1 or not _differentiable(x):
+        return x
+    return _SumGrads.apply(x, mesh, axis_name)
 
 
 def pmax(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
@@ -84,10 +146,34 @@ def pmean(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     return psum(x, mesh, axis_name) / axis_size(mesh, axis_name)
 
 
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, axis, tiled):
+        ctx.args = (mesh, axis_name, axis, tiled)
+        return _all_gather(x, mesh, axis_name, axis, tiled)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis_name, axis, tiled = ctx.args
+        i = mesh.index(axis_name)
+        if tiled:
+            part = g.chunk(mesh.axis_size(axis_name), dim=axis)[i]
+        else:
+            part = g.select(axis, i)
+        return part.contiguous(), None, None, None, None
+
+
 def all_gather(x: torch.Tensor, mesh, axis_name: str, *, axis: int = 0,
                tiled: bool = True) -> torch.Tensor:
     """Every peer's ``x`` in axis order: concatenated along ``axis``
-    (``tiled``), else stacked on a new ``axis``."""
+    (``tiled``), else stacked on a new ``axis`` (backward: this peer's
+    slice of the gradient)."""
+    if _differentiable(x) and axis_size(mesh, axis_name) > 1:
+        return _AllGather.apply(x, mesh, axis_name, axis, tiled)
+    return _all_gather(x, mesh, axis_name, axis, tiled)
+
+
+def _all_gather(x, mesh, axis_name, axis, tiled):
     group = _group(mesh, axis_name)
     if group is None:
         return x.clone() if tiled else x.unsqueeze(axis)
@@ -99,16 +185,60 @@ def all_gather(x: torch.Tensor, mesh, axis_name: str, *, axis: int = 0,
     return out.to(x.device)
 
 
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, dim):
+        ctx.args = (mesh, axis_name, dim)
+        return _reduce_scatter(x, mesh, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis_name, dim = ctx.args
+        return _all_gather(g, mesh, axis_name, dim, True), None, None, None
+
+
 def reduce_scatter(x: torch.Tensor, mesh, axis_name: str, *,
                    scatter_dimension: int = 0) -> torch.Tensor:
     """The sum over peers, split along ``scatter_dimension``: this rank's
-    chunk."""
+    chunk (backward: an all-gather of the chunks' gradients)."""
+    if _differentiable(x) and axis_size(mesh, axis_name) > 1:
+        return _ReduceScatter.apply(x, mesh, axis_name, scatter_dimension)
+    return _reduce_scatter(x, mesh, axis_name, scatter_dimension)
+
+
+def _reduce_scatter(x, mesh, axis_name, dim):
     n = axis_size(mesh, axis_name)
-    total = psum(x, mesh, axis_name)
+    total = _reduce(x, mesh, axis_name, dist.ReduceOp.SUM)
     if n == 1:
         return total
-    return total.chunk(n, dim=scatter_dimension)[
-        mesh.index(axis_name)].contiguous()
+    return total.chunk(n, dim=dim)[mesh.index(axis_name)].contiguous()
+
+
+class _Split(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, dim):
+        ctx.args = (mesh, axis_name, dim)
+        return _chunk(x, mesh, axis_name, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis_name, dim = ctx.args
+        return _all_gather(g, mesh, axis_name, dim, True), None, None, None
+
+
+def _chunk(x, mesh, axis_name, dim):
+    n = axis_size(mesh, axis_name)
+    return x.chunk(n, dim=dim)[mesh.index(axis_name)].contiguous()
+
+
+def split(x: torch.Tensor, mesh, axis_name: str, dim: int) -> torch.Tensor:
+    """This peer's chunk of ``x`` along ``dim`` (``x`` replicated over
+    ``axis_name``); backward: an all-gather of the chunks' gradients."""
+    if axis_size(mesh, axis_name) <= 1:
+        return x
+    if _differentiable(x):
+        return _Split.apply(x, mesh, axis_name, dim)
+    return _chunk(x, mesh, axis_name, dim)
 
 
 def broadcast(x: Optional[torch.Tensor], src: int, group=None, *,
@@ -181,12 +311,30 @@ def recv_tensor(src: int, device, group=None) -> torch.Tensor:
     return buf
 
 
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, shift):
+        ctx.args = (mesh, axis_name, shift)
+        return _shift(x, mesh, axis_name, shift)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, axis_name, shift = ctx.args
+        return _shift(g, mesh, axis_name, -shift), None, None, None
+
+
 def ppermute_shift(x: torch.Tensor, mesh, axis_name: str,
                    shift: int = 1) -> torch.Tensor:
     """Ring shift: the peer at index i sends to (i + shift) mod n, so each
     rank returns the ``x`` of peer (i - shift) mod n. The send and the
     receive are posted together (``batch_isend_irecv``), so the ring
-    never waits in a cycle."""
+    never waits in a cycle. Backward: the inverse shift."""
+    if _differentiable(x):
+        return _Shift.apply(x, mesh, axis_name, shift)
+    return _shift(x, mesh, axis_name, shift)
+
+
+def _shift(x, mesh, axis_name, shift):
     n = axis_size(mesh, axis_name)
     if n == 1 or shift % n == 0:
         return x.clone()

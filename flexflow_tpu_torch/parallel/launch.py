@@ -99,6 +99,20 @@ def run_ranks(target: str, world_size: int, payload: Dict[str, Any], *,
             for r in range(world_size)]
 
 
+def load_target(target: str):
+    """The function ``target`` names: ``"module:function"`` or
+    ``"path/to/file.py:function"``."""
+    mod, fn = target.rsplit(":", 1)
+    if mod.endswith(".py"):
+        spec = importlib.util.spec_from_file_location(
+            pathlib.Path(mod).stem, mod)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+    else:
+        module = importlib.import_module(mod)
+    return getattr(module, fn)
+
+
 def _tail(work: pathlib.Path, rank: int, n: int = 6000) -> str:
     try:
         return (work / f"rank{rank}.log").read_text()[-n:]
@@ -130,16 +144,8 @@ def main(argv=None):
         import torch
 
         torch.cuda.set_device(args.rank % torch.cuda.device_count())
-    mod, fn = args.target.rsplit(":", 1)
-    if mod.endswith(".py"):
-        spec = importlib.util.spec_from_file_location(
-            pathlib.Path(mod).stem, mod)
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-    else:
-        module = importlib.import_module(mod)
     payload = json.loads((work / "payload.json").read_text())
-    result = getattr(module, fn)(payload)
+    result = load_target(args.target)(payload)
     (work / f"result{args.rank}.json").write_text(json.dumps(result))
     distributed.shutdown()
     return 0

@@ -19,8 +19,8 @@ forwards (``ops/linear.py``, ``ops/inc_attention.py``). A degree that
 disagrees with the mesh axis is an error; an axis missing from the mesh,
 or a dim it does not divide, leaves the value as it is, as in the JAX
 package. The branch-parallel executors (``branch_parallel_apply``,
-``branch_data_parallel_apply``) serve the training graph's branch plans
-and come with parallel training.
+``branch_data_parallel_apply``) serve the branch plans that only the
+Unity search makes, and come with it.
 """
 
 from __future__ import annotations

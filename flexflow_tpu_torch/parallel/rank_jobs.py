@@ -1,15 +1,26 @@
-"""The serving job of ``parallel/launch.run_ranks``: ``serve`` runs on
-every rank of a process group. It builds a LLaMA-family serving model (or
-a verifier and its draft) at the payload's degrees, carries whole weights
-in from a file (``shard_params``) or draws them from the seed, and
-generates; it returns the tokens, the kernels' launch counts and launch
-shapes (``kernels.record_shapes``), peak device memory and the wall
-time. ``python -m flexflow_tpu_torch.serve`` under torchrun is the
-user's entry to the same path.
+"""The serving and training jobs of ``parallel/launch.run_ranks``: each
+runs on every rank of a process group.
+
+``serve`` builds a LLaMA-family serving model (or a verifier and its
+draft) at the payload's degrees, carries whole weights in from a file
+(``shard_params``) or draws them from the seed, and generates; it
+returns the tokens, the kernels' launch counts and launch shapes
+(``kernels.record_shapes``), peak device memory and the wall time.
+``python -m flexflow_tpu_torch.serve`` under torchrun is the user's
+entry to the same path.
+
+``train`` builds a model with a caller's builder at the payload's
+degrees, compiles it with an optimizer and a loss, carries whole weights
+in from a file (each rank keeps its slice) or draws them from the seed,
+and takes train steps on the batches of an ``.npz``; it returns each
+step's loss and wall time, the bytes the gradient sums all-reduced and
+peak device memory, and can save or restore a checkpoint and write the
+whole parameters after the steps.
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Any, Dict, List
 
@@ -184,4 +195,106 @@ def serve(payload) -> List[Dict[str, Any]]:
             "mesh": dict(llm.mesh.shape) if llm.mesh is not None else {},
         })
         del llm, ssm
+    return results
+
+
+# ----------------------------------------------------------------------
+# training
+# ----------------------------------------------------------------------
+def build_trainer(run, dev):
+    """``run["builder"]`` ("file.py:fn" or "module:fn", called as
+    ``fn(ff, config, **builder_kw)`` and returning the uncompiled
+    FFModel) compiled with ``run``'s optimizer, loss and metrics."""
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.parallel.launch import load_target
+
+    cfg = ff.FFConfig(device=str(dev), **run.get("config", {}))
+    m = load_target(run["builder"])(ff, cfg, **run.get("builder_kw", {}))
+    kind, kw = run.get("optimizer", ("sgd", {"lr": 0.01}))
+    opt = (ff.SGDOptimizer(m, **kw) if kind == "sgd"
+           else ff.AdamOptimizer(m, **kw))
+    m.compile(optimizer=opt,
+              loss_type=ff.LossType[run.get(
+                  "loss", "LOSS_SPARSE_CATEGORICAL_CROSSENTROPY")],
+              metrics=[ff.MetricsType[k] for k in run.get("metrics", ())])
+    return m
+
+
+def train(payload) -> List[Dict[str, Any]]:
+    """Each run of ``payload["runs"]``: build (``build_trainer``), load
+    ``weights`` (whole tensors, ``torch.save``) or
+    ``restore`` a checkpoint directory, then take ``steps`` train steps
+    from ``first_step`` on the ``.npz`` batches ``data`` (``x0``, ``x1``,
+    ... and ``y``, each [steps, batch, ...]), saving a checkpoint after
+    ``save["step"]`` steps when asked; rank 0 writes the whole parameters
+    to ``out``. ``deterministic`` runs under
+    ``torch.use_deterministic_algorithms``; the payload's ``tf32`` sets
+    the card's TF32 switches."""
+    import numpy as np
+
+    from flexflow_tpu_torch.convert import load_params
+    from flexflow_tpu_torch.training.checkpoint import (CheckpointManager,
+                                                        training_state)
+
+    dev = _dev(payload)
+    on_card = dev.type == "cuda"
+    if on_card and "tf32" in payload:
+        torch.backends.cuda.matmul.allow_tf32 = payload["tf32"]
+        torch.backends.cudnn.allow_tf32 = payload["tf32"]
+    results = []
+    for run in payload["runs"]:
+        # the last run's model is a reference cycle (model <-> optimizer):
+        # free it before this run's peak
+        gc.collect()
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        # the card's atomics-free kernels (the embedding's backward);
+        # cuBLAS needs CUBLAS_WORKSPACE_CONFIG set before it starts
+        torch.use_deterministic_algorithms(bool(run.get("deterministic")))
+        m = build_trainer(run, dev)
+        if run.get("weights"):
+            load_params(m, torch.load(run["weights"], weights_only=False))
+        restore_s = None
+        if run.get("restore"):
+            t0 = time.perf_counter()
+            CheckpointManager(run["restore"]).restore(m)
+            restore_s = time.perf_counter() - t0
+        data = np.load(run["data"])
+        xs = [data[f"x{i}"] for i in range(len(m.input_tensors))]
+        y = data["y"]
+        first = int(run.get("first_step", 0))
+        steps = int(run.get("steps", len(y) - first))
+        save = run.get("save") or {}
+        losses, step_ms = [], []
+        for i in range(first, first + steps):
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(m.train_one_batch([x[i] for x in xs], y[i]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            if save and i + 1 == save["step"]:
+                t0 = time.perf_counter()
+                CheckpointManager(save["dir"]).save(i + 1, m, force=True)
+                save["seconds"] = time.perf_counter() - t0
+        if run.get("out"):
+            state = training_state(m)
+            if m.mesh is None or m.mesh.rank == 0:
+                np.savez(run["out"], **{
+                    f"{ln}/{w}": t.float().numpy()
+                    for ln, lp in state["params"].items()
+                    for w, t in lp.items()})
+        results.append({
+            "name": run.get("name", ""),
+            "rank": m.mesh.rank if m.mesh is not None else 0,
+            "mesh": dict(m.mesh.shape) if m.mesh is not None else {},
+            "losses": losses, "step_ms": step_ms,
+            "allreduce_bytes": m.grad_allreduce_bytes,
+            "save_seconds": save.get("seconds"),
+            "restore_seconds": restore_s,
+            "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                           if on_card else 0)})
+        del m
+    torch.use_deterministic_algorithms(False)
     return results

@@ -5,7 +5,11 @@ Each rank of the ``seq`` axis holds a contiguous slice of the sequence.
 ``ring_attention_local`` is the blockwise ring recipe (Liu et al. 2023):
 every rank keeps the flash-attention running state (max, denominator,
 accumulator) for its query slice while the K/V slices rotate around the
-ring (``ppermute_shift``), so the [S, S] score matrix never exists.
+ring (``ppermute_shift``), so the [S, S] score matrix never exists. It
+is differentiable: an ``autograd.Function`` whose backward runs the ring
+again with the blocks' dK/dV travelling beside them, the probabilities
+recomputed from the forward's log-sum-exp (the training MHA's branch
+under sequence parallelism, ``ops/attention.py``).
 
 ``seq_sharded_attend`` is what serving runs under sequence parallelism,
 with the JAX function's contract: the queries are replicated and each
@@ -24,8 +28,8 @@ from typing import Optional
 
 import torch
 
-from flexflow_tpu_torch.parallel.collectives import (axis_size, pmax,
-                                                     ppermute_shift, psum)
+from flexflow_tpu_torch.parallel.collectives import (_shift, axis_size, pmax,
+                                                     psum)
 
 def _repeat_kv_heads(k, num_q_heads):
     """GQA: expand [b, s, kv_heads, d] to num_q_heads by repetition."""
@@ -41,49 +45,113 @@ def ring_attention_local(q, k, v, mesh, axis_name: str = "seq",
                          scale: Optional[float] = None):
     """Per-rank ring attention body: q, k, v are this rank's sequence
     slices [batch, s_local, heads, head_dim] (k/v may carry fewer heads:
-    GQA). Returns [batch, s_local, heads, head_dim]."""
-    n = axis_size(mesh, axis_name)
-    idx = mesh.index(axis_name) if mesh is not None else 0
-    b, sq, h, d = q.shape
+    GQA). Returns [batch, s_local, heads, head_dim]. Differentiable: the
+    backward runs the ring again (``_Ring``)."""
+    h, d = q.shape[2], q.shape[3]
     k = _repeat_kv_heads(k, h)
     v = _repeat_kv_heads(v, h)
-    sk = k.shape[1]
     if scale is None:
         scale = 1.0 / math.sqrt(d)
-    qf = q.float() * scale
-    qpos = idx * sq + torch.arange(sq, device=q.device)
-    o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=q.device)
-    m = torch.full((b, h, sq), -math.inf, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, h, sq), dtype=torch.float32, device=q.device)
-    k_blk, v_blk = k, v
-    for s in range(n):
-        j = (idx - s) % n                    # global chunk held this step
-        kpos = j * sk + torch.arange(sk, device=q.device)
-        scores = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float())
-        if causal:
-            mask = qpos[:, None] >= kpos[None, :]
-            scores = torch.where(mask[None, None], scores,
-                                 torch.tensor(-math.inf, device=q.device))
-        m_new = torch.maximum(m, scores.amax(dim=-1))
-        # exp(-inf - -inf) would be nan: fully masked entries contribute 0
-        safe_m = torch.where(torch.isfinite(m_new), m_new,
-                             torch.zeros_like(m_new))
-        p = torch.exp(torch.where(torch.isfinite(scores),
-                                  scores - safe_m[..., None],
-                                  torch.tensor(-math.inf, device=q.device)))
-        corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
-                           torch.zeros_like(m))
-        l = l * corr + p.sum(dim=-1)
-        o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
-                                               v_blk.float())
-        m = m_new
-        if s < n - 1:
-            # rotate KV around the ring: i -> i+1 (receive i-1's chunk)
-            k_blk = ppermute_shift(k_blk, mesh, axis_name)
-            v_blk = ppermute_shift(v_blk, mesh, axis_name)
-    out = o / l.clamp(min=1e-30)[..., None]
-    return out.permute(0, 2, 1, 3).to(q.dtype)     # [b, sq, h, d]
+    return _Ring.apply(q, k, v, mesh, axis_name, causal, scale)
+
+
+def _block_scores(qf, k_blk, qpos, kpos, causal):
+    """[b, h, sq, sk] fp32 scores of the scaled queries against one K
+    block, -inf where the causal mask hides a key."""
+    scores = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float())
+    if causal:
+        mask = qpos[:, None] >= kpos[None, :]
+        scores = torch.where(mask[None, None], scores,
+                             torch.tensor(-math.inf, device=qf.device))
+    return scores
+
+
+class _Ring(torch.autograd.Function):
+    """Ring attention over the ``axis_name`` peers. Forward: the flash
+    running state (max, denominator, accumulator) of this rank's queries
+    while the K/V blocks rotate (i -> i+1). Backward: the reverse pass of
+    flash attention over the same rotation, the probabilities recomputed
+    from the saved log-sum-exp; each block's dK/dV accumulate on the
+    ranks it visits and travel with it, and one more shift brings them
+    home."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mesh, axis_name, causal, scale):
+        n = axis_size(mesh, axis_name)
+        idx = mesh.index(axis_name) if mesh is not None else 0
+        b, sq, h, d = q.shape
+        sk = k.shape[1]
+        dev = q.device
+        qf = q.float() * scale
+        qpos = idx * sq + torch.arange(sq, device=dev)
+        o = torch.zeros((b, h, sq, d), dtype=torch.float32, device=dev)
+        m = torch.full((b, h, sq), -math.inf, dtype=torch.float32,
+                       device=dev)
+        l = torch.zeros((b, h, sq), dtype=torch.float32, device=dev)
+        k_blk, v_blk = k, v
+        for s in range(n):
+            j = (idx - s) % n                # global chunk held this step
+            kpos = j * sk + torch.arange(sk, device=dev)
+            scores = _block_scores(qf, k_blk, qpos, kpos, causal)
+            m_new = torch.maximum(m, scores.amax(dim=-1))
+            # exp(-inf - -inf) would be nan: fully masked entries give 0
+            safe_m = torch.where(torch.isfinite(m_new), m_new,
+                                 torch.zeros_like(m_new))
+            p = torch.exp(torch.where(torch.isfinite(scores),
+                                      scores - safe_m[..., None],
+                                      torch.tensor(-math.inf, device=dev)))
+            corr = torch.where(torch.isfinite(m), torch.exp(m - safe_m),
+                               torch.zeros_like(m))
+            l = l * corr + p.sum(dim=-1)
+            o = o * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   v_blk.float())
+            m = m_new
+            if s < n - 1:
+                # rotate KV around the ring: i -> i+1 (receive i-1's)
+                k_blk = _shift(k_blk, mesh, axis_name, 1)
+                v_blk = _shift(v_blk, mesh, axis_name, 1)
+        out = o / l.clamp(min=1e-30)[..., None]
+        safe_m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        lse = safe_m + torch.log(l.clamp(min=1e-30))
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (mesh, axis_name, causal, scale)
+        return out.permute(0, 2, 1, 3).to(q.dtype)     # [b, sq, h, d]
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, lse = ctx.saved_tensors
+        mesh, axis_name, causal, scale = ctx.args
+        n = axis_size(mesh, axis_name)
+        idx = mesh.index(axis_name) if mesh is not None else 0
+        sq, sk = q.shape[1], k.shape[1]
+        dev = q.device
+        do = g.float().permute(0, 2, 1, 3)              # [b, h, sq, d]
+        delta = (do * out).sum(dim=-1)                  # [b, h, sq]
+        qf = q.float() * scale
+        qpos = idx * sq + torch.arange(sq, device=dev)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+        k_blk, v_blk = k, v
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=dev)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=dev)
+        for s in range(n):
+            j = (idx - s) % n
+            kpos = j * sk + torch.arange(sk, device=dev)
+            p = torch.exp(_block_scores(qf, k_blk, qpos, kpos, causal)
+                          - lse[..., None])
+            dv = dv + torch.einsum("bhqk,bhqd->bkhd", p, do)
+            dp = torch.einsum("bhqd,bkhd->bhqk", do, v_blk.float())
+            ds = p * (dp - delta[..., None])
+            dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_blk.float())
+            dk = dk + torch.einsum("bhqk,bqhd->bkhd", ds, qf)
+            if s < n - 1:
+                k_blk = _shift(k_blk, mesh, axis_name, 1)
+                v_blk = _shift(v_blk, mesh, axis_name, 1)
+            # the block's gradients travel with it; after the last step
+            # this shift brings each block's home
+            dk = _shift(dk, mesh, axis_name, 1)
+            dv = _shift(dv, mesh, axis_name, 1)
+        return ((dq * scale).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None)
 
 
 def dense_attention(q, k, v, causal: bool = True,

@@ -10,11 +10,17 @@ of a process group and returns a JSON-able result. They import no jax.
   (whole caches; each rank takes its rows), outputs written by rank 0;
 * ``pipeline``: ``pipeline_spmd`` against the blocks applied in turn;
 * ``ring``: ``ring_attention`` on each rank's sequence slice;
+* ``ring_grad``: the ring's q/k/v gradients of ``sum(out ** 2)``;
 * ``cli``: the serve CLI's ``main`` on every rank;
 * ``dead_peer``: a rank that dies before a collective (the launcher's
   failure path).
 
-Serving itself runs ``flexflow_tpu_torch.parallel.rank_jobs:serve``.
+Serving itself runs ``flexflow_tpu_torch.parallel.rank_jobs:serve`` and
+training ``...:train``, with the model builders below (``mlp``,
+``bert``, ``experts_net``, ``moe_net``, ``cnn_bn``): each takes the
+package (``ff``: either ``flexflow_tpu`` or ``flexflow_tpu_torch``) and
+an ``FFConfig`` and returns the uncompiled model, so one builder makes
+the JAX model and the port's alike.
 """
 
 from __future__ import annotations
@@ -215,3 +221,99 @@ def pipeline(payload) -> Dict[str, Any]:
     y = fn(local, x.to(dev))
     return {"rank": mesh.rank,
             "max_err": float((y.cpu() - ref).abs().max())}
+
+
+def ring_grad(payload) -> Dict[str, Any]:
+    """The gradients of ``sum(ring_attention(q, k, v) ** 2)`` (causal)
+    with respect to this rank's slices of whole q/k/v from the ``.npz``;
+    rank 0 writes the gathered ``dq``/``dk``/``dv`` to ``payload["out"]``."""
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+    from flexflow_tpu_torch.parallel.ring_attention import ring_attention
+
+    mesh = _mesh(payload)
+    data = np.load(payload["inputs"])
+    n, i = mesh.axis_size("seq"), mesh.index("seq")
+    sl = data["q"].shape[1] // n
+    q, k, v = (torch.from_numpy(data[a][:, i * sl:(i + 1) * sl].copy())
+               .requires_grad_(True) for a in "qkv")
+    (ring_attention(q, k, v, mesh, causal=True) ** 2).sum().backward()
+    outs = {f"d{a}": all_gather(t.grad, mesh, "seq", axis=1).numpy()
+            for a, t in zip("qkv", (q, k, v))}
+    if mesh.rank == 0:
+        np.savez(payload["out"], **outs)
+    return {"rank": mesh.rank}
+
+
+# ----------------------------------------------------------------------
+# model builders for the training jobs (ff: either package)
+# ----------------------------------------------------------------------
+def mlp(ff, config, d_in=32, hidden=64, classes=10):
+    """``tests/test_sharding.py``'s MLP, with an L2 regularizer."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, d_in], ff.DataType.DT_FLOAT)
+    h = m.dense(t, hidden, ff.ActiMode.AC_MODE_RELU,
+                kernel_regularizer=("l2", 1e-3))
+    h = m.dense(h, hidden, ff.ActiMode.AC_MODE_RELU)
+    m.softmax(m.dense(h, classes))
+    return m
+
+
+def bert(ff, config, seq=8, hidden=32, heads=4, vocab=50, layers=2,
+         dropout=0.0):
+    """bench_train.py's encoder at a tiny width; ``dropout`` adds a
+    dropout layer after the embedding and probability dropout in every
+    attention."""
+    b = config.batch_size
+    m = ff.FFModel(config)
+    tokens = m.create_tensor([b, seq], ff.DataType.DT_INT32)
+    x = m.embedding(tokens, vocab, hidden, name="embed")
+    if dropout:
+        x = m.dropout(x, dropout, name="embed_drop")
+    for i in range(layers):
+        attn = m.multihead_attention(x, x, x, embed_dim=hidden,
+                                     num_heads=heads, dropout=dropout,
+                                     name=f"enc.{i}.attn")
+        x = m.layer_norm(m.add(attn, x), axes=[-1], name=f"enc.{i}.ln1")
+        h = m.dense(x, 4 * hidden, ff.ActiMode.AC_MODE_GELU,
+                    name=f"enc.{i}.fc1")
+        h = m.dense(h, hidden, name=f"enc.{i}.fc2")
+        x = m.layer_norm(m.add(h, x), axes=[-1], name=f"enc.{i}.ln2")
+    logits = m.dense(x, vocab, name="mlm_head")
+    m.softmax(m.reshape(logits, [b * seq, vocab]))
+    return m
+
+
+def experts_net(ff, config, d=16, n=4, k=2, classes=5):
+    """A softmax gate's top-k into one EXPERTS layer (bias, ReLU)."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, d], ff.DataType.DT_FLOAT)
+    x = m.dense(t, d, ff.ActiMode.AC_MODE_RELU)
+    vals, idx = m.top_k(m.softmax(m.dense(x, n)), k)
+    y = m.experts(x, idx, vals, n, 0, d, activation=ff.ActiMode.AC_MODE_RELU,
+                  use_bias=True)
+    m.softmax(m.dense(m.add(y, x), classes))
+    return m
+
+
+def moe_net(ff, config, d=64, n=4, k=2, hidden=64, classes=10):
+    """``examples/python/native/moe.py``'s classifier (the ``moe``
+    composite: GROUP_BY, two denses a bucket, AGGREGATE)."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, d], ff.DataType.DT_FLOAT)
+    x = m.dense(t, d, ff.ActiMode.AC_MODE_RELU)
+    x = m.moe(x, num_exp=n, num_select=k, expert_hidden_size=hidden)
+    m.softmax(m.dense(x, classes))
+    return m
+
+
+def cnn_bn(ff, config, img=8, classes=4):
+    """Two convolutions with BatchNorm, an average pool and a head."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, 3, img, img],
+                        ff.DataType.DT_FLOAT)
+    x = m.batch_norm(m.conv2d(t, 8, 3, 3, 1, 1, 1, 1, use_bias=False))
+    x = m.batch_norm(m.conv2d(x, 8, 3, 3, 2, 2, 1, 1, use_bias=False),
+                     relu=False)
+    x = m.pool2d(x, x.dims[2], x.dims[3], 1, 1, 0, 0, ff.PoolType.POOL_AVG)
+    m.softmax(m.dense(m.flat(x), classes))
+    return m
