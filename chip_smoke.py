@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases 1,2,13  # the host side of serving
     python3 chip_smoke.py --phases 1,2,14  # offload, sharded serving
     python3 chip_smoke.py --phases 1,2,15  # parallel, resumable training
+    python3 chip_smoke.py --phases 1,2,16  # the model frontends
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -250,6 +251,25 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      partials mode over a cache of twice a rank's rows, split in halves
      at their offsets and combined), and the partials mode's timed row
      of the kernel table at the sp=2 decode shape.
+ 15. parallel and resumable training (``parallel_training_phase``);
+ 16. the model frontends (no kernel; K1-K3 and their plain versions
+     launch no time in the phase). 16a: torchvision's ResNet-50
+     topology in plain ``torch.nn`` through the fx frontend, written as
+     ONNX by the port's encoder and read back by ``ONNXModel``, and
+     built as a functional Keras ``Model`` with the module's weights set
+     through ``Layer.set_weights``: each FFModel holds 25,557,032
+     parameters and its training-mode logits (fp32, TF32 off, batch 8,
+     BatchNorm at init) are within 1e-4 of the module's largest logit;
+     16b the fx-built ResNet-50 and phase 11's direct-builder model in
+     bf16 at batch 256, in 3 alternating blocks of 4 steps (step ms,
+     MFU, peak memory; finite losses); 16c a 2-layer encoder at
+     BERT-large widths (``nn.MultiheadAttention(batch_first=True)``)
+     through fx: its fp32 forward within 1e-4 of the module's, and 2
+     ``fit`` steps' loss within 1e-4 of the CPU's from the same weights;
+     16d the C graph builder's transformer block at BERT-large widths
+     on the card and the CPU: the same IR text and layers, 3 SGD steps'
+     losses within 1e-4; 16e ``export_dot`` of 16a's fx model: one node
+     a layer and one an input.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -4728,8 +4748,10 @@ def host_side_phase(torch, card):
 OFFLOAD_NEW, OFFLOAD_PAIRS, OFFLOAD_RESERVE = 32, 3, 1 << 30
 # 14b: LLaMA-2-7B widths, int8 weights, fp32 compute and cache (greedy
 # tokens compared across layouts whose reductions add in other orders),
-# each config's ranks as subprocesses sharing the card through gloo
-SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, LAYERS, 420
+# each config's ranks as subprocesses sharing the card through gloo; the
+# depth cut to 16 of 32 layers (each pp=2 stage still holds 8) to keep
+# the whole script well inside its time limit
+SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, 16, 420
 SHARD_CONFIGS = (("tp2", dict(tensor_parallelism_degree=2)),
                  ("pp2", dict(pipeline_parallelism_degree=2)),
                  ("sp2", dict(sequence_parallelism_degree=2)))
@@ -5475,10 +5497,593 @@ def parallel_training_phase(torch, card, work, device="cuda"):
     return report
 
 
+# ----------------------------------------------------------------------
+# phase 16: the model frontends (torch.fx, ONNX, Keras, the C graph
+# builder) and the dot export
+# ----------------------------------------------------------------------
+RESNET50_PARAMS = 25_557_032   # torchvision's ResNet-50; resnet_build's
+FRONT_BATCH = 8          # 16a: ResNet-50 forwards, fp32, TF32 off
+FRONT_TOL = 1e-4         # 16a, 16c, 16d: of the reference's largest value
+FRONT_PAIRS = 3          # 16b: alternating (direct, fx) training blocks
+ENC_LAYERS, ENC_BATCH, ENC_CLASSES = 2, 8, 2   # 16c: BERT-large widths
+GB_STEPS = 3             # 16d: train steps, card and CPU
+
+
+def resnet50_module(torch):
+    """torchvision's ResNet-50 topology in plain ``torch.nn`` (the card's
+    machine has no torchvision): a 7x7/2 stem, a 3x3/2 max pool,
+    Bottleneck blocks (a projection shortcut where the shape changes),
+    global average pool and ``Linear(2048, 1000)``; torchvision's
+    initialization (Kaiming-normal convolutions, BatchNorm at 1 and 0).
+    ``out + identity`` stays out of place: an in-place add traces as
+    ``operator.iadd``, which the fx frontend does not translate."""
+    nn = torch.nn
+
+    class Bottleneck(nn.Module):
+        def __init__(self, c_in, c_mid, stride):
+            super().__init__()
+            c_out = 4 * c_mid
+            self.conv1 = nn.Conv2d(c_in, c_mid, 1, bias=False)
+            self.bn1 = nn.BatchNorm2d(c_mid)
+            self.conv2 = nn.Conv2d(c_mid, c_mid, 3, stride, 1, bias=False)
+            self.bn2 = nn.BatchNorm2d(c_mid)
+            self.conv3 = nn.Conv2d(c_mid, c_out, 1, bias=False)
+            self.bn3 = nn.BatchNorm2d(c_out)
+            self.relu = nn.ReLU(inplace=True)
+            self.downsample = None
+            if stride != 1 or c_in != c_out:
+                self.downsample = nn.Sequential(
+                    nn.Conv2d(c_in, c_out, 1, stride, bias=False),
+                    nn.BatchNorm2d(c_out))
+
+        def forward(self, x):
+            out = self.relu(self.bn1(self.conv1(x)))
+            out = self.relu(self.bn2(self.conv2(out)))
+            out = self.bn3(self.conv3(out))
+            identity = x if self.downsample is None else self.downsample(x)
+            return self.relu(out + identity)
+
+    class ResNet(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+            self.bn1 = nn.BatchNorm2d(64)
+            self.relu = nn.ReLU(inplace=True)
+            self.maxpool = nn.MaxPool2d(3, 2, 1)
+            c_in = 64
+            for i, (c_mid, blocks, stride) in enumerate(RESNET_STAGES):
+                seq = []
+                for b in range(blocks):
+                    seq.append(Bottleneck(c_in, c_mid, stride if b == 0
+                                          else 1))
+                    c_in = 4 * c_mid
+                setattr(self, f"layer{i + 1}", nn.Sequential(*seq))
+            self.avgpool = nn.AdaptiveAvgPool2d((1, 1))
+            self.fc = nn.Linear(c_in, 1000)
+            for mod in self.modules():
+                if isinstance(mod, nn.Conv2d):
+                    nn.init.kaiming_normal_(mod.weight, mode="fan_out",
+                                            nonlinearity="relu")
+
+        def forward(self, x):
+            x = self.maxpool(self.relu(self.bn1(self.conv1(x))))
+            for i in range(len(RESNET_STAGES)):
+                x = getattr(self, f"layer{i + 1}")(x)
+            return self.fc(torch.flatten(self.avgpool(x), 1))
+
+    return ResNet()
+
+
+def resnet_blocks(module):
+    """(name, Bottleneck) of ``resnet50_module``'s blocks, in order."""
+    out, i = [], 1
+    while hasattr(module, f"layer{i}"):
+        out += [(f"layer{i}.{b}", blk)
+                for b, blk in enumerate(getattr(module, f"layer{i}"))]
+        i += 1
+    return out
+
+
+def resnet_onnx_bytes(module, batch, img):
+    """``module`` as an ONNX model through the port's encoder: Conv (no
+    bias), BatchNormalization (its four initializers; the frontend keeps
+    its own scale and bias, as the JAX package's), Relu, the padded
+    MaxPool, Add, GlobalAveragePool, Flatten and a ``transB`` Gemm."""
+    from flexflow_tpu_torch.onnx import proto as P
+
+    nodes, init = [], {}
+
+    def arr(t):
+        return t.detach().float().cpu().numpy()
+
+    def conv(x, mod, name):
+        init[name + ".weight"] = arr(mod.weight)
+        nodes.append(P.encode_node(
+            "Conv", [x, name + ".weight"], [name], name=name,
+            kernel_shape=list(mod.kernel_size), strides=list(mod.stride),
+            pads=[mod.padding[0], mod.padding[1]] * 2, group=mod.groups))
+        return name
+
+    def bn(x, mod, name):
+        keys = []
+        for k, t in (("scale", mod.weight), ("bias", mod.bias),
+                     ("mean", mod.running_mean), ("var", mod.running_var)):
+            init[f"{name}.{k}"] = arr(t)
+            keys.append(f"{name}.{k}")
+        nodes.append(P.encode_node("BatchNormalization", [x] + keys, [name],
+                                   name=name, epsilon=float(mod.eps),
+                                   momentum=float(1 - mod.momentum)))
+        return name
+
+    def op(kind, ins, name, **attrs):
+        nodes.append(P.encode_node(kind, ins, [name], name=name, **attrs))
+        return name
+
+    x = op("Relu", [bn(conv("x", module.conv1, "conv1"), module.bn1, "bn1")],
+           "relu")
+    x = op("MaxPool", [x], "maxpool", kernel_shape=[3, 3], strides=[2, 2],
+           pads=[1, 1, 1, 1])
+    for p, blk in resnet_blocks(module):
+        h = op("Relu", [bn(conv(x, blk.conv1, p + ".conv1"), blk.bn1,
+                           p + ".bn1")], p + ".relu1")
+        h = op("Relu", [bn(conv(h, blk.conv2, p + ".conv2"), blk.bn2,
+                           p + ".bn2")], p + ".relu2")
+        h = bn(conv(h, blk.conv3, p + ".conv3"), blk.bn3, p + ".bn3")
+        sc = x if blk.downsample is None else bn(
+            conv(x, blk.downsample[0], p + ".downsample.0"),
+            blk.downsample[1], p + ".downsample.1")
+        x = op("Relu", [op("Add", [h, sc], p + ".add")], p + ".relu3")
+    x = op("Flatten", [op("GlobalAveragePool", [x], "avgpool")], "flatten")
+    init["fc.weight"], init["fc.bias"] = arr(module.fc.weight), \
+        arr(module.fc.bias)
+    op("Gemm", [x, "fc.weight", "fc.bias"], "fc", transB=1)
+    return P.encode_model(
+        nodes, inputs=[P.encode_value_info("x", [batch, 3, img, img])],
+        outputs=[P.encode_value_info("fc", [batch,
+                                            module.fc.out_features])],
+        initializers=init)
+
+
+def resnet_keras(module, config, img):
+    """``module`` as a functional Keras ``Model`` of the port, compiled on
+    ``config``; each convolution's and the head's weights set from the
+    module through ``Layer.set_weights`` (BatchNorm stays at its own 1
+    and 0, as the module's)."""
+    from flexflow_tpu_torch import keras
+
+    L = keras.layers
+    weights = []
+
+    def conv(x, mod):
+        layer = L.Conv2D(mod.out_channels, mod.kernel_size,
+                         strides=mod.stride, padding=mod.padding,
+                         use_bias=False)
+        weights.append((layer, [mod.weight]))
+        return layer(x)
+
+    def bn(x, relu):
+        x = L.BatchNormalization()(x)
+        return L.Activation("relu")(x) if relu else x
+
+    inp = L.Input(shape=(3, img, img))
+    x = bn(conv(inp, module.conv1), True)
+    x = L.MaxPooling2D(pool_size=3, strides=2, padding=(1, 1))(x)
+    for _p, blk in resnet_blocks(module):
+        h = bn(conv(x, blk.conv1), True)
+        h = bn(conv(h, blk.conv2), True)
+        h = bn(conv(h, blk.conv3), False)
+        sc = x if blk.downsample is None else bn(
+            conv(x, blk.downsample[0]), False)
+        x = L.Activation("relu")(L.Add()([h, sc]))
+    x = L.Flatten()(L.AveragePooling2D(pool_size=x.shape[2])(x))
+    head = L.Dense(module.fc.out_features)
+    weights.append((head, [module.fc.weight.T, module.fc.bias]))
+    model = keras.models.Model(inputs=inp, outputs=head(x), ffconfig=config)
+    model.compile(optimizer="sgd", loss="sparse_categorical_crossentropy")
+    for layer, ws in weights:
+        layer.set_weights([w.detach() for w in ws])
+    return model
+
+
+def train_mode_output(torch, m, x):
+    """The FFModel's final output for ``x`` in training mode (BatchNorm on
+    the batch's statistics, as the module in ``train()``): the forward of
+    a train step, through the graph walk ``train_one_batch`` runs; the
+    running statistics it computes are dropped."""
+    with torch.no_grad():
+        values, _ = m._run_graph(m.params, m._feeds_from_arrays([x]),
+                                 m._ctx(True), m.op_state)
+    return values[m._final_tensor.tensor_id]
+
+
+def n_params(m) -> int:
+    return sum(p.numel() for lp in m.params.values() for p in lp.values())
+
+
+def max_rel(got, want) -> float:
+    """Largest |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max()).item()
+
+
+def fx_model(pm, config, shape, softmax=False):
+    """A module's ``PyTorchModel`` (traced once, in the main thread: fx
+    tracing patches torch globally) onto an FFModel on ``config``; a
+    softmax after the last layer for training."""
+    import flexflow_tpu_torch as ff
+
+    m = ff.FFModel(config)
+    dt = ff.DataType.DT_INT32 if len(shape) == 2 else ff.DataType.DT_FLOAT
+    (out,) = pm.torch_to_ff(m, [m.create_tensor(shape, dt)])
+    if softmax:
+        m.softmax(out)
+    return m
+
+
+def resnet_by_frontends(torch, card):
+    """16a: ResNet-50 through fx, ONNX and Keras on the card; each model's
+    parameter count and its training-mode logits against the module's.
+    Returns (the fx model, the module's PyTorchModel, the report)."""
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.onnx import ONNXModel
+    from flexflow_tpu_torch.torch import PyTorchModel
+
+    torch.manual_seed(16)
+    module = resnet50_module(torch).to("cuda").train()
+    pm = PyTorchModel(module)
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(FRONT_BATCH, 3, RESNET_IMG, RESNET_IMG, generator=gen,
+                    device="cuda")
+    shape = [FRONT_BATCH, 3, RESNET_IMG, RESNET_IMG]
+
+    def config():
+        return ff.FFConfig(batch_size=FRONT_BATCH, device="cuda")
+
+    report, models = {}, {}
+    with tf32_off(torch):
+        with torch.no_grad():
+            want = module(x)
+        t0 = time.perf_counter()
+        m = fx_model(pm, config(), shape)
+        m.compile()
+        pm.copy_weights(m)
+        models["fx"] = (m, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        blob = resnet_onnx_bytes(module, FRONT_BATCH, RESNET_IMG)
+        m = ff.FFModel(config())
+        om = ONNXModel(blob)
+        om.apply(m, {"x": m.create_tensor(shape, ff.DataType.DT_FLOAT)})
+        m.compile()
+        om.import_initializers(m)
+        models["onnx"] = (m, time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        k = resnet_keras(module, config(), RESNET_IMG)
+        models["keras"] = (k.ffmodel, time.perf_counter() - t0)
+        for name, (m, secs) in models.items():
+            got = train_mode_output(torch, m, x)
+            report[name] = {"params": n_params(m), "layers": len(m.layers),
+                            "rel_err": max_rel(got, want),
+                            "build_s": secs}
+            log(f"  16a {name}: {len(m.layers)} layers, "
+                f"{report[name]['params']:,} parameters (want "
+                f"{RESNET50_PARAMS:,}), training-mode logits [{FRONT_BATCH}"
+                f", {got.shape[-1]}] against the module's: largest "
+                f"difference {report[name]['rel_err']:.3e} of the largest "
+                f"logit (limit {FRONT_TOL}); built in {secs:.1f} s"
+                + (f" ({len(blob) / 2**20:.1f} MiB of ONNX)"
+                   if name == "onnx" else "") + f"  [{card}]")
+    bad = [f"{n}: {r}" for n, r in report.items()
+           if r["params"] != RESNET50_PARAMS
+           or not r["rel_err"] <= FRONT_TOL]
+    if bad:
+        raise AssertionError(f"phase 16a: {'; '.join(bad)}")
+    return models["fx"][0], pm, report
+
+
+def fx_training_pairs(torch, card, pm):
+    """16b: the fx-built ResNet-50 and phase 11's direct-builder model at
+    bench_train.py's size in bf16, trained in alternating blocks of
+    RESNET_UNROLL steps in one process; step ms, MFU and peak memory of
+    each (a finding: the frontend adds no launch, so no gate on speed);
+    the losses finite."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    direct, flops = resnet_model("cuda", "bfloat16", RESNET_BATCH,
+                                 RESNET_IMG, 1000, RESNET_STAGES)
+    fx = fx_model(pm, ff.FFConfig(batch_size=RESNET_BATCH,
+                                      compute_dtype="bfloat16",
+                                      device="cuda"),
+                  [RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG], softmax=True)
+    models = {"direct": train_compile(direct, "sgd"),
+              "fx": train_compile(fx, "sgd")}
+    pm.copy_weights(fx)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x = torch.randn(RESNET_BATCH, 3, RESNET_IMG, RESNET_IMG, generator=gen,
+                    device="cuda")
+    y = torch.randint(0, 1000, (RESNET_BATCH, 1), generator=gen,
+                      device="cuda", dtype=torch.int32)
+    for m in models.values():
+        m.train_one_batch([x], y)              # warm: cuDNN's choices
+    xs = [x.expand(RESNET_UNROLL, *x.shape)]
+    ys = y.expand(RESNET_UNROLL, *y.shape)
+    runs = {n: {"step_ms": [], "peak_gib": [], "losses": []} for n in models}
+    for p in range(FRONT_PAIRS):
+        for name in (("direct", "fx") if p % 2 == 0 else ("fx", "direct")):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            losses = models[name].train_batches(xs, ys)   # one read
+            runs[name]["step_ms"].append(
+                (time.perf_counter() - t0) * 1e3 / RESNET_UNROLL)
+            runs[name]["peak_gib"].append(
+                torch.cuda.max_memory_allocated() / 2**30)
+            runs[name]["losses"].append(losses)
+    report = {}
+    for name, r in runs.items():
+        med = statistics.median(r["step_ms"])
+        report[name] = dict(step_ms=r["step_ms"], step_ms_median=med,
+                            mfu=flops / (med / 1e3) / H100_BF16_PEAK,
+                            peak_gib=max(r["peak_gib"]),
+                            layers=len(models[name].layers),
+                            losses=r["losses"])
+        log(f"  16b {name}: {len(models[name].layers)} layers; step ms "
+            f"{[round(v, 2) for v in r['step_ms']]} (median {med:.2f}) "
+            f"over {FRONT_PAIRS} blocks of {RESNET_UNROLL}; MFU "
+            f"{report[name]['mfu']:.4f} of {H100_BF16_PEAK / 1e12:.0f} "
+            f"TFLOP/s ({flops / 1e12:.3f} model TFLOP a step); peak "
+            f"{report[name]['peak_gib']:.2f} GiB (both models resident); "
+            f"losses {[[round(v, 4) for v in b] for b in r['losses']]}  "
+            f"[{card}]")
+    del models, direct, fx
+    gc.collect()
+    torch.cuda.empty_cache()
+    if not all(np.isfinite(v) for r in runs.values() for b in r["losses"]
+               for v in b):
+        raise AssertionError(f"phase 16b: a loss is not finite: {runs}")
+    return report
+
+
+def bert_encoder_module(torch, layers=ENC_LAYERS):
+    """A BERT encoder at BERT-large widths in plain ``torch.nn``: token
+    embedding, ``layers`` post-LN layers (``nn.MultiheadAttention(
+    batch_first=True)``, LayerNorm, a GELU MLP of 4 x hidden), BERT's
+    pooler (the first token through Linear and tanh) and a classifier."""
+    nn = torch.nn
+
+    class Layer(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.mha = nn.MultiheadAttention(BERT_HIDDEN, BERT_HEADS,
+                                             batch_first=True)
+            self.ln1 = nn.LayerNorm(BERT_HIDDEN)
+            self.fc1 = nn.Linear(BERT_HIDDEN, 4 * BERT_HIDDEN)
+            self.act = nn.GELU()
+            self.fc2 = nn.Linear(4 * BERT_HIDDEN, BERT_HIDDEN)
+            self.ln2 = nn.LayerNorm(BERT_HIDDEN)
+
+        def forward(self, x):
+            a, _ = self.mha(x, x, x)
+            x = self.ln1(x + a)
+            return self.ln2(x + self.fc2(self.act(self.fc1(x))))
+
+    class Encoder(nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = nn.Embedding(BERT_VOCAB, BERT_HIDDEN)
+            self.layers = nn.ModuleList(Layer() for _ in range(layers))
+            self.pooler = nn.Linear(BERT_HIDDEN, BERT_HIDDEN)
+            self.classifier = nn.Linear(BERT_HIDDEN, ENC_CLASSES)
+
+        def forward(self, ids):
+            x = self.emb(ids)
+            for layer in self.layers:
+                x = layer(x)
+            return self.classifier(torch.tanh(self.pooler(x[:, 0])))
+
+    return Encoder()
+
+
+def fit_losses(m, x, y):
+    return [h["loss"] for h in m.fit(x, y, epochs=1)]
+
+
+def native_block(gb):
+    """``tests/test_native.py``'s C transformer block at BERT-large widths:
+    embedding, MHA, residual LayerNorm, a GELU MLP, residual RMSNorm, a
+    scalar, a mean over the sequence and a 4-way head."""
+    toks = gb.input(0)
+    h = gb.embedding(toks, BERT_VOCAB, BERT_HIDDEN, name="embed")
+    a = gb.multihead_attention(h, h, h, BERT_HIDDEN, BERT_HEADS, name="attn")
+    h = gb.layer_norm(gb.binary(h, a, "add"), [BERT_HIDDEN], name="ln1")
+    f = gb.unary(gb.dense(h, 4 * BERT_HIDDEN, name="up"), "gelu")
+    h = gb.rms_norm(gb.binary(h, gb.dense(f, BERT_HIDDEN, name="down"),
+                              "add"), eps=1e-6, name="rn")
+    h = gb.mean(gb.scalar(h, "multiply", 0.5, name="halve"), [1],
+                name="pool")
+    gb.output([gb.softmax(gb.dense(h, 4, name="head"))])
+    return gb
+
+
+def native_model(device):
+    """(the FFModel the C builder's graph builds on ``device``, its IR
+    text), compiled for SGD training."""
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.native.graph_builder import NativeGraphBuilder
+
+    gb = native_block(NativeGraphBuilder())
+    m = ff.FFModel(ff.FFConfig(batch_size=ENC_BATCH, device=device))
+    gb.build_on(m, [m.create_tensor([ENC_BATCH, BERT_SEQ],
+                                    ff.DataType.DT_INT32)])
+    return train_compile(m, "sgd"), gb.serialize()
+
+
+def encoder_and_native(torch, card):
+    """16c: the BERT-large-width encoder through fx: its fp32 forward
+    against the module's on the card, and a fit of 2 steps on the card
+    against the CPU's from the same weights. 16d: the C graph builder's
+    block on the card and on the CPU: the IR text and layers equal, and
+    GB_STEPS train steps' losses."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.convert import load_params
+    from flexflow_tpu_torch.torch import PyTorchModel
+
+    torch.manual_seed(17)
+    module = bert_encoder_module(torch).to("cuda").eval()
+    pm = PyTorchModel(module)
+    pm.to_ir()
+    gen = torch.Generator().manual_seed(17)
+    ids = torch.randint(0, BERT_VOCAB, (2 * ENC_BATCH, BERT_SEQ),
+                        generator=gen, dtype=torch.int32)
+    labels = torch.randint(0, ENC_CLASSES, (2 * ENC_BATCH, 1),
+                           generator=gen, dtype=torch.int32)
+    gb_ids = torch.randint(0, BERT_VOCAB, (GB_STEPS, ENC_BATCH, BERT_SEQ),
+                           generator=gen, dtype=torch.int32)
+    gb_labels = torch.randint(0, 4, (GB_STEPS, ENC_BATCH, 1), generator=gen,
+                              dtype=torch.int32)
+    shape = [ENC_BATCH, BERT_SEQ]
+
+    def trained(device):
+        m = fx_model(pm, ff.FFConfig(batch_size=ENC_BATCH, device=device),
+                     shape, softmax=True)
+        train_compile(m, "sgd")
+        pm.copy_weights(m)
+        return m
+
+    def timed(fn, *a):
+        t0 = time.perf_counter()
+        return fn(*a), time.perf_counter() - t0
+
+    def native_steps(m):
+        return [m.train_one_batch([gb_ids[i]], gb_labels[i])
+                for i in range(GB_STEPS)]
+
+    report = {}
+    # every model is built here; the worker thread only trains the CPU
+    # ones (phase 11a's pattern)
+    enc_cpu = trained("cpu")
+    gm_cpu, ir_cpu = native_model("cpu")
+    init = {ln: {w: p.detach().clone() for w, p in lp.items()}
+            for ln, lp in gm_cpu.params.items()}
+    with ThreadPoolExecutor(1) as pool, tf32_off(torch):
+        enc_ref = pool.submit(timed, fit_losses, enc_cpu, ids, labels)
+        gb_ref = pool.submit(timed, native_steps, gm_cpu)
+        t0 = time.perf_counter()
+        m = fx_model(pm, ff.FFConfig(batch_size=ENC_BATCH, device="cuda"),
+                     shape)
+        m.compile()
+        pm.copy_weights(m)
+        got = torch.as_tensor(m.predict(ids[:ENC_BATCH]))
+        with torch.no_grad():
+            want = module(ids[:ENC_BATCH].long().to("cuda")).cpu()
+        fwd = max_rel(got, want)
+        card_l = fit_losses(trained("cuda"), ids, labels)
+        card_s = time.perf_counter() - t0
+        ref_l, ref_s = enc_ref.result()
+        rel = _rel(card_l, ref_l)
+        report["16c"] = {"params": n_params(m), "forward_rel_err": fwd,
+                         "fit_loss_card": card_l, "fit_loss_cpu": ref_l,
+                         "loss_rel": rel}
+        log(f"  16c encoder ({ENC_LAYERS} layers x {BERT_HIDDEN}, "
+            f"{BERT_HEADS} heads, FFN {4 * BERT_HIDDEN}, vocab "
+            f"{BERT_VOCAB}, batch {ENC_BATCH} x seq {BERT_SEQ}, fp32) "
+            f"through fx: {len(m.layers)} layers, {n_params(m):,} "
+            f"parameters; forward against the module's: largest difference "
+            f"{fwd:.3e} of the largest logit; fit, 2 SGD steps: card loss "
+            f"{card_l} CPU {ref_l}, relative difference {rel:.2e} (limit "
+            f"{FRONT_TOL}); card {card_s:.1f} s, CPU {ref_s:.1f} s  "
+            f"[{card}]")
+        del m, enc_cpu
+        t0 = time.perf_counter()
+        gm, ir = native_model("cuda")
+        load_params(gm, init)
+        card_l = native_steps(gm)
+        card_s = time.perf_counter() - t0
+        ref_l, ref_s = gb_ref.result()
+    rel = _rel(card_l, ref_l)
+    same_layers = ([(l.name, l.op_type, l.outputs[0].dims)
+                    for l in gm.layers]
+                   == [(l.name, l.op_type, l.outputs[0].dims)
+                       for l in gm_cpu.layers])
+    report["16d"] = {"params": n_params(gm), "losses_card": card_l,
+                     "losses_cpu": ref_l, "loss_rel": rel,
+                     "ir_equal": ir == ir_cpu, "layers_equal": same_layers}
+    log(f"  16d the C graph builder's block at BERT-large widths (batch "
+        f"{ENC_BATCH} x seq {BERT_SEQ}): {len(ir.splitlines())} IR records, "
+        f"IR text equal to the CPU model's: {ir == ir_cpu}, layers equal: "
+        f"{same_layers}; {n_params(gm):,} parameters; {GB_STEPS} SGD steps: "
+        f"card losses {card_l} CPU {ref_l}, relative difference {rel:.2e} "
+        f"(limit {FRONT_TOL}); card {card_s:.1f} s, CPU {ref_s:.1f} s  "
+        f"[{card}]")
+    bad = [k for k, r in report.items()
+           if not r.get("forward_rel_err", 0.0) <= FRONT_TOL
+           or not r["loss_rel"] <= FRONT_TOL
+           or not r.get("ir_equal", True) or not r.get("layers_equal", True)]
+    del gm, gm_cpu
+    gc.collect()
+    if bad:
+        raise AssertionError(f"phase 16 {bad}: {report}")
+    return report
+
+
+def dot_export(fx_resnet, card):
+    """16e: ``export_dot`` of 16a's fx model: one node a layer, one an
+    input, an edge from each input's producer."""
+    import re
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = fx_resnet.export_dot(os.path.join(tmp, "resnet50.dot"))
+        text = open(path).read()
+    nodes = len(re.findall(r"\[label=", text))
+    edges = text.count('" -> "')
+    want = len(fx_resnet.layers) + len(fx_resnet.input_tensors)
+    log(f"  16e export_dot of 16a's fx ResNet-50: {nodes} nodes ("
+        f"{len(fx_resnet.layers)} layers + {len(fx_resnet.input_tensors)} "
+        f"input), {edges} edges, {len(text)} bytes  [{card}]")
+    if nodes != want or not edges >= len(fx_resnet.layers):
+        raise AssertionError(f"phase 16e: {nodes} nodes, {edges} edges; "
+                             f"want {want} nodes")
+    return {"nodes": nodes, "edges": edges}
+
+
+def frontends_phase(torch, card):
+    """Phase 16: 16a-16e; K1-K3 and their plain versions launch no time.
+    Returns (the phase's launch counts, the report)."""
+    from flexflow_tpu_torch import kernels
+
+    t_phase = time.perf_counter()
+    kernels.reset_counts()
+    report = {}
+    fx_resnet, pm, report["16a"] = resnet_by_frontends(torch, card)
+    log(f"  16a: {time.perf_counter() - t_phase:.1f} s")
+    report["16b"] = fx_training_pairs(torch, card, pm)
+    del pm
+    report.update(encoder_and_native(torch, card))
+    report["16e"] = dot_export(fx_resnet, card)
+    counts = dict(kernels.counts)
+    del fx_resnet
+    gc.collect()
+    torch.cuda.empty_cache()
+    report["launches"] = counts
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 16 launches: {counts}")
+    log(f"  phase 16: {report['seconds']:.1f} s  [{card}]")
+    if any(counts.values()):
+        raise AssertionError(f"phase 16: K1-K3 or a plain version "
+                             f"launched: {counts}")
+    return counts, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -5653,6 +6258,13 @@ def main(argv=None) -> int:
         with tempfile.TemporaryDirectory() as tmp:
             log(json.dumps({"parallel_training_phase":
                             parallel_training_phase(torch, card, tmp)}))
+        gc.collect()
+    if 16 in phases:
+        log(f"phase 16: the model frontends: ResNet-50 through fx, ONNX and "
+            f"Keras, a BERT-large-width encoder through fx, the C graph "
+            f"builder, the dot export  [{card}]")
+        by_path["frontends"], front = frontends_phase(torch, card)
+        log(json.dumps({"frontends_phase": front}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

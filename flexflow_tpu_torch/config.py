@@ -53,6 +53,12 @@ class FFConfig:
 
     # where the model's parameters, KV caches and activations live
     device: str = "cuda"
+    # the layer graph as Graphviz dot, written at compile (the reference's
+    # --export-strategy-computation-graph-file; utils/dot.py)
+    export_strategy_file: str = ""
+    # cost fields in that graph need the search's cost model, which is not
+    # ported yet: compile raises when this is set
+    include_costs_dot_graph: bool = False
     # training: recompute each layer's forward in the backward instead of
     # keeping its activations (torch.utils.checkpoint; core/model.py)
     remat: bool = False

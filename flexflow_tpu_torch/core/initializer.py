@@ -1,9 +1,11 @@
 """Parameter initializers (counterpart of ``flexflow_tpu/core/initializer.py``).
 
-The same distributions, drawn from an explicit ``torch.Generator`` that
-``FFModel.compile`` seeds per weight (``core/model.py:weight_seed``) on the
-model's device. The bits differ from JAX's for the same seed; tests that
-compare the two packages carry weights across as numpy arrays instead.
+The same distributions and constructor signatures, drawn from an explicit
+``torch.Generator`` that ``FFModel.compile`` seeds per weight
+(``core/model.py:weight_seed``) on the model's device; a ``seed`` argument
+is kept for the JAX signature. The bits differ from JAX's for the same
+seed; tests that compare the two packages carry weights across as numpy
+arrays instead.
 """
 
 from __future__ import annotations
@@ -20,8 +22,15 @@ class Initializer:
 
 
 class GlorotUniformInitializer(Initializer):
+    def __init__(self, seed: int = 0):
+        self.seed = seed
+
     def __call__(self, gen, shape, dtype, device):
-        if len(shape) >= 2:
+        if len(shape) == 4:
+            # conv kernel, OIHW layout: fans include the receptive field
+            receptive = shape[2] * shape[3]
+            fan_in, fan_out = shape[1] * receptive, shape[0] * receptive
+        elif len(shape) >= 2:
             fan_in, fan_out = shape[-2], shape[-1]
         else:
             fan_in = fan_out = shape[0] if shape else 1
@@ -59,7 +68,9 @@ class UniformInitializer(Initializer):
 
 
 class NormInitializer(Initializer):
-    def __init__(self, mean: float = 0.0, stddev: float = 1.0):
+    def __init__(self, seed: int = 0, mean: float = 0.0,
+                 stddev: float = 1.0):
+        self.seed = seed
         self.mean = mean
         self.stddev = stddev
 

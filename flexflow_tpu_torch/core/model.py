@@ -46,7 +46,9 @@ recomputes each layer's forward in the backward. ``training/checkpoint.py``
 saves and resumes the whole training state; ``recompile_on_condition``
 (``core/recompile.py``) rebuilds the model keeping its weights.
 
-There is no strategy search or branch plan in the port yet.
+There is no strategy search or branch plan in the port yet:
+``strategy`` stays None. ``export_dot`` (``utils/dot.py``) writes the
+layer graph; ``FFConfig.export_strategy_file`` writes it at compile.
 """
 
 from __future__ import annotations
@@ -141,6 +143,9 @@ class FFModel:
         # (parallel/placement.Walk) and the gradient all-reduce
         self._walk = None
         self._grad_reducer = None
+        # the search's per-op strategy (utils/dot.py reads it); the port
+        # has no search, so it stays None
+        self.strategy = None
         # a train step's dropout draws (the JAX package's self._rng)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -897,6 +902,11 @@ class FFModel:
                          if optimizer is not None or loss_type is not None
                          else CompMode.COMP_MODE_INFERENCE)
         training = comp_mode == CompMode.COMP_MODE_TRAINING
+        if self.config.include_costs_dot_graph:
+            raise NotImplementedError(
+                "FFConfig.include_costs_dot_graph needs the search's cost "
+                "model, which is not ported yet (ROADMAP Queue A item 6); "
+                "pass costs to export_dot instead")
         dev = self.device
         self.comp_mode = comp_mode
         self._gemm_fusion_done = False
@@ -915,6 +925,12 @@ class FFModel:
         self._pp_plan = None
         if self.mesh is not None:
             self._plan_and_shard_state()
+        if self.config.export_strategy_file:
+            # the reference's --export-strategy-computation-graph-file
+            from flexflow_tpu_torch.utils.dot import export_model_dot
+
+            export_model_dot(self, self.config.export_strategy_file,
+                             strategy=self.strategy)
 
         qtype = None if training else self.config.quantization_type
         shardings = None
@@ -1494,6 +1510,17 @@ class FFModel:
 
     def get_output_tensor(self) -> Optional[Tensor]:
         return self._final_tensor
+
+    def export_dot(self, path: str, include_costs: bool = False,
+                   costs=None) -> str:
+        """Graphviz export of the layer graph to ``path`` (the
+        reference's export_strategy_computation_graph_file); ``costs``
+        ({layer: seconds}) are the caller's, shown with
+        ``include_costs``. Returns ``path``."""
+        from flexflow_tpu_torch.utils.dot import export_model_dot
+
+        return export_model_dot(self, path, include_costs=include_costs,
+                                costs=costs, strategy=self.strategy)
 
     def recompile_on_condition(self, recompile_state) -> bool:
         """The reference's dynamic recompilation hook (model.cc:2791;

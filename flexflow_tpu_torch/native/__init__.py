@@ -5,9 +5,10 @@ Two shared libraries are built with ``g++`` from the repository's own
 sources at first use, into ``flexflow_tpu_torch/native/_build/``:
 
 * ``libflexflow_tpu_torch_native.so`` from ``native/src/
-  {bpe_tokenizer,batch_scheduler,sp_tokenizer}.cpp`` (the GPT-2 BPE and
-  SentencePiece tokenizers and the continuous-batching scheduler), loaded
-  with ``load_native``;
+  {bpe_tokenizer,batch_scheduler,sp_tokenizer,graph_builder}.cpp`` (the
+  GPT-2 BPE and SentencePiece tokenizers, the continuous-batching
+  scheduler and the ``ffgb_*`` C model-graph builder that
+  ``graph_builder.py`` binds), loaded with ``load_native``;
 * ``libflexflow_tpu_torch_serve.so`` from ``native/csrc/serve_c.cpp``, the
   ``ffsv_*`` C serving ABI that embeds CPython and drives
   ``serve/capi_host.py`` (``build_serve_library``).
@@ -59,7 +60,8 @@ class NativeBuildError(RuntimeError):
 
 def native_sources() -> List[str]:
     return [os.path.join(NATIVE_SRC, f) for f in
-            ("bpe_tokenizer.cpp", "batch_scheduler.cpp", "sp_tokenizer.cpp")]
+            ("bpe_tokenizer.cpp", "batch_scheduler.cpp", "sp_tokenizer.cpp",
+             "graph_builder.cpp")]
 
 
 def python_build_flags():
@@ -190,9 +192,49 @@ def _declare(lib: ctypes.CDLL):
     lib.ffsp_decode.argtypes = [c.c_void_p, i32p, c.c_int, c.c_char_p,
                                 c.c_int]
 
+    ip = c.POINTER(c.c_int)
+    lib.ffgb_create.restype = c.c_void_p
+    lib.ffgb_create.argtypes = []
+    lib.ffgb_destroy.argtypes = [c.c_void_p]
+    for fn, extra in (("ffgb_input", [c.c_int, c.c_char_p]),
+                      ("ffgb_dense", [c.c_int, c.c_int, c.c_int,
+                                      c.c_char_p]),
+                      ("ffgb_conv2d", [c.c_int] * 9 + [c.c_int,
+                                                       c.c_char_p]),
+                      ("ffgb_pool2d", [c.c_int] * 8 + [c.c_char_p]),
+                      ("ffgb_unary", [c.c_int, c.c_char_p, c.c_char_p]),
+                      ("ffgb_binary", [c.c_int, c.c_int, c.c_char_p,
+                                       c.c_char_p]),
+                      ("ffgb_concat", [ip, c.c_int, c.c_int, c.c_char_p]),
+                      ("ffgb_softmax", [c.c_int, c.c_int, c.c_char_p]),
+                      ("ffgb_dropout", [c.c_int, c.c_double, c.c_char_p]),
+                      ("ffgb_embedding", [c.c_int, c.c_int, c.c_int,
+                                          c.c_char_p]),
+                      ("ffgb_reshape", [c.c_int, ip, c.c_int, c.c_char_p]),
+                      ("ffgb_layer_norm", [c.c_int, ip, c.c_int, c.c_int,
+                                           c.c_double, c.c_char_p]),
+                      ("ffgb_batch_norm", [c.c_int, c.c_char_p]),
+                      ("ffgb_rms_norm", [c.c_int, c.c_double, c.c_int,
+                                         c.c_char_p]),
+                      ("ffgb_multihead_attention",
+                       [c.c_int] * 5 + [c.c_double, c.c_char_p]),
+                      ("ffgb_scalar", [c.c_int, c.c_char_p, c.c_double,
+                                       c.c_int, c.c_char_p]),
+                      ("ffgb_transpose", [c.c_int, ip, c.c_int, c.c_char_p]),
+                      ("ffgb_mean", [c.c_int, ip, c.c_int, c.c_int,
+                                     c.c_char_p]),
+                      ("ffgb_cast", [c.c_int, c.c_char_p, c.c_char_p]),
+                      ("ffgb_output", [ip, c.c_int]),
+                      ("ffgb_save", [c.c_char_p]),
+                      ("ffgb_serialize", [c.c_char_p, c.c_int])):
+        f = getattr(lib, fn)
+        f.restype = c.c_int
+        f.argtypes = [c.c_void_p] + extra
+
 
 def load_native() -> ctypes.CDLL:
-    """Build (if needed) and load the tokenizer and scheduler library.
+    """Build (if needed) and load the tokenizer, scheduler and graph
+    builder library.
     Raises NativeBuildError when it cannot be built."""
     global _lib
     with _lock:

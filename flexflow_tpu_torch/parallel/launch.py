@@ -152,4 +152,11 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    raise SystemExit(main())
+    code = main()
+    # the rank has written its result and left the process group: exit
+    # without the interpreter's teardown, where torch's C++ threads can
+    # abort a finished rank ("terminate called without an active
+    # exception", exit -6; seen with gloo on a loaded host)
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(code)
