@@ -11,6 +11,7 @@
     python3 chip_smoke.py --phases 1,2,14  # offload, sharded serving
     python3 chip_smoke.py --phases 1,2,15  # parallel, resumable training
     python3 chip_smoke.py --phases 1,2,16  # the model frontends
+    python3 chip_smoke.py --phases 1,2,17  # the Unity search
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -269,7 +270,32 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      16d the C graph builder's transformer block at BERT-large widths
      on the card and the CPU: the same IR text and layers, 3 SGD steps'
      losses within 1e-4; 16e ``export_dot`` of 16a's fx model: one node
-     a layer and one an input.
+     a layer and one an input;
+ 17. the Unity search (``search_phase``; K1-K3 on 17e's path). 17a on
+     the host: ``optimize_model`` under the ``"h100-sxm"`` machine model
+     with ``search_mesh`` at 1, 2, 8 and 16 GPUs (16: two HGX nodes over
+     NDR InfiniBand) on BERT-large (phase 11's batch and length),
+     ResNet-50 (phase 11's batch, 1000 classes) and LLaMA-2-7B (its 32
+     layers as a training graph at phase 15's batch, 4096 tokens), all
+     in bf16 compute, four searches at once in worker processes: search
+     seconds, the adopted mesh, each candidate's count, the analytic
+     step against data parallelism's (never worse); 17b
+     ``CostModel.measure_node`` on the card in bf16 compute at every
+     distinct key of 17a's BERT-large 2-GPU strategy:
+     measured ms beside the analytic roofline's by op type, the worst
+     ratio, the analytic fallbacks (counted, printed); 17c BERT-large
+     widths, 2 layers, batch 8, fp32, compiled with ``auto_parallel`` and
+     ``search_mesh`` on 2 ranks sharing the card from one rank's weights:
+     4 steps' losses within 1e-5 of one rank's, each rank's weights the
+     slices their specs name, ``searched_vs_dp_wallclock`` (two ranks on
+     one card: not a parallel speed); 17d the four-branch inception
+     block at data=4 on 4 ranks with the branch strategy of
+     ``tests/test_measured_ab.py:86-124`` (H100 model): a region
+     planned and run, losses and gradients within 1e-5 of one rank's
+     sequential walk; 17e phase 8's model compiled with ``auto_parallel``
+     on the one card: 8/8 requests give phase 8's tokens, K1/K2/K3
+     launched, no plain call; 17f BERT-large's costed dot at compile and
+     its ``pcg_to_dot``: every node carries a cost.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -2380,19 +2406,21 @@ def quantized_llm(torch, qtype, ssm_layers=None, **kw):
     return llm, (ssms[0] if ssms else None), time.perf_counter() - t0
 
 
-def headline_int8(torch):
+def headline_int8(torch, **kw):
     """Phase 8's models (``bench.py``'s headline): LLaMA-2-7B geometry,
     bf16 compute and cache, int8 weights quantized per layer at compile,
     deep layers damped through dequantize -> scale -> re-quantize
     (bench.py:218-234), a 2-layer draft on the verifier's int8 leaves,
-    depth 7, the controller on. Returns (llm, ssm, seconds)."""
+    depth 7, the controller on; ``kw`` adds compile (FFConfig) fields.
+    Returns (llm, ssm, seconds)."""
     from flexflow_tpu_torch import GenerationConfig
     from flexflow_tpu_torch.quant import dequantize_array, requantize_into
 
     llm, ssm, secs = quantized_llm(
         torch, "int8", ssm_layers=DRAFT_LAYERS,
         generation_config=GenerationConfig(spec_depth=SPEC_DEPTH),
-        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS)
+        decode_block_steps=NEW_TOKENS + 32, spec_rounds_per_call=SPEC_ROUNDS,
+        **kw)
     for i in range(DRAFT_LAYERS, LAYERS):
         for lname, w in ((f"layers.{i}.self_attn", "wo"),
                          (f"layers.{i}.mlp.down_proj", "kernel")):
@@ -2438,6 +2466,7 @@ def int8_phase(torch, card, bf16_decode_ms=None, profile=False):
         lambda rm: rm.generate_incr_decoding(verifier), NEW_TOKENS,
         "int8 incremental")
     incr_peak = torch.cuda.max_memory_allocated() / 2**30
+    PHASE8_INCR["tokens"] = incr            # 17e's reference
     dec_ms = dec["s"] * 1e3 / max(1, dec["steps"])
     del ifm.decode_block
     # every forward of the pass (prefill chunk or decode step) runs K1 or
@@ -3369,9 +3398,9 @@ def bert_flops_per_step(batch, layers=BERT_LAYERS):
 
 
 def bert_build(ff, config, layers=BERT_LAYERS):
-    """``bench_train.py:build_model`` through a package's builders (no
-    ``auto_parallel``: the search is not ported); ``config.batch_size``
-    sets the batch. Also phase 15's builder on the ranks."""
+    """``bench_train.py:build_model`` through a package's builders;
+    ``config.batch_size`` sets the batch. Also phases 15's and 17's
+    builder on the ranks."""
     batch = config.batch_size
     m = ff.FFModel(config)
     tokens = m.create_tensor([batch, BERT_SEQ], ff.DataType.DT_INT32)
@@ -4749,9 +4778,9 @@ OFFLOAD_NEW, OFFLOAD_PAIRS, OFFLOAD_RESERVE = 32, 3, 1 << 30
 # 14b: LLaMA-2-7B widths, int8 weights, fp32 compute and cache (greedy
 # tokens compared across layouts whose reductions add in other orders),
 # each config's ranks as subprocesses sharing the card through gloo; the
-# depth cut to 16 of 32 layers (each pp=2 stage still holds 8) to keep
-# the whole script well inside its time limit
-SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, 16, 420
+# depth cut to 4 of 32 layers (each pp=2 stage still holds 2) to keep the
+# whole script inside its time limit
+SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, 4, 420
 SHARD_CONFIGS = (("tp2", dict(tensor_parallelism_degree=2)),
                  ("pp2", dict(pipeline_parallelism_degree=2)),
                  ("sp2", dict(sequence_parallelism_degree=2)))
@@ -6080,10 +6109,491 @@ def frontends_phase(torch, card):
     return counts, report
 
 
+# ----------------------------------------------------------------------
+# phase 17: the Unity search
+# ----------------------------------------------------------------------
+SEARCH_CHIP = "h100-sxm"
+SEARCH_GPUS = (1, 2, 8, 16)     # 17a: 16 GPUs are two HGX nodes over NDR
+# each search bounded: 2 joint rewrite evaluations (and 2 MCMC moves), a
+# 5 s deadline on each joint loop
+SEARCH_KW = dict(search_budget=2, search_deadline_s=5.0)
+LLAMA_TRAIN_SEQ = 4096          # 17a: LLaMA-2's context length
+SEARCH_WORKERS = 4              # 17a: searches at once, a process each
+AUTO_STEPS = 4                  # 17c: train steps on 2 ranks and on 1
+AB_STEPS, AB_REPS = 2, 1        # 17c: searched_vs_dp_wallclock
+INCEPTION_BATCH, INCEPTION_STEPS = 16, 3       # 17d
+SEARCH_BOUND = 1e-5             # 17c, 17d: relative to one rank's
+
+
+def llama_train_build(ff, config, layers=LAYERS):
+    """LLaMA-2-7B's decoder as a training graph at ``config.batch_size``
+    x ``LLAMA_TRAIN_SEQ`` tokens (17a's third PCG: the training MHA with
+    a causal mask stands for the rotary serving attention)."""
+    b = config.batch_size
+    m = ff.FFModel(config)
+    tokens = m.create_tensor([b, LLAMA_TRAIN_SEQ], ff.DataType.DT_INT32)
+    h = m.embedding(tokens, VOCAB, HIDDEN, name="embed_tokens")
+    for i in range(layers):
+        x = m.rms_norm(h, dim=HIDDEN, name=f"layers.{i}.input_layernorm")
+        a = m.multihead_attention(x, x, x, embed_dim=HIDDEN, num_heads=HEADS,
+                                  bias=False, causal=True,
+                                  name=f"layers.{i}.self_attn")
+        h = m.add(h, a, name=f"layers.{i}.attn_residual")
+        x = m.rms_norm(h, dim=HIDDEN,
+                       name=f"layers.{i}.post_attention_layernorm")
+        g = m.dense(x, INTER, use_bias=False, name=f"layers.{i}.mlp.gate_proj")
+        u = m.dense(x, INTER, use_bias=False, name=f"layers.{i}.mlp.up_proj")
+        d = m.dense(m.sigmoid_silu_multi(g, u, name=f"layers.{i}.mlp.act"),
+                    HIDDEN, use_bias=False, name=f"layers.{i}.mlp.down_proj")
+        h = m.add(h, d, name=f"layers.{i}.mlp_residual")
+    logits = m.dense(m.rms_norm(h, dim=HIDDEN, name="norm"), VOCAB,
+                     use_bias=False, name="lm_head")
+    m.softmax(m.reshape(logits, [b * LLAMA_TRAIN_SEQ, VOCAB]))
+    return m
+
+
+def search_model(ff, name):
+    """17a's model ``name`` as a graph on the host (nothing allocated),
+    in phase 11's bf16 compute, with 17a's search settings."""
+    batch, build = {
+        "BERT-large": (BERT_BATCH, lambda c: bert_build(ff, c)),
+        "ResNet-50": (RESNET_BATCH, lambda c: resnet_build(
+            ff, c, RESNET_IMG, 1000, RESNET_STAGES)),
+        "LLaMA-2-7B": (LARGE_BATCH, lambda c: llama_train_build(ff, c)),
+    }[name]
+    return build(ff.FFConfig(batch_size=batch, device="cpu",
+                             compute_dtype="bfloat16", search_mesh=True,
+                             search_chip=SEARCH_CHIP, search_profile=False,
+                             **SEARCH_KW))
+
+
+def search_one(name, n):
+    """One of 17a's searches, in a worker process: ``optimize_model`` of
+    ``name`` at ``n`` GPUs with ``search_mesh``, and data parallelism's
+    analytic step beside it. Returns (report, the strategy's JSON)."""
+    import collections
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.search import (data_parallel_model_strategy,
+                                           optimize_model)
+
+    m = search_model(ff, name)
+    t = time.perf_counter()
+    st = optimize_model(m, chip=SEARCH_CHIP, num_devices=n, search_mesh=True)
+    secs = time.perf_counter() - t
+    dp = data_parallel_model_strategy(m, chip=SEARCH_CHIP, num_devices=n)
+    if not st.ops or len(st.ops) != len(m.layers) or not st.cost > 0:
+        raise AssertionError(f"17a {name} at {n}: the strategy does not "
+                             f"cover the layers")
+    dp_cost = dp.cost if dp is not None else None
+    if dp_cost is not None and st.cost > dp_cost * 1.0001:
+        raise AssertionError(f"17a {name} at {n}: the search lost to data "
+                             f"parallelism")
+    return dict(seconds=secs, layers=len(m.layers),
+                mesh={a: d for a, d in (st.axis_degrees or {}).items()
+                      if d > 1},
+                cost_s=st.cost, dp_cost_s=dp_cost,
+                peak_bytes=st.peak_memory,
+                candidates=dict(collections.Counter(
+                    op.name for op in st.ops.values()))), st.to_json()
+
+
+def search_pcgs(card):
+    """17a: ``optimize_model`` at full width and depth on the host, under
+    the H100/NVLink machine model, at each of ``SEARCH_GPUS`` with
+    ``search_mesh``; the searches run ``SEARCH_WORKERS`` at a time, each
+    in a process of its own. Returns ({model: {gpus: report}}, {model:
+    {gpus: strategy}})."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    from flexflow_tpu_torch.search import Strategy
+
+    names = ("BERT-large", "ResNet-50", "LLaMA-2-7B")
+    t = time.perf_counter()
+    with ProcessPoolExecutor(SEARCH_WORKERS, mp_context=multiprocessing
+                             .get_context("spawn")) as pool:
+        # the longest searches (most GPUs, LLaMA-2-7B) first
+        jobs = {(name, n): pool.submit(search_one, name, n)
+                for n in sorted(SEARCH_GPUS, reverse=True)
+                for name in reversed(names)}
+        done = {key: job.result() for key, job in jobs.items()}
+    wall = time.perf_counter() - t
+    report, kept = {}, {}
+    for name in names:
+        report[name], kept[name] = {}, {}
+        for n in SEARCH_GPUS:
+            r, js = done[name, n]
+            dp = r["dp_cost_s"]
+            log(f"  17a {name} ({r['layers']} layers), {n} "
+                f"GPU{'s' if n > 1 else ''}: searched in "
+                f"{r['seconds']:.2f} s; mesh {r['mesh'] or {'data': 1}}; "
+                f"analytic step {r['cost_s'] * 1e3:.3f} ms vs data parallel "
+                f"{'%.3f ms' % (dp * 1e3) if dp else 'none'}; peak "
+                f"{r['peak_bytes'] / 1e9:.2f} GB a GPU; candidates "
+                f"{r['candidates']}  [{card}]")
+            report[name][n] = r
+            kept[name][n] = Strategy.from_json(js)
+    log(f"  17a: {len(done)} searches in {wall:.1f} s of wall time, "
+        f"{SEARCH_WORKERS} at a time  [{card}]")
+    report["wall_s"] = wall
+    return report, kept
+
+
+def measured_vs_analytic(torch, card, model, strategy, n=2,
+                         device="cuda"):
+    """17b: ``CostModel.measure_node`` on the card at every distinct (op,
+    shapes, spec) key of the search at ``n`` GPUs over ``model``'s PCG:
+    every node's candidates under every mesh factorization the search
+    scored (``search_mesh``), and the adopted strategy's own. Measured
+    ms beside the analytic roofline's by op type, the range of the
+    ratio, and the count of analytic fallbacks."""
+    from flexflow_tpu_torch.search import CostModel, MachineModel, PCG
+
+    pcg = PCG.from_model(model)
+    one = {"data": 1, "model": 1, "expert": 1, "seq": 1}
+    factorizations = [one]
+    for d in range(1, n + 1):
+        for extra in ("seq", "model"):
+            cand = dict(one, data=d, **{extra: n // d})
+            if n % d == 0 and cand not in factorizations:
+                factorizations.append(cand)
+    machine = MachineModel.from_name(SEARCH_CHIP, n)
+    adopted = dict(strategy.axis_degrees or one)
+    t = time.perf_counter()
+    records, fallbacks = [], 0
+    for axes in factorizations:
+        cm = CostModel(machine, axes, training=True, device=device,
+                       compute_dtype=model.config.compute_dtype)
+        for node in pcg.nodes:
+            cands = list(node.candidates(axes))
+            if axes == adopted and node.name in strategy.ops:
+                cands.append(strategy.ops[node.name])
+            for st in cands:
+                cm.measure_node(node, st)
+        records += list(cm.profile_records.values())
+        fallbacks += cm.profile_fallbacks
+    secs = time.perf_counter() - t
+    by_op = {}
+    lo, hi = (float("inf"), None), (0.0, None)
+    for r in records:
+        agg = by_op.setdefault(r["op"], {"keys": 0, "measured_ms": 0.0,
+                                         "analytic_ms": 0.0, "fallbacks": 0})
+        agg["keys"] += 1
+        agg["analytic_ms"] += r["analytic_s"] * 1e3
+        if r["measured_s"] is None:
+            agg["fallbacks"] += 1
+            continue
+        agg["measured_ms"] += r["measured_s"] * 1e3
+        ratio = r["measured_s"] / r["analytic_s"]
+        at = f"{r['node']} ({r['op']}, {r['strategy']})"
+        lo = min(lo, (ratio, at))
+        hi = max(hi, (ratio, at))
+    for op, agg in sorted(by_op.items()):
+        log(f"  17b {op}: {agg['keys']} keys, measured "
+            f"{agg['measured_ms']:.4f} ms vs analytic "
+            f"{agg['analytic_ms']:.4f} ms (ratio "
+            f"{agg['measured_ms'] / max(agg['analytic_ms'], 1e-12):.2f}); "
+            f"fallbacks {agg['fallbacks']}  [{card}]")
+    log(f"  17b: {len(records)} keys over {len(factorizations)} mesh "
+        f"factorizations in {secs:.1f} s; measured/analytic from "
+        f"{lo[0]:.4f} ({lo[1]}) to {hi[0]:.2f} ({hi[1]}); analytic "
+        f"fallbacks {fallbacks}  [{card}]")
+    if not records or fallbacks == len(records):
+        raise AssertionError("17b measured no op on the card")
+    return dict(keys=len(records), seconds=secs, by_op=by_op,
+                ratio_min=lo[0], ratio_min_at=lo[1], ratio_max=hi[0],
+                ratio_max_at=hi[1], fallbacks=fallbacks)
+
+
+def _check_rest_shapes(model, result):
+    """Each of a rank's weights is the slice its layer's weight_specs (or
+    the op's own split) names on the rank's mesh."""
+    from flexflow_tpu_torch.parallel.mesh import Mesh
+    from flexflow_tpu_torch.parallel.placement import rest_dims
+    from flexflow_tpu_torch.parallel.spec import ShardingPolicy
+    from flexflow_tpu_torch.search.strategy import Strategy
+
+    st = Strategy.from_json(result["strategy"])
+    mesh = Mesh(tuple(result["mesh"].values()) or (1,),
+                tuple(result["mesh"]) or ("data",))
+    policy = ShardingPolicy(mesh)
+    n = 0
+    for layer in model.layers:
+        for w in layer.weights:
+            sh = policy.weight_sharding(
+                w.shape, rest_dims(w, st.ops.get(layer.name)),
+                w.shard_multiples)
+            want = [d // mesh.axis_size(a) if a else d
+                    for d, a in zip(w.shape, tuple(sh.spec) + (None,) * 8)]
+            got = result["weight_shapes"][f"{layer.name}/{w.name}"]
+            if got != want:
+                raise AssertionError(f"{layer.name}/{w.name}: rank holds "
+                                     f"{got}, its spec names {want}")
+            n += 1
+    return n
+
+
+def searched_training(torch, card, work, device="cuda"):
+    """17c: BERT-large widths cut to CUT_LAYERS, batch CUT_BATCH, fp32,
+    compiled with ``auto_parallel`` and ``search_mesh`` on 2 ranks sharing
+    the card (gloo), from one rank's weights: losses against one rank's,
+    each rank's weight slices against its specs, and the measured A/B."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.parallel import rank_jobs
+    from flexflow_tpu_torch.parallel.launch import run_ranks
+
+    me = os.path.abspath(__file__)
+    rng = np.random.default_rng(17)
+    data = os.path.join(work, "bert.npz")
+    np.savez(data, x0=rng.integers(0, BERT_VOCAB, (AUTO_STEPS, CUT_BATCH,
+                                                   BERT_SEQ), dtype=np.int32),
+             y=rng.integers(0, BERT_VOCAB, (AUTO_STEPS, CUT_BATCH * BERT_SEQ,
+                                            1), dtype=np.int32))
+    init = bert_build(ff, ff.FFConfig(batch_size=CUT_BATCH, seed=7,
+                                      device="cpu"), CUT_LAYERS)
+    train_compile(init, "sgd")
+    weights = os.path.join(work, "bert.pt")
+    torch.save({ln: {w: p.detach().clone() for w, p in lp.items()}
+                for ln, lp in init.params.items()}, weights)
+    search = dict(auto_parallel=True, search_mesh=True,
+                  search_chip=SEARCH_CHIP, **SEARCH_KW)
+    base = dict(builder=f"{me}:bert_build",
+                builder_kw={"layers": CUT_LAYERS},
+                optimizer=["sgd", {"lr": TRAIN_LR}], data=data,
+                weights=weights)
+    auto = dict(base, name="auto", config=dict(batch_size=CUT_BATCH, seed=7,
+                                               **search))
+    ab = dict(builder=f"{me}:bert_build", builder_kw={"layers": CUT_LAYERS},
+              config=dict(batch_size=CUT_BATCH, seed=7,
+                          search_chip=SEARCH_CHIP, **SEARCH_KW),
+              data=data, chip=SEARCH_CHIP, steps=AB_STEPS, reps=AB_REPS)
+    t = time.perf_counter()
+    res = run_ranks("flexflow_tpu_torch.parallel.rank_jobs:search_ab", 2,
+                    {"device": device, "tf32": False, "runs": [auto],
+                     "ab": ab}, workdir=os.path.join(work, "w2"),
+                    timeout=PAR_TIMEOUT, device=device)
+    secs = time.perf_counter() - t
+    one = rank_jobs.train({"device": device, "tf32": False, "runs": [dict(
+        base, name="one", config=dict(batch_size=CUT_BATCH, seed=7))]})[0]
+    ranks = [r["runs"][0] for r in res]
+    err = _rel(ranks[0]["losses"], one["losses"])
+    shapes = sum(_check_rest_shapes(init, r) for r in ranks)
+    st = json.loads(ranks[0]["strategy"])
+    names = sorted({op["name"] for op in st["ops"].values()})
+    log(f"  17c: 2 ranks in {secs:.1f} s; adopted mesh {ranks[0]['mesh']} "
+        f"(axis_degrees {st.get('axis_degrees')}); candidates {names}; "
+        f"losses {[round(x, 6) for x in ranks[0]['losses']]} vs one rank "
+        f"{[round(x, 6) for x in one['losses']]}: worst relative "
+        f"{err:.2e} (bound {SEARCH_BOUND}); {shapes} weight slices as "
+        f"their specs name  [{card}]")
+    ab_res = res[0]["ab"]
+    log(f"  17c searched_vs_dp_wallclock (two ranks on ONE card, gloo "
+        f"through the host: a structural check, not a parallel speed): "
+        + "; ".join(f"{v}: analytic {d['analytic'] * 1e3:.3f} ms, wall "
+                    f"{d['wallclock'] * 1e3:.1f} ms a step"
+                    for v, d in ab_res.items()) + f"  [{card}]")
+    if err > SEARCH_BOUND:
+        raise AssertionError(f"17c losses {err:.2e} from one rank's")
+    if any(r["losses"] != ranks[0]["losses"] for r in ranks[1:]):
+        raise AssertionError("17c ranks read different losses")
+    return dict(seconds=secs, mesh=ranks[0]["mesh"], candidates=names,
+                losses=ranks[0]["losses"], one_rank=one["losses"],
+                rel_err=err, weight_slices=shapes, ab=ab_res)
+
+
+def branch_training(torch, card, work, device="cuda"):
+    """17d: the four-branch inception block at data=4 on 4 ranks sharing
+    the card (gloo), with the branch strategy that
+    ``tests/test_measured_ab.py:86-124`` builds (on the H100 model):
+    the plan has a region, the region runs on its ranks, and the losses
+    and last-step gradients equal one rank's sequential walk."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.parallel import rank_jobs
+    from flexflow_tpu_torch.parallel.launch import load_target, run_ranks
+    from flexflow_tpu_torch.search import (CostModel, MachineModel, PCG,
+                                           UnitySearch)
+    from flexflow_tpu_torch.search.graph_search import expand_strategy
+
+    builder = os.path.join(HERE, "tests", "torch_rank_jobs.py:inception")
+    cfg = dict(batch_size=INCEPTION_BATCH, seed=7)
+    m = load_target(builder)(ff, ff.FFConfig(device="cpu", **cfg))
+    pcg = PCG.from_model(m)
+    axes = {"data": 4, "model": 1}
+    cm = CostModel(MachineModel.from_name(SEARCH_CHIP, 4), axes,
+                   training=True, branch_concurrency=True)
+    s = UnitySearch(pcg, cm, axes,
+                    enable_substitutions=False).optimize_graph(pcg)
+    tagged = sum(1 for st in s.ops.values() if st.branch)
+    strategy = expand_strategy(pcg, s)
+    train_compile(m, "sgd")
+    weights = os.path.join(work, "inception.pt")
+    torch.save({ln: {w: p.detach().clone() for w, p in lp.items()}
+                for ln, lp in m.params.items()}, weights)
+    rng = np.random.default_rng(23)
+    data = os.path.join(work, "inception.npz")
+    np.savez(data, x0=rng.standard_normal(
+        (INCEPTION_STEPS, INCEPTION_BATCH, 32, 8, 8), dtype=np.float32),
+        y=rng.integers(0, 10, (INCEPTION_STEPS, INCEPTION_BATCH, 1),
+                       dtype=np.int32))
+    base = dict(builder=builder, optimizer=["sgd", {"lr": TRAIN_LR}],
+                data=data, weights=weights)
+    t = time.perf_counter()
+    res = run_ranks("flexflow_tpu_torch.parallel.rank_jobs:train", 4,
+                    {"device": device, "tf32": False, "runs": [dict(
+                        base, name="branch", strategy=strategy.to_json(),
+                        config=dict(cfg, data_parallelism_degree=4),
+                        grads_out=os.path.join(work, "branch.npz"))]},
+                    workdir=os.path.join(work, "w4"), timeout=PAR_TIMEOUT,
+                    device=device)
+    secs = time.perf_counter() - t
+    one = rank_jobs.train({"device": device, "tf32": False, "runs": [dict(
+        base, name="one", config=cfg,
+        grads_out=os.path.join(work, "one.npz"))]})[0]
+    ranks = [r[0] for r in res]
+    err = _rel(ranks[0]["losses"], one["losses"])
+    gb = dict(np.load(os.path.join(work, "branch.npz")))
+    g1 = dict(np.load(os.path.join(work, "one.npz")))
+    gerr = max(float(np.abs(gb[k] - g1[k]).max())
+               / max(float(np.abs(g1[k]).max()), 1e-12) for k in g1)
+    log(f"  17d: {tagged} ops tagged, {ranks[0]['branch_regions']} region "
+        f"planned; 4 ranks in {secs:.1f} s; losses worst relative {err:.2e},"
+        f" gradients worst (of each tensor's largest) {gerr:.2e} vs one "
+        f"rank's sequential walk (bound {SEARCH_BOUND})  [{card}]")
+    if not tagged or any(r["branch_regions"] != 1 for r in ranks):
+        raise AssertionError("17d: no branch region planned")
+    if err > SEARCH_BOUND or gerr > SEARCH_BOUND or set(gb) != set(g1):
+        raise AssertionError(f"17d: the branch plan's losses ({err:.2e}) "
+                             f"or gradients ({gerr:.2e}) differ")
+    return dict(seconds=secs, tagged=tagged, rel_err=err, grad_err=gerr)
+
+
+PHASE8_INCR = {}        # phase 8's incremental tokens, for 17e
+
+
+def searched_serving(torch, card):
+    """17e: phase 8's model compiled with ``auto_parallel`` on the one
+    card: the incremental tokens against phase 8's, K1/K2/K3 launched and
+    no plain call."""
+    import numpy as np
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, VOCAB, PROMPT_LEN).tolist()
+               for _ in range(REQUESTS)]
+    want = PHASE8_INCR.get("tokens")
+    if want is None:            # phase 8 did not run: its model, plainly
+        llm, _ssm, _ = headline_int8(torch)
+        want = timed_pass(torch, card, prompts,
+                          lambda rm: rm.generate_incr_decoding(llm.ffmodel),
+                          NEW_TOKENS, "17e reference (phase 8's model)")[0]
+        del llm, _ssm
+        gc.collect()
+    t = time.perf_counter()
+    llm, _ssm, secs = headline_int8(
+        torch, auto_parallel=True, search_chip=SEARCH_CHIP, **SEARCH_KW)
+    search_s = time.perf_counter() - t
+    m = llm.ffmodel
+    names = sorted({op.name for op in m.strategy.ops.values()})
+    got, _tps, counts, _ = timed_pass(
+        torch, card, prompts, lambda rm: rm.generate_incr_decoding(m),
+        NEW_TOKENS, "17e int8 incremental, auto_parallel")
+    same = matches(got, want, NEW_TOKENS)
+    log(f"  17e: compile with the search {search_s:.1f} s; strategy over "
+        f"{len(m.strategy.ops)} layers, candidates {names}; tokens equal to "
+        f"phase 8's {same}/{REQUESTS}; launches {counts}  [{card}]")
+    if same != REQUESTS:
+        raise AssertionError(f"17e: {same}/{REQUESTS} requests give phase "
+                             f"8's tokens")
+    if not (counts["flash_attend"] and counts["flash_attend_append"]
+            and counts["qmatmul"]) or counts["plain_attend_cuda"] \
+            or counts["qmatmul_plain_cuda"]:
+        raise AssertionError(f"17e launch counts {counts}")
+    del llm, _ssm, m
+    gc.collect()
+    return counts, dict(seconds=search_s, candidates=names, matches=same)
+
+
+def costed_dot(torch, card, work, model, strategy, device="cuda"):
+    """17f: BERT-large compiled (inference, on the card) with
+    ``include_costs_dot_graph`` and ``export_strategy_file``, and
+    ``pcg_to_dot`` of its PCG under 17a's 2-GPU strategy with those
+    costs."""
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.search import PCG
+    from flexflow_tpu_torch.utils.dot import pcg_to_dot
+
+    path = os.path.join(work, "bert_large.dot")
+    m = bert_build(ff, ff.FFConfig(
+        batch_size=BERT_BATCH, search_chip=SEARCH_CHIP, device=device,
+        export_strategy_file=path, include_costs_dot_graph=True))
+    m.compile()
+    text = open(path).read()
+    costs = m._estimate_layer_costs()
+    pcg_text = pcg_to_dot(PCG.from_model(model), strategy=strategy,
+                          costs=costs)
+    with open(os.path.join(work, "bert_large_pcg.dot"), "w") as f:
+        f.write(pcg_text)
+    nodes = text.count("[label=") - len(m.input_tensors)
+    costed = text.count("cost: ")
+    pcg_nodes = pcg_text.count("[label=")
+    log(f"  17f: compile's dot {nodes} layer nodes, {costed} with a cost; "
+        f"pcg_to_dot {pcg_nodes} nodes, {pcg_text.count('cost: ')} with a "
+        f"cost, {pcg_text.count('spec: ')} with a spec  [{card}]")
+    if not nodes or costed != nodes or pcg_text.count("cost: ") != pcg_nodes:
+        raise AssertionError("17f: a node without its cost")
+    del m
+    gc.collect()
+    return dict(nodes=nodes, costed=costed, pcg_nodes=pcg_nodes)
+
+
+def search_phase(torch, card, work):
+    """Phase 17: the Unity search. 17a on the host, 17b-17f on the card;
+    returns (17e's launch counts, the report). A failed gate raises."""
+    import flexflow_tpu_torch as ff
+
+    t_phase = time.perf_counter()
+    report = {}
+    log(f"phase 17a: the search at full width on the host, {SEARCH_CHIP} "
+        f"machine model, {list(SEARCH_GPUS)} GPUs, search_mesh, budget "
+        f"{SEARCH_KW['search_budget']}, deadline "
+        f"{SEARCH_KW['search_deadline_s']} s  [{card}]")
+    report["17a"], kept = search_pcgs(card)
+    bert, bert_st = search_model(ff, "BERT-large"), kept["BERT-large"]
+    log(f"phase 17b: the profiled re-rank's op timings on the card, 17a's "
+        f"BERT-large at 2 GPUs (bf16 compute, fp32 weights, as phase 11 "
+        f"trains it)  [{card}]")
+    report["17b"] = measured_vs_analytic(torch, card, bert, bert_st[2])
+    gc.collect()
+    log(f"phase 17c: auto_parallel training, BERT-large widths, "
+        f"{CUT_LAYERS} layers, batch {CUT_BATCH}, fp32, 2 ranks sharing the "
+        f"card  [{card}]")
+    report["17c"] = searched_training(torch, card, work)
+    gc.collect()
+    log(f"phase 17d: the branch plan, the inception block at data=4, batch "
+        f"{INCEPTION_BATCH}, 4 ranks sharing the card  [{card}]")
+    report["17d"] = branch_training(torch, card, work)
+    gc.collect()
+    log(f"phase 17e: phase 8's model (LLaMA-2-7B geometry, int8) compiled "
+        f"with auto_parallel on one card  [{card}]")
+    counts, report["17e"] = searched_serving(torch, card)
+    log(f"phase 17f: the cost-annotated dot, BERT-large  [{card}]")
+    report["17f"] = costed_dot(torch, card, work, bert, bert_st[2])
+    report["seconds"] = time.perf_counter() - t_phase
+    log(f"  phase 17: {report['seconds']:.1f} s  [{card}]")
+    return counts, report
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -6265,6 +6775,17 @@ def main(argv=None) -> int:
             f"builder, the dot export  [{card}]")
         by_path["frontends"], front = frontends_phase(torch, card)
         log(json.dumps({"frontends_phase": front}))
+        gc.collect()
+    if 17 in phases:
+        import tempfile
+
+        log(f"phase 17: the Unity search: PCGs at full width, the profiled "
+            f"re-rank, searched strategies on ranks, the branch plan, "
+            f"serving under auto_parallel, the costed dot  [{card}]")
+        with tempfile.TemporaryDirectory() as tmp:
+            by_path["auto_parallel"], searched = search_phase(torch, card,
+                                                              tmp)
+        log(json.dumps({"search_phase": searched}))
         gc.collect()
     for r in rows:
         # each kernel's launches on the path it serves: K1 (prefill) and

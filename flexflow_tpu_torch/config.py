@@ -1,8 +1,14 @@
 """FFConfig of the PyTorch/CUDA port: the training batch and epochs, the
 parallelism degrees and mesh, and the serving, offload, quantization,
-fusion, telemetry and host-side fields of ``flexflow_tpu.config.FFConfig``,
-plus ``device`` and ``use_kernels``, and ``remat``. There is no
-``auto_parallel``: the Unity search is not ported.
+fusion, telemetry, host-side and search fields of
+``flexflow_tpu.config.FFConfig``, plus ``device`` and ``use_kernels``, and
+``remat``.
+
+``auto_parallel=True`` runs the Unity search (``search/``) at ``compile``
+over the ranks of the process group, costed on ``search_chip``'s machine
+model (``"h100-sxm"`` for the card, ``"cpu-sim"``, the default, for
+tests), and executes the strategy it finds; ``search_mesh`` lets it pick
+the mesh factorization too.
 
 The parallelism degrees lay a mesh over the ranks of the process group
 (``parallel/mesh.py``): each rank is one process, started by torchrun or
@@ -50,14 +56,57 @@ class FFConfig:
     # an explicit mesh overrides the degree-derived one
     mesh_shape: Optional[Sequence[int]] = None
     mesh_axis_names: Sequence[str] = ("data", "model")
+    # cluster geometry for the search: ranks in all (None: the process
+    # group's world size) and nodes they span (groups larger than a node
+    # pay the inter-node network)
+    num_devices: Optional[int] = None
+    num_nodes: int = 1
+
+    # --- auto-parallelization search (reference config.h:131-143; the JAX
+    # package's fields and defaults). auto_parallel=True runs the Unity
+    # search at compile() and executes the strategy it finds; a strategy
+    # set on the model before compile is kept. ---
+    auto_parallel: bool = False
+    # the cost model's chip (search/machine_model.py GPU_CHIPS):
+    # "h100-sxm" | "cpu-sim"
+    search_chip: str = "cpu-sim"
+    only_data_parallel: bool = False
+    search_budget: int = -1
+    search_alpha: float = 1.2
+    # accepted as the JAX package's config accepts it; nothing reads it
+    search_overlap_backward_update: bool = False
+    substitution_json_path: Optional[str] = None
+    # joint search: interleave algebraic GraphXfer rewrites with the
+    # parallelization DP (reference GraphSearchHelper::base_optimize)
+    enable_substitutions: bool = True
+    # default substitution vocabulary: the packaged full JSON rule file
+    # (search/substitutions/); False keeps the 5 builtin rules. An explicit
+    # substitution_json_path wins over both
+    use_json_rules: bool = True
+    # wall-clock bound (seconds) on each joint rewrite loop; 0 = unbounded
+    search_deadline_s: float = 60.0
+    # profiled re-rank of the top strategies with the ops timed on the
+    # model's device (reference Op::measure_operator_cost). None = on when
+    # the model lives on the card, off on the CPU
+    search_profile: Optional[bool] = None
+    # also search the mesh factorization (every data x model and data x
+    # seq split of the ranks); compile adopts the winning degrees
+    search_mesh: bool = False
+    # memory-aware search (reference graph.cc:2126 lambda binary search):
+    # accepted as the JAX package's config accepts it; nothing reads it
+    # (the search grows its memory lambda on its own, graph_search.py)
+    mem_search_budget: int = -1
+    # inter-node fabric for the cost model: a search.network
+    # NetworkTopology over the num_nodes nodes
+    dcn_topology: Optional[object] = None
 
     # where the model's parameters, KV caches and activations live
     device: str = "cuda"
     # the layer graph as Graphviz dot, written at compile (the reference's
     # --export-strategy-computation-graph-file; utils/dot.py)
     export_strategy_file: str = ""
-    # cost fields in that graph need the search's cost model, which is not
-    # ported yet: compile raises when this is set
+    # add each layer's estimated forward seconds (the search's cost model
+    # on search_chip) to that graph
     include_costs_dot_graph: bool = False
     # training: recompute each layer's forward in the backward instead of
     # keeping its activations (torch.utils.checkpoint; core/model.py)
@@ -130,6 +179,19 @@ class FFConfig:
     def __post_init__(self):
         self.quantization_type = normalize_qtype(self.quantization_type)
 
+    def resolve_num_devices(self) -> int:
+        """``num_devices``, else the process group's world size (started,
+        or named by ``WORLD_SIZE``), else 1."""
+        if self.num_devices is not None:
+            return self.num_devices
+        import os
+
+        import torch.distributed as dist
+
+        if dist.is_available() and dist.is_initialized():
+            return dist.get_world_size()
+        return int(os.environ.get("WORLD_SIZE", 1))
+
     @property
     def total_parallelism_degree(self) -> int:
         return (self.data_parallelism_degree
@@ -146,11 +208,11 @@ class FFConfig:
                   **overrides) -> "FFConfig":
         """An FFConfig from the JAX package's command-line flags; unknown
         flags are ignored (``parse_known_args``), as there. The training
-        hyperparameters (``--lr``, ``--wd``), the device count and the
-        Unity search flags are accepted and not stored: the port sets the
-        learning rate on its optimizer and has no search. The parallelism
-        degrees and ``--offload`` are stored. ``overrides`` set fields
-        after parsing (``device``, for one)."""
+        hyperparameters (``--lr``, ``--wd``) are accepted and not stored:
+        the port sets the learning rate on its optimizer. The device and
+        node counts, the parallelism degrees, the Unity search flags and
+        ``--offload`` are stored. ``overrides`` set fields after parsing
+        (``device``, for one)."""
         p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
         p.add_argument("-b", "--batch-size", type=int, default=64)
         p.add_argument("-e", "--epochs", type=int, default=1)
@@ -196,6 +258,10 @@ class FFConfig:
                       args.pipeline_parallelism_degree),
                   sequence_parallelism_degree=(
                       args.sequence_parallelism_degree),
+                  num_devices=args.num_devices, num_nodes=args.nodes,
+                  only_data_parallel=args.only_data_parallel,
+                  search_budget=args.search_budget,
+                  search_alpha=args.search_alpha,
                   cpu_offload=args.cpu_offload)
         kw.update(overrides)
         return cls(**kw)

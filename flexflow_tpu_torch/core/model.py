@@ -46,9 +46,17 @@ recomputes each layer's forward in the backward. ``training/checkpoint.py``
 saves and resumes the whole training state; ``recompile_on_condition``
 (``core/recompile.py``) rebuilds the model keeping its weights.
 
-There is no strategy search or branch plan in the port yet:
-``strategy`` stays None. ``export_dot`` (``utils/dot.py``) writes the
-layer graph; ``FFConfig.export_strategy_file`` writes it at compile.
+The Unity search: with ``config.auto_parallel`` ``compile`` runs
+``search.optimize_model`` (rank 0 searches, the others take its result)
+and keeps the strategy in ``strategy``; a strategy set before compile is
+kept as it is. A strategy's ``axis_degrees`` become the degrees the mesh
+is laid with. Each weight rests sliced by its layer's ``weight_specs``
+and each layer's output is moved to its ``output_spec``
+(``parallel/placement.py``); fork-join branches tagged by the search run
+on their own ranks (``core/branch_exec.py``). ``export_dot``
+(``utils/dot.py``) writes the layer graph; ``FFConfig.export_strategy_file``
+writes it at compile, with each layer's estimated seconds under
+``include_costs_dot_graph`` (``_estimate_layer_costs``).
 """
 
 from __future__ import annotations
@@ -143,9 +151,14 @@ class FFModel:
         # (parallel/placement.Walk) and the gradient all-reduce
         self._walk = None
         self._grad_reducer = None
-        # the search's per-op strategy (utils/dot.py reads it); the port
-        # has no search, so it stays None
+        # the search's per-op strategy (search/strategy.py Strategy): set
+        # by compile under auto_parallel, or by the caller before compile;
+        # compile turns it into the plan the graph walk executes
+        # (parallel/placement.StrategyPlan) and the branch regions
+        # (core/branch_exec.BranchPlan)
         self.strategy = None
+        self._strategy_plan = None
+        self._branch_plan = None
         # a train step's dropout draws (the JAX package's self._rng)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(self.config.seed)
@@ -758,6 +771,17 @@ class FFModel:
             attrs = layer.attrs
         ctx.layer_name = layer.name
         lp = params.get(layer.name, {})
+        plan = self._strategy_plan
+        if plan is not None and layer.name in plan.weights:
+            # weights resting in a searched layout the forward does not
+            # take: brought to the form it does (placement.reshard)
+            from flexflow_tpu_torch.parallel.placement import reshard
+
+            lp = dict(lp)
+            for w, (src, dst) in plan.weights[layer.name].items():
+                lp[w] = reshard(lp[w], self.mesh, src, dst)
+        if plan is not None and layer.name in plan.attrs:
+            attrs = dict(attrs, **plan.attrs[layer.name])
         if layer.name in self._offloaded:
             # paged weights stream back first, still compressed
             from flexflow_tpu_torch.offload import fetch_layer_params
@@ -813,6 +837,12 @@ class FFModel:
         return self.mesh is not None and (self.mesh.axis_size("data") > 1
                                           or self.mesh.axis_size("seq") > 1)
 
+    def _walks(self) -> bool:
+        """Does a train or eval forward take the placement walk
+        (``_run_split``): a mesh that splits the batch, or a searched
+        strategy on a mesh?"""
+        return self._splits_batch() or self._strategy_plan is not None
+
     def _run_graph(self, params, feeds: Dict[int, Any], ctx: OpContext,
                    state: Optional[Dict[str, Any]] = None):
         """Walk the layer list (creation order is topological order)
@@ -835,7 +865,7 @@ class FFModel:
             ctx.state_in = state or {}
             ctx.state_out = {}
             with use_kernels(self.config.use_kernels):
-                if self._splits_batch() and ctx.batch_config is None:
+                if self._walks() and ctx.batch_config is None:
                     self._run_split(params, values, ctx)
                 else:
                     for layer in self.layers:
@@ -848,10 +878,12 @@ class FFModel:
         return values, new_state
 
     def _run_split(self, params, values: Dict[int, Any], ctx: OpContext):
-        """The walk of a mesh that splits the batch: each batch input
-        keeps this rank's part, and every layer runs on the part its
-        inputs' placements allow (parallel/placement.py); ``self._walk``
-        keeps the placements for the loss and the gradient sums."""
+        """The walk of a mesh that splits the batch or executes a searched
+        strategy: each batch input keeps this rank's part, every layer
+        runs on the part its inputs' placements allow, and a layer's
+        output moves to its searched spec (parallel/placement.py);
+        ``self._walk`` keeps the placements for the loss and the
+        gradient sums."""
         from flexflow_tpu_torch.parallel.collectives import split
         from flexflow_tpu_torch.parallel.placement import (Walk, feed_place,
                                                            local_attrs)
@@ -864,11 +896,40 @@ class FFModel:
                     values[t.tensor_id] = split(values[t.tensor_id],
                                                 self.mesh, axis, d)
                 walk.places[t.tensor_id] = place
-        for layer in self.layers:
+        outputs = (self._strategy_plan.outputs
+                   if self._strategy_plan is not None else {})
+        branches = self._branch_plan
+
+        def run(layer):
             ins, active, ctx.row_shards = walk.layer_inputs(layer, values)
             self._apply_layer(layer, params, values, ctx, ins=ins,
                               attrs=local_attrs(layer, active, self.mesh))
             walk.record(layer, active)
+            if layer.name in outputs:
+                walk.place_output(layer, values, outputs[layer.name])
+
+        for layer in self.layers:
+            if branches is not None:
+                if layer.name in branches.skip:
+                    continue            # runs inside its branch region
+                region = branches.by_join.get(layer.name)
+                if region is not None:
+                    from flexflow_tpu_torch.core.branch_exec import \
+                        run_branch_region
+
+                    ctx.row_shards = {}
+                    if run_branch_region(self, region, params, values,
+                                         ctx, walk):
+                        if layer.name in outputs:
+                            walk.place_output(layer, values,
+                                              outputs[layer.name])
+                        continue
+                    # the batch does not split over a branch's ranks: the
+                    # branches run in turn, then the join
+                    for chain in region.chains:
+                        for ly in chain:
+                            run(ly)
+            run(layer)
         ctx.row_shards = {}
         self._walk = walk
 
@@ -902,17 +963,38 @@ class FFModel:
                          if optimizer is not None or loss_type is not None
                          else CompMode.COMP_MODE_INFERENCE)
         training = comp_mode == CompMode.COMP_MODE_TRAINING
-        if self.config.include_costs_dot_graph:
-            raise NotImplementedError(
-                "FFConfig.include_costs_dot_graph needs the search's cost "
-                "model, which is not ported yet (ROADMAP Queue A item 6); "
-                "pass costs to export_dot instead")
         dev = self.device
         self.comp_mode = comp_mode
         self._gemm_fusion_done = False
         self._offloaded = {}
         self._prefetcher = None
+        self._strategy_plan = self._branch_plan = None
+        # --- Unity-style auto-parallelization (reference model.cc:3327
+        # launches GRAPH_OPTIMIZE_TASK inside compile). A strategy the
+        # caller set before compile (e.g. a Strategy.load of an exported
+        # search result) is kept.
+        if self.config.auto_parallel:
+            from flexflow_tpu_torch import distributed
+            from flexflow_tpu_torch.search import optimize_model
+
+            # the ranks agree on one strategy: rank 0's, broadcast
+            distributed.initialize(device=str(dev))
+            self.strategy = optimize_model(
+                self, chip=self.config.search_chip, training=training)
+        if (self.strategy is not None
+                and self.strategy.axis_degrees is not None):
+            # the search explored mesh factorizations and a different one
+            # won: the mesh is laid with its degrees
+            deg = self.strategy.axis_degrees
+            self.config.data_parallelism_degree = deg.get("data", 1)
+            self.config.tensor_parallelism_degree = deg.get("model", 1)
+            self.config.expert_parallelism_degree = deg.get("expert", 1)
+            self.config.sequence_parallelism_degree = deg.get("seq", 1)
         self._setup_mesh(training)
+        if self.strategy is not None:
+            from flexflow_tpu_torch.parallel.placement import plan_strategy
+
+            self._strategy_plan = plan_strategy(self)
 
         self.op_state = {}
         for layer in self.layers:
@@ -927,10 +1009,15 @@ class FFModel:
             self._plan_and_shard_state()
         if self.config.export_strategy_file:
             # the reference's --export-strategy-computation-graph-file
+            # (and --include-costs-dot-graph, model.cc:4218)
             from flexflow_tpu_torch.utils.dot import export_model_dot
 
+            costs = None
+            if self.config.include_costs_dot_graph:
+                costs = self._estimate_layer_costs()
             export_model_dot(self, self.config.export_strategy_file,
-                             strategy=self.strategy)
+                             include_costs=self.config.include_costs_dot_graph,
+                             costs=costs, strategy=self.strategy)
 
         qtype = None if training else self.config.quantization_type
         shardings = None
@@ -1001,6 +1088,11 @@ class FFModel:
                            for kind, coeff in
                            layer.attrs.get("kernel_regularizer") or []]
         self._walk = None
+        # fork-join regions of the strategy's branch tags, run on their
+        # own ranks (core/branch_exec.py)
+        from flexflow_tpu_torch.core.branch_exec import build_branch_plan
+
+        self._branch_plan = build_branch_plan(self)
         return self
 
     # ==================================================================
@@ -1086,15 +1178,21 @@ class FFModel:
                            self.mesh.index("pipe"))
 
     def _weight_sharding(self, layer_name: str, weight_name: str):
-        """The Sharding of a weight under the mesh, or None."""
+        """The Sharding a weight rests in under the mesh (its searched
+        ``weight_specs`` entry, else its WeightSpec's: placement.rest_dims),
+        or None."""
         if self.policy is None:
             return None
+        from flexflow_tpu_torch.parallel.placement import rest_dims
+
+        st = (self.strategy.ops.get(layer_name)
+              if self.strategy is not None else None)
         for layer in self.layers:
             if layer.name == layer_name:
                 for w in layer.weights:
                     if w.name == weight_name:
                         return self.policy.weight_sharding(
-                            w.shape, w.sharding_dims, w.shard_multiples)
+                            w.shape, rest_dims(w, st), w.shard_multiples)
         return None
 
     def finalize_pipeline(self):
@@ -1204,7 +1302,7 @@ class FFModel:
         out = values[self._final_tensor.tensor_id]
         lt = self._logits_tensor
         logits = values[lt.tensor_id] if lt is not None else None
-        if self._walk is None or not self._splits_batch():
+        if self._walk is None or not self._walks():
             return out, logits, label, None
         from flexflow_tpu_torch.parallel.collectives import psum
 
@@ -1510,6 +1608,39 @@ class FFModel:
 
     def get_output_tensor(self) -> Optional[Tensor]:
         return self._final_tensor
+
+    def _estimate_layer_costs(self) -> Dict[str, float]:
+        """Per-layer forward-time estimates from the search's cost model
+        on ``config.search_chip`` (feeds ``include_costs_dot_graph``; the
+        reference attaches simulator costs to the exported graph): each
+        layer under its searched strategy, else replicated, over the
+        mesh's axes."""
+        from flexflow_tpu_torch.search.cost_model import CostModel
+        from flexflow_tpu_torch.search.machine_model import MachineModel
+        from flexflow_tpu_torch.search.pcg import PCG
+        from flexflow_tpu_torch.search.strategy import (OpStrategy,
+                                                        replicated)
+
+        pcg = PCG.from_model(self)
+        machine = MachineModel.from_name(
+            self.config.search_chip, self.config.resolve_num_devices())
+        axis_degrees = (dict(self.mesh.shape)
+                        if self.mesh is not None else {})
+        cm = CostModel(machine, axis_degrees=axis_degrees, training=False)
+        costs: Dict[str, float] = {}
+        for node in pcg.nodes:
+            st = None
+            if self.strategy is not None:
+                st = self.strategy.ops.get(node.name)
+            if st is None:
+                out_nd = len(node.output_shapes[0]) if node.output_shapes \
+                    else 1
+                st = OpStrategy(
+                    input_specs=tuple(replicated(len(s))
+                                      for s in node.input_shapes),
+                    output_spec=replicated(out_nd))
+            costs[node.name] = cm.node_compute_time(node, st).forward_time
+        return costs
 
     def export_dot(self, path: str, include_costs: bool = False,
                    costs=None) -> str:

@@ -3,7 +3,9 @@ row gather with aggregation modes NONE/SUM/AVG. A quantized table gathers
 packed rows and dequantizes only those (``quant.qtake``). Under tensor
 parallelism the table is split by columns (``sharding_dims=(None,
 "model")``) and the rows gathered from each shard are concatenated over
-the ``model`` axis."""
+the ``model`` axis. A searched strategy may split the table by rows
+instead (``tp-vocab``): each rank gathers the ids it holds, zeros the
+others, and the rows are summed over ``model``."""
 
 from __future__ import annotations
 
@@ -38,12 +40,27 @@ class Embedding(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
-        out = qtake(params["weight"], inputs[0])
+        ids = inputs[0]
+        vocab = attrs.get("vocab_parallel", False)
+        if vocab:
+            # a row shard of the table (``tp-vocab``): the ids this rank
+            # holds
+            rows = params["weight"].shape[0]
+            ids = ids - ctx.mesh.index("model") * rows
+            hit = (ids >= 0) & (ids < rows)
+            ids = ids.clamp(0, rows - 1)
+        out = qtake(params["weight"], ids)
+        if vocab:
+            out = out * hit.unsqueeze(-1).to(out.dtype)
         aggr = attrs.get("aggr", AggrMode.AGGR_MODE_NONE)
         if aggr == AggrMode.AGGR_MODE_SUM:
             out = out.sum(dim=-2)
         elif aggr == AggrMode.AGGR_MODE_AVG:
             out = out.mean(dim=-2)
+        if vocab:
+            from flexflow_tpu_torch.parallel.collectives import psum
+
+            out = psum(out, ctx.mesh, "model")
         if params["weight"].shape[1] != attrs["out_dim"]:
             from flexflow_tpu_torch.ops.linear import gather_columns
 

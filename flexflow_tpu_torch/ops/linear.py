@@ -9,7 +9,10 @@ consumer the whole output. In training the all-gather's backward keeps
 the rank's columns of the gradient, and the input's gradient, a partial
 sum over the rank's columns, is summed over the ``model`` axis
 (``collectives.sum_grads``): the JAX layout, not Megatron's
-column/row pairing.
+column/row pairing. A searched strategy may instead rest the kernel in
+row shards (``tp-row``, ``parallel/placement.py``): the rank then takes
+its slice of the input's features, and the partial products are summed
+over ``model`` before the bias.
 
 The product is ``quant.qmatmul``: a plain ``torch.matmul`` for a float
 kernel (the JAX package leaves it to XLA; no TPU kernel), the dequant-GEMM
@@ -89,11 +92,20 @@ class Linear(OpImpl):
         out_dtype = torch.float32 if attrs.get("keep_f32_logits") else None
         kernel = params["kernel"]
         sharded = kernel.shape[1] != attrs["out_dim"]
+        # a row shard (``tp-row``): this rank's features in, a partial
+        # product out
+        rows = attrs.get("row_parallel", False)
         if sharded:
             from flexflow_tpu_torch.parallel.collectives import sum_grads
 
             x = sum_grads(x, ctx.mesh, "model")
+        if rows:
+            from flexflow_tpu_torch.parallel.collectives import psum, split
+
+            x = split(x, ctx.mesh, "model", x.dim() - 1)
         y = qmatmul(x, kernel, compute_dtype, out_dtype=out_dtype)
+        if rows:
+            y = psum(y, ctx.mesh, "model")
         if attrs.get("use_bias", True):
             y = y + params["bias"].to(compute_dtype)
         y = apply_activation(y, attrs.get("activation",

@@ -154,14 +154,17 @@ class Experts(OpImpl):
         n_local = kernel.shape[0]
         sharded = n_local != attrs["num_experts"]
         first = attrs.get("experts_start_idx", 0)
+        # the axis the experts are split over: ``expert``, or the one a
+        # searched strategy names (parallel/placement.py)
+        axis = attrs.get("expert_axis", "expert")
         if sharded:
             # this rank's experts: their share of the sum, added over the
             # axis; the inputs' gradients are partial sums
             from flexflow_tpu_torch.parallel.collectives import sum_grads
 
-            first += ctx.mesh.index("expert") * n_local
-            x = sum_grads(x, ctx.mesh, "expert")
-            gates = sum_grads(gates, ctx.mesh, "expert")
+            first += ctx.mesh.index(axis) * n_local
+            x = sum_grads(x, ctx.mesh, axis)
+            gates = sum_grads(gates, ctx.mesh, axis)
         onehot = _one_hot(idx, n_local, x.dtype, start=first)   # [T,k,E]
         weighted = _einsum("tke,tk->te", onehot, gates)
         per_expert = _einsum("td,edo->teo", x, kernel)
@@ -173,5 +176,5 @@ class Experts(OpImpl):
         if sharded:
             from flexflow_tpu_torch.parallel.collectives import psum
 
-            out = psum(out, ctx.mesh, "expert")
+            out = psum(out, ctx.mesh, axis)
         return [out]

@@ -28,6 +28,32 @@ over ``data`` (``ops/norm.py``), dropout draws the whole batch's mask and
 keeps its rows (``OpContext.keep_mask``), and the training MHA takes the
 ring on ``seq`` (``ops/attention.py``). ``OpContext.row_shards`` tells
 them.
+
+A searched strategy (``search/strategy.py``; ``plan_strategy``) is the
+port's counterpart of the sharding constraints GSPMD applies in the JAX
+package, and changes where values live, never what they are:
+
+* each weight rests sliced by its layer's ``OpStrategy.weight_specs``
+  where one is given, else by its WeightSpec's ``sharding_dims``
+  (``rest_dims``; the compile-time slicing, ``shard_params`` and the
+  checkpoint gathers read the same rule);
+* an op whose forward implements the searched form runs it on the slices
+  (Linear column and row parallel, head-parallel attention, the
+  embedding's hidden and vocabulary splits, experts over ``expert`` or
+  ``model``); any other sliced weight is brought to the form the forward
+  takes, whole as a rule, before the forward (``reshard``: an all-gather,
+  whose backward keeps the rank's slice of the gradient, or a split);
+* after each layer the walk moves its output to the ``output_spec``
+  (gathering or splitting on any axis of the mesh; a spec with no axis
+  constrains nothing, as in the JAX package), and an input split over an
+  axis other than ``data`` and ``seq`` is gathered whole before the next
+  layer reads it (the ops use ``model`` and ``expert`` for their weights);
+* partial sums (``partial_axes``) are added inside the forwards that make
+  them, so no layer ever reads a partial value.
+
+A spec the port cannot realise (an axis the mesh does not know, a dim it
+does not divide, a weight split the op's whole-head units refuse) raises
+at compile, naming the layer and the spec.
 """
 
 from __future__ import annotations
@@ -37,9 +63,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from flexflow_tpu_torch.ffconst import AggrMode, OpType
+from flexflow_tpu_torch.ffconst import AggrMode, CompMode, OpType
 from flexflow_tpu_torch.parallel.collectives import (all_gather, psum,
                                                      split, sum_grads)
+from flexflow_tpu_torch.parallel.mesh import AXIS_ORDER
 
 BATCH_AXES = ("data", "seq")
 
@@ -162,21 +189,42 @@ class Walk:
         key = (tid, frozenset(axes))
         if key not in self._gathered:
             place = self.places[tid]
-            for axis in BATCH_AXES:
+            for axis in AXIS_ORDER:
                 if axis in axes:
                     x = all_gather(x, self.mesh, axis, axis=place[axis])
             self._gathered[key] = x
         return self._gathered[key]
 
     def whole(self, tid: int, x: torch.Tensor, keep_rows: bool = False):
-        """(``x`` gathered over every axis it is split over, but an axis
-        on dim 0 when ``keep_rows``; {axis: dim} of what stays split)."""
+        """(``x`` gathered over every axis it is split over, but a batch
+        axis on dim 0 when ``keep_rows``; {axis: dim} of what stays
+        split)."""
         place = dict(self.places.get(tid, {}))
         for axis, d in list(place.items()):
-            if not (keep_rows and d == 0):
+            if not (keep_rows and d == 0 and axis in BATCH_AXES):
                 x = all_gather(x, self.mesh, axis, axis=d)
                 del place[axis]
         return x, place
+
+    def place_output(self, layer, values, spec: Tuple):
+        """Move the layer's first output to ``spec`` (one mesh axis or
+        None a dim, every axis of the mesh): gather each split the spec
+        does not keep, then split each dim the spec names."""
+        tid = layer.outputs[0].tensor_id
+        x = values[tid]
+        place = self.places.setdefault(tid, {})
+        want = {a: d for d, a in enumerate(spec) if a is not None}
+        for axis, d in sorted(place.items(),
+                              key=lambda p: AXIS_ORDER.index(p[0])):
+            if want.get(axis) != d:
+                x = all_gather(x, self.mesh, axis, axis=d)
+                del place[axis]
+        for axis, d in sorted(want.items(),
+                              key=lambda p: AXIS_ORDER.index(p[0])):
+            if axis not in place:
+                x = split(x, self.mesh, axis, d)
+                place[axis] = d
+        values[tid] = x
 
     def layer_inputs(self, layer, values) -> Tuple[List[torch.Tensor],
                                                      Dict[str, int],
@@ -189,7 +237,13 @@ class Walk:
         ins = [values[tid] for tid in tids]
         places = [dict(self.places.get(tid, {})) for tid in tids]
         active: Dict[str, int] = {}
-        gathers: List[set] = [set() for _ in tids]
+        # a split over a weight axis (a searched output spec's) is
+        # gathered first: the ops use those axes for their weights
+        gathers: List[set] = [{a for a in p if a not in BATCH_AXES}
+                              for p in places]
+        for p, g in zip(places, gathers):
+            for a in g:
+                del p[a]
         for axis in BATCH_AXES:
             split_at = [(i, p[axis]) for i, p in enumerate(places)
                         if axis in p]
@@ -329,3 +383,180 @@ class GradReducer:
         if cur:
             out.append(cur)
         return out
+
+
+# ----------------------------------------------------------------------
+# executing a searched strategy
+# ----------------------------------------------------------------------
+Spec = Tuple[Optional[str], ...]
+
+# serving ops: their tensor-parallel layout is fixed by the KV caches
+_SERVING_OPS = {OpType.INC_MULTIHEAD_SELF_ATTENTION,
+                OpType.SPEC_INC_MULTIHEAD_SELF_ATTENTION,
+                OpType.TREE_INC_MULTIHEAD_SELF_ATTENTION}
+
+
+@dataclasses.dataclass
+class StrategyPlan:
+    """What compile makes of ``model.strategy`` on the mesh:
+    ``outputs[layer]`` the spec its first output is moved to,
+    ``weights[layer][w]`` the (at rest, forward) specs of a weight whose
+    forward form differs from its resting one, ``attrs[layer]`` the
+    attributes a form adds."""
+
+    outputs: Dict[str, Spec]
+    weights: Dict[str, Dict[str, Tuple[Spec, Spec]]]
+    attrs: Dict[str, Dict[str, Any]]
+
+
+def rest_dims(weight, op_strategy):
+    """The dims a weight rests split by: its layer's searched
+    ``weight_specs`` entry where one is given, else the op's own
+    ``sharding_dims``."""
+    if op_strategy is not None and weight.name in op_strategy.weight_specs:
+        return tuple(op_strategy.weight_specs[weight.name])
+    return weight.sharding_dims
+
+
+def normalize_spec(spec, shape, mesh, what: str) -> Spec:
+    """``spec`` padded to ``shape``'s rank with None, an axis of size 1
+    made None; raises naming ``what`` for an unknown axis, an axis used
+    twice, too many dims or a dim the axis does not divide."""
+    spec = tuple(spec)
+    shape = tuple(shape)
+    if len(spec) > len(shape):
+        raise ValueError(f"{what}: spec {spec} has more dims than the "
+                         f"shape {shape}")
+    out = []
+    for dim, axis in zip(shape, spec + (None,) * (len(shape) - len(spec))):
+        if axis is None:
+            out.append(None)
+            continue
+        if axis not in AXIS_ORDER:
+            raise ValueError(f"{what}: spec {spec} names {axis!r}, which "
+                             f"is not a mesh axis {AXIS_ORDER}")
+        n = mesh.axis_size(axis)
+        if n > 1 and dim % n:
+            raise ValueError(f"{what}: spec {spec} splits a dim of {dim} "
+                             f"(shape {shape}) over {axis!r} of size {n}")
+        out.append(axis if n > 1 else None)
+    named = [a for a in out if a is not None]
+    if len(named) != len(set(named)):
+        raise ValueError(f"{what}: spec {spec} uses an axis twice")
+    return tuple(out)
+
+
+def _forward_form(layer, rest: Dict[str, Spec], native: Dict[str, Spec]):
+    """({weight: spec the forward takes}, extra attrs) for a layer whose
+    weights rest as ``rest``; ``native`` is the op's own layout."""
+    whole = {w: (None,) * len(s) for w, s in rest.items()}
+    split_at_rest = [w for w, s in rest.items() if any(s)]
+    if not split_at_rest:
+        return whole, {}
+    op = layer.op_type
+    kernel = rest.get("kernel")
+    if op == OpType.LINEAR and kernel == ("model", None):
+        # row parallel: the forward cuts its input's features, sums over
+        # model, then adds the whole bias
+        return dict(whole, kernel=kernel), {"row_parallel": True}
+    if op == OpType.EMBEDDING and rest.get("weight") == ("model", None):
+        return dict(whole, weight=("model", None)), {"vocab_parallel": True}
+    if op == OpType.EXPERTS and kernel is not None and kernel[0] \
+            and not any(kernel[1:]):
+        axis = kernel[0]
+        form = {w: (axis,) + (None,) * (len(s) - 1) for w, s in rest.items()}
+        return form, {"expert_axis": axis}
+    if all(rest[w] == native[w] for w in split_at_rest):
+        return dict(native), {}
+    return whole, {}
+
+
+def plan_strategy(model) -> Optional[StrategyPlan]:
+    """The StrategyPlan of ``model.strategy`` on ``model.mesh`` (None
+    without either). Every spec is checked here: one the port cannot
+    realise raises, naming the layer and the spec."""
+    strategy, mesh, policy = model.strategy, model.mesh, model.policy
+    if strategy is None or mesh is None:
+        return None
+    by_name = {layer.name: layer for layer in model.layers}
+    plan = StrategyPlan({}, {}, {})
+    for name, st in strategy.ops.items():
+        layer = by_name.get(name)
+        if layer is None:
+            raise ValueError(f"strategy names layer {name!r}, which the "
+                             "model does not have")
+        where = f"layer {name!r} ({layer.op_type.name})"
+        if layer.outputs:
+            out = normalize_spec(st.output_spec, layer.outputs[0].dims,
+                                 mesh, f"{where} output")
+            if any(out):
+                plan.outputs[name] = out
+        weights = {w.name: w for w in layer.weights}
+        # a layer with no weights may carry the specs of a fused search
+        # node it is part of (graph_search.expand_strategy): the weights
+        # are another covered layer's, realised there
+        for wname in (st.weight_specs if weights else ()):
+            if wname not in weights:
+                raise ValueError(f"{where}: weight_specs names "
+                                 f"{wname!r}, which the layer does not "
+                                 f"have ({sorted(weights)})")
+        rest, native = {}, {}
+        for w in layer.weights:
+            shape = tuple(w.shape)
+            got = policy.weight_sharding(shape, rest_dims(w, st),
+                                         w.shard_multiples).spec
+            got = tuple(got) + (None,) * (len(shape) - len(got))
+            if w.name in st.weight_specs:
+                want = normalize_spec(st.weight_specs[w.name], shape, mesh,
+                                      f"{where} weight {w.name!r}")
+                if got != want:
+                    raise ValueError(
+                        f"{where} weight {w.name!r}: spec "
+                        f"{tuple(st.weight_specs[w.name])} cannot be "
+                        f"realised on mesh {dict(mesh.shape)} (the op "
+                        f"splits {shape} in units of {w.shard_multiples})")
+            rest[w.name] = got
+            nat = policy.weight_sharding(shape, w.sharding_dims,
+                                         w.shard_multiples).spec
+            native[w.name] = tuple(nat) + (None,) * (len(shape) - len(nat))
+        form, attrs = _forward_form(layer, rest, native)
+        moves = {w: (rest[w], form[w]) for w in rest if rest[w] != form[w]}
+        if attrs:
+            plan.attrs[name] = attrs
+        if moves:
+            plan.weights[name] = moves
+    serving = any(ly.op_type in _SERVING_OPS for ly in model.layers)
+    moved = [n for n in by_name
+             if n in plan.outputs or n in plan.weights or n in plan.attrs]
+    quantized = (model.config.quantization_type
+                 and model.comp_mode == CompMode.COMP_MODE_INFERENCE)
+    if quantized and plan.weights:
+        name = next(iter(plan.weights))
+        raise NotImplementedError(
+            f"layer {name!r}: quantized weights are sliced at rest, never "
+            f"gathered; weight specs {dict(strategy.ops[name].weight_specs)}"
+            f" need a gather before the forward")
+    if serving and moved:
+        # the serving forward keeps the ops' tensor-parallel layout and
+        # its KV caches' split; it does not take the placement walk
+        st = strategy.ops[moved[0]]
+        raise NotImplementedError(
+            f"layer {moved[0]!r}: the serving graph runs on the mesh in "
+            f"its own tensor-parallel layout; output spec "
+            f"{tuple(st.output_spec)}, weight specs {dict(st.weight_specs)} "
+            f"cannot be executed there")
+    return plan
+
+
+def reshard(x, mesh, src: Spec, dst: Spec):
+    """A weight slice laid out as ``src`` brought to ``dst``: gathered
+    over each axis ``dst`` does not keep on that dim, then split where
+    ``dst`` names an axis (backward: each rank's slice of the gradient,
+    and the chunks' gradients gathered)."""
+    for d, (a, b) in enumerate(zip(src, dst)):
+        if a is not None and a != b:
+            x = all_gather(x, mesh, a, axis=d)
+    for d, (a, b) in enumerate(zip(src, dst)):
+        if b is not None and a != b:
+            x = split(x, mesh, b, d)
+    return x

@@ -15,7 +15,14 @@ in from a file (each rank keeps its slice) or draws them from the seed,
 and takes train steps on the batches of an ``.npz``; it returns each
 step's loss and wall time, the bytes the gradient sums all-reduced and
 peak device memory, and can save or restore a checkpoint and write the
-whole parameters after the steps.
+whole parameters after the steps. A run may carry a strategy (set before
+compile) or ask for the search (``auto_parallel`` in its config); it then
+also returns the strategy executed, each parameter's local shape and the
+count of branch regions planned; rank 0 can write the last step's whole
+gradients.
+
+``search_ab`` runs ``train``'s runs, then the measured searched-vs-DP A/B
+of ``search/measure.py`` on the same ranks.
 """
 
 from __future__ import annotations
@@ -204,12 +211,18 @@ def serve(payload) -> List[Dict[str, Any]]:
 def build_trainer(run, dev):
     """``run["builder"]`` ("file.py:fn" or "module:fn", called as
     ``fn(ff, config, **builder_kw)`` and returning the uncompiled
-    FFModel) compiled with ``run``'s optimizer, loss and metrics."""
+    FFModel) compiled with ``run``'s optimizer, loss and metrics; a
+    ``run["strategy"]`` (a Strategy's JSON) is set on the model before
+    compile."""
     import flexflow_tpu_torch as ff
     from flexflow_tpu_torch.parallel.launch import load_target
 
     cfg = ff.FFConfig(device=str(dev), **run.get("config", {}))
     m = load_target(run["builder"])(ff, cfg, **run.get("builder_kw", {}))
+    if run.get("strategy"):
+        from flexflow_tpu_torch.search.strategy import Strategy
+
+        m.strategy = Strategy.from_json(run["strategy"])
     kind, kw = run.get("optimizer", ("sgd", {"lr": 0.01}))
     opt = (ff.SGDOptimizer(m, **kw) if kind == "sgd"
            else ff.AdamOptimizer(m, **kw))
@@ -227,7 +240,8 @@ def train(payload) -> List[Dict[str, Any]]:
     from ``first_step`` on the ``.npz`` batches ``data`` (``x0``, ``x1``,
     ... and ``y``, each [steps, batch, ...]), saving a checkpoint after
     ``save["step"]`` steps when asked; rank 0 writes the whole parameters
-    to ``out``. ``deterministic`` runs under
+    to ``out`` and the last step's whole gradients to ``grads_out``.
+    ``deterministic`` runs under
     ``torch.use_deterministic_algorithms``; the payload's ``tf32`` sets
     the card's TF32 switches."""
     import numpy as np
@@ -278,6 +292,15 @@ def train(payload) -> List[Dict[str, Any]]:
                 t0 = time.perf_counter()
                 CheckpointManager(save["dir"]).save(i + 1, m, force=True)
                 save["seconds"] = time.perf_counter() - t0
+        if run.get("grads_out"):
+            # the last step's gradients, whole (before its update)
+            from flexflow_tpu_torch.training.checkpoint import _whole
+
+            grads = {f"{ln}/{w}": _whole(m, ln, w, p.grad).float().numpy()
+                     for ln, lp in m.params.items() for w, p in lp.items()
+                     if p.grad is not None}
+            if m.mesh is None or m.mesh.rank == 0:
+                np.savez(run["grads_out"], **grads)
         if run.get("out"):
             state = training_state(m)
             if m.mesh is None or m.mesh.rank == 0:
@@ -294,7 +317,50 @@ def train(payload) -> List[Dict[str, Any]]:
             "save_seconds": save.get("seconds"),
             "restore_seconds": restore_s,
             "peak_bytes": (torch.cuda.max_memory_allocated(dev)
-                           if on_card else 0)})
+                           if on_card else 0),
+            "strategy": (m.strategy.to_json() if m.strategy is not None
+                         else None),
+            "weight_shapes": {f"{ln}/{w}": list(p.shape)
+                              for ln, lp in m.params.items()
+                              for w, p in lp.items()},
+            "branch_regions": (len(m._branch_plan.regions)
+                               if m._branch_plan is not None else 0)})
         del m
     torch.use_deterministic_algorithms(False)
     return results
+
+
+# ----------------------------------------------------------------------
+# the searched-vs-DP A/B
+# ----------------------------------------------------------------------
+def search_ab(payload) -> Dict[str, Any]:
+    """``train(payload)``, then, with ``payload["ab"]``, the measured
+    searched-vs-DP A/B (``search/measure.searched_vs_dp_wallclock``) of
+    ``ab["builder"]`` (called as ``fn(ff, config, **ab["builder_kw"])``,
+    config ``ab["config"]``) on the first batch of ``ab["data"]``, over
+    this job's ranks; returns {"runs": ..., "ab": {variant: {"analytic",
+    "wallclock"}}}."""
+    import numpy as np
+
+    import flexflow_tpu_torch as ff
+    from flexflow_tpu_torch.parallel.launch import load_target
+    from flexflow_tpu_torch.search.measure import searched_vs_dp_wallclock
+
+    out: Dict[str, Any] = {"runs": train(payload)}
+    ab = payload.get("ab")
+    if ab:
+        dev = _dev(payload)
+        build = load_target(ab["builder"])
+        data = np.load(ab["data"])
+
+        def build_model():
+            return build(ff, ff.FFConfig(device=str(dev), **ab["config"]),
+                         **ab.get("builder_kw", {}))
+
+        n_in = sum(1 for k in data.files if k.startswith("x"))
+        out["ab"] = searched_vs_dp_wallclock(
+            build_model, [data[f"x{i}"][0] for i in range(n_in)],
+            data["y"][0], chip=ab.get("chip", "h100-sxm"),
+            steps=ab.get("steps", 2), reps=ab.get("reps", 2),
+            variants=tuple(ab.get("variants", ("searched", "dp"))))
+    return out

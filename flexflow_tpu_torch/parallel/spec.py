@@ -160,10 +160,21 @@ def shard_leaf(leaf, sharding: Sharding, coord: Mapping[str, int]):
 
 def layer_weight_shardings(model, policy: ShardingPolicy
                            ) -> Dict[str, Dict[str, Sharding]]:
-    """{layer: {weight: Sharding}} from every layer's WeightSpecs."""
-    return {layer.name: {w.name: policy.weight_sharding(
-        w.shape, w.sharding_dims, w.shard_multiples) for w in layer.weights}
-        for layer in model.layers if layer.weights}
+    """{layer: {weight: Sharding}}: each weight's searched
+    ``weight_specs`` entry where the model's strategy gives one, else its
+    WeightSpec's (``placement.rest_dims``)."""
+    from flexflow_tpu_torch.parallel.placement import rest_dims
+
+    strategy = getattr(model, "strategy", None)
+    out = {}
+    for layer in model.layers:
+        if not layer.weights:
+            continue
+        st = strategy.ops.get(layer.name) if strategy is not None else None
+        out[layer.name] = {w.name: policy.weight_sharding(
+            w.shape, rest_dims(w, st), w.shard_multiples)
+            for w in layer.weights}
+    return out
 
 
 def shard_params(params: Mapping[str, Mapping[str, Any]], model,

@@ -1,14 +1,14 @@
-"""Graphviz (dot) export of a model's layer graph (counterpart of
-``flexflow_tpu/utils/dot.py``: ``model_to_dot`` and ``export_model_dot``).
+"""Graphviz (dot) export of a model's layer graph and of the search's
+parallel computation graph (counterpart of ``flexflow_tpu/utils/dot.py``:
+``model_to_dot``, ``export_model_dot`` and ``pcg_to_dot``).
 
-Every layer becomes a record node with its name, op type and output
-shape, and an edge from the producer of each of its inputs; the model's
-inputs are grey nodes. The text is the JAX package's for the same graph.
-A ``strategy`` (the search's per-op sharding specs) or caller-supplied
-``costs`` (seconds a layer) add a field to the layers they name. The port
-has no search yet: ``FFModel.strategy`` is None, and the cost model that
-``FFConfig.include_costs_dot_graph`` and ``pcg_to_dot`` need arrives with
-it.
+Every layer (or PCG node) becomes a record node with its name, op type
+and output shape, and an edge from the producer of each of its inputs;
+the model's inputs are grey nodes. The text is the JAX package's for the
+same graph. A ``strategy`` (the search's per-op sharding specs) or
+``costs`` (seconds a layer: ``FFModel._estimate_layer_costs`` under
+``FFConfig.include_costs_dot_graph``, or the caller's) add a field to the
+nodes they name.
 """
 
 from __future__ import annotations
@@ -69,3 +69,24 @@ def export_model_dot(model, path: str, include_costs: bool = False,
     with open(path, "w") as f:
         f.write(text)
     return path
+
+
+def pcg_to_dot(pcg, strategy=None, costs: Optional[Dict[str, float]] = None
+               ) -> str:
+    """A search PCG (``flexflow_tpu_torch.search.pcg.PCG``) as dot."""
+    lines = ["digraph pcg {",
+             '  node [shape=record, fontsize=10, fontname="helvetica"];']
+    for node in pcg.nodes:
+        fields = [_esc(node.name), _esc(node.op_type.name.lower()),
+                  _esc(node.output_shapes[0] if node.output_shapes else ())]
+        if strategy is not None:
+            op = getattr(strategy, "ops", {}).get(node.name)
+            if op is not None:
+                fields.append("spec: " + _esc(getattr(op, "output_spec", "")))
+        if costs and node.name in costs:
+            fields.append(f"cost: {costs[node.name]:.3e}s")
+        lines.append(f'  "{node.name}" [label="{{{"|".join(fields)}}}"];')
+        for src in node.in_edges:
+            lines.append(f'  "{pcg.nodes[src].name}" -> "{node.name}";')
+    lines.append("}")
+    return "\n".join(lines) + "\n"

@@ -220,7 +220,20 @@ def test_spec_surface(lib):
     lib.ffsv_release(cfg)
 
 
-def test_config_surface_and_metrics(lib):
+@pytest.fixture
+def no_telemetry():
+    """Telemetry off and no live fleet: the metrics dump of this process
+    then starts empty, whatever ran before in it."""
+    import gc
+
+    from flexflow_tpu_torch.telemetry import _fleet_set
+
+    disable_telemetry()
+    gc.collect()
+    assert len(_fleet_set()) == 0
+
+
+def test_config_surface_and_metrics(lib, no_telemetry):
     cfg = _config(lib)
     # a typo'd boolean is rejected, not stored as False
     assert lib.ffsv_config_set(cfg, b"use_native_scheduler", b"ture") == -1

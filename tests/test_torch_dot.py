@@ -105,14 +105,18 @@ def test_export_strategy_file_on_compile(tmp_path):
 
 
 def test_include_costs_dot_graph_waits_for_the_search(tmp_path):
-    """The cost fields need the search's cost model: compile raises and
-    writes no graph without them."""
-    path = tmp_path / "costs.dot"
-    model = small_model(tff, export_strategy_file=str(path),
-                        include_costs_dot_graph=True)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    """The cost fields come from the search's cost model, which the port
+    now has: compile writes each layer's estimated seconds, the JAX
+    package's text for the same graph."""
+    texts = []
+    for ff in (tff, jff):
+        path = tmp_path / f"{ff.__name__}.dot"
+        model = small_model(ff, export_strategy_file=str(path),
+                            include_costs_dot_graph=True)
         model.compile()
-    assert not path.exists()
+        texts.append(by_position(path.read_text(), model))
+    assert texts[0] == texts[1]
+    assert texts[0].count("cost: ") == 3
 
 
 def test_strategy_specs_render_as_jax():

@@ -20,6 +20,7 @@ condition with a timeout, a join with a timeout).
 """
 
 import ast
+import gc
 import json
 
 import numpy as np
@@ -38,6 +39,7 @@ from flexflow_tpu_torch.serve.replica import (ReplicaPool,
                                               checkpoint_replica_factory,
                                               failover_run, spike_run)
 from flexflow_tpu_torch.serve.request_manager import RequestManager
+from flexflow_tpu_torch import telemetry as ttel
 from flexflow_tpu_torch.telemetry import flight_recorder as tfr
 from flexflow_tpu_torch.telemetry.fleet import FleetTelemetry
 from flexflow_tpu_torch.telemetry.slo import SLOPolicy
@@ -52,6 +54,17 @@ def _two_torch_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_live_fleet_after():
+    """The module leaves no live fleet behind: a ``FleetTelemetry`` stays
+    in the telemetry's fleet set while anything references it, and every
+    later metrics dump in this process would merge its histograms."""
+    yield
+    gc.collect()
+    assert len(ttel._fleet_set()) == 0
+    assert ttel.get_telemetry() is None
 
 
 @pytest.fixture(scope="module")

@@ -13,7 +13,10 @@ of a process group and returns a JSON-able result. They import no jax.
 * ``ring_grad``: the ring's q/k/v gradients of ``sum(out ** 2)``;
 * ``cli``: the serve CLI's ``main`` on every rank;
 * ``dead_peer``: a rank that dies before a collective (the launcher's
-  failure path).
+  failure path);
+* ``branch_ops``: ``branch_parallel_apply`` and
+  ``branch_data_parallel_apply`` against the branches applied in turn,
+  outputs and gradients.
 
 Serving itself runs ``flexflow_tpu_torch.parallel.rank_jobs:serve`` and
 training ``...:train``, with the model builders below (``mlp``,
@@ -244,6 +247,57 @@ def ring_grad(payload) -> Dict[str, Any]:
     return {"rank": mesh.rank}
 
 
+def branch_ops(payload) -> Dict[str, Any]:
+    """The branch executors over ``data`` on rank-independent inputs: the
+    largest absolute difference of the outputs, of ``x``'s gradient and
+    of the parameters' gradients (summed over the axis, as the train
+    step's reduction sums them) from the branches applied in turn."""
+    from flexflow_tpu_torch.parallel.collectives import psum
+    from flexflow_tpu_torch.parallel.ops import (branch_data_parallel_apply,
+                                                 branch_parallel_apply)
+
+    mesh = _mesh(payload)
+    g = torch.Generator().manual_seed(0)
+    x0 = torch.randn(8, 3, 4, 4, generator=g)
+    outs_c = (2, 3, 1, 2)
+    ws = [torch.randn(c, 3, generator=g) for c in outs_c]
+    rs = [torch.randn(8, c, 4, 4, generator=g) for c in outs_c]
+
+    def f(i):
+        return lambda x, p=None: torch.einsum(
+            "bchw,oc->bohw", x, (p or {"w": ws_[i]})["w"])
+
+    errs: Dict[str, float] = {}
+    for label, nb, allocs in (("data_nb2", 2, None), ("data_nb4", 4, None),
+                              ("switch_nb4", 4, None),
+                              ("switch_1_3", 2, [1, 3])):
+        ws_ = [w.clone().requires_grad_(True) for w in ws[:nb]]
+        x = x0.clone().requires_grad_(True)
+        if label.startswith("data"):
+            outs = branch_data_parallel_apply(
+                mesh, "data", [f(i) for i in range(nb)],
+                [{"w": w} for w in ws_], list(outs_c[:nb]), x)
+        else:
+            outs = branch_parallel_apply(
+                mesh, "data", [f(i) for i in range(nb)], list(outs_c[:nb]),
+                x, allocs=allocs)
+        sum((o * r).sum() for o, r in zip(outs, rs)).backward()
+        got = [o.detach() for o in outs]
+        gx = x.grad.clone()
+        # a rank that ran another branch made no gradient for this one
+        gw = [psum(w.grad if w.grad is not None else torch.zeros_like(w),
+                   mesh, "data") for w in ws_]
+        wr = [w.clone().requires_grad_(True) for w in ws[:nb]]
+        xr = x0.clone().requires_grad_(True)
+        ref = [torch.einsum("bchw,oc->bohw", xr, w) for w in wr]
+        sum((o * r).sum() for o, r in zip(ref, rs)).backward()
+        errs[label] = max(
+            max(float((a - b.detach()).abs().max()) for a, b in zip(got, ref)),
+            float((gx - xr.grad).abs().max()),
+            max(float((a - b.grad).abs().max()) for a, b in zip(gw, wr)))
+    return {"rank": mesh.rank, "errs": errs}
+
+
 # ----------------------------------------------------------------------
 # model builders for the training jobs (ff: either package)
 # ----------------------------------------------------------------------
@@ -316,4 +370,21 @@ def cnn_bn(ff, config, img=8, classes=4):
                      relu=False)
     x = m.pool2d(x, x.dims[2], x.dims[3], 1, 1, 0, 0, ff.PoolType.POOL_AVG)
     m.softmax(m.dense(m.flat(x), classes))
+    return m
+
+
+def inception(ff, config):
+    """``tests/test_measured_ab.py``'s four-branch inception block (a
+    stem conv, four conv branches joined by a channel concat, a dense
+    head)."""
+    m = ff.FFModel(config)
+    t = m.create_tensor([config.batch_size, 32, 8, 8], ff.DataType.DT_FLOAT)
+    x = m.conv2d(t, 32, 3, 3, 1, 1, 1, 1, ff.ActiMode.AC_MODE_RELU)
+    b1 = m.conv2d(x, 16, 1, 1, 1, 1, 0, 0, ff.ActiMode.AC_MODE_RELU)
+    b2 = m.conv2d(m.conv2d(x, 24, 1, 1, 1, 1, 0, 0), 32, 3, 3, 1, 1,
+                  1, 1, ff.ActiMode.AC_MODE_RELU)
+    b3 = m.conv2d(m.conv2d(x, 8, 1, 1, 1, 1, 0, 0), 16, 5, 5, 1, 1,
+                  2, 2, ff.ActiMode.AC_MODE_RELU)
+    b4 = m.conv2d(x, 16, 1, 1, 1, 1, 0, 0, ff.ActiMode.AC_MODE_RELU)
+    m.softmax(m.dense(m.flat(m.concat([b1, b2, b3, b4], axis=1)), 10))
     return m
