@@ -60,22 +60,23 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      65024;
   4. end-to-end parity: a 2-layer LLaMA at full 7B width in fp32, served
      greedily on the card and on the CPU with the same weights (one
-     seeded numpy draw); the tokens must agree; then speculative
-     inference on the card must give the CPU's incremental tokens, 128
-     of 128, through the tree engine (one 1-layer draft, depth 4), the
-     beam engine (a 1-layer beam draft of width 2, depth 3) and the host
-     tree path (two beam drafts); and top-p sampling through
+     seeded numpy draw), 8 requests x 8 new tokens; the tokens must
+     agree; then speculative inference on the card must give the CPU's
+     incremental tokens, 64 of 64, through the tree engine (one 1-layer
+     draft, depth 4), the beam engine (a 1-layer beam draft of width 2,
+     depth 3) and the host tree path (two beam drafts); and top-p
+     sampling through
      ``LLM.generate`` must repeat its draws under one seed and, at
      top_p 1e-9 and temperature 1.0, give the card's greedy tokens; then
      int8 weights (the same draw, quantized on each device): incremental
      decoding, the chain engine (1-layer draft on the verifier's leaves,
      depth 4) and incremental decoding with gemm fusion on the card must
-     each give the CPU's int8 incremental tokens, 128 of 128; then fp16
+     each give the CPU's int8 incremental tokens, 64 of 64; then fp16
      weights, activations and cache (at most one request may differ, as
      the fp32 incremental pass), head dim 32 (128 heads, fp32, the
-     card's cache padded to 64; 128 of 128) and head dim 320 (12 heads,
+     card's cache padded to 64; 64 of 64) and head dim 320 (12 heads,
      hidden 3840, fp32, the card's cache padded to 512 and served by the
-     wide kernels; 128 of 128) against the CPU;
+     wide kernels; 64 of 64) against the CPU;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -140,10 +141,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
  10. the other families: OPT-6.7B, Falcon-7B, MPT-7B and StarCoder
      (their published HF configs). 10a: a 2-layer model at the family's
      full width in fp32, one seeded numpy draw of weights on both
-     devices, 8 requests x 16-token prompts, 16 new tokens: incremental
+     devices, 8 requests x 16-token prompts, 8 new tokens: incremental
      decoding, SpecInfer (the tree engine, a 1-layer draft, depth 4) and
-     int8 incremental decoding on the card each equal to the CPU's, 128
-     of 128 (the CPU references run on worker threads beside the card's
+     int8 incremental decoding on the card each equal to the CPU's, 64
+     of 64 (the CPU references run on worker threads beside the card's
      work); 10c: a tiny checkpoint written by ``save_tiny_checkpoint`` on
      the card, cold-started with ``LLM.from_checkpoint``, float and int8,
      tokens equal to the in-memory build's, ``cold_start_s``; then 10b,
@@ -176,7 +177,7 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      share of one BERT train step;
  12. serving telemetry and the replica fleet (no new kernel; K1-K3 serve
      every path). 12a: phase 8's models serve the 8 x 32-token prompts,
-     64 new tokens, incrementally and by SpecInfer at depth 7, in 3
+     64 new tokens, incrementally and by SpecInfer at depth 7, in 2
      alternating pairs of telemetry off and on (the process-global
      ``ServingTelemetry``, a JSONL span trace per on pass): tokens/s off
      and on and the overhead (reported), the fenced prefill, decode and
@@ -207,7 +208,7 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      then with no ``--model``; both exit 0;
  13. the host side of serving (no new kernel; K1-K3 serve every path).
      13a: phase 8's models on the native C++ scheduler and on the Python
-     loop in 3 alternating pairs (decode ms/step and the loop's host
+     loop in 2 alternating pairs (decode ms/step and the loop's host
      share outside the fenced blocks, reported), tokens equal 8/8 at
      full length in every pass, then a mid-run cancel and a deadline on
      the native loop (their partial tokens a prefix, the others'
@@ -224,14 +225,18 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      ``examples/c/incr_decoding.c`` compiled with ``cc`` and run on the
      card; 13d ``inference_debugging`` dumps of a 1-layer cut at 7B
      widths in fp32, card against CPU: the worst op output within
-     ``DUMP_TOL`` of its largest magnitude. K1/K2 (and K3 with int8
-     weights) launched and no plain call in every serving window but
-     13e's plain pass;
+     ``DUMP_TOL`` of its largest magnitude; 13f the JAX package's
+     ``inference/python/incr_decoding.py`` and ``spec_infer.py``, each in
+     a process whose ``flexflow_tpu`` imports resolve to the port (an
+     import alias of this script's, never the reverse): exit 0, every
+     ``flexflow_tpu`` module the port's, K1/K2 launched. K1/K2 (and K3
+     with int8 weights) launched and no plain call in every serving
+     window but 13e's plain pass;
  14. CPU weight offload and sharded serving (K1-K3 at per-rank shapes;
      K1/K2's partials mode under sequence parallelism). 14a: phase 8's model (7B int8, bf16) built twice,
      offload off and on (``LLM.compile(cpu_offload=True)``, every
      paged weight checked pinned, prefetch reserve 1 GiB), warm-ups,
-     then 3 alternating off/on pairs of 8 requests x 32 new tokens:
+     then 2 alternating off/on pairs of 8 requests x 32 new tokens:
      tokens equal 8/8 in every pass, bytes paged, max_memory_allocated
      of each pass (and less the other model's card bytes, gated lower
      with offload), decode ms/step median/min/max, the host->device
@@ -247,7 +252,19 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      launch returns its partials, which three collectives reconcile)
      with the shapes they ran at, peak memory and decode ms/step (two
      processes sharing one card through the host: not a speed of the
-     parallelism); no plain call. 14c: each kernel at every shape that
+     parallelism); no plain call. 14b-prefix: at tp=2 and sp=2 on the
+     same ranks, 8 requests behind one 96-token prefix in 4 slots with
+     the shared-prefix pool off, then on: equal tokens, the pool's hit
+     tokens above 0 and equal on both ranks, K1 launched for the
+     suffixes. 14b-strategy: the same geometry at all 32 layers, 8 new
+     tokens, one rank in this process, then on 14b's tp=2 ranks under an
+     assigned
+     ``Strategy`` (lm_head's int8 kernel in row shards with its logits
+     vocabulary-split, every down_proj in row shards, one attention's
+     ``wo`` whole at rest) and under the port's own search
+     (``auto_parallel``): tokens 8/8 equal to one rank's on both ranks,
+     each rank's weight bytes against one rank's, K1/K2/K3 launched with
+     their shapes, no plain call. 14c: each kernel at every shape that
      14a and 14b launched it at, against its plain version (the
      partials mode over a cache of twice a rank's rows, split in halves
      at their offsets and combined), and the partials mode's timed row
@@ -277,7 +294,7 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      NDR InfiniBand) on BERT-large (phase 11's batch and length),
      ResNet-50 (phase 11's batch, 1000 classes) and LLaMA-2-7B (its 32
      layers as a training graph at phase 15's batch, 4096 tokens), all
-     in bf16 compute, four searches at once in worker processes: search
+     in bf16 compute, six searches at once in worker processes: search
      seconds, the adopted mesh, each candidate's count, the analytic
      step against data parallelism's (never worse); 17b
      ``CostModel.measure_node`` on the card in bf16 compute at every
@@ -1433,7 +1450,16 @@ def k3_family_rows(torch, timer, read_floor, g, rel_err):
 # ----------------------------------------------------------------------
 # phase 4: end-to-end parity, card vs CPU
 # ----------------------------------------------------------------------
+# phase 4: new tokens a request (8 requests x 32-token prompts)
+E2E_NEW = 8
+
+
 def e2e_parity_phase(torch):
+    """Phase 4. Its CPU references run in turn on one worker thread beside
+    the card's work (one thread: two teams of torch's CPU threads at
+    most)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from flexflow_tpu_torch import (LLM, DataType, FFConfig, FFModel,
@@ -1484,20 +1510,48 @@ def e2e_parity_phase(torch):
                         for w, t in lp.items()}
                 for layer, lp in m.params.items()}
 
-    for device in ("cpu", "cuda"):
-        m = model(device)
-        if pnp is None:
-            pnp = draw(m, rng)
-        load_params(m, params_from_jax(pnp, device=device))
+    def incr(m, wts, device):
+        """(tokens, seconds, launch counts) of incremental decoding of
+        ``m`` on ``wts``; the counts are reset only for a card run (the
+        CPU runs on the worker thread launch nothing and must not reset
+        the card's counts)."""
+        load_params(m, params_from_jax(wts, device=device))
         rm = RequestManager()
-        guids = [rm.register_new_request(p, max_new_tokens=16)
+        guids = [rm.register_new_request(p, max_new_tokens=E2E_NEW)
                  for p in prompts]
+        if device == "cuda":
+            kernels.reset_counts()
         t0 = time.perf_counter()
         rm.generate_incr_decoding(m)
-        outs[device] = [rm.results[g].output_tokens for g in guids]
-        log(f"  {device}: {time.perf_counter() - t0:.2f} s, decode width "
-            f"{m._inference_manager.decode_width}")
-        del m
+        return ([rm.results[g].output_tokens for g in guids],
+                time.perf_counter() - t0, dict(kernels.counts))
+
+    # the draws (the same numbers as from a CPU model: same shapes, same
+    # order), then every CPU reference queued on the worker thread
+    m = model("cuda")
+    pnp = draw(m, rng)
+    m320 = model("cuda", heads=12, hidden=3840)
+    w320 = draw(m320, np.random.default_rng(13))
+    del m320
+    variants = {"fp16": (pnp, dict(dtype="float16")),
+                "head dim 32 (128 heads), fp32": (pnp, dict(heads=128)),
+                "head dim 320 (12 heads, hidden 3840), fp32":
+                    (w320, dict(heads=12, hidden=3840))}
+    worker = ThreadPoolExecutor(1)
+    refs = {"fp32": worker.submit(lambda: incr(model("cpu"), pnp, "cpu")),
+            "int8": worker.submit(
+                lambda: incr(model("cpu", quant="int8"), pnp, "cpu"))}
+    for what, (wts, kw) in variants.items():
+        refs[what] = worker.submit(
+            lambda wts=wts, kw=kw: incr(model("cpu", **kw), wts, "cpu"))
+    worker.shutdown(wait=False)
+    toks, secs, _ = incr(m, pnp, "cuda")
+    outs["cuda"] = toks
+    log(f"  cuda: {secs:.2f} s, decode width "
+        f"{m._inference_manager.decode_width}")
+    del m
+    outs["cpu"], secs, _ = refs["fp32"].result()
+    log(f"  cpu: {secs:.2f} s (on the worker thread)")
     same_req = sum(a == b for a, b in zip(outs["cpu"], outs["cuda"]))
     tot = sum(len(a) for a in outs["cpu"])
     same_tok = sum(x == y for a, b in zip(outs["cpu"], outs["cuda"])
@@ -1513,7 +1567,7 @@ def e2e_parity_phase(torch):
     # fp32 on both sides; only the summation order differs. At most one
     # request may diverge (a near-tie flips its argmax, and greedy decode
     # carries the flip forward).
-    if same_req < REQUESTS - 1 or any(len(a) != 16 for a in outs["cuda"]):
+    if same_req < REQUESTS - 1 or any(len(a) != E2E_NEW for a in outs["cuda"]):
         raise AssertionError("end-to-end card/CPU token parity failed")
 
     # speculative inference on the card (the tree engine at B = 1, depth
@@ -1525,7 +1579,8 @@ def e2e_parity_phase(torch):
     ssm = model("cuda", InferenceMode.BEAM_SEARCH_MODE, layers=1)
     share_params(ssm, llm)
     rm = RequestManager()
-    guids = [rm.register_new_request(p, max_new_tokens=16) for p in prompts]
+    guids = [rm.register_new_request(p, max_new_tokens=E2E_NEW)
+             for p in prompts]
     kernels.reset_counts()
     t0 = time.perf_counter()
     rm.generate_spec_infer(llm, [ssm], spec_depth=4,
@@ -1557,7 +1612,7 @@ def e2e_parity_phase(torch):
                         beams[:1]),
                        ("host tree path, two beam drafts", beams)):
         rm = RequestManager()
-        guids = [rm.register_new_request(p, max_new_tokens=16)
+        guids = [rm.register_new_request(p, max_new_tokens=E2E_NEW)
                  for p in prompts]
         levels0 = getattr(getattr(llm, "_beam_engine", None), "levels_run",
                           0)
@@ -1600,7 +1655,7 @@ def e2e_parity_phase(torch):
     sampler = LLM((hf, dict(sd))).compile(
         generation_config=GenerationConfig(do_sample=True), **serve)
     for _ in range(2):
-        res = sampler.generate(prompts, max_new_tokens=16)
+        res = sampler.generate(prompts, max_new_tokens=E2E_NEW)
         draws.append([r.output_tokens for r in res])
         sampler.ffmodel._inference_manager.generator.manual_seed(3)
     del sampler
@@ -1609,7 +1664,7 @@ def e2e_parity_phase(torch):
         generation_config=GenerationConfig(do_sample=True, topp=1e-9,
                                            temperature=1.0), **serve)
     tiny_p = [r.output_tokens
-              for r in sampler.generate(prompts, max_new_tokens=16)]
+              for r in sampler.generate(prompts, max_new_tokens=E2E_NEW)]
     del sampler
     n_greedy = sum(x == y for a, b in zip(draws[0], outs["cuda"])
                    for x, y in zip(a, b))
@@ -1619,7 +1674,7 @@ def e2e_parity_phase(torch):
         f"temperature 1.0 equals the card's greedy tokens "
         f"{tiny_p == outs['cuda']}")
     if (draws[0] != draws[1] or tiny_p != outs["cuda"]
-            or any(len(a) != 16 for a in draws[0])):
+            or any(len(a) != E2E_NEW for a in draws[0])):
         raise AssertionError("card sampling: not reproducible, or top_p "
                              "1e-9 is not greedy")
 
@@ -1632,7 +1687,7 @@ def e2e_parity_phase(torch):
         m = model(device, mode, quant="int8", fusion=fusion)
         load_params(m, params_from_jax(pnp, device=device))
         rm = RequestManager()
-        guids = [rm.register_new_request(p, max_new_tokens=16)
+        guids = [rm.register_new_request(p, max_new_tokens=E2E_NEW)
                  for p in prompts]
         kernels.reset_counts()
         t0 = time.perf_counter()
@@ -1640,8 +1695,6 @@ def e2e_parity_phase(torch):
         return m, [rm.results[g].output_tokens for g in guids], \
             time.perf_counter() - t0, dict(kernels.counts)
 
-    _, q_cpu, s_cpu, _ = q_incr("cpu")
-    log(f"  int8 cpu: {s_cpu:.2f} s")
     llm, q_card, s_card, q_counts = q_incr(
         "cuda", mode=InferenceMode.TREE_VERIFY_MODE)
     checks = [("int8 incremental", q_card, q_counts)]
@@ -1649,7 +1702,8 @@ def e2e_parity_phase(torch):
                 quant="int8")
     share_params(ssm, llm)
     rm = RequestManager()
-    guids = [rm.register_new_request(p, max_new_tokens=16) for p in prompts]
+    guids = [rm.register_new_request(p, max_new_tokens=E2E_NEW)
+             for p in prompts]
     kernels.reset_counts()
     rm._generate_spec_chain(llm, ssm, spec_depth=4,
                             generation_config=GenerationConfig(
@@ -1663,6 +1717,8 @@ def e2e_parity_phase(torch):
     assert "wqkv" in fused.params["layers.0.self_attn"]
     del fused
     gc.collect()
+    q_cpu, s_cpu, _ = refs["int8"].result()
+    log(f"  int8 cpu: {s_cpu:.2f} s (on the worker thread)")
     for what, toks, counts in checks:
         same_tok = sum(x == y for a, b in zip(q_cpu, toks)
                        for x, y in zip(a, b))
@@ -1678,27 +1734,14 @@ def e2e_parity_phase(torch):
     # 320 (12 heads, hidden 3840, fp32, a draw of its own: the card pads
     # the cache to 512, served by the wide kernels), each served greedily
     # on the card and on the CPU
-    for what, kw, strict in (
-            ("fp16", dict(dtype="float16"), False),
-            ("head dim 32 (128 heads), fp32", dict(heads=128), True),
-            ("head dim 320 (12 heads, hidden 3840), fp32",
-             dict(heads=12, hidden=3840), True)):
+    for what, (wts, kw) in variants.items():
+        strict = what != "fp16"
         toks = {}
-        wts = None if "hidden" in kw else pnp
-        for device in ("cpu", "cuda"):
-            m = model(device, **kw)
-            if wts is None:
-                wts = draw(m, np.random.default_rng(13))
-            load_params(m, params_from_jax(wts, device=device))
-            rm = RequestManager()
-            guids = [rm.register_new_request(p, max_new_tokens=16)
-                     for p in prompts]
-            kernels.reset_counts()
-            rm.generate_incr_decoding(m)
-            toks[device] = [rm.results[g].output_tokens for g in guids]
-            counts = dict(kernels.counts)
-            cache = m.op_state["kv_cache"]["k"]
-            del m
+        m = model("cuda", **kw)
+        toks["cuda"], _, counts = incr(m, wts, "cuda")
+        cache = m.op_state["kv_cache"]["k"]
+        del m
+        toks["cpu"] = refs[what].result()[0]
         same_req = sum(a == b for a, b in zip(toks["cpu"], toks["cuda"]))
         same_tok = sum(x == y for a, b in zip(toks["cpu"], toks["cuda"])
                        for x, y in zip(a, b))
@@ -3047,7 +3090,7 @@ FAMILY_CONFIGS = {
 }
 FAMILY_NAMES = {"opt": "OPT-6.7B", "falcon": "Falcon-7B", "mpt": "MPT-7B",
                 "gpt_bigcode": "StarCoder"}
-FAM_PROMPT, FAM_NEW = 16, 16      # 10a: 8 requests x 16 prompt, 16 new
+FAM_PROMPT, FAM_NEW = 16, 8       # 10a: 8 requests x 16 prompt, 8 new
 FAM_NEW_FULL = 32                 # 10b: 8 x 32-token prompts, 32 new
 
 
@@ -3708,7 +3751,7 @@ def training_phase(torch, card, profile=False):
 # ----------------------------------------------------------------------
 # phase 12: serving telemetry and the replica fleet
 # ----------------------------------------------------------------------
-TEL_PAIRS = 3            # 12a: alternating (off, on) pairs in one process
+TEL_PAIRS = 2            # 12a: alternating (off, on) pairs in one process
 # 12b: the fleet's checkpoint, LLaMA-2-7B widths cut to FLEET_LAYERS, and
 # its replicas (checkpoint_replica_factory's JAX defaults: 2 slots, a
 # 64-position fp32 cache, fp32 compute)
@@ -3825,17 +3868,18 @@ def telemetry_phase(torch, card):
     counts = dict(kernels.counts)
     report = {}
     for mode, st in modes.items():
-        off, on = statistics.median(st["off"]), statistics.median(st["on"])
+        # a mean over the TEL_PAIRS pairs (each pair's value printed too)
+        off, on = statistics.mean(st["off"]), statistics.mean(st["on"])
         over = [1.0 - b / a for a, b in zip(st["off"], st["on"])]
         r = st["hists"]
         h = {name: hist_pcts(r.get(f"ffsv_{name}_seconds"))
              for name in ("prefill_step", "decode_block", "spec_block")}
         report[mode] = dict(
             tokens_per_s_off=st["off"], tokens_per_s_on=st["on"],
-            overhead_frac=statistics.median(over),
-            host_share=statistics.median(st["host"]),
+            overhead_frac=statistics.mean(over),
+            host_share=statistics.mean(st["host"]),
             block_ms_p50_p99=h)
-        log(f"  {mode}: tokens/s off {off:.1f} (median of "
+        log(f"  {mode}: tokens/s off {off:.1f} (mean of "
             f"{['%.1f' % x for x in st['off']]}), on {on:.1f} "
             f"({['%.1f' % x for x in st['on']]}); overhead_frac "
             f"{report[mode]['overhead_frac']:.4f} (pairs "
@@ -4095,34 +4139,37 @@ def cli_phase(torch, card, ckpt):
                + os.environ.get("PYTHONPATH", ""))
     base = [sys.executable, "-m", "flexflow_tpu_torch.serve",
             "--device", "cuda", "--max-new-tokens", str(CLI_NEW)]
-    out = {}
-    for what, extra in (
+    # both CLI processes at once, the in-process reference beside them
+    t = time.perf_counter()
+    procs = {what: subprocess.Popen(
+        base + extra, cwd=HERE, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for what, extra in (
             ("checkpoint", ["--model", ckpt, "--8bit-quantization"]
              + [a for p in prompts
                 for a in ("--prompt", ",".join(map(str, p)))]),
-            ("built-in", [])):
-        t = time.perf_counter()
-        proc = subprocess.run(base + extra, cwd=HERE, env=env,
-                              capture_output=True, text=True, timeout=600)
+            ("built-in", []))}
+    with killed_on_error(procs):
+        llm = LLM.from_checkpoint(ckpt).compile(
+            max_requests_per_batch=4, max_seq_length=256,
+            max_tokens_per_batch=64, quantization_type="int8",
+            device="cuda")
+        want = [r.output_tokens
+                for r in llm.generate(prompts, max_new_tokens=CLI_NEW)]
+    del llm
+    gc.collect()
+    out = {}
+    for what, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=600)
         secs = time.perf_counter() - t
         toks = [json.loads(line.split("output=", 1)[1])
-                for line in proc.stdout.splitlines()
-                if line.startswith("guid=")]
-        tail = proc.stdout.strip().splitlines()[-1:] or [""]
+                for line in stdout.splitlines() if line.startswith("guid=")]
+        tail = stdout.strip().splitlines()[-1:] or [""]
         log(f"  CLI ({what}): exit {proc.returncode} in {secs:.1f} s; "
             f"{tail[0]}  [{card}]")
         if proc.returncode != 0:
             raise AssertionError(f"12c CLI ({what}) exited "
-                                 f"{proc.returncode}: "
-                                 f"{proc.stderr[-2000:]}")
+                                 f"{proc.returncode}: {stderr[-2000:]}")
         out[what] = toks
-    llm = LLM.from_checkpoint(ckpt).compile(
-        max_requests_per_batch=4, max_seq_length=256,
-        max_tokens_per_batch=64, quantization_type="int8", device="cuda")
-    want = [r.output_tokens for r in llm.generate(prompts,
-                                                  max_new_tokens=CLI_NEW)]
-    del llm
-    gc.collect()
     log(f"  CLI tokens equal to LLM.from_checkpoint(...).generate in "
         f"process: {out['checkpoint'] == want}")
     if out["checkpoint"] != want or not out["built-in"]:
@@ -4135,7 +4182,7 @@ def cli_phase(torch, card, ckpt):
 # phase 13: the host side of serving (the native scheduler, the front
 # door, the C ABI, inference-debugging dumps, use_kernels=False)
 # ----------------------------------------------------------------------
-HOST_PAIRS = 3           # 13a: alternating (native, Python) loop pairs
+HOST_PAIRS = 2           # 13a: alternating (native, Python) loop pairs
 HOST_CANCEL_BLOCK = 8    # 13a: the decode block of the cancel pass
 FRONT_NEW = 32           # 13b, 13c: new tokens a request
 # 13d: 2 requests of DUMP_PROMPT tokens, one prefill and one decode step;
@@ -4259,9 +4306,9 @@ def native_scheduler_phase(torch, card):
                                      f"equal on {same}/{REQUESTS}")
     report = {}
     for name, runs in stats.items():
-        report[name] = {k: statistics.median(r[k] for r in runs)
+        report[name] = {k: statistics.mean(r[k] for r in runs)
                         for k in runs[0]}
-        log(f"  {name} loop (median of {HOST_PAIRS}): decode "
+        log(f"  {name} loop (mean of {HOST_PAIRS} passes): decode "
             f"{report[name]['decode_ms']:.3f} ms/step, host share "
             f"{report[name]['host_share']:.4f}, "
             f"{report[name]['tokens_per_s']:.1f} tokens/s  [{card}]")
@@ -4729,9 +4776,101 @@ def dumps_phase(torch, card, tmp):
                 seconds=time.perf_counter() - t_phase)
 
 
+# 13f: the JAX package's serving entry points, each run on the card and on
+# the CPU in processes of tests/torch_example_run.py, whose alias resolves
+# ``flexflow_tpu`` imports to the port's modules (test scaffolding: the
+# port has no such alias); a process prints its kernels' launch counts and
+# shapes and any flexflow_tpu module that is not the port's
+INFERENCE_SCRIPTS = ("inference/python/incr_decoding.py",
+                     "inference/python/spec_infer.py")
+EXAMPLE_RUNNER = os.path.join("tests", "torch_example_run.py")
+
+
+@contextlib.contextmanager
+def killed_on_error(procs):
+    """Kill the processes of ``procs`` ({name: Popen}) when the block
+    raises, so that a failed phase leaves none of them running."""
+    try:
+        yield
+    except BaseException:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+
+
+def start_inference_scripts():
+    """13f's processes, all started at once: each script on the card and
+    on the CPU (one thread, no card visible, lowered priority so that
+    13b-13d's host work goes first), through ``EXAMPLE_RUNNER`` with
+    ``--report``: ({(script, device): process}, start time)."""
+    env = dict(os.environ, PYTHONPATH=HERE + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    envs = {"cuda": env,
+            "cpu": dict(env, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")}
+    procs = {(s, dev): subprocess.Popen(
+        [sys.executable, EXAMPLE_RUNNER, "--device", dev, "--report", s,
+         "--max-new-tokens", "4"], cwd=HERE, env=envs[dev],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s in INFERENCE_SCRIPTS for dev in envs}
+    for (_s, dev), proc in procs.items():
+        if dev == "cpu":
+            os.setpriority(os.PRIO_PROCESS, proc.pid, 10)
+    return procs, time.perf_counter()
+
+
+def inference_scripts_phase(card, procs, t):
+    """13f's gates on the processes of ``start_inference_scripts``: each
+    exits 0 with three requests' tokens and no module of the JAX package
+    or of jax loaded; on the card K1/K2 launched and no plain call, and
+    the tokens equal the CPU run's. Returns (launch counts summed over
+    the card's runs, report, {kernel: the card's launch shapes}), the
+    shapes for 14c."""
+    total, report, shapes = {}, {}, {}
+    runs = {}
+    for (script, dev), proc in procs.items():
+        out, err = proc.communicate(timeout=600)
+        lines = out.splitlines()
+        run = [json.loads(x.split(" ", 1)[1]) for x in lines
+               if x.startswith("PORT_RUN ")]
+        toks = [json.loads(x.split("output_tokens=", 1)[1].split("]")[0]
+                           + "]") for x in lines if "output_tokens=" in x]
+        c = run[0]["counts"] if run else {}
+        log(f"  {script} on the {dev}: exit {proc.returncode}, tokens "
+            f"{toks}, launches {c}, foreign modules "
+            f"{run[0]['foreign'] if run else '?'}  [{card}]")
+        if proc.returncode != 0 or not run or run[0]["foreign"] \
+                or len(toks) != 3:
+            raise AssertionError(f"13f: {script} on the {dev} exit "
+                                 f"{proc.returncode}: {err[-3000:]}")
+        runs[script, dev] = toks
+        if dev != "cuda":
+            continue
+        check_launches(f"13f {script}", c)
+        for k, v in c.items():
+            total[k] = total.get(k, 0) + v
+        for kernel, sh in run[0]["shapes"].items():
+            shapes.setdefault(kernel, set()).update(tuple(x) for x in sh)
+        report[script] = dict(requests=len(toks), counts=c)
+    for script in INFERENCE_SCRIPTS:
+        equal = sum(a == b for a, b in zip(runs[script, "cuda"],
+                                           runs[script, "cpu"]))
+        report[script]["tokens_equal_cpu"] = equal
+        if equal != 3:
+            raise AssertionError(f"13f: {script} card tokens against the "
+                                 f"CPU's: {equal}/3")
+    report["shapes"] = {k: len(v) for k, v in shapes.items()}
+    report["seconds"] = time.perf_counter() - t
+    log(f"  13f: card tokens equal to the CPU's, 3/3 a script; launch "
+        f"shapes {report['shapes']} (held against the plain versions in "
+        f"14c); {report['seconds']:.1f} s  [{card}]")
+    return total, report, shapes
+
+
 def host_side_phase(torch, card):
-    """Phase 13 in order 13a, 13b, 13e (on 13b's model), 13c, 13d; returns
-    each sub-phase's launch counts by name."""
+    """Phase 13 in order 13a, 13b, 13e (on 13b's model), 13c, 13d, with
+    13f's processes beside 13b-13d; returns (each sub-phase's launch
+    counts by name, 13f's launch shapes on the card)."""
     import tempfile
 
     t_phase = time.perf_counter()
@@ -4742,7 +4881,13 @@ def host_side_phase(torch, card):
         f"[{card}]")
     by_path["native"], report["13a"] = native_scheduler_phase(torch, card)
     gc.collect()
-    with tempfile.TemporaryDirectory() as tmp:
+    # 13f's processes run beside 13b-13d (their times are not measured)
+    log(f"phase 13f: the JAX package's serving entry points, "
+        f"{', '.join(INFERENCE_SCRIPTS)}, with their flexflow_tpu imports "
+        f"resolved to the port, on the card and on the CPU, started beside "
+        f"13b-13d  [{card}]")
+    scripts = start_inference_scripts()
+    with tempfile.TemporaryDirectory() as tmp, killed_on_error(scripts[0]):
         log(f"phase 13b: LLM(dir) at LLaMA-2-7B widths, {FLEET_LAYERS} "
             f"layers, 2 shards, a 32000-piece tokenizer.model, text "
             f"prompts  [{card}]")
@@ -4762,10 +4907,12 @@ def host_side_phase(torch, card):
             f"widths, fp32, card against CPU  [{card}]")
         report["13d"] = dumps_phase(torch, card, tmp)
         gc.collect()
+    by_path["inference_scripts"], report["13f"], shapes = \
+        inference_scripts_phase(card, *scripts)
     report["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 13: {report['seconds']:.1f} s  [{card}]")
     log(json.dumps({"host_side_phase": report}))
-    return by_path
+    return by_path, shapes
 
 
 # ----------------------------------------------------------------------
@@ -4774,7 +4921,7 @@ def host_side_phase(torch, card):
 # 14a: phase 8's int8 model, offload on and off; the prefetch reserve is
 # cut to 1 GiB (FFConfig's default, 8 GiB, would hold the whole int8
 # model in flight)
-OFFLOAD_NEW, OFFLOAD_PAIRS, OFFLOAD_RESERVE = 32, 3, 1 << 30
+OFFLOAD_NEW, OFFLOAD_PAIRS, OFFLOAD_RESERVE = 32, 2, 1 << 30
 # 14b: LLaMA-2-7B widths, int8 weights, fp32 compute and cache (greedy
 # tokens compared across layouts whose reductions add in other orders),
 # each config's ranks as subprocesses sharing the card through gloo; the
@@ -4784,6 +4931,13 @@ SHARD_NEW, SHARD_SEQ, SHARD_LAYERS, SHARD_TIMEOUT = 16, 64, 4, 420
 SHARD_CONFIGS = (("tp2", dict(tensor_parallelism_degree=2)),
                  ("pp2", dict(pipeline_parallelism_degree=2)),
                  ("sp2", dict(sequence_parallelism_degree=2)))
+# 14b-prefix: a 96-token system prompt in front of each 8-token user turn,
+# 8 requests in 4 slots (the first 4 fill the pool, the last 4 hit it),
+# on 14b's tp=2 and sp=2 ranks
+POOL_PREFIX, POOL_TURN, POOL_SLOTS, POOL_NEW, POOL_SEQ = 96, 8, 4, 8, 128
+POOL_CONFIGS = ("tp2", "sp2")
+# 14b-strategy: phase 8's geometry at all its layers, on 14b's tp=2 ranks
+STRAT_NEW = 8
 
 
 def _offloaded_nbytes(m) -> int:
@@ -4875,7 +5029,7 @@ def offload_phase(torch, card):
 
     def stats(key, side):
         v = [p[key] for p in passes[side]]
-        return statistics.median(v), min(v), max(v)
+        return statistics.mean(v), min(v), max(v)
 
     ms_on, ms_off = stats("ms", "on"), stats("ms", "off")
     c_on = passes["on"][-1]["counts"]
@@ -4883,7 +5037,8 @@ def offload_phase(torch, card):
     gbps = moved / (ms_on[0] / 1e3) / 1e9
     log(f"  tokens equal to the first offload-off pass: {equal}/{REQUESTS} "
         f"in every pass")
-    log(f"  decode ms/step median/min/max: off {ms_off[0]:.3f}/"
+    log(f"  decode ms/step mean/min/max of {OFFLOAD_PAIRS} passes: off "
+        f"{ms_off[0]:.3f}/"
         f"{ms_off[1]:.3f}/{ms_off[2]:.3f}, on {ms_on[0]:.3f}/{ms_on[1]:.3f}"
         f"/{ms_on[2]:.3f} ({ms_on[0] / ms_off[0]:.2f}x)  [{card}]")
     log(f"  max_memory_allocated over a pass (both models resident): off "
@@ -4967,9 +5122,28 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
     prompts = [rng.integers(0, model["vocab_size"], PROMPT_LEN).tolist()
                for _ in range(REQUESTS)]
 
-    def runs(deg):
-        return [dict(name="incr", model=model, config=dict(cfg, **deg),
-                     prompts=prompts, max_new=SHARD_NEW, repeat=2)]
+    prefix = rng.integers(0, model["vocab_size"], POOL_PREFIX).tolist()
+    pool_prompts = [prefix + rng.integers(0, model["vocab_size"],
+                                          POOL_TURN).tolist()
+                    for _ in range(REQUESTS)]
+    pool_cfg = dict(cfg, max_requests_per_batch=POOL_SLOTS,
+                    max_sequence_length=POOL_SEQ,
+                    max_tokens_per_batch=POOL_SLOTS * len(pool_prompts[0]))
+
+    full, strat_ref, one_bytes = strategy_reference(torch, card, model,
+                                                    cfg, prompts, device)
+
+    def runs(deg, name=""):
+        out = [dict(name="incr", model=model, config=dict(cfg, **deg),
+                    prompts=prompts, max_new=SHARD_NEW)]
+        if name in POOL_CONFIGS:
+            out += [dict(name=f"pool-{on}", model=model,
+                         config=dict(pool_cfg, **deg), prompts=pool_prompts,
+                         max_new=POOL_NEW, prefix_cache=on == "on")
+                    for on in ("off", "on")]
+        if name == "tp2":
+            out += strategy_runs(full, dict(cfg, **deg), prompts)
+        return out
 
     t = time.perf_counter()
     names = _check_collectives(run_ranks(
@@ -4991,21 +5165,23 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                        backend="nccl" if device == "cuda" else "gloo")[0][0]
     ref = single["tokens"]
     log(f"  1 rank ({'NCCL' if device == 'cuda' else 'gloo'} world of 1, "
-        f"{model['num_hidden_layers']} layers): decode ms/step "
+        f"{model['num_hidden_layers']} layers): decode ms/step of its one "
+        f"pass (cold: the first generate after the build) "
         f"{single['decode_ms_per_step'][-1]:.3f}, peak "
         f"{single['peak_bytes'] / 2**30:.2f} GiB, launches "
         f"{single['counts']}, {time.perf_counter() - t:.1f} s  [{card}]")
-    report = {"single": dict(decode_ms=single["decode_ms_per_step"][-1],
+    report = {"single": dict(decode_ms_cold=single["decode_ms_per_step"][-1],
                              peak_gib=single["peak_bytes"] / 2**30,
                              counts=single["counts"])}
     by_path, shapes = {}, {}
     plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
     for name, deg in SHARD_CONFIGS:
         t = time.perf_counter()
-        ranks = [r[0] for r in run_ranks(
-            f"{jobs}:serve", 2, {"device": device, "runs": runs(deg)},
+        launched = run_ranks(
+            f"{jobs}:serve", 2, {"device": device, "runs": runs(deg, name)},
             workdir=os.path.join(work, name), timeout=SHARD_TIMEOUT,
-            device=device, backend="gloo")]
+            device=device, backend="gloo")
+        ranks = [r[0] for r in launched]
         rep = []
         for r in ranks:
             eq = sum(a == b for a, b in zip(r["tokens"], ref))
@@ -5030,11 +5206,12 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                 f"bias) {ls.get('flash_attend', [])}; K2 at "
                 f"{ls.get('flash_attend_append', [])}; K3 at (M, K, N, "
                 f"qtype, compute, out) {ls.get('qmatmul', [])}; peak "
-                f"{r['peak_bytes'] / 2**30:.2f} GiB; decode ms/step "
-                f"{r['decode_ms_per_step'][-1]:.3f}  [{card}]")
+                f"{r['peak_bytes'] / 2**30:.2f} GiB; decode ms/step of the "
+                f"one pass (cold) {r['decode_ms_per_step'][-1]:.3f}  "
+                f"[{card}]")
             rep.append(dict(rank=r["rank"], tokens_equal=eq, counts=c,
                             peak_gib=r["peak_bytes"] / 2**30,
-                            decode_ms=r["decode_ms_per_step"][-1]))
+                            decode_ms_cold=r["decode_ms_per_step"][-1]))
             if not ok:
                 raise AssertionError(f"14b: {name} rank {r['rank']} gates")
         log(f"  {name}: {time.perf_counter() - t:.1f} s; its times are two "
@@ -5043,9 +5220,163 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
         report[name] = rep
         by_path[name] = {k: sum(r["counts"][k] for r in ranks)
                          for k in ranks[0]["counts"]}
+        def named(*names):
+            return [[r for r in rank if r["name"] in names]
+                    for rank in launched]
+
+        if name in POOL_CONFIGS:
+            pool = pool_gates(name, named("pool-off", "pool-on"), card)
+            report[f"{name}-prefix"] = pool
+            by_path[f"{name}-prefix"] = pool["counts"]
+            shapes[f"{name}-prefix"] = pool.pop("shapes")
+        if name == "tp2":
+            strat = strategy_gates(card, named("tp2-strategy", "tp2-auto"),
+                                   strat_ref, one_bytes)
+            for key in ("tp2-strategy", "tp2-auto"):
+                by_path[key] = strat[key].pop("counts")
+                shapes[key] = strat[key].pop("shapes")
+            report["strategy"] = strat
     report["seconds"] = time.perf_counter() - t_phase
     log(f"  phase 14b: {report['seconds']:.1f} s  [{card}]")
     return by_path, report, shapes
+
+
+def _sum_counts(ranks):
+    return {k: sum(r["counts"][k] for r in ranks) for k in ranks[0]["counts"]}
+
+
+def _union_shapes(ranks):
+    out = {}
+    for r in ranks:
+        for kernel, sh in r["launch_shapes"].items():
+            out.setdefault(kernel, set()).update(tuple(x) for x in sh)
+    return out
+
+
+def pool_gates(name, ranks, card):
+    """14b-prefix on one config's ranks (each [pool off, pool on]): equal
+    tokens, hit tokens above 0 and equal on every rank (counted once:
+    one rank's), K1 launched for the suffixes, no plain call. Returns the
+    report with the pool-on pass's counts and shapes."""
+    t = time.perf_counter()
+    on = [r[1] for r in ranks]
+    hits = {r["prefix_hit_tokens"][0] for r in on}
+    for off_r, on_r in ranks:
+        c = on_r["counts"]
+        eq = sum(a == b for a, b in zip(on_r["tokens"], off_r["tokens"]))
+        log(f"  14b-prefix {name} rank {on_r['rank']}: pool on vs off "
+            f"{eq}/{len(on_r['tokens'])} equal; hit tokens "
+            f"{on_r['prefix_hit_tokens'][0]} (off "
+            f"{off_r['prefix_hit_tokens'][0]}); launches K1 "
+            f"{c['flash_attend']} K2 {c['flash_attend_append']} K3 "
+            f"{c['qmatmul']} plain {c['plain_attend_cuda']}/"
+            f"{c['qmatmul_plain_cuda']}; K1 at "
+            f"{on_r['launch_shapes'].get('flash_attend', [])}  [{card}]")
+        if (eq != len(on_r["tokens"]) or not c["flash_attend"]
+                or off_r["prefix_hit_tokens"][0]
+                or c["plain_attend_cuda"] or c["qmatmul_plain_cuda"]):
+            raise AssertionError(f"14b-prefix: {name} rank {on_r['rank']} "
+                                 f"gates")
+    if len(hits) != 1 or not min(hits):
+        raise AssertionError(f"14b-prefix: {name} hit tokens {hits}")
+    return dict(hit_tokens=hits.pop(), counts=_sum_counts(on),
+                shapes=_union_shapes(on), seconds=time.perf_counter() - t)
+
+
+def assigned_strategy(layers):
+    """14b-strategy's assigned Strategy: lm_head's int8 kernel in row
+    shards (off the Linear's own column split) with its logits split over
+    the vocabulary, every down_proj in row shards, and layer 0's
+    attention ``wo`` whole at rest (the op re-splits it to its own
+    layout before its forward)."""
+    from flexflow_tpu_torch.search.strategy import OpStrategy, Strategy
+
+    def op(output, **weights):
+        return OpStrategy(input_specs=(), output_spec=output,
+                          weight_specs=weights, name="assigned")
+
+    ops = {"lm_head": op((None, None, "model"), kernel=("model", None)),
+           "layers.0.self_attn": op((None, None, None), wo=(None, None))}
+    for i in range(layers):
+        ops[f"layers.{i}.mlp.down_proj"] = op((None, None, None),
+                                              kernel=("model", None))
+    return Strategy(ops=ops)
+
+
+def strategy_reference(torch, card, model, cfg, prompts, device):
+    """14b-strategy's reference: 14b's geometry at all ``LAYERS`` layers
+    on one rank in this process. Returns (its model, its tokens, its
+    weight bytes)."""
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.parallel import rank_jobs
+    from flexflow_tpu_torch.quant import quantized_nbytes
+
+    t = time.perf_counter()
+    full = dict(model, num_hidden_layers=LAYERS)
+    one = dict(name="one", model=full, config=cfg, prompts=prompts,
+               max_new=STRAT_NEW)
+    m = rank_jobs._build(one, full, None, InferenceMode.INC_DECODING_MODE,
+                         torch.device(device))
+    ref, _ = rank_jobs._generate(m, None, one)
+    one_bytes = quantized_nbytes(m.params)
+    del m
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  14b-strategy: 1 rank in process, {LAYERS} layers: weights "
+        f"{one_bytes / 2**30:.3f} GiB, {time.perf_counter() - t:.1f} s  "
+        f"[{card}]")
+    return full, ref, one_bytes
+
+
+def strategy_runs(full, cfg, prompts):
+    """14b-strategy's two runs for the tp=2 ranks: ``assigned_strategy``,
+    then ``auto_parallel`` (the port's search on the H100 model, analytic
+    costs)."""
+    auto = dict(cfg, auto_parallel=True, search_chip=SEARCH_CHIP,
+                search_profile=False, **SEARCH_KW)
+    return [dict(name="tp2-strategy", model=full, config=cfg,
+                 strategy=assigned_strategy(LAYERS).to_json(),
+                 prompts=prompts, max_new=STRAT_NEW),
+            dict(name="tp2-auto", model=full, config=auto, prompts=prompts,
+                 max_new=STRAT_NEW)]
+
+
+def strategy_gates(card, ranks_runs, ref, one_bytes):
+    """14b-strategy's gates on the tp=2 ranks' two runs (``ranks_runs``:
+    each rank's [assigned, auto]): tokens 8/8 equal to one rank's on both
+    ranks, K1/K2/K3 launched, no plain call; each rank's weight bytes
+    against one rank's."""
+    report = {"one_rank_weight_bytes": one_bytes}
+    plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
+    for i in range(len(ranks_runs[0])):
+        ranks = [runs[i] for runs in ranks_runs]
+        name = ranks[0]["name"]
+        moved = sorted(json.loads(ranks[0]["strategy"])["ops"])
+        for r in ranks:
+            eq = sum(a == b for a, b in zip(r["tokens"], ref))
+            c = r["counts"]
+            ls = r["launch_shapes"]
+            log(f"  14b-strategy {name} rank {r['rank']}: tokens "
+                f"{eq}/{REQUESTS} equal to 1 rank; weights "
+                f"{r['weight_bytes'] / 2**30:.3f} GiB against 1 rank's "
+                f"{one_bytes / 2**30:.3f} GiB; strategy over {len(moved)} "
+                f"layers; launches K1 {c['flash_attend']} K2 "
+                f"{c['flash_attend_append']} K3 {c['qmatmul']} plain "
+                f"{[c[k] for k in plain]}; K3 at (M, K, N, qtype, compute, "
+                f"out) {ls.get('qmatmul', [])}; K1 at "
+                f"{ls.get('flash_attend', [])}; K2 at "
+                f"{ls.get('flash_attend_append', [])}; generate "
+                f"{r['seconds'][-1]:.1f} s  [{card}]")
+            if (eq != REQUESTS or not c["qmatmul"] or not c["flash_attend"]
+                    or not c["flash_attend_append"]
+                    or any(c[k] for k in plain)):
+                raise AssertionError(f"14b-strategy: {name} rank "
+                                     f"{r['rank']} gates")
+        report[name] = dict(
+            layers_in_strategy=len(moved),
+            weight_bytes=[r["weight_bytes"] for r in ranks],
+            counts=_sum_counts(ranks), shapes=_union_shapes(ranks))
+    return report
 
 
 def _attention_inputs(torch, shape, g, S=None):
@@ -5081,7 +5412,8 @@ def _attention_inputs(torch, shape, g, S=None):
 def shard_shape_checks(torch, card, shapes_by_run):
     """Each kernel at every shape phase 14's runs launched it at
     (``kernels.record_shapes``: each rank of each 14b config, the 14a
-    offload-on pass), on random card tensors, against its plain version.
+    offload-on pass) and 13f's scripts on the card, on random card
+    tensors, against its plain version.
     K1 and K2 at TOL of the coarser of the cache and output dtypes; their
     partials mode (sequence parallelism) on a cache of twice the rank's
     rows split in halves at their offsets, as two ranks hold it, each
@@ -5248,7 +5580,6 @@ PAR_STEPS = 3            # 15a-15c: steps a run (ResNet's cut: 2)
 PAR_BOUND = 1e-5         # relative: a parallel run's losses vs one rank's
 MOE_CPU_BOUND = 1e-4     # relative: 15c card vs CPU (phase 11a's bound)
 LARGE_BATCH = 64         # 15a and 15d: BERT-large, bf16 (32 a rank at dp=2)
-REMAT_PAIRS = 2          # 15d: alternating (off, on) pairs
 RESUME_STEPS = 4         # 15e: 2 steps, save, restore, 2 more
 PAR_TIMEOUT = 900.0
 # examples/python/native/moe.py: 64 wide, 4 experts, top-2, its default
@@ -5360,12 +5691,9 @@ def parallel_training_phase(torch, card, work, device="cuda"):
     det = dict(deterministic=True)
     part_ckpt = os.path.join(work, "ckpt_resume")
     one = [bert("bert_ref"), resnet("resnet_ref"), experts("experts_ref")]
-    for i in range(REMAT_PAIRS):
-        for remat in (False, True):
-            r = bert(f"large_remat{int(remat)}_{i}", layers=BERT_LAYERS,
-                     batch=LARGE_BATCH, dtype="bfloat16", data=large_data,
-                     deg=dict(remat=remat), **det)
-            one.append(r)
+    one += [bert(f"large_remat{int(remat)}", layers=BERT_LAYERS,
+                 batch=LARGE_BATCH, dtype="bfloat16", data=large_data,
+                 deg=dict(remat=remat), **det) for remat in (False, True)]
     one += [bert("straight", data=resume_data, steps=RESUME_STEPS,
                  out=os.path.join(work, "straight.npz"), **det),
             bert("part", data=resume_data, steps=RESUME_STEPS // 2,
@@ -5473,13 +5801,13 @@ def parallel_training_phase(torch, card, work, device="cuda"):
            "rank) expert=2 vs expert=1")
 
     log(f"phase 15d: remat, BERT-large ({BERT_LAYERS} layers, bf16, batch "
-        f"{LARGE_BATCH}), {REMAT_PAIRS} alternating pairs off/on, "
-        f"deterministic algorithms  [{card}]")
-    remat = [by1[f"large_remat{int(on)}_{i}"] for i in range(REMAT_PAIRS)
-             for on in (False, True)]
+        f"{LARGE_BATCH}), one run off then one on, deterministic "
+        f"algorithms  [{card}]")
+    remat = [by1[f"large_remat{int(on)}"] for on in (False, True)]
     for r in remat:
         log(f"  15d {r['name']}: losses {[f'{v:.6f}' for v in r['losses']]}"
-            f", step ms {[round(v, 1) for v in r['step_ms']]}, peak "
+            f", step ms (one unpaired run: not an off/on comparison) "
+            f"{[round(v, 1) for v in r['step_ms']]}, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
     equal = all(r["losses"] == remat[0]["losses"] for r in remat)
     log(f"  15d: remat on == off losses: {equal}")
@@ -6118,7 +6446,7 @@ SEARCH_GPUS = (1, 2, 8, 16)     # 17a: 16 GPUs are two HGX nodes over NDR
 # 5 s deadline on each joint loop
 SEARCH_KW = dict(search_budget=2, search_deadline_s=5.0)
 LLAMA_TRAIN_SEQ = 4096          # 17a: LLaMA-2's context length
-SEARCH_WORKERS = 4              # 17a: searches at once, a process each
+SEARCH_WORKERS = 6              # 17a: searches at once, a process each
 AUTO_STEPS = 4                  # 17c: train steps on 2 ranks and on 1
 AB_STEPS, AB_REPS = 2, 1        # 17c: searched_vs_dp_wallclock
 INCEPTION_BATCH, INCEPTION_STEPS = 16, 3       # 17d
@@ -6603,6 +6931,16 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     phases = {int(p) for p in args.phases.split(",")}
     t_script = time.perf_counter()
+    # each phase's seconds, printed before the kernel table
+    laps, running = {}, [None, t_script]
+
+    def lap(name):
+        now = time.perf_counter()
+        if running[0] is not None:
+            laps[running[0]] = round(now - running[1], 1)
+        running[:] = [name, now]
+
+    lap("1-2")
 
     if not os.path.isdir(os.path.join(HERE, "flexflow_tpu_torch", "kernels",
                                       "csrc")):
@@ -6651,22 +6989,26 @@ def main(argv=None) -> int:
             f"registers a thread; spills: {spills or 'none'}")
 
     timer = Timer(torch)
+    lap("3")
     rows = kernel_phase(torch, timer) if 3 in phases else []
     del timer
     # the model <-> InferenceManager reference cycle keeps a phase's model
     # alive until a collection; free it before the next phase's peak
     gc.collect()
     if 4 in phases:
+        lap('4')
         e2e_parity_phase(torch)
         gc.collect()
     by_path = {}
     bf16_decode_ms = None
     if 5 in phases:
+        lap('5')
         by_path["incr"], bf16 = full_size_phase(torch, card,
                                                 profile=args.profile)
         bf16_decode_ms = bf16["decode_ms_per_step"]
         gc.collect()
     if phases & {6, 7}:
+        lap("6-7")
         log(f"phases 6-7: SpecInfer models, LLaMA-2-7B geometry, bf16, "
             f"{DRAFT_LAYERS}-layer draft on the verifier's tensors  [{card}]")
         sm = spec_models(torch)
@@ -6682,6 +7024,7 @@ def main(argv=None) -> int:
         del sm
         gc.collect()
     if 8 in phases:
+        lap('8')
         log(f"phase 8: LLaMA-2-7B geometry with int8 weights (bench.py's "
             f"headline), bf16 compute and cache, {REQUESTS} requests x "
             f"{PROMPT_LEN}-token prompts, {NEW_TOKENS} new tokens  [{card}]")
@@ -6690,6 +7033,7 @@ def main(argv=None) -> int:
         log(json.dumps({"int8_phase": int8}))
         gc.collect()
     if 9 in phases:
+        lap('9')
         log(f"phase 9: online serving, LLaMA-2-7B geometry with int8 "
             f"weights (phase 8's models), {REQUESTS} slots, MAX_SEQ "
             f"{MAX_SEQ}  [{card}]")
@@ -6697,14 +7041,17 @@ def main(argv=None) -> int:
         log(json.dumps({"online_phase": online}))
         gc.collect()
     if 10 in phases:
+        lap('10')
         by_path["families"], fams = families_phase(torch, card)
         log(json.dumps({"families_phase": fams}))
         gc.collect()
     if 11 in phases:
+        lap('11')
         log(json.dumps({"training_phase": training_phase(
             torch, card, profile=args.profile)}))
         gc.collect()
     if 12 in phases:
+        lap('12')
         import tempfile
 
         log(f"phase 12a: telemetry on the headline path (phase 8's models), "
@@ -6722,10 +7069,19 @@ def main(argv=None) -> int:
             fleet["cli"] = cli_phase(torch, card, ckpt)
         log(json.dumps({"fleet_phase": fleet}))
         gc.collect()
+    # launch shapes that 14c holds against the plain versions, by run
+    run_shapes = {}
     if 13 in phases:
-        by_path.update(host_side_phase(torch, card))
+        lap('13')
+        counts13, run_shapes["inference_scripts"] = host_side_phase(torch,
+                                                                    card)
+        by_path.update(counts13)
         gc.collect()
+        if 14 not in phases:
+            log(f"13f's launch shapes against their plain versions  [{card}]")
+            shard_shape_checks(torch, card, run_shapes)
     if 14 in phases:
+        lap('14')
         log(f"phase 14a: CPU weight offload, phase 8's model (LLaMA-2-7B "
             f"geometry, int8, bf16), {OFFLOAD_PAIRS} alternating pairs "
             f"off/on, {REQUESTS} requests x {PROMPT_LEN}-token prompts, "
@@ -6738,7 +7094,8 @@ def main(argv=None) -> int:
             f"{SHARD_LAYERS} layers, int8 weights, fp32 compute and cache, "
             f"{REQUESTS} requests x {PROMPT_LEN}-token prompts, {SHARD_NEW} "
             f"new tokens: 1 rank, then tp=2, pp=2 and sp=2 on 2 ranks "
-            f"sharing the card  [{card}]")
+            f"sharing the card; 14b-prefix at tp=2 and sp=2, 14b-strategy "
+            f"at {LAYERS} layers and tp=2  [{card}]")
         import tempfile
 
         with tempfile.TemporaryDirectory() as tmp:
@@ -6747,11 +7104,11 @@ def main(argv=None) -> int:
         by_path.update(shard_counts)
         log(json.dumps({"sharded_phase": shard}))
         gc.collect()
-        log(f"phase 14c: the kernels at phase 14's launch shapes against "
-            f"their plain versions  [{card}]")
+        log(f"phase 14c: the kernels at phase 14's and 13f's launch shapes "
+            f"against their plain versions  [{card}]")
         t = time.perf_counter()
         checked = shard_shape_checks(
-            torch, card, dict(shard_shapes, offload=off_shapes))
+            torch, card, dict(shard_shapes, offload=off_shapes, **run_shapes))
         # the timed row of the partials mode: the sp2 decode shape
         rows.append(partials_row(
             torch, max(shard_shapes["sp2"]["flash_attend_append"]),
@@ -6760,6 +7117,7 @@ def main(argv=None) -> int:
             checked, seconds=time.perf_counter() - t)}))
         gc.collect()
     if 15 in phases:
+        lap('15')
         import tempfile
 
         log(f"phase 15: parallel and resumable training, bench_train.py's "
@@ -6770,6 +7128,7 @@ def main(argv=None) -> int:
                             parallel_training_phase(torch, card, tmp)}))
         gc.collect()
     if 16 in phases:
+        lap('16')
         log(f"phase 16: the model frontends: ResNet-50 through fx, ONNX and "
             f"Keras, a BERT-large-width encoder through fx, the C graph "
             f"builder, the dot export  [{card}]")
@@ -6777,6 +7136,7 @@ def main(argv=None) -> int:
         log(json.dumps({"frontends_phase": front}))
         gc.collect()
     if 17 in phases:
+        lap('17')
         import tempfile
 
         log(f"phase 17: the Unity search: PCGs at full width, the profiled "
@@ -6797,6 +7157,8 @@ def main(argv=None) -> int:
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}
+    lap(None)
+    log(json.dumps({"phase_seconds": laps}))
     log(f"chip_smoke.py: phases {sorted(phases)} in "
         f"{time.perf_counter() - t_script:.1f} s  [{card}]")
     log(json.dumps({"kernels": rows}))

@@ -75,7 +75,9 @@ from flexflow_tpu_torch.core.initializer import (ConstantInitializer,
 from flexflow_tpu_torch.ffconst import (ActiMode, AggrMode, CompMode,
                                         DataType, InferenceMode, LossType,
                                         MetricsType, OpType,
-                                        ParameterSyncType, PoolType)
+                                        ParameterSyncType, PoolType,
+                                        RequestType)
+from flexflow_tpu_torch.core.tensor import Tensor
 from flexflow_tpu_torch.serve import (SSM, AdmissionPolicy, EngineHandle,
                                      GenerationConfig, LLM, RejectedError,
                                      RequestManager, WorkloadSpec)
@@ -92,7 +94,8 @@ __all__ = ["ActiMode", "AdamOptimizer", "AdmissionPolicy", "AggrMode",
            "FFConfig", "FFModel", "GenerationConfig",
            "GlorotUniformInitializer", "InferenceMode", "LLM", "LossType",
            "MetricsType", "NormInitializer", "OpType", "ParameterSyncType",
-           "PoolType", "RejectedError", "RequestManager", "SGDOptimizer",
-           "SSM", "SingleDataLoader", "UniformInitializer", "WorkloadSpec",
+           "PoolType", "RejectedError", "RequestManager", "RequestType",
+           "SGDOptimizer", "SSM", "SingleDataLoader", "Tensor",
+           "UniformInitializer", "WorkloadSpec",
            "ZeroInitializer", "fit_with_recovery", "load_weights_npz",
            "save_weights_npz"]

@@ -44,6 +44,13 @@ class FFConfig:
     # evaluate and SingleDataLoader, and fit's epochs ---
     batch_size: int = 64
     epochs: int = 1
+    # the reference's --lr/--wd: the examples hand them to their optimizer
+    # (``SGDOptimizer(model, lr=config.learning_rate)``); nothing in the
+    # package reads them on its own
+    learning_rate: float = 0.01
+    weight_decay: float = 0.0001
+    # accepted as the JAX package's config accepts it; nothing reads it
+    iterations: int = 1
 
     # --- parallelism degrees (reference config.h:156-159; sequence and
     # expert are the JAX package's additions). Their product is the number
@@ -61,6 +68,8 @@ class FFConfig:
     # pay the inter-node network)
     num_devices: Optional[int] = None
     num_nodes: int = 1
+    # accepted as the JAX package's config accepts it; nothing reads it
+    workers_per_node: Optional[int] = None
 
     # --- auto-parallelization search (reference config.h:131-143; the JAX
     # package's fields and defaults). auto_parallel=True runs the Unity
@@ -114,6 +123,10 @@ class FFConfig:
     seed: int = 0
     # activations compute in compute_dtype; params keep their WeightSpec dtype
     compute_dtype: str = "float32"
+    # accepted as the JAX package's config accepts them; nothing reads them
+    # (the parameters' dtype is each WeightSpec's)
+    param_dtype: str = "float32"
+    computation_mode: str = "training"
 
     # --- serving shapes (reference BatchConfig::max_requests_per_batch /
     # max_tokens_per_batch / max_sequence_length) ---
@@ -176,6 +189,15 @@ class FFConfig:
     # qmatmul_plain_cuda in kernels.counts)
     use_kernels: bool = True
 
+    # --- profiling and logging (reference config.h:127-130) ---
+    # fit() fences and times every step and prints the per-step summary
+    # with each epoch's line (utils/profiling.StepTimer)
+    profiling: bool = False
+    # accepted as the JAX package's config accepts them; nothing reads them
+    benchmarking: bool = False
+    perform_fusion_checks: bool = False
+    log_instance_creation: bool = False
+
     def __post_init__(self):
         self.quantization_type = normalize_qtype(self.quantization_type)
 
@@ -207,12 +229,12 @@ class FFConfig:
     def from_args(cls, argv: Optional[Sequence[str]] = None,
                   **overrides) -> "FFConfig":
         """An FFConfig from the JAX package's command-line flags; unknown
-        flags are ignored (``parse_known_args``), as there. The training
-        hyperparameters (``--lr``, ``--wd``) are accepted and not stored:
-        the port sets the learning rate on its optimizer. The device and
-        node counts, the parallelism degrees, the Unity search flags and
-        ``--offload`` are stored. ``overrides`` set fields after parsing
-        (``device``, for one)."""
+        flags are ignored (``parse_known_args``), as there. Every parsed
+        flag is stored: the training hyperparameters (``--lr``, ``--wd``,
+        which the examples hand to their optimizer), the device and node
+        counts, the parallelism degrees, the Unity search flags,
+        ``--profiling`` and ``--offload``. ``overrides`` set fields after
+        parsing (``device``, for one)."""
         p = argparse.ArgumentParser(add_help=False, allow_abbrev=False)
         p.add_argument("-b", "--batch-size", type=int, default=64)
         p.add_argument("-e", "--epochs", type=int, default=1)
@@ -249,6 +271,8 @@ class FFConfig:
         args, _unknown = p.parse_known_args(argv)
         quant = "int4" if args.q4 else ("int8" if args.q8 else None)
         kw = dict(batch_size=args.batch_size, epochs=args.epochs,
+                  learning_rate=args.learning_rate,
+                  weight_decay=args.weight_decay, profiling=args.profiling,
                   enable_fusion=args.enable_fusion, quantization_type=quant,
                   inference_debugging=args.inference_debugging,
                   seed=args.seed,

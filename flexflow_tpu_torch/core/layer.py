@@ -33,9 +33,14 @@ class WeightSpec:
 
 
 class Layer:
+    # the name counter of a layer made without its model's own
+    # (``counts=None``); ``reset_naming`` clears it
+    _counts: Dict[str, int] = {}
+
     def __init__(self, op_type: OpType, name: Optional[str],
                  inputs: List["Tensor"], attrs: Dict[str, Any],
-                 counts: Dict[str, int]):
+                 counts: Optional[Dict[str, int]] = None):
+        counts = counts if counts is not None else Layer._counts
         base = name or op_type.name.lower()
         n = counts.get(base, 0)
         counts[base] = n + 1
@@ -49,3 +54,7 @@ class Layer:
     def __repr__(self):
         return (f"Layer({self.name}, {self.op_type.name}, "
                 f"in={[t.name for t in self.inputs]})")
+
+    @classmethod
+    def reset_naming(cls):
+        cls._counts = {}

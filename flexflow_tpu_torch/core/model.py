@@ -62,6 +62,7 @@ writes it at compile, with each layer's estimated seconds under
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -78,11 +79,12 @@ from flexflow_tpu_torch.ops.base import OpContext, get_op_impl, stable_hash
 from flexflow_tpu_torch.quant import (dequantize_array,
                                       dequantize_layer_params, is_quantized,
                                       normalize_qtype, quantize_params,
-                                      requantize_into)
+                                      quantized_nbytes, requantize_into)
 from flexflow_tpu_torch.training.dataloader import minibatches
 from flexflow_tpu_torch.training.loss import compute_loss
 from flexflow_tpu_torch.training.metrics import (PerfMetrics,
                                                  compute_step_metrics)
+from flexflow_tpu_torch.utils.profiling import StepTimer
 
 
 def weight_seed(seed: int, layer_name: str, weight_name: str) -> int:
@@ -146,6 +148,9 @@ class FFModel:
         self._logits_tensor: Optional[Tensor] = None
         self._reg_terms: List[Tuple[str, str, str, float]] = []
         self._perf = PerfMetrics()
+        # per-step fenced train times under config.profiling, printed with
+        # each epoch's line
+        self._step_timer = StepTimer(enabled=True)
         self._pending_batch = None
         # parallel training: the last forward's placements
         # (parallel/placement.Walk) and the gradient all-reduce
@@ -867,6 +872,10 @@ class FFModel:
             with use_kernels(self.config.use_kernels):
                 if self._walks() and ctx.batch_config is None:
                     self._run_split(params, values, ctx)
+                elif (ctx.batch_config is not None
+                      and self._strategy_plan is not None
+                      and self._strategy_plan.outputs):
+                    self._run_serving_walk(params, values, ctx)
                 else:
                     for layer in self.layers:
                         self._apply_layer(layer, params, values, ctx)
@@ -932,6 +941,34 @@ class FFModel:
             run(layer)
         ctx.row_shards = {}
         self._walk = walk
+
+    def _run_serving_walk(self, params, values: Dict[int, Any],
+                          ctx: OpContext):
+        """A serving forward under a strategy that moves outputs: each
+        layer's output goes to its searched spec (``policy.constrain``),
+        and each layer reads its inputs whole (gathered once a forward;
+        the serving ops keep their own tensor-parallel layout inside).
+        An output spec is thus placement only: it costs a split and an
+        all_gather a forward and shards no consumer. The final output is
+        made whole for the broadcast and the host loop."""
+        outputs, policy = self._strategy_plan.outputs, self.policy
+        placed = {}     # tensor id -> the layout its value holds
+
+        def whole(tid):
+            if tid in placed:
+                values[tid] = policy.constrain(values[tid], (),
+                                               src=placed.pop(tid))
+            return values[tid]
+
+        for layer in self.layers:
+            ins = [whole(t.tensor_id) for t in layer.inputs]
+            self._apply_layer(layer, params, values, ctx, ins=ins)
+            if layer.name in outputs:
+                tid = layer.outputs[0].tensor_id
+                placed[tid] = policy.resolve(outputs[layer.name],
+                                             values[tid].shape)
+                values[tid] = policy.constrain(values[tid], placed[tid])
+        whole(self._final_tensor.tensor_id)
 
     def _broadcast_final(self, values):
         """Every rank takes the final output of the rank that made it (the
@@ -1212,7 +1249,10 @@ class FFModel:
         -offload). Returns the bytes moved off the device."""
         from flexflow_tpu_torch.offload import offload_model_weights
 
-        return offload_model_weights(self, min_bytes=min_bytes)
+        moved = offload_model_weights(self, min_bytes=min_bytes)
+        if self.config.profiling:
+            print(f"offload_weights: {moved / 1e6:.1f}MB -> pinned_host")
+        return moved
 
     def _consolidate_kv_caches(self):
         """Stack homogeneous per-layer KV caches (every serving-attention
@@ -1259,7 +1299,11 @@ class FFModel:
     def quantize_weights(self, qtype: str):
         """Quantize every eligible weight to int8/int4 on its device
         (inference only; leaves already quantized stay as they are)."""
+        before = quantized_nbytes(self.params)
         self.params = quantize_params(self.params, normalize_qtype(qtype))
+        if self.config.profiling:
+            print(f"quantize_weights({qtype}): {before / 1e6:.1f}MB -> "
+                  f"{quantized_nbytes(self.params) / 1e6:.1f}MB")
         return self
 
     # ==================================================================
@@ -1280,7 +1324,7 @@ class FFModel:
         return OpContext(training=training,
                          compute_dtype=torch_dtype(self.config.compute_dtype),
                          generator=self.generator if training else None,
-                         device=self.device)
+                         device=self.device, config=self.config)
 
     def _loss_and_out(self, feeds, label, ctx: OpContext):
         """One forward: (loss, regularizer terms, output, label, batch,
@@ -1410,10 +1454,13 @@ class FFModel:
 
     def train_one_batch(self, xs, y) -> float:
         self._check_training()
-        loss, met = self._train_step(
-            self._feeds_from_arrays(xs),
-            self._to_device(y, self.label_tensor.dtype))
-        (loss,), (met,) = self._read([loss], [met])
+        feeds = self._feeds_from_arrays(xs)
+        label = self._to_device(y, self.label_tensor.dtype)
+        t0 = time.perf_counter()
+        loss, met = self._train_step(feeds, label)
+        (loss,), (met,) = self._read([loss], [met])     # fences the step
+        if self.config.profiling:
+            self._step_timer.record("train_step", time.perf_counter() - t0)
         self._perf.update(met, y.shape[0])
         return loss
 
@@ -1428,12 +1475,18 @@ class FFModel:
         stacked = self._feeds_from_arrays(xs)       # [K, batch, ...] each
         labels = self._to_device(y, self.label_tensor.dtype)
         losses, mets = [], []
+        t0 = time.perf_counter()
         for i in range(labels.shape[0]):
             loss, met = self._train_step(
                 {tid: v[i] for tid, v in stacked.items()}, labels[i])
             losses.append(loss)
             mets.append(met)
-        losses, mets = self._read(losses, mets)
+        losses, mets = self._read(losses, mets)     # fences the block
+        if self.config.profiling:
+            # per-step time, amortized over the block (as the JAX package)
+            dt = (time.perf_counter() - t0) / len(losses)
+            for _ in losses:
+                self._step_timer.record("train_step", dt)
         for met in mets:
             self._perf.update(met, y.shape[1])
         return losses
@@ -1477,7 +1530,9 @@ class FFModel:
             history.append({"epoch": epoch, "loss": float(np.mean(losses)),
                             **self._metrics_summary()})
             print(f"epoch {epoch}: loss={history[-1]['loss']:.4f} "
-                  f"{self._perf.report()}")
+                  f"{self._perf.report()}"
+                  + (f" [{self._step_timer.report()}]"
+                     if self.config.profiling else ""))
         return history
 
     @torch.no_grad()

@@ -57,5 +57,11 @@ class Tensor:
             raise ValueError(f"{self} is not a parameter tensor")
         model.set_parameter_by_key(self.weight_name, np.asarray(array))
 
+    def get_tensor(self, ffmodel=None) -> np.ndarray:
+        return self.get_weights(ffmodel)
+
+    def set_tensor(self, ffmodel_or_array, array=None):
+        return self.set_weights(ffmodel_or_array, array)
+
     def __repr__(self):
         return f"Tensor({self.name}, dims={self.dims}, dtype={self.dtype.name})"

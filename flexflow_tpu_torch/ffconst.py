@@ -109,6 +109,11 @@ class ParameterSyncType(enum.Enum):
     NCCL = 82
 
 
+class RequestType(enum.Enum):
+    REQ_INFERENCE = 4001
+    REQ_FINETUNING = 4002
+
+
 class InferenceMode(enum.Enum):
     INC_DECODING_MODE = 2001
     BEAM_SEARCH_MODE = 2002
@@ -119,6 +124,12 @@ class OpType(enum.Enum):
     """Operator types: the members of ``flexflow_tpu.ffconst.OpType`` that
     the port implements (each later slice adds the ones it ports)."""
 
+    # graph bookkeeping: the no-op and input nodes, and the reference's
+    # fused-op nodes (never built here: kernels are fused by hand)
+    NOOP = enum.auto()
+    INPUT = enum.auto()
+    FUSED = enum.auto()
+    FUSED_PARALLEL = enum.auto()
     EMBEDDING = enum.auto()
     CONV2D = enum.auto()
     POOL2D = enum.auto()

@@ -232,6 +232,17 @@ def _declare(lib: ctypes.CDLL):
         f.argtypes = [c.c_void_p] + extra
 
 
+def native_available() -> bool:
+    """Whether the native library builds and loads here (the JAX
+    package's name; there a library that cannot build means the Python
+    paths, here ``load_native`` raises and this answers False)."""
+    try:
+        load_native()
+    except NativeBuildError:
+        return False
+    return True
+
+
 def load_native() -> ctypes.CDLL:
     """Build (if needed) and load the tokenizer, scheduler and graph
     builder library.

@@ -187,6 +187,12 @@ class BPETokenizer:
             raise ValueError("the native BPE tokenizer rejected the vocab "
                              "or merges")
 
+    @property
+    def is_native(self) -> bool:
+        """Always True once built (the JAX package's class also runs a
+        Python fallback; here that is ``PyBPETokenizer``)."""
+        return self._h is not None
+
     def __del__(self):
         h = getattr(self, "_h", None)
         if h:

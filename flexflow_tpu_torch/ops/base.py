@@ -58,6 +58,24 @@ class OpContext:
     # {dim: (axis, size, this rank's index)}; empty when it is whole
     row_shards: Dict[int, Tuple[str, int, int]] = dataclasses.field(
         default_factory=dict)
+    # the model's FFConfig (the JAX package's ``config``)
+    config: Any = None
+    # an integer seed, the counterpart of the JAX package's PRNG key:
+    # ``layer_rng`` derives each layer's own generator from it
+    rng: Optional[int] = None
+
+    def layer_rng(self, salt: int = 0) -> Optional[torch.Generator]:
+        """A generator of this layer's own, on ``device``, seeded from
+        ``rng`` and the layer's stable name hash (the JAX package folds
+        ``stable_hash(layer_name, salt)`` into its key); None without
+        ``rng``."""
+        if self.rng is None:
+            return None
+        g = torch.Generator(device=self.device or "cpu")
+        g.manual_seed(((int(self.rng) << 31)
+                       | stable_hash(self.layer_name, salt))
+                      & 0x7FFF_FFFF_FFFF_FFFF)
+        return g
 
     def keep_mask(self, shape, keep: float, device, shards=None):
         """A layer's Bernoulli(``keep``) draw of ``shape`` from

@@ -50,6 +50,7 @@ seq_sharded_attend`` reconciles the ranks' partials (one ``pmax``, two
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -159,6 +160,15 @@ def cache_head_dim(D: int, pad: bool) -> int:
     from flexflow_tpu_torch.kernels.attention import padded_head_dim
 
     return padded_head_dim(D) if pad else D
+
+
+def padded_head_dim(D: int, want_pallas: bool = True,
+                    max_seq: Optional[int] = None) -> int:
+    """The JAX package's name and signature for the cache's head dim:
+    ``cache_head_dim(D, want_pallas)``. ``want_pallas`` stands for "the
+    kernels serve this model"; ``max_seq`` is accepted and unread (the
+    CUDA kernels take every cache length)."""
+    return cache_head_dim(D, want_pallas)
 
 
 def pad_head_dim(x: torch.Tensor, Dp: int) -> torch.Tensor:

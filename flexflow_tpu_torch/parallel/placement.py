@@ -52,8 +52,20 @@ package, and changes where values live, never what they are:
   them, so no layer ever reads a partial value.
 
 A spec the port cannot realise (an axis the mesh does not know, a dim it
-does not divide, a weight split the op's whole-head units refuse) raises
-at compile, naming the layer and the spec.
+does not divide, a weight split the op's whole-head units refuse, an int4
+row split that would cut a packed pair of rows) raises at compile, naming
+the layer and the spec.
+
+On the serving mesh the same plan runs in the serving forward
+(``FFModel._run_serving_walk``): each layer's output is moved to its
+spec (``ShardingPolicy.constrain``) and gathered whole before the next
+layer reads it, so an output spec there places the value and adds a
+split and an all_gather, but shards no consumer. The serving
+attention ops keep their own tensor-parallel layout, which their KV
+caches' split needs: a weight of theirs resting in another layout is
+brought to the op's own before the forward. A quantized weight is
+quantized whole, then its payload and scale are sliced at rest
+(``spec.shard_leaf``) and moved by ``reshard`` like any other weight.
 """
 
 from __future__ import annotations
@@ -67,6 +79,8 @@ from flexflow_tpu_torch.ffconst import AggrMode, CompMode, OpType
 from flexflow_tpu_torch.parallel.collectives import (all_gather, psum,
                                                      split, sum_grads)
 from flexflow_tpu_torch.parallel.mesh import AXIS_ORDER
+from flexflow_tpu_torch.quant import (QuantizedWeight, is_quantized,
+                                      quantizes)
 
 BATCH_AXES = ("data", "seq")
 
@@ -449,11 +463,14 @@ def normalize_spec(spec, shape, mesh, what: str) -> Spec:
 def _forward_form(layer, rest: Dict[str, Spec], native: Dict[str, Spec]):
     """({weight: spec the forward takes}, extra attrs) for a layer whose
     weights rest as ``rest``; ``native`` is the op's own layout."""
+    op = layer.op_type
+    if op in _SERVING_OPS:
+        # the op's heads and its KV cache's split are fixed together
+        return dict(native), {}
     whole = {w: (None,) * len(s) for w, s in rest.items()}
     split_at_rest = [w for w, s in rest.items() if any(s)]
     if not split_at_rest:
         return whole, {}
-    op = layer.op_type
     kernel = rest.get("kernel")
     if op == OpType.LINEAR and kernel == ("model", None):
         # row parallel: the forward cuts its input's features, sums over
@@ -478,6 +495,8 @@ def plan_strategy(model) -> Optional[StrategyPlan]:
     strategy, mesh, policy = model.strategy, model.mesh, model.policy
     if strategy is None or mesh is None:
         return None
+    qtype = (model.config.quantization_type
+             if model.comp_mode == CompMode.COMP_MODE_INFERENCE else None)
     by_name = {layer.name: layer for layer in model.layers}
     plan = StrategyPlan({}, {}, {})
     for name, st in strategy.ops.items():
@@ -520,39 +539,56 @@ def plan_strategy(model) -> Optional[StrategyPlan]:
                                          w.shard_multiples).spec
             native[w.name] = tuple(nat) + (None,) * (len(shape) - len(nat))
         form, attrs = _forward_form(layer, rest, native)
+        if qtype == "int4":
+            for w in layer.weights:
+                if quantizes(w.name, w.shape):
+                    _check_int4_pairs(where, w, (rest[w.name],
+                                                 form[w.name]), mesh)
         moves = {w: (rest[w], form[w]) for w in rest if rest[w] != form[w]}
         if attrs:
             plan.attrs[name] = attrs
         if moves:
             plan.weights[name] = moves
-    serving = any(ly.op_type in _SERVING_OPS for ly in model.layers)
-    moved = [n for n in by_name
-             if n in plan.outputs or n in plan.weights or n in plan.attrs]
-    quantized = (model.config.quantization_type
-                 and model.comp_mode == CompMode.COMP_MODE_INFERENCE)
-    if quantized and plan.weights:
-        name = next(iter(plan.weights))
-        raise NotImplementedError(
-            f"layer {name!r}: quantized weights are sliced at rest, never "
-            f"gathered; weight specs {dict(strategy.ops[name].weight_specs)}"
-            f" need a gather before the forward")
-    if serving and moved:
-        # the serving forward keeps the ops' tensor-parallel layout and
-        # its KV caches' split; it does not take the placement walk
-        st = strategy.ops[moved[0]]
-        raise NotImplementedError(
-            f"layer {moved[0]!r}: the serving graph runs on the mesh in "
-            f"its own tensor-parallel layout; output spec "
-            f"{tuple(st.output_spec)}, weight specs {dict(st.weight_specs)} "
-            f"cannot be executed there")
+    if model.comp_mode == CompMode.COMP_MODE_INFERENCE \
+            and mesh.axis_size("pipe") > 1:
+        moved = [n for n in by_name if n in plan.outputs
+                 or n in plan.weights or n in plan.attrs]
+        if moved:
+            # a pipeline stage runs stacked blocks (serve/pipeline_plan.py),
+            # which hold one layout for every block of the stage
+            raise ValueError(
+                f"layer {moved[0]!r}: a strategy that moves an output or a "
+                f"weight cannot be executed on a pipeline-parallel serving "
+                f"mesh {dict(mesh.shape)}")
     return plan
+
+
+def _check_int4_pairs(where, w, specs, mesh):
+    """An int4 payload packs rows in pairs: a spec that splits the rows
+    must cut them on even rows."""
+    for spec in specs:
+        axis = spec[0] if spec else None
+        n = mesh.axis_size(axis) if axis else 1
+        if n > 1 and (w.shape[0] // n) % 2:
+            raise ValueError(
+                f"{where} weight {w.name!r}: spec {spec} cuts its "
+                f"{w.shape[0]} rows into chunks of {w.shape[0] // n}, which "
+                f"would split a packed int4 pair of rows")
 
 
 def reshard(x, mesh, src: Spec, dst: Spec):
     """A weight slice laid out as ``src`` brought to ``dst``: gathered
     over each axis ``dst`` does not keep on that dim, then split where
     ``dst`` names an axis (backward: each rank's slice of the gradient,
-    and the chunks' gradients gathered)."""
+    and the chunks' gradients gathered). A ``QuantizedWeight`` moves its
+    payload (its rows packed in pairs for int4, cut on even rows) and
+    its per-column scale."""
+    if is_quantized(x):
+        n = {a: mesh.axis_size(a) if a else 1 for a in (src[0], dst[0])}
+        rows = x.rows * n[src[0]] // n[dst[0]]
+        return QuantizedWeight(x.qtype, reshard(x.q, mesh, src, dst),
+                               reshard(x.scale, mesh, src[1:], dst[1:]),
+                               rows, x.dtype)
     for d, (a, b) in enumerate(zip(src, dst)):
         if a is not None and a != b:
             x = all_gather(x, mesh, a, axis=d)

@@ -2,10 +2,14 @@
 runs on every rank of a process group.
 
 ``serve`` builds a LLaMA-family serving model (or a verifier and its
-draft) at the payload's degrees, carries whole weights in from a file
-(``shard_params``) or draws them from the seed, and generates; it
-returns the tokens, the kernels' launch counts and launch shapes
-(``kernels.record_shapes``), peak device memory and the wall time.
+draft) at the payload's degrees, under a run's strategy (a Strategy's
+JSON, set before compile) or the search's (``auto_parallel``), carries
+whole weights in from a file (``shard_params``) or draws them from the
+seed, and generates, with the shared-prefix pool when a run asks
+(``prefix_cache``); it returns the tokens, the pool's hit tokens, the
+kernels' launch counts and launch shapes (``kernels.record_shapes``),
+the weight bytes the rank holds, peak device memory and the wall time,
+and can save the parameters as the rank holds them (``save_params``).
 ``python -m flexflow_tpu_torch.serve`` under torchrun is the user's
 entry to the same path.
 
@@ -54,6 +58,10 @@ def _build(run, model_kw, weights, mode, dev):
 
     m = FFModel(FFConfig(device=str(dev), **run["config"]))
     create_llama_model(m, LLAMAConfig(**model_kw), mode=mode)
+    if run.get("strategy"):
+        from flexflow_tpu_torch.search.strategy import Strategy
+
+        m.strategy = Strategy.from_json(run["strategy"])
     m.compile()
     if weights:
         full = torch.load(weights, weights_only=False)
@@ -126,18 +134,24 @@ def _decode_timer(model):
 
 
 def _generate(llm, ssm, run):
+    """The run's prompts' output tokens, in prompt order, and the prompt
+    tokens the prefix pool installed instead of prefilling."""
+    from flexflow_tpu_torch.serve.batch_config import GenerationConfig
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
     rm = RequestManager()
+    gc = GenerationConfig(prefix_cache=bool(run.get("prefix_cache")))
     for p in run["prompts"]:
         rm.register_new_request(p, max_new_tokens=run["max_new"])
     if ssm is None:
-        res = rm.generate_incr_decoding(llm)
+        res = rm.generate_incr_decoding(llm, generation_config=gc)
     else:
         res = rm.generate_spec_infer(llm, [ssm],
-                                     spec_depth=run.get("spec_depth"))
+                                     spec_depth=run.get("spec_depth"),
+                                     generation_config=gc)
     by_prompt = {tuple(r.input_tokens): list(r.output_tokens) for r in res}
-    return [by_prompt[tuple(p)] for p in run["prompts"]]
+    return ([by_prompt[tuple(p)] for p in run["prompts"]],
+            sum(r.prefix_hit_tokens for r in res))
 
 
 def serve(payload) -> List[Dict[str, Any]]:
@@ -145,6 +159,7 @@ def serve(payload) -> List[Dict[str, Any]]:
     times, the wall time of each kept) and report."""
     from flexflow_tpu_torch import kernels
     from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.quant import quantized_nbytes
 
     dev = _dev(payload)
     on_card = dev.type == "cuda"
@@ -170,7 +185,7 @@ def serve(payload) -> List[Dict[str, Any]]:
                 moved += ssm.offload_weights(
                     min_bytes=run.get("offload_min", 1))
         dec = _decode_timer(llm) if ssm is None else None
-        seconds, decode_ms, tokens, counts = [], [], None, None
+        seconds, decode_ms, tokens, counts, hits = [], [], None, None, []
         with kernels.record_shapes() as shapes:
             for _ in range(int(run.get("repeat", 1))):
                 kernels.reset_counts()
@@ -179,7 +194,8 @@ def serve(payload) -> List[Dict[str, Any]]:
                 if on_card:
                     torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                tokens = _generate(llm, ssm, run)
+                tokens, hit = _generate(llm, ssm, run)
+                hits.append(hit)
                 if on_card:
                     torch.cuda.synchronize()
                 seconds.append(time.perf_counter() - t0)
@@ -187,10 +203,21 @@ def serve(payload) -> List[Dict[str, Any]]:
                 if dec is not None:
                     decode_ms.append(dec["s"] * 1e3 / max(1, dec["steps"]))
             shapes = {k: sorted(v) for k, v in shapes.items()}
+        if run.get("save_params"):
+            # the rank's parameters as it holds them, on the host
+            torch.save(_on(llm.params, torch.device("cpu")),
+                       run["save_params"].format(rank=llm.mesh.rank
+                                                 if llm.mesh else 0))
         results.append({
             "name": run.get("name", ""), "rank": llm.mesh.rank
             if llm.mesh is not None else 0,
             "tokens": tokens, "counts": counts, "seconds": seconds,
+            "prefix_hit_tokens": hits,
+            # payload and scale of a quantized leaf, a stage's stacked
+            # blocks included
+            "weight_bytes": quantized_nbytes(llm.params),
+            "strategy": (llm.strategy.to_json()
+                         if llm.strategy is not None else None),
             "decode_ms_per_step": decode_ms,
             "moved": moved, "shapes": _shapes(llm),
             "fetched": (llm._prefetcher.bytes_fetched

@@ -132,6 +132,35 @@ class ShardingPolicy:
     def replicated(self) -> Sharding:
         return self._sharding(())
 
+    def resolve(self, spec, shape: Tuple[int, ...]) -> Tuple:
+        """``spec`` (a mesh axis name or None a dim) as it lays out a
+        whole tensor of ``shape``: axes not in the mesh, or that do not
+        divide their dim, are taken as None there, as in the JAX
+        package."""
+        shape = tuple(shape)
+        dst = tuple(ax if ax is not None and self._axis(ax) is not None
+                    and shape[i] % self.mesh.shape[ax] == 0 else None
+                    for i, ax in enumerate(tuple(spec)[:len(shape)]))
+        return dst + (None,) * (len(shape) - len(dst))
+
+    def constrain(self, value, spec, src=None):
+        """``value`` (this rank's piece of a tensor laid out as ``src``,
+        default whole) laid out as ``spec``, a searched output layout
+        taken as ``resolve`` takes it: the port's counterpart of the JAX
+        package's sharding constraint, moved by ``placement.reshard``."""
+        if not isinstance(value, torch.Tensor):
+            return value
+        src = tuple(src or ())
+        src = src + (None,) * (value.dim() - len(src))
+        whole = [d * (self.mesh.shape[a] if self._axis(a) else 1)
+                 for d, a in zip(value.shape, src)]
+        dst = self.resolve(spec, whole)
+        if dst == src:
+            return value
+        from flexflow_tpu_torch.parallel.placement import reshard
+
+        return reshard(value, self.mesh, src, dst)
+
 
 def shard_leaf(leaf, sharding: Sharding, coord: Mapping[str, int]):
     """This rank's slice of one parameter, as a new contiguous tensor (or

@@ -136,6 +136,13 @@ _QUANT_NAMES = {"kernel", "wq", "wk", "wv", "wo", "wqkv", "weight",
                 "w1", "w2", "w3", "gate", "up", "down"}
 
 
+def quantizes(name: str, shape, min_dim: int = 64) -> bool:
+    """Is a weight named ``name`` of ``shape`` one that ``quantize_params``
+    quantizes (given a floating-point dtype)?"""
+    return (name in _QUANT_NAMES and len(shape) == 2
+            and min(shape) >= min_dim)
+
+
 def quantize_params(params: Dict[str, Dict[str, Any]], qtype: str,
                     min_dim: int = 64) -> Dict[str, Dict[str, Any]]:
     """Quantize every eligible 2-D weight of a ``{layer: {name: tensor}}``
@@ -146,8 +153,7 @@ def quantize_params(params: Dict[str, Dict[str, Any]], qtype: str,
     for layer, ws in params.items():
         new_ws = {}
         for name, w in ws.items():
-            if (not is_quantized(w) and name in _QUANT_NAMES
-                    and w.dim() == 2 and min(w.shape) >= min_dim
+            if (not is_quantized(w) and quantizes(name, w.shape, min_dim)
                     and w.dtype.is_floating_point):
                 new_ws[name] = quantize_array(w, qtype)
             else:

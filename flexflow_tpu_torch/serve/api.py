@@ -84,6 +84,50 @@ from flexflow_tpu_torch.serve.request_manager import (GenerationResult,
                                                       RequestManager)
 
 
+_global_init_kwargs: dict = {}
+
+# the reference's serve.init keys that are not FFConfig fields: an FFConfig
+# field to set (the value passed on, or the tuple's value when the key is
+# true), or None for a Legion resource knob, which has no meaning here
+_INIT_ALIASES = {
+    "num_gpus": "num_devices",
+    "num_cpus": None,
+    "memory_per_gpu": None,
+    "zero_copy_memory_per_node": None,
+    "legion_utility_processors": None,
+    "use_4bit_quantization": ("quantization_type", "int4"),
+    "use_8bit_quantization": ("quantization_type", "int8"),
+    "offload": ("cpu_offload", True),
+    "fusion": "enable_fusion",
+}
+
+
+def init(configs_dict: Optional[dict] = None, **kwargs) -> dict:
+    """Serving defaults for every later ``LLM.compile`` (reference
+    serve/__init__.py init() :94, the JAX package's ``serve.init``): the
+    keys that name FFConfig fields are stored, the reference's aliases
+    mapped (``_INIT_ALIASES``), Legion resource keys and unknown keys
+    dropped. ``compile``'s own keyword arguments win over them. Returns
+    the stored fields; each call replaces the last call's."""
+    global _global_init_kwargs
+    merged = dict(configs_dict or {})
+    merged.update(kwargs)
+    known = set(FFConfig.__dataclass_fields__)
+    out = {}
+    for k, v in merged.items():
+        if k in known:
+            out[k] = v
+        elif _INIT_ALIASES.get(k) is not None:
+            a = _INIT_ALIASES[k]
+            if isinstance(a, tuple):
+                if v:
+                    out[a[0]] = a[1]
+            else:
+                out[a] = v
+    _global_init_kwargs = out
+    return out
+
+
 def _is_hf_model(obj) -> bool:
     return hasattr(obj, "state_dict") and hasattr(obj, "config")
 
@@ -201,10 +245,11 @@ class LLM:
         self.ssms = list(ssms)
         mode = (InferenceMode.TREE_VERIFY_MODE if self.ssms
                 else self.inference_mode)
+        kw = dict(_global_init_kwargs)       # serve.init's defaults
+        kw.update(ffconfig_kwargs)
         config = FFConfig(max_requests_per_batch=max_requests_per_batch,
                           max_sequence_length=max_seq_length,
-                          max_tokens_per_batch=max_tokens_per_batch,
-                          **ffconfig_kwargs)
+                          max_tokens_per_batch=max_tokens_per_batch, **kw)
         if config.telemetry:
             # enable-or-keep the process-global telemetry (a live
             # instance's registry survives; the drafts compile with the

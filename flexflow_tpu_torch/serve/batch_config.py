@@ -54,6 +54,15 @@ class GenerationConfig:
     prefix_cache_tokens: int = 0
 
 
+# Reference include/flexflow/batch_config.h:57-58 and :125-126 (the JAX
+# package's constants; the port's shapes come from FFConfig)
+MAX_NUM_REQUESTS = 64
+MAX_NUM_TOKENS = 1024
+MAX_BEAM_WIDTH = 1
+MAX_BEAM_DEPTH = 8
+# Reference request_manager.cc:1829 (depth-4 in-flight batch pipeline)
+DEFAULT_PIPELINE_DEPTH = 4
+
 _FIELD_DTYPES = {"tokens": torch.int32, "positions": torch.int32,
                  "start_pos": torch.int32, "num_tokens": torch.int32,
                  "active": torch.bool}
@@ -81,6 +90,14 @@ class BatchMeta:
 
     def to(self, device) -> "BatchMeta":
         return BatchMeta(**_fields_to(self, _FIELD_DTYPES, device))
+
+    @property
+    def q_width(self) -> int:
+        return self.tokens.shape[1]
+
+    @property
+    def max_requests(self) -> int:
+        return self.tokens.shape[0]
 
 
 _TREE_FIELD_DTYPES = {"tokens": torch.int32, "positions": torch.int32,
@@ -121,6 +138,14 @@ class TreeBatchMeta:
 
     def to(self, device) -> "TreeBatchMeta":
         return TreeBatchMeta(**_fields_to(self, _TREE_FIELD_DTYPES, device))
+
+    @property
+    def q_width(self) -> int:
+        return self.tokens.shape[1]
+
+    @property
+    def max_requests(self) -> int:
+        return self.tokens.shape[0]
 
 
 def _fields_to(meta, dtypes, device):

@@ -46,12 +46,23 @@ package's token budget: ``DEFAULT_POOL_MEMORY_FRACTION`` of the device
 memory free at its first insert (``PrefixCache(max_bytes=...)`` sets
 another; segments on the host keep the token budget alone, as in the
 JAX package). Eviction holds both.
+
+Under parallel serving every rank runs its own pool over its own share of
+the caches (tensor parallelism: its KV heads, or the whole cache where the
+heads do not divide; pipeline parallelism: its stage's layers; sequence
+parallelism: its rows, ``rank_rows``). The pools must take the same
+decisions, or the ranks would prefill different tokens: the clock that
+orders eviction is a logical one, and the byte figures are agreed through
+``reduce`` (an all-reduce over the ranks): the budget is the least rank's,
+and each entry weighs what the fullest rank holds of it. The first insert
+also checks that every rank pools the same prompt.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+import zlib
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -89,22 +100,51 @@ def _kv_slots(op_state) -> List[Tuple[str, str, str, bool]]:
     return out
 
 
-def extract_prefix_kv(op_state, slot: int, length: int) -> Optional[Dict]:
+def _held(P: int, rows: int, seq_rows) -> Optional[int]:
+    """How many of the first P global positions a cache of ``rows`` rows
+    holds: all P, or, for a rank's rows ``off .. off + rows - 1`` of
+    ``total`` (``seq_rows = (off, total)``), the part of them at or past
+    ``off``. None when P does not fit the (whole) cache."""
+    if seq_rows is None:
+        return P if P <= rows else None
+    off, total = seq_rows
+    return min(max(P - off, 0), rows) if P <= total else None
+
+
+def rank_rows(model):
+    """``(first row, rows in all)`` of a sequence-parallel rank's KV cache
+    rows (``ops/inc_attention._seq_offset``: rank i holds rows
+    ``i * S/sp`` on), or None when the model's caches hold every row."""
+    mesh = getattr(model, "mesh", None)
+    if mesh is None or mesh.axis_size("seq") <= 1:
+        return None
+    total = model.config.max_sequence_length
+    for name, kk, _vk, _stacked in _kv_slots(model.op_state):
+        rows = model.op_state[name][kk].shape[-2]
+        return None if rows == total else (mesh.index("seq") * rows, total)
+    return None
+
+
+def extract_prefix_kv(op_state, slot: int, length: int,
+                      seq_rows=None) -> Optional[Dict]:
     """Clone the first ``length`` positions of ``slot``'s KV (padded up to
-    a ``_PAD`` multiple of positions) on the cache's device. Returns None
-    when the cache is too short to hold the padded segment."""
+    a ``_PAD`` multiple of positions) on the cache's device; with
+    ``seq_rows`` (a sequence-parallel rank's ``(first row, rows in
+    all)``), the part of them this rank's rows hold. Returns None when
+    the cache is too short to hold the padded segment."""
     P = _round_up(length)
     segs: Dict[str, Dict[str, torch.Tensor]] = {}
     for name, kk, vk, stacked in _kv_slots(op_state):
         k, v = op_state[name][kk], op_state[name][vk]
-        if P > k.shape[-2]:
+        n = _held(P, k.shape[-2], seq_rows)
+        if n is None:
             return None
-        if stacked:      # [L, R, KH, S, Dc] -> [L, KH, P, Dc]
-            segs[name] = {"k": k[:, slot, :, :P].clone(),
-                          "v": v[:, slot, :, :P].clone()}
-        else:            # [R, KH, S, Dc] -> [KH, P, Dc]
-            segs[name] = {"k": k[slot, :, :P].clone(),
-                          "v": v[slot, :, :P].clone()}
+        if stacked:      # [L, R, KH, S, Dc] -> [L, KH, n, Dc]
+            segs[name] = {"k": k[:, slot, :, :n].clone(),
+                          "v": v[:, slot, :, :n].clone()}
+        else:            # [R, KH, S, Dc] -> [KH, n, Dc]
+            segs[name] = {"k": k[slot, :, :n].clone(),
+                          "v": v[slot, :, :n].clone()}
     return segs or None
 
 
@@ -138,11 +178,13 @@ def _segment_device(segments: Dict[str, Any]) -> Optional[torch.device]:
     return None
 
 
-def prefix_compatible(op_state, segs: Dict, length: int) -> bool:
+def prefix_compatible(op_state, segs: Dict, length: int,
+                      seq_rows=None) -> bool:
     """True when ``segs`` (one model's stored segment dict) can be
     installed into ``op_state`` for ``length`` shared tokens: every KV
     cache present, in the same layout, geometry (the cache's own head dim
-    included), dtype and device, the padded length within the cache."""
+    included), dtype and device, the padded length within the cache
+    (``seq_rows`` as in ``extract_prefix_kv``)."""
     slots = _kv_slots(op_state)
     if not slots:
         return False
@@ -152,7 +194,8 @@ def prefix_compatible(op_state, segs: Dict, length: int) -> bool:
         if seg is None:
             return False
         cache, k = op_state[name][kk], seg["k"]
-        if P > cache.shape[-2] or k.shape[-2] < P:
+        n = _held(P, cache.shape[-2], seq_rows)
+        if n is None or k.shape[-2] < n:
             return False
         want = ((cache.shape[0], cache.shape[2], cache.shape[4])
                 if stacked else (cache.shape[1], cache.shape[3]))
@@ -164,23 +207,26 @@ def prefix_compatible(op_state, segs: Dict, length: int) -> bool:
     return True
 
 
-def install_prefix_kv(op_state, slot: int, segs: Dict, length: int):
+def install_prefix_kv(op_state, slot: int, segs: Dict, length: int,
+                      seq_rows=None):
     """Write the first ``length`` shared positions of a stored segment
-    (rounded up to ``_PAD``) into ``slot``'s region of every cache, in
-    place. The tail of the last ``_PAD`` bucket is stale KV past the
-    slot's valid extent until the suffix prefill overwrites it."""
+    (rounded up to ``_PAD``; with ``seq_rows``, the part of them this
+    rank's rows hold) into ``slot``'s region of every cache, in place.
+    The tail of the last ``_PAD`` bucket is stale KV past the slot's valid
+    extent until the suffix prefill overwrites it."""
     P = _round_up(length)
     for name, kk, vk, stacked in _kv_slots(op_state):
         seg = segs.get(name)
         if seg is None:
             continue
         k_cache, v_cache = op_state[name][kk], op_state[name][vk]
+        n = _held(P, k_cache.shape[-2], seq_rows)
         if stacked:
-            k_cache[:, slot, :, :P].copy_(seg["k"][:, :, :P])
-            v_cache[:, slot, :, :P].copy_(seg["v"][:, :, :P])
+            k_cache[:, slot, :, :n].copy_(seg["k"][:, :, :n])
+            v_cache[:, slot, :, :n].copy_(seg["v"][:, :, :n])
         else:
-            k_cache[slot, :, :P].copy_(seg["k"][:, :P])
-            v_cache[slot, :, :P].copy_(seg["v"][:, :P])
+            k_cache[slot, :, :n].copy_(seg["k"][:, :n])
+            v_cache[slot, :, :n].copy_(seg["v"][:, :n])
     return op_state
 
 
@@ -206,11 +252,11 @@ class PrefixEntry:
                  "last_used", "_node")
 
     def __init__(self, tokens: Tuple[int, ...], segments: Dict[str, Any],
-                 now: float):
+                 now: float, nbytes: Optional[int] = None):
         self.tokens = tokens
         self.length = len(tokens)
         self.segments = segments
-        self.nbytes = entry_nbytes(segments)
+        self.nbytes = entry_nbytes(segments) if nbytes is None else nbytes
         self.refs = 0
         self.last_used = now
         self._node: Optional[_Node] = None
@@ -224,8 +270,12 @@ class PrefixCache:
     run on the engine loop thread."""
 
     def __init__(self, max_tokens: int = 0, min_tokens: int = 2,
-                 clock=None, max_bytes: int = 0):
+                 clock=None, max_bytes: int = 0, reduce=None):
         self.max_tokens = max_tokens or DEFAULT_POOL_TOKENS
+        # parallel serving: reduce(values, "min" | "max") agrees a list of
+        # ints over the ranks (module docstring); None for one process
+        self._reduce = reduce
+        self._agreed = False
         # None until the first insert fixes it (default_byte_budget);
         # 0 = no byte budget
         self.max_bytes: Optional[int] = max_bytes or None
@@ -299,6 +349,10 @@ class PrefixCache:
         with self._lock:
             entry.refs = max(0, entry.refs - 1)
 
+    def acquire(self, entry: PrefixEntry):
+        with self._lock:
+            entry.refs += 1
+
     # -- insert / evict ------------------------------------------------
     def would_store(self, tokens: Sequence[int]) -> bool:
         """True when ``insert(tokens, ...)`` would add a new entry: the
@@ -323,10 +377,8 @@ class PrefixCache:
         n = len(toks)
         if n < self.min_tokens or n > self.max_tokens:
             return None, 0
-        if self.max_bytes is None:
-            dev = _segment_device(segments)
-            self.max_bytes = 0 if dev is None else default_byte_budget(dev)
-        if self.max_bytes and entry_nbytes(segments) > self.max_bytes:
+        nbytes = self._entry_bytes(toks, segments)
+        if self.max_bytes and nbytes > self.max_bytes:
             return None, 0
         with self._lock:
             node = self._root
@@ -339,13 +391,37 @@ class PrefixCache:
             if node.entry is not None:
                 node.entry.last_used = now
                 return None, 0
-            entry = PrefixEntry(toks, segments, now)
+            entry = PrefixEntry(toks, segments, now, nbytes)
             entry._node = node
             node.entry = entry
             self._entries.append(entry)
             self.pool_tokens += n
             self._pool_bytes += entry.nbytes
             return entry, self._evict_to_budget(keep=entry)
+
+    def _entry_bytes(self, toks: Tuple[int, ...],
+                     segments: Dict[str, Any]) -> int:
+        """The bytes an entry weighs against the byte budget, which the
+        first insert fixes: this process's figures, or under ``reduce``
+        the ranks' agreed ones (the fullest rank's entry, the least
+        rank's budget), after checking that every rank pools ``toks``."""
+        nbytes = entry_nbytes(segments)
+        first = self.max_bytes is None
+        if first:
+            dev = _segment_device(segments)
+            self.max_bytes = 0 if dev is None else default_byte_budget(dev)
+        if self._reduce is None:
+            return nbytes
+        ident = [len(toks), zlib.crc32(repr(toks).encode())]
+        hi = self._reduce([nbytes] + ident, "max")
+        if not self._agreed:
+            if self._reduce(ident, "min") != hi[1:]:
+                raise RuntimeError("the ranks' prefix pools diverged: they "
+                                   "store different prompts")
+            self._agreed = True
+        if first:
+            self.max_bytes = self._reduce([self.max_bytes], "min")[0]
+        return hi[0]
 
     def _evict_to_budget(self, keep: Optional[PrefixEntry] = None) -> int:
         """LRU-evict unreferenced entries until the pool fits the token

@@ -85,7 +85,8 @@ import numpy as np
 import torch
 
 from flexflow_tpu_torch.ops.inc_attention import commit_tree_kv
-from flexflow_tpu_torch.serve.batch_config import (BatchMeta,
+from flexflow_tpu_torch.serve.batch_config import (MAX_BEAM_DEPTH,
+                                                   BatchMeta,
                                                    GenerationConfig,
                                                    TreeBatchMeta,
                                                    ancestor_mask_from_parents)
@@ -93,9 +94,6 @@ from flexflow_tpu_torch.serve.inference_manager import (VERIFY_WIDTH,
                                                         InferenceManager,
                                                         kernel_serves)
 from flexflow_tpu_torch.telemetry import get_telemetry, mint_trace_id
-
-# Reference include/flexflow/batch_config.h:126 (MAX_BEAM_DEPTH)
-MAX_SPEC_DEPTH = 8
 
 
 @dataclasses.dataclass
@@ -203,7 +201,7 @@ class RequestManager:
         # None: attached directly or at the first generate call whose
         # GenerationConfig asks for it, and kept across calls
         self.prefix_cache = None
-        self.max_spec_depth = MAX_SPEC_DEPTH
+        self.max_spec_depth = MAX_BEAM_DEPTH
         # the host tree path's KV compaction (in place)
         self._commit = commit_tree_kv
         # counts of the last generate_spec_infer call: verify passes
@@ -499,20 +497,21 @@ class RequestManager:
     def _resolve_prefix_cache(self, gc: Optional[GenerationConfig],
                               model=None):
         """Attach the pool when the generation config asks for it (requests
-        registered before that are matched at their slot grant)."""
+        registered before that are matched at their slot grant). Under
+        parallel serving each rank pools its share of the caches, on a
+        logical clock and with byte figures agreed over the ranks, so
+        that every rank takes the same decisions (serve/prefix_cache.py)."""
         if (gc is not None and gc.prefix_cache
                 and self.prefix_cache is None):
             from flexflow_tpu_torch.serve.prefix_cache import PrefixCache
 
+            kw = {}
             mesh = getattr(model, "mesh", None)
             if mesh is not None and mesh.size > 1:
-                raise NotImplementedError(
-                    "the shared-prefix pool is not ported to parallel "
-                    "serving: its byte budget reads each rank's free "
-                    "device memory, so ranks would pool differently")
-
+                kw = dict(clock=itertools.count().__next__,
+                          reduce=_world_reducer(model.device))
             self.prefix_cache = PrefixCache(
-                max_tokens=gc.prefix_cache_tokens)
+                max_tokens=gc.prefix_cache_tokens, **kw)
 
     def _prefix_match(self, req: Request):
         """Longest-prefix radix lookup for one request (admission time, or
@@ -556,10 +555,12 @@ class RequestManager:
                 continue
             for key, ifm in pairs:
                 segs = entry.segments.get(key)
+                rows = pcm.rank_rows(ifm.model)
                 if segs is None or not pcm.prefix_compatible(
-                        ifm.model.op_state, segs, n):
+                        ifm.model.op_state, segs, n, rows):
                     continue
-                pcm.install_prefix_kv(ifm.model.op_state, req.slot, segs, n)
+                pcm.install_prefix_kv(ifm.model.op_state, req.slot, segs, n,
+                                      rows)
                 if key == "llm":
                     req.cache_depth = n
                 else:
@@ -585,7 +586,8 @@ class RequestManager:
             if depth < len(prompt):
                 continue
             segs = pcm.extract_prefix_kv(ifm.model.op_state, req.slot,
-                                         len(prompt))
+                                         len(prompt),
+                                         pcm.rank_rows(ifm.model))
             if segs is not None:
                 segments[key] = segs
         if "llm" not in segments:
@@ -713,10 +715,20 @@ class RequestManager:
             sched = NativeBatchScheduler(cfg.max_requests_per_batch,
                                          cfg.max_sequence_length,
                                          self.eos_token_id)
-            if not self._generate_incr_native(ifm, cfg, sched, active,
-                                              done):
-                return done
+            self._native_sched = sched
+            try:
+                if not self._generate_incr_native(ifm, cfg, sched, active,
+                                                  done):
+                    return done
+            finally:
+                self._native_sched = None
         return self._generate_incr_python(ifm, cfg, active, done)
+
+    def native_shadow_empty(self) -> bool:
+        """True when the native scheduler holds no requests (always true
+        outside a native-loop generation)."""
+        sched = getattr(self, "_native_sched", None)
+        return sched is None or not sched.has_work()
 
     def _needs_host_loop(self) -> bool:
         """Priorities need the Python loop's preemption and the prefix
@@ -1705,3 +1717,31 @@ class RequestManager:
                     self._prefix_store(req, pairs)
                 done.append(self._collect(req))
                 active[slot] = None
+
+
+_request_manager: Optional[RequestManager] = None
+
+
+def get_request_manager() -> RequestManager:
+    """Singleton accessor (reference RequestManager::get_request_manager)."""
+    global _request_manager
+    if _request_manager is None:
+        _request_manager = RequestManager()
+    return _request_manager
+
+
+def _world_reducer(device):
+    """reduce(values, "min" | "max"): a list of ints all-reduced over every
+    rank of the process group (the prefix pool's agreed figures)."""
+    import torch.distributed as dist
+
+    from flexflow_tpu_torch.parallel.collectives import _run
+
+    ops = {"min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
+
+    def reduce(values, op):
+        t = torch.tensor(values, dtype=torch.int64, device=device)
+        return _run(t, None, lambda y: dist.all_reduce(y, op=ops[op])
+                    ).tolist()
+
+    return reduce

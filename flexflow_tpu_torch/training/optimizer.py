@@ -17,6 +17,8 @@ from typing import Any, Dict
 
 import torch
 
+from flexflow_tpu_torch.ffconst import ParameterSyncType
+
 
 def _leaves(params, grads):
     """(param, grad) pairs; a parameter no loss term reached gets a zero
@@ -33,6 +35,11 @@ def _zeros_like(params):
 
 
 class Optimizer:
+    # the reference's gradient sync (the JAX package's default); the
+    # port's data-parallel gradients are all-reduced over the process
+    # group (parallel/placement.GradReducer) whatever it says
+    sync_type = ParameterSyncType.NCCL
+
     def __init__(self, ffmodel=None):
         self.ffmodel = ffmodel
 
