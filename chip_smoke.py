@@ -270,6 +270,9 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      at their offsets and combined), and the partials mode's timed row
      of the kernel table at the sp=2 decode shape.
  15. parallel and resumable training (``parallel_training_phase``);
+     15b's tp=2 run keeps every activation split over ``model`` on its
+     features and prints each rank's peak as a share of one rank's,
+     gated at ``TP2_PEAK_SHARE``;
  16. the model frontends (no kernel; K1-K3 and their plain versions
      launch no time in the phase). 16a: torchvision's ResNet-50
      topology in plain ``torch.nn`` through the fx frontend, written as
@@ -5101,8 +5104,11 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
     fp32 compute and cache) on one rank (a world-size-1 NCCL group) and
     at tp=2, pp=2 and sp=2 (two ranks sharing the card through gloo),
     each as subprocesses of ``parallel/launch.run_ranks`` (their stores
-    and logs under ``work``). Returns ({config: launch counts summed over
-    its ranks}, report, {config: {kernel: launch shapes of its ranks}})."""
+    and logs under ``work``), every launch started at once and the card
+    shared between them. Returns ({config: launch counts summed over its
+    ranks}, report, {config: {kernel: launch shapes of its ranks}})."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from flexflow_tpu_torch.parallel.launch import run_ranks
@@ -5145,42 +5151,50 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
             out += strategy_runs(full, dict(cfg, **deg), prompts)
         return out
 
-    t = time.perf_counter()
-    names = _check_collectives(run_ranks(
-        f"{test_jobs}:collectives", 2,
-        {"device": device, "axis": "model",
-         "degrees": {"tensor_parallelism_degree": 2}},
-        workdir=os.path.join(work, "collectives"), timeout=SHARD_TIMEOUT,
-        device=device, backend="gloo"))
-    log(f"  collectives on {device} tensors, 2 ranks, gloo through pinned "
-        f"host buffers: {', '.join(names)} equal to numpy "
-        f"({time.perf_counter() - t:.1f} s)")
-    t = time.perf_counter()
+    def timed(*args, **kw):
+        t = time.perf_counter()
+        return run_ranks(*args, **kw), time.perf_counter() - t
+
     # a mesh of one rank: the final-output broadcast runs on its group
     one = dict(mesh_shape=[1], mesh_axis_names=["model"])
-    single = run_ranks(f"{jobs}:serve", 1,
-                       {"device": device, "runs": runs(one)},
-                       workdir=os.path.join(work, "single"),
-                       timeout=SHARD_TIMEOUT, device=device,
-                       backend="nccl" if device == "cuda" else "gloo")[0][0]
+    with ThreadPoolExecutor(2 + len(SHARD_CONFIGS)) as pool:
+        f_coll = pool.submit(
+            timed, f"{test_jobs}:collectives", 2,
+            {"device": device, "axis": "model",
+             "degrees": {"tensor_parallelism_degree": 2}},
+            workdir=os.path.join(work, "collectives"), timeout=SHARD_TIMEOUT,
+            device=device, backend="gloo")
+        f_single = pool.submit(
+            timed, f"{jobs}:serve", 1, {"device": device, "runs": runs(one)},
+            workdir=os.path.join(work, "single"), timeout=SHARD_TIMEOUT,
+            device=device, backend="nccl" if device == "cuda" else "gloo")
+        f_cfg = {name: pool.submit(
+            timed, f"{jobs}:serve", 2,
+            {"device": device, "runs": runs(deg, name)},
+            workdir=os.path.join(work, name), timeout=SHARD_TIMEOUT,
+            device=device, backend="gloo") for name, deg in SHARD_CONFIGS}
+        coll, secs = f_coll.result()
+        names = _check_collectives(coll)
+        log(f"  collectives on {device} tensors, 2 ranks, gloo through "
+            f"pinned host buffers: {', '.join(names)} equal to numpy "
+            f"({secs:.1f} s)")
+        single, secs = f_single.result()
+        single = single[0][0]
+        launches = {name: f.result() for name, f in f_cfg.items()}
     ref = single["tokens"]
     log(f"  1 rank ({'NCCL' if device == 'cuda' else 'gloo'} world of 1, "
         f"{model['num_hidden_layers']} layers): decode ms/step of its one "
-        f"pass (cold: the first generate after the build) "
-        f"{single['decode_ms_per_step'][-1]:.3f}, peak "
+        f"pass (cold: the first generate after the build; beside the other "
+        f"launches) {single['decode_ms_per_step'][-1]:.3f}, peak "
         f"{single['peak_bytes'] / 2**30:.2f} GiB, launches "
-        f"{single['counts']}, {time.perf_counter() - t:.1f} s  [{card}]")
+        f"{single['counts']}, {secs:.1f} s  [{card}]")
     report = {"single": dict(decode_ms_cold=single["decode_ms_per_step"][-1],
                              peak_gib=single["peak_bytes"] / 2**30,
                              counts=single["counts"])}
     by_path, shapes = {}, {}
     plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
     for name, deg in SHARD_CONFIGS:
-        t = time.perf_counter()
-        launched = run_ranks(
-            f"{jobs}:serve", 2, {"device": device, "runs": runs(deg, name)},
-            workdir=os.path.join(work, name), timeout=SHARD_TIMEOUT,
-            device=device, backend="gloo")
+        launched, secs = launches[name]
         ranks = [r[0] for r in launched]
         rep = []
         for r in ranks:
@@ -5207,15 +5221,15 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                 f"{ls.get('flash_attend_append', [])}; K3 at (M, K, N, "
                 f"qtype, compute, out) {ls.get('qmatmul', [])}; peak "
                 f"{r['peak_bytes'] / 2**30:.2f} GiB; decode ms/step of the "
-                f"one pass (cold) {r['decode_ms_per_step'][-1]:.3f}  "
-                f"[{card}]")
+                f"one pass (cold, beside the other launches) "
+                f"{r['decode_ms_per_step'][-1]:.3f}  [{card}]")
             rep.append(dict(rank=r["rank"], tokens_equal=eq, counts=c,
                             peak_gib=r["peak_bytes"] / 2**30,
                             decode_ms_cold=r["decode_ms_per_step"][-1]))
             if not ok:
                 raise AssertionError(f"14b: {name} rank {r['rank']} gates")
-        log(f"  {name}: {time.perf_counter() - t:.1f} s; its times are two "
-            f"processes sharing one card through host-staged gloo "
+        log(f"  {name}: {secs:.1f} s; its times are two processes sharing "
+            f"one card (and the other launches) through host-staged gloo "
             f"collectives, not a speed of {name[:2].upper()}")
         report[name] = rep
         by_path[name] = {k: sum(r["counts"][k] for r in ranks)
@@ -5578,6 +5592,8 @@ def seven_b_keys(hf):
 # ----------------------------------------------------------------------
 PAR_STEPS = 3            # 15a-15c: steps a run (ResNet's cut: 2)
 PAR_BOUND = 1e-5         # relative: a parallel run's losses vs one rank's
+TP2_PEAK_SHARE = 0.65    # 15b bert_tp2: a rank's peak over one rank's (the
+                         # activations split over model; 0.80 kept whole)
 MOE_CPU_BOUND = 1e-4     # relative: 15c card vs CPU (phase 11a's bound)
 LARGE_BATCH = 64         # 15a and 15d: BERT-large, bf16 (32 a rank at dp=2)
 RESUME_STEPS = 4         # 15e: 2 steps, save, restore, 2 more
@@ -5615,8 +5631,11 @@ def parallel_training_phase(torch, card, work, device="cuda"):
     ``work``). One launch of 2 ranks sharing the card (gloo, staged
     through pinned host buffers) runs every parallel case; one launch of
     1 rank (NCCL world of 1, ``CUBLAS_WORKSPACE_CONFIG`` set) runs the
-    references, remat and resume. No kernel of K1-K3 lies on this path.
-    Returns the report; a failed gate raises."""
+    references, remat and resume, beside it; the tp=2 checkpoint is
+    restored at tp=1 in this process after both. No kernel of K1-K3 lies
+    on this path. Returns the report; a failed gate raises."""
+    from concurrent.futures import ThreadPoolExecutor
+
     import numpy as np
 
     from flexflow_tpu_torch.parallel import rank_jobs
@@ -5700,25 +5719,32 @@ def parallel_training_phase(torch, card, work, device="cuda"):
                  save={"dir": part_ckpt, "step": RESUME_STEPS // 2}, **det),
             bert("resumed", data=resume_data, restore=part_ckpt,
                  first_step=RESUME_STEPS // 2, steps=RESUME_STEPS // 2,
-                 out=os.path.join(work, "resumed.npz"), **det),
-            bert("tp2_at_tp1", restore=tp2_ckpt, steps=0,
-                 out=os.path.join(work, "tp2_at_tp1.npz"))]
+                 out=os.path.join(work, "resumed.npz"), **det)]
 
-    t = time.perf_counter()
-    res2 = run_ranks(job, 2, {"device": device, "tf32": False, "runs": two},
-                     workdir=os.path.join(work, "w2"), timeout=PAR_TIMEOUT,
-                     device=device, backend="gloo")
-    s2 = time.perf_counter() - t
-    t = time.perf_counter()
-    res1 = run_ranks(job, 1, {"device": device, "tf32": False, "runs": one},
-                     workdir=os.path.join(work, "w1"), timeout=PAR_TIMEOUT,
-                     device=device,
-                     backend="nccl" if device == "cuda" else "gloo",
-                     env=dict(os.environ,
-                              CUBLAS_WORKSPACE_CONFIG=":4096:8"))[0]
-    s1 = time.perf_counter() - t
-    log(f"  launches: 2 ranks {s2:.1f} s ({len(two)} runs), 1 rank "
-        f"{s1:.1f} s ({len(one)} runs)  [{card}]")
+    def timed(fn, *args, **kw):
+        t = time.perf_counter()
+        return fn(*args, **kw), time.perf_counter() - t
+
+    # the two launches run side by side on the card (a rank's peak is its
+    # own process's; their step times are taken beside each other)
+    with ThreadPoolExecutor(2) as pool:
+        f2 = pool.submit(timed, run_ranks, job, 2, {
+            "device": device, "tf32": False, "runs": two},
+            workdir=os.path.join(work, "w2"), timeout=PAR_TIMEOUT,
+            device=device, backend="gloo")
+        f1 = pool.submit(timed, run_ranks, job, 1, {
+            "device": device, "tf32": False, "runs": one},
+            workdir=os.path.join(work, "w1"), timeout=PAR_TIMEOUT,
+            device=device, backend="nccl" if device == "cuda" else "gloo",
+            env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+        res2, s2 = f2.result()
+        (res1,), s1 = f1.result()
+    # the tp=2 run's checkpoint, restored at tp=1 here once it is written
+    res1.append(rank_jobs.train({"device": device, "runs": [
+        bert("tp2_at_tp1", restore=tp2_ckpt, steps=0,
+             out=os.path.join(work, "tp2_at_tp1.npz"))]})[0])
+    log(f"  launches side by side: 2 ranks {s2:.1f} s ({len(two)} runs), "
+        f"1 rank {s1:.1f} s ({len(one)} runs)  [{card}]")
     by2 = {r["name"]: [rank[i] for rank in res2] for i, r in enumerate(two)}
     by1 = {r["name"]: r for r in res1}
     bad, report = [], {}
@@ -5728,17 +5754,23 @@ def parallel_training_phase(torch, card, work, device="cuda"):
         rel = _rel(ranks[0]["losses"], by1[ref]["losses"])
         same = all(r["losses"] == ranks[0]["losses"] for r in ranks)
         peaks = [round(r["peak_bytes"] / 2**30, 3) for r in ranks]
+        ref_peak = by1[ref]["peak_bytes"]
+        shares = [r["peak_bytes"] / ref_peak if ref_peak else float("nan")
+                  for r in ranks]
         log(f"  {sub} {what}: losses {[f'{v:.7f}' for v in ranks[0]['losses']]}"
             f" vs one rank {[f'{v:.7f}' for v in by1[ref]['losses']]}, "
             f"largest relative difference {rel:.2e} (bound {PAR_BOUND}); "
             f"every rank the same numbers: {same}; peak a rank {peaks} GiB "
-            f"(one rank {by1[ref]['peak_bytes'] / 2**30:.3f}); all-reduced "
+            f"(one rank {ref_peak / 2**30:.3f}; shares "
+            f"{[round(v, 4) for v in shares]}); all-reduced "
             f"{ranks[0]['allreduce_bytes']} B a step  [{card}]")
         report[name] = dict(loss_rel=rel, peak_gib=peaks,
-                            ref_peak_gib=by1[ref]["peak_bytes"] / 2**30,
+                            ref_peak_gib=ref_peak / 2**30,
+                            peak_share=shares,
                             allreduce_bytes=ranks[0]["allreduce_bytes"])
         if not (rel <= PAR_BOUND and same):
             bad.append(f"{sub} {name}")
+        return shares
 
     log(f"phase 15a: data parallel, 2 ranks sharing the card  [{card}]")
     parity("15a", "bert_dp2", "bert_ref",
@@ -5751,7 +5783,8 @@ def parallel_training_phase(torch, card, work, device="cuda"):
     for r in large:
         log(f"  15a BERT-large ({BERT_LAYERS} layers, bf16, batch "
             f"{LARGE_BATCH}, {LARGE_BATCH // 2} a rank) dp=2 rank "
-            f"{r['rank']}: step ms {[round(v, 1) for v in r['step_ms']]}, "
+            f"{r['rank']}: step ms (beside the 1-rank launch) "
+            f"{[round(v, 1) for v in r['step_ms']]}, "
             f"losses {[round(v, 5) for v in r['losses']]}, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB, gradients all-reduced "
             f"{r['allreduce_bytes'] / 2**30:.3f} GiB a step  [{card}]")
@@ -5767,8 +5800,13 @@ def parallel_training_phase(torch, card, work, device="cuda"):
         bad.append("15a BERT-large dp=2")
 
     log(f"phase 15b: tensor and sequence parallel, 2 ranks  [{card}]")
-    parity("15b", "bert_tp2", "bert_ref",
-           f"BERT cut tp=2 ({BERT_HEADS // 2} heads a rank)")
+    shares = parity("15b", "bert_tp2", "bert_ref",
+                    f"BERT cut tp=2 ({BERT_HEADS // 2} heads a rank, every "
+                    "activation split over model on its features)")
+    log(f"  15b bert_tp2: peak a rank {max(shares):.4f} of one rank's "
+        f"(gate <= {TP2_PEAK_SHARE})  [{card}]")
+    if device == "cuda" and not max(shares) <= TP2_PEAK_SHARE:
+        bad.append("15b bert_tp2 peak share")
     parity("15b", "bert_sp2", "bert_ref",
            f"BERT cut sp=2 ({BERT_SEQ // 2} positions a rank, the ring)")
 
@@ -5806,7 +5844,8 @@ def parallel_training_phase(torch, card, work, device="cuda"):
     remat = [by1[f"large_remat{int(on)}"] for on in (False, True)]
     for r in remat:
         log(f"  15d {r['name']}: losses {[f'{v:.6f}' for v in r['losses']]}"
-            f", step ms (one unpaired run: not an off/on comparison) "
+            f", step ms (one unpaired run beside the 2-rank launch: not an "
+            f"off/on comparison) "
             f"{[round(v, 1) for v in r['step_ms']]}, peak "
             f"{r['peak_bytes'] / 2**30:.2f} GiB  [{card}]")
     equal = all(r["losses"] == remat[0]["losses"] for r in remat)

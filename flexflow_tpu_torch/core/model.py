@@ -153,9 +153,13 @@ class FFModel:
         self._step_timer = StepTimer(enabled=True)
         self._pending_batch = None
         # parallel training: the last forward's placements
-        # (parallel/placement.Walk) and the gradient all-reduce
+        # (parallel/placement.Walk), the gradient all-reduce, the layers
+        # that return a column split over ``model`` and the weights whose
+        # gradients it sums over ``model`` (compile sets both)
         self._walk = None
         self._grad_reducer = None
+        self._columns = frozenset()
+        self._model_whole = frozenset()
         # the search's per-op strategy (search/strategy.py Strategy): set
         # by compile under auto_parallel, or by the caller before compile;
         # compile turns it into the plan the graph walk executes
@@ -765,10 +769,11 @@ class FFModel:
     # Graph execution
     # ==================================================================
     def _apply_layer(self, layer: Layer, params, values: Dict[int, Any],
-                     ctx: OpContext, ins=None, attrs=None):
+                     ctx: OpContext, ins=None, attrs=None, split_axes=()):
         """Run one layer into ``values``: its inputs from ``values`` unless
         ``ins`` gives them, with ``attrs`` in place of its own when given
-        (a parallel train step's per-rank view, parallel/placement.py)."""
+        (a parallel train step's per-rank view, parallel/placement.py);
+        ``split_axes``: the mesh axes the layer runs split over."""
         impl = get_op_impl(layer.op_type)
         if ins is None:
             ins = [values[t.tensor_id] for t in layer.inputs]
@@ -785,6 +790,15 @@ class FFModel:
             lp = dict(lp)
             for w, (src, dst) in plan.weights[layer.name].items():
                 lp[w] = reshard(lp[w], self.mesh, src, dst)
+                if "model" in split_axes and "model" in src \
+                        and "model" not in dst:
+                    # gathered whole for a layer that runs on its part
+                    # over model: its gradient there is partial, summed
+                    # before the gather's backward keeps the rank's slice
+                    from flexflow_tpu_torch.parallel.collectives import \
+                        sum_grads
+
+                    lp[w] = sum_grads(lp[w], self.mesh, "model")
         if plan is not None and layer.name in plan.attrs:
             attrs = dict(attrs, **plan.attrs[layer.name])
         if layer.name in self._offloaded:
@@ -808,7 +822,9 @@ class FFModel:
         backward. The recompute draws from the generator the state the
         forward began from (``checkpoint`` restores only the default
         generators), and writes its op state into a dict that is thrown
-        away, so the step's draws and state are those of one forward."""
+        away, so the step's draws and state are those of one forward. An
+        input that is several of the layer's (self-attention's q, k and v)
+        passes once, so the recompute sees one tensor there too."""
         from torch.utils.checkpoint import checkpoint
 
         gen = ctx.generator
@@ -816,10 +832,12 @@ class FFModel:
         again = dataclasses.replace(ctx)    # this layer's name and shards
         names = list(lp)
         calls = [0]
+        uniq = list({id(t): t for t in ins}.values())
+        at = [next(j for j, u in enumerate(uniq) if u is t) for t in ins]
 
         def run(*tensors):
             p = dict(zip(names, tensors[:len(names)]))
-            x = list(tensors[len(names):])
+            x = [tensors[len(names) + j] for j in at]
             calls[0] += 1
             if calls[0] == 1:
                 return tuple(impl.forward(attrs, p, x, ctx))
@@ -833,7 +851,7 @@ class FFModel:
                 if gen is not None:
                     gen.set_state(now)
 
-        return list(checkpoint(run, *(lp[n] for n in names), *ins,
+        return list(checkpoint(run, *(lp[n] for n in names), *uniq,
                                use_reentrant=False,
                                preserve_rng_state=False))
 
@@ -842,11 +860,19 @@ class FFModel:
         return self.mesh is not None and (self.mesh.axis_size("data") > 1
                                           or self.mesh.axis_size("seq") > 1)
 
+    def _splits_features(self) -> bool:
+        """Do a train, eval or predict step's activations stay split over
+        ``model`` on their features (a model compiled for training on a
+        ``model`` axis above 1; parallel/placement.py)?"""
+        return (self.mesh is not None and self.mesh.axis_size("model") > 1
+                and self.comp_mode == CompMode.COMP_MODE_TRAINING)
+
     def _walks(self) -> bool:
         """Does a train or eval forward take the placement walk
-        (``_run_split``): a mesh that splits the batch, or a searched
-        strategy on a mesh?"""
-        return self._splits_batch() or self._strategy_plan is not None
+        (``_run_split``): a mesh that splits the batch or the features,
+        or a searched strategy on a mesh?"""
+        return (self._splits_batch() or self._splits_features()
+                or self._strategy_plan is not None)
 
     def _run_graph(self, params, feeds: Dict[int, Any], ctx: OpContext,
                    state: Optional[Dict[str, Any]] = None):
@@ -854,8 +880,8 @@ class FFModel:
         computing every tensor value. Returns (values_by_tensor_id,
         new_state); KV caches in the state were updated in place. The
         kernels serve CUDA tensors unless ``config.use_kernels`` is off.
-        A mesh that splits the batch runs each rank's part
-        (``_run_split``) outside serving."""
+        A mesh that splits the batch or the features runs each rank's
+        part (``_run_split``) outside serving."""
         from flexflow_tpu_torch.kernels import use_kernels
 
         ctx.mesh = self.mesh
@@ -887,17 +913,19 @@ class FFModel:
         return values, new_state
 
     def _run_split(self, params, values: Dict[int, Any], ctx: OpContext):
-        """The walk of a mesh that splits the batch or executes a searched
-        strategy: each batch input keeps this rank's part, every layer
-        runs on the part its inputs' placements allow, and a layer's
-        output moves to its searched spec (parallel/placement.py);
+        """The walk of a mesh that splits the batch or the features, or
+        executes a searched strategy: each batch input keeps this rank's
+        part, every layer runs on the part its inputs' placements allow
+        (a column shard returning its columns), and a layer's output
+        moves to its searched spec (parallel/placement.py);
         ``self._walk`` keeps the placements for the loss and the
         gradient sums."""
         from flexflow_tpu_torch.parallel.collectives import split
         from flexflow_tpu_torch.parallel.placement import (Walk, feed_place,
                                                            local_attrs)
 
-        walk = Walk(self.mesh, ctx.training)
+        walk = Walk(self.mesh, ctx.training,
+                    features=self._splits_features(), columns=self._columns)
         for t in self.input_tensors:
             if t.tensor_id in values:
                 place = feed_place(self.policy, t.dims)
@@ -911,8 +939,10 @@ class FFModel:
 
         def run(layer):
             ins, active, ctx.row_shards = walk.layer_inputs(layer, values)
+            ctx.split_columns = layer.name in walk.columns
             self._apply_layer(layer, params, values, ctx, ins=ins,
-                              attrs=local_attrs(layer, active, self.mesh))
+                              attrs=local_attrs(layer, active, self.mesh),
+                              split_axes=tuple(active))
             walk.record(layer, active)
             if layer.name in outputs:
                 walk.place_output(layer, values, outputs[layer.name])
@@ -927,6 +957,7 @@ class FFModel:
                         run_branch_region
 
                     ctx.row_shards = {}
+                    ctx.split_columns = False
                     if run_branch_region(self, region, params, values,
                                          ctx, walk):
                         if layer.name in outputs:
@@ -940,6 +971,7 @@ class FFModel:
                             run(ly)
             run(layer)
         ctx.row_shards = {}
+        ctx.split_columns = False
         self._walk = walk
 
     def _run_serving_walk(self, params, values: Dict[int, Any],
@@ -1006,6 +1038,8 @@ class FFModel:
         self._offloaded = {}
         self._prefetcher = None
         self._strategy_plan = self._branch_plan = None
+        self._columns = frozenset()
+        self._model_whole = frozenset()
         # --- Unity-style auto-parallelization (reference model.cc:3327
         # launches GRAPH_OPTIMIZE_TASK inside compile). A strategy the
         # caller set before compile (e.g. a Strategy.load of an exported
@@ -1063,6 +1097,12 @@ class FFModel:
                 layer_weight_shardings, shard_leaf)
 
             shardings = layer_weight_shardings(self, self.policy)
+            if training:
+                from flexflow_tpu_torch.parallel.placement import (
+                    column_layers, model_whole_weights)
+
+                self._columns = column_layers(self, shardings)
+                self._model_whole = model_whole_weights(self, shardings)
         params: Dict[str, Dict[str, Any]] = {}
         for layer in self.layers:
             if not layer.weights or not self._holds(layer.name):
@@ -1173,7 +1213,7 @@ class FFModel:
                     "world size")
         self.mesh = mesh
         self.policy = ShardingPolicy(mesh)
-        if self._splits_batch():
+        if self._splits_batch() or self._splits_features():
             self._grad_reducer = GradReducer(mesh)
 
     def _plan_and_shard_state(self):
@@ -1327,49 +1367,55 @@ class FFModel:
                          device=self.device, config=self.config)
 
     def _loss_and_out(self, feeds, label, ctx: OpContext):
-        """One forward: (loss, regularizer terms, output, label, batch,
+        """One forward: (loss, regularizer terms, output, label, split,
         new op state). ``output`` and ``label`` are this rank's rows when
-        a mesh splits the batch, and ``batch`` then is the ``(psum,
-        parts)`` that makes a sum over them the whole batch's (else
-        None); the loss is the whole batch's either way."""
+        a mesh splits the batch, and ``output`` this rank's classes when
+        it splits the features; ``split`` says so (``_final_rows``). The
+        loss is the whole batch's either way."""
         values, new_state = self._run_graph(self.params, feeds, ctx,
                                             self.op_state)
-        out, logits, label, batch = self._final_rows(values, label)
+        out, logits, label, split = self._final_rows(values, label)
         loss = compute_loss(self.loss_type, out, label, logits=logits,
-                            batch=batch)
-        return loss, self._regularizers(), out, label, batch, new_state
+                            **split)
+        return loss, self._regularizers(), out, label, split, new_state
 
     def _final_rows(self, values, label):
-        """(output, logits, label, batch) of a forward: under a split
-        batch the output keeps only a split of its rows (any other split
-        is gathered) and the label is cut to the same rows."""
+        """(output, logits, label, split) of a forward: under a split
+        batch the output keeps only a split of its rows and the label is
+        cut to the same rows; under split features it keeps a ``model``
+        split of its last (class) dim, the label staying whole there; any
+        other split is gathered. ``split`` is ``compute_loss``'s
+        ``batch`` and ``classes`` (None each where nothing stays split)."""
         out = values[self._final_tensor.tensor_id]
         lt = self._logits_tensor
         logits = values[lt.tensor_id] if lt is not None else None
+        split = {"batch": None, "classes": None}
         if self._walk is None or not self._walks():
-            return out, logits, label, None
+            return out, logits, label, split
         from flexflow_tpu_torch.parallel.collectives import psum
+        from flexflow_tpu_torch.parallel.placement import MODEL
 
         walk = self._walk
-        out, place = walk.whole(self._final_tensor.tensor_id, out,
-                                keep_rows=True)
+        keep = dict(keep_rows=True, keep_classes=self._splits_features())
+        out, place = walk.whole(self._final_tensor.tensor_id, out, **keep)
         if logits is not None:
-            logits, lplace = walk.whole(lt.tensor_id, logits,
-                                        keep_rows=True)
+            logits, lplace = walk.whole(lt.tensor_id, logits, **keep)
             if lplace != place:
                 logits, _ = walk.whole(lt.tensor_id, logits)
                 out, _ = walk.whole(self._final_tensor.tensor_id, out)
                 place = {}
+        if place.pop(MODEL, None) is not None:
+            split["classes"] = (self.mesh, MODEL)
         if not place:
-            return out, logits, label, None
+            return out, logits, label, split
         (axis, _d), = place.items()
         n = self.mesh.axis_size(axis)
         if label.shape[0] != out.shape[0] * n:
             raise ValueError(f"label rows {label.shape[0]} do not match the "
                              f"output's {out.shape[0] * n}")
         label = label.chunk(n, dim=0)[self.mesh.index(axis)]
-        return out, logits, label, (
-            lambda v: psum(v, self.mesh, axis), n)
+        split["batch"] = (lambda v: psum(v, self.mesh, axis), n)
+        return out, logits, label, split
 
     def _regularizers(self) -> List[torch.Tensor]:
         """Each kernel regularizer's term, over the whole weight (a weight
@@ -1393,7 +1439,15 @@ class FFModel:
             loss = loss + t
         return loss
 
-    def _step_metrics(self, out, label, batch):
+    def _step_metrics(self, out, label, split):
+        if not self.metrics:
+            return {}
+        batch, classes = split["batch"], split["classes"]
+        if classes is not None:
+            # the metrics read the whole classes
+            from flexflow_tpu_torch.parallel.collectives import all_gather
+
+            out = all_gather(out, *classes, axis=-1)
         mets = compute_step_metrics(self.metrics, out, label, self.loss_type)
         if batch is not None and mets:
             keys = list(mets)
@@ -1410,14 +1464,15 @@ class FFModel:
         regularizers' gradients, counted once, are added."""
         self.zero_gradients()
         with torch.enable_grad():
-            loss, terms, out, label, batch, new_state = self._loss_and_out(
+            loss, terms, out, label, split, new_state = self._loss_and_out(
                 feeds, label, self._ctx(True))
             if self._grad_reducer is None:
                 loss = self._with_terms(loss, terms)
                 loss.backward()
             else:
                 loss.backward()
-                self._grad_reducer(self.params, self._walk.layer_axes)
+                self._grad_reducer(self.params, self._walk.layer_axes,
+                                   self._model_whole)
                 if terms:
                     self._with_terms(terms[0], terms[1:]).backward()
                 loss = self._with_terms(loss.detach(),
@@ -1427,7 +1482,7 @@ class FFModel:
         self.optimizer.update_step(self.params, grads, self.opt_state)
         self.op_state = new_state
         with torch.no_grad():
-            step_metrics = self._step_metrics(out.detach(), label, batch)
+            step_metrics = self._step_metrics(out.detach(), label, split)
         return loss.detach(), step_metrics
 
     @property
@@ -1539,11 +1594,11 @@ class FFModel:
     def _eval_step(self, feeds, label):
         values, _ = self._run_graph(self.params, feeds, self._ctx(False),
                                     self.op_state)
-        out, logits, label, batch = self._final_rows(values, label)
+        out, logits, label, split = self._final_rows(values, label)
         loss = (compute_loss(self.loss_type, out, label, logits=logits,
-                             batch=batch)
+                             **split)
                 if self.loss_type else torch.zeros((), device=out.device))
-        return loss, self._step_metrics(out, label, batch)
+        return loss, self._step_metrics(out, label, split)
 
     def evaluate(self, x=None, y=None, batch_size: Optional[int] = None):
         xs = [np.asarray(a) for a in (x if isinstance(x, (list, tuple))
@@ -1580,7 +1635,7 @@ class FFModel:
                                     self._feeds_from_arrays(xs),
                                     self._ctx(False), self.op_state)
         out = values[self._final_tensor.tensor_id]
-        if self._walk is not None and self._splits_batch():
+        if self._walk is not None and self._walks():
             # every rank returns the whole batch's output
             out, _ = self._walk.whole(self._final_tensor.tensor_id, out)
         if out.dtype in (torch.bfloat16, torch.float16):

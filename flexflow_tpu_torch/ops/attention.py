@@ -5,10 +5,16 @@ has no kernel here either.
 
 Under a mesh it keeps the JAX package's layout. Tensor parallelism splits
 at whole heads: ``wq``/``wk``/``wv`` (and their biases) by columns,
-``wo`` by rows; each rank attends with its heads, and a ``psum`` over
-``model`` adds the ranks' partial outputs before ``bo``. The inputs'
-gradients, partial sums over the rank's heads, are summed over
-``model``. Under sequence parallelism the core is ring attention
+``wo`` by rows; each rank attends with its heads. In a train step the
+output stays split over ``model`` on the hidden dim, where GSPMD keeps
+it in the JAX package's step (``OpContext.split_columns``): the ranks'
+partial outputs are summed and scattered (``reduce_scatter``), then the
+rank's slice of ``bo`` is added. Inputs split the same way are gathered
+for the projections through ``collectives.gather_product``, which saves
+only the rank's shard for the backward; a whole input's gradient, a
+partial sum over the rank's heads, is summed over ``model``. Outside a
+train step's walk the partial outputs are summed whole (``psum``) before
+``bo``. Under sequence parallelism the core is ring attention
 (``parallel/ring_attention.py``) on the condition the JAX package sets
 (``use_ring``); the graph walker (``parallel/placement.py``) then hands
 the op each rank's positions.
@@ -30,7 +36,7 @@ from flexflow_tpu_torch.core.initializer import (ZeroInitializer,
                                                  default_kernel_initializer)
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import OpType
-from flexflow_tpu_torch.ops.base import OpImpl, register_op
+from flexflow_tpu_torch.ops.base import OpImpl, part, register_op
 
 
 def _promoted(*xs):
@@ -70,25 +76,19 @@ def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
 
     Under tensor parallelism (``wq`` holds fewer than ``num_heads`` heads
     of ``head_dim``) the rank attends with its heads and the outputs are
-    summed over ``model``; ``ring`` runs the core as ring attention over
-    ``seq`` on this rank's positions."""
+    summed over ``model`` (scattered on the hidden dim when
+    ``ctx.split_columns``); an input narrower than its projection's rows
+    is this rank's part of the hidden dim, gathered for the product.
+    ``ring`` runs the core as ring attention over ``seq`` on this rank's
+    positions."""
     b, sq, _ = q.shape
     sk = k.shape[1]
     wq = params["wq"]
     head_dim = head_dim or wq.shape[1] // num_heads
     heads = wq.shape[1] // head_dim         # this rank's heads
     mesh = ctx.mesh if ctx is not None else None
-    if heads != num_heads:
-        from flexflow_tpu_torch.parallel.collectives import sum_grads
-
-        # the inputs' gradients are partial sums over this rank's heads
-        # (one sum for an input that is q, k and v at once)
-        summed = {}
-        for t in (q, k, v):
-            if id(t) not in summed:
-                summed[id(t)] = sum_grads(t, mesh, "model")
-        q, k, v = (summed[id(t)] for t in (q, k, v))
-    qp, kp, vp = _mm(q, wq), _mm(k, params["wk"]), _mm(v, params["wv"])
+    qp, kp, vp = _projections((q, k, v), (wq, params["wk"], params["wv"]),
+                              heads != num_heads, mesh)
     if "bq" in params:
         qp, kp, vp = qp + params["bq"], kp + params["bk"], vp + params["bv"]
     if "bias_k" in params:      # add_bias_kv: one learnable k/v position
@@ -111,7 +111,7 @@ def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
 
         out = ring_attention_local(qh, kh, vh, mesh, "seq", causal=causal)
         return _out_proj(out.to(q.dtype).reshape(b, sq, heads * vdim),
-                         params, heads != num_heads, mesh)
+                         params, heads != num_heads, ctx)
     scores = torch.einsum("bqhd,bkhd->bhqk", qh.float(), kh.float())
     scores = scores / math.sqrt(head_dim)
     if causal:
@@ -131,19 +131,57 @@ def mha_forward(q, k, v, params, num_heads, dropout=0.0, causal=False,
     probs, vh = _promoted(probs, vh)
     out = torch.einsum("bhqk,bkhd->bqhd", probs, vh)
     return _out_proj(out.reshape(b, sq, heads * vdim), params,
-                     heads != num_heads, mesh)
+                     heads != num_heads, ctx)
 
 
-def _out_proj(out, params, sharded, mesh):
+def _projections(xs, ws, sharded, mesh):
+    """``x @ w`` for the (q, k, v) inputs and their projections, an input
+    that is two or three of them used once. Under tensor parallelism an
+    input narrower than ``w``'s rows (this rank's part of the hidden
+    dim) is gathered for its products (``gather_product``); a whole
+    input's gradient is summed over ``model`` (``sum_grads``)."""
+    if not sharded:
+        return [_mm(x, w) for x, w in zip(xs, ws)]
+    from flexflow_tpu_torch.parallel.collectives import (gather_product,
+                                                         sum_grads)
+
+    groups = {}         # id(input) -> (input, [indices into xs])
+    for j, x in enumerate(xs):
+        groups.setdefault(id(x), (x, []))[1].append(j)
+    out = [None] * len(xs)
+    for x, js in groups.values():
+        if x.shape[-1] != ws[js[0]].shape[0]:
+            ys = gather_product(x, mesh, "model", [ws[j] for j in js])
+        else:
+            x = sum_grads(x, mesh, "model")
+            ys = [_mm(x, ws[j]) for j in js]
+        for j, y in zip(js, ys):
+            out[j] = y
+    return out
+
+
+def _out_proj(out, params, sharded, ctx):
     """``out @ wo (+ bo)``; a row shard of ``wo`` gives a partial sum,
-    added over ``model`` before the bias."""
+    added over ``model`` before the bias: whole, or scattered on the
+    hidden dim with ``bo`` cut to the rank's slice when
+    ``ctx.split_columns``."""
     out = _mm(out, params["wo"])
+    bo = params.get("bo")
     if sharded:
-        from flexflow_tpu_torch.parallel.collectives import psum
+        from flexflow_tpu_torch.parallel.collectives import (psum,
+                                                             reduce_scatter)
 
-        out = psum(out, mesh, "model")
-    if "bo" in params:
-        out = out + params["bo"]
+        mesh = ctx.mesh
+        if ctx.split_columns:
+            out = reduce_scatter(out, mesh, "model",
+                                 scatter_dimension=out.dim() - 1)
+            if bo is not None:
+                bo = part(bo, 0, ("model", mesh.axis_size("model"),
+                                  mesh.index("model")))
+        else:
+            out = psum(out, mesh, "model")
+    if bo is not None:
+        out = out + bo
     return out
 
 

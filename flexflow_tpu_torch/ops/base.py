@@ -54,10 +54,15 @@ class OpContext:
     # nothing: CONSTANT)
     device: Any = None
     # a parallel train step (parallel/placement.py): the dims of the
-    # layer's first input that are split over a batch axis of the mesh,
-    # {dim: (axis, size, this rank's index)}; empty when it is whole
+    # layer's first input that are split over an axis of the mesh (a
+    # batch axis, or ``model`` on a feature dim), {dim: (axis, size, this
+    # rank's index)}; empty when it is whole
     row_shards: Dict[int, Tuple[str, int, int]] = dataclasses.field(
         default_factory=dict)
+    # a parallel train step: the op's weights are column shards over
+    # ``model`` and its output stays split there on its last dim (the op
+    # returns its columns instead of gathering them)
+    split_columns: bool = False
     # the model's FFConfig (the JAX package's ``config``)
     config: Any = None
     # an integer seed, the counterpart of the JAX package's PRNG key:
@@ -76,6 +81,14 @@ class OpContext:
                        | stable_hash(self.layer_name, salt))
                       & 0x7FFF_FFFF_FFFF_FFFF)
         return g
+
+    def split_dims(self, dims, rank: int) -> Dict[int, Tuple[str, int, int]]:
+        """The entries of ``row_shards`` on ``dims`` (of a ``rank``-d
+        input; negative dims count from the end): the normalised dims of
+        a LayerNorm, a softmax's axis, that the rank holds only a part
+        of."""
+        want = {d % rank for d in dims}
+        return {d: s for d, s in self.row_shards.items() if d in want}
 
     def keep_mask(self, shape, keep: float, device, shards=None):
         """A layer's Bernoulli(``keep``) draw of ``shape`` from
@@ -104,6 +117,14 @@ class OpContext:
                 if d in shards else slice(None)
                 for d, s in enumerate(shape))]
         return mask
+
+
+def part(w, dim: int, shard: Tuple[str, int, int]):
+    """This rank's chunk of a whole weight ``w`` along ``dim``, for a
+    rank that holds the ``shard`` = (axis, size, index) part of the
+    activation dim it lines up with; its gradient is a partial one."""
+    _axis, n, i = shard
+    return w.chunk(n, dim=dim)[i]
 
 
 class OpImpl:

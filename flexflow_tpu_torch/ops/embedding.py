@@ -2,10 +2,14 @@
 row gather with aggregation modes NONE/SUM/AVG. A quantized table gathers
 packed rows and dequantizes only those (``quant.qtake``). Under tensor
 parallelism the table is split by columns (``sharding_dims=(None,
-"model")``) and the rows gathered from each shard are concatenated over
-the ``model`` axis. A searched strategy may split the table by rows
-instead (``tp-vocab``): each rank gathers the ids it holds, zeros the
-others, and the rows are summed over ``model``."""
+"model")``): in a train step each rank returns its columns of the rows,
+the output split over ``model`` on its last dim as GSPMD keeps it in the
+JAX package's step (``OpContext.split_columns``); serving, and a model
+compiled for inference, concatenate the shards' columns over the
+``model`` axis. A searched strategy may
+split the table by rows instead (``tp-vocab``): each rank gathers the
+ids it holds, zeros the others, and the rows are summed over
+``model``."""
 
 from __future__ import annotations
 
@@ -61,7 +65,8 @@ class Embedding(OpImpl):
             from flexflow_tpu_torch.parallel.collectives import psum
 
             out = psum(out, ctx.mesh, "model")
-        if params["weight"].shape[1] != attrs["out_dim"]:
+        if params["weight"].shape[1] != attrs["out_dim"] \
+                and not ctx.split_columns:
             from flexflow_tpu_torch.ops.linear import gather_columns
 
             out = gather_columns(out, ctx)

@@ -3,16 +3,20 @@
 Weight layout: kernel [in_dim, out_dim] (activations @ kernel), bias
 [out_dim] — the JAX package's layout, so parameters cross over unchanged.
 Under tensor parallelism the kernel and bias are column shards
-(``sharding_dims=(None, "model")``, as in the JAX package): each rank
-computes its columns and an all-gather over the ``model`` axis gives the
-consumer the whole output. In training the all-gather's backward keeps
-the rank's columns of the gradient, and the input's gradient, a partial
-sum over the rank's columns, is summed over the ``model`` axis
-(``collectives.sum_grads``): the JAX layout, not Megatron's
-column/row pairing. A searched strategy may instead rest the kernel in
-row shards (``tp-row``, ``parallel/placement.py``): the rank then takes
-its slice of the input's features, and the partial products are summed
-over ``model`` before the bias.
+(``sharding_dims=(None, "model")``, as in the JAX package) and each rank
+computes its columns of the output. In a train step the output stays
+split so, on its last dim over ``model`` (``OpContext.split_columns``,
+where GSPMD keeps it in the JAX package's step). An input split the same
+way (the previous layer's columns) is gathered for the product through
+``collectives.gather_product``, which saves only the rank's shard for
+the backward and reduce-scatters the input's gradient; a whole input's
+gradient, a partial sum over the rank's columns, is summed over
+``model`` (``collectives.sum_grads``). Serving, and a model compiled
+for inference, gathers the columns (``gather_columns``) and hands the
+consumer the whole output. A searched strategy may instead rest the
+kernel in row shards (``tp-row``, ``parallel/placement.py``): the rank
+then takes its slice of the input's features, and the partial products
+are summed over ``model`` before the bias.
 
 The product is ``quant.qmatmul``: a plain ``torch.matmul`` for a float
 kernel (the JAX package leaves it to XLA; no TPU kernel), the dequant-GEMM
@@ -95,23 +99,37 @@ class Linear(OpImpl):
         # a row shard (``tp-row``): this rank's features in, a partial
         # product out
         rows = attrs.get("row_parallel", False)
-        if sharded:
-            from flexflow_tpu_torch.parallel.collectives import sum_grads
+        if ctx.split_dims((-1,), x.dim()):
+            # a train step's input split over ``model`` on the features
+            # this product contracts (the walk passes it only to a
+            # column shard)
+            from flexflow_tpu_torch.parallel.collectives import \
+                gather_product
 
-            x = sum_grads(x, ctx.mesh, "model")
-        if rows:
-            from flexflow_tpu_torch.parallel.collectives import psum, split
+            (y,) = gather_product(x.to(compute_dtype), ctx.mesh, "model",
+                                  [kernel.to(compute_dtype)],
+                                  dtype=out_dtype or compute_dtype)
+        else:
+            if sharded:
+                from flexflow_tpu_torch.parallel.collectives import \
+                    sum_grads
 
-            x = split(x, ctx.mesh, "model", x.dim() - 1)
-        y = qmatmul(x, kernel, compute_dtype, out_dtype=out_dtype)
+                x = sum_grads(x, ctx.mesh, "model")
+            if rows:
+                from flexflow_tpu_torch.parallel.collectives import split
+
+                x = split(x, ctx.mesh, "model", x.dim() - 1)
+            y = qmatmul(x, kernel, compute_dtype, out_dtype=out_dtype)
         if rows:
+            from flexflow_tpu_torch.parallel.collectives import psum
+
             y = psum(y, ctx.mesh, "model")
         if attrs.get("use_bias", True):
             y = y + params["bias"].to(compute_dtype)
         y = apply_activation(y, attrs.get("activation",
                                           ActiMode.AC_MODE_NONE))
-        if sharded:
-            # a column shard (tensor parallelism): the consumer takes the
-            # whole output
+        if sharded and not ctx.split_columns:
+            # a column shard outside a train step's walk: the consumer
+            # takes the whole output
             y = gather_columns(y, ctx)
         return [y]

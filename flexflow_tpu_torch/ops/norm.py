@@ -3,7 +3,14 @@ LayerNorm, ResidualLayerNorm and AddBiasResidualLayerNorm (OPT, Falcon,
 MPT, StarCoder, BERT), RMSNorm, ResidualRMSNorm and the SwiGLU gate
 SigmoidSiluMulti (LLaMA), and the training path's BatchNorm.
 Bandwidth-bound elementwise + reduce passes left to PyTorch's own kernels,
-as the JAX package leaves them to XLA."""
+as the JAX package leaves them to XLA.
+
+In a tensor-parallel train step the normalised dim may be split over
+``model`` (``OpContext.row_shards``; the placement GSPMD gives the JAX
+package's step): the mean, then the variance of the centred values, are
+each a local sum added over the axis (``psum_parts``), two passes as in
+the whole op, and the affine weights are cut to the rank's features
+(their gradients, partial, are summed by ``GradReducer``)."""
 
 from __future__ import annotations
 
@@ -14,15 +21,53 @@ from flexflow_tpu_torch.core.initializer import (ConstantInitializer,
                                                  ZeroInitializer)
 from flexflow_tpu_torch.core.layer import WeightSpec
 from flexflow_tpu_torch.ffconst import OpType
-from flexflow_tpu_torch.ops.base import OpImpl, register_op
+from flexflow_tpu_torch.ops.base import OpImpl, part, register_op
 
 
-def _layer_norm(x, gamma, beta, eps, axes):
+def _split_dims(ctx, dims, rank):
+    """``ctx.split_dims`` (none without a context: a direct call)."""
+    return ctx.split_dims(dims, rank) if ctx is not None else {}
+
+
+def _split_mean(v, dims, split, ctx):
+    """The mean of ``v`` over ``dims`` (keepdim), of which ``split``
+    ({dim: (axis, size, index)}) names those this rank holds a part of:
+    the local sums are added over each such axis."""
+    if not split:
+        return v.mean(dim=dims, keepdim=True)
+    from flexflow_tpu_torch.parallel.collectives import psum_parts
+
+    count = 1
+    for d in dims:
+        count *= v.shape[d]
+    s = v.sum(dim=dims, keepdim=True)
+    for axis, n, _i in split.values():
+        s = psum_parts(s, ctx.mesh, axis)
+        count *= n
+    return s / count
+
+
+def _affine_parts(ws, axes, split, rank):
+    """The affine weights (over ``axes``) cut to the rank's part of each
+    split normalised dim."""
+    pos = [a % rank for a in axes]
+    out = []
+    for w in ws:
+        if w is not None:
+            for d, shard in split.items():
+                w = part(w, pos.index(d), shard)
+        out.append(w)
+    return out
+
+
+def _layer_norm(x, gamma, beta, eps, axes, ctx):
     # in x's own dtype, statistics included (the JAX package's
     # _layer_norm), unlike _rms_norm's fp32 statistics
     dims = tuple(axes)
-    mean = x.mean(dim=dims, keepdim=True)
-    var = (x - mean).square().mean(dim=dims, keepdim=True)
+    split = _split_dims(ctx, dims, x.dim())
+    gamma, beta = _affine_parts((gamma, beta), dims, split, x.dim())
+    mean = _split_mean(x, dims, split, ctx)
+    var = _split_mean((x - mean).square(), dims, split, ctx)
     y = (x - mean) * torch.rsqrt(var + eps)
     if gamma is not None:
         y = y * gamma
@@ -31,12 +76,14 @@ def _layer_norm(x, gamma, beta, eps, axes):
     return y
 
 
-def _rms_norm(x, weight, eps):
+def _rms_norm(x, weight, eps, ctx):
     # fp32 statistics whatever the activation dtype, cast back before the
     # weight multiply (HF LLaMA semantics, as flexflow_tpu/ops/norm.py)
     dtype = x.dtype
+    split = _split_dims(ctx, (-1,), x.dim())
+    (weight,) = _affine_parts((weight,), (-1,), split, x.dim())
     xf = x.float()
-    var = xf.square().mean(dim=-1, keepdim=True)
+    var = _split_mean(xf.square(), (-1,), split, ctx)
     y = xf * torch.rsqrt(var + eps)
     return (y.to(dtype) * weight).to(dtype)
 
@@ -69,7 +116,7 @@ class LayerNorm(OpImpl):
     def forward(attrs, params, inputs, ctx):
         return [_layer_norm(inputs[0], params.get("gamma"),
                             params.get("beta"), attrs.get("eps", 1e-5),
-                            attrs["axes"])]
+                            attrs["axes"], ctx)]
 
 
 @register_op
@@ -91,7 +138,8 @@ class ResidualLayerNorm(OpImpl):
             added = added + r
         return [added, _layer_norm(added, params.get("gamma"),
                                    params.get("beta"),
-                                   attrs.get("eps", 1e-5), attrs["axes"])]
+                                   attrs.get("eps", 1e-5), attrs["axes"],
+                                   ctx)]
 
 
 @register_op
@@ -113,10 +161,14 @@ class AddBiasResidualLayerNorm(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
-        added = inputs[0] + params["attn_bias"] + inputs[1]
+        x = inputs[0]
+        (bias,) = _affine_parts((params["attn_bias"],), (-1,),
+                                _split_dims(ctx, (-1,), x.dim()), x.dim())
+        added = x + bias + inputs[1]
         return [added, _layer_norm(added, params.get("gamma"),
                                    params.get("beta"),
-                                   attrs.get("eps", 1e-5), attrs["axes"])]
+                                   attrs.get("eps", 1e-5), attrs["axes"],
+                                   ctx)]
 
 
 @register_op
@@ -135,7 +187,8 @@ class RMSNorm(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
-        return [_rms_norm(inputs[0], params["weight"], attrs.get("eps", 1e-6))]
+        return [_rms_norm(inputs[0], params["weight"],
+                          attrs.get("eps", 1e-6), ctx)]
 
 
 @register_op
@@ -155,7 +208,8 @@ class ResidualRMSNorm(OpImpl):
     @staticmethod
     def forward(attrs, params, inputs, ctx):
         added = inputs[0] + inputs[1]
-        return [added, _rms_norm(added, params["weight"], attrs.get("eps", 1e-6))]
+        return [added, _rms_norm(added, params["weight"],
+                                 attrs.get("eps", 1e-6), ctx)]
 
 
 @register_op

@@ -31,6 +31,12 @@ it (each peer holds its part and the derivative of its part):
                  peers' partial gradients (Megatron's ``f``)
   split          replicated -> split (this peer's chunk); backward: an
                  all-gather
+  psum_parts     partials -> replicated, each peer then computing on its
+                 own part (a split LayerNorm's statistics); backward: a
+                 psum
+  gather_product split on the contracted dim -> each peer's columns of
+                 the products; saves the shard, not the gathered input;
+                 backward: the weight gradients and a reduce-scatter
 
 A backward runs the same collectives in the same order on every peer,
 since every peer records the same graph. On CUDA, autograd runs the
@@ -138,7 +144,17 @@ def sum_grads(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
     return _SumGrads.apply(x, mesh, axis_name)
 
 
+def psum_parts(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """The sum over the peers of their partials (a statistic of a value
+    split over ``axis_name``), which each peer then reads for its own
+    part: its gradient there is a partial too, so the backward sums the
+    peers' gradients (``sum_grads`` of a ``psum``)."""
+    return sum_grads(psum(x, mesh, axis_name), mesh, axis_name)
+
+
 def pmax(x: torch.Tensor, mesh, axis_name: str) -> torch.Tensor:
+    """The elementwise max over the peers (not differentiable: take it of
+    a detached value)."""
     return _reduce(x, mesh, axis_name, dist.ReduceOp.MAX)
 
 
@@ -171,6 +187,60 @@ def all_gather(x: torch.Tensor, mesh, axis_name: str, *, axis: int = 0,
     if _differentiable(x) and axis_size(mesh, axis_name) > 1:
         return _AllGather.apply(x, mesh, axis_name, axis, tiled)
     return _all_gather(x, mesh, axis_name, axis, tiled)
+
+
+class _GatherProduct(torch.autograd.Function):
+    """``all_gather(x)`` on its last dim, then ``x @ w`` for each ``w`` in
+    ``dtype``. Only ``x``'s shard is saved; the backward gathers it again
+    for the weights' gradients, and the input's gradient (each peer's
+    product a partial sum) is summed over the peers and cut to this
+    peer's part (a reduce-scatter)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis_name, dtype, *ws):
+        ctx.args = (mesh, axis_name, dtype)
+        ctx.save_for_backward(x, *ws)
+        xw = _all_gather(x, mesh, axis_name, x.dim() - 1, True).to(dtype)
+        return tuple(xw @ w.to(dtype) for w in ws)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        mesh, axis_name, dtype = ctx.args
+        x, *ws = ctx.saved_tensors
+        xw = _all_gather(x, mesh, axis_name, x.dim() - 1, True).to(dtype)
+        rows = xw.reshape(-1, xw.shape[-1])
+        dx, dws = None, []
+        for j, (w, g) in enumerate(zip(ws, gs)):
+            g = g.to(dtype)
+            wd = w.to(dtype)
+            dws.append((rows.t() @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+                       if ctx.needs_input_grad[4 + j] else None)
+            if ctx.needs_input_grad[0]:
+                part = g @ wd.t()
+                dx = part if dx is None else dx + part
+        if dx is not None:
+            dx = _reduce_scatter(dx.to(x.dtype), mesh, axis_name,
+                                 x.dim() - 1)
+        return (dx, None, None, None, *dws)
+
+
+def gather_product(x: torch.Tensor, mesh, axis_name: str, ws,
+                   dtype=None) -> List[torch.Tensor]:
+    """``[all_gather(x, axis=-1) @ w for w in ws]`` (in ``dtype``, default
+    the promotion of ``x``'s and the weights' dtypes) for ``x`` split over
+    ``axis_name`` on the dim the products contract, each ``w`` this
+    peer's columns: the peers compute different columns of the outputs.
+    Saves ``x``'s shard, not the gathered ``x``, for the backward;
+    backward: the weights' gradients, and the input's as a
+    reduce-scatter of the peers' partial sums."""
+    if dtype is None:
+        dtype = x.dtype
+        for w in ws:
+            dtype = torch.promote_types(dtype, w.dtype)
+    if _differentiable(x) or any(_differentiable(w) for w in ws):
+        return list(_GatherProduct.apply(x, mesh, axis_name, dtype, *ws))
+    xw = _all_gather(x, mesh, axis_name, x.dim() - 1, True).to(dtype)
+    return [xw @ w.to(dtype) for w in ws]
 
 
 def _all_gather(x, mesh, axis_name, axis, tiled):

@@ -4,30 +4,50 @@ counterpart of the placement GSPMD gives the JAX package's jitted step).
 A batch input is split as the JAX ``ShardingPolicy.batch_sharding``
 splits it: dim 0 over ``data`` and dim 1 over ``seq`` where the axis
 divides the dim. The graph walk then keeps, for every activation, the
-batch axes it is split over and the dim of each (``{axis: dim}``);
-anything else is replicated over those axes. (The ``model`` and
-``expert`` axes never split an activation between layers: the ops that
-split their weights over them gather or sum inside their forwards.)
+axes it is split over and the dim of each (``{axis: dim}``); anything
+else is replicated over those axes.
 
-For each layer, ``_out_dim`` says where an input's split dim lands in the
-output when every rank can compute its part of the output from its part
-of the input alone (elementwise ops, the feature-wise ops on any dim but
-their features, reshapes that keep the chunk contiguous, ...), and
-``None`` where the op mixes along that dim. An axis on which the op
-mixes is gathered first (``all_gather``, whose backward keeps the rank's
-slice of the gradient), and the layer runs replicated over it. A
-replicated input of a layer that runs split is cut to the rank's part
-(``split``) or, when it broadcasts (a bias-like WEIGHT, a size-1 dim),
-passed whole through ``sum_grads``: its gradient, a partial sum over the
-rank's part, is summed over the axis. A layer's parameters get partial
-gradients on each axis it ran split over; ``GradReducer`` sums those
-after the backward, in buckets, before the optimizer's update.
+On a ``model`` axis above 1 the activations of a train, eval or predict
+step stay split on their feature dim, as GSPMD keeps every layer output
+of the JAX package's tensor-parallel step: no activation between layers
+is whole on any rank. The ops whose weights are column shards (Linear,
+the embedding's hidden split, the training MHA's heads:
+``column_layers``) return their columns, the output split on its last
+dim (``OpContext.split_columns``). ``_model_dim`` says where an input's
+``model`` split lands: pointwise ops, reshapes and transposes move it
+with its dim; LayerNorm, RMSNorm and softmax keep it, and over their
+own normalised dim or axis take their split forms (statistics summed
+over the axis, the affine weights cut to the rank's features); a column
+shard whose input is split on the features it contracts gathers that
+input inside its product (``collectives.gather_product``, which saves
+only the shard for the backward). Any other op reads a ``model`` split
+gathered whole, through ``Walk.gather``, as it reads an ``expert`` one.
+The loss takes the final output split on its class dim
+(``training/loss.py``); ``predict`` and the metrics gather it.
 
-Three ops need to know their part: BatchNorm sums its fp32 statistics
-over ``data`` (``ops/norm.py``), dropout draws the whole batch's mask and
-keeps its rows (``OpContext.keep_mask``), and the training MHA takes the
-ring on ``seq`` (``ops/attention.py``). ``OpContext.row_shards`` tells
-them.
+For each layer and batch axis, ``_out_dim`` says where an input's split
+dim lands in the output when every rank can compute its part of the
+output from its part of the input alone (elementwise ops, the
+feature-wise ops on any dim but their features, reshapes that keep the
+chunk contiguous, ...), and ``None`` where the op mixes along that dim.
+An axis on which the op mixes is gathered first (``all_gather``, whose
+backward keeps the rank's slice of the gradient), and the layer runs
+replicated over it. A replicated input of a layer that runs split is cut
+to the rank's part (``split``) or, when it broadcasts (a bias-like
+WEIGHT, a size-1 dim), passed whole through ``sum_grads``: its gradient,
+a partial sum over the rank's part, is summed over the axis. A layer's
+parameters get partial gradients on each axis it ran split over;
+``GradReducer`` sums those after the backward, in buckets, before the
+optimizer's update (over ``model``, only the weights that rest whole
+there: a LayerNorm's ``gamma``/``beta``, the MHA's ``bo``; a column
+shard's gradient is its own).
+
+Several ops need to know their part: BatchNorm sums its fp32 statistics
+over ``data`` (``ops/norm.py``), dropout draws the whole mask and keeps
+its rows and features (``OpContext.keep_mask``), the training MHA takes
+the ring on ``seq`` (``ops/attention.py``), and the norms, the softmax
+and a Linear read a ``model`` split of their features.
+``OpContext.row_shards`` tells them.
 
 A searched strategy (``search/strategy.py``; ``plan_strategy``) is the
 port's counterpart of the sharding constraints GSPMD applies in the JAX
@@ -71,6 +91,7 @@ quantized whole, then its payload and scale are sliced at rest
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -83,6 +104,7 @@ from flexflow_tpu_torch.quant import (QuantizedWeight, is_quantized,
                                       quantizes)
 
 BATCH_AXES = ("data", "seq")
+MODEL = "model"
 
 # ops that act on each element alone (broadcasting, right-aligned dims)
 _POINTWISE = {
@@ -175,6 +197,72 @@ def _out_dim(layer, i: int, d: int, axis: str, mesh,
     return None     # every other op sees the whole tensor
 
 
+def _model_dim(layer, i: int, d: int, mesh) -> Optional[int]:
+    """The output dim that input ``i``'s dim ``d``, split over ``model``,
+    becomes in an op that is not a column shard; None where the op reads
+    it whole. Pointwise ops, reshapes and transposes move it with its
+    dim; the norms and the softmax keep it (their split forms where ``d``
+    is what they normalise)."""
+    op = layer.op_type
+    if op in _POINTWISE or op == OpType.TRANSPOSE:
+        return _out_dim(layer, i, d, MODEL, mesh, True)
+    if op in (OpType.RESHAPE, OpType.FLAT):
+        od = _out_dim(layer, i, d, MODEL, mesh, True)
+        if od is not None:
+            return od
+        # the dims before d and those after it regroup among themselves,
+        # and d stays a dim of its own (a merge of the leading dims)
+        old = tuple(layer.inputs[i].dims)
+        new = tuple(layer.outputs[0].dims)
+        for od, size in enumerate(new):
+            if (size == old[d] and math.prod(new[:od]) == math.prod(old[:d])
+                    and math.prod(new[od + 1:]) == math.prod(old[d + 1:])):
+                return od
+        return None
+    if op in _LAYER_NORMS or op in (OpType.RMS_NORM,
+                                    OpType.RESIDUAL_RMS_NORM,
+                                    OpType.SOFTMAX):
+        return d
+    return None
+
+
+# the inputs a column shard contracts with its split weights, by op
+_CONTRACTED = {OpType.LINEAR: (0,), OpType.MULTIHEAD_ATTENTION: (0, 1, 2)}
+# the weight whose columns a column shard splits, by op
+_COLUMN_WEIGHT = {OpType.LINEAR: "kernel", OpType.EMBEDDING: "weight",
+                  OpType.MULTIHEAD_ATTENTION: "wq"}
+
+
+def _forward_spec(plan, lname, wname, rest) -> Tuple:
+    """The spec a weight enters its layer's forward in: the searched
+    plan's move of it, else its ``rest`` Sharding's."""
+    moves = plan.weights.get(lname, {}) if plan is not None else {}
+    return tuple(moves[wname][1] if wname in moves else rest.spec)
+
+
+def column_layers(model, rest) -> frozenset:
+    """The names of the layers whose forward computes a column split of
+    its output over ``model`` (the forward form of a Linear's kernel, an
+    embedding's table or the MHA's ``wq`` split there on its columns, and
+    no row or vocabulary form of a searched strategy); ``rest``: {layer:
+    {weight: Sharding}}, the weights' rest layouts."""
+    if model.mesh.axis_size(MODEL) <= 1:
+        return frozenset()
+    plan = model._strategy_plan
+    out = set()
+    for layer in model.layers:
+        w = _COLUMN_WEIGHT.get(layer.op_type)
+        if w is None or layer.name not in rest:
+            continue
+        attrs = plan.attrs.get(layer.name, {}) if plan is not None else {}
+        if attrs.get("row_parallel") or attrs.get("vocab_parallel"):
+            continue
+        spec = _forward_spec(plan, layer.name, w, rest[layer.name][w])
+        if spec[1:2] == (MODEL,):
+            out.add(layer.name)
+    return frozenset(out)
+
+
 def _aligned(layer, i: int, od: int) -> int:
     """The dim of input ``i`` that lines up with output dim ``od``
     (right-aligned for the broadcasting ops); may be out of range."""
@@ -186,10 +274,15 @@ def _aligned(layer, i: int, od: int) -> int:
 @dataclasses.dataclass
 class Walk:
     """One forward's placements: ``places[tensor_id] = {axis: dim}``,
-    and the batch axes each parameter-holding layer ran split over."""
+    and the axes each parameter-holding layer ran split over.
+    ``features``: keep ``model`` splits of the activations (a train-mode
+    model on a ``model`` axis above 1); ``columns``: the column-shard
+    layers (``column_layers``), empty unless ``features``."""
 
     mesh: Any
     training: bool
+    features: bool = False
+    columns: frozenset = frozenset()
     places: Dict[int, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
     layer_axes: Dict[str, Tuple[str, ...]] = dataclasses.field(
@@ -209,15 +302,19 @@ class Walk:
             self._gathered[key] = x
         return self._gathered[key]
 
-    def whole(self, tid: int, x: torch.Tensor, keep_rows: bool = False):
+    def whole(self, tid: int, x: torch.Tensor, keep_rows: bool = False,
+              keep_classes: bool = False):
         """(``x`` gathered over every axis it is split over, but a batch
-        axis on dim 0 when ``keep_rows``; {axis: dim} of what stays
-        split)."""
+        axis on dim 0 when ``keep_rows`` and ``model`` on the last dim
+        when ``keep_classes``; {axis: dim} of what stays split)."""
         place = dict(self.places.get(tid, {}))
         for axis, d in list(place.items()):
-            if not (keep_rows and d == 0 and axis in BATCH_AXES):
-                x = all_gather(x, self.mesh, axis, axis=d)
-                del place[axis]
+            if keep_rows and d == 0 and axis in BATCH_AXES:
+                continue
+            if keep_classes and axis == MODEL and d == x.dim() - 1:
+                continue
+            x = all_gather(x, self.mesh, axis, axis=d)
+            del place[axis]
         return x, place
 
     def place_output(self, layer, values, spec: Tuple):
@@ -251,19 +348,29 @@ class Walk:
         ins = [values[tid] for tid in tids]
         places = [dict(self.places.get(tid, {})) for tid in tids]
         active: Dict[str, int] = {}
-        # a split over a weight axis (a searched output spec's) is
-        # gathered first: the ops use those axes for their weights
-        gathers: List[set] = [{a for a in p if a not in BATCH_AXES}
-                              for p in places]
+        column = layer.name in self.columns
+        # a split over ``expert`` (a searched output spec's) is gathered
+        # first, and over ``model`` unless the walk keeps feature splits:
+        # the ops use those axes for their weights. A column shard keeps
+        # a ``model`` split only on the features it contracts
+        kept = {MODEL} if self.features and not column else set()
+        gathers: List[set] = [{a for a in p if a not in BATCH_AXES
+                               and a not in kept} for p in places]
+        if column:
+            for i in _CONTRACTED.get(layer.op_type, ()):
+                if places[i].get(MODEL) == len(layer.inputs[i].dims) - 1:
+                    gathers[i].discard(MODEL)
         for p, g in zip(places, gathers):
             for a in g:
                 del p[a]
-        for axis in BATCH_AXES:
+        for axis in BATCH_AXES + tuple(kept):
             split_at = [(i, p[axis]) for i, p in enumerate(places)
                         if axis in p]
             if not split_at:
                 continue
             targets = {_out_dim(layer, i, d, axis, mesh, self.training)
+                       if axis in BATCH_AXES
+                       else _model_dim(layer, i, d, mesh)
                        for i, d in split_at}
             od = targets.pop() if len(targets) == 1 else None
             if od is not None and not self._fits(layer, places, axis, od):
@@ -278,7 +385,6 @@ class Walk:
         for i, tid in enumerate(tids):
             if gathers[i]:
                 ins[i] = self.gather(tid, ins[i], gathers[i])
-        n_axes = {a: mesh.axis_size(a) for a in active}
         for axis, od in active.items():
             for i, tid in enumerate(tids):
                 if axis in places[i]:
@@ -290,9 +396,13 @@ class Walk:
                     places[i][axis] = a
                 else:
                     ins[i] = sum_grads(ins[i], mesh, axis)
+        if column:
+            # the op takes its whole inputs and its split ones itself,
+            # and returns its columns
+            active[MODEL] = len(layer.outputs[0].dims) - 1
         rows = {}
         if places:
-            rows = {d: (a, n_axes[a], mesh.index(a))
+            rows = {d: (a, mesh.axis_size(a), mesh.index(a))
                     for a, d in places[0].items() if a in active}
         return ins, active, rows
 
@@ -317,8 +427,8 @@ class Walk:
             self.places[t.tensor_id] = {a: d for a, d in active.items()
                                         if d < len(t.dims)}
         if layer.weights:
-            self.layer_axes[layer.name] = tuple(a for a in BATCH_AXES
-                                                if a in active)
+            self.layer_axes[layer.name] = tuple(
+                a for a in BATCH_AXES + (MODEL,) if a in active)
 
 
 def local_attrs(layer, active: Dict[str, int], mesh) -> Dict[str, Any]:
@@ -349,24 +459,47 @@ def local_attrs(layer, active: Dict[str, int], mesh) -> Dict[str, Any]:
     return attrs
 
 
+def model_whole_weights(model, rest) -> frozenset:
+    """The (layer, weight) pairs that rest whole over ``model`` and enter
+    their forward whole (``rest`` as for ``column_layers``): a layer that
+    runs split over ``model`` uses them on its part (cut to its features,
+    or on its rows) and their gradients are partial there. A column
+    shard's weight (split in the forward) gets its own gradient; a weight
+    whose forward form is gathered from a ``model`` split at rest is
+    summed in the forward (``FFModel._apply_layer``)."""
+    if model.mesh.axis_size(MODEL) <= 1:
+        return frozenset()
+    plan = model._strategy_plan
+    return frozenset(
+        (lname, wname) for lname, ws in rest.items()
+        for wname, sh in ws.items()
+        if MODEL not in tuple(sh.spec)
+        and MODEL not in _forward_spec(plan, lname, wname, sh))
+
+
 class GradReducer:
-    """Sums the partial gradients of parameters over the batch axes their
-    layer ran split over, after the backward: one all-reduce per bucket
-    of up to ``bucket_elems`` elements of one dtype, in a fixed order
-    (every rank holds the same parameters and buckets)."""
+    """Sums the partial gradients of parameters over the axes their layer
+    ran split over, after the backward: one all-reduce per bucket of up
+    to ``bucket_elems`` elements of one dtype, in a fixed order (every
+    rank holds the same parameters and buckets). Over ``model`` only the
+    weights of ``model_whole`` ((layer, weight) pairs,
+    ``model_whole_weights``) are summed."""
 
     def __init__(self, mesh, bucket_elems: int = 1 << 25):
         self.mesh = mesh
         self.bucket_elems = bucket_elems
         self.bytes_last_step = 0
 
-    def __call__(self, params, layer_axes: Dict[str, Tuple[str, ...]]):
+    def __call__(self, params, layer_axes: Dict[str, Tuple[str, ...]],
+                 model_whole=frozenset()):
         groups: Dict[Tuple[str, ...], List[torch.Tensor]] = {}
-        for lname, axes in layer_axes.items():
-            if not axes:
-                continue
-            for p in params.get(lname, {}).values():
+        for lname, layer_ax in layer_axes.items():
+            for wname, p in params.get(lname, {}).items():
                 if not (isinstance(p, torch.Tensor) and p.requires_grad):
+                    continue
+                axes = tuple(a for a in layer_ax if a != MODEL
+                             or (lname, wname) in model_whole)
+                if not axes:
                     continue
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)

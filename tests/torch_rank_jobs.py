@@ -16,7 +16,14 @@ of a process group and returns a JSON-able result. They import no jax.
   failure path);
 * ``branch_ops``: ``branch_parallel_apply`` and
   ``branch_data_parallel_apply`` against the branches applied in turn,
-  outputs and gradients.
+  outputs and gradients;
+* ``tp_placement``: one train step of each builder at the payload's
+  degrees; returns where every layer output lived (``Walk.places``),
+  the bytes the step saved for its backward, then ``predict`` and
+  ``evaluate`` on the same batch;
+* ``split_forms``: the ``model``-split forms (LayerNorm, RMSNorm,
+  softmax, the losses, ``gather_product``) and their whole versions on
+  the same seeded inputs, forward and gradients.
 
 Serving itself runs ``flexflow_tpu_torch.parallel.rank_jobs:serve`` and
 training ``...:train``, with the model builders below (``mlp``,
@@ -29,7 +36,7 @@ the JAX model and the port's alike.
 from __future__ import annotations
 
 import math
-from typing import Any, Dict
+from typing import Any, Dict, List
 
 import numpy as np
 import torch
@@ -296,6 +303,145 @@ def branch_ops(payload) -> Dict[str, Any]:
             float((gx - xr.grad).abs().max()),
             max(float((a - b.grad).abs().max()) for a, b in zip(gw, wr)))
     return {"rank": mesh.rank, "errs": errs}
+
+
+def saved_bytes(step) -> int:
+    """The bytes of the distinct tensors autograd saves for the backward
+    while ``step()`` runs (``saved_tensors_hooks``)."""
+    seen = {}
+
+    def pack(t):
+        seen[(t.data_ptr(), t.numel(), t.dtype)] = t.numel() * t.element_size()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        step()
+    return sum(seen.values())
+
+
+def tp_placement(payload) -> List[Dict[str, Any]]:
+    """For each run (``build_trainer``'s, with ``x``/``y`` as lists): one
+    train step; returns each layer's outputs' placements, in layer order
+    ([{axis: dim}] a layer), the bytes saved for the backward, the
+    gradient all-reduce's bytes and the step's loss, then the
+    ``predict`` output and the ``evaluate`` dict on the same batch."""
+    from flexflow_tpu_torch.parallel.rank_jobs import build_trainer
+
+    dev = _dev(payload)
+    out = []
+    for run in payload["runs"]:
+        m = build_trainer(run, dev)
+        x = np.asarray(run["x"], dtype=run.get("x_dtype", "float32"))
+        y = np.asarray(run["y"], dtype=np.int32)
+        loss = []
+        nbytes = saved_bytes(lambda: loss.append(m.train_one_batch([x], y)))
+        walk = m._walk.places if m._walk is not None else {}
+        places = [[walk.get(t.tensor_id, {}) for t in layer.outputs]
+                  for layer in m.layers]
+        out.append({
+            "places": places, "layers": [layer.name for layer in m.layers],
+            "saved_bytes": nbytes, "loss": loss[0],
+            "allreduce_bytes": m.grad_allreduce_bytes,
+            "predict": m.predict([x]).tolist(),
+            # (evaluate batches the label's rows with x's: a label of
+            # another row count, bert's per-token one, does not batch)
+            "evaluate": (m.evaluate(x=x, y=y) if len(y) == len(x)
+                         else {})})
+    return out
+
+
+def split_forms(payload) -> Dict[str, Any]:
+    """Each ``model``-split form on this rank's part of seeded inputs and
+    its whole version on the whole inputs: the outputs and the inputs'
+    and weights' gradients of ``sum(out * r)`` (r seeded), the split ones
+    made whole (gathered, or a weight's partial gradient summed); rank 0
+    writes ``{form}_{what}_split`` and ``..._whole`` to
+    ``payload["out"]``."""
+    from flexflow_tpu_torch.ffconst import LossType, OpType
+    from flexflow_tpu_torch.ops.base import OpContext, get_op_impl
+    from flexflow_tpu_torch.parallel import collectives as C
+    from flexflow_tpu_torch.training.loss import compute_loss
+
+    mesh = _mesh(payload)
+    n, i = mesh.axis_size("model"), mesh.index("model")
+    g = torch.Generator().manual_seed(payload.get("seed", 0))
+    res: Dict[str, np.ndarray] = {}
+
+    def leaf(*shape):
+        return torch.randn(*shape, generator=g).requires_grad_(True)
+
+    def mine(t, dim=-1):
+        return t.detach().chunk(n, dim=dim)[i].clone().requires_grad_(True)
+
+    def whole(t, dim=-1):
+        return C.all_gather(t.detach(), mesh, "model", axis=dim)
+
+    def record(form, outs, grads):
+        for what, (a, b) in {**outs, **grads}.items():
+            res[f"{form}_{what}_split"] = a.detach().numpy()
+            res[f"{form}_{what}_whole"] = b.detach().numpy()
+
+    def op_form(form, op, attrs, x, ws):
+        impl = get_op_impl(op)
+        r = torch.randn(*x.shape, generator=g)
+        xs, wss = mine(x), {k: w.detach().clone().requires_grad_(True)
+                            for k, w in ws.items()}
+        ctx = OpContext(mesh=mesh, row_shards={
+            x.dim() - 1: ("model", n, i)})
+        y = impl.forward(attrs, wss, [xs], ctx)[0]
+        (y * r.chunk(n, dim=-1)[i]).sum().backward()
+        yw = impl.forward(attrs, ws, [x], OpContext())[0]
+        (yw * r).sum().backward()
+        grads = {"dx": (whole(xs.grad), x.grad)}
+        for k, w in ws.items():
+            grads[f"d{k}"] = (C.psum(wss[k].grad, mesh, "model"), w.grad)
+        record(form, {"y": (whole(y), yw)}, grads)
+
+    op_form("layernorm", OpType.LAYERNORM, {"axes": [-1], "eps": 1e-5},
+            leaf(4, 6, 16), {"gamma": leaf(16), "beta": leaf(16)})
+    op_form("rmsnorm", OpType.RMS_NORM, {"eps": 1e-6}, leaf(4, 6, 16),
+            {"weight": leaf(16)})
+    op_form("softmax", OpType.SOFTMAX, {"axis": -1}, leaf(4, 6, 16), {})
+    labels = {
+        LossType.LOSS_SPARSE_CATEGORICAL_CROSSENTROPY:
+            torch.randint(0, 16, (12, 1), generator=g),
+        LossType.LOSS_CATEGORICAL_CROSSENTROPY:
+            torch.softmax(torch.randn(12, 16, generator=g), -1),
+        LossType.LOSS_MEAN_SQUARED_ERROR_AVG_REDUCE:
+            torch.randn(12, 16, generator=g),
+        LossType.LOSS_MEAN_SQUARED_ERROR_SUM_REDUCE:
+            torch.randn(12, 16, generator=g)}
+    for lt, label in labels.items():
+        logits = leaf(12, 16)
+        ls = mine(logits)
+        cross = "CROSSENTROPY" in lt.name
+        out_s = torch.softmax(ls, -1) if cross else ls
+        out_w = torch.softmax(logits, -1) if cross else logits
+        loss = compute_loss(lt, out_s, label, logits=ls if cross else None,
+                            classes=(mesh, "model"))
+        loss.backward()
+        ref = compute_loss(lt, out_w, label,
+                           logits=logits if cross else None)
+        ref.backward()
+        record(lt.name.lower(), {"loss": (loss, ref)},
+               {"dlogits": (whole(ls.grad), logits.grad)})
+    # the shard-saving gather: one input into two column products
+    x = leaf(4, 6, 16)
+    ws = [leaf(16, 8), leaf(16, 12)]
+    xs, wss = mine(x), [mine(w) for w in ws]
+    ys = C.gather_product(xs, mesh, "model", wss)
+    rs = [torch.randn(4, 6, w.shape[1], generator=g) for w in ws]
+    sum((y * r.chunk(n, dim=-1)[i]).sum() for y, r in zip(ys, rs)).backward()
+    yw = [x @ w for w in ws]
+    sum((y * r).sum() for y, r in zip(yw, rs)).backward()
+    record("gather_product",
+           {f"y{j}": (whole(a), b) for j, (a, b) in enumerate(zip(ys, yw))},
+           {"dx": (whole(xs.grad), x.grad),
+            **{f"dw{j}": (whole(a.grad), b.grad)
+               for j, (a, b) in enumerate(zip(wss, ws))}})
+    if mesh.rank == 0:
+        np.savez(payload["out"], **res)
+    return {"rank": mesh.rank}
 
 
 # ----------------------------------------------------------------------
