@@ -252,23 +252,29 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      launch returns its partials, which three collectives reconcile)
      with the shapes they ran at, peak memory and decode ms/step (two
      processes sharing one card through the host: not a speed of the
-     parallelism); no plain call. 14b-prefix: at tp=2 and sp=2 on the
-     same ranks, 8 requests behind one 96-token prefix in 4 slots with
-     the shared-prefix pool off, then on: equal tokens, the pool's hit
-     tokens above 0 and equal on both ranks, K1 launched for the
-     suffixes. 14b-strategy: the same geometry at all 32 layers, 8 new
-     tokens, one rank in this process, then on 14b's tp=2 ranks under an
-     assigned
-     ``Strategy`` (lm_head's int8 kernel in row shards with its logits
-     vocabulary-split, every down_proj in row shards, one attention's
-     ``wo`` whole at rest) and under the port's own search
-     (``auto_parallel``): tokens 8/8 equal to one rank's on both ranks,
-     each rank's weight bytes against one rank's, K1/K2/K3 launched with
-     their shapes, no plain call. 14c: each kernel at every shape that
-     14a and 14b launched it at, against its plain version (the
-     partials mode over a cache of twice a rank's rows, split in halves
-     at their offsets and combined), and the partials mode's timed row
-     of the kernel table at the sp=2 decode shape.
+     parallelism); no plain call. At tp=2 every activation stays split
+     over ``model`` on its features, as GSPMD keeps the JAX package's:
+     each rank prints the bytes of the layer outputs it holds when the
+     prefill returns against the 1-rank run's (gated at
+     ``TP2_LAYER_OUTPUT_SHARE``) and the count and bytes of its
+     collectives over ``model`` in the prefill and in one decode step. 14b-prefix: at
+     tp=2 and sp=2 on the same ranks, 8 requests behind one 96-token
+     prefix in 4 slots with the shared-prefix pool off, then on: equal
+     tokens, the pool's hit tokens above 0 and equal on both ranks, K1
+     launched for the suffixes. 14b-strategy: the same geometry at all
+     32 layers, 8 new tokens, one rank in this process, then on 14b's
+     tp=2 ranks under an assigned ``Strategy`` (lm_head's int8 kernel in
+     row shards with its logits vocabulary-split, every down_proj in row
+     shards, one attention's ``wo`` whole at rest) and under the port's
+     own search (``auto_parallel``): tokens 8/8 equal to one rank's on
+     both ranks, each rank's weight bytes, layer-output bytes and peak
+     against one rank's, its ``model`` collectives (count and bytes) of
+     the prefill and a decode step, K1/K2/K3 launched with their shapes, no plain call. 14c: each
+     kernel at every shape that 14a and 14b launched it at, against its
+     plain version (the partials mode over a cache of twice a rank's
+     rows, split in halves at their offsets and combined), and the
+     partials mode's timed row of the kernel table at the sp=2 decode
+     shape.
  15. parallel and resumable training (``parallel_training_phase``);
      15b's tp=2 run keeps every activation split over ``model`` on its
      features and prints each rank's peak as a share of one rank's,
@@ -4941,6 +4947,10 @@ POOL_PREFIX, POOL_TURN, POOL_SLOTS, POOL_NEW, POOL_SEQ = 96, 8, 4, 8, 128
 POOL_CONFIGS = ("tp2", "sp2")
 # 14b-strategy: phase 8's geometry at all its layers, on 14b's tp=2 ranks
 STRAT_NEW = 8
+# 14b's tp=2 rank holds at most this share of the 1-rank run's layer-output
+# bytes when the prefill returns (split over ``model`` on their features:
+# 0.50 and the few whole values, the tokens and the head's indices)
+TP2_LAYER_OUTPUT_SHARE = 0.55
 
 
 def _offloaded_nbytes(m) -> int:
@@ -5136,7 +5146,7 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                     max_sequence_length=POOL_SEQ,
                     max_tokens_per_batch=POOL_SLOTS * len(pool_prompts[0]))
 
-    full, strat_ref, one_bytes = strategy_reference(torch, card, model,
+    full, strat_ref, strat_one = strategy_reference(torch, card, model,
                                                     cfg, prompts, device)
 
     def runs(deg, name=""):
@@ -5190,9 +5200,12 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
         f"{single['counts']}, {secs:.1f} s  [{card}]")
     report = {"single": dict(decode_ms_cold=single["decode_ms_per_step"][-1],
                              peak_gib=single["peak_bytes"] / 2**30,
-                             counts=single["counts"])}
+                             counts=single["counts"],
+                             layer_output_bytes=single["prefill"][
+                                 "layer_output_bytes"])}
     by_path, shapes = {}, {}
     plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
+    one_held = single["prefill"]["layer_output_bytes"]
     for name, deg in SHARD_CONFIGS:
         launched, secs = launches[name]
         ranks = [r[0] for r in launched]
@@ -5207,6 +5220,10 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                   and c["flash_attend"] > 0 and c["flash_attend_append"] > 0
                   and c["flash_attend_partials"] == part
                   and not any(c[k] for k in plain))
+            if name == "tp2":
+                held = split_report(r, one_held, card, "14b tp2")
+                ok = ok and held["layer_output_share"] <= \
+                    TP2_LAYER_OUTPUT_SHARE
             ls = r["launch_shapes"]
             for kernel, sh in ls.items():
                 shapes.setdefault(name, {}).setdefault(kernel, set()).update(
@@ -5225,7 +5242,8 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
                 f"{r['decode_ms_per_step'][-1]:.3f}  [{card}]")
             rep.append(dict(rank=r["rank"], tokens_equal=eq, counts=c,
                             peak_gib=r["peak_bytes"] / 2**30,
-                            decode_ms_cold=r["decode_ms_per_step"][-1]))
+                            decode_ms_cold=r["decode_ms_per_step"][-1],
+                            **(held if name == "tp2" else {})))
             if not ok:
                 raise AssertionError(f"14b: {name} rank {r['rank']} gates")
         log(f"  {name}: {secs:.1f} s; its times are two processes sharing "
@@ -5245,7 +5263,7 @@ def sharded_phase(torch, card, work, device="cuda", model=None):
             shapes[f"{name}-prefix"] = pool.pop("shapes")
         if name == "tp2":
             strat = strategy_gates(card, named("tp2-strategy", "tp2-auto"),
-                                   strat_ref, one_bytes)
+                                   strat_ref, strat_one)
             for key in ("tp2-strategy", "tp2-auto"):
                 by_path[key] = strat[key].pop("counts")
                 shapes[key] = strat[key].pop("shapes")
@@ -5317,29 +5335,69 @@ def assigned_strategy(layers):
     return Strategy(ops=ops)
 
 
+def split_report(r, one_out, card, what):
+    """Print a tp rank's ``serve`` result's layer-output bytes after the
+    prefill against one rank's (``one_out``), the count and bytes of its
+    collectives over ``model`` in the prefill and in a decode step, and
+    its peak; returns them."""
+    from flexflow_tpu_torch.parallel.rank_jobs import axis_bytes
+
+    pre, dec = r["prefill"], r["decode"]
+    out = dict(layer_output_bytes=pre["layer_output_bytes"],
+               layer_output_share=pre["layer_output_bytes"] / one_out,
+               model_calls_prefill=axis_bytes(pre["calls"], "model"),
+               model_bytes_prefill=axis_bytes(pre["moved"], "model"),
+               model_calls_decode=axis_bytes(dec["calls"], "model"),
+               model_bytes_decode=axis_bytes(dec["moved"], "model"),
+               calls_prefill=pre["calls"], moved_prefill=pre["moved"],
+               prefill_tokens=pre["tokens"])
+    log(f"  {what} rank {r['rank']}: layer outputs held after the prefill "
+        f"{out['layer_output_bytes']} B = {out['layer_output_share']:.4f} "
+        f"of 1 rank's {one_out} B; collectives over model: prefill "
+        f"{pre['tokens']} {out['model_calls_prefill']} calls "
+        f"{out['model_bytes_prefill']} B ({pre['calls']}, {pre['moved']}), "
+        f"decode step {dec['tokens']} {out['model_calls_decode']} calls "
+        f"{out['model_bytes_decode']} B; peak {r['peak_bytes'] / 2**30:.3f} "
+        f"GiB  [{card}]")
+    return out
+
+
 def strategy_reference(torch, card, model, cfg, prompts, device):
     """14b-strategy's reference: 14b's geometry at all ``LAYERS`` layers
-    on one rank in this process. Returns (its model, its tokens, its
-    weight bytes)."""
+    on one rank in this process. Returns (its model, its tokens, {its
+    ``weight_bytes``, the ``layer_output_bytes`` it held after the
+    prefill, its ``peak_bytes`` above what the process held before})."""
     from flexflow_tpu_torch.ffconst import InferenceMode
     from flexflow_tpu_torch.parallel import rank_jobs
     from flexflow_tpu_torch.quant import quantized_nbytes
 
     t = time.perf_counter()
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
     full = dict(model, num_hidden_layers=LAYERS)
     one = dict(name="one", model=full, config=cfg, prompts=prompts,
                max_new=STRAT_NEW)
     m = rank_jobs._build(one, full, None, InferenceMode.INC_DECODING_MODE,
                          torch.device(device))
+    probe = rank_jobs.forward_probe(m)
     ref, _ = rank_jobs._generate(m, None, one)
-    one_bytes = quantized_nbytes(m.params)
+    held = dict(weight_bytes=quantized_nbytes(m.params),
+                layer_output_bytes=probe["prefill"]["layer_output_bytes"],
+                peak_bytes=(torch.cuda.max_memory_allocated() - base
+                            if on_card else 0))
     del m
     gc.collect()
     torch.cuda.empty_cache()
     log(f"  14b-strategy: 1 rank in process, {LAYERS} layers: weights "
-        f"{one_bytes / 2**30:.3f} GiB, {time.perf_counter() - t:.1f} s  "
-        f"[{card}]")
-    return full, ref, one_bytes
+        f"{held['weight_bytes'] / 2**30:.3f} GiB, layer outputs after the "
+        f"prefill {held['layer_output_bytes']} B, peak "
+        f"{held['peak_bytes'] / 2**30:.3f} GiB, "
+        f"{time.perf_counter() - t:.1f} s  [{card}]")
+    return full, ref, held
 
 
 def strategy_runs(full, cfg, prompts):
@@ -5355,17 +5413,23 @@ def strategy_runs(full, cfg, prompts):
                  max_new=STRAT_NEW)]
 
 
-def strategy_gates(card, ranks_runs, ref, one_bytes):
+def strategy_gates(card, ranks_runs, ref, one):
     """14b-strategy's gates on the tp=2 ranks' two runs (``ranks_runs``:
     each rank's [assigned, auto]): tokens 8/8 equal to one rank's on both
-    ranks, K1/K2/K3 launched, no plain call; each rank's weight bytes
-    against one rank's."""
-    report = {"one_rank_weight_bytes": one_bytes}
+    ranks, K1/K2/K3 launched, no plain call; each rank's weight bytes,
+    layer-output bytes and peak against one rank's (``one``, from
+    ``strategy_reference``), and its ``model`` collectives
+    (``split_report``)."""
+    one_bytes, one_out = one["weight_bytes"], one["layer_output_bytes"]
+    report = {"one_rank_weight_bytes": one_bytes,
+              "one_rank_layer_output_bytes": one_out,
+              "one_rank_peak_gib": one["peak_bytes"] / 2**30}
     plain = ("plain_attend_cuda", "qmatmul_plain_cuda")
     for i in range(len(ranks_runs[0])):
         ranks = [runs[i] for runs in ranks_runs]
         name = ranks[0]["name"]
         moved = sorted(json.loads(ranks[0]["strategy"])["ops"])
+        held = []
         for r in ranks:
             eq = sum(a == b for a, b in zip(r["tokens"], ref))
             c = r["counts"]
@@ -5381,6 +5445,13 @@ def strategy_gates(card, ranks_runs, ref, one_bytes):
                 f"{ls.get('flash_attend', [])}; K2 at "
                 f"{ls.get('flash_attend_append', [])}; generate "
                 f"{r['seconds'][-1]:.1f} s  [{card}]")
+            held.append(dict(split_report(r, one_out, card,
+                                          f"14b-strategy {name}"),
+                             peak_gib=r["peak_bytes"] / 2**30))
+            log(f"  14b-strategy {name} rank {r['rank']}: peak "
+                f"{r['peak_bytes'] / 2**30:.3f} GiB against 1 rank's "
+                f"{one['peak_bytes'] / 2**30:.3f} GiB in this process  "
+                f"[{card}]")
             if (eq != REQUESTS or not c["qmatmul"] or not c["flash_attend"]
                     or not c["flash_attend_append"]
                     or any(c[k] for k in plain)):
@@ -5388,7 +5459,7 @@ def strategy_gates(card, ranks_runs, ref, one_bytes):
                                      f"{r['rank']} gates")
         report[name] = dict(
             layers_in_strategy=len(moved),
-            weight_bytes=[r["weight_bytes"] for r in ranks],
+            weight_bytes=[r["weight_bytes"] for r in ranks], held=held,
             counts=_sum_counts(ranks), shapes=_union_shapes(ranks))
     return report
 

@@ -152,14 +152,16 @@ class FFModel:
         # each epoch's line
         self._step_timer = StepTimer(enabled=True)
         self._pending_batch = None
-        # parallel training: the last forward's placements
+        # parallel training and serving: the last forward's placements
         # (parallel/placement.Walk), the gradient all-reduce, the layers
-        # that return a column split over ``model`` and the weights whose
-        # gradients it sums over ``model`` (compile sets both)
+        # that return a column split over ``model`` in a train step and
+        # in a serving forward, the serving forward's ``tp-row`` Linears,
+        # and the weights whose gradients the reduce sums over ``model``
+        # (compile sets the four sets)
         self._walk = None
         self._grad_reducer = None
-        self._columns = frozenset()
-        self._model_whole = frozenset()
+        self._columns = self._serving_columns = frozenset()
+        self._row_layers = self._model_whole = frozenset()
         # the search's per-op strategy (search/strategy.py Strategy): set
         # by compile under auto_parallel, or by the caller before compile;
         # compile turns it into the plan the graph walk executes
@@ -860,19 +862,25 @@ class FFModel:
         return self.mesh is not None and (self.mesh.axis_size("data") > 1
                                           or self.mesh.axis_size("seq") > 1)
 
-    def _splits_features(self) -> bool:
-        """Do a train, eval or predict step's activations stay split over
-        ``model`` on their features (a model compiled for training on a
-        ``model`` axis above 1; parallel/placement.py)?"""
+    def _splits_features(self, serving: bool = False) -> bool:
+        """Do the activations stay split over ``model`` on their features
+        (parallel/placement.py): those of a train, eval or predict step
+        of a model compiled for training, and with ``serving`` those of a
+        serving forward, on a ``model`` axis above 1?"""
         return (self.mesh is not None and self.mesh.axis_size("model") > 1
-                and self.comp_mode == CompMode.COMP_MODE_TRAINING)
+                and (serving
+                     or self.comp_mode == CompMode.COMP_MODE_TRAINING))
 
-    def _walks(self) -> bool:
-        """Does a train or eval forward take the placement walk
-        (``_run_split``): a mesh that splits the batch or the features,
-        or a searched strategy on a mesh?"""
-        return (self._splits_batch() or self._splits_features()
-                or self._strategy_plan is not None)
+    def _walks(self, serving: bool = False) -> bool:
+        """Does a forward take the placement walk (``_run_split``): a
+        train or eval forward on a mesh that splits the batch or the
+        features, a serving forward (``serving``) that splits the
+        features, or either under a searched strategy on a mesh?"""
+        if self._strategy_plan is not None:
+            return True
+        if serving:
+            return self._splits_features(serving=True)
+        return self._splits_batch() or self._splits_features()
 
     def _run_graph(self, params, feeds: Dict[int, Any], ctx: OpContext,
                    state: Optional[Dict[str, Any]] = None):
@@ -880,11 +888,13 @@ class FFModel:
         computing every tensor value. Returns (values_by_tensor_id,
         new_state); KV caches in the state were updated in place. The
         kernels serve CUDA tensors unless ``config.use_kernels`` is off.
-        A mesh that splits the batch or the features runs each rank's
-        part (``_run_split``) outside serving."""
+        A mesh that splits the batch or the features, or a strategy,
+        runs each rank's part (``_run_split``), serving forwards (those
+        with ``ctx.batch_config``) included."""
         from flexflow_tpu_torch.kernels import use_kernels
 
         ctx.mesh = self.mesh
+        serving = ctx.batch_config is not None
         if self._pp_plan is not None and not ctx.training:
             from flexflow_tpu_torch.serve.pipeline_plan import run_pp_graph
 
@@ -896,39 +906,74 @@ class FFModel:
             ctx.state_in = state or {}
             ctx.state_out = {}
             with use_kernels(self.config.use_kernels):
-                if self._walks() and ctx.batch_config is None:
+                if self._walks(serving):
                     self._run_split(params, values, ctx)
-                elif (ctx.batch_config is not None
-                      and self._strategy_plan is not None
-                      and self._strategy_plan.outputs):
-                    self._run_serving_walk(params, values, ctx)
                 else:
                     for layer in self.layers:
                         self._apply_layer(layer, params, values, ctx)
             new_state = dict(ctx.state_in)
             new_state.update(ctx.state_out)
         if (self.mesh is not None and self.mesh.device_mesh is not None
-                and ctx.batch_config is not None):
+                and serving):
             self._broadcast_final(values)
         return values, new_state
+
+    def _new_walk(self, serving: bool, training: bool = False,
+                  layers=None):
+        """A forward's ``placement.Walk`` over ``layers`` (every layer by
+        default; a pipeline stage's segment): a serving forward's
+        (``serving``) keeps ``model`` splits with the serving columns and
+        its ``tp-row`` Linears reading their splits; a train or eval
+        step's (``training``: a train step) with the training
+        columns."""
+        from flexflow_tpu_torch.parallel.placement import Walk, consumers
+
+        features = self._splits_features(serving)
+        uses = consumers(self.layers if layers is None else layers)
+        if serving:
+            cols = self._serving_columns if features else frozenset()
+            return Walk(self.mesh, False, features=features, columns=cols,
+                        contracts=self._row_layers, serving=True,
+                        uses=uses)
+        return Walk(self.mesh, training, features=features,
+                    columns=self._columns, contracts=self._columns,
+                    uses=uses)
+
+    def _walk_layer(self, walk, layer, params, values: Dict[int, Any],
+                    ctx: OpContext):
+        """Run ``layer`` on the parts its inputs' placements in ``walk``
+        allow (a column shard returning its columns), then move its
+        output to its searched spec."""
+        from flexflow_tpu_torch.parallel.placement import local_attrs
+
+        ins, active, ctx.row_shards = walk.layer_inputs(layer, values)
+        ctx.split_columns = layer.name in walk.columns
+        self._apply_layer(layer, params, values, ctx, ins=ins,
+                          attrs=local_attrs(layer, active, self.mesh),
+                          split_axes=tuple(active))
+        walk.record(layer, active)
+        walk.done(layer)
+        plan = self._strategy_plan
+        if plan is not None and layer.name in plan.outputs:
+            walk.place_output(layer, values, plan.outputs[layer.name])
 
     def _run_split(self, params, values: Dict[int, Any], ctx: OpContext):
         """The walk of a mesh that splits the batch or the features, or
         executes a searched strategy: each batch input keeps this rank's
-        part, every layer runs on the part its inputs' placements allow
-        (a column shard returning its columns), and a layer's output
-        moves to its searched spec (parallel/placement.py);
-        ``self._walk`` keeps the placements for the loss and the
-        gradient sums."""
+        part (a serving forward's batch stays whole), every layer runs
+        on the part its inputs' placements allow (a column shard
+        returning its columns), and a layer's output moves to its
+        searched spec (parallel/placement.py); ``self._walk`` keeps the
+        placements for the loss and the gradient sums. A serving
+        forward's final output (the head's tokens) is made whole."""
         from flexflow_tpu_torch.parallel.collectives import split
-        from flexflow_tpu_torch.parallel.placement import (Walk, feed_place,
-                                                           local_attrs)
+        from flexflow_tpu_torch.parallel.placement import feed_place
 
-        walk = Walk(self.mesh, ctx.training,
-                    features=self._splits_features(), columns=self._columns)
+        serving = ctx.batch_config is not None
+        walk = self._new_walk(serving, ctx.training)
         for t in self.input_tensors:
             if t.tensor_id in values:
-                place = feed_place(self.policy, t.dims)
+                place = {} if serving else feed_place(self.policy, t.dims)
                 for axis, d in place.items():
                     values[t.tensor_id] = split(values[t.tensor_id],
                                                 self.mesh, axis, d)
@@ -938,14 +983,7 @@ class FFModel:
         branches = self._branch_plan
 
         def run(layer):
-            ins, active, ctx.row_shards = walk.layer_inputs(layer, values)
-            ctx.split_columns = layer.name in walk.columns
-            self._apply_layer(layer, params, values, ctx, ins=ins,
-                              attrs=local_attrs(layer, active, self.mesh),
-                              split_axes=tuple(active))
-            walk.record(layer, active)
-            if layer.name in outputs:
-                walk.place_output(layer, values, outputs[layer.name])
+            self._walk_layer(walk, layer, params, values, ctx)
 
         for layer in self.layers:
             if branches is not None:
@@ -972,35 +1010,17 @@ class FFModel:
             run(layer)
         ctx.row_shards = {}
         ctx.split_columns = False
+        if serving:
+            self._whole_final(walk, values)
         self._walk = walk
 
-    def _run_serving_walk(self, params, values: Dict[int, Any],
-                          ctx: OpContext):
-        """A serving forward under a strategy that moves outputs: each
-        layer's output goes to its searched spec (``policy.constrain``),
-        and each layer reads its inputs whole (gathered once a forward;
-        the serving ops keep their own tensor-parallel layout inside).
-        An output spec is thus placement only: it costs a split and an
-        all_gather a forward and shards no consumer. The final output is
-        made whole for the broadcast and the host loop."""
-        outputs, policy = self._strategy_plan.outputs, self.policy
-        placed = {}     # tensor id -> the layout its value holds
-
-        def whole(tid):
-            if tid in placed:
-                values[tid] = policy.constrain(values[tid], (),
-                                               src=placed.pop(tid))
-            return values[tid]
-
-        for layer in self.layers:
-            ins = [whole(t.tensor_id) for t in layer.inputs]
-            self._apply_layer(layer, params, values, ctx, ins=ins)
-            if layer.name in outputs:
-                tid = layer.outputs[0].tensor_id
-                placed[tid] = policy.resolve(outputs[layer.name],
-                                             values[tid].shape)
-                values[tid] = policy.constrain(values[tid], placed[tid])
-        whole(self._final_tensor.tensor_id)
+    def _whole_final(self, walk, values: Dict[int, Any]):
+        """The final output of a serving forward made whole on every rank
+        (the head's tokens are; a model with no head gathers its
+        logits)."""
+        tid = self._final_tensor.tensor_id
+        if tid in values and walk.places.get(tid):
+            values[tid], walk.places[tid] = walk.whole(tid, values[tid])
 
     def _broadcast_final(self, values):
         """Every rank takes the final output of the rank that made it (the
@@ -1038,8 +1058,8 @@ class FFModel:
         self._offloaded = {}
         self._prefetcher = None
         self._strategy_plan = self._branch_plan = None
-        self._columns = frozenset()
-        self._model_whole = frozenset()
+        self._columns = self._serving_columns = frozenset()
+        self._row_layers = self._model_whole = frozenset()
         # --- Unity-style auto-parallelization (reference model.cc:3327
         # launches GRAPH_OPTIMIZE_TASK inside compile). A strategy the
         # caller set before compile (e.g. a Strategy.load of an exported
@@ -1103,6 +1123,12 @@ class FFModel:
 
                 self._columns = column_layers(self, shardings)
                 self._model_whole = model_whole_weights(self, shardings)
+            else:
+                from flexflow_tpu_torch.parallel.placement import (
+                    row_layers, serving_columns)
+
+                self._serving_columns = serving_columns(self, shardings)
+                self._row_layers = row_layers(self)
         params: Dict[str, Dict[str, Any]] = {}
         for layer in self.layers:
             if not layer.weights or not self._holds(layer.name):

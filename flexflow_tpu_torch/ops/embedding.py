@@ -2,14 +2,15 @@
 row gather with aggregation modes NONE/SUM/AVG. A quantized table gathers
 packed rows and dequantizes only those (``quant.qtake``). Under tensor
 parallelism the table is split by columns (``sharding_dims=(None,
-"model")``): in a train step each rank returns its columns of the rows,
-the output split over ``model`` on its last dim as GSPMD keeps it in the
-JAX package's step (``OpContext.split_columns``); serving, and a model
-compiled for inference, concatenate the shards' columns over the
-``model`` axis. A searched strategy may
-split the table by rows instead (``tp-vocab``): each rank gathers the
-ids it holds, zeros the others, and the rows are summed over
-``model``."""
+"model")``): in a train step and a serving forward each rank returns its
+columns of the rows, the output split over ``model`` on its last dim as
+GSPMD keeps it in the JAX package (``OpContext.split_columns``); outside
+the walk the shards' columns are concatenated over the ``model`` axis.
+A searched strategy may split the table by rows instead (``tp-vocab``):
+each rank gathers the ids it holds and zeros the others, and the rows
+are reduce-scattered over ``model`` onto the output's split, or summed
+where the output is whole. Learned positions (OPT, StarCoder) are such a
+table too."""
 
 from __future__ import annotations
 
@@ -62,9 +63,14 @@ class Embedding(OpImpl):
         elif aggr == AggrMode.AGGR_MODE_AVG:
             out = out.mean(dim=-2)
         if vocab:
-            from flexflow_tpu_torch.parallel.collectives import psum
+            from flexflow_tpu_torch.parallel.collectives import (
+                psum, reduce_scatter)
 
-            out = psum(out, ctx.mesh, "model")
+            if ctx.split_columns:
+                out = reduce_scatter(out, ctx.mesh, "model",
+                                     scatter_dimension=out.dim() - 1)
+            else:
+                out = psum(out, ctx.mesh, "model")
         if params["weight"].shape[1] != attrs["out_dim"] \
                 and not ctx.split_columns:
             from flexflow_tpu_torch.ops.linear import gather_columns

@@ -29,9 +29,13 @@ Differences from the JAX package, by design:
 Under tensor parallelism (``ctx.mesh`` with a ``model`` axis) each rank
 holds whole heads: column shards of ``wq``/``wk``/``wv`` (the JAX specs,
 ``shard_multiples`` = head_dim), a KV cache of its KV heads only, and a
-row shard of ``wo``, whose partial products are summed over the axis
-(``psum``). Rotary, the attention kernels and ALiBi (its slopes sliced to
-the rank's heads) run on the local heads. Where the degree does not
+row shard of ``wo``. The op reads its input whole (the serving walk
+gathers it, ``parallel/placement.py``), and the partial products of
+``wo`` are reduce-scattered over the axis, so the output stays split on
+its features as GSPMD keeps it, each rank adding its part of ``bo``
+(``ctx.split_columns``); outside the walk they are summed (``psum``).
+Rotary, the attention kernels and ALiBi (its slopes sliced to the
+rank's heads) run on the local heads. Where the degree does not
 divide the KV heads, ``wk``/``wv`` and the cache stay whole, as the JAX
 rule has it; the query heads are then gathered, attention runs over all
 heads, and the rank keeps its heads' output for its ``wo`` rows.
@@ -289,18 +293,33 @@ def _init_kv_state(attrs, input_specs, device):
 
 
 def _project_out(attrs, params, ctx, attn_out):
+    """``attn_out @ wo + bo``: whole, or, in a serving forward that keeps
+    the output split (``ctx.split_columns``), this rank's part of its
+    last dim and of ``bo``."""
+    from flexflow_tpu_torch.ops.linear import own_part
+
     wo = params["wo"]
+    split = ctx.split_columns
     if wo.shape[0] != attrs["num_q_heads"] * attrs["head_dim"]:
         # a row shard (tensor parallelism): sum the ranks' partial
-        # products, accumulated in fp32
-        from flexflow_tpu_torch.parallel.collectives import psum
+        # products, accumulated in fp32, each rank its part where the
+        # output stays split
+        from flexflow_tpu_torch.parallel.collectives import (
+            psum, reduce_scatter)
 
-        out = psum(qmatmul(attn_out, wo, out_dtype=torch.float32),
-                   ctx.mesh, "model").to(attn_out.dtype)
+        part = qmatmul(attn_out, wo, out_dtype=torch.float32)
+        if split:
+            out = reduce_scatter(part, ctx.mesh, "model",
+                                 scatter_dimension=part.dim() - 1)
+        else:
+            out = psum(part, ctx.mesh, "model")
+        out = out.to(attn_out.dtype)
     else:
         out = qmatmul(attn_out, wo)
+        if split:
+            out = own_part(out, ctx)
     if "bo" in params:
-        out = out + params["bo"]
+        out = out + (own_part(params["bo"], ctx) if split else params["bo"])
     return out
 
 

@@ -2,6 +2,15 @@
 ``flexflow_tpu/ops/sampling_ops.py``): ArgMax (greedy; its beam variant
 also returns parent ids), Sampling (top-p with temperature) and BeamTopK.
 
+In a serving forward on a ``model`` axis above 1 the logits reach the
+head split over ``model`` on the vocabulary, as GSPMD keeps them in the
+JAX package. ArgMax then takes its split form (``split_argmax``): each
+rank its shard's maximum and first maximal index, offset to a global
+index, and one all-gather of the ranks' (value, index) pairs, from which
+every rank picks the largest value at the lowest index: the first
+maximal index of the whole row, ``torch.argmax``'s bit for bit. Sampling
+and BeamTopK read the logits gathered (``parallel/placement.py``).
+
 Random draws come from ``OpContext.generator``, a ``torch.Generator`` on
 the model's device that the InferenceManager owns and seeds from
 ``FFConfig.seed`` (the JAX package's per-step PRNG key). A draw is a
@@ -34,11 +43,39 @@ class ArgMax(OpImpl):
 
     @staticmethod
     def forward(attrs, params, inputs, ctx):
-        # torch.argmax, like jnp.argmax, returns the first maximal index
-        idx = torch.argmax(inputs[0], dim=-1).to(torch.int32)
+        x = inputs[0]
+        shard = ctx.split_dims((-1,), x.dim()) if ctx is not None else {}
+        if shard:
+            idx = split_argmax(x, ctx.mesh, *shard[x.dim() - 1])
+        else:
+            # torch.argmax, like jnp.argmax, returns the first maximal
+            # index
+            idx = torch.argmax(x, dim=-1)
+        idx = idx.to(torch.int32)
         if attrs.get("beam_search", False):
             return [idx, torch.zeros_like(idx)]
         return [idx]
+
+
+def split_argmax(x: torch.Tensor, mesh, axis: str, n: int,
+                 i: int) -> torch.Tensor:
+    """``torch.argmax(whole, -1)`` (int64) of the ``whole`` tensor whose
+    last dim is split over ``axis`` (``n`` ranks, this one at index
+    ``i`` holding ``x``): each rank's best (value, global index), one
+    all-gather of the pairs (packed in float64, which holds any float
+    value and an index below 2^53 exactly), then the largest value at
+    the lowest rank, whose indices are the lowest: the first maximal
+    index of the whole row. A NaN counts as the largest value, as in
+    ``torch.argmax``."""
+    from flexflow_tpu_torch.parallel.collectives import all_gather
+
+    local = torch.argmax(x, dim=-1, keepdim=True)
+    best = torch.gather(x, -1, local)
+    pair = torch.cat([best.double(),
+                      (local + i * x.shape[-1]).double()], dim=-1)
+    pairs = all_gather(pair, mesh, axis, axis=0, tiled=False)   # [n, ...]
+    rank = torch.argmax(pairs[..., 0], dim=0, keepdim=True)
+    return torch.gather(pairs[..., 1], 0, rank)[0].long()
 
 
 def top_p_sampling(logits: torch.Tensor, generator: torch.Generator,

@@ -42,11 +42,19 @@ A backward runs the same collectives in the same order on every peer,
 since every peer records the same graph. On CUDA, autograd runs the
 backward on its own thread: each staged copy is made on the current
 stream and waited for before gloo reads the host buffer.
+
+Traffic. Inside ``count_moved()`` (off otherwise, as
+``kernels.record_shapes`` is), ``calls[(collective, axis)]`` counts the
+collectives this rank runs and ``moved[(collective, axis)]`` adds up
+their input bytes (a reduce-scatter's whole input, as gloo all-reduces
+it; an all-gather's shard; a send's or broadcast's tensor; ``"world"``
+where no axis is named).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import contextlib
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -55,6 +63,32 @@ import torch.distributed as dist
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.int32,
            torch.int64, torch.int8, torch.bool, torch.uint8, torch.float64)
 _HEADER = 8     # [ndim, dtype code, dims...], int64, zero-padded
+
+
+moved: Dict[Tuple[str, str], int] = {}
+calls: Dict[Tuple[str, str], int] = {}
+_counting = [False]
+
+
+@contextlib.contextmanager
+def count_moved():
+    """Count the block's collectives into ``calls`` and ``moved`` (both
+    emptied first)."""
+    moved.clear()
+    calls.clear()
+    _counting[0] = True
+    try:
+        yield
+    finally:
+        _counting[0] = False
+
+
+def _count(kind: str, axis: Optional[str], x: torch.Tensor):
+    if not _counting[0]:
+        return
+    key = (kind, axis or "world")
+    calls[key] = calls.get(key, 0) + 1
+    moved[key] = moved.get(key, 0) + x.numel() * x.element_size()
 
 
 def _staged(group) -> bool:
@@ -93,10 +127,11 @@ def _group(mesh, axis_name):
     return mesh.group(axis_name)
 
 
-def _reduce(x, mesh, axis_name, op):
+def _reduce(x, mesh, axis_name, op, kind="all_reduce"):
     group = _group(mesh, axis_name)
     if group is None:
         return x.clone()
+    _count(kind, axis_name, x)
     return _run(x, group, lambda t: dist.all_reduce(t, op=op, group=group))
 
 
@@ -248,6 +283,7 @@ def _all_gather(x, mesh, axis_name, axis, tiled):
     if group is None:
         return x.clone() if tiled else x.unsqueeze(axis)
     n = mesh.axis_size(axis_name)
+    _count("all_gather", axis_name, x)
     src = _to_host(x) if (x.is_cuda and _staged(group)) else x.contiguous()
     parts: List[torch.Tensor] = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
@@ -278,7 +314,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axis_name: str, *,
 
 def _reduce_scatter(x, mesh, axis_name, dim):
     n = axis_size(mesh, axis_name)
-    total = _reduce(x, mesh, axis_name, dist.ReduceOp.SUM)
+    total = _reduce(x, mesh, axis_name, dist.ReduceOp.SUM,
+                    kind="reduce_scatter")
     if n == 1:
         return total
     return total.chunk(n, dim=dim)[mesh.index(axis_name)].contiguous()
@@ -319,6 +356,7 @@ def broadcast(x: Optional[torch.Tensor], src: int, group=None, *,
     me = dist.get_rank()
     dev = torch.device(device) if device is not None else x.device
     if me == src:
+        _count("broadcast", None, x)
         head = _header(x)
     else:
         head = torch.zeros(_HEADER, dtype=torch.int64)
@@ -353,9 +391,12 @@ def _parse_header(head: torch.Tensor):
     return tuple(int(d) for d in head[2:2 + nd]), _DTYPES[int(head[1])]
 
 
-def send_tensor(x: torch.Tensor, dst: int, group=None):
+def send_tensor(x: torch.Tensor, dst: int, group=None,
+                axis_name: Optional[str] = None):
     """Point-to-point send of ``x`` (its shape and dtype first) to global
-    rank ``dst``; staged through pinned host memory under gloo."""
+    rank ``dst`` (a peer along ``axis_name``, for ``moved``); staged
+    through pinned host memory under gloo."""
+    _count("send", axis_name, x)
     staged = _staged(group)
     head = _header(x)
     dist.send(head if staged else head.to(x.device), dst=dst, group=group)
@@ -409,6 +450,7 @@ def _shift(x, mesh, axis_name, shift):
     if n == 1 or shift % n == 0:
         return x.clone()
     group = _group(mesh, axis_name)
+    _count("ppermute", axis_name, x)
     i = mesh.index(axis_name)
     dst = mesh.rank_at(**{axis_name: (i + shift) % n})
     src = mesh.rank_at(**{axis_name: (i - shift) % n})

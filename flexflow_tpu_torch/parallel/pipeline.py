@@ -100,7 +100,7 @@ def gpipe(mesh, num_microbatches: int, ingest: Callable[[int], Any],
             x = recv_tensor(mesh.rank_at(**{axis: s - 1}), device)
         y = apply(mb, x)
         if s < P - 1:
-            send_tensor(y, mesh.rank_at(**{axis: s + 1}))
+            send_tensor(y, mesh.rank_at(**{axis: s + 1}), axis_name=axis)
         else:
             emit(mb, y)
 

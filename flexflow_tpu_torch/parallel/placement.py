@@ -76,16 +76,31 @@ does not divide, a weight split the op's whole-head units refuse, an int4
 row split that would cut a packed pair of rows) raises at compile, naming
 the layer and the spec.
 
-On the serving mesh the same plan runs in the serving forward
-(``FFModel._run_serving_walk``): each layer's output is moved to its
-spec (``ShardingPolicy.constrain``) and gathered whole before the next
-layer reads it, so an output spec there places the value and adds a
-split and an all_gather, but shards no consumer. The serving
-attention ops keep their own tensor-parallel layout, which their KV
-caches' split needs: a weight of theirs resting in another layout is
-brought to the op's own before the forward. A quantized weight is
-quantized whole, then its payload and scale are sliced at rest
-(``spec.shard_leaf``) and moved by ``reshard`` like any other weight.
+A serving forward on a ``model`` axis above 1, or under a strategy,
+takes the same walk (``Walk(serving=True)``; ``FFModel._run_split``, and
+``serve/pipeline_plan.run_pp_graph`` for each stage's segments), and its
+activations stay where GSPMD keeps the JAX package's serving
+activations: split over ``model`` on their last (feature or vocabulary)
+dim, none whole between layers on any rank. The batch is whole on every
+rank (sequence parallelism splits the KV caches, not the tokens).
+``serving_columns`` return their output split: the column shards, the
+serving attention ops (each reads its input gathered, keeps its own
+tensor-parallel layout, which its KV caches' split needs, and
+reduce-scatters its ``wo`` row shards' partial products), a ``tp-row``
+Linear (which reads its own features of a split input as it is,
+``row_layers``) and a ``tp-vocab`` embedding (its partial rows
+reduce-scattered). The norms take their split forms, ArgMax its split
+form (each rank its shard's best, then the ranks' (value, index)
+pairs), and Sampling, BeamTopK and ArgTopK read the logits gathered. A
+split input is gathered once a forward (``Walk.gather``'s cache: a
+SwiGLU's gate and up projections share one gather of the norm output),
+and the gathered copy is dropped after its last reader (``Walk.done``).
+An output spec moves the value (``place_output``) and shards its
+consumers as any split does. A weight of the serving attention resting
+in another layout is brought to the op's own before the forward. A
+quantized weight is quantized whole, then its payload and scale are
+sliced at rest (``spec.shard_leaf``) and moved by ``reshard`` like any
+other weight.
 """
 
 from __future__ import annotations
@@ -223,6 +238,8 @@ def _model_dim(layer, i: int, d: int, mesh) -> Optional[int]:
                                     OpType.RESIDUAL_RMS_NORM,
                                     OpType.SOFTMAX):
         return d
+    if op == OpType.SIGMOID_SILU_MULTI and not layer.attrs.get("packed"):
+        return d        # elementwise over its two inputs
     return None
 
 
@@ -263,6 +280,38 @@ def column_layers(model, rest) -> frozenset:
     return frozenset(out)
 
 
+def serving_columns(model, rest) -> frozenset:
+    """The names of the layers whose serving forward returns its output
+    split over ``model`` on its last dim (``OpContext.split_columns``):
+    ``column_layers``, the serving attention ops (their ``wo`` row
+    shards reduce-scattered), and a searched strategy's ``tp-row``
+    Linears and ``tp-vocab`` embeddings (their partial products or rows
+    reduce-scattered), where the axis divides that dim."""
+    n = model.mesh.axis_size(MODEL)
+    if n <= 1:
+        return frozenset()
+    plan = model._strategy_plan
+    out = set(column_layers(model, rest))
+    for layer in model.layers:
+        attrs = plan.attrs.get(layer.name, {}) if plan is not None else {}
+        if ((layer.op_type in _SERVING_OPS or attrs.get("row_parallel")
+             or attrs.get("vocab_parallel"))
+                and layer.outputs[0].dims[-1] % n == 0):
+            out.add(layer.name)
+    return frozenset(out)
+
+
+def row_layers(model) -> frozenset:
+    """The ``tp-row`` Linears of a searched strategy: in a serving
+    forward each reads its own features of an input split over ``model``
+    on them, as it is."""
+    plan = model._strategy_plan
+    if plan is None or model.mesh.axis_size(MODEL) <= 1:
+        return frozenset()
+    return frozenset(name for name, attrs in plan.attrs.items()
+                     if attrs.get("row_parallel"))
+
+
 def _aligned(layer, i: int, od: int) -> int:
     """The dim of input ``i`` that lines up with output dim ``od``
     (right-aligned for the broadcasting ops); may be out of range."""
@@ -275,18 +324,30 @@ def _aligned(layer, i: int, od: int) -> int:
 class Walk:
     """One forward's placements: ``places[tensor_id] = {axis: dim}``,
     and the axes each parameter-holding layer ran split over.
-    ``features``: keep ``model`` splits of the activations (a train-mode
-    model on a ``model`` axis above 1); ``columns``: the column-shard
-    layers (``column_layers``), empty unless ``features``."""
+    ``features``: keep ``model`` splits of the activations (a model on a
+    ``model`` axis above 1, in a train step or a serving forward);
+    ``columns``: the layers that return their output split on its last
+    dim (``column_layers``, or ``serving_columns`` in a serving forward),
+    empty unless ``features``; ``contracts``: the layers that read a
+    ``model`` split of the features they contract as it is (the column
+    shards of a train step, whose products gather it; the ``tp-row``
+    Linears of a serving forward). ``serving``: a serving forward, whose
+    batch is whole on every rank (the caches carry ``seq``); any split
+    but a kept ``model`` one is gathered before a layer reads it."""
 
     mesh: Any
     training: bool
     features: bool = False
     columns: frozenset = frozenset()
+    contracts: frozenset = frozenset()
+    serving: bool = False
     places: Dict[int, Dict[str, int]] = dataclasses.field(
         default_factory=dict)
     layer_axes: Dict[str, Tuple[str, ...]] = dataclasses.field(
         default_factory=dict)
+    # the layers still to read each tensor (``consumers``): a gathered
+    # copy is dropped after its last reader (``done``)
+    uses: Dict[int, int] = dataclasses.field(default_factory=dict)
     _gathered: Dict[Tuple[int, frozenset], torch.Tensor] = \
         dataclasses.field(default_factory=dict)
 
@@ -301,6 +362,16 @@ class Walk:
                     x = all_gather(x, self.mesh, axis, axis=place[axis])
             self._gathered[key] = x
         return self._gathered[key]
+
+    def done(self, layer):
+        """``layer`` has run: drop the gathered copies of the inputs that
+        no later layer reads."""
+        for tid in {t.tensor_id for t in layer.inputs}:
+            left = self.uses.get(tid, 0) - 1
+            self.uses[tid] = left
+            if left == 0:
+                for key in [k for k in self._gathered if k[0] == tid]:
+                    del self._gathered[key]
 
     def whole(self, tid: int, x: torch.Tensor, keep_rows: bool = False,
               keep_classes: bool = False):
@@ -320,11 +391,19 @@ class Walk:
     def place_output(self, layer, values, spec: Tuple):
         """Move the layer's first output to ``spec`` (one mesh axis or
         None a dim, every axis of the mesh): gather each split the spec
-        does not keep, then split each dim the spec names."""
-        tid = layer.outputs[0].tensor_id
+        does not keep, then split each dim the spec names. A spec that
+        names no axis constrains nothing (the JAX package's
+        ``ShardingPolicy.constrain``): the value stays where it is."""
+        want = {a: d for d, a in enumerate(spec) if a is not None}
+        if want:
+            self.move(layer.outputs[0].tensor_id, values, want)
+
+    def move(self, tid: int, values, want: Dict[str, int]):
+        """Move tensor ``tid`` to the placement ``want`` ({axis: dim}):
+        gather each split it does not keep, then split each dim it
+        names."""
         x = values[tid]
         place = self.places.setdefault(tid, {})
-        want = {a: d for d, a in enumerate(spec) if a is not None}
         for axis, d in sorted(place.items(),
                               key=lambda p: AXIS_ORDER.index(p[0])):
             if want.get(axis) != d:
@@ -352,17 +431,26 @@ class Walk:
         # a split over ``expert`` (a searched output spec's) is gathered
         # first, and over ``model`` unless the walk keeps feature splits:
         # the ops use those axes for their weights. A column shard keeps
-        # a ``model`` split only on the features it contracts
+        # a ``model`` split only on the features it contracts, where it
+        # reads them as they are (``contracts``); a serving forward
+        # gathers every other split
         kept = {MODEL} if self.features and not column else set()
-        gathers: List[set] = [{a for a in p if a not in BATCH_AXES
+        gathers: List[set] = [{a for a in p if (self.serving
+                                                or a not in BATCH_AXES)
                                and a not in kept} for p in places]
-        if column:
+        if layer.name in self.contracts:
             for i in _CONTRACTED.get(layer.op_type, ()):
                 if places[i].get(MODEL) == len(layer.inputs[i].dims) - 1:
                     gathers[i].discard(MODEL)
         for p, g in zip(places, gathers):
             for a in g:
                 del p[a]
+        # the split ArgMax reads its shard of the last dim and returns
+        # the whole indices (ops/sampling_ops.py)
+        picks = None
+        if (MODEL in kept and layer.op_type == OpType.ARGMAX
+                and places[0].get(MODEL) == len(layer.inputs[0].dims) - 1):
+            picks = places[0].pop(MODEL)
         for axis in BATCH_AXES + tuple(kept):
             split_at = [(i, p[axis]) for i, p in enumerate(places)
                         if axis in p]
@@ -404,6 +492,8 @@ class Walk:
         if places:
             rows = {d: (a, mesh.axis_size(a), mesh.index(a))
                     for a, d in places[0].items() if a in active}
+        if picks is not None:
+            rows[picks] = (MODEL, mesh.axis_size(MODEL), mesh.index(MODEL))
         return ins, active, rows
 
     def _fits(self, layer, places, axis, od) -> bool:
@@ -429,6 +519,15 @@ class Walk:
         if layer.weights:
             self.layer_axes[layer.name] = tuple(
                 a for a in BATCH_AXES + (MODEL,) if a in active)
+
+
+def consumers(layers) -> Dict[int, int]:
+    """{tensor id: the number of ``layers`` that read it} (``Walk.uses``)."""
+    out: Dict[int, int] = {}
+    for layer in layers:
+        for tid in {t.tensor_id for t in layer.inputs}:
+            out[tid] = out.get(tid, 0) + 1
+    return out
 
 
 def local_attrs(layer, active: Dict[str, int], mesh) -> Dict[str, Any]:

@@ -1,15 +1,18 @@
 """The serving and training jobs of ``parallel/launch.run_ranks``: each
 runs on every rank of a process group.
 
-``serve`` builds a LLaMA-family serving model (or a verifier and its
-draft) at the payload's degrees, under a run's strategy (a Strategy's
-JSON, set before compile) or the search's (``auto_parallel``), carries
-whole weights in from a file (``shard_params``) or draws them from the
-seed, and generates, with the shared-prefix pool when a run asks
-(``prefix_cache``); it returns the tokens, the pool's hit tokens, the
-kernels' launch counts and launch shapes (``kernels.record_shapes``),
-the weight bytes the rank holds, peak device memory and the wall time,
-and can save the parameters as the rank holds them (``save_params``).
+``serve`` builds a serving model of a run's ``family`` (LLaMA by
+default; or a verifier and its draft) at the payload's degrees, under a
+run's strategy (a Strategy's JSON, set before compile) or the search's
+(``auto_parallel``), carries whole weights in from a file
+(``shard_params``) or draws them from the seed, and generates (top-p
+sampling where a run's ``generation`` asks), with the shared-prefix pool
+when a run asks (``prefix_cache``); it returns the
+tokens, the pool's hit tokens, the kernels' launch counts and launch
+shapes (``kernels.record_shapes``), the weight bytes the rank holds,
+peak device memory and the wall time, what the first prefill forward
+and the first decode step held and moved (``forward_probe``), and can
+save the parameters as the rank holds them (``save_params``).
 ``python -m flexflow_tpu_torch.serve`` under torchrun is the user's
 entry to the same path.
 
@@ -52,12 +55,13 @@ def _build(run, model_kw, weights, mode, dev):
     from flexflow_tpu_torch.config import FFConfig
     from flexflow_tpu_torch.convert import load_params
     from flexflow_tpu_torch.core.model import FFModel
-    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
-                                                 create_llama_model)
+    from flexflow_tpu_torch.models import FAMILIES
     from flexflow_tpu_torch.parallel.spec import shard_params
 
     m = FFModel(FFConfig(device=str(dev), **run["config"]))
-    create_llama_model(m, LLAMAConfig(**model_kw), mode=mode)
+    fam = FAMILIES[run.get("family", "llama")]
+    fam.build(m, fam.config_cls(**model_kw), mode=mode,
+              generation_config=_generation(run))
     if run.get("strategy"):
         from flexflow_tpu_torch.search.strategy import Strategy
 
@@ -133,14 +137,79 @@ def _decode_timer(model):
     return stats
 
 
+def forward_probe(model) -> Dict[str, Any]:
+    """Wrap ``model._run_graph`` to keep, of the first serving forward
+    (the prompts' prefill) and of the first decode step (one real token
+    a row, padded to the decode width on the card) after it:
+    ``layer_output_bytes`` (the summed bytes of the tensors ``values``
+    holds when the forward returns), the collectives it ran
+    (``collectives.count_moved``: ``calls`` and their input bytes
+    ``moved``, by ``"<collective>/<axis>"``) and the feed's shape; and of
+    the prefill, ``places``: each layer output's ``{axis: dim}`` ({layer:
+    [one a output]}) for the layers this rank ran through the placement
+    walk. Fills and returns one dict."""
+    from flexflow_tpu_torch.parallel import collectives
+
+    stats: Dict[str, Any] = {}
+    inner = model._run_graph
+
+    def probed(params, feeds, ctx, state=None):
+        meta = ctx.batch_config
+        kind = None
+        if meta is not None and "prefill" not in stats:
+            kind = "prefill"
+        elif meta is not None and "decode" not in stats \
+                and (meta.tokens.shape[1] == 1 or ctx.kv_append_q == 1):
+            kind = "decode"
+        if kind is None:
+            return inner(params, feeds, ctx, state)
+        model._walk = None
+        with collectives.count_moved():
+            values, new_state = inner(params, feeds, ctx, state)
+        stats[kind] = dict(
+            layer_output_bytes=sum(v.nbytes for v in values.values()
+                                   if isinstance(v, torch.Tensor)),
+            calls={f"{k}/{a}": n
+                   for (k, a), n in sorted(collectives.calls.items())},
+            moved={f"{k}/{a}": b
+                   for (k, a), b in sorted(collectives.moved.items())},
+            tokens=list(meta.tokens.shape))
+        if kind == "prefill":
+            places = model._walk.places if model._walk is not None else {}
+            stats["places"] = {
+                layer.name: [places[t.tensor_id] for t in layer.outputs]
+                for layer in model.layers
+                if layer.outputs and all(t.tensor_id in places
+                                         for t in layer.outputs)}
+        return values, new_state
+
+    model._run_graph = probed
+    return stats
+
+
+def axis_bytes(moved: Dict[str, int], axis: str) -> int:
+    """The sum over ``axis`` of ``forward_probe``'s ``moved`` (bytes) or
+    ``calls``."""
+    return sum(b for k, b in moved.items() if k.endswith("/" + axis))
+
+
+def _generation(run):
+    """The run's ``GenerationConfig``: greedy unless its ``generation``
+    asks to sample (``do_sample``, ``temperature``, ``topp``), with the
+    shared-prefix pool when it asks (``prefix_cache``)."""
+    from flexflow_tpu_torch.serve.batch_config import GenerationConfig
+
+    return GenerationConfig(prefix_cache=bool(run.get("prefix_cache")),
+                            **run.get("generation", {}))
+
+
 def _generate(llm, ssm, run):
     """The run's prompts' output tokens, in prompt order, and the prompt
     tokens the prefix pool installed instead of prefilling."""
-    from flexflow_tpu_torch.serve.batch_config import GenerationConfig
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
     rm = RequestManager()
-    gc = GenerationConfig(prefix_cache=bool(run.get("prefix_cache")))
+    gc = _generation(run)
     for p in run["prompts"]:
         rm.register_new_request(p, max_new_tokens=run["max_new"])
     if ssm is None:
@@ -185,6 +254,7 @@ def serve(payload) -> List[Dict[str, Any]]:
                 moved += ssm.offload_weights(
                     min_bytes=run.get("offload_min", 1))
         dec = _decode_timer(llm) if ssm is None else None
+        probe = forward_probe(llm)
         seconds, decode_ms, tokens, counts, hits = [], [], None, None, []
         with kernels.record_shapes() as shapes:
             for _ in range(int(run.get("repeat", 1))):
@@ -227,6 +297,8 @@ def serve(payload) -> List[Dict[str, Any]]:
             "peak_bytes": (torch.cuda.max_memory_allocated(dev)
                            if on_card else 0),
             "mesh": dict(llm.mesh.shape) if llm.mesh is not None else {},
+            "prefill": probe.get("prefill"), "decode": probe.get("decode"),
+            "places": probe.get("places", {}),
         })
         del llm, ssm
     return results

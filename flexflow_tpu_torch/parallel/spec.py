@@ -147,7 +147,9 @@ class ShardingPolicy:
         """``value`` (this rank's piece of a tensor laid out as ``src``,
         default whole) laid out as ``spec``, a searched output layout
         taken as ``resolve`` takes it: the port's counterpart of the JAX
-        package's sharding constraint, moved by ``placement.reshard``."""
+        package's sharding constraint, moved by ``placement.reshard``. A
+        spec that resolves to no axis constrains nothing, as in the JAX
+        package: the value keeps its layout."""
         if not isinstance(value, torch.Tensor):
             return value
         src = tuple(src or ())
@@ -155,7 +157,7 @@ class ShardingPolicy:
         whole = [d * (self.mesh.shape[a] if self._axis(a) else 1)
                  for d, a in zip(value.shape, src)]
         dst = self.resolve(spec, whole)
-        if dst == src:
+        if dst == src or not any(dst):
             return value
         from flexflow_tpu_torch.parallel.placement import reshard
 

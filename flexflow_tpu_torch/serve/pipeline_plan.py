@@ -22,7 +22,10 @@ axis:
   request slots (M = ``microbatch_count``; each tick a stage applies its
   blocks to one microbatch's rows, with views of those rows of its KV
   caches, and sends the activation on), then the last stage's post
-  segment. ``FFModel._run_graph`` broadcasts the final output from the
+  segment; with tensor parallelism each segment runs through the
+  placement walk and the activation crosses a stage boundary split on
+  its features, each rank's shard to its peer of the same ``model``
+  index. ``FFModel._run_graph`` broadcasts the final output from the
   last stage, so the tokens reach every rank.
 """
 
@@ -311,12 +314,32 @@ def _meta_rows(meta, lo: int, hi: int):
                          for f in dataclasses.fields(meta)})
 
 
+def _edge_place(model, plan) -> Dict[str, int]:
+    """{axis: dim} of the activation entering and leaving each block (and
+    crossing each stage boundary) in a walked serving forward: split over
+    ``model`` on its features where the walk keeps them split and the
+    axis divides them, else whole."""
+    if not model._splits_features(serving=True):
+        return {}
+    dims = next(t.dims for layer in model.layers for t in layer.outputs
+                if t.tensor_id == plan.entry_tid)
+    if dims[-1] % model.mesh.axis_size("model"):
+        return {}
+    return {"model": len(dims) - 1}
+
+
 def run_pp_graph(model, params, feeds: Dict[int, Any], ctx: OpContext,
                  state: Optional[Dict[str, Any]]):
     """``FFModel._run_graph`` of a serving forward under a pipeline plan,
     on this stage: pre segment (first stage), the blocks on the GPipe
     schedule, post segment (last stage). Returns (values, new_state);
-    only the last stage's values hold the final output."""
+    only the last stage's values hold the final output.
+
+    On a ``model`` axis above 1 every segment runs through the placement
+    walk (``FFModel._walk_layer``; a fresh walk a microbatch, so no
+    gather is reused across rows), and the activation a stage hands on
+    stays split on its features: each rank sends its own shard to the
+    next stage's rank of the same ``model`` index."""
     from flexflow_tpu_torch.parallel.pipeline import gpipe
 
     plan = model._pp_plan
@@ -326,9 +349,22 @@ def run_pp_graph(model, params, feeds: Dict[int, Any], ctx: OpContext,
     values: Dict[int, Any] = dict(feeds)
     ctx.state_in = state or {}
     ctx.state_out = {}
+    walks = model._walks(serving=True)
+    walk = (model._new_walk(True, layers=plan.pre + plan.post)
+            if walks else None)
+    edge = _edge_place(model, plan) if walks else {}
+
+    def run(w, layers, lp, vals, c):
+        for layer in layers:
+            if w is None:
+                model._apply_layer(layer, lp, vals, c)
+            else:
+                model._walk_layer(w, layer, lp, vals, c)
+
     if s == 0:
-        for layer in plan.pre:
-            model._apply_layer(layer, params, values, ctx)
+        run(walk, plan.pre, params, values, ctx)
+        if walk is not None:
+            walk.move(plan.entry_tid, values, edge)
     meta = ctx.batch_config
     R = meta.tokens.shape[0]
     M = microbatch_count(R, P)
@@ -363,12 +399,21 @@ def run_pp_graph(model, params, feeds: Dict[int, Any], ctx: OpContext,
             state_in={"kv_cache": {n: t[:, lo:hi] for n, t in kv.items()}},
             kv_contiguous=ctx.kv_contiguous, kv_append_q=ctx.kv_append_q,
             generator=ctx.generator, mesh=mesh)
+        bw = (model._new_walk(True, layers=[ly for blk in local
+                                            for ly in blk])
+              if walks else None)
         for j, blk in enumerate(local):
-            vals = {plan.block_entry_tids[first + j]: x}
-            bp = block_params(j, blk)
-            for layer in blk:
-                model._apply_layer(layer, bp, vals, sub)
-            x = vals[plan.block_exit_tids[first + j]]
+            entry = plan.block_entry_tids[first + j]
+            out = plan.block_exit_tids[first + j]
+            vals = {entry: x}
+            if bw is not None:
+                bw.places[entry] = dict(edge)
+            run(bw, blk, block_params(j, blk), vals, sub)
+            if bw is not None:
+                bw.move(out, vals, edge)
+            x = vals[out]
+        if bw is not None:
+            walk.places.update(bw.places)
         return x
 
     def emit(mb, y):
@@ -378,8 +423,15 @@ def run_pp_graph(model, params, feeds: Dict[int, Any], ctx: OpContext,
     ctx.state_out["kv_cache"] = kv
     if s == P - 1:
         values[plan.exit_tid] = torch.cat(outs)
-        for layer in plan.post:
-            model._apply_layer(layer, params, values, ctx)
+        if walk is not None:
+            walk.places[plan.exit_tid] = dict(edge)
+        run(walk, plan.post, params, values, ctx)
+        if walk is not None:
+            model._whole_final(walk, values)
+    if walk is not None:
+        ctx.row_shards = {}
+        ctx.split_columns = False
+        model._walk = walk
     new_state = dict(ctx.state_in)
     new_state.update(ctx.state_out)
     return values, new_state

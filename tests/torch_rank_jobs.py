@@ -23,7 +23,11 @@ of a process group and returns a JSON-able result. They import no jax.
   ``evaluate`` on the same batch;
 * ``split_forms``: the ``model``-split forms (LayerNorm, RMSNorm,
   softmax, the losses, ``gather_product``) and their whole versions on
-  the same seeded inputs, forward and gradients.
+  the same seeded inputs, forward and gradients;
+* ``split_argmax``: the serving head's split ArgMax
+  (``sampling_ops.split_argmax``) on each rank's shard of seeded logits,
+  ties inside a shard and across the shards' boundary included, beside
+  ``torch.argmax`` of the whole.
 
 Serving itself runs ``flexflow_tpu_torch.parallel.rank_jobs:serve`` and
 training ``...:train``, with the model builders below (``mlp``,
@@ -442,6 +446,32 @@ def split_forms(payload) -> Dict[str, Any]:
     if mesh.rank == 0:
         np.savez(payload["out"], **res)
     return {"rank": mesh.rank}
+
+
+def split_argmax(payload) -> Dict[str, Any]:
+    """{case: {"split": indices, "whole": indices}}: each case's logits
+    (the same on every rank, vocabulary 16) through ``split_argmax`` on
+    this rank's shard of the last dim, and ``torch.argmax`` of the
+    whole."""
+    from flexflow_tpu_torch.ops.sampling_ops import split_argmax as pick
+
+    mesh = _mesh(payload)
+    n, i = mesh.axis_size("model"), mesh.index("model")
+    g = torch.Generator().manual_seed(3)
+    V = 16
+    w = V // n
+    inside = torch.randn(2, 3, V, generator=g)
+    inside[..., 1] = inside[..., w - 2] = 9.0         # both in shard 0
+    across = torch.randn(2, 3, V, generator=g)
+    across[0, :, w - 1] = across[0, :, w] = 9.0       # either side of it
+    across[1, :, 2] = across[1, :, V - 1] = 9.0       # first and last shard
+    cases = {"random": torch.randn(4, 5, V, generator=g),
+             "tie_inside_shard": inside, "tie_across_shards": across,
+             "all_equal": torch.full((3, 2, V), 0.25)}
+    return {k: {"split": pick(x.chunk(n, dim=-1)[i].contiguous(), mesh,
+                              "model", n, i).tolist(),
+                "whole": torch.argmax(x, dim=-1).tolist()}
+            for k, x in cases.items()}
 
 
 # ----------------------------------------------------------------------
