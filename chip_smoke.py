@@ -12,6 +12,7 @@
     python3 chip_smoke.py --phases 1,2,15  # parallel, resumable training
     python3 chip_smoke.py --phases 1,2,16  # the model frontends
     python3 chip_smoke.py --phases 1,2,17  # the Unity search
+    python3 chip_smoke.py --phases 1,2,18  # the engines' programs
 
 Phases (each fails loudly; the run exits non-zero if any fails):
   1. the card's name and power limit, torch/CUDA versions, TF32 off;
@@ -321,7 +322,27 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      sequential walk; 17e phase 8's model compiled with ``auto_parallel``
      on the one card: 8/8 requests give phase 8's tokens, K1/K2/K3
      launched, no plain call; 17f BERT-large's costed dot at compile and
-     its ``pcg_to_dot``: every node carries a cost.
+     its ``pcg_to_dot``: every node carries a cost;
+ 18. the engines' programs (``serve/graphs.py``: each engine's stages
+     captured as CUDA graphs and replayed; phases 4-17 run with them
+     on), on phase 6-7's models (LLaMA-2-7B geometry, bf16, 32 layers,
+     built here when phases 6 and 7 do not run). From one prefilled cache
+     state (8 prompts), each of the decode block (greedy at width 8, and
+     top-p 0.6 / temperature 0.8 under one seed), ``SpecChainEngine``
+     (depth 7), ``MultiSpecEngine`` at B = 1 (depth 7) and B = 2 (the
+     2- and a 3-layer draft, tree width 16) and ``BeamSpecEngine``
+     (width 2, depth 3; adaptive per-row first depths in the spec blocks)
+     runs one block through its eager body (``graphs.eager_bodies``) and
+     through its program, then 2 alternating timed pairs: gates: tokens
+     and ``packed`` bit-equal in every pass, launch counts equal, one
+     build per engine, no plain call; reported: decode ms/step (blocks
+     of 8 steps) and spec ms/round (blocks of 6 rounds) eager and
+     program. Then an adaptive mixed batch (prompt lengths 8-32, budgets
+     12-26) through the chain, tree and beam engines: one build each,
+     ``ffsv_engine_retraces_total`` 0; phase 5's incremental generate
+     (8 new tokens) profiled eager and program
+     in 2 pairs (device-busy share); the verifier quantized to int8 and
+     its decode block eager against program (K3 inside the captures).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Without CUDA, or without the
@@ -1786,13 +1807,18 @@ def profile_decode(torch, llm, prompts, card, new_tokens=16):
         f"generate({new_tokens} new tokens)", card)
 
 
-def profile_window(torch, fn, what, card):
-    """Device busy share and device time by kernel over one call of
-    ``fn`` (torch.profiler), against its wall time to a synchronize."""
+def profile_window(torch, fn, what, card, top=15, host_ops=True):
+    """Device busy share and device time by kernel (the ``top`` kernels
+    printed) over one call of ``fn`` (torch.profiler), against its wall
+    time to a synchronize. ``host_ops=False`` traces the kernels only
+    (the busy share needs no more, and an eager run's host ops take the
+    profiler seconds to process)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA]
+    if host_ops:
+        acts.append(ProfilerActivity.CPU)
+    with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -1810,7 +1836,7 @@ def profile_window(torch, fn, what, card):
         f"{wall_us / 1e3:.2f} ms, "
         f"device busy {busy / 1e3:.2f} ms ({100 * busy / wall_us:.1f}%), "
         f"idle {100 - 100 * busy / wall_us:.1f}%  [{card}]")
-    for key, n, us in sorted(rows, key=lambda r: -r[2])[:15]:
+    for key, n, us in sorted(rows, key=lambda r: -r[2])[:top]:
         log(f"    {us / 1e3:9.3f} ms {100 * us / busy:5.1f}% x{n:<6d} "
             f"{key[:90]}")
     return busy / wall_us
@@ -2181,7 +2207,7 @@ def classify_difference(torch, what, res, incr, verifier, prompts, run,
     the nodes accepted around it, from a rerun of ``run`` that records
     every ``commit_tree_kv`` (source -> destination positions; a source
     that is not its destination is a node staged off the chain)."""
-    from flexflow_tpu_torch.serve import engine, request_manager
+    from flexflow_tpu_torch.serve import engine, graphs, request_manager
 
     diff = [(i, next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
                      None)) for i, (a, b) in enumerate(zip(res, incr))]
@@ -2211,7 +2237,10 @@ def classify_difference(torch, what, res, incr, verifier, prompts, run,
         rm._commit = logged
         for p in prompts:
             rm.register_new_request(p, max_new_tokens=new_tokens)
-        run(rm)
+        # the engines' eager bodies, where the logging commit runs (and
+        # reads the host) at every round
+        with graphs.eager_bodies():
+            run(rm)
     finally:
         engine.commit_tree_kv = base
     pos = len(prompts[i]) + j
@@ -6548,6 +6577,258 @@ def frontends_phase(torch, card):
 
 
 # ----------------------------------------------------------------------
+# phase 18: the engines' compiled programs
+# ----------------------------------------------------------------------
+PROGRAM_PAIRS = 2        # 18: alternating (eager, program) timed pairs
+PROGRAM_STEPS = 8        # 18: steps of a timed decode block
+PROGRAM_ROUNDS = 6       # 18: rounds of a timed speculation block
+PROGRAM_NEW = 8          # 18: new tokens of a profiled generate
+
+
+def cache_restorer(models):
+    """A function that puts every KV-cache tensor of ``models`` back to
+    what it holds now."""
+    saved = {id(t): (t, t.clone()) for m in models
+             for st in m.op_state.values() if isinstance(st, dict)
+             for t in st.values()}
+
+    def restore():
+        for t, c in saved.values():
+            t.copy_(c)
+    return restore
+
+
+def prefill_pending(models, prompts):
+    """Each prompt but its last token prefilled into every model's cache
+    (one step a model); returns (tok, pos, active) of the pending
+    tokens."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serve.batch_config import make_batch_meta
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    R, L = len(prompts), len(prompts[0])
+    meta = make_batch_meta(
+        R, L - 1, tokens=np.array([p[:-1] for p in prompts], np.int32),
+        positions=np.tile(np.arange(L - 1, dtype=np.int32), (R, 1)),
+        start_pos=np.zeros(R, np.int32),
+        num_tokens=np.full(R, L - 1, np.int32), active=np.ones(R, bool))
+    for m in models:
+        RequestManager._ifm(m).step(meta, want_output=False)
+    return (np.array([p[-1] for p in prompts], np.int32),
+            np.full(R, L - 1, np.int32), np.ones(R, bool))
+
+
+def eager_vs_program(torch, card, what, run, restore, unit):
+    """``run()`` -> (arrays, units of work) from the cache state that
+    ``restore`` sets: once through the engine's eager body
+    (``graphs.eager_bodies``), once through its program (the first
+    program run builds it), then ``PROGRAM_PAIRS`` timed (eager,
+    program) pairs. Gates: every array bit-equal, launch counts equal,
+    no plain call. Returns the report."""
+    import numpy as np
+
+    from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve import graphs
+
+    def once(eager):
+        restore()
+        kernels.reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with graphs.eager_bodies() if eager else contextlib.nullcontext():
+            out, n = run()
+        torch.cuda.synchronize()
+        return out, n, time.perf_counter() - t, dict(kernels.counts)
+
+    ref, n_ref, _, eager_counts = once(True)
+    out, n, build_s, counts = once(False)
+    ms = {"eager": [], "program": []}
+    same = []
+    for _ in range(PROGRAM_PAIRS):
+        for mode in ms:
+            o, k, s, _c = once(mode == "eager")
+            same.append(k == n_ref and all(np.array_equal(a, b)
+                                           for a, b in zip(o, ref)))
+            ms[mode].append(s * 1e3 / k)
+    equal = n == n_ref and all(np.array_equal(a, b) for a, b in zip(out, ref))
+    log(f"  {what}: eager == program {equal} (and in every timed pass: "
+        f"{all(same)}); launches {counts}; first program run (build + "
+        f"{n} {unit}s) {build_s:.3f} s  [{card}]")
+    log(f"    ms/{unit} eager {', '.join(f'{x:.3f}' for x in ms['eager'])}"
+        f"; program {', '.join(f'{x:.3f}' for x in ms['program'])}; "
+        f"eager/program {statistics.mean(ms['eager']) / statistics.mean(ms['program']):.2f}x  [{card}]")
+    if not (equal and all(same)):
+        raise AssertionError(f"{what}: the program's result differs from "
+                             f"its eager body's")
+    if counts != eager_counts or not (counts["flash_attend"]
+                                      or counts["flash_attend_append"]):
+        raise AssertionError(f"{what}: launches {counts} != eager "
+                             f"{eager_counts}")
+    if counts["plain_attend_cuda"] or counts["qmatmul_plain_cuda"]:
+        raise AssertionError(f"{what}: a plain version ran on the card")
+    return dict(equal=equal, counts=counts, units=n, build_s=build_s,
+                eager_ms=ms["eager"], program_ms=ms["program"])
+
+
+def engine_programs_phase(torch, card, sm):
+    """Phase 18: every engine's program against its eager body on phase
+    6-7's models (LLaMA-2-7B geometry, bf16, 32 layers), then the
+    decode program on the same verifier quantized to int8 (K3 inside the
+    captures); one build per engine over an adaptive mixed batch; phase
+    5's incremental generate profiled eager and program."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from flexflow_tpu_torch import (DataType, FFModel, GenerationConfig,
+                                    kernels)
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+    from flexflow_tpu_torch.serve import graphs
+    from flexflow_tpu_torch.serve.engine import (BeamSpecEngine,
+                                                 MultiSpecEngine,
+                                                 SpecChainEngine)
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+    from flexflow_tpu_torch.telemetry import ServingTelemetry
+
+    verifier, draft, prompts = sm.verifier, sm.ssm.ffmodel, sm.prompts
+    t_part = [time.perf_counter()]
+    seconds = {}
+
+    def part(name):
+        now = time.perf_counter()
+        seconds[name] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def model(layers, **cfg):
+        m = FFModel(dc.replace(verifier.config, **cfg))
+        create_llama_model(m, LLAMAConfig.from_hf_config(
+            dict(sm.hf, num_hidden_layers=layers)),
+            mode=InferenceMode.BEAM_SEARCH_MODE,
+            data_type=DataType.DT_BFLOAT16)
+        m.compile()
+        share_params(m, verifier)
+        return m
+
+    draft3 = model(DRAFT_LAYERS + 1)
+    beam = model(DRAFT_LAYERS, max_beam_width=BEAM_WIDTH)
+    sampled = sampled_twin(verifier, GenerationConfig(
+        do_sample=True, topp=0.6, temperature=0.8))
+    models = [verifier, draft, draft3, beam]
+    tok, pos, act = prefill_pending(models, prompts)
+    restore = cache_restorer(models)
+    report = {"seconds": seconds}
+    ifm, ifm_s = RequestManager._ifm(verifier), RequestManager._ifm(sampled)
+    part("models and prefill")
+
+    def decode(m_ifm, seed=None):
+        def run():
+            if seed is not None:
+                m_ifm.generator.manual_seed(seed)
+            return (m_ifm.decode_block(tok, pos, act, PROGRAM_STEPS),), \
+                PROGRAM_STEPS
+        return run
+
+    report["decode"] = eager_vs_program(
+        torch, card, f"decode block, greedy, width {ifm.decode_width}",
+        decode(ifm), restore, "step")
+    report["decode_topp"] = eager_vs_program(
+        torch, card, "decode block, top-p 0.6, temperature 0.8",
+        decode(ifm_s, seed=11), restore, "step")
+    part("decode blocks")
+    # adaptive blocks: per-row first depths, the in-block rule on
+    depth0 = np.array([SPEC_DEPTH, 3, 1, 5, SPEC_DEPTH, 2, 4, 6], np.int32)
+    engines = {
+        "chain": SpecChainEngine(verifier, draft, SPEC_DEPTH,
+                                 max_rounds=PROGRAM_ROUNDS),
+        "tree B=1": MultiSpecEngine(verifier, [draft], SPEC_DEPTH,
+                                    max_rounds=PROGRAM_ROUNDS),
+        "tree B=2": MultiSpecEngine(verifier, [draft, draft3], SPEC_DEPTH,
+                                    max_rounds=PROGRAM_ROUNDS),
+        "beam": BeamSpecEngine(verifier, beam, BEAM_DEPTH, BEAM_WIDTH,
+                               max_rounds=PROGRAM_ROUNDS)}
+    for name, eng in engines.items():
+        def run(eng=eng):
+            r0 = eng.rounds_run
+            out = eng.run_block(tok, pos, act, PROGRAM_ROUNDS,
+                                depth=depth0[:REQUESTS], min_depth=1)
+            return out, eng.rounds_run - r0
+        report[name] = eager_vs_program(
+            torch, card, f"{type(eng).__name__} {name}, depth "
+            f"{eng.depth}, tree width {eng.tree_width}", run, restore,
+            "round")
+        if eng._trace_count != 1 or (
+                name != "chain"
+                and not report[name]["counts"]["flash_attend_bias"]):
+            raise AssertionError(f"{name}: {eng._trace_count} builds, "
+                                 f"launches {report[name]['counts']}")
+
+    part("spec engines")
+    # an adaptive mixed batch builds each engine once
+    tel = ServingTelemetry()
+    gcfg = GenerationConfig(adaptive_spec=True, spec_fallback_margin=0.0,
+                            spec_recover_margin=0.1)
+    mixed = [p[:n] for p, n in zip(prompts, (32, 20, 12, 28, 16, 24, 8, 30))]
+    verifier._chain_engine = verifier._multi_engine = None
+    verifier._beam_engine = None
+    for fn in (lambda rm: rm._generate_spec_chain(
+                   verifier, draft, spec_depth=SPEC_DEPTH,
+                   generation_config=gcfg),
+               lambda rm: rm._generate_spec_tree_fused(
+                   verifier, [draft], spec_depth=SPEC_DEPTH,
+                   generation_config=gcfg),
+               lambda rm: rm.generate_spec_infer(
+                   verifier, [beam], spec_depth=BEAM_DEPTH,
+                   beam_width=BEAM_WIDTH, generation_config=gcfg)):
+        rm = RequestManager(telemetry=tel)
+        for i, p in enumerate(mixed):
+            rm.register_new_request(p, max_new_tokens=12 + 2 * i)
+        fn(rm)
+    traces = {k: getattr(verifier, f"_{k}_engine")._trace_count
+              for k in ("chain", "multi", "beam")}
+    retraces = tel.registry.get("ffsv_engine_retraces_total").value
+    misses = tel.registry.get("ffsv_jit_cache_misses_total").value
+    log(f"  adaptive mixed batch (prompt lengths 8-32, budgets 12-26): "
+        f"builds {traces}, ffsv_jit_cache_misses_total {misses}, "
+        f"ffsv_engine_retraces_total {retraces}")
+    if set(traces.values()) != {1} or retraces != 0 or misses != 3:
+        raise AssertionError("an engine built more than once")
+    report["mixed_builds"] = traces
+    part("mixed batch")
+
+    # phase 5's incremental generate, device-busy share eager vs program
+    def incr():
+        rm = RequestManager()
+        for p in prompts:
+            rm.register_new_request(p, max_new_tokens=PROGRAM_NEW)
+        rm.generate_incr_decoding(verifier)
+
+    incr()                                  # builds the decode program
+    busy = {"eager": [], "program": []}
+    for _ in range(PROGRAM_PAIRS):
+        for mode in busy:
+            with graphs.eager_bodies() if mode == "eager" \
+                    else contextlib.nullcontext():
+                busy[mode].append(profile_window(
+                    torch, incr, f"incremental generate ({PROGRAM_NEW} new "
+                    f"tokens), {mode}", card, top=8, host_ops=False))
+    report["busy"] = busy
+    part("profiles")
+
+    # the same verifier in int8: K3 inside the captured decode step
+    verifier.quantize_weights("int8")
+    report["decode_int8"] = eager_vs_program(
+        torch, card, "decode block, int8 weights (the verifier quantized)",
+        decode(ifm), restore, "step")
+    if not report["decode_int8"]["counts"]["qmatmul"]:
+        raise AssertionError("the int8 decode launched no K3")
+    part("int8 decode")
+    return report["decode"]["counts"], report
+
+
+# ----------------------------------------------------------------------
 # phase 17: the Unity search
 # ----------------------------------------------------------------------
 SEARCH_CHIP = "h100-sxm"
@@ -7031,7 +7312,7 @@ def search_phase(torch, card, work):
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases",
-                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17",
+                    default="1,2,3,4,5,6,7,8,9,10,11,12,13,14,15,16,17,18",
                     help="comma-separated phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="phases 5, 6 and 8 also trace a generate call, "
@@ -7117,7 +7398,7 @@ def main(argv=None) -> int:
                                                 profile=args.profile)
         bf16_decode_ms = bf16["decode_ms_per_step"]
         gc.collect()
-    if phases & {6, 7}:
+    if phases & {6, 7, 18}:
         lap("6-7")
         log(f"phases 6-7: SpecInfer models, LLaMA-2-7B geometry, bf16, "
             f"{DRAFT_LAYERS}-layer draft on the verifier's tensors  [{card}]")
@@ -7131,6 +7412,15 @@ def main(argv=None) -> int:
             gc.collect()
         if 7 in phases:
             by_path["beam"], by_path["sample"] = beam_phase(torch, card, sm)
+        if 18 in phases:
+            lap("18")
+            log(f"phase 18: the engines' programs (CUDA graphs) against "
+                f"their eager bodies, phase 6-7's models (LLaMA-2-7B "
+                f"geometry, bf16, {LAYERS} layers), then the verifier in "
+                f"int8; {PROGRAM_PAIRS} alternating timed pairs  [{card}]")
+            by_path["programs"], programs = engine_programs_phase(torch, card,
+                                                                  sm)
+            log(json.dumps({"engine_programs_phase": programs}))
         del sm
         gc.collect()
     if 8 in phases:

@@ -25,6 +25,11 @@ Inside ``record_shapes()`` every launch also adds its shape to
 output dtype or "partials", bias) for K1/K2, (M, K, N, qtype, compute
 dtype, output dtype) for K3, so a caller can hold the kernels against
 their plain versions at the shapes a run gave them.
+
+A wrapper counts through ``bump``. While a CUDA graph is captured
+(``serve/graphs.py``) nothing launches, so inside ``tallying(t)`` the
+bumps and shapes go to the ``Tally`` ``t`` instead of ``counts`` and
+``shapes``; each replay of the graph adds its tally (``add_tally``).
 """
 
 from __future__ import annotations
@@ -44,10 +49,53 @@ def reset_counts():
         counts[k] = 0
 
 
+class Tally:
+    """The launches (``counts``) and launch shapes (``shapes``: a set of
+    (kernel, shape)) that one captured CUDA graph makes at each replay."""
+
+    def __init__(self):
+        self.counts = dict.fromkeys(counts, 0)
+        self.shapes = set()
+
+
+_tally = contextvars.ContextVar("flexflow_tpu_torch_tally", default=None)
+
+
+@contextlib.contextmanager
+def tallying(tally: "Tally"):
+    """Inside: ``bump`` and ``note_shape`` go to ``tally`` (a capture, or a
+    warm-up whose launches are not the path's work)."""
+    tok = _tally.set(tally)
+    try:
+        yield tally
+    finally:
+        _tally.reset(tok)
+
+
+def bump(key: str):
+    """Called by a wrapper where it launches (or, for the plain counters,
+    runs) ``key``: one more in ``counts``, or in the tally being taken."""
+    t = _tally.get()
+    (counts if t is None else t.counts)[key] += 1
+
+
 def note_shape(kernel: str, shape: tuple):
     """Called by a wrapper where it launches ``kernel``."""
-    if _recording[0]:
+    t = _tally.get()
+    if t is not None:
+        t.shapes.add((kernel, shape))
+    elif _recording[0]:
         shapes.setdefault(kernel, set()).add(shape)
+
+
+def add_tally(tally: "Tally"):
+    """One replay of a captured graph: its launches into ``counts``, and
+    its shapes into ``shapes`` inside ``record_shapes()``."""
+    for k, n in tally.counts.items():
+        counts[k] += n
+    if _recording[0]:
+        for kernel, shape in tally.shapes:
+            shapes.setdefault(kernel, set()).add(shape)
 
 
 @contextlib.contextmanager
@@ -84,5 +132,6 @@ def use_kernels(on: bool = True):
 from flexflow_tpu_torch.kernels.attention import (  # noqa: E402
     flash_attend, reference_attend)
 
-__all__ = ["counts", "flash_attend", "kernels_enabled", "reference_attend",
-           "reset_counts", "use_kernels"]
+__all__ = ["Tally", "add_tally", "bump", "counts", "flash_attend",
+           "kernels_enabled", "reference_attend", "reset_counts", "tallying",
+           "use_kernels"]

@@ -129,7 +129,7 @@ def reference_attend(q, k_cache, v_cache, lengths, qpos, bias=None,
     from flexflow_tpu_torch import kernels
 
     if q.is_cuda:
-        kernels.counts["plain_attend_cuda"] += 1
+        kernels.bump("plain_attend_cuda")
     R, Q, H, D = q.shape
     if qk_scale is None:
         qk_scale = 1.0 / math.sqrt(D)
@@ -208,7 +208,7 @@ def partials_reference(q, k_cache, v_cache, lengths, qpos, bias=None,
     from flexflow_tpu_torch import kernels
 
     if q.is_cuda:
-        kernels.counts["plain_attend_cuda"] += 1
+        kernels.bump("plain_attend_cuda")
     R, Q, H, D = q.shape
     if qk_scale is None:
         qk_scale = 1.0 / math.sqrt(D)
@@ -429,11 +429,11 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
-    kernels.counts[key] += 1
+    kernels.bump(key)
     if b is not None and append_kv is None:
-        kernels.counts["flash_attend_bias"] += 1
+        kernels.bump("flash_attend_bias")
     if partials:
-        kernels.counts["flash_attend_partials"] += 1
+        kernels.bump("flash_attend_partials")
     kernels.note_shape(key, (R, Q, H, KH, S, D, str(cdt)[6:],
                              "partials" if partials else str(out_dtype)[6:],
                              b is not None))

@@ -62,7 +62,7 @@ def qmatmul_plain(x, w, compute_dtype, out_dtype):
     from flexflow_tpu_torch import kernels
 
     if x.is_cuda:
-        kernels.counts["qmatmul_plain_cuda"] += 1
+        kernels.bump("qmatmul_plain_cuda")
     q = _unpack_int4(w.q, w.rows) if w.qtype == "int4" else w.q
     q = q.to(compute_dtype).float()
     y = torch.matmul(x.to(compute_dtype).float(), q)
@@ -174,7 +174,7 @@ def _launch(x, w, cd, od):
         _DT[od], ptr(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"qmatmul kernel launch failed: CUDA error {rc}")
-    kernels.counts["qmatmul"] += 1
+    kernels.bump("qmatmul")
     kernels.note_shape("qmatmul", (x2.shape[0], K, N, w.qtype, str(cd)[6:],
                                    str(od)[6:]))
     return out.reshape(*lead, N)

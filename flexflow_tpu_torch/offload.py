@@ -139,6 +139,13 @@ def offload_model_weights(model, min_bytes: int = 1 << 20) -> int:
                 offloaded.setdefault(lname, {})[wname] = dev
     model._offloaded = offloaded
     model._prefetcher = Prefetcher(model) if offloaded else None
+    if moved:
+        # programs built over the resident weights read them by address:
+        # drop them, and the next block builds again (the JAX jit retraces
+        # on the new shardings)
+        from flexflow_tpu_torch.serve.graphs import drop_programs
+
+        drop_programs(model)
     return moved
 
 

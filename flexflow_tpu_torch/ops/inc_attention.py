@@ -22,9 +22,10 @@ Differences from the JAX package, by design:
   CUDA tensors and runs the plain version for CPU tensors.
 * Tree verification builds its additive ``[R, T, S]`` mask once per
   forward (``OpContext.tree_bias``) rather than once per layer.
-* ``commit_tree_kv`` compacts in place; invalid (row, node) pairs are
-  selected away before the move, where the JAX scatter drops them at a
-  sentinel index that torch would reject.
+* ``commit_tree_kv`` compacts in place, one column at a time, where the
+  JAX scatter drops invalid (row, node) pairs at a sentinel index that
+  torch would reject: an invalid pair writes back the value its clamped
+  slot holds, so the move needs no host read.
 
 Under tensor parallelism (``ctx.mesh`` with a ``model`` axis) each rank
 holds whole heads: column shards of ``wq``/``wk``/``wv`` (the JAX specs,
@@ -74,8 +75,9 @@ def rotary_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     """positions [R, Q] -> cos/sin [R, Q, head_dim]."""
     exponent = torch.arange(0, head_dim, 2, dtype=torch.float32,
                             device=positions.device) / head_dim
-    inv_freq = 1.0 / torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                            device=positions.device), exponent)
+    # a fill, not a host copy: a captured program builds it too
+    inv_freq = 1.0 / torch.pow(torch.full((), theta, dtype=torch.float32,
+                                          device=positions.device), exponent)
     angles = positions[..., None].float() * inv_freq             # [R,Q,D/2]
     angles = torch.cat([angles, angles], dim=-1)                 # [R,Q,D]
     return torch.cos(angles).to(dtype), torch.sin(angles).to(dtype)
@@ -614,25 +616,58 @@ def commit_tree_kv(op_state, src_node: torch.Tensor,
     (sources clipped to the cache, destinations past its end dropped, as
     the JAX scatter does). Returns ``op_state``.
 
-    The valid (row, i) pairs are selected first with ``nonzero``, which
-    waits for the device (once per verify round of the host tree path
-    and of the fused engines that commit), and every source is gathered
-    before the first write, so no move reads a slot another overwrote.
+    No host read: every source of all C columns is gathered before the
+    first write, then the columns are written one at a time, each row
+    to one slot. A (row, i) that does not commit writes the slot it
+    would clamp to with that slot's value as the column finds it, so it
+    changes nothing, however it meets a valid write of the same row.
+    The engines' captured programs run it (``serve/graphs.py``).
     Under sequence parallelism (``mesh`` with a ``seq`` axis and caches
-    of fewer rows than ``seq_len``) a move may cross ranks: each rank
+    of fewer rows than ``seq_len``) a move may cross ranks: the valid
+    (row, i) pairs are selected with ``nonzero`` (a host read), each rank
     reads the sources it holds, a ``psum`` over ``seq`` gives every rank
     all of them, and each writes the destinations it holds.
     Reference: commit_tokens_kernel (tree_inc_multihead_self_attention.cu).
     """
-    from flexflow_tpu_torch.parallel.collectives import psum
-
     S = next(st[n] for st in op_state.values() if isinstance(st, dict)
              for n in ("k", "k_cache") if n in st).shape[-2]
     # this rank's rows off .. off + S - 1 of seq_len (all S rows unsharded)
     sharded = (mesh is not None and mesh.axis_size("seq") > 1
                and seq_len is not None and S != seq_len)
-    off = mesh.index("seq") * S if sharded else 0
-    total = seq_len if sharded else S
+    if sharded:
+        return _commit_tree_kv_sharded(op_state, src_node, num_commit,
+                                       start_pos, active, mesh, S, seq_len)
+    R, C = src_node.shape
+    i = torch.arange(C, device=src_node.device)
+    dst = start_pos.long()[:, None] + i[None, :]                   # [R, C]
+    valid = ((i[None, :] < num_commit[:, None]) & active.bool()[:, None]
+             & (dst < S))
+    src = (start_pos.long()[:, None] + src_node.long()).clamp(0, S - 1)
+    dst = dst.clamp(0, S - 1)
+    rows = torch.arange(R, device=src_node.device)
+    for st in op_state.values():
+        if not isinstance(st, dict):
+            continue
+        for name in ("k", "v", "k_cache", "v_cache"):
+            if name not in st:
+                continue
+            # the stacked [L, R, KH, S, D] pair or one layer's [R, KH, S, D]
+            c = st[name] if st[name].dim() == 5 else st[name][None]
+            moved = c[:, rows[:, None], :, src]           # [R, C, L, KH, D]
+            for j in range(C):
+                here = c[:, rows, :, dst[:, j]]              # [R, L, KH, D]
+                c[:, rows, :, dst[:, j]] = torch.where(
+                    valid[:, j, None, None, None], moved[:, j], here)
+    return op_state
+
+
+def _commit_tree_kv_sharded(op_state, src_node, num_commit, start_pos,
+                            active, mesh, S, total):
+    """``commit_tree_kv`` over caches split on ``seq``: this rank holds
+    rows off .. off + S - 1 of ``total`` (see there)."""
+    from flexflow_tpu_torch.parallel.collectives import psum
+
+    off = mesh.index("seq") * S
     C = src_node.shape[1]
     i = torch.arange(C, device=src_node.device)
     dst = start_pos.long()[:, None] + i[None, :]
@@ -642,20 +677,15 @@ def commit_tree_kv(op_state, src_node: torch.Tensor,
     src = (start_pos.long()[rows] + src_node.long()[rows, cols]).clamp(
         0, total - 1)
     dst = dst[rows, cols]
-    if sharded:
-        own_src = (src >= off) & (src < off + S)
-        own_dst = (dst >= off) & (dst < off + S)
+    own_src = (src >= off) & (src < off + S)
+    own_dst = (dst >= off) & (dst < off + S)
     for st in op_state.values():
         if not isinstance(st, dict):
             continue
         for name in ("k", "v", "k_cache", "v_cache"):
             if name not in st:
                 continue
-            # the stacked [L, R, KH, S, D] pair or one layer's [R, KH, S, D]
             c = st[name] if st[name].dim() == 5 else st[name][None]
-            if not sharded:
-                c[:, rows, :, dst] = c[:, rows, :, src]
-                continue
             # each rank reads the sources it holds; the psum gives every
             # rank all of them; each writes the destinations it holds
             got = c[:, rows[own_src], :, src[own_src] - off]

@@ -2,23 +2,29 @@
 engines (counterpart of ``flexflow_tpu/serve/engine.py``).
 
 The JAX package runs each token-feedback loop (decode steps, speculation
-rounds, draft chains) as a jitted ``while_loop`` so the host reads back
-once per block. Here each loop is a Python loop whose tokens, positions
-and KV caches stay on the device: a step's argmax feeds the next step's
-input tensor directly. A decode block reads back once, at its end. A
-speculation round reads one small tensor first: the round's draft depth,
-which is 0 when no row is live (the loop's exit test). Each block's
-packed ``[R, max_rounds, depth+3]`` result is read once, at its end.
-A sampled graph draws from the ``torch.Generator`` passed in (the JAX
-engines' RNG key); speculation is greedy and draws nothing. CUDA graphs
-for these loops are later work.
+rounds, draft chains) as one jitted ``while_loop`` whose trip count is a
+device scalar, so one compiled program serves every block. Here each
+loop is a set of programs (``serve/graphs.py``): the loop's stages,
+captured once a key as CUDA graphs on the card and replayed, or called
+directly on the CPU, under a mesh, with offloaded weights and under
+``inference_debugging``. A stage reads and updates the block state in
+place: a step writes its token at a device step index and feeds it to
+the next step, a round writes its packed row at a device round index.
+Tokens, positions and KV caches stay on the device. A decode block
+reads back once, at its end. A speculation round reads one scalar
+first: the round's draft depth, which is 0 when no row is live (the
+loop's exit test). Each block's packed ``[R, max_rounds, depth+3]``
+result is read once, at its end. A sampled graph draws from the
+``torch.Generator`` passed in (the JAX engines' RNG key), registered
+with its program; speculation is greedy and draws nothing.
 
 Telemetry: ``run_block`` of every speculative engine records the block
 (``ServingTelemetry.record_spec_block``: its wall time up to the packed
 result's readback, which is the block's one fence, and the per-round
 accepted lengths and depths) in ``engine.telemetry`` or, when that is
-None, the process-global telemetry (``_resolve_tel``). No other host
-sync is added.
+None, the process-global telemetry (``_resolve_tel``), and then the
+program builds it has not reported (``note_retrace``, as the JAX
+engines report their compiles). No other host sync is added.
 
 Engines:
 
@@ -42,6 +48,7 @@ Engines:
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Optional, Tuple
 
@@ -53,6 +60,8 @@ from flexflow_tpu_torch.ops.base import OpContext
 from flexflow_tpu_torch.ops.inc_attention import commit_tree_kv
 from flexflow_tpu_torch.ops.reduction_ops import stable_top_k
 from flexflow_tpu_torch.serve.batch_config import BatchMeta, TreeBatchMeta
+from flexflow_tpu_torch.serve.graphs import (ProgramCache, ProgramSet,
+                                             captures, tensor_key)
 from flexflow_tpu_torch.serve.inference_manager import VERIFY_WIDTH
 from flexflow_tpu_torch.telemetry import get_telemetry
 
@@ -112,6 +121,104 @@ def _forward_tokens(model, params, state, tokens, positions, start_pos,
                              kv_contiguous=True, generator=generator)
 
 
+def _i32(*shape, dev):
+    return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+
+def _index(dev):
+    """A device step or round index: int64 [1] (``index_copy_``'s index),
+    so that a captured program writes at the index the replay reaches,
+    not at the one it was captured with."""
+    return torch.zeros(1, dtype=torch.long, device=dev)
+
+
+def _graph_samples(model) -> bool:
+    """Does ``model``'s serving graph draw (a top-p head)?"""
+    from flexflow_tpu_torch.ffconst import OpType
+
+    return any(layer.op_type == OpType.SAMPLING for layer in model.layers)
+
+
+class _StepBlock:
+    """The self-feeding step program of one model: each use runs one step
+    at ``width`` tokens a row (one real), writes the argmax (or draw) at
+    the device step index of ``out`` and feeds it back as the next step's
+    token at the next position. ``n`` steps are ``n`` uses and one
+    readback (by the caller). The decode block and the host tree path's
+    draft chain are this program."""
+
+    def __init__(self, model, compute_dtype, max_steps: int, width: int = 1):
+        self.model = model
+        self.compute_dtype = compute_dtype
+        self.max_steps = max_steps
+        self.width = width
+        self._sampled = _graph_samples(model)
+        self._cache = ProgramCache(model)
+
+    @property
+    def _trace_count(self) -> int:
+        return self._cache.builds
+
+    def _state(self, R, dev):
+        st = {"tok": _i32(R, dev=dev), "pos": _i32(R, dev=dev),
+              "active": torch.zeros(R, dtype=torch.bool, device=dev),
+              "num": _i32(R, dev=dev), "i": _index(dev),
+              "out": _i32(R, self.max_steps, dev=dev)}
+        return st
+
+    def _step(self, st, generator=None):
+        """One step over the block state (the stage the program captures).
+        ``width > 1``: the speculative verify pass's width with one real
+        token a row; only its KV is appended (kv_append_q=1), fused into
+        the attention kernel."""
+        m, W = self.model, self.width
+        tok, pos = st["tok"], st["pos"]
+        if W == 1:
+            o, m.op_state = _forward_tokens(
+                m, m.params, m.op_state, tok[:, None], pos[:, None], pos,
+                st["num"], st["active"], self.compute_dtype, generator)
+        else:
+            R = tok.shape[0]
+            toks = torch.zeros((R, W), dtype=torch.int32, device=tok.device)
+            toks[:, 0] = tok
+            qpos = pos[:, None] + torch.arange(
+                W, dtype=torch.int32, device=tok.device)[None, :]
+            meta = BatchMeta(tokens=toks, positions=qpos, start_pos=pos,
+                             num_tokens=st["num"], active=st["active"])
+            o, m.op_state = forward_with_meta(
+                m, m.params, m.op_state, meta, self.compute_dtype,
+                kv_append_q=1, generator=generator)
+        nxt = o[:, 0].to(torch.int32)
+        st["out"].index_copy_(1, st["i"], nxt[:, None])
+        tok.copy_(nxt)
+        pos.add_(1)
+        st["i"].add_(1)
+
+    def run(self, params, op_state, tok, pos, active, n, generator=None):
+        """(out [R, max_steps] with the first ``n`` columns filled, the
+        last token [R]), device tensors of the caller's own."""
+        m = self.model
+        R, dev = tok.shape[0], tok.device
+        sampled = self._sampled
+        gen = generator if sampled else None
+        key = (R, self.width, self.max_steps, self.compute_dtype, sampled,
+               id(gen), tensor_key(params, op_state))
+        capture = captures(m) and (gen is not None or not sampled)
+        progs = self._cache.get(key, lambda cap: ProgramSet(
+            {"step": self._step}, self._state(R, dev), cap, generator=gen,
+            state_of=lambda: m.op_state), capture)
+        st = progs.st
+        st["tok"].copy_(tok)
+        st["pos"].copy_(pos)
+        st["active"].copy_(active)
+        st["num"].copy_(active.to(torch.int32))
+        st["i"].zero_()
+        st["out"].zero_()
+        for _ in range(int(n)):
+            progs.run("step")
+        return st["out"].clone(), st["tok"].clone()
+
+
 def make_decode_block(model, compute_dtype, max_steps: int, width: int = 1):
     """The multi-step decode program for ``model``.
 
@@ -119,75 +226,54 @@ def make_decode_block(model, compute_dtype, max_steps: int, width: int = 1):
     generator=None) -> (tokens [R, max_steps], new_op_state, last_tok
     [R]), all device tensors; only the first ``n <= max_steps`` columns
     are meaningful. ``pos[r]`` is the sequence index of the pending token
-    ``tok[r]``; ``generator`` feeds a sampled graph's draws.
+    ``tok[r]``; ``generator`` feeds a sampled graph's draws. One program
+    (``_StepBlock``, replayed ``n`` times) serves every n; ``params`` and
+    ``op_state`` are the model's own, which it reads by address.
 
     ``width > 1`` runs each step at the speculative verify pass's token
     width with one real token per row (verify-consistent decode); only
     the real token's KV is appended (kv_append_q=1), fused into the
-    attention kernel."""
+    attention kernel. The returned callable's ``program`` is the
+    ``_StepBlock`` (its ``_trace_count``)."""
+    program = _StepBlock(model, compute_dtype, max_steps, width)
 
     def block(params, op_state, tok, pos, active, n, generator=None):
-        R = tok.shape[0]
-        num = active.to(torch.int32)
-        out = torch.zeros((R, max_steps), dtype=torch.int32,
-                          device=tok.device)
-        for i in range(int(n)):
-            if width == 1:
-                o, op_state = _forward_tokens(
-                    model, params, op_state, tok[:, None], pos[:, None], pos,
-                    num, active, compute_dtype, generator)
-            else:
-                toks = torch.zeros((R, width), dtype=torch.int32,
-                                   device=tok.device)
-                toks[:, 0] = tok
-                qpos = pos[:, None] + torch.arange(
-                    width, dtype=torch.int32, device=tok.device)[None, :]
-                meta = BatchMeta(tokens=toks, positions=qpos, start_pos=pos,
-                                 num_tokens=num, active=active)
-                o, op_state = forward_with_meta(
-                    model, params, op_state, meta, compute_dtype,
-                    kv_append_q=1, generator=generator)
-            tok = o[:, 0].to(torch.int32)
-            out[:, i] = tok
-            pos = pos + 1
-        return out, op_state, tok
+        out, last = program.run(params, op_state, tok, pos, active, n,
+                                generator)
+        return out, op_state, last
 
+    block.program = program
     return block
 
 
 def make_draft_chain(model, compute_dtype, depth: int):
     """The greedy draft-chain program of one draft model, for the host
-    tree path.
+    tree path: the width-1 step program replayed ``depth`` times.
 
     Signature: (params, op_state, tok [R], pos [R], active [R]) ->
     (chain [R, depth], new_op_state): ``depth`` width-1 steps from the
     pending token ``tok`` at ``pos``, each feeding its argmax to the
     next, with one readback (by the caller). The drafted tokens' KV is
     tentative: later rounds overwrite it past the accepted point."""
+    program = _StepBlock(model, compute_dtype, depth, 1)
 
     def chain(params, op_state, tok, pos, active):
-        num = active.to(torch.int32)
-        toks = torch.zeros((tok.shape[0], depth), dtype=torch.int32,
-                           device=tok.device)
-        for i in range(depth):
-            out, op_state = _forward_tokens(
-                model, params, op_state, tok[:, None], pos[:, None], pos,
-                num, active, compute_dtype)
-            tok = out[:, 0].to(torch.int32)
-            toks[:, i] = tok
-            pos = pos + 1
-        return toks, op_state
+        out, _last = program.run(params, op_state, tok, pos, active, depth)
+        return out, op_state
 
+    chain.program = program
     return chain
 
 
 # ----------------------------------------------------------------------
 # speculative engines
 # ----------------------------------------------------------------------
-def _adapt_depth_rule(adapt: bool, act_i, n_acc, depth_v, alive,
-                      min_depth: int, max_depth: int):
+def _adapt_depth_rule(adapt, act_i, n_acc, depth_v, alive, min_depth,
+                      max_depth: int):
     """The adaptive controller's in-block policy (a no-op for a static
-    block):
+    block), with ``adapt`` (bool [1]) and ``min_depth`` (int32 [1]) on
+    the device, so that one program serves static and adaptive blocks
+    at every floor:
 
     * depth adaptation between rounds: grow on a full accept, shrink on a
       zero accept, hold otherwise, bounded by [min_depth, engine depth];
@@ -197,20 +283,21 @@ def _adapt_depth_rule(adapt: bool, act_i, n_acc, depth_v, alive,
       path before the host parks it on incremental decoding.
 
     Returns (depth_v, alive)."""
-    if not adapt:
-        return depth_v, alive
-    give_up = act_i & (n_acc == 0) & (depth_v == min_depth)
+    give_up = adapt & act_i & (n_acc == 0) & (depth_v == min_depth)
     alive = alive & ~give_up
     grown = torch.where(n_acc >= depth_v, depth_v + 1,
                         torch.where(n_acc == 0, depth_v - 1, depth_v))
-    depth_v = torch.where(act_i, grown.clamp(min_depth, max_depth), depth_v)
+    depth_v = torch.where(adapt & act_i,
+                          torch.maximum(grown, min_depth).clamp(max=max_depth),
+                          depth_v)
     return depth_v, alive
 
 
-def _round_depth(act_i, depth_v) -> int:
+def _round_depth(st) -> int:
     """The host's one read per round: the deepest live row's depth bound
-    (the draft steps to run), or 0 when no row is live."""
-    return int(torch.where(act_i, depth_v, torch.zeros_like(depth_v)).max())
+    (the draft steps to run), or 0 when no row is live. The gate stage
+    leaves it in ``st["dmax"]``."""
+    return int(st["dmax"])
 
 
 def _accepted(chain, pred, depth_r):
@@ -225,9 +312,23 @@ def _accepted(chain, pred, depth_r):
     return match.to(torch.int32).cumprod(1).sum(1, dtype=torch.int32)
 
 
+def _next_block(blk_chain, n_acc, bonus):
+    """Next round's accepted block [R, d+1]: the accepted chain prefix,
+    the bonus token at index n_acc, zeros after."""
+    d = blk_chain.shape[1]
+    idx = torch.arange(d + 1, device=blk_chain.device)[None, :]
+    return torch.where(
+        idx < n_acc[:, None], torch.nn.functional.pad(blk_chain, (0, 1)),
+        torch.where(idx == n_acc[:, None], bonus[:, None], 0)).to(torch.int32)
+
+
 class _SpecEngineBase:
-    """What the two engines share: the host-side ``run_block`` contract
-    and the block loop's bookkeeping."""
+    """What the three engines share: the host-side ``run_block`` contract,
+    the block state and the round's bookkeeping, and the programs
+    (``serve/graphs.py``): a gate stage (the rows live this round and
+    their deepest depth bound), the engine's draft stages and a verify
+    stage that ends with the bookkeeping and the next round's gate. A
+    round reads one scalar (``_round_depth``) and replays the stages."""
 
     def __init__(self, llm, depth: int, max_rounds: int):
         self.llm = llm
@@ -239,8 +340,120 @@ class _SpecEngineBase:
         self.rounds_run = 0
         self.telemetry = None   # explicit ServingTelemetry; None -> global
 
-    def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
-               min_depth, adapt):
+    def _init_programs(self):
+        self._cache = ProgramCache(*self._models())
+
+    @property
+    def _trace_count(self) -> int:
+        """Program builds (the JAX engines' compile count)."""
+        return self._cache.builds
+
+    def _models(self):
+        raise NotImplementedError
+
+    def _stages(self):
+        raise NotImplementedError
+
+    def _block_state(self, R, dev):
+        """The state every engine keeps: the rows' masks and budgets, the
+        adaptive depths, the packed result and its round index, and the
+        gate's outputs. Each engine adds its tokens (the tree engines'
+        accepted block, ``_tree_state``; the chain's ``tok``/``pos``)."""
+        d = self.depth
+        st = {"active": torch.zeros(R, dtype=torch.bool, device=dev),
+              "alive": torch.zeros(R, dtype=torch.bool, device=dev),
+              "act": torch.zeros(R, dtype=torch.bool, device=dev),
+              "remaining": _i32(R, dev=dev), "depth_v": _i32(R, dev=dev),
+              "num": _i32(R, dev=dev), "dmax": _i32(1, dev=dev),
+              "min_depth": _i32(1, dev=dev),
+              "adapt": torch.zeros(1, dtype=torch.bool, device=dev),
+              "ri": _index(dev),
+              "packed": _i32(R, self.max_rounds, d + 3, dev=dev)}
+        return st
+
+    def _programs(self, R, dev):
+        models = self._models()
+        key = (R, self.depth, self.tree_width, self._compute_dtype,
+               tensor_key([(m.params, m.op_state) for m in models]))
+        return self._cache.get(key, lambda cap: ProgramSet(
+            self._stages(), self._state(R, dev), cap,
+            state_of=lambda: [m.op_state for m in models]),
+            captures(*models))
+
+    def _load(self, st, tok, pos, active, remaining, depth, min_depth,
+              adapt):
+        """Copy a block's inputs into the state; the packed result to its
+        idle form (n_acc and depth -1)."""
+        d = self.depth
+        st["active"].copy_(active)
+        st["alive"].copy_(active)
+        st["remaining"].copy_(remaining)
+        st["depth_v"].copy_(depth)
+        st["min_depth"].fill_(min_depth)
+        st["adapt"].fill_(adapt)
+        st["ri"].zero_()
+        st["packed"].zero_()
+        st["packed"][:, :, d + 1:] = -1
+        self._load_tokens(st, tok, pos)
+
+    def _load_tokens(self, st, tok, pos):
+        """The call-boundary invariant of the tree engines: the accepted
+        block is the pending root."""
+        st["tks"].zero_()
+        st["tks"][:, 0] = tok
+        st["nblk"].fill_(1)
+        st["base"].copy_(pos)
+
+    def _tree_state(self, st, R, dev):
+        """The tree engines' accepted block: tokens [R, d+1], their count
+        and the position of the first."""
+        st.update(tks=_i32(R, self.depth + 1, dev=dev), nblk=_i32(R, dev=dev),
+                  base=_i32(R, dev=dev))
+        return st
+
+    def _tree_gate(self, st, generator=None):
+        """A row drafts while it owes tokens and the padded tree's whole
+        staging window [r_pos, r_pos + tree_width) fits in its cache."""
+        max_seq = self.llm.config.max_sequence_length
+        self._gate(st, st["active"] & (st["remaining"] > 0)
+                   & (st["base"] + st["nblk"] - 1 + self.tree_width
+                      <= max_seq - 1) & st["alive"])
+
+    def _gate(self, st, act):
+        """The rows live this round, as a mask and as int32 token counts,
+        and their deepest depth bound (the host's one read)."""
+        st["act"].copy_(act)
+        st["num"].copy_(act.to(torch.int32))
+        st["dmax"].copy_(torch.where(act, st["depth_v"], 0).amax()
+                         .reshape(1))
+
+    def _book(self, st, row, n_acc):
+        """The round's bookkeeping shared by every engine: the budget, the
+        packed row at the device round index (``row`` [R, d+1] ++ n_acc
+        ++ the depth it ran under, -1 for rows that did not draft), the
+        adaptive depths."""
+        act, depth_v = st["act"], st["depth_v"]
+        st["remaining"].sub_(torch.where(act, n_acc + 1, 0))
+        row = torch.cat([row, torch.where(act, n_acc, -1)[:, None],
+                         torch.where(act, depth_v, -1)[:, None]], dim=1)
+        st["packed"].index_copy_(1, st["ri"], row[:, None, :])
+        st["ri"].add_(1)
+        depth_v, alive = _adapt_depth_rule(st["adapt"], act, n_acc, depth_v,
+                                           st["alive"], st["min_depth"],
+                                           self.depth)
+        st["depth_v"].copy_(depth_v)
+        st["alive"].copy_(alive)
+
+    def _tree_advance(self, st, blk, n_acc):
+        """The tree engines' next round: the accepted block, its base and
+        count, for the rows that drafted."""
+        act, nblk, base = st["act"], st["nblk"], st["base"]
+        new_base = torch.where(act, base + nblk, base)
+        st["nblk"].copy_(torch.where(act, n_acc + 1, nblk))
+        st["base"].copy_(new_base)
+        st["tks"].copy_(torch.where(act[:, None], blk, st["tks"]))
+
+    def _rounds(self, progs, n_rounds):
         raise NotImplementedError
 
     def run_block(self, tok: np.ndarray, pos: np.ndarray, active: np.ndarray,
@@ -258,7 +471,9 @@ class _SpecEngineBase:
         depth for the first round; between rounds the engine grows or
         shrinks it and a row that accepts nothing at the floor leaves the
         block; depth_used[r, k] is the bound round k ran under. Updates
-        every model's op_state."""
+        every model's op_state. The first block of a key builds the
+        engine's programs, and the builds not yet reported go to
+        telemetry after the readback (``note_retrace``)."""
         n_rounds = min(int(n_rounds), self.max_rounds)
         R = tok.shape[0]
         if remaining is None:
@@ -275,23 +490,19 @@ class _SpecEngineBase:
 
         tel = _resolve_tel(self.telemetry)
         t0 = time.perf_counter()
-        packed = self._block(t(tok), t(pos), t(active, torch.bool),
-                             n_rounds, t(remaining), t(depth), min_depth,
-                             adapt).cpu().numpy()
+        progs = self._programs(R, dev)
+        st = progs.st
+        self._load(st, t(tok), t(pos), t(active, torch.bool), t(remaining),
+                   t(depth), min_depth, adapt)
+        progs.run("gate")
+        self._rounds(progs, n_rounds)
+        packed = st["packed"].cpu().numpy()
         if tel is not None:     # the readback above is the block's fence
             tel.record_spec_block(time.perf_counter() - t0,
                                   packed[:, :, -2], self.depth,
                                   self.tree_width, depths=packed[:, :, -1])
+        self._cache.report(tel, type(self).__name__)
         return packed[:, :, :-2], packed[:, :, -2], packed[:, :, -1]
-
-    def _packed0(self, R, dev):
-        """[R, max_rounds, depth+3]: tokens ++ n_acc ++ depth used, with
-        n_acc and depth -1 on rounds that never ran."""
-        d = self.depth
-        packed = torch.zeros((R, self.max_rounds, d + 3), dtype=torch.int32,
-                             device=dev)
-        packed[:, :, d + 1:] = -1
-        return packed
 
 
 class SpecChainEngine(_SpecEngineBase):
@@ -301,72 +512,96 @@ class SpecChainEngine(_SpecEngineBase):
     [pending, chain] in one causal width-(depth+1) pass, and acceptance is
     the longest matching prefix plus the verifier's bonus token. The
     committed tokens of slot r in round k are ``toks[r, k, :n_acc + 1]``.
+
+    Programs: ``gate``, ``draft`` (the draft's width-1 step, replayed
+    d_run + 1 times a round) and ``verify`` (the verify pass, the
+    acceptance and the round's bookkeeping).
     """
 
     def __init__(self, llm, ssm, depth: int = 4, max_rounds: int = 16):
         super().__init__(llm, depth, max_rounds)
         self.ssm = ssm
         ssm.finalize_gemm_fusion()
+        self._init_programs()
 
     @property
     def tree_width(self) -> int:
         """The verify pass's width: the pending token and the chain."""
         return self.depth + 1
 
-    def _round(self, tok, pos, active, depth_r, d_run):
-        d, llm, ssm = self.depth, self.llm, self.ssm
-        R = tok.shape[0]
-        num = active.to(torch.int32)
-        # draft chain: d_run + 1 width-1 steps, the last only back-fills KV
-        chain = torch.zeros((R, d + 1), dtype=torch.int32, device=tok.device)
-        t, p = tok, pos
-        for i in range(d_run + 1):
-            out, ssm.op_state = _forward_tokens(
-                ssm, ssm.params, ssm.op_state, t[:, None], p[:, None], p,
-                num, active, self._compute_dtype)
-            t = out[:, 0].to(torch.int32)
-            chain[:, i] = t
-            p = p + 1
-        chain = chain[:, :d]
-        # verify: one causal pass over [pending, chain...] at static width
-        # d+1 (undrafted tail columns hold zeros, whose staged KV later
-        # rounds overwrite, like padding)
+    def _models(self):
+        return [self.llm, self.ssm]
+
+    def _stages(self):
+        return {"gate": self._chain_gate, "draft": self._draft_step,
+                "verify": self._verify}
+
+    def _state(self, R, dev):
+        st = self._block_state(R, dev)
+        st.update(tok=_i32(R, dev=dev), pos=_i32(R, dev=dev),
+                  dt=_i32(R, dev=dev), dp=_i32(R, dev=dev),
+                  dj=_index(dev),
+                  chain=_i32(R, self.depth + 1, dev=dev))
+        return st
+
+    def _load_tokens(self, st, tok, pos):
+        st["tok"].copy_(tok)
+        st["pos"].copy_(pos)
+
+    def _chain_gate(self, st, generator=None):
+        """A row drafts while it owes tokens and a full round of KV slots
+        (pos..pos+d) fits in its cache; the draft chain starts from the
+        pending token, its columns zeroed."""
+        max_seq = self.llm.config.max_sequence_length
+        self._gate(st, st["active"] & (st["remaining"] > 0)
+                   & (st["pos"] + self.depth < max_seq) & st["alive"])
+        st["dt"].copy_(st["tok"])
+        st["dp"].copy_(st["pos"])
+        st["dj"].zero_()
+        st["chain"].zero_()
+
+    def _draft_step(self, st, generator=None):
+        ssm = self.ssm
+        out, ssm.op_state = _forward_tokens(
+            ssm, ssm.params, ssm.op_state, st["dt"][:, None],
+            st["dp"][:, None], st["dp"], st["num"], st["act"],
+            self._compute_dtype)
+        t = out[:, 0].to(torch.int32)
+        st["chain"].index_copy_(1, st["dj"], t[:, None])
+        st["dt"].copy_(t)
+        st["dp"].add_(1)
+        st["dj"].add_(1)
+
+    def _verify(self, st, generator=None):
+        """One causal pass over [pending, chain...] at static width d+1
+        (undrafted tail columns hold zeros, whose staged KV later rounds
+        overwrite, like padding), the acceptance and the bookkeeping."""
+        d, llm = self.depth, self.llm
+        tok, pos, act = st["tok"], st["pos"], st["act"]
+        chain = st["chain"][:, :d]
         vtokens = torch.cat([tok[:, None], chain], dim=1)
         vpos = pos[:, None] + torch.arange(d + 1, dtype=torch.int32,
                                            device=tok.device)[None, :]
         out, llm.op_state = _forward_tokens(
-            llm, llm.params, llm.op_state, vtokens, vpos, pos, num * (d + 1),
-            active, self._compute_dtype)
+            llm, llm.params, llm.op_state, vtokens, vpos, pos,
+            st["num"] * (d + 1), act, self._compute_dtype)
         a = out.to(torch.int32)                                  # [R, d+1]
-        n_acc = _accepted(chain, a[:, :d], depth_r)
+        n_acc = _accepted(chain, a[:, :d], st["depth_v"])
         bonus = a.gather(1, n_acc.long()[:, None])[:, 0]
-        return bonus, pos + n_acc + 1, a, n_acc
+        self._book(st, a, n_acc)
+        tok.copy_(torch.where(act, bonus, tok))
+        pos.copy_(torch.where(act, pos + n_acc + 1, pos))
+        self._chain_gate(st)
 
-    def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
-               min_depth, adapt):
-        R, d = tok.shape[0], self.depth
-        max_seq = self.llm.config.max_sequence_length
-        packed = self._packed0(R, tok.device)
-        alive = active.clone()
-        for i in range(n_rounds):
-            # a row drafts while it owes tokens and a full round of KV
-            # slots (pos..pos+d) fits in its cache
-            act_i = active & (remaining > 0) & (pos + d < max_seq) & alive
-            d_run = _round_depth(act_i, depth_v)
+    def _rounds(self, progs, n_rounds):
+        for _ in range(n_rounds):
+            d_run = _round_depth(progs.st)
             if d_run == 0:
                 break
-            ntok, npos, a, n_acc = self._round(tok, pos, act_i, depth_v,
-                                               d_run)
+            for _ in range(d_run + 1):
+                progs.run("draft")
+            progs.run("verify")
             self.rounds_run += 1
-            tok = torch.where(act_i, ntok, tok)
-            pos = torch.where(act_i, npos, pos)
-            remaining = remaining - torch.where(act_i, n_acc + 1, 0)
-            packed[:, i, :d + 1] = a
-            packed[:, i, d + 1] = torch.where(act_i, n_acc, -1)
-            packed[:, i, d + 2] = torch.where(act_i, depth_v, -1)
-            depth_v, alive = _adapt_depth_rule(adapt, act_i, n_acc, depth_v,
-                                               alive, min_depth, d)
-        return packed
 
 
 def round_up(x: int, m: int) -> int:
@@ -389,9 +624,13 @@ class MultiSpecEngine(_SpecEngineBase):
     * greedy acceptance picks the branch with the longest matching prefix;
     * with B > 1 the accepted nodes' KV moves from branch j's slots to the
       committed region (``commit_tree_kv``, the reference's
-      commit_tokens_kernel), every layer at once; its ``nonzero`` waits
-      for the device, once a round. Branch 0's slots already are that
-      region.
+      commit_tokens_kernel), every layer at once, with no host read.
+      Branch 0's slots already are that region.
+
+    Programs: ``gate``, per draft model j ``catchup{j}`` (width d+1) and
+    ``step{j}`` (width 1, replayed d_run - 1 times a round), and
+    ``verify`` (the tree pass, the acceptance, the commit and the
+    bookkeeping).
 
     The committed tokens of slot r in round k are ``toks[r, k, :n_acc]``
     plus the bonus token at the fixed index ``toks[r, k, depth]``.
@@ -402,7 +641,7 @@ class MultiSpecEngine(_SpecEngineBase):
         self.ssms = list(ssms)
         for s in self.ssms:
             s.finalize_gemm_fusion()
-        self._consts = None
+        self._init_programs()
 
     @property
     def tree_width(self) -> int:
@@ -412,77 +651,92 @@ class MultiSpecEngine(_SpecEngineBase):
         num_nodes and their outputs unread."""
         return round_up(1 + len(self.ssms) * self.depth, VERIFY_WIDTH)
 
-    def _tree_constants(self, R, dev):
-        """(parent [R, Tp], depth_of [Tp], ancestor [R, Tp, Tp]) on
-        ``dev``, built once."""
-        if self._consts is None or self._consts[0].shape[0] != R:
-            from flexflow_tpu_torch.serve.batch_config import \
-                ancestor_mask_from_parents
+    def _models(self):
+        return [self.llm, *self.ssms]
 
-            d, B, Tp = self.depth, len(self.ssms), self.tree_width
-            parent = np.full((1, Tp), -1, np.int32)
-            depth_of = np.zeros((Tp,), np.int32)
-            for j in range(B):
-                for i in range(d):
-                    n = 1 + j * d + i
-                    parent[0, n] = 0 if i == 0 else n - 1
-                    depth_of[n] = i + 1
-            anc = ancestor_mask_from_parents(parent)
-            anc[0, 1 + B * d:] = False          # padding nodes see nothing
-            self._consts = (
-                torch.as_tensor(np.repeat(parent, R, 0), device=dev),
-                torch.as_tensor(depth_of, device=dev),
-                torch.as_tensor(np.repeat(anc, R, 0), device=dev))
-        return self._consts
+    def _stages(self):
+        stages = {"gate": self._tree_gate}
+        for j in range(len(self.ssms)):
+            stages[f"catchup{j}"] = functools.partial(self._catchup, j)
+            stages[f"step{j}"] = functools.partial(self._draft_step, j)
+        stages["verify"] = self._verify
+        return stages
 
-    def _draft(self, ssm, tks, nblk, base, active, d_run):
-        """Catch-up + chain for one draft model. tks [R, d+1] is last
-        round's accepted block (count nblk, first token at position base).
-        Returns chain [R, d]; columns past d_run stay zero and acceptance
-        caps them off."""
-        d = self.depth
-        R = tks.shape[0]
-        dev = tks.device
-        num = torch.where(active, nblk, 0)
+    def _state(self, R, dev):
+        """The block state and the tree constants (parent [R, Tp],
+        depth_of [Tp], ancestor [R, Tp, Tp]), built once a key."""
+        from flexflow_tpu_torch.serve.batch_config import \
+            ancestor_mask_from_parents
+
+        d, B, Tp = self.depth, len(self.ssms), self.tree_width
+        st = self._tree_state(self._block_state(R, dev), R, dev)
+        for j in range(B):
+            st.update({f"chain{j}": _i32(R, d, dev=dev),
+                       f"t{j}": _i32(R, dev=dev), f"p{j}": _i32(R, dev=dev),
+                       f"i{j}": _index(dev)})
+        parent = np.full((1, Tp), -1, np.int32)
+        depth_of = np.zeros((Tp,), np.int32)
+        for j in range(B):
+            for i in range(d):
+                n = 1 + j * d + i
+                parent[0, n] = 0 if i == 0 else n - 1
+                depth_of[n] = i + 1
+        anc = ancestor_mask_from_parents(parent)
+        anc[0, 1 + B * d:] = False          # padding nodes see nothing
+        st.update(parent=torch.as_tensor(np.repeat(parent, R, 0), device=dev),
+                  depth_of=torch.as_tensor(depth_of, device=dev),
+                  anc=torch.as_tensor(np.repeat(anc, R, 0), device=dev))
+        return st
+
+    def _catchup(self, j, st, generator=None):
+        """Draft j's catch-up over last round's accepted block (``tks``,
+        count ``nblk``, first token at ``base``), width d+1: the chain's
+        first token; columns past the round's depth stay zero and
+        acceptance caps them off."""
+        d, ssm = self.depth, self.ssms[j]
+        tks, nblk, base, act = st["tks"], st["nblk"], st["base"], st["act"]
         pos = base[:, None] + torch.arange(d + 1, dtype=torch.int32,
-                                           device=dev)[None, :]
+                                           device=tks.device)[None, :]
         out, ssm.op_state = _forward_tokens(
-            ssm, ssm.params, ssm.op_state, tks, pos, base, num, active,
-            self._compute_dtype)
+            ssm, ssm.params, ssm.op_state, tks, pos, base,
+            torch.where(act, nblk, 0), act, self._compute_dtype)
         # next token = argmax after the block's last real token
         t = out.gather(1, (nblk - 1).clamp(min=0).long()[:, None])[:, 0]
         t = t.to(torch.int32)
-        chain = torch.zeros((R, d), dtype=torch.int32, device=dev)
+        chain = st[f"chain{j}"]
+        chain.zero_()
         chain[:, 0] = t
-        p = base + nblk                                 # root position + 1
-        one = active.to(torch.int32)
-        for i in range(d_run - 1):
-            out, ssm.op_state = _forward_tokens(
-                ssm, ssm.params, ssm.op_state, t[:, None], p[:, None], p,
-                one, active, self._compute_dtype)
-            t = out[:, 0].to(torch.int32)
-            chain[:, i + 1] = t
-            p = p + 1
-        return chain
+        st[f"t{j}"].copy_(t)
+        st[f"p{j}"].copy_(base + nblk)                 # root position + 1
+        st[f"i{j}"].fill_(1)
 
-    def _round(self, tks, nblk, base, active, depth_r, d_run):
+    def _draft_step(self, j, st, generator=None):
+        ssm = self.ssms[j]
+        t, p = st[f"t{j}"], st[f"p{j}"]
+        out, ssm.op_state = _forward_tokens(
+            ssm, ssm.params, ssm.op_state, t[:, None], p[:, None], p,
+            st["num"], st["act"], self._compute_dtype)
+        nxt = out[:, 0].to(torch.int32)
+        st[f"chain{j}"].index_copy_(1, st[f"i{j}"], nxt[:, None])
+        t.copy_(nxt)
+        p.add_(1)
+        st[f"i{j}"].add_(1)
+
+    def _verify(self, st, generator=None):
         d, B, llm = self.depth, len(self.ssms), self.llm
-        R = tks.shape[0]
-        dev = tks.device
+        tks, nblk, base, act = st["tks"], st["nblk"], st["base"], st["act"]
+        R, dev = tks.shape[0], tks.device
         T, Tp = 1 + B * d, self.tree_width
         r_pos = base + nblk - 1
-        chains = [self._draft(s, tks, nblk, base, active, d_run)
-                  for s in self.ssms]
+        chains = [st[f"chain{j}"] for j in range(B)]
         # verify: root + B chains as a fixed-topology tree
         root = tks.gather(1, (nblk - 1).clamp(min=0).long()[:, None])
         tokens = torch.zeros((R, Tp), dtype=torch.int32, device=dev)
         tokens[:, :T] = torch.cat([root] + chains, dim=1)
-        parent, depth_of, anc = self._tree_constants(R, dev)
         meta = TreeBatchMeta(
-            tokens=tokens, positions=r_pos[:, None] + depth_of[None, :],
-            parent=parent, ancestor=anc, start_pos=r_pos,
-            num_nodes=torch.where(active, T, 0).to(torch.int32),
-            active=active)
+            tokens=tokens, positions=r_pos[:, None] + st["depth_of"][None, :],
+            parent=st["parent"], ancestor=st["anc"], start_pos=r_pos,
+            num_nodes=torch.where(act, T, 0).to(torch.int32), active=act)
         out, llm.op_state = forward_with_meta(
             llm, llm.params, llm.op_state, meta, self._compute_dtype,
             kv_contiguous=True)
@@ -491,7 +745,7 @@ class MultiSpecEngine(_SpecEngineBase):
         n_mat = torch.stack(
             [_accepted(chains[j],
                        torch.cat([o[:, :1], o[:, 1 + j * d: j * d + d]], 1),
-                       depth_r) for j in range(B)], dim=1)        # [R, B]
+                       st["depth_v"]) for j in range(B)], dim=1)  # [R, B]
         best_j = n_mat.argmax(dim=1).to(torch.int32)
         n_acc = n_mat.amax(dim=1)
         bonus_idx = torch.where(n_acc == 0, 0, 1 + best_j * d + n_acc - 1)
@@ -503,51 +757,23 @@ class MultiSpecEngine(_SpecEngineBase):
             commit_tree_kv(
                 llm.op_state,
                 best_j[:, None] * d + torch.arange(d, device=dev)[None, :],
-                n_acc, r_pos + 1, active,
-                mesh=getattr(llm, "mesh", None),
+                n_acc, r_pos + 1, act, mesh=getattr(llm, "mesh", None),
                 seq_len=llm.config.max_sequence_length)
-        # next round's accepted block: [accepted chain prefix, bonus]
-        idx = torch.arange(d + 1, device=dev)[None, :]
-        blk = torch.where(
-            idx < n_acc[:, None],
-            torch.nn.functional.pad(best_chain, (0, 1)),
-            torch.where(idx == n_acc[:, None], bonus[:, None], 0))
-        return blk.to(torch.int32), best_chain, n_acc, bonus
+        self._book(st, torch.cat([best_chain, bonus[:, None]], dim=1), n_acc)
+        self._tree_advance(st, _next_block(best_chain, n_acc, bonus), n_acc)
+        self._tree_gate(st)
 
-    def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
-               min_depth, adapt):
-        R, d = tok.shape[0], self.depth
-        max_seq = self.llm.config.max_sequence_length
-        Tp = self.tree_width
-        packed = self._packed0(R, tok.device)
-        # call-boundary invariant: the accepted block is the pending root
-        tks = torch.zeros((R, d + 1), dtype=torch.int32, device=tok.device)
-        tks[:, 0] = tok
-        nblk = torch.ones_like(tok)
-        base = pos
-        alive = active.clone()
-        for i in range(n_rounds):
-            # reserve the padded verify width: the contiguous KV append
-            # writes the whole [r_pos, r_pos + Tp) staging window
-            act_i = (active & (remaining > 0)
-                     & (base + nblk - 1 + Tp <= max_seq - 1) & alive)
-            d_run = _round_depth(act_i, depth_v)
+    def _rounds(self, progs, n_rounds):
+        for _ in range(n_rounds):
+            d_run = _round_depth(progs.st)
             if d_run == 0:
                 break
-            blk, chain, n_acc, bonus = self._round(tks, nblk, base, act_i,
-                                                   depth_v, d_run)
+            for j in range(len(self.ssms)):
+                progs.run(f"catchup{j}")
+                for _ in range(d_run - 1):
+                    progs.run(f"step{j}")
+            progs.run("verify")
             self.rounds_run += 1
-            tks = torch.where(act_i[:, None], blk, tks)
-            base = torch.where(act_i, base + nblk, base)
-            nblk = torch.where(act_i, n_acc + 1, nblk)
-            remaining = remaining - torch.where(act_i, n_acc + 1, 0)
-            packed[:, i, :d] = chain
-            packed[:, i, d] = bonus
-            packed[:, i, d + 1] = torch.where(act_i, n_acc, -1)
-            packed[:, i, d + 2] = torch.where(act_i, depth_v, -1)
-            depth_v, alive = _adapt_depth_rule(adapt, act_i, n_acc, depth_v,
-                                               alive, min_depth, d)
-        return packed
 
 
 class BeamSpecEngine(_SpecEngineBase):
@@ -576,6 +802,10 @@ class BeamSpecEngine(_SpecEngineBase):
     * the accepted nodes' KV moves from their staged slots into the
       committed region (the reference's commit_tokens_kernel).
 
+    Programs: ``gate``, ``catchup`` (with level 0), ``level{t}`` for t =
+    1 .. depth-1 (each bakes its own slice offsets) and ``verify`` (the
+    tree pass, the acceptance walk, the commit and the bookkeeping).
+
     Same packed contract as ``SpecChainEngine``: the committed tokens of
     slot r in round k are ``toks[r, k, :n_acc + 1]``.
     """
@@ -595,6 +825,26 @@ class BeamSpecEngine(_SpecEngineBase):
         # beam levels staged on the draft so far (levels past the first;
         # each is one tree forward of the draft)
         self.levels_run = 0
+        self._init_programs()
+
+    def _models(self):
+        return [self.llm, self.ssm]
+
+    def _stages(self):
+        stages = {"gate": self._tree_gate, "catchup": self._catchup}
+        for t in range(1, self.depth):
+            stages[f"level{t}"] = functools.partial(self._level, t)
+        stages["verify"] = self._verify
+        return stages
+
+    def _state(self, R, dev):
+        W, Tp = self.width, self.tree_width
+        st = self._tree_state(self._block_state(R, dev), R, dev)
+        st.update(tokens=_i32(R, Tp, dev=dev), parent=_i32(R, Tp, dev=dev),
+                  anc=torch.zeros((R, Tp, Tp), dtype=torch.bool, device=dev),
+                  cum=torch.zeros((R, W), dtype=torch.float32, device=dev),
+                  positions=_i32(R, Tp, dev=dev), r_pos=_i32(R, dev=dev))
+        return st
 
     def _select(self, cand, ids_flat, par_flat):
         """The W best candidates: (cum [R, W], tokens [R, W], parents
@@ -604,11 +854,11 @@ class BeamSpecEngine(_SpecEngineBase):
         par = par_flat.gather(1, idx).to(torch.int32)
         return cum, tok, par
 
-    def _place_level(self, t, tree, cand, ids_flat, par_flat):
-        """Select level t's W nodes and write them into their fixed slots
-        of ``tree`` = (tokens, parent, anc) in place; returns the new
+    def _place_level(self, t, st, cand, ids_flat, par_flat):
+        """Select level t's W nodes, write them into their fixed slots of
+        the state's tree (tokens, parent, anc) and keep the new
         cumulative scores."""
-        tokens, parent, anc = tree
+        tokens, parent, anc = st["tokens"], st["parent"], st["anc"]
         W, Tp = self.width, self.tree_width
         R = tokens.shape[0]
         cum, tok, par = self._select(cand, ids_flat, par_flat)
@@ -621,67 +871,79 @@ class BeamSpecEngine(_SpecEngineBase):
         par_rows[:, :, lvl0:lvl0 + W] |= torch.eye(W, dtype=torch.bool,
                                                    device=anc.device)
         anc[:, lvl0:lvl0 + W] = par_rows
-        return cum
+        st["cum"].copy_(cum)
 
-    def _round(self, tks, nblk, base, active, depth_r, d_run):
-        d, W, T, Tp = self.depth, self.width, self.T, self.tree_width
-        llm, ssm = self.llm, self.ssm
-        R = tks.shape[0]
-        dev = tks.device
-        r_pos = base + nblk - 1
+    def _catchup(self, st, generator=None):
+        """Catch-up + root expansion: one causal pass of width d + 1 over
+        the accepted block, then level 0 from the root's top W."""
+        d, W, ssm = self.depth, self.width, self.ssm
+        tks, nblk, base, act = st["tks"], st["nblk"], st["base"], st["act"]
+        R, dev = tks.shape[0], tks.device
         last = (nblk - 1).clamp(min=0).long()
         rows = torch.arange(R, device=dev)
-        # catch-up + root expansion: one causal pass of width d + 1
         pos = base[:, None] + torch.arange(d + 1, dtype=torch.int32,
                                            device=dev)[None, :]
         out0, ssm.op_state = _forward_tokens(
             ssm, ssm.params, ssm.op_state, tks, pos, base,
-            torch.where(active, nblk, 0), active, self._compute_dtype)
+            torch.where(act, nblk, 0), act, self._compute_dtype)
         root_out = out0[rows, last]                              # [R, 2W]
-        tokens = torch.zeros((R, Tp), dtype=torch.int32, device=dev)
-        tokens[:, 0] = tks[rows, last]
-        parent = torch.full((R, Tp), -1, dtype=torch.int32, device=dev)
-        anc = torch.zeros((R, Tp, Tp), dtype=torch.bool, device=dev)
-        anc[:, 0, 0] = True
-        tree = (tokens, parent, anc)
-        positions = r_pos[:, None] + self._depth_of[None, :]
-        cum = self._place_level(
-            0, tree, torch.log(root_out[:, :W].float().clamp(min=1e-20)),
+        r_pos = base + nblk - 1
+        st["r_pos"].copy_(r_pos)
+        st["positions"].copy_(r_pos[:, None] + self._depth_of[None, :])
+        st["tokens"].zero_()
+        st["tokens"][:, 0] = tks[rows, last]
+        st["parent"].fill_(-1)
+        st["anc"].zero_()
+        st["anc"][:, 0, 0] = True
+        self._place_level(
+            0, st, torch.log(root_out[:, :W].float().clamp(min=1e-20)),
             root_out[:, W:2 * W], torch.zeros((R, W), dtype=torch.int32,
                                               device=dev))
-        for t in range(1, min(d, d_run)):
-            meta = TreeBatchMeta(
-                tokens=tokens, positions=positions, parent=parent,
-                ancestor=anc, start_pos=r_pos,
-                num_nodes=torch.where(active, 1 + t * W, 0).to(torch.int32),
-                active=active)
-            out, ssm.op_state = forward_with_meta(
-                ssm, ssm.params, ssm.op_state, meta, self._compute_dtype,
-                kv_contiguous=True)                            # [R, Tp, 2W]
-            self.levels_run += 1
-            f0 = 1 + (t - 1) * W
-            probs = out[:, f0:f0 + W, :W].float()
-            # candidate (frontier i, child j) at flat index i * W + j
-            cand = (cum[:, :, None]
-                    + torch.log(probs.clamp(min=1e-20))).reshape(R, W * W)
-            par_flat = (f0 + torch.arange(W, dtype=torch.int32, device=dev)
-                        )[None, :, None].expand(R, W, W).reshape(R, W * W)
-            cum = self._place_level(t, tree, cand,
-                                    out[:, f0:f0 + W, W:2 * W].reshape(
-                                        R, W * W), par_flat)
-        # verify the whole tree on the LLM
+
+    def _level(self, t, st, generator=None):
+        """Beam level t >= 1: stage the tree grown so far on the draft and
+        keep the W best children of the frontier."""
+        W, ssm = self.width, self.ssm
+        act = st["act"]
+        R, dev = act.shape[0], act.device
         meta = TreeBatchMeta(
-            tokens=tokens, positions=positions, parent=parent, ancestor=anc,
-            start_pos=r_pos,
-            num_nodes=torch.where(active, T, 0).to(torch.int32),
-            active=active)
+            tokens=st["tokens"], positions=st["positions"],
+            parent=st["parent"], ancestor=st["anc"], start_pos=st["r_pos"],
+            num_nodes=torch.where(act, 1 + t * W, 0).to(torch.int32),
+            active=act)
+        out, ssm.op_state = forward_with_meta(
+            ssm, ssm.params, ssm.op_state, meta, self._compute_dtype,
+            kv_contiguous=True)                                # [R, Tp, 2W]
+        f0 = 1 + (t - 1) * W
+        probs = out[:, f0:f0 + W, :W].float()
+        # candidate (frontier i, child j) at flat index i * W + j
+        cand = (st["cum"][:, :, None]
+                + torch.log(probs.clamp(min=1e-20))).reshape(R, W * W)
+        par_flat = (f0 + torch.arange(W, dtype=torch.int32, device=dev)
+                    )[None, :, None].expand(R, W, W).reshape(R, W * W)
+        self._place_level(t, st, cand,
+                          out[:, f0:f0 + W, W:2 * W].reshape(R, W * W),
+                          par_flat)
+
+    def _verify(self, st, generator=None):
+        """The whole tree on the verifier, the greedy acceptance walk, the
+        commit of the accepted nodes' KV and the bookkeeping."""
+        d, W, T = self.depth, self.width, self.T
+        llm = self.llm
+        tokens, parent, r_pos, act = (st["tokens"], st["parent"],
+                                      st["r_pos"], st["act"])
+        R, dev = tokens.shape[0], tokens.device
+        meta = TreeBatchMeta(
+            tokens=tokens, positions=st["positions"], parent=parent,
+            ancestor=st["anc"], start_pos=r_pos,
+            num_nodes=torch.where(act, T, 0).to(torch.int32), active=act)
         out, llm.op_state = forward_with_meta(
             llm, llm.params, llm.op_state, meta, self._compute_dtype,
             kv_contiguous=True)
         o = out.to(torch.int32)                                   # [R, Tp]
         # greedy acceptance walk over the levels
         cur = torch.zeros((R,), dtype=torch.long, device=dev)
-        alive = active.clone()
+        walk = act.clone()
         n_acc = torch.zeros((R,), dtype=torch.int32, device=dev)
         path = torch.zeros((R, d), dtype=torch.long, device=dev)
         for t in range(d):
@@ -689,54 +951,32 @@ class BeamSpecEngine(_SpecEngineBase):
             want = o.gather(1, cur[:, None])
             ok = ((parent[:, lvl0:lvl0 + W] == cur[:, None])
                   & (tokens[:, lvl0:lvl0 + W] == want)
-                  & (alive & (depth_r > t))[:, None])
+                  & (walk & (st["depth_v"] > t))[:, None])
             has = ok.any(dim=1)
             nxt = lvl0 + ok.to(torch.int32).argmax(dim=1)
             path[:, t] = torch.where(has, nxt, 0)
             cur = torch.where(has, nxt, cur)
             n_acc = n_acc + has.to(torch.int32)
-            alive = alive & has
+            walk = walk & has
         bonus = o.gather(1, cur[:, None])[:, 0]
         # the accepted nodes' KV: cache[r, r_pos+1+i] <- cache[r,
         # r_pos+path[r, i]] for i < n_acc
-        commit_tree_kv(llm.op_state, path - 1, n_acc, r_pos + 1, active,
+        commit_tree_kv(llm.op_state, path - 1, n_acc, r_pos + 1, act,
                        mesh=getattr(llm, "mesh", None),
                        seq_len=llm.config.max_sequence_length)
-        chain = tokens.gather(1, path)                             # [R, d]
-        idx = torch.arange(d + 1, device=dev)[None, :]
-        blk = torch.where(
-            idx < n_acc[:, None], torch.nn.functional.pad(chain, (0, 1)),
-            torch.where(idx == n_acc[:, None], bonus[:, None], 0))
-        return blk.to(torch.int32), n_acc
+        blk = _next_block(tokens.gather(1, path), n_acc, bonus)
+        self._book(st, blk, n_acc)
+        self._tree_advance(st, blk, n_acc)
+        self._tree_gate(st)
 
-    def _block(self, tok, pos, active, n_rounds, remaining, depth_v,
-               min_depth, adapt):
-        R, d = tok.shape[0], self.depth
-        max_seq = self.llm.config.max_sequence_length
-        Tp = self.tree_width
-        packed = self._packed0(R, tok.device)
-        # call-boundary invariant: the accepted block is the pending root
-        tks = torch.zeros((R, d + 1), dtype=torch.int32, device=tok.device)
-        tks[:, 0] = tok
-        nblk = torch.ones_like(tok)
-        base = pos
-        alive = active.clone()
-        for i in range(n_rounds):
-            # reserve the padded tree's whole staging window
-            act_i = (active & (remaining > 0)
-                     & (base + nblk - 1 + Tp <= max_seq - 1) & alive)
-            d_run = _round_depth(act_i, depth_v)
+    def _rounds(self, progs, n_rounds):
+        for _ in range(n_rounds):
+            d_run = _round_depth(progs.st)
             if d_run == 0:
                 break
-            blk, n_acc = self._round(tks, nblk, base, act_i, depth_v, d_run)
+            progs.run("catchup")
+            for t in range(1, min(self.depth, d_run)):
+                progs.run(f"level{t}")
+                self.levels_run += 1
+            progs.run("verify")
             self.rounds_run += 1
-            tks = torch.where(act_i[:, None], blk, tks)
-            base = torch.where(act_i, base + nblk, base)
-            nblk = torch.where(act_i, n_acc + 1, nblk)
-            remaining = remaining - torch.where(act_i, n_acc + 1, 0)
-            packed[:, i, :d + 1] = blk
-            packed[:, i, d + 1] = torch.where(act_i, n_acc, -1)
-            packed[:, i, d + 2] = torch.where(act_i, depth_v, -1)
-            depth_v, alive = _adapt_depth_rule(adapt, act_i, n_acc, depth_v,
-                                               alive, min_depth, d)
-        return packed

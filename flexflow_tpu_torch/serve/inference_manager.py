@@ -3,7 +3,9 @@ of ``flexflow_tpu/serve/inference_manager.py``).
 
 PyTorch runs eagerly, so a step is a direct call of the serving forward;
 the KV caches are updated in place and ``model.op_state`` keeps naming the
-same tensors. The manager owns the model's random stream: one
+same tensors. A decode block is the model's step program
+(``serve/engine.make_decode_block``): captured once as a CUDA graph on
+the card and replayed a step (``serve/graphs.py``). The manager owns the model's random stream: one
 ``torch.Generator`` on the model's device, seeded from ``FFConfig.seed``
 (a CPU generator cannot drive draws on the card), which every step and
 decode block hands to the forward; a sampled graph advances it.
@@ -108,8 +110,8 @@ class InferenceManager:
 
     def decode_block(self, tok: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_steps: int) -> np.ndarray:
-        """Run ``n_steps`` decode steps with one host readback. Returns
-        int32 [R, n_steps]."""
+        """Run ``n_steps`` decode steps (the step program's replays) with
+        one host readback. Returns int32 [R, n_steps]."""
         from flexflow_tpu_torch.serve.engine import make_decode_block
 
         m = self.model

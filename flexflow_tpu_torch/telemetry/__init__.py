@@ -81,11 +81,13 @@ result), or, for output-free prefill steps, followed by an explicit
 model's device) — which runs only with telemetry on, so the disabled
 path keeps prefill asynchronous.
 
-The port never compiles (PyTorch runs eagerly and there are no CUDA
-graphs yet), so ``ffsv_jit_cache_misses_total`` and
-``ffsv_engine_retraces_total`` are registered for the vocabulary's sake
-and stay 0 (the JAX package's ``note_retrace`` hook, which feeds them,
-has no caller here and is not ported).
+Compiles: the port's engines build their programs once a key
+(``serve/graphs.py``: captured CUDA graphs on the card, the stages
+themselves elsewhere; the JAX engines' jit traces). Each speculative
+engine's ``run_block`` reports the builds it has not reported through
+``note_retrace``, with the JAX package's arithmetic, so
+``ffsv_jit_cache_misses_total`` counts every build and
+``ffsv_engine_retraces_total`` the builds past each engine's first.
 """
 
 from __future__ import annotations
@@ -227,9 +229,8 @@ class ServingTelemetry:
         self.spec_acceptance_ewma = r.gauge(
             "ffsv_spec_acceptance_ewma",
             "mean per-token acceptance EWMA over live spec requests")
-        # compile observability: the JAX engines count their block
-        # compiles here; the port runs eagerly and compiles nothing, so
-        # both stay 0 (kept so the two packages export one vocabulary)
+        # compile observability: the engines' program builds
+        # (serve/graphs.py), reported by note_retrace
         self.jit_cache_misses = r.counter(
             "ffsv_jit_cache_misses_total",
             "fused engine block compiles (jit cache misses)")
@@ -323,6 +324,22 @@ class ServingTelemetry:
         scheduled right before the crash" is the first question an
         incident report answers."""
         self.flight.record("slot_grant", guid=guid, slot=slot)
+
+    def note_retrace(self, engine: str, new_traces: int,
+                     total_traces: int):
+        """Build accounting after an engine block that built programs:
+        ``new_traces`` builds happened since the engine last reported,
+        bringing its lifetime count to ``total_traces``. Every build is a
+        cache miss; any beyond the engine's expected single build is a
+        retrace (the no-retrace invariant broken, also flight-recorded: a
+        retrace storm right before a crash is a classic incident
+        signature)."""
+        self.jit_cache_misses.inc(new_traces)
+        retraces = min(int(new_traces), max(0, int(total_traces) - 1))
+        if retraces > 0:
+            self.engine_retraces.inc(retraces)
+            self.flight.record("retrace", engine=engine,
+                               traces=int(total_traces))
 
     def note_failover(self, guid: int, replica: int, target: int,
                       trace_id: Optional[str] = None):

@@ -60,10 +60,6 @@ NOT_PORTED = {
     "PartitionSpec.UNCONSTRAINED: the port's placement walk has no "
     "sharding propagation to leave a dim to": [
         "flexflow_tpu.parallel.ops.UNC"],
-    "a retrace belongs with CUDA-graph capture, the first code that would "
-    "call it (the port registers ffsv_engine_retraces_total at 0)": [
-        "flexflow_tpu.telemetry.ServingTelemetry.note_retrace",
-        "flexflow_tpu.serve.ServingTelemetry.note_retrace"],
 }
 # JAX modules with no port module, and why
 NO_MODULE = {
