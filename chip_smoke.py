@@ -1962,6 +1962,9 @@ def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
     log(f"  end to end: {n_tok} tokens in {wall:.3f} s = "
         f"{n_tok / wall:.1f} tokens/s  [{card}]")
     log(f"  peak device memory {peak:.2f} GiB  [{card}]")
+    steps_b, dec_b = program_pool_bytes(ifm)
+    log(f"  of which graph pools: step programs {steps_b / 2**30:.3f} GiB, "
+        f"decode program {dec_b / 2**30:.3f} GiB  [{card}]")
     log(f"  kernel launches in the measured run: {counts}")
     if n_tok != len(prompts) * new_tokens or not all(
             0 <= t < vocab for r in res for t in r.output_tokens):
@@ -1975,7 +1978,9 @@ def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
     if profile:
         profile_decode(torch, llm, prompts, card)
     return counts, dict(prefill_ms=pre_ms, decode_ms_per_step=dec_ms,
-                        tokens_per_s=n_tok / wall, peak_gib=peak)
+                        tokens_per_s=n_tok / wall, peak_gib=peak,
+                        step_pool_gib=steps_b / 2**30,
+                        decode_pool_gib=dec_b / 2**30)
 
 
 # ----------------------------------------------------------------------
@@ -5020,6 +5025,7 @@ def offload_phase(torch, card):
     import numpy as np
 
     from flexflow_tpu_torch import kernels
+    from flexflow_tpu_torch.serve import graphs
     from flexflow_tpu_torch.serve.request_manager import RequestManager
 
     off, _, s_off = quantized_llm(torch, "int8")
@@ -5027,6 +5033,15 @@ def offload_phase(torch, card):
                                 offload_reserve_space_size=OFFLOAD_RESERVE)
     m_off, m_on = off.ffmodel, on.ffmodel
     moved = _offloaded_nbytes(m_on)
+    pf_on = m_on._prefetcher
+    ring_bound = max(pf_on.reserve, 2 * max(pf_on.sizes))
+    log(f"  the offload ring: {pf_on.ring_bytes / 2**30:.3f} GiB for "
+        f"{len(pf_on.order)} units (largest {max(pf_on.sizes) / 2**20:.1f} "
+        f"MiB), bound {ring_bound / 2**30:.3f} GiB; the programs capture: "
+        f"{graphs.captures(m_on)}  [{card}]")
+    if pf_on.ring_bytes > ring_bound or not graphs.captures(m_on):
+        raise AssertionError("14a: the ring passes its bound, or the "
+                             "offloaded model's programs do not capture")
     log(f"  built in {s_off:.1f} s (off) and {s_on:.1f} s (on, offload at "
         f"compile); {moved / 1e9:.3f} GB paged to pinned host memory in "
         f"{sum(len(v) for v in m_on._offloaded.values())} weights; on the "
@@ -5093,6 +5108,11 @@ def offload_phase(torch, card):
         f"fetch a forward); {moved / 1e9:.3f} GB a decode step at "
         f"{ms_on[0]:.3f} ms implies {gbps:.1f} GB/s  [{card}]")
     log(f"  launches, offload on: {c_on}")
+    on_steps, on_dec = program_pool_bytes(RequestManager._ifm(m_on))
+    log(f"  offload on: the ring {pf_on.ring_bytes / 2**30:.3f} GiB, graph "
+        f"pools {on_steps / 2**30:.3f} GiB (steps) + {on_dec / 2**30:.3f} "
+        f"GiB (decode), own peak {stats('own_peak', 'on')[0] / 2**30:.2f} "
+        f"GiB  [{card}]")
     if (equal != REQUESTS or not c_on["flash_attend_append"]
             or not c_on["qmatmul"] or c_on["plain_attend_cuda"]
             or c_on["qmatmul_plain_cuda"]
@@ -5105,7 +5125,10 @@ def offload_phase(torch, card):
                   peak_gib_on=stats("peak", "on")[0] / 2**30,
                   own_peak_gib_off=stats("own_peak", "off")[0] / 2**30,
                   own_peak_gib_on=stats("own_peak", "on")[0] / 2**30,
-                  h2d_gb_per_s=gbps, reserve=OFFLOAD_RESERVE)
+                  h2d_gb_per_s=gbps, reserve=OFFLOAD_RESERVE,
+                  ring_gib=pf_on.ring_bytes / 2**30,
+                  step_pool_gib=on_steps / 2**30,
+                  decode_pool_gib=on_dec / 2**30)
     del off, on, m_off, m_on
     gc.collect()
     torch.cuda.empty_cache()
@@ -6583,6 +6606,9 @@ PROGRAM_PAIRS = 2        # 18: alternating (eager, program) timed pairs
 PROGRAM_STEPS = 8        # 18: steps of a timed decode block
 PROGRAM_ROUNDS = 6       # 18: rounds of a timed speculation block
 PROGRAM_NEW = 8          # 18: new tokens of a profiled generate
+PROGRAM_CHUNK = 64       # 18: prefill width (256 tokens a batch // 4 rows)
+PROGRAM_OFFLOAD_LAYERS = 4          # 18: the offloaded model's depth
+PROGRAM_OFFLOAD_RESERVE = 1 << 30   # 18: its ring (the paged bytes: 2.1 GB)
 
 
 def cache_restorer(models):
@@ -6619,13 +6645,16 @@ def prefill_pending(models, prompts):
             np.full(R, L - 1, np.int32), np.ones(R, bool))
 
 
-def eager_vs_program(torch, card, what, run, restore, unit):
+def eager_vs_program(torch, card, what, run, restore, unit, after=None,
+                     need=("flash_attend", "flash_attend_append")):
     """``run()`` -> (arrays, units of work) from the cache state that
     ``restore`` sets: once through the engine's eager body
     (``graphs.eager_bodies``), once through its program (the first
     program run builds it), then ``PROGRAM_PAIRS`` timed (eager,
-    program) pairs. Gates: every array bit-equal, launch counts equal,
-    no plain call. Returns the report."""
+    program) pairs. ``after()``, outside the timed region, gives more
+    arrays to compare (KV-cache bytes). Gates: every array bit-equal,
+    launch counts equal, one of the ``need`` kernels launched, no plain
+    call. Returns the report."""
     import numpy as np
 
     from flexflow_tpu_torch import kernels
@@ -6639,7 +6668,10 @@ def eager_vs_program(torch, card, what, run, restore, unit):
         with graphs.eager_bodies() if eager else contextlib.nullcontext():
             out, n = run()
         torch.cuda.synchronize()
-        return out, n, time.perf_counter() - t, dict(kernels.counts)
+        s = time.perf_counter() - t
+        if after is not None:
+            out = list(out) + list(after())
+        return out, n, s, dict(kernels.counts)
 
     ref, n_ref, _, eager_counts = once(True)
     out, n, build_s, counts = once(False)
@@ -6661,14 +6693,223 @@ def eager_vs_program(torch, card, what, run, restore, unit):
     if not (equal and all(same)):
         raise AssertionError(f"{what}: the program's result differs from "
                              f"its eager body's")
-    if counts != eager_counts or not (counts["flash_attend"]
-                                      or counts["flash_attend_append"]):
+    if counts != eager_counts or (need and not any(counts[k]
+                                                   for k in need)):
         raise AssertionError(f"{what}: launches {counts} != eager "
                              f"{eager_counts}")
     if counts["plain_attend_cuda"] or counts["qmatmul_plain_cuda"]:
         raise AssertionError(f"{what}: a plain version ran on the card")
     return dict(equal=equal, counts=counts, units=n, build_s=build_s,
                 eager_ms=ms["eager"], program_ms=ms["program"])
+
+
+def program_pool_bytes(ifm):
+    """(step programs', decode program's) graph-pool bytes of a manager:
+    the device memory its captured programs hold beside the model's
+    weights and caches."""
+    from flexflow_tpu_torch.serve.graphs import pool_bytes
+
+    steps = pool_bytes(ifm.graph_pool) if ifm.graph_pool is not None else 0
+    dec = 0
+    if ifm._decode_block is not None:
+        dec = sum(pool_bytes(p.pool) for p in
+                  ifm._decode_block.program._cache.programs.values()
+                  if p.pool is not None)
+    return steps, dec
+
+
+def program_pools(torch, card, m):
+    """Prints and returns ``m``'s program pools in GiB beside the bytes of
+    its parameters and caches on the card."""
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    steps, dec = program_pool_bytes(RequestManager._ifm(m))
+    out = dict(step_pool_gib=steps / 2**30, decode_pool_gib=dec / 2**30,
+               model_gib=_device_bytes(m) / 2**30)
+    log(f"  graph pools: step programs {out['step_pool_gib']:.3f} GiB, "
+        f"decode program {out['decode_pool_gib']:.3f} GiB; the model's "
+        f"parameters and caches {out['model_gib']:.2f} GiB  [{card}]")
+    return out
+
+
+def kv_bytes(torch, models, cols):
+    """A function giving the first ``cols`` columns of every KV cache of
+    ``models`` as int16 arrays (every byte compared)."""
+    def read():
+        out = []
+        for m in models:
+            for st in m.op_state.values():
+                if isinstance(st, dict):
+                    for t in st.values():
+                        out.append(t[..., :cols, :].contiguous()
+                                   .view(torch.int16).cpu().numpy())
+        return out
+    return read
+
+
+def prefill_row(torch, m):
+    """(run, ) of one [REQUESTS, PROGRAM_CHUNK] prefill step on ``m``: every
+    row a full chunk of seeded tokens from position 0, its token ids
+    returned."""
+    import numpy as np
+
+    from flexflow_tpu_torch.serve.batch_config import BatchMeta
+    from flexflow_tpu_torch.serve.request_manager import RequestManager
+
+    rng = np.random.default_rng(18)
+    R, Q = REQUESTS, PROGRAM_CHUNK
+    meta = BatchMeta(
+        tokens=rng.integers(0, VOCAB, (R, Q)).astype(np.int32),
+        positions=np.tile(np.arange(Q, dtype=np.int32), (R, 1)),
+        start_pos=np.zeros(R, np.int32), num_tokens=np.full(R, Q, np.int32),
+        active=np.ones(R, bool))
+    ifm = RequestManager._ifm(m)
+
+    def run():
+        return (ifm.step(meta),), 1
+    return (run,)
+
+
+def step_program_rows(torch, card, sm, beams, restore, pending):
+    """Phase 18's serving steps against their eager bodies: the 7B [8, 64]
+    prefill (tokens and every KV byte it wrote), one host tree round with
+    two beam drafts and its commit, the cramped width-1 step, and the
+    decode block of an offloaded model (7B widths, ``PROGRAM_OFFLOAD_
+    LAYERS`` layers, its weights paged through a ring of
+    ``PROGRAM_OFFLOAD_RESERVE`` bytes)."""
+    import dataclasses as dc
+
+    import numpy as np
+
+    from flexflow_tpu_torch import DataType, FFModel
+    from flexflow_tpu_torch.ffconst import InferenceMode
+    from flexflow_tpu_torch.models.llama import (LLAMAConfig,
+                                                 create_llama_model)
+    from flexflow_tpu_torch.serve import graphs
+    from flexflow_tpu_torch.serve.request_manager import (Request,
+                                                          RequestManager)
+
+    verifier, prompts = sm.verifier, sm.prompts
+    tok, pos, act = pending
+    ifm = RequestManager._ifm(verifier)
+    R, L = REQUESTS, PROMPT_LEN
+    report = {}
+    report["prefill"] = eager_vs_program(
+        torch, card, f"prefill step [{R}, {PROGRAM_CHUNK}], bf16",
+        *prefill_row(torch, verifier), restore, "step",
+        after=kv_bytes(torch, [verifier], PROGRAM_CHUNK))
+    if not report["prefill"]["counts"]["flash_attend"]:
+        raise AssertionError("the prefill launched no K1")
+    # where the prefill program's time goes: its kernels, one replay
+    run_prefill = prefill_row(torch, verifier)[0]
+    report["prefill_busy"] = profile_window(
+        torch, run_prefill, f"one [{R}, {PROGRAM_CHUNK}] prefill program",
+        card, top=8, host_ops=False)
+
+    rm = RequestManager()           # one commit program across the runs
+
+    def host_round():
+        rm.spec_stats = dict.fromkeys(("rounds", "request_rounds",
+                                       "committed", "parked"), 0)
+        live = [Request(guid=i, prompt_tokens=list(p), max_new_tokens=64,
+                        slot=i, cache_depth=L - 1,
+                        ssm_cache_depth={0: L - 1, 1: L - 1})
+                for i, p in enumerate(prompts)]
+        chains = []
+        for j, b in enumerate(beams):
+            chains += rm._draft_beams(RequestManager._ifm(b), j, live, R,
+                                      BEAM_DEPTH, BEAM_WIDTH)
+        trees = {r.slot: rm._merge_tree(r, chains, MAX_SEQ) for r in live}
+        rm._verify_and_commit(verifier, ifm, live, trees, R,
+                              1 + BEAM_DEPTH * len(beams) * BEAM_WIDTH,
+                              MAX_SEQ)
+        return [np.array(r.tokens) for r in live], 1
+
+    cols = L + 1 + BEAM_DEPTH * len(beams) * BEAM_WIDTH
+    report["host_round"] = eager_vs_program(
+        torch, card, f"host tree round, two beam drafts (width "
+        f"{BEAM_WIDTH}, depth {BEAM_DEPTH}), with its commit", host_round,
+        restore, "round", after=kv_bytes(torch, [verifier, *beams], cols),
+        need=("flash_attend_bias",))
+    # the round commits where an accepted path is not the first chain;
+    # the commit program alone, on paths that always move KV
+    # (the host path's src_node width: one key with the round's commit)
+    src = torch.zeros((R, rm.max_spec_depth + 1), dtype=torch.int32,
+                      device="cuda")
+    src[:, :BEAM_DEPTH] = torch.arange(BEAM_DEPTH) * 2 + 1
+    ncommit = torch.tensor([BEAM_DEPTH - i % 2 for i in range(R)],
+                           dtype=torch.int32, device="cuda")
+    start = torch.full((R,), L, dtype=torch.int32, device="cuda")
+    live_rows = torch.ones(R, dtype=torch.bool, device="cuda")
+
+    def commit():
+        verifier.op_state = rm._commit(verifier.op_state, src, ncommit,
+                                       start, live_rows)
+        return [], 1
+
+    report["commit"] = eager_vs_program(
+        torch, card, "the host tree path's commit", commit, restore,
+        "commit", after=kv_bytes(torch, [verifier], L + 2 * BEAM_DEPTH + 1),
+        need=())
+    commits = rm._commit._cache.programs.values()
+    log(f"  the commit: {rm._commit.builds} program(s) built (one key), "
+        f"captured: {all(p.graphs for p in commits)}")
+    if rm._commit.builds != 1 or not all(p.graphs for p in commits):
+        raise AssertionError("the commit program was not built once and "
+                             "captured")
+
+    def cramped():
+        rows = [(i, [int(tok[i])], int(pos[i])) for i in range(R)]
+        return (ifm.step(RequestManager._meta_from_rows(R, 1, rows)),), 1
+
+    report["cramped"] = eager_vs_program(
+        torch, card, "cramped step, width 1", cramped, restore, "step",
+        after=kv_bytes(torch, [verifier], L))
+    steps = ifm._steps.programs
+    if not steps or not all(p.graphs for p in steps.values()):
+        raise AssertionError("a step program of the verifier was not "
+                             "captured")
+    log(f"  verifier: {ifm.step_builds} step programs built, every one "
+        f"captured; keys (tree, R, width): "
+        f"{sorted((k[0], k[1], k[2]) for k in steps)}")
+
+    # an offloaded model's decode block: 7B widths, the verifier's first
+    # layers' tensors paged to pinned host memory
+    off = FFModel(dc.replace(verifier.config,
+                             offload_reserve_space_size=PROGRAM_OFFLOAD_RESERVE))
+    create_llama_model(off, LLAMAConfig.from_hf_config(
+        dict(sm.hf, num_hidden_layers=PROGRAM_OFFLOAD_LAYERS)),
+        mode=InferenceMode.TREE_VERIFY_MODE, data_type=DataType.DT_BFLOAT16)
+    off.compile()
+    share_params(off, verifier)
+    moved = off.offload_weights()
+    pf = off._prefetcher
+    bound = max(pf.reserve, 2 * max(pf.sizes))
+    log(f"  offloaded model: {PROGRAM_OFFLOAD_LAYERS} layers, "
+        f"{moved / 2**30:.3f} GiB paged in {len(pf.order)} units (largest "
+        f"{max(pf.sizes) / 2**20:.1f} MiB); ring {pf.ring_bytes / 2**30:.3f}"
+        f" GiB (bound {bound / 2**30:.3f} GiB); captured: "
+        f"{graphs.captures(off)}  [{card}]")
+    if pf.ring_bytes > bound or not graphs.captures(off):
+        raise AssertionError("offload: the ring passes its bound, or the "
+                             "offloaded model does not capture")
+    prefill_pending([off], prompts)
+    off_ifm = RequestManager._ifm(off)
+
+    def off_decode():
+        return (off_ifm.decode_block(tok, pos, act, PROGRAM_STEPS),), \
+            PROGRAM_STEPS
+
+    report["offload_decode"] = eager_vs_program(
+        torch, card, f"decode block, offloaded weights (ring "
+        f"{pf.ring_bytes / 2**30:.3f} GiB)", off_decode,
+        cache_restorer([off]), "step", after=kv_bytes(torch, [off], L + 8))
+    report["offload_ring_gib"] = pf.ring_bytes / 2**30
+    report["offload_pools"] = program_pools(torch, card, off)
+    del off, off_ifm, pf
+    gc.collect()
+    torch.cuda.empty_cache()
+    return report
 
 
 def engine_programs_phase(torch, card, sm):
@@ -6714,9 +6955,10 @@ def engine_programs_phase(torch, card, sm):
 
     draft3 = model(DRAFT_LAYERS + 1)
     beam = model(DRAFT_LAYERS, max_beam_width=BEAM_WIDTH)
+    beam3 = model(DRAFT_LAYERS + 1, max_beam_width=BEAM_WIDTH)
     sampled = sampled_twin(verifier, GenerationConfig(
         do_sample=True, topp=0.6, temperature=0.8))
-    models = [verifier, draft, draft3, beam]
+    models = [verifier, draft, draft3, beam, beam3]
     tok, pos, act = prefill_pending(models, prompts)
     restore = cache_restorer(models)
     report = {"seconds": seconds}
@@ -6766,6 +7008,9 @@ def engine_programs_phase(torch, card, sm):
                                  f"launches {report[name]['counts']}")
 
     part("spec engines")
+    report.update(step_program_rows(torch, card, sm, (beam, beam3), restore,
+                                    (tok, pos, act)))
+    part("step programs")
     # an adaptive mixed batch builds each engine once
     tel = ServingTelemetry()
     gcfg = GenerationConfig(adaptive_spec=True, spec_fallback_margin=0.0,
@@ -6824,7 +7069,15 @@ def engine_programs_phase(torch, card, sm):
         decode(ifm), restore, "step")
     if not report["decode_int8"]["counts"]["qmatmul"]:
         raise AssertionError("the int8 decode launched no K3")
-    part("int8 decode")
+    # the int8 verifier's [8, 64] prefill: K3 inside the step program
+    report["prefill_int8"] = eager_vs_program(
+        torch, card, f"prefill step [{REQUESTS}, {PROGRAM_CHUNK}], int8 "
+        f"weights", *prefill_row(torch, verifier), restore, "step",
+        after=kv_bytes(torch, [verifier], PROGRAM_CHUNK))
+    if not report["prefill_int8"]["counts"]["qmatmul"]:
+        raise AssertionError("the int8 prefill launched no K3")
+    report["pools"] = program_pools(torch, card, verifier)
+    part("int8 decode and prefill")
     return report["decode"]["counts"], report
 
 

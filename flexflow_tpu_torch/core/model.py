@@ -804,7 +804,9 @@ class FFModel:
         if plan is not None and layer.name in plan.attrs:
             attrs = dict(attrs, **plan.attrs[layer.name])
         if layer.name in self._offloaded:
-            # paged weights stream back first, still compressed
+            # paged weights stream back first, still compressed, into
+            # the prefetcher's ring (ordered by events: a captured
+            # program takes the copies as graph nodes)
             from flexflow_tpu_torch.offload import fetch_layer_params
 
             lp = fetch_layer_params(self, layer.name, lp)
@@ -1365,8 +1367,12 @@ class FFModel:
     def quantize_weights(self, qtype: str):
         """Quantize every eligible weight to int8/int4 on its device
         (inference only; leaves already quantized stay as they are)."""
+        from flexflow_tpu_torch.serve.graphs import drop_programs
+
         before = quantized_nbytes(self.params)
         self.params = quantize_params(self.params, normalize_qtype(qtype))
+        # the programs over the old leaves read them by address
+        drop_programs(self)
         if self.config.profiling:
             print(f"quantize_weights({qtype}): {before / 1e6:.1f}MB -> "
                   f"{quantized_nbytes(self.params) / 1e6:.1f}MB")

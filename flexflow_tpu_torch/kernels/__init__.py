@@ -30,6 +30,8 @@ A wrapper counts through ``bump``. While a CUDA graph is captured
 (``serve/graphs.py``) nothing launches, so inside ``tallying(t)`` the
 bumps and shapes go to the ``Tally`` ``t`` instead of ``counts`` and
 ``shapes``; each replay of the graph adds its tally (``add_tally``).
+Other host-side counters of a graph's work go through ``each_run`` (the
+offload prefetcher's bytes): called now, or at each replay.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ class Tally:
     def __init__(self):
         self.counts = dict.fromkeys(counts, 0)
         self.shapes = set()
+        self.each_run = []          # host counters bumped at each replay
 
 
 _tally = contextvars.ContextVar("flexflow_tpu_torch_tally", default=None)
@@ -79,6 +82,16 @@ def bump(key: str):
     (counts if t is None else t.counts)[key] += 1
 
 
+def each_run(fn):
+    """``fn()`` now, or, inside a tally being taken, at each replay of
+    its graph: a host-side counter of work the graph does."""
+    t = _tally.get()
+    if t is None:
+        fn()
+    else:
+        t.each_run.append(fn)
+
+
 def note_shape(kernel: str, shape: tuple):
     """Called by a wrapper where it launches ``kernel``."""
     t = _tally.get()
@@ -93,6 +106,8 @@ def add_tally(tally: "Tally"):
     its shapes into ``shapes`` inside ``record_shapes()``."""
     for k, n in tally.counts.items():
         counts[k] += n
+    for fn in tally.each_run:
+        fn()
     if _recording[0]:
         for kernel, shape in tally.shapes:
             shapes.setdefault(kernel, set()).add(shape)

@@ -10,36 +10,40 @@ scale, never a dequantized copy. ``FFModel._apply_layer`` then fetches a
 layer's weights before it runs (and before lazy dequantization), through
 the model's ``Prefetcher``:
 
-* the copies run on a side CUDA stream, ordered by events: while layer i
-  computes, the copies of the next offloaded layers are in flight,
-  wrapping from the last layer to the first for the next forward;
-* the compute stream waits on a layer's event before reading its copies,
-  and ``record_stream`` tells the caching allocator that the buffers are
-  used there, so it reuses them only once that work is done;
-* ``FFConfig.offload_reserve_space_size`` bounds the weight bytes on the
-  card: the copies in flight plus the fetched layers whose compute the
-  card has not finished (the host runs ahead of the card). Before a
-  copy would pass the bound, the host waits for the oldest such layer's
-  compute; the next layer's copy always goes out.
+* the copies land in one device scratch ring of
+  ``FFConfig.offload_reserve_space_size`` bytes (sized up to twice the
+  largest unit where the reserve does not hold it twice; the size is
+  printed), allocated once, each unit at a fixed slot: the weight bytes
+  on the card are the ring's, by construction;
+* they run on a side CUDA stream forked from the compute stream,
+  ordered by events, never by a host wait: while layer i computes, the
+  copies of the next layers whose slots are free are in flight, and a
+  slot's next copy waits on the compute of the layer that last read it.
+  A captured program (``serve/graphs.py``) takes a forward's copies as
+  memcpy nodes, forked and joined by those events; nothing crosses a
+  forward.
 
 Under a pipeline plan the stage-stacked leaves are paged
 (``params[PP_PARAMS_KEY]``); a pending plan is finalized first, and
 ``fetch_block_params`` streams one block's slices back. The microbatches
 of a forward share a block's fetch when the stage's paged bytes fit the
-reserve (``pipeline_plan.run_pp_graph``); else each fetches it again.
+reserve and the ring holds them all (``pipeline_plan.run_pp_graph``);
+else each fetches it again.
 
-On a CPU model the host is the device: the same bookkeeping and fetch
-path run without pinning or copies (what the CPU tests exercise). On the
-card, a weight that cannot be pinned raises.
+On a CPU model the host is the device: nothing is pinned, and the ring
+is host memory that the same schedule fills by synchronous copies (what
+the CPU tests exercise). On the card, a weight that cannot be pinned
+raises.
 """
 
 from __future__ import annotations
 
-import collections
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
 
+from flexflow_tpu_torch import kernels
 from flexflow_tpu_torch.quant import (QuantizedWeight, _QUANT_NAMES,
                                       is_quantized)
 
@@ -138,8 +142,8 @@ def offload_model_weights(model, min_bytes: int = 1 << 20) -> int:
                 moved += n
                 offloaded.setdefault(lname, {})[wname] = dev
     model._offloaded = offloaded
-    model._prefetcher = Prefetcher(model) if offloaded else None
     if moved:
+        model._prefetcher = Prefetcher(model)
         # programs built over the resident weights read them by address:
         # drop them, and the next block builds again (the JAX jit retraces
         # on the new shardings)
@@ -149,19 +153,69 @@ def offload_model_weights(model, min_bytes: int = 1 << 20) -> int:
     return moved
 
 
-def _to_device(w, device, non_blocking: bool):
-    if is_quantized(w):
-        return QuantizedWeight(
-            w.qtype, w.q.to(device, non_blocking=non_blocking),
-            w.scale.to(device, non_blocking=non_blocking), w.rows, w.dtype)
-    return w.to(device, non_blocking=non_blocking)
+# every leaf's slot in the ring starts at a multiple of this (K3's tensor
+# maps and the kernels' vector loads want 16-byte addresses)
+_ALIGN = 256
+
+
+def _aligned(n: int) -> int:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+def ring_schedule(sizes: List[int], ring: int) -> List[int]:
+    """The ring offset of each unit (``sizes``: its aligned bytes, in
+    fetch order): one after the other, back to 0 where a unit would pass
+    the ring's end."""
+    offs, o = [], 0
+    for b in sizes:
+        if o + b > ring:
+            o = 0
+        offs.append(o)
+        o += b
+    return offs
+
+
+def ring_waits(sizes: List[int], offs: List[int]) -> List[int]:
+    """For each unit, the last earlier unit of the order whose slot its
+    slot overlaps (-1: none): the unit's copy waits until that unit's
+    compute is done."""
+    need = []
+    for i, (o, b) in enumerate(zip(offs, sizes)):
+        need.append(max((j for j in range(i)
+                         if offs[j] < o + b and o < offs[j] + sizes[j]),
+                        default=-1))
+    return need
 
 
 class Prefetcher:
-    """Streams offloaded weights back to the card ahead of use.
+    """Streams offloaded weights back to the device ahead of use, through
+    one scratch ring (the reference's reserved GPU region).
 
     A unit is a layer name, or ``("block", j)`` for this stage's stacked
-    block j under a pipeline plan; units are fetched in graph order."""
+    block j under a pipeline plan; units are fetched in graph order, and
+    a fetch of the first unit (or of another than the next) starts a
+    pass. The ring, ``offload_reserve_space_size`` bytes (sized up to
+    twice the largest unit where that does not fit, and printed; no more
+    than every unit at once), is allocated once, here, outside any graph
+    pool. Each unit has a fixed slot in it (``ring_schedule``), and each
+    of its leaves a fixed view, so a program that reads them reads the
+    same addresses at every replay. A pass orders everything by events,
+    never by a host wait, so a CUDA graph captures it whole:
+
+    * the copy stream forks from the current stream where the pass
+      starts (it waits on everything the last pass enqueued);
+    * a unit's copy waits on the compute-done event of the last earlier
+      unit of the pass whose slot it overwrites (``ring_waits``), and is
+      issued as soon as that event exists: while a layer computes, the
+      copies of the next units that fit are in flight;
+    * the compute stream waits on a unit's copy event before it reads
+      the unit; its done event is recorded at the next fetch, once the
+      unit's compute is enqueued.
+
+    Every copy rejoins the compute stream within its pass, so no prefetch
+    crosses a pass (nor a program's replay). On a CPU model the ring is
+    host memory and the copies are synchronous: the same schedule, the
+    same views."""
 
     def __init__(self, model):
         from flexflow_tpu_torch.serve.pipeline_plan import PP_PARAMS_KEY
@@ -169,25 +223,48 @@ class Prefetcher:
         self.model = model
         self.device = model.device
         off = model._offloaded
+        plan = model._pp_plan
         if PP_PARAMS_KEY in off:
-            n = model._pp_plan.blocks_per_stage
-            self.order: List[Any] = [("block", j) for j in range(n)]
+            # the segments before and after the blocks keep their layers
+            self.order: List[Any] = (
+                [ly.name for ly in plan.pre if ly.name in off]
+                + [("block", j) for j in range(plan.blocks_per_stage)]
+                + [ly.name for ly in plan.post if ly.name in off])
         else:
             self.order = [layer.name for layer in model.layers
                           if layer.name in off]
+        self._index = {u: i for i, u in enumerate(self.order)}
         self.reserve = int(model.config.offload_reserve_space_size)
-        # unit -> (copy event, device leaves, bytes): copies issued, not
-        # yet handed out
-        self._inflight: "collections.OrderedDict" = collections.OrderedDict()
-        # (event on the compute stream past the unit's use, bytes) of the
-        # units handed out, oldest first; the last one's compute is still
-        # being enqueued, so it has no event yet
-        self._in_use: "collections.deque" = collections.deque()
-        self._last_bytes = 0
+        self.sizes = [sum(_aligned(int(t.nbytes)) for w in
+                          self._host_leaves(u).values()
+                          for t in _leaf_tensors(w)) for u in self.order]
+        largest, total = max(self.sizes), sum(self.sizes)
+        self.ring_bytes = min(total, max(self.reserve, 2 * largest))
+        if self.ring_bytes > self.reserve:
+            print(f"offload: the reserve ({self.reserve} bytes) does not "
+                  f"hold the largest unit ({largest} bytes) twice; the "
+                  f"ring is {self.ring_bytes} bytes")
+        self.ring = torch.empty(self.ring_bytes, dtype=torch.uint8,
+                                device=self.device)
+        self.offsets = ring_schedule(self.sizes, self.ring_bytes)
+        self.waits = ring_waits(self.sizes, self.offsets)
+        self._views = [self._ring_views(i) for i in range(len(self.order))]
         self._stream = (torch.cuda.Stream(self.device)
                         if self.device.type == "cuda" else None)
+        # the pass: its first unit, the unit it expects next, the copies
+        # issued ({unit index: copy event or None}) and the units whose
+        # compute-done events later copies wait on
+        self._start = self._next = 0
+        self._copied: Dict[int, Any] = {}
+        self._done: Dict[int, Any] = {}
         # bytes streamed back since the counter was last reset
         self.bytes_fetched = 0
+
+    @property
+    def holds_all(self) -> bool:
+        """Does the ring hold every unit at once (no slot reused within a
+        pass)?"""
+        return self.ring_bytes >= sum(self.sizes)
 
     def _host_leaves(self, unit) -> Dict[Any, Any]:
         from flexflow_tpu_torch.parallel.pipeline import block_slice
@@ -205,6 +282,26 @@ class Prefetcher:
         lp = m.params[unit]
         return {w: lp[w] for w in m._offloaded[unit] if w in lp}
 
+    def _ring_views(self, i) -> Dict[Any, Any]:
+        """Unit i's leaves as views of its ring slot (a quantized leaf: its
+        payload and scale, each a view)."""
+        o = self.offsets[i]
+
+        def view(t):
+            nonlocal o
+            v = self.ring[o:o + t.nbytes].view(t.dtype).view(t.shape)
+            o += _aligned(int(t.nbytes))
+            return v
+
+        out = {}
+        for k, w in self._host_leaves(self.order[i]).items():
+            if is_quantized(w):
+                out[k] = QuantizedWeight(w.qtype, view(w.q), view(w.scale),
+                                         w.rows, w.dtype)
+            else:
+                out[k] = view(w)
+        return out
+
     def _unit_bytes(self, unit) -> int:
         return sum(int(getattr(w, "nbytes", 0))
                    for w in self._host_leaves(unit).values())
@@ -213,65 +310,63 @@ class Prefetcher:
         """The paged bytes of every unit: what one forward streams back."""
         return sum(self._unit_bytes(u) for u in self.order)
 
-    def _issue(self, unit):
-        leaves = self._host_leaves(unit)
-        nbytes = sum(int(getattr(w, "nbytes", 0)) for w in leaves.values())
+    def _copy(self, i):
+        """Unit i's host leaves into its ring views, on the copy stream
+        after the compute that last read the slot."""
+        pairs = [(d, h) for k, w in self._host_leaves(self.order[i]).items()
+                 for d, h in zip(_leaf_tensors(self._views[i][k]),
+                                 _leaf_tensors(w))]
         if self._stream is None:
-            self._inflight[unit] = (None, leaves, nbytes)
+            for d, h in pairs:
+                d.copy_(h)
+            self._copied[i] = None
             return
         with torch.cuda.stream(self._stream):
-            dev_leaves = {k: _to_device(w, self.device, True)
-                          for k, w in leaves.items()}
+            j = self.waits[i]
+            if j >= self._start:
+                self._stream.wait_event(self._done[j])
+            for d, h in pairs:
+                d.copy_(h, non_blocking=True)
             ev = torch.cuda.Event()
             ev.record(self._stream)
-        self._inflight[unit] = (ev, dev_leaves, nbytes)
+        self._copied[i] = ev
 
     def fetch(self, unit) -> Dict[Any, Any]:
-        """The unit's weights on the device, ready for the current stream;
-        then the next units are put in flight within the reserve."""
-        if self._stream is not None and self._last_bytes:
-            # everything enqueued so far includes the last unit's compute
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self.device))
-            self._in_use.append((done, self._last_bytes))
-        if unit not in self._inflight:
-            self._issue(unit)
-        ev, leaves, nbytes = self._inflight.pop(unit)
-        self.bytes_fetched += nbytes
-        if ev is not None:
-            cur = torch.cuda.current_stream(self.device)
-            cur.wait_event(ev)
-            for w in leaves.values():
-                for t in _leaf_tensors(w):
-                    t.record_stream(cur)
-            self._last_bytes = nbytes
-        self._prefetch_after(unit)
-        return leaves
-
-    def _resident(self) -> int:
-        """Weight bytes of this model on the card: in flight, handed out
-        and not yet past on the compute stream, and the last unit."""
-        while self._in_use and self._in_use[0][0].query():
-            self._in_use.popleft()
-        return (sum(n for _e, _l, n in self._inflight.values())
-                + sum(n for _e, n in self._in_use) + self._last_bytes)
-
-    def _prefetch_after(self, unit):
-        if self._stream is None or len(self.order) < 2:
-            return
-        i = self.order.index(unit)
-        for k in range(1, len(self.order)):
-            nxt = self.order[(i + k) % len(self.order)]
-            if nxt in self._inflight:
+        """The unit's weights on the device (views of the ring), ready for
+        the current stream; then the next units' copies go out as far as
+        their slots are free."""
+        i = self._index[unit]
+        cur = (torch.cuda.current_stream(self.device)
+               if self._stream is not None else None)
+        if i == 0 or i != self._next:
+            # a new pass: its copies follow everything enqueued so far
+            self._start, self._copied, self._done = i, {}, {}
+            if cur is not None:
+                self._stream.wait_stream(cur)
+        elif cur is not None and (i - 1) in self.waits:
+            # unit i - 1's compute is enqueued: a later copy waits on it
+            ev = torch.cuda.Event()
+            ev.record(cur)
+            self._done[i - 1] = ev
+        if i not in self._copied:
+            self._copy(i)
+        self._next = i + 1
+        # the copies whose slots are free once unit i - 1 is done, in order
+        for k in range(i + 1, len(self.order)):
+            if k in self._copied:
                 continue
-            need = self._unit_bytes(nxt)
-            if k > 1 and self._resident() + need > self.reserve:
+            if self.waits[k] >= i:
                 break
-            while self._in_use and self._resident() + need > self.reserve:
-                # the host waits for the card to finish the oldest layer
-                # still holding its weights
-                self._in_use.popleft()[0].synchronize()
-            self._issue(nxt)
+            self._copy(k)
+        if cur is not None:
+            cur.wait_event(self._copied[i])
+        # counted where the copy runs: now, or at each replay of a program
+        kernels.each_run(functools.partial(self._fetched,
+                                           self._unit_bytes(unit)))
+        return self._views[i]
+
+    def _fetched(self, nbytes: int):
+        self.bytes_fetched += nbytes
 
 
 def fetch_layer_params(model, layer_name: str,

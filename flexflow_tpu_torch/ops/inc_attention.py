@@ -26,6 +26,11 @@ Differences from the JAX package, by design:
   JAX scatter drops invalid (row, node) pairs at a sentinel index that
   torch would reject: an invalid pair writes back the value its clamped
   slot holds, so the move needs no host read.
+* ``append_kv`` (a prefill chunk's or a tree's KV) writes every (row,
+  token) pair in one ``index_put_``, where the JAX scatter drops the
+  invalid ones: an invalid pair repeats its row's first valid write, or
+  writes a cell's own value back, so the step needs no host read and a
+  captured program runs it.
 
 Under tensor parallelism (``ctx.mesh`` with a ``model`` axis) each rank
 holds whole heads: column shards of ``wq``/``wk``/``wv`` (the JAX specs,
@@ -122,12 +127,26 @@ def append_kv(cache: torch.Tensor, new: torch.Tensor, start_pos, num_tokens,
               active, offset: int = 0) -> torch.Tensor:
     """Write new [R, Q, KH, D] into cache [R, KH, S, D] at per-slot offsets,
     in place; returns ``cache``. ``offset`` is the global position of the
-    cache's first column (a sequence-parallel rank's rows)."""
-    R, Q = new.shape[0], new.shape[1]
-    cols, valid = _valid_cols(start_pos, num_tokens, active, Q,
-                              cache.shape[2], offset)
-    r_idx, q_idx = valid.nonzero(as_tuple=True)
-    cache[r_idx, :, cols[r_idx, q_idx]] = new[r_idx, q_idx].to(cache.dtype)
+    cache's first column (a sequence-parallel rank's rows).
+
+    One write of every (row, q) pair, with no host read, so a captured
+    program runs it. A dropped pair may not meet a valid one at a cell
+    with another value (the order of two writes to one cell is
+    undefined): a row's dropped pairs repeat the row's first valid
+    write, value and column, and a row with no valid pair writes column
+    0's own value, gathered before the write, back to it."""
+    R, Q, S = new.shape[0], new.shape[1], cache.shape[2]
+    cols, valid = _valid_cols(start_pos, num_tokens, active, Q, S, offset)
+    has = valid.any(1)                                            # [R]
+    first = valid.to(torch.int32).argmax(1)                       # [R]
+    src = torch.where(valid, torch.arange(Q, device=new.device)[None, :],
+                      first[:, None])                             # [R, Q]
+    rows = torch.arange(R, device=new.device)[:, None]
+    vals = new[rows, src].to(cache.dtype)                         # [R,Q,KH,D]
+    keep = cache[rows[:, 0], :, 0][:, None]                       # [R,1,KH,D]
+    vals = torch.where(has[:, None, None, None], vals, keep)
+    cols = torch.where(has[:, None], cols.gather(1, src.long()), 0)
+    cache[rows, :, cols] = vals
     return cache
 
 

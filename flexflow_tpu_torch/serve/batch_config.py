@@ -190,3 +190,79 @@ def make_batch_meta(max_requests: int, q_width: int,
                     else z((R,), np.int32)),
         active=active if active is not None else z((R,), bool),
     ).to(device)
+
+
+# ----------------------------------------------------------------------
+# A step program's meta: static device tensors (serve/inference_manager)
+# ----------------------------------------------------------------------
+def _step_fields(tree: bool, R: int, Q: int):
+    """(state entry, meta field, dtype, shape) of a step's meta, the int32
+    fields first: the block state of ``InferenceManager.step``'s programs
+    names the token counts ``num`` and keeps ``active``, the entries a
+    program's warm-up clears (``graphs.INACTIVE``)."""
+    fields = [("tokens", "tokens", torch.int32, (R, Q)),
+              ("positions", "positions", torch.int32, (R, Q)),
+              ("start_pos", "start_pos", torch.int32, (R,))]
+    if tree:
+        fields += [("parent", "parent", torch.int32, (R, Q)),
+                   ("num", "num_nodes", torch.int32, (R,)),
+                   ("ancestor", "ancestor", torch.bool, (R, Q, Q))]
+    else:
+        fields.append(("num", "num_tokens", torch.int32, (R,)))
+    fields.append(("active", "active", torch.bool, (R,)))
+    return fields
+
+
+def _field_bytes(dt, shape) -> int:
+    return int(np.prod(shape)) * torch.empty((), dtype=dt).element_size()
+
+
+def step_state(tree: bool, R: int, Q: int, device) -> dict:
+    """A step program's meta as device tensors: views of one byte buffer
+    ``meta``, which ``load_step_meta`` fills with one copy a step."""
+    fields = _step_fields(tree, R, Q)
+    flat = torch.zeros(sum(_field_bytes(dt, sh) for _n, _f, dt, sh in fields),
+                       dtype=torch.uint8, device=device)
+    st, o = {"meta": flat}, 0
+    for name, _f, dt, shape in fields:
+        n = _field_bytes(dt, shape)
+        st[name] = flat[o:o + n].view(dt).view(shape)
+        o += n
+    return st
+
+
+def load_step_meta(st: dict, meta) -> None:
+    """Copy ``meta`` (numpy arrays or tensors) into a step program's state:
+    the host's fields packed into one buffer and copied with one
+    asynchronous copy (pinned on the card), a device field copied on the
+    device."""
+    tree = hasattr(meta, "ancestor")
+    R, Q = st["tokens"].shape
+    buf = np.zeros(st["meta"].shape[0], np.uint8)
+    on_device, o = [], 0
+    for name, field, dt, shape in _step_fields(tree, R, Q):
+        n = _field_bytes(dt, shape)
+        v = getattr(meta, field)
+        if isinstance(v, torch.Tensor) and v.device.type != "cpu":
+            on_device.append((name, v))
+        else:
+            if isinstance(v, torch.Tensor):
+                v = v.numpy()
+            nd = np.bool_ if dt == torch.bool else np.int32
+            buf[o:o + n].view(nd)[:] = np.asarray(v, nd).reshape(-1)
+        o += n
+    host = torch.from_numpy(buf)
+    if st["meta"].is_cuda:
+        st["meta"].copy_(host.pin_memory(), non_blocking=True)
+    else:
+        st["meta"].copy_(host)
+    for name, v in on_device:
+        st[name].copy_(v)
+
+
+def step_meta(st: dict, tree: bool):
+    """The BatchMeta (or TreeBatchMeta) over a step program's state."""
+    R, Q = st["tokens"].shape
+    return (TreeBatchMeta if tree else BatchMeta)(
+        **{field: st[name] for name, field, _dt, _sh
+           in _step_fields(tree, R, Q)})

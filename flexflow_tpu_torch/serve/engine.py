@@ -5,11 +5,12 @@ The JAX package runs each token-feedback loop (decode steps, speculation
 rounds, draft chains) as one jitted ``while_loop`` whose trip count is a
 device scalar, so one compiled program serves every block. Here each
 loop is a set of programs (``serve/graphs.py``): the loop's stages,
-captured once a key as CUDA graphs on the card and replayed, or called
-directly on the CPU, under a mesh, with offloaded weights and under
-``inference_debugging``. A stage reads and updates the block state in
-place: a step writes its token at a device step index and feeds it to
-the next step, a round writes its packed row at a device round index.
+captured once a key as CUDA graphs on the card (offloaded weights
+included: their copies are graph nodes) and replayed, or called directly
+on the CPU, under a mesh and under ``inference_debugging``. A stage
+reads and updates the block state in place: a step writes its token at
+a device step index and feeds it to the next step, a round writes its
+packed row at a device round index.
 Tokens, positions and KV caches stay on the device. A decode block
 reads back once, at its end. A speculation round reads one scalar
 first: the round's draft depth, which is 0 when no row is live (the

@@ -26,11 +26,15 @@ and runs each by name:
   its graph (``register_generator_state``): replays advance it as the
   eager loop does, so the draws are the same. A capture that fails
   raises.
+  A stage may add an entry to ``st`` at its first run (its output
+  buffer, whose shape the forward decides): the warm-up's entry gives
+  the program its own, allocated outside the pool before the captures.
+  An offloaded model's weight copies are memcpy nodes of the graph
+  (``offload.Prefetcher``: a fixed ring, forked and joined by events).
 * on the CPU, under a mesh (the collectives stage through pinned host
-  memory under gloo), with offloaded weights (the prefetcher waits on
-  events from the host), under ``inference_debugging`` and with the
-  kernels off (the plain versions read the host), a stage is its
-  function, called directly.
+  memory under gloo), under ``inference_debugging`` and with the kernels
+  off (the plain versions read the host), a stage is its function,
+  called directly.
 
 The wrappers of K1-K3 count on the host (``kernels.bump``): during a
 capture their counts go to the stage's ``kernels.Tally``, and each
@@ -39,9 +43,12 @@ the eager body counts.
 
 ``ProgramCache`` keeps an engine's ``ProgramSet`` under its key: the
 shapes and dtypes a program bakes in and the addresses of the parameter
-and cache tensors it reads (``tensor_key``), never a trip count. Each
-new key is one build (``builds``, the engines' ``_trace_count``), on
-every device, so the CPU counts what the card does. Offloading a
+and cache tensors it reads (``tensor_key``), never a trip count. An
+engine keeps one key; the serving steps of an ``InferenceManager`` and
+the host tree path's commit keep every key they have built, as a
+``jax.jit`` keeps its traces, all their programs in one graph pool.
+Each new key is one build (``builds``, the engines' ``_trace_count``),
+on every device, so the CPU counts what the card does. Offloading a
 model's weights drops the programs that read them (``drop_programs``);
 the next block builds again. ``eager_bodies()`` runs the stages
 directly on any device, uncached and uncounted (the chip smoke test
@@ -50,6 +57,7 @@ holds each program against its eager body with it).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import contextvars
 import threading
@@ -84,14 +92,13 @@ def eager_bodies():
 
 def captures(*models) -> bool:
     """Are the programs over ``models`` captured CUDA graphs? Every model
-    on one CUDA device, with no mesh, no offloaded weight, no
-    ``inference_debugging`` and the kernels on; else the stages run
-    directly. Decided from the configuration, never by trying."""
+    on one CUDA device, with no mesh, no ``inference_debugging`` and the
+    kernels on (offloaded weights or not); else the stages run directly.
+    Decided from the configuration, never by trying."""
     devs = {torch.device(m.device) for m in models}
     if len(devs) != 1 or next(iter(devs)).type != "cuda":
         return False
     return all(getattr(m, "mesh", None) is None
-               and not getattr(m, "_offloaded", None)
                and not m.config.inference_debugging
                and m.config.use_kernels for m in models)
 
@@ -130,16 +137,18 @@ class ProgramSet:
     """
 
     def __init__(self, stages: Dict[str, Callable], st: Dict[str, torch.Tensor],
-                 capture: bool, generator=None, state_of: Callable = None):
+                 capture: bool, generator=None, state_of: Callable = None,
+                 pool=None):
         self.stages = dict(stages)
         self.st = st
         self.generator = generator
         self.graphs: Dict[str, tuple] = {}
+        self.pool = None            # the graph pool of the captures
         if capture:
             with _capture_lock:
-                self._capture(state_of)
+                self._capture(state_of, pool)
 
-    def _capture(self, state_of):
+    def _capture(self, state_of, pool):
         dev = next(iter(self.st.values())).device
         before = tensor_key(state_of()) if state_of else ()
         scratch = {k: v.clone() for k, v in self.st.items()}
@@ -161,7 +170,12 @@ class ProgramSet:
         if state_of and tensor_key(state_of()) != before:
             raise RuntimeError("a serving forward replaced an op-state "
                                "tensor; its programs cannot be captured")
-        pool = torch.cuda.graph_pool_handle()
+        for k, v in scratch.items():
+            if k not in self.st:         # a stage's output buffer
+                self.st[k] = torch.zeros_like(v)
+        if pool is None:
+            pool = torch.cuda.graph_pool_handle()
+        self.pool = pool
         for name, fn in self.stages.items():
             g = torch.cuda.CUDAGraph()
             if self.generator is not None:
@@ -190,14 +204,15 @@ class ProgramSet:
 
 
 class ProgramCache:
-    """An engine's programs under their key (one key kept: a new key
-    builds anew and drops the old). ``builds`` counts the builds, the
-    JAX engines' ``_trace_count``; ``reported`` is how many of them the
-    engine has reported to telemetry (``report``)."""
+    """Programs under their key. ``keep``: how many keys are kept (a new
+    key past them drops the oldest; None keeps every key, as a jax.jit
+    keeps its traces). ``builds`` counts the builds, the JAX engines'
+    ``_trace_count``; ``reported`` is how many of them the engine has
+    reported to telemetry (``report``)."""
 
-    def __init__(self, *models):
-        self.key = None
-        self.programs: Optional[ProgramSet] = None
+    def __init__(self, *models, keep: Optional[int] = 1):
+        self.keep = keep
+        self.programs: "collections.OrderedDict" = collections.OrderedDict()
         self.builds = 0
         self.reported = 0
         for m in models:
@@ -213,18 +228,18 @@ class ProgramCache:
         direct set, uncached and uncounted."""
         if _eager.get():
             return make(False)
-        if self.programs is None or self.key != key:
-            self.drop()
+        progs = self.programs.get(key)
+        if progs is None:
+            if self.keep is not None and len(self.programs) >= self.keep:
+                self.programs.popitem(last=False)[1].release()
             self.builds += 1
-            self.programs = make(capture)
-            self.key = key
-        return self.programs
+            progs = self.programs[key] = make(capture)
+        return progs
 
     def drop(self):
-        if self.programs is not None:
-            self.programs.release()
-        self.programs = None
-        self.key = None
+        for progs in self.programs.values():
+            progs.release()
+        self.programs.clear()
 
     def report(self, tel, engine: str):
         """Report the builds since the last report as ``note_retrace``
@@ -232,6 +247,13 @@ class ProgramCache:
         if tel is not None and self.builds != self.reported:
             tel.note_retrace(engine, self.builds - self.reported, self.builds)
             self.reported = self.builds
+
+
+def pool_bytes(pool) -> int:
+    """Bytes of the device memory segments that graph pool ``pool``
+    holds (``torch.cuda.memory_snapshot``)."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg["segment_pool_id"]) == tuple(pool))
 
 
 def drop_programs(model):

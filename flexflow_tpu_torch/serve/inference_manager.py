@@ -1,23 +1,37 @@
 """InferenceManager: dispatches serving steps for one model (counterpart
 of ``flexflow_tpu/serve/inference_manager.py``).
 
-PyTorch runs eagerly, so a step is a direct call of the serving forward;
-the KV caches are updated in place and ``model.op_state`` keeps naming the
-same tensors. A decode block is the model's step program
-(``serve/engine.make_decode_block``): captured once as a CUDA graph on
-the card and replayed a step (``serve/graphs.py``). The manager owns the model's random stream: one
+The JAX manager jits its step, one program per meta shape. Here a step
+is a program too (``serve/graphs.py``): one per key, the meta's kind
+(a BatchMeta or a TreeBatchMeta) and shape, the compute dtype, the
+sampler and the addresses of the parameters and caches it reads, every
+key kept, all in one graph pool. On one CUDA device each is a CUDA graph
+captured at the key's first step and replayed; on the CPU, under a mesh
+and with the kernels off it is its stage, called directly. Either way a
+step copies its host meta into the program's device tensors
+(``batch_config.step_state``) with one copy, runs the program, and reads
+back the output the program copied into its own buffer (none with
+``want_output=False``). ``step_builds`` counts the builds, the JAX
+step's traces. The KV caches are updated in place and
+``model.op_state`` keeps naming the same tensors. A decode block is the
+model's step program (``serve/engine.make_decode_block``), replayed a
+step. The manager owns the model's random stream: one
 ``torch.Generator`` on the model's device, seeded from ``FFConfig.seed``
 (a CPU generator cannot drive draws on the card), which every step and
-decode block hands to the forward; a sampled graph advances it.
+decode block hands to the forward; a sampled graph advances it, and a
+sampled step program registers it.
 
 With ``FFConfig.inference_debugging`` on, every step dumps each op's
 inputs, weights and outputs under ``debug_dir`` (default
 ``./inference_tensors``, as the JAX package writes;
-``utils/debugging.py``), and a decode block runs as single steps at the
-block's width so that every decode token is dumped (the same tokens).
+``utils/debugging.py``) from an eager forward (the JAX dump runs outside
+its jit too), and a decode block runs as single steps at the block's
+width so that every decode token is dumped (the same tokens).
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -66,6 +80,11 @@ class InferenceManager:
         self.generator.manual_seed(cfg.seed)
         self._decode_block = None
         self.decode_width = self._resolve_decode_width(cfg)
+        # the step programs, every key kept, and their graph pool
+        from flexflow_tpu_torch.serve.graphs import ProgramCache
+
+        self._steps = ProgramCache(model, keep=None)
+        self.graph_pool = None
         # inference_debugging: where the dumps go, and the next step's
         # number
         self.debug_dir = "./inference_tensors"
@@ -82,15 +101,20 @@ class InferenceManager:
             return int(cfg.decode_width)
         return VERIFY_WIDTH if kernel_serves(self.model) else 1
 
+    @property
+    def step_builds(self) -> int:
+        """Step programs built (the JAX step's traces)."""
+        return self._steps.builds
+
     def step(self, meta, want_output: bool = True):
         """Run one serving step over ``meta``, a BatchMeta or a
-        TreeBatchMeta (numpy or tensor fields).
+        TreeBatchMeta (numpy or tensor fields): the program of its key.
         Returns the op outputs as numpy (token ids [R, Q] for graphs
         ending in argmax or sampling; the packed [R, Q, 2W] top-W of a
         beam draft), or None with ``want_output=False`` (no host
         readback: prefill chunks whose outputs are discarded stay
         asynchronous)."""
-        from flexflow_tpu_torch.serve.engine import forward_with_meta
+        from flexflow_tpu_torch.serve.batch_config import load_step_meta
 
         m = self.model
         if m.config.inference_debugging:
@@ -100,13 +124,50 @@ class InferenceManager:
                 m, meta.to(m.device), self.debug_dir, self._debug_step,
                 generator=self.generator)
             self._debug_step += 1
-        else:
-            out, m.op_state = forward_with_meta(
-                m, m.params, m.op_state, meta.to(m.device),
-                self._compute_dtype, generator=self.generator)
+            return out.cpu().numpy() if want_output else None
+        progs = self._step_program(hasattr(meta, "ancestor"),
+                                   *meta.tokens.shape)
+        load_step_meta(progs.st, meta)
+        progs.run("step")
         if not want_output:
             return None
-        return out.cpu().numpy()
+        return progs.st["out"].to("cpu", copy=True).numpy()
+
+    def _step_program(self, tree: bool, R: int, Q: int):
+        """The step program of this key, built at its first use."""
+        from flexflow_tpu_torch.serve.batch_config import step_state
+        from flexflow_tpu_torch.serve.engine import _graph_samples
+        from flexflow_tpu_torch.serve.graphs import (ProgramSet, captures,
+                                                     tensor_key)
+
+        m = self.model
+        gen = self.generator if _graph_samples(m) else None
+        key = (tree, R, Q, self._compute_dtype, gen is not None,
+               tensor_key(m.params, m.op_state))
+        capture = captures(m)
+        if capture and self.graph_pool is None:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+
+        def make(cap):
+            return ProgramSet(
+                {"step": functools.partial(self._step_stage, tree)},
+                step_state(tree, R, Q, m.device), cap, generator=gen,
+                state_of=lambda: m.op_state, pool=self.graph_pool)
+        return self._steps.get(key, make, capture)
+
+    def _step_stage(self, tree: bool, st, generator=None):
+        """One serving forward over the program's meta tensors; its output
+        copied into the program's ``out`` (made at the first run)."""
+        from flexflow_tpu_torch.serve.batch_config import step_meta
+        from flexflow_tpu_torch.serve.engine import forward_with_meta
+
+        m = self.model
+        out, m.op_state = forward_with_meta(
+            m, m.params, m.op_state, step_meta(st, tree),
+            self._compute_dtype, generator=generator)
+        if "out" not in st:
+            st["out"] = torch.empty_like(out)
+        st["out"].copy_(out)
 
     def decode_block(self, tok: np.ndarray, pos: np.ndarray,
                      active: np.ndarray, n_steps: int) -> np.ndarray:

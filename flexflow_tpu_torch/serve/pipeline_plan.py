@@ -375,11 +375,12 @@ def run_pp_graph(model, params, feeds: Dict[int, Any], ctx: OpContext,
     outs: List[Any] = [None] * M
 
     # offloaded blocks: fetched once a forward and kept for the other
-    # microbatches when the stage's paged bytes fit the prefetch reserve,
-    # else fetched again for each microbatch (M times the bytes)
+    # microbatches when the stage's paged bytes fit the prefetch reserve
+    # and the ring holds them all, else fetched again for each microbatch
+    # (M times the bytes)
     pf = getattr(model, "_prefetcher", None)
-    kept = ({} if pf is not None and M > 1 and pf.total_bytes() <= pf.reserve
-            else None)
+    kept = ({} if pf is not None and M > 1 and pf.holds_all
+            and pf.total_bytes() <= pf.reserve else None)
 
     def block_params(j, blk):
         if kept is None:

@@ -90,10 +90,65 @@ from flexflow_tpu_torch.serve.batch_config import (MAX_BEAM_DEPTH,
                                                    GenerationConfig,
                                                    TreeBatchMeta,
                                                    ancestor_mask_from_parents)
+from flexflow_tpu_torch.serve.graphs import (ProgramCache, ProgramSet,
+                                             tensor_key)
 from flexflow_tpu_torch.serve.inference_manager import (VERIFY_WIDTH,
                                                         InferenceManager,
                                                         kernel_serves)
 from flexflow_tpu_torch.telemetry import get_telemetry, mint_trace_id
+
+
+class CommitProgram:
+    """The host tree path's ``commit_tree_kv`` as a program, as the JAX
+    request manager jits it (``flexflow_tpu/serve/request_manager.py``):
+    called as ``commit_tree_kv`` is, it copies its inputs into the
+    program's device tensors and runs the program of its key (the cache
+    tensors' addresses and src_node's shape; every key kept, one build
+    each, ``builds``). Captured as a CUDA graph where the caches live on
+    one CUDA device and no mesh is given; under a mesh the move runs
+    directly (across a ``seq`` axis it reads the host and crosses
+    ranks: ``_commit_tree_kv_sharded``)."""
+
+    def __init__(self):
+        self._cache = ProgramCache(keep=None)
+        self._op_state = None
+        self.graph_pool = None
+
+    @property
+    def builds(self) -> int:
+        return self._cache.builds
+
+    def __call__(self, op_state, src_node, num_commit, start_pos, active,
+                 mesh=None, seq_len=None):
+        if mesh is not None:
+            return commit_tree_kv(op_state, src_node, num_commit, start_pos,
+                                  active, mesh=mesh, seq_len=seq_len)
+        devs = {t.device for st in op_state.values() if isinstance(st, dict)
+                for t in st.values()}
+        dev = next(iter(devs))
+        capture = len(devs) == 1 and dev.type == "cuda"
+        if capture and self.graph_pool is None:
+            self.graph_pool = torch.cuda.graph_pool_handle()
+        R, C = src_node.shape
+        self._op_state = op_state
+
+        def make(cap):
+            st = {"src": torch.zeros((R, C), dtype=torch.int32, device=dev),
+                  "num": torch.zeros(R, dtype=torch.int32, device=dev),
+                  "start": torch.zeros(R, dtype=torch.int32, device=dev),
+                  "active": torch.zeros(R, dtype=torch.bool, device=dev)}
+            return ProgramSet({"commit": self._stage}, st, cap,
+                              pool=self.graph_pool)
+        progs = self._cache.get((R, C, tensor_key(op_state)), make, capture)
+        for name, v in (("src", src_node), ("num", num_commit),
+                        ("start", start_pos), ("active", active)):
+            progs.st[name].copy_(torch.as_tensor(v))
+        progs.run("commit")
+        return op_state
+
+    def _stage(self, st, generator=None):
+        commit_tree_kv(self._op_state, st["src"], st["num"], st["start"],
+                       st["active"])
 
 
 @dataclasses.dataclass
@@ -202,8 +257,8 @@ class RequestManager:
         # GenerationConfig asks for it, and kept across calls
         self.prefix_cache = None
         self.max_spec_depth = MAX_BEAM_DEPTH
-        # the host tree path's KV compaction (in place)
-        self._commit = commit_tree_kv
+        # the host tree path's KV compaction (in place), a program
+        self._commit = CommitProgram()
         # counts of the last generate_spec_infer call: verify passes
         # ("rounds"), (request, round) pairs that committed tokens and the
         # tokens they committed, and the controller's parks

@@ -12,7 +12,8 @@ both share:
 * (b) a second build (the same engine over models of another R) counts
   one retrace and one ``retrace`` flight record in both packages;
 * (c) every program body (the decode step at widths 1 and 8, greedy and
-  sampled, the chain, tree at B = 1 and 2 and beam engines' stages)
+  sampled, the chain, tree at B = 1 and 2 and beam engines' stages, and
+  an offloaded verifier's prefill steps, decode block and chain stages)
   makes no host read: ``nonzero``, ``item`` and ``_local_scalar_dense``
   raise under a dispatch mode, but in the kernels' plain versions,
   which never run on the card;
@@ -266,6 +267,37 @@ def test_spec_program_bodies_read_no_host(no_host_read, port_pair, engine):
     assert (n_acc[:, 0] >= 0).all()
     stages = set(eng._stages())
     assert "verify" in no_host_read and set(no_host_read) <= stages
+
+
+@pytest.mark.parametrize("path", ["incremental", "spec chain"])
+def test_offloaded_program_bodies_read_no_host(no_host_read, tiny_spec_pair,
+                                               port_pair, path):
+    """An offloaded verifier's programs (its prefill steps, the decode
+    block or the chain engine's stages) read no host and give the tokens
+    of the same verifier without offload."""
+    ssm = port_pair[1]
+
+    def run(llm):
+        rm = RequestManager()
+        for p in PROMPTS[:2]:
+            rm.register_new_request(p, max_new_tokens=6)
+        if path == "incremental":
+            res = rm.generate_incr_decoding(llm)
+        else:
+            res = rm.generate_spec_infer(llm, [ssm], spec_depth=2,
+                                         generation_config=GenerationConfig(
+                                             adaptive_spec=False))
+        return [r.output_tokens for r in res]
+
+    ref = run(_port_model(InferenceMode.TREE_VERIFY_MODE,
+                          tiny_spec_pair[0].params))
+    llm = _port_model(InferenceMode.TREE_VERIFY_MODE, tiny_spec_pair[0].params)
+    assert llm.offload_weights(min_bytes=1024) > 0
+    del no_host_read[:]
+    assert run(llm) == ref
+    assert "step" in no_host_read
+    if path == "spec chain":
+        assert "verify" in no_host_read and "draft" in no_host_read
 
 
 # ----------------------------------------------------------------------
