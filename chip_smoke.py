@@ -372,6 +372,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,           # dense tensor-core rate
 # inputs must fail (each fp16 case checks its bf16 control against it)
 TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}
 K1_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attend.cu"
+F32_SOURCE = "flexflow_tpu_torch/kernels/csrc/flash_attend_f32.cu"
 K1_REPLACES = "flexflow_tpu/kernels/attention.py:483"
 K2_REPLACES = "flexflow_tpu/kernels/attention.py:514"
 K3_SOURCE = "flexflow_tpu_torch/kernels/csrc/qmatmul.cu"
@@ -513,28 +514,37 @@ def invariance_check(torch, ivec, mk):
     real rows sit at other rows of the tile); at the multi-query shapes
     of Falcon-7B (71 query heads on one KV head, D 64: 9 query tiles of 64
     rows at width 8) and StarCoder (48 on one, D 128: 6 tiles); and at
-    MPT-7B's with its ALiBi slopes on every call."""
+    MPT-7B's with its ALiBi slopes on every call. Then fp32 caches (the
+    FFMA kernels, whose query tile follows G*Q: 8 rows at width 1 and 8 on
+    one split, 16 against 8 with GQA on the split-S shape, and at G = 8
+    the 64-row tile kernel at width 8 against the 8-row one at width 1)
+    at the slice's shape, the split-S GQA shape, G = 8 and D 512 (the
+    wide kernel)."""
     from flexflow_tpu_torch.kernels.attention import append_at, flash_attend
     from flexflow_tpu_torch.ops.inc_attention import alibi_slopes
 
     dev = "cuda"
-    for R, H, KH, S, app, D, alibi in (
-            (8, 32, 32, 256, 63, 128, False),
-            (2, 8, 4, 1024, 700, 128, False),
-            (8, 16, 16, 256, 63, 256, False),
-            (8, 8, 8, 256, 63, 512, False),
-            (2, 8, 4, 1024, 700, 512, False),
-            (4, 4, 4, 256, 63, 768, False),
-            (8, 71, 1, 256, 63, 64, False),
-            (8, 48, 1, 256, 63, 128, False),
-            (8, 32, 32, 256, 63, 128, True)):
-        bf = torch.bfloat16
+    bf, f32 = torch.bfloat16, torch.float32
+    for R, H, KH, S, app, D, alibi, dt in (
+            (8, 32, 32, 256, 63, 128, False, bf),
+            (2, 8, 4, 1024, 700, 128, False, bf),
+            (8, 16, 16, 256, 63, 256, False, bf),
+            (8, 8, 8, 256, 63, 512, False, bf),
+            (2, 8, 4, 1024, 700, 512, False, bf),
+            (4, 4, 4, 256, 63, 768, False, bf),
+            (8, 71, 1, 256, 63, 64, False, bf),
+            (8, 48, 1, 256, 63, 128, False, bf),
+            (8, 32, 32, 256, 63, 128, True, bf),
+            (8, 32, 32, 256, 63, 128, False, f32),
+            (2, 8, 4, 1024, 700, 128, False, f32),
+            (4, 16, 2, 256, 63, 128, False, f32),
+            (8, 8, 8, 256, 63, 512, False, f32)):
         al = alibi_slopes(H, device=dev) if alibi else None
-        tag = " ALiBi" if alibi else ""
-        q8, k, v = mk(R, 8, H, KH, D, S, bf, 21)
+        tag = (" ALiBi" if alibi else "") + f" {str(dt)[6:]}"
+        q8, k, v = mk(R, 8, H, KH, D, S, dt, 21)
         g = torch.Generator(device=dev).manual_seed(22)
-        kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(bf)
-        vn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(bf)
+        kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
+        vn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
         appos = ivec([app - 3 * r for r in range(R)])
         lengths = appos + 1
         qpos8 = appos[:, None] + torch.arange(8, dtype=torch.int32,
@@ -1178,42 +1188,51 @@ def kernel_phase(torch, timer):
             f"{lib:.4f} ms | sum over the same bytes {rd:.4f} ms")
 
     S_l, len_l = 4096, 4000
-    for R_ in (8, 1):
-        name = f"K2 long R{R_} Q8 S4096 len4000"
-        app_l = ivec([len_l - 1] * R_)
-        _, (q, k, v, kn_, vn_, ln, qp) = k2_case(name, R_, 8, H, KH, D, S_l,
-                                                 bf, app_l, 30 + R_)
-        long_row(name, lambda: flash_attend(q, k, v, ln, qp,
-                                            append_kv=(kn_, vn_, app_l)),
+    for dt in (bf, f32):
+        sfx = "" if dt == bf else " fp32"
+        for R_ in (8, 1):
+            name = f"K2 long R{R_} Q8 S4096 len4000{sfx}"
+            app_l = ivec([len_l - 1] * R_)
+            _, (q, k, v, kn_, vn_, ln, qp) = k2_case(
+                name, R_, 8, H, KH, D, S_l, dt, app_l, 30 + R_)
+            long_row(name, lambda: flash_attend(q, k, v, ln, qp,
+                                                append_kv=(kn_, vn_, app_l)),
+                     sdpa_call(q, k, v, ln, qp),
+                     attention_bound_ms(
+                         torch, q, ln, qp, S_l, KH, True, dt,
+                         extra_bytes=4 * kn_.numel() * kn_.element_size()))
+            del q, k, v
+        name = f"K1 long R8 Q64 qpos 3936..3999{sfx}"
+        ln = ivec([len_l] * R)
+        qp = (torch.arange(Qp, dtype=torch.int32, device=dev)
+              + len_l - Qp)[None].repeat(R, 1)
+        _, (q, k, v) = k1_case(name, R, Qp, H, KH, D, S_l, dt, ln, qp, 40)
+        long_row(name, lambda: flash_attend(q, k, v, ln, qp),
                  sdpa_call(q, k, v, ln, qp),
-                 attention_bound_ms(torch, q, ln, qp, S_l, KH, True, bf,
-                                    extra_bytes=4 * kn_.numel() * 2))
+                 attention_bound_ms(torch, q, ln, qp, S_l, KH, True, dt))
         del q, k, v
-    name = "K1 long R8 Q64 qpos 3936..3999"
-    ln = ivec([len_l] * R)
-    qp = (torch.arange(Qp, dtype=torch.int32, device=dev)
-          + len_l - Qp)[None].repeat(R, 1)
-    _, (q, k, v) = k1_case(name, R, Qp, H, KH, D, S_l, bf, ln, qp, 40)
-    long_row(name, lambda: flash_attend(q, k, v, ln, qp),
-             sdpa_call(q, k, v, ln, qp),
-             attention_bound_ms(torch, q, ln, qp, S_l, KH, True, bf))
-    del q, k, v
     targets = [("K1 faster than SDPA at the slice shape", ms1 < lib1),
                ("K2 within 4x of its bound at the slice shape",
                 ms2 <= 4 * b2)]
-    targets += [(f"{r['name']} at >= 50% of its bound",
-                 r["bound_share"] >= 0.5) for r in long_rows]
+    for r in long_rows:
+        # fp32's K1 is bound by FFMA issue (operations): its aim is 40%
+        fp32_k1 = r["name"].startswith("K1") and r["name"].endswith("fp32")
+        aim = 0.4 if fp32_k1 else 0.5
+        targets.append((f"{r['name']} at >= {aim:.0%} of its bound",
+                        r["bound_share"] >= aim))
     for name, met in targets:
         log(f"  target: {name}: {'met' if met else 'MISSED'}")
     log(json.dumps({"long_cache_rows": long_rows}))
 
-    # --- fp16 caches and head dim 256 at the serving shapes (timed only,
-    #     each also checked once against the plain version): the same
-    #     cache bytes as the bf16 D = 128 rows above (D 256: 16 heads) ---
-    log("  fp16 and D = 256 rows (median of 20, L2 flushed before each "
+    # --- fp16 and fp32 caches and head dim 256 at the serving shapes
+    #     (timed only, each also checked once against the plain version):
+    #     the bf16 D = 128 rows' lengths (D 256: 16 heads, the same cache
+    #     bytes); fp32 is the replica fleet's and 14b's cache type ---
+    log("  fp16, fp32 and D = 256 rows (median of 20, L2 flushed before each "
         "launch)")
     dim_rows = []
-    for dt, H_, D_ in ((h16, H, D), (bf, H // 2, 2 * D), (h16, H // 2, 2 * D)):
+    for dt, H_, D_ in ((h16, H, D), (f32, H, D), (bf, H // 2, 2 * D),
+                       (h16, H // 2, 2 * D)):
         tag = f"{str(dt)[6:]} H{H_} D{D_}"
         _, (q, k, v) = k1_case(f"K1 prefill {tag}", R, Qp, H_, H_, D_, S, dt,
                                pre_len, pre_qpos, 90 + D_)
@@ -1226,7 +1245,7 @@ def kernel_phase(torch, timer):
                                                     pre_qpos)),
             sdpa_ms=timer(sdpa_call(q, k, v, pre_len, pre_qpos)),
             bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes)))
-        _, (q, k, v, kn_, vn_, ln, qp) = k2_case(
+        err2, (q, k, v, kn_, vn_, ln, qp) = k2_case(
             f"K2 decode {tag}", R, 8, H_, H_, D_, S, dt, appos_main, 95 + D_)
         b, by, nbytes = attention_bound_ms(torch, q, ln, qp, S, H_, True, dt,
                                            extra_bytes=4 * kn_.numel() * 2)
@@ -1237,6 +1256,14 @@ def kernel_phase(torch, timer):
             plain_ms=timer(lambda: reference_attend(q, k, v, ln, qp)),
             sdpa_ms=timer(sdpa_call(q, k, v, ln, qp)),
             bound_ms=b, bound_by=by, read_floor_ms=read_floor(nbytes)))
+        if dt == f32:
+            # the kernels line's row of the fp32 form: the fleet's decode
+            rows.append(dict(name="flash_attend_fp32", route="cuda",
+                             source=F32_SOURCE, replaces=K2_REPLACES,
+                             max_abs_err=err2, ms=dim_rows[-1]["ms"],
+                             plain_ms=dim_rows[-1]["plain_ms"], bound_ms=b,
+                             bound_by=by,
+                             library_ms=dim_rows[-1]["sdpa_ms"]))
         del q, k, v
     for r in dim_rows:
         log(f"  {r['name']:34s} kernel {r['ms']:.4f} ms | bound "
@@ -1252,6 +1279,10 @@ def kernel_phase(torch, timer):
                                      k1_case, k2_case, pre_len, pre_qpos,
                                      appos_main, vstart)
     log(json.dumps({"family_attention_rows": fam_rows}))
+    # K2's partials mode at a sp=2 rank's decode shape (fp32, 32 cache
+    # rows; phase 14c times it again at the shape its run recorded)
+    log(json.dumps({"partials_row": partials_row(
+        torch, (R, 8, H, KH, 32, D, "float32", "partials", False), None)}))
     rows.append(k3_phase(torch, timer, read_floor))
     kernels.reset_counts()
     return rows
@@ -1972,7 +2003,8 @@ def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
     want = {"flash_attend": layers * stats["prefill_steps"],
             "flash_attend_append": layers * stats["decode_steps"],
             "flash_attend_bias": 0, "flash_attend_partials": 0,
-            "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
+            "flash_attend_fp32": 0, "plain_attend_cuda": 0, "qmatmul": 0,
+            "qmatmul_plain_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
         raise AssertionError(f"kernel launch counts {counts} != {want}")
     if profile:
@@ -4145,6 +4177,7 @@ def fleet_phase(torch, card, tmp):
                    and "ffsv_requests_total" in scrape.get("text", "")),
         "launches": (counts["flash_attend"] > 0
                      and counts["flash_attend_append"] > 0
+                     and counts["flash_attend_fp32"] > 0
                      and counts["qmatmul"] > 0
                      and not counts["plain_attend_cuda"]
                      and not counts["qmatmul_plain_cuda"]),
@@ -5692,16 +5725,23 @@ def partials_row(torch, shape, launches):
     n_split = split_plan(R, KH, S, torch.cuda.get_device_properties(
         0).multi_processor_count)[0]
     part_bytes = 4 * n_split * R * Q * H * (D + 2)
-    b, by, _nb = attention_bound_ms(
+    b, by, nb = attention_bound_ms(
         torch, a["q"], a["lengths"], a["qpos"], S, KH, True,
         getattr(torch, cdt),
         extra_bytes=4 * a["kn"].numel() * isz + part_bytes
         - a["q"].numel() * isz)
-    del timer
-    return dict(name="flash_attend_partials", route="cuda", source=K1_SOURCE,
+    # the timer around a PyTorch sum over the bound's bytes
+    buf = torch.ones(nb // 2, dtype=torch.bfloat16, device="cuda")
+    floor = timer(lambda: buf.sum())
+    del timer, buf
+    log(f"  partials row {shape}: kernel {ms:.4f} ms | bound {b:.4f} ms "
+        f"({by}) | plain {pl:.4f} ms | sum over the same bytes {floor:.4f} "
+        f"ms | max_abs_err {err:.3e}")
+    return dict(name="flash_attend_partials", route="cuda",
+                source=F32_SOURCE if cdt == "float32" else K1_SOURCE,
                 replaces=K2_REPLACES, max_abs_err=err, ms=ms, plain_ms=pl,
                 bound_ms=b, bound_by=by, library_ms=None, launches=launches,
-                shape=list(shape))
+                read_floor_ms=floor, shape=list(shape))
 
 
 def seven_b_keys(hf):
@@ -7806,7 +7846,8 @@ def main(argv=None) -> int:
         # on the int8 model's incremental decoding, K1/K2's partials mode
         # on sequence-parallel serving
         path = {"flash_attend_bias": "spec", "qmatmul": "int8",
-                "flash_attend_partials": "sp2"}.get(r["name"], "incr")
+                "flash_attend_partials": "sp2",
+                "flash_attend_fp32": "fleet"}.get(r["name"], "incr")
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

@@ -1,6 +1,7 @@
 """Hand-written Hopper kernels of the port (CUDA C++ for ``sm_90a``).
 
-K1/K2 (``attention.py``, ``csrc/flash_attend.cu``) replace the Pallas TPU
+K1/K2 (``attention.py``, ``csrc/flash_attend.cu`` and, for fp32 caches,
+``csrc/flash_attend_f32.cu``) replace the Pallas TPU
 kernels of ``flexflow_tpu/kernels``; K3 (``qmatmul.py``,
 ``csrc/qmatmul.cu``) is the weight-only dequant-GEMM that XLA fuses for
 the TPU. Each has a plain PyTorch version beside it. A wrapper takes the
@@ -14,7 +15,8 @@ CUDA tensors too (a context variable, so each thread has its own).
 launches it; ``flash_attend_bias`` counts the K1 launches that carry an
 additive bias (tree verification), which ``flash_attend`` counts too;
 ``flash_attend_partials`` counts the K1 and K2 launches that return
-their partials (sequence-parallel serving), which ``flash_attend`` and
+their partials (sequence-parallel serving), and ``flash_attend_fp32``
+those on an fp32 cache (the FFMA kernel), which ``flash_attend`` and
 ``flash_attend_append`` count too.
 ``plain_attend_cuda`` and ``qmatmul_plain_cuda`` count calls of the plain
 versions on CUDA tensors, which the serving path never makes
@@ -41,7 +43,7 @@ import contextvars
 
 counts = {"flash_attend": 0, "flash_attend_append": 0,
           "flash_attend_bias": 0, "flash_attend_partials": 0,
-          "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
+          "flash_attend_fp32": 0, "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
 shapes: dict = {}
 _recording = [False]
 

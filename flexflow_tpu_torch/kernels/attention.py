@@ -2,7 +2,8 @@
 PyTorch versions.
 
 Counterpart of ``flexflow_tpu/kernels/attention.py``, whose ``flash_attend``
-reaches two Pallas TPU kernels; ``csrc/flash_attend.cu`` replaces both:
+reaches two Pallas TPU kernels; ``csrc/flash_attend.cu`` (bf16 and fp16
+caches) and ``csrc/flash_attend_f32.cu`` (fp32 caches) replace both:
 
 * K1 ``flash_attend`` without ``append_kv`` (TPU ``_kernel``): batched
   attention over the cache with an fp32 online softmax — prefill (causal
@@ -24,6 +25,10 @@ by a second small launch in a fixed order. The plan depends on (R, KH, S,
 SM count) only, never on the query width or on ``lengths`` (no host
 read). ``split_attend`` is its plain version, for tests and the chip
 smoke test.
+
+fp32 caches run an FFMA kernel whose query tile is sized to the G*Q real
+rows of a (row, kv head): ``f32_tile_plan``, a function of G*Q and D
+only, picks it on the host.
 
 Partials: ``flash_attend_partials`` launches K1 or K2 with no output and
 returns each split's fp32 partial softmax state (unnormalised O and its
@@ -50,6 +55,16 @@ SUPPORTED_HEAD_DIMS = (64, 128, 256)
 WIDE_HEAD_DIM = 256
 # cache and output dtypes the kernels take, as csrc/flash_attend.cu's codes
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# the fp32 kernels (csrc/flash_attend_f32.cu attend_f32_kernel, and
+# attend_f32_tile_kernel for 64 rows at D 64 / 128): the query tiles they
+# are built for (rows a block; the wide kernel stages q whole, so fewer),
+# the cache positions of a staged K or V unit and the ring's depth
+F32_QUERY_TILES = (8, 16, 32, 64)
+F32_WIDE_QUERY_TILES = (8, 16)
+F32_UNIT = 32
+F32_STAGES, F32_WIDE_STAGES = 4, 2
+SMEM_PER_BLOCK = 232448   # an H100 block's dynamic shared memory limit
+MMA_QUERY_TILE = 64       # the 16-bit kernels' query rows a block
 
 
 def supports_shapes(S: int, D: int) -> bool:
@@ -71,9 +86,42 @@ def padded_head_dim(D: int) -> int:
 def kernel_takes(device, S: int, D: int, dtype) -> bool:
     """Does a kernel launch serve a cache of S positions, head dim D (the
     cache's own, padded or not) and ``dtype`` on ``device``? The one
-    predicate behind ``_launch``'s checks and ``kernel_serves``."""
+    predicate behind ``_launch``'s checks and ``kernel_serves``. An fp32
+    cache also needs a query tile that fits a block (D up to 5120)."""
     return (torch.device(device).type == "cuda" and dtype in _KERNEL_DTYPES
-            and supports_shapes(S, D))
+            and supports_shapes(S, D)
+            and (dtype != torch.float32 or f32_tile_plan(1, D) is not None))
+
+
+def f32_smem_bytes(qm: int, D: int) -> int:
+    """Shared memory of the fp32 kernel with a query tile of ``qm`` rows at
+    head dim D, as csrc/flash_attend_f32.cu f32_smem_bytes and
+    f32_tile_smem_bytes: q [qm, D + 4] and the K/V ring [stages,
+    F32_UNIT, DC + 4] in fp32 (DC = D, or WIDE_HEAD_DIM in the wide
+    kernel); the 64-row tile at D 64 / 128 swizzles instead of padding and
+    adds the [64 keys, 64 rows] P tile and two floats a row."""
+    wide = D >= WIDE_HEAD_DIM
+    if qm == 64 and not wide:
+        return 4 * (64 * D + F32_STAGES * F32_UNIT * D + BLOCK_S * 64
+                    + 2 * 64)
+    dcol = WIDE_HEAD_DIM if wide else D
+    stages = F32_WIDE_STAGES if wide else F32_STAGES
+    return 4 * (qm * (D + 4) + stages * F32_UNIT * (dcol + 4))
+
+
+@functools.lru_cache(maxsize=None)
+def f32_tile_plan(GQ: int, D: int):
+    """(query rows a block, shared-memory bytes) of the fp32 kernel for
+    the G*Q query rows of one (row, kv head) at head dim D: the least tile
+    that holds them, else the largest (G*Q > 64: ceil(G*Q / 64) tiles), of
+    those whose shared memory fits a block. A function of G*Q and D only;
+    None where no tile fits (D past 5120)."""
+    tiles = F32_WIDE_QUERY_TILES if D >= WIDE_HEAD_DIM else F32_QUERY_TILES
+    fits = [t for t in tiles if f32_smem_bytes(t, D) <= SMEM_PER_BLOCK]
+    if not fits:
+        return None
+    qm = next((t for t in fits if t >= GQ), fits[-1])
+    return qm, f32_smem_bytes(qm, D)
 
 
 @functools.lru_cache(maxsize=None)
@@ -330,7 +378,7 @@ def _ptr(t):
 def _bind(lib):
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for fn in (lib.ff_flash_attend, lib.ff_flash_attend_append):
-        fn.argtypes = [vp] * 13 + [i] * 8 + [f, i, i, i, vp]
+        fn.argtypes = [vp] * 13 + [i] * 8 + [f, i, i, i, i, vp]
         fn.restype = i
 
 
@@ -405,6 +453,8 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     out = (None if partials else
            torch.empty((R, Q, H * D), dtype=out_dtype, device=dev))
     n_split, tps = split_plan(R, KH, S, _sm_count(dev))
+    fp32 = cdt == torch.float32
+    qm = f32_tile_plan(H // KH * Q, D)[0] if fp32 else MMA_QUERY_TILE
     part_o = part_ml = None
     if n_split > 1 or partials:
         # fp32 partials of each split: combined in the kernel call, or
@@ -414,7 +464,7 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
         part_ml = torch.empty((n_split, R, Q, H, 2), dtype=torch.float32,
                               device=dev)
 
-    lib = build.load("flash_attend")
+    lib = build.load("flash_attend_f32" if fp32 else "flash_attend")
     if not getattr(lib, "_ff_bound", False):
         _bind(lib)
         lib._ff_bound = True
@@ -425,11 +475,13 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
             _ptr(al), _ptr(kn), _ptr(vn), _ptr(ap), _ptr(out), _ptr(part_o),
             _ptr(part_ml), R, Q, H, KH, S, D, n_split, tps, scale,
             int(bool(causal)),
-            _KERNEL_DTYPES[cdt], _KERNEL_DTYPES[out_dtype or cdt],
+            _KERNEL_DTYPES[cdt], _KERNEL_DTYPES[out_dtype or cdt], qm,
             ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{key} kernel launch failed: CUDA error {rc}")
     kernels.bump(key)
+    if fp32:
+        kernels.bump("flash_attend_fp32")
     if b is not None and append_kv is None:
         kernels.bump("flash_attend_bias")
     if partials:

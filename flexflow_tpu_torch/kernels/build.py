@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for Hopper (``sm_90a``) into ``_build/lib<name>-<digest>.so``, then loaded
-with ctypes. The digest covers the source and the flags, so an edited
-source rebuilds and an unchanged one is built once per checkout. The build
+with ctypes. The digest covers the source, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is built once per checkout. The build
 happens at first use (``load``) or up front for every source at once
 (``build_all``, one ``nvcc`` process per source, all started together).
 """
@@ -21,7 +22,7 @@ from typing import Dict, Iterable
 KERNEL_DIR = Path(__file__).resolve().parent
 SOURCE_DIR = KERNEL_DIR / "csrc"
 BUILD_DIR = KERNEL_DIR / "_build"
-SOURCES = ("flash_attend", "qmatmul")
+SOURCES = ("flash_attend", "flash_attend_f32", "qmatmul")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-ldl")
 
@@ -41,6 +42,8 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (SOURCE_DIR / f"{name}.cu").read_bytes()
+    for header in sorted(SOURCE_DIR.glob("*.cuh")):
+        src += header.read_bytes()
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

@@ -18,8 +18,9 @@
 //    short caches by the latency of its first tile;
 //  * K1 (prefill chunks, tree verify: G*Q = 64..256 rows) does ~64x more
 //    flops per byte, still below that line: bytes again, provided the
-//    products run on the tensor cores (scalar fp32 FMA made it
-//    shared-memory-bound at 6% of its bound).
+//    products run on the tensor cores. With an fp32 cache the products
+//    stay on FFMA (67 TFLOP/s), where a 64-row tile is above fp32's ~20
+//    flop/byte line: operations bound it (see the fp32 section).
 //
 // What the design does about it (bf16 cache, the serving path):
 //  * grid (query tile x S-split, kv head, row). A block serves 64 of the
@@ -66,198 +67,19 @@
 // per 256-column slice of O, q and K staged in 256-column chunks; see
 // their section). Other head dims are served by a cache padded to the
 // next of these (ops/inc_attention.py cache_head_dim).
-// The fp32 cache type keeps scalar FMA (TF32 tensor cores would lose the
-// 2e-5 parity) with the same grid, split plan, causal cut and append.
+// The fp32 cache type keeps exact FFMA products (TF32 tensor cores would
+// lose the 2e-5 parity): register-blocked kernels over a cp.async ring of
+// half tiles, their query tile sized to G*Q by the host, with the same
+// grid, split plan, causal cut, append and row invariance, in
+// csrc/flash_attend_f32.cu. Both sources share csrc/flash_attend.cuh.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "flash_attend.cuh"
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
-constexpr int BS = 64;     // cache positions per S-tile (never depends on Q)
-constexpr int QM = 64;     // query rows per block (a grid dimension)
-constexpr int NT_MMA = 128;   // 16-bit kernel: four warps of 16 query rows
-constexpr int NT_SIMT = 256;  // fp32 kernel
-using bf16 = __nv_bfloat16;
-using f16 = __half;
-
-constexpr int NSTAGE = 3;     // 16-bit kernel: K/V ring depth
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f(f16 x) { return __half2float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ f16 from_f<f16>(float x) { return __float2half_rn(x); }
-
-// x rounded to the cache type T and widened back to fp32
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-struct Args {
-  const void* q;       // [R, Q, H, D] cache type
-  void* k;             // [R, KH, S, D] (one layer of the stacked cache)
-  void* v;
-  const int* lengths;  // [R]
-  const int* qpos;     // [R, Q]
-  const float* bias;   // [R, Q, S] or null
-  const float* alibi;  // [H] or null
-  const void* k_new;   // [R, 1, KH, D] (K2)
-  const void* v_new;
-  const int* appos;    // [R] (K2)
-  void* out;           // [R, Q, H*D]
-  float* part_o;       // [n_split, R, Q, H, D] when partial
-  float* part_ml;      // [n_split, R, Q, H, 2]
-  int partial;         // write part_o/part_ml: n_split > 1 or out == null
-  int R, Q, H, KH, S;
-  int D;               // the cache's head dim (the wide kernels read it)
-  int n_split, tps;    // S-splits of tps tiles each
-  float scale;
-  int causal;
-  int out_dt;          // out's dtype code: 0 fp32, 1 bf16, 2 fp16
-};
-
-// What one block streams: (row r, kv head kh, query tile qt, split),
-// S-tiles [t0, t1), and the cache position whose K/V come from k_new.
-struct Block {
-  int r, kh, qt, split, G, GQ, q0, len, t0, t1, app;
-};
-
-// Every thread of the block calls this (it synchronises).
-// bx is the block's (query tile x split) index: blockIdx.x, or blockIdx.x
-// over the column slices of the wide kernels.
-template <bool APPEND>
-__device__ Block block_setup(const Args& a, int bx) {
-  __shared__ int qmax;
-  Block b;
-  b.r = blockIdx.z;
-  b.kh = blockIdx.y;
-  b.qt = bx / a.n_split;
-  b.split = bx % a.n_split;
-  b.G = a.H / a.KH;
-  b.GQ = b.G * a.Q;
-  b.q0 = b.qt * QM;
-  // every scalar load issued before the first use of any of them: the
-  // block's first tile waits on one memory latency, not a chain of them
-  const int gq = b.q0 + threadIdx.x;
-  const bool has_q = a.causal && threadIdx.x < QM && gq < b.GQ;
-  const int my_qp = has_q ? a.qpos[b.r * a.Q + gq % a.Q] : -1;
-  const int len = a.lengths[b.r];
-  const int p = APPEND ? a.appos[b.r] : -1;
-  b.len = min(max(len, 0), a.S);
-  b.app = (p >= 0 && p < a.S) ? p : -1;
-  int lim = b.len;
-  if (a.causal) {
-    // causal tile cut: no row of this query tile sees past max qpos
-    if (threadIdx.x == 0) qmax = -1;
-    __syncthreads();
-    if (has_q) atomicMax(&qmax, my_qp);
-    __syncthreads();
-    lim = min(lim, max(qmax + 1, 0));
-  }
-  const int nb = (lim + BS - 1) / BS;
-  b.t0 = b.split * a.tps;
-  b.t1 = min(b.t0 + a.tps, nb);
-  return b;
-}
-
-// K2: the block of query tile 0 in the split that owns appos[r] (and, in
-// the wide kernels, of column slice 0) writes the whole row of k_new/v_new
-// into the cache (16-byte stores), once. No block reads that row of the
-// cache: the streams take it from k_new/v_new.
-template <typename T>
-__device__ void append_store(const Args& a, const Block& b, int D) {
-  if (b.app < 0 || b.qt != 0 || b.split != (b.app / BS) / a.tps) return;
-  const int CH = D * (int)sizeof(T) / 16;
-  const size_t src = ((size_t)b.r * a.KH + b.kh) * D;
-  const size_t dst = (((size_t)b.r * a.KH + b.kh) * a.S + b.app) * D;
-  const uint4* kn = reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.k_new) + src);
-  const uint4* vn = reinterpret_cast<const uint4*>(reinterpret_cast<const T*>(a.v_new) + src);
-  uint4* kc = reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.k) + dst);
-  uint4* vc = reinterpret_cast<uint4*>(reinterpret_cast<T*>(a.v) + dst);
-  for (int c = threadIdx.x; c < CH; c += blockDim.x) {
-    kc[c] = kn[c];
-    vc[c] = vn[c];
-  }
-}
-
-// (r, qi, h) of query row gq of the block, flattened as in out [R, Q, H*D]
-__device__ __forceinline__ size_t out_row(const Args& a, const Block& b, int gq) {
-  const int g = gq / a.Q, qi = gq % a.Q;
-  return ((size_t)b.r * a.Q + qi) * a.H + b.kh * b.G + g;
-}
-
-// Element i of an output of dtype code dt. The output type is read at
-// run time (one branch a store, the same for the whole grid): a template
-// parameter would triple the instantiations for an epilogue alone.
-__device__ __forceinline__ void put_out(void* out, size_t i, int dt, float x) {
-  if (dt == 0) reinterpret_cast<float*>(out)[i] = x;
-  else if (dt == 1) reinterpret_cast<bf16*>(out)[i] = from_f<bf16>(x);
-  else reinterpret_cast<f16*>(out)[i] = from_f<f16>(x);
-}
-
-// One output element of a finished row: normalised and rounded like the
-// reference (to the cache type, then to the output type) when there is
-// one split and an output, else the split's unnormalised fp32 partial.
-template <typename T>
-__device__ __forceinline__ void store_out(const Args& a, const Block& b, size_t row, int D,
-                                          int d, float o, float l) {
-  if (!a.partial) {
-    put_out(a.out, row * D + d, a.out_dt, round_to<T>(o / fmaxf(l, 1e-30f)));
-  } else {
-    a.part_o[((size_t)b.split * a.R * a.Q * a.H + row) * D + d] = o;
-  }
-}
-
-// The split's running max and sum of a finished row (partials only).
-__device__ __forceinline__ void store_ml(const Args& a, const Block& b, size_t row, float m,
-                                         float l) {
-  if (!a.partial) return;
-  float* p = a.part_ml + ((size_t)b.split * a.R * a.Q * a.H + row) * 2;
-  p[0] = m;
-  p[1] = l;
-}
-
-// The score of query row (gq, qpos qp, ALiBi slope, bias row) against
-// cache position pos: masked to NEG_INF, else scaled, ALiBi, bias.
-__device__ __forceinline__ float score(const Args& a, const Block& b, float dot, bool row_ok,
-                                       int qp, float slope, const float* brow, int pos) {
-  if (!row_ok || pos >= b.len || (a.causal && pos > qp)) return NEG_INF;
-  float s = dot * a.scale;
-  if (a.alibi) s = s - slope * (float)(qp - pos);
-  if (brow) s = s + brow[pos];
-  return s;
-}
 
 // ---------------------------------------------------------------------
 // bf16 / fp16 cache: tensor cores (mma.sync.m16n8k16), cp.async ring
 // ---------------------------------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16-byte async copy global -> shared; src_bytes 0 fills zeros
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N> __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t* r, const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -285,17 +107,6 @@ __device__ __forceinline__ void mma16(float* c, const uint32_t* a, uint32_t b0, 
         "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
         : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-  }
-}
-
-// two fp32 values rounded to T (bf16 or fp16), packed lo | hi << 16
-template <typename T> __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
-  if constexpr (std::is_same<T, bf16>::value) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
-  } else {
-    const __half2 v = __floats2half2_rn(lo, hi);
-    return *reinterpret_cast<const uint32_t*>(&v);
   }
 }
 
@@ -339,7 +150,7 @@ __device__ __forceinline__ void copy_rows(const float* st, int lane, int rows, D
 // A warp's 16 finished rows (mma accumulator layout) go through shared
 // memory `st` as fp32 (padded rows: conflict-free) and out to dst(row), a
 // row of dtype code dt, in 16-byte stores; normalised and rounded like
-// store_out when `normalise`. The accumulators are dead once staged, so
+// the combine when `normalise`. The accumulators are dead once staged, so
 // the branch on dt costs the main loop no registers.
 template <typename T, int D, typename Dst>
 __device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4], const float* l,
@@ -484,7 +295,7 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
   constexpr int KS = D / 16;                       // k-steps of q.k
   constexpr int ND = D / 8;                        // n-tiles of p.v
 
-  const Block b = block_setup<APPEND>(a, blockIdx.x);
+  const Block b = block_setup<APPEND>(a, blockIdx.x, QM);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2, tig = lane & 3;
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
@@ -610,7 +421,6 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
 // append. The 16-bit ring holds WSTAGE stages of two [BS][DC] halves:
 // (q chunk, K chunk) or (V slice, unused), 192 KiB whatever D is.
 
-constexpr int DC = 256;     // head-dim columns a wide block owns
 constexpr int WSTAGE = 3;   // wide 16-bit ring depth
 
 constexpr size_t wide_mma_smem_bytes() { return (size_t)WSTAGE * 2 * BS * DC * 2; }
@@ -624,7 +434,7 @@ __global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a
   constexpr int ND = DC / 8;                 // n-tiles of p.v (the slice)
   const int D = a.D, nch = D / DC;
   const int col = blockIdx.x % nch;
-  const Block b = block_setup<APPEND>(a, blockIdx.x / nch);
+  const Block b = block_setup<APPEND>(a, blockIdx.x / nch, QM);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2;
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
@@ -742,468 +552,41 @@ __global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a
 }
 
 // ---------------------------------------------------------------------
-// fp32 cache: scalar FMA over shared-memory tiles
-// ---------------------------------------------------------------------
-
-template <int D>
-constexpr size_t simt_smem_bytes() {
-  // q tile, K tile (padded rows), V tile, scores/probabilities,
-  // m / l / correction per query row, qpos per query row
-  return sizeof(float) * (QM * D + BS * (D + 1) + BS * D + QM * BS + 3 * QM) +
-         sizeof(int) * QM;
-}
-
-template <int D, bool APPEND>
-__global__ void __launch_bounds__(NT_SIMT) attend_simt_kernel(const Args a) {
-  extern __shared__ float smem[];
-  constexpr int KS = D + 1;  // padded K row stride: conflict-free column reads
-  constexpr int NWARPS = NT_SIMT / 32;
-  float* q_s = smem;               // [QM][D]
-  float* k_s = q_s + QM * D;       // [BS][KS]
-  float* v_s = k_s + BS * KS;      // [BS][D]
-  float* p_s = v_s + BS * D;       // [QM][BS]
-  float* m_s = p_s + QM * BS;      // [QM]
-  float* l_s = m_s + QM;           // [QM]
-  float* c_s = l_s + QM;           // [QM]
-  int* qp_s = reinterpret_cast<int*>(c_s + QM);  // [QM]
-
-  const Block b = block_setup<APPEND>(a, blockIdx.x);
-  const int tid = threadIdx.x;
-  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
-  const float* kc = reinterpret_cast<const float*>(a.k) + head;
-  const float* vc = reinterpret_cast<const float*>(a.v) + head;
-  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
-  const float* qg = reinterpret_cast<const float*>(a.q);
-
-  // accumulator ownership: thread tid owns dim my_d of query rows
-  // row0, row0 + RSTEP, ...
-  constexpr int NACC = QM * D / NT_SIMT;
-  constexpr int RSTEP = NT_SIMT / D;
-  const int my_d = tid % D, row0 = tid / D;
-  // score ownership: thread tid owns key column sc of rows srow0 + i*SSTEP
-  constexpr int SSTEP = NT_SIMT / BS;
-  constexpr int NSC = QM / SSTEP;
-  const int sc = tid % BS, srow0 = tid / BS;
-
-  for (int e = tid; e < QM * D; e += NT_SIMT) {
-    const int row = e / D, d = e % D, gq = b.q0 + row;
-    q_s[e] = gq < b.GQ ? qg[out_row(a, b, gq) * D + d] : 0.f;
-  }
-  for (int row = tid; row < QM; row += NT_SIMT) {
-    const int gq = b.q0 + row;
-    qp_s[row] = gq < b.GQ ? a.qpos[b.r * a.Q + gq % a.Q] : 0;
-    m_s[row] = NEG_INF;
-    l_s[row] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int t = b.t0; t < b.t1; ++t) {
-    const int s0 = t * BS;
-    for (int e = tid; e < BS * D; e += NT_SIMT) {
-      const int s = e / D, d = e % D, pos = s0 + s;
-      float kv = 0.f, vv = 0.f;
-      if (pos == b.app) {
-        kv = reinterpret_cast<const float*>(a.k_new)[nsrc + d];
-        vv = reinterpret_cast<const float*>(a.v_new)[nsrc + d];
-      } else if (pos < b.len) {
-        kv = kc[(size_t)pos * D + d];
-        vv = vc[(size_t)pos * D + d];
-      }
-      k_s[s * KS + d] = kv;
-      v_s[s * D + d] = vv;
-    }
-    __syncthreads();
-
-    // scores s[row][col] = q[row] . k[col], fp32 accumulate
-    {
-      float dots[NSC];
-#pragma unroll
-      for (int i = 0; i < NSC; ++i) dots[i] = 0.f;
-      for (int d = 0; d < D; ++d) {
-        const float kd = k_s[sc * KS + d];
-#pragma unroll
-        for (int i = 0; i < NSC; ++i) dots[i] += q_s[(srow0 + i * SSTEP) * D + d] * kd;
-      }
-#pragma unroll
-      for (int i = 0; i < NSC; ++i) {
-        const int row = srow0 + i * SSTEP, gq = b.q0 + row;
-        const bool ok = gq < b.GQ;
-        const int qi = ok ? gq % a.Q : 0, g = ok ? gq / a.Q : 0;
-        p_s[row * BS + sc] =
-            score(a, b, dots[i], ok, qp_s[row], a.alibi ? a.alibi[b.kh * b.G + g] : 0.f,
-                  a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr, s0 + sc);
-      }
-    }
-    __syncthreads();
-
-    // online softmax, one warp per query row (BS == 64: two keys a lane)
-    const int warp = tid / 32, lane = tid % 32;
-    for (int row = warp; row < QM; row += NWARPS) {
-      const float x0 = p_s[row * BS + lane], x1 = p_s[row * BS + lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[row * BS + lane] = p0;
-      p_s[row * BS + lane + 32] = p1;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[row] = l_s[row] * corr + sum;
-        m_s[row] = m_new;
-        c_s[row] = corr;
-      }
-    }
-    __syncthreads();
-
-    // acc = acc * corr + p . v
-    {
-      float pv[NACC];
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) pv[i] = 0.f;
-      for (int s = 0; s < BS; ++s) {
-        const float vv = v_s[s * D + my_d];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) pv[i] += p_s[(row0 + i * RSTEP) * BS + s] * vv;
-      }
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = acc[i] * c_s[row0 + i * RSTEP] + pv[i];
-    }
-    __syncthreads();  // the next tile overwrites k_s / v_s / p_s
-  }
-
-  if (APPEND) append_store<float>(a, b, D);
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int row = row0 + i * RSTEP, gq = b.q0 + row;
-    if (gq >= b.GQ) continue;
-    const size_t orow = out_row(a, b, gq);
-    store_out<float>(a, b, orow, D, my_d, acc[i], l_s[row]);
-    if (my_d == 0) store_ml(a, b, orow, m_s[row], l_s[row]);
-  }
-}
-
-// fp32 cache, D = 256 and past: the scalar kernel's tiles at DC columns. Per
-// S-tile the q and K chunks are staged one after another and the dots
-// summed over them in order (the same d order as one D-wide pass), then
-// the tile's V slice; the block owns O's columns [col * DC, col * DC + DC).
-template <bool APPEND>
-__global__ void __launch_bounds__(NT_SIMT) attend_simt_wide_kernel(const Args a) {
-  extern __shared__ float smem[];
-  constexpr int KS = DC + 1;
-  constexpr int NWARPS = NT_SIMT / 32;
-  float* q_s = smem;               // [QM][DC]
-  float* k_s = q_s + QM * DC;      // [BS][KS]
-  float* v_s = k_s + BS * KS;      // [BS][DC]
-  float* p_s = v_s + BS * DC;      // [QM][BS]
-  float* m_s = p_s + QM * BS;      // [QM]
-  float* l_s = m_s + QM;           // [QM]
-  float* c_s = l_s + QM;           // [QM]
-  int* qp_s = reinterpret_cast<int*>(c_s + QM);  // [QM]
-
-  const int D = a.D, nch = D / DC;
-  const int col = blockIdx.x % nch;
-  const Block b = block_setup<APPEND>(a, blockIdx.x / nch);
-  const int tid = threadIdx.x;
-  const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
-  const float* kc = reinterpret_cast<const float*>(a.k) + head;
-  const float* vc = reinterpret_cast<const float*>(a.v) + head;
-  const size_t nsrc = ((size_t)b.r * a.KH + b.kh) * D;
-  const float* qg = reinterpret_cast<const float*>(a.q);
-
-  static_assert(NT_SIMT == DC, "thread tid owns column tid of every query row");
-  constexpr int NACC = QM;
-  const int my_d = tid % DC;
-  constexpr int SSTEP = NT_SIMT / BS;
-  constexpr int NSC = QM / SSTEP;
-  const int sc = tid % BS, srow0 = tid / BS;
-
-  for (int row = tid; row < QM; row += NT_SIMT) {
-    const int gq = b.q0 + row;
-    qp_s[row] = gq < b.GQ ? a.qpos[b.r * a.Q + gq % a.Q] : 0;
-    m_s[row] = NEG_INF;
-    l_s[row] = 0.f;
-  }
-  float acc[NACC];
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) acc[i] = 0.f;
-  __syncthreads();
-
-  for (int t = b.t0; t < b.t1; ++t) {
-    const int s0 = t * BS;
-    float dots[NSC];
-#pragma unroll
-    for (int i = 0; i < NSC; ++i) dots[i] = 0.f;
-    for (int c = 0; c < nch; ++c) {
-      for (int e = tid; e < QM * DC; e += NT_SIMT) {
-        const int row = e / DC, d = e % DC, gq = b.q0 + row;
-        q_s[e] = gq < b.GQ ? qg[out_row(a, b, gq) * D + c * DC + d] : 0.f;
-      }
-      for (int e = tid; e < BS * DC; e += NT_SIMT) {
-        const int sp = e / DC, d = e % DC, pos = s0 + sp;
-        float kv = 0.f;
-        if (pos == b.app) kv = reinterpret_cast<const float*>(a.k_new)[nsrc + c * DC + d];
-        else if (pos < b.len) kv = kc[(size_t)pos * D + c * DC + d];
-        k_s[sp * KS + d] = kv;
-      }
-      __syncthreads();
-      for (int d = 0; d < DC; ++d) {
-        const float kd = k_s[sc * KS + d];
-#pragma unroll
-        for (int i = 0; i < NSC; ++i) dots[i] += q_s[(srow0 + i * SSTEP) * DC + d] * kd;
-      }
-      __syncthreads();  // the next chunk overwrites q_s / k_s
-    }
-#pragma unroll
-    for (int i = 0; i < NSC; ++i) {
-      const int row = srow0 + i * SSTEP, gq = b.q0 + row;
-      const bool ok = gq < b.GQ;
-      const int qi = ok ? gq % a.Q : 0, g = ok ? gq / a.Q : 0;
-      p_s[row * BS + sc] =
-          score(a, b, dots[i], ok, qp_s[row], a.alibi ? a.alibi[b.kh * b.G + g] : 0.f,
-                a.bias ? a.bias + ((size_t)b.r * a.Q + qi) * a.S : nullptr, s0 + sc);
-    }
-    for (int e = tid; e < BS * DC; e += NT_SIMT) {
-      const int sp = e / DC, d = e % DC, pos = s0 + sp;
-      float vv = 0.f;
-      if (pos == b.app) vv = reinterpret_cast<const float*>(a.v_new)[nsrc + col * DC + d];
-      else if (pos < b.len) vv = vc[(size_t)pos * D + col * DC + d];
-      v_s[sp * DC + d] = vv;
-    }
-    __syncthreads();
-
-    const int warp = tid / 32, lane = tid % 32;
-    for (int row = warp; row < QM; row += NWARPS) {
-      const float x0 = p_s[row * BS + lane], x1 = p_s[row * BS + lane + 32];
-      float mx = fmaxf(x0, x1);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(x0 - m_new), p1 = expf(x1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      p_s[row * BS + lane] = p0;
-      p_s[row * BS + lane + 32] = p1;
-      if (lane == 0) {
-        const float corr = expf(m_old - m_new);
-        l_s[row] = l_s[row] * corr + sum;
-        m_s[row] = m_new;
-        c_s[row] = corr;
-      }
-    }
-    __syncthreads();
-
-    {
-      float pv[NACC];
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) pv[i] = 0.f;
-      for (int sp = 0; sp < BS; ++sp) {
-        const float vv = v_s[sp * DC + my_d];
-#pragma unroll
-        for (int i = 0; i < NACC; ++i) pv[i] += p_s[i * BS + sp] * vv;
-      }
-#pragma unroll
-      for (int i = 0; i < NACC; ++i) acc[i] = acc[i] * c_s[i] + pv[i];
-    }
-    __syncthreads();  // the next tile overwrites k_s / v_s / p_s
-  }
-
-  if (APPEND && col == 0) append_store<float>(a, b, D);
-#pragma unroll
-  for (int i = 0; i < NACC; ++i) {
-    const int gq = b.q0 + i;
-    if (gq >= b.GQ) continue;
-    const size_t orow = out_row(a, b, gq);
-    store_out<float>(a, b, orow, D, col * DC + my_d, acc[i], l_s[i]);
-    if (col == 0 && my_d == 0) store_ml(a, b, orow, m_s[i], l_s[i]);
-  }
-}
-
-// ---------------------------------------------------------------------
-// split-S combine: out = sum_s w_s O_s / sum_s w_s l_s, w_s = e^(m_s - m)
-// over the splits in order (deterministic). One block per (r, qi, h).
-// ---------------------------------------------------------------------
-
-template <typename T>
-__global__ void combine_kernel(const float* part_o, const float* part_ml, void* out,
-                               int out_dt, int rows, int D, int n_split) {
-  extern __shared__ float ml_s[];  // [n_split][2]: (m, l), then (weight, l)
-  __shared__ float l_tot;
-  const size_t row = blockIdx.x;
-  // all splits' (m, l) at once: one memory latency, not n_split of them
-  for (int e = threadIdx.x; e < 2 * n_split; e += blockDim.x)
-    ml_s[e] = part_ml[((size_t)(e >> 1) * rows + row) * 2 + (e & 1)];
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float mx = NEG_INF, l = 0.f;
-    for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, ml_s[2 * s]);
-    for (int s = 0; s < n_split; ++s) {
-      const float w = expf(ml_s[2 * s] - mx);
-      l += w * ml_s[2 * s + 1];
-      ml_s[2 * s] = w;
-    }
-    l_tot = fmaxf(l, 1e-30f);
-  }
-  __syncthreads();
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < n_split; ++s)
-      o += ml_s[2 * s] * part_o[((size_t)s * rows + row) * D + d];
-    put_out(out, row * D + d, out_dt, round_to<T>(o / l_tot));
-  }
-}
-
-// ---------------------------------------------------------------------
 // launch
 // ---------------------------------------------------------------------
 
-// One attention launch (grid x = query tiles x splits x nx column
-// slices), its dynamic shared-memory limit raised once per kernel, then
-// the split-S combine when there are splits.
-template <typename T, typename Kern>
-int launch_with(Kern kern, size_t smem, bool& smem_set, int nx, int threads, int D,
-                const Args& a, cudaStream_t stream) {
-  cudaError_t err = cudaSuccess;
-  if (!smem_set) {
-    err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  const dim3 grid((unsigned)(((a.H / a.KH) * a.Q + QM - 1) / QM * a.n_split * nx),
-                  (unsigned)a.KH, (unsigned)a.R);
-  kern<<<grid, threads, smem, stream>>>(a);
-  err = cudaGetLastError();
-  // partials out (no output): the caller combines
-  if (err != cudaSuccess || !a.partial || !a.out) return (int)err;
-  const int rows = a.R * a.Q * a.H;
-  combine_kernel<T><<<rows, D < DC ? D : DC, 2 * a.n_split * sizeof(float), stream>>>(
-      a.part_o, a.part_ml, a.out, a.out_dt, rows, D, a.n_split);
-  return (int)cudaGetLastError();
-}
-
+// dtype codes 1 bf16, 2 fp16 (kernels/attention.py _KERNEL_DTYPES; 0, fp32,
+// is csrc/flash_attend_f32.cu's); one kernel per (cache dtype, head dim,
+// append), out's dtype at run time
 template <typename T, int D, bool APPEND>
 int launch(const Args& a, cudaStream_t stream) {
-  constexpr bool MMA = sizeof(T) == 2;  // bf16 / fp16 cache: tensor cores
-  constexpr size_t smem = MMA ? mma_smem_bytes<D>() : simt_smem_bytes<D>();
-  // if constexpr: a bf16/fp16 cache never instantiates the fp32 kernel's
-  // twin, nor fp32 the tensor-core one
-  auto kern = [] {
-    if constexpr (MMA) return attend_mma_kernel<T, D, APPEND>;
-    else return attend_simt_kernel<D, APPEND>;
-  }();
-  static bool smem_set = false;  // one attribute call per instantiation
-  return launch_with<T>(kern, smem, smem_set, 1, MMA ? NT_MMA : NT_SIMT, D, a, stream);
+  static size_t smem_set = 0;
+  return launch_with<T>(attend_mma_kernel<T, D, APPEND>, mma_smem_bytes<D>(), smem_set, QM, 1,
+                        NT_MMA, D, a, stream);
 }
 
 // D a multiple of DC: one block per DC-column slice of O
 template <typename T, bool APPEND>
 int launch_wide(const Args& a, cudaStream_t stream) {
-  constexpr bool MMA = sizeof(T) == 2;
-  constexpr size_t smem = MMA ? wide_mma_smem_bytes() : simt_smem_bytes<DC>();
-  auto kern = [] {
-    if constexpr (MMA) return attend_mma_wide_kernel<T, APPEND>;
-    else return attend_simt_wide_kernel<APPEND>;
-  }();
-  static bool smem_set = false;
-  return launch_with<T>(kern, smem, smem_set, a.D / DC, MMA ? NT_MMA : NT_SIMT, a.D, a, stream);
+  static size_t smem_set = 0;
+  return launch_with<T>(attend_mma_wide_kernel<T, APPEND>, wide_mma_smem_bytes(), smem_set, QM,
+                        a.D / DC, NT_MMA, a.D, a, stream);
 }
 
-// dtype codes: 0 fp32, 1 bf16, 2 fp16 (kernels/attention.py _KERNEL_DTYPES);
-// one kernel per (cache dtype, head dim, append), out's dtype at run time
-template <int D, bool APPEND>
-int dispatch_cache(const Args& a, int cache_dt, cudaStream_t st) {
-  if (cache_dt == 0) return launch<float, D, APPEND>(a, st);
-  if (cache_dt == 1) return launch<bf16, D, APPEND>(a, st);
-  if (cache_dt == 2) return launch<f16, D, APPEND>(a, st);
+template <typename T, bool APPEND>
+int launch_dim(const Args& a, int D, cudaStream_t st) {
+  if (D == 64) return launch<T, 64, APPEND>(a, st);
+  if (D == 128) return launch<T, 128, APPEND>(a, st);
+  if (D >= DC && D % DC == 0) return launch_wide<T, APPEND>(a, st);
   return (int)cudaErrorInvalidValue;
 }
 
 template <bool APPEND>
-int dispatch_wide(const Args& a, int cache_dt, cudaStream_t st) {
-  if (cache_dt == 0) return launch_wide<float, APPEND>(a, st);
-  if (cache_dt == 1) return launch_wide<bf16, APPEND>(a, st);
-  if (cache_dt == 2) return launch_wide<f16, APPEND>(a, st);
+int dispatch(const Args& a, int D, int cache_dt, int qm, cudaStream_t st) {
+  if (a.out_dt < 0 || a.out_dt > 2 || qm != QM) return (int)cudaErrorInvalidValue;
+  if (cache_dt == 1) return launch_dim<bf16, APPEND>(a, D, st);
+  if (cache_dt == 2) return launch_dim<f16, APPEND>(a, D, st);
   return (int)cudaErrorInvalidValue;
-}
-
-template <bool APPEND>
-int dispatch(const Args& a, int D, int cache_dt, cudaStream_t st) {
-  if (a.out_dt < 0 || a.out_dt > 2) return (int)cudaErrorInvalidValue;
-  if (D == 64) return dispatch_cache<64, APPEND>(a, cache_dt, st);
-  if (D == 128) return dispatch_cache<128, APPEND>(a, cache_dt, st);
-  if (D >= DC && D % DC == 0) return dispatch_wide<APPEND>(a, cache_dt, st);
-  return (int)cudaErrorInvalidValue;
-}
-
-Args make_args(const void* q, void* k, void* v, const int* lengths, const int* qpos,
-               const float* bias, const float* alibi, const void* k_new,
-               const void* v_new, const int* appos, void* out, float* part_o,
-               float* part_ml, int R, int Q, int H, int KH, int S, int D, int n_split,
-               int tps, float scale, int causal, int out_dt) {
-  Args a;
-  a.q = q; a.k = k; a.v = v; a.lengths = lengths; a.qpos = qpos;
-  a.bias = bias; a.alibi = alibi; a.k_new = k_new; a.v_new = v_new;
-  a.appos = appos; a.out = out; a.part_o = part_o; a.part_ml = part_ml;
-  a.R = R; a.Q = Q; a.H = H; a.KH = KH; a.S = S; a.D = D;
-  a.n_split = n_split; a.tps = tps;
-  a.partial = n_split > 1 || !out;
-  a.scale = scale; a.causal = causal; a.out_dt = out_dt;
-  return a;
-}
-
-bool plan_ok(int S, int n_split, int tps, const void* out, const float* part_o,
-             const float* part_ml) {
-  if (n_split < 1 || tps < 1 || (long long)n_split * tps * BS < S) return false;
-  return (n_split == 1 && out) || (part_o && part_ml);
 }
 
 }  // namespace
-
-// Both entries take the same arguments (K1 ignores k_new/v_new/appos) and
-// return cudaGetLastError() after the launch(es): 0 on success. The S
-// range is cut into n_split splits of tps 64-position tiles; with
-// n_split > 1, part_o [n_split, R, Q, H, D] and part_ml [n_split, R, Q,
-// H, 2] (fp32) hold the partials and a combine kernel follows. With out
-// null they hold the partials of every split (n_split = 1 too), the
-// caller combines them and no combine kernel runs. D is 64,
-// 128 or a multiple of 256; cache_dt and out_dt are dtype codes (0
-// fp32, 1 bf16, 2 fp16).
-extern "C" int ff_flash_attend(const void* q, void* k, void* v, const int* lengths,
-                               const int* qpos, const float* bias, const float* alibi,
-                               const void* k_new, const void* v_new, const int* appos,
-                               void* out, float* part_o, float* part_ml, int R, int Q,
-                               int H, int KH, int S, int D, int n_split, int tps,
-                               float scale, int causal, int cache_dt, int out_dt,
-                               void* stream) {
-  if (!plan_ok(S, n_split, tps, out, part_o, part_ml)) return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, nullptr, nullptr, nullptr,
-                           out, part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale,
-                           causal, out_dt);
-  return dispatch<false>(a, D, cache_dt, (cudaStream_t)stream);
-}
-
-extern "C" int ff_flash_attend_append(const void* q, void* k, void* v,
-                                      const int* lengths, const int* qpos,
-                                      const float* bias, const float* alibi,
-                                      const void* k_new, const void* v_new,
-                                      const int* appos, void* out, float* part_o,
-                                      float* part_ml, int R, int Q, int H, int KH, int S,
-                                      int D, int n_split, int tps, float scale, int causal,
-                                      int cache_dt, int out_dt, void* stream) {
-  if (!k_new || !v_new || !appos || !plan_ok(S, n_split, tps, out, part_o, part_ml))
-    return (int)cudaErrorInvalidValue;
-  const Args a = make_args(q, k, v, lengths, qpos, bias, alibi, k_new, v_new, appos, out,
-                           part_o, part_ml, R, Q, H, KH, S, D, n_split, tps, scale, causal,
-                           out_dt);
-  return dispatch<true>(a, D, cache_dt, (cudaStream_t)stream);
-}

@@ -28,7 +28,8 @@ _TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 def _case(name):
     """numpy inputs of one flash_attend case (the cases of
     tests/test_pallas_kernels.py)."""
-    rng = np.random.RandomState((CASES + SPLIT_CASES).index(name))
+    rng = np.random.RandomState(
+        (CASES + SPLIT_CASES + FP32_GQ_CASES).index(name))
     c = dict(dtype="float32", causal=True, bias=None, alibi=None,
              append=None, layer_idx=None)
 
@@ -85,6 +86,18 @@ def _case(name):
             c["append"] = (rng.randn(2, 1, 2, 128).astype(np.float32),
                            rng.randn(2, 1, 2, 128).astype(np.float32), appos)
             c["dtype"] = "bfloat16"
+    elif name.startswith("fp32-gq"):
+        # the fp32 kernel's query tiles: K1 and K2 at G*Q = 1 .. 568, the
+        # new row appended at each row's last position
+        H, KH, Q = _GQ_SHAPES[int(name[len("fp32-gq"):])]
+        D = 64 if H * Q // KH >= 64 else 128
+        qkv(2, Q, H, KH, D, 256)
+        c["lengths"] = np.array([200, 37], np.int32)
+        c["qpos"] = (c["lengths"][:, None] - Q
+                     + np.arange(Q, dtype=np.int32)[None]).clip(0)
+        c["append"] = (rng.randn(2, 1, KH, D).astype(np.float32),
+                       rng.randn(2, 1, KH, D).astype(np.float32),
+                       c["lengths"] - 1)
     elif name.startswith("append"):
         stacked = name == "append-stacked"
         R, KH = (2, 4) if stacked else (4, 4)
@@ -110,6 +123,11 @@ CASES = ["decode-float32", "decode-bfloat16", "prefill-causal",
 SPLIT_CASES = ["split-lengths-zero", "split-at-boundary", "split-over-S",
                "split-append-later"]
 MANY_SMS = 132   # an H100's SM count: R * KH = 4 streams leave it idle
+# G*Q -> (query heads, kv heads, query width) where the fp32 kernel's query
+# tiles cut (tests/test_torch_fp32_attention.py holds the plain side)
+_GQ_SHAPES = {1: (4, 4, 1), 8: (8, 8, 8), 16: (8, 4, 8), 17: (17, 1, 1),
+              64: (8, 8, 64), 65: (13, 1, 5), 568: (71, 1, 8)}
+FP32_GQ_CASES = [f"fp32-gq{gq}" for gq in sorted(_GQ_SHAPES)]
 
 
 def _appended(cache, append, layer_idx, which):
@@ -280,10 +298,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["append-stacked", "split-append-later"])
+@pytest.mark.parametrize("name", ["append-stacked", "split-append-later"]
+                         + FP32_GQ_CASES)
 def test_cuda_kernels_match_plain_version(cuda_device, name):
     """On a card: K1 and K2 against their plain versions, on the stacked
-    cache and with split-S (chip_smoke.py phase 3 runs the full set)."""
+    cache, with split-S, and on fp32 caches at the G*Q values where the
+    fp32 kernel's query tiles cut (chip_smoke.py phase 3 runs the full
+    set)."""
     c = _case(name)
     dev = cuda_device
     dt = _TORCH[c["dtype"]]
