@@ -39,7 +39,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      (through the padded cache) and 256, 512 and 768, fp32 among them,
      against the plain version on the unpadded inputs, with timed fp16,
      D = 256 and D = 320/512/768 rows (the last at R 8, S 256, H = 4096
-     // D), and the bitwise invariance checks at D = 256, 512, 768 too;
+     // D; bf16, and fp16 at 512 and 768), the 16-bit wide kernel's
+     partials mode at D 512 against ``partials_reference``, a long-cache
+     row at D 512, and the bitwise invariance checks at D = 256, 512, 768
+     and at D 320's serving shape (12 heads, cache 512) too;
      phase 10's families' shapes in bf16 at R 8, S 256 (Falcon-7B's 71
      query heads on one KV head at D 64, StarCoder's 48 on one at D 128,
      MPT-7B's ALiBi, OPT-6.7B's query-side scale: prefill, decode and
@@ -76,8 +79,10 @@ Phases (each fails loudly; the run exits non-zero if any fails):
      weights, activations and cache (at most one request may differ, as
      the fp32 incremental pass), head dim 32 (128 heads, fp32, the
      card's cache padded to 64; 64 of 64) and head dim 320 (12 heads,
-     hidden 3840, fp32, the card's cache padded to 512 and served by the
-     wide kernels; 64 of 64) against the CPU;
+     hidden 3840, the card's cache padded to 512) in fp32 (the FFMA wide
+     kernel; 64 of 64) and in bf16 (the 16-bit wide cluster kernel, whose
+     launches ``flash_attend_wide`` counts and the kernels line reports;
+     at most one request may differ) against the CPU;
   5. the slice at full size: LLaMA-2-7B geometry in bf16 served through
      ``LLM(...).compile(...).generate(...)`` (8 requests x 32-token
      prompts, 64 new tokens); prints prefill ms, decode ms/step,
@@ -519,7 +524,10 @@ def invariance_check(torch, ivec, mk):
     one split, 16 against 8 with GQA on the split-S shape, and at G = 8
     the 64-row tile kernel at width 8 against the 8-row one at width 1)
     at the slice's shape, the split-S GQA shape, G = 8 and D 512 (the
-    wide kernel)."""
+    wide kernel). The 16-bit wide kernel (a cluster of column slices
+    summing its partial scores in rank order) at D 256, 512 and 768, at
+    D 320's serving shape (12 heads on a cache padded to 512: one wave,
+    two blocks an SM), and split-S with GQA at D 512 in bf16 and fp16."""
     from flexflow_tpu_torch.kernels.attention import append_at, flash_attend
     from flexflow_tpu_torch.ops.inc_attention import alibi_slopes
 
@@ -531,6 +539,8 @@ def invariance_check(torch, ivec, mk):
             (8, 16, 16, 256, 63, 256, False, bf),
             (8, 8, 8, 256, 63, 512, False, bf),
             (2, 8, 4, 1024, 700, 512, False, bf),
+            (2, 8, 4, 1024, 700, 512, False, torch.float16),
+            (8, 12, 12, 256, 63, 512, False, bf),
             (4, 4, 4, 256, 63, 768, False, bf),
             (8, 71, 1, 256, 63, 64, False, bf),
             (8, 48, 1, 256, 63, 128, False, bf),
@@ -585,13 +595,16 @@ def invariance_check(torch, ivec, mk):
 
 
 def head_dim_cases(torch, ivec, mk, compare, bf16_control):
-    """K1 and K2 at head dims the wide kernels take directly (256, 512
-    and 768) and through the padded cache (32 -> 64, 80 -> 128, 160 ->
-    256, 320 -> 512: ``ops/inc_attention.py`` ``cache_head_dim``), bf16,
-    fp16 and fp32 (fp32 at D = 256 and 320: the wide scalar kernel),
-    each against the plain version on the same unpadded inputs (softmax
-    scale 1/sqrt(D) of the real D). R4 x KH4 streams on S 512 split S, so
-    the wide kernels' split partials and combine run too."""
+    """K1 and K2 at head dims the wide kernels take directly (256, 512,
+    768, and 2304: nine 256-column chunks, past one 16-bit cluster of 8,
+    so two clusters of five ranks, a rank with two score chunks and a
+    block with no output slice) and through the padded cache (32 -> 64,
+    80 -> 128, 160 -> 256, 320 -> 512: ``ops/inc_attention.py``
+    ``cache_head_dim``), bf16, fp16 and fp32 (fp32 at D = 256 and 320:
+    the wide FFMA kernel), each against the plain version on the same
+    unpadded inputs (softmax scale 1/sqrt(D) of the real D). R4 x KH4
+    streams on S 512 split S, so the wide kernels' split partials and
+    combine run too."""
     from flexflow_tpu_torch.kernels.attention import (append_at,
                                                       flash_attend,
                                                       reference_attend)
@@ -603,7 +616,8 @@ def head_dim_cases(torch, ivec, mk, compare, bf16_control):
                   (256, torch.bfloat16), (256, torch.float16),
                   (256, torch.float32), (160, torch.float32),
                   (320, torch.bfloat16), (512, torch.bfloat16),
-                  (320, torch.float32), (768, torch.bfloat16)):
+                  (320, torch.float32), (768, torch.bfloat16),
+                  (2304, torch.bfloat16)):
         Dp = cache_head_dim(D, pad=True)
         R, Q, H, KH, S = 4, 16, 8, 4, 512
         q, k, v = mk(R, Q, H, KH, D, S, dt, 70 + D)
@@ -644,6 +658,59 @@ def head_dim_cases(torch, ivec, mk, compare, bf16_control):
                                  qk_scale=scale) if h16 else None)
 
 
+def wide_partials_cases(torch, ivec, mk, compare):
+    """The 16-bit wide kernel's partials mode (out null, the sequence-
+    parallel path) at D 512: K1, and K2 with its append, against
+    ``partials_reference`` on the same cache. Each split's partial is the
+    kernel's; they are combined in order (``combine_partials``) against the
+    reference's one split, and where the plan makes one split (R8, 8 kv
+    heads, S 256) the kernel's unnormalised O and its row max and sum also
+    against the reference's directly. bf16 one split, fp16 split-S GQA."""
+    from flexflow_tpu_torch.kernels.attention import (
+        append_at, combine_partials, flash_attend_partials,
+        partials_reference, wide_split_plan)
+
+    dev = "cuda"
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for R, H, KH, S, dt, lens in (
+            (8, 8, 8, 256, torch.bfloat16, [31, 64, 200, 256, 1, 130, 63, 97]),
+            (2, 8, 4, 1024, torch.float16, [700, 130])):
+        D = 512
+        plan = wide_split_plan(R, KH, S, D, sms)
+        q, k, v = mk(R, 8, H, KH, D, S, dt, 150 + R)
+        g = torch.Generator(device=dev).manual_seed(160 + R)
+        kn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
+        vn = torch.randn((R, 1, KH, D), generator=g, device=dev).to(dt)
+        lengths = ivec(lens)
+        qpos = (lengths[:, None] - 8 + torch.arange(
+            8, dtype=torch.int32, device=dev)[None]).clamp(min=0)
+        appos = lengths - 1
+        tag = f"R{R} H{H} KH{KH} S{S} D{D} {str(dt)[6:]} split plan {plan}"
+        for what in ("K1", "K2"):
+            kk, vv = k.clone(), v.clone()
+            if what == "K1":
+                po, pm = flash_attend_partials(q, kk, vv, lengths, qpos)
+            else:
+                po, pm = flash_attend_partials(q, kk, vv, lengths, qpos,
+                                               append_kv=(kn, vn, appos))
+                append_at(k, v, kn, vn, appos)
+                if not (torch.equal(kk, k) and torch.equal(vv, v)):
+                    raise AssertionError(f"wide partials {what} {tag}: the "
+                                         "append differs from the plain one")
+            torch.cuda.synchronize()
+            ro, rm = partials_reference(q, k, v, lengths, qpos)
+            if po.shape[0] != plan[0]:
+                raise AssertionError(f"wide partials {what} {tag}: "
+                                     f"{po.shape[0]} splits")
+            compare(f"{what} partials {tag}", combine_partials(ro, rm, dt),
+                    combine_partials(po, pm, dt), lengths, dt)
+            if plan[0] == 1:
+                compare(f"  {what} partial O {tag}", ro.reshape(R, 8, -1),
+                        po.reshape(R, 8, -1), lengths, dt)
+                compare(f"  {what} partial (m, l) {tag}", rm.reshape(R, 8, -1),
+                        pm.reshape(R, 8, -1), lengths, dt)
+
+
 def wide_head_dim_rows(torch, timer, read_floor, ivec, compare, sdpa_call,
                        pre_len, pre_qpos, appos_main):
     """Head dims past 256 at the serving shapes (R 8, S 256; prefill Q 64
@@ -664,7 +731,8 @@ def wide_head_dim_rows(torch, timer, read_floor, ivec, compare, sdpa_call,
     log("  head dims past 256 (median of 20, L2 flushed before each launch)")
     out_rows = []
     for dt, D in ((torch.bfloat16, 320), (torch.bfloat16, 512),
-                  (torch.float32, 320), (torch.bfloat16, 768)):
+                  (torch.float32, 320), (torch.bfloat16, 768),
+                  (torch.float16, 512), (torch.float16, 768)):
         R, H, S = REQUESTS, 4096 // D, MAX_SEQ
         Dp = cache_head_dim(D, pad=True)
         scale = 1.0 / D ** 0.5
@@ -851,7 +919,8 @@ def kernel_phase(torch, timer):
     from flexflow_tpu_torch.kernels.attention import (NEG_INF, append_at,
                                                       flash_attend,
                                                       reference_attend,
-                                                      split_attend, split_plan)
+                                                      split_attend, split_plan,
+                                                      wide_split_plan)
     import numpy as np
     import torch.nn.functional as F
 
@@ -915,9 +984,12 @@ def kernel_phase(torch, timer):
 
     def split_check(name, q, k, v, lengths, qpos, out, dtype, **kw):
         """Where this shape splits S on this card, the kernel also against
-        the plain split + combine with the same plan."""
-        R_, KH_, S_ = k.shape[0], k.shape[1], k.shape[2]
-        plan = split_plan(R_, KH_, S_, sms)
+        the plain split + combine with the same plan (the 16-bit wide
+        kernel's own plan at head dims 256 and past)."""
+        R_, KH_, S_, D_ = k.shape[0], k.shape[1], k.shape[2], k.shape[3]
+        plan = (wide_split_plan(R_, KH_, S_, D_, sms)
+                if k.dtype != torch.float32 and D_ >= 256
+                else split_plan(R_, KH_, S_, sms))
         if plan[0] > 1:
             compare(f"  {name[:22]} vs split plain {plan}",
                     split_attend(q, k, v, lengths, qpos, plan=plan, **kw),
@@ -1096,6 +1168,7 @@ def kernel_phase(torch, timer):
         k2_case(f"K2 split-S {tag}", 3, 1, 8, 2, 64, 1024, cdt,
                 ivec([5, 700, 1000]), 100 + i, out_dtype=odt)
     head_dim_cases(torch, ivec, mk, compare, bf16_control)
+    wide_partials_cases(torch, ivec, mk, compare)
     invariance_check(torch, ivec, mk)
 
     # --- times at the serving path's shapes ---
@@ -1202,6 +1275,19 @@ def kernel_phase(torch, timer):
                          torch, q, ln, qp, S_l, KH, True, dt,
                          extra_bytes=4 * kn_.numel() * kn_.element_size()))
             del q, k, v
+        if dt == bf:
+            # the 16-bit wide kernel at a long cache: D 512, 8 heads
+            name = "K2 long R8 Q8 S4096 len4000 D512"
+            app_l = ivec([len_l - 1] * R)
+            _, (q, k, v, kn_, vn_, ln, qp) = k2_case(
+                name, R, 8, 8, 8, 512, S_l, dt, app_l, 38)
+            long_row(name, lambda: flash_attend(q, k, v, ln, qp,
+                                                append_kv=(kn_, vn_, app_l)),
+                     sdpa_call(q, k, v, ln, qp),
+                     attention_bound_ms(
+                         torch, q, ln, qp, S_l, 8, True, dt,
+                         extra_bytes=4 * kn_.numel() * kn_.element_size()))
+            del q, k, v
         name = f"K1 long R8 Q64 qpos 3936..3999{sfx}"
         ln = ivec([len_l] * R)
         qp = (torch.arange(Qp, dtype=torch.int32, device=dev)
@@ -1275,6 +1361,15 @@ def kernel_phase(torch, timer):
                                    sdpa_call, pre_len, pre_qpos,
                                    appos_main)
     log(json.dumps({"wide_head_dim_rows": wide_rows}))
+    # the kernels line's row of the 16-bit wide kernel: the decode of
+    # phase 4's bf16 head-dim-320 pass (12 heads, cache padded to 512)
+    k2w = next(r for r in wide_rows if r["name"].startswith("K2")
+               and "bfloat16" in r["name"] and "D320" in r["name"])
+    rows.append(dict(name="flash_attend_wide", route="cuda",
+                     source=K1_SOURCE, replaces=K2_REPLACES,
+                     max_abs_err=k2w["max_abs_err"], ms=k2w["ms"],
+                     plain_ms=k2w["plain_ms"], bound_ms=k2w["bound_ms"],
+                     bound_by=k2w["bound_by"], library_ms=k2w["sdpa_ms"]))
     fam_rows = family_attention_rows(torch, timer, read_floor, ivec,
                                      k1_case, k2_case, pre_len, pre_qpos,
                                      appos_main, vstart)
@@ -1511,14 +1606,17 @@ def k3_family_rows(torch, timer, read_floor, g, rel_err):
 # ----------------------------------------------------------------------
 # phase 4: end-to-end parity, card vs CPU
 # ----------------------------------------------------------------------
-# phase 4: new tokens a request (8 requests x 32-token prompts)
+# phase 4: new tokens a request (8 requests x 32-token prompts); the pass
+# that serves through the 16-bit wide kernel
 E2E_NEW = 8
+WIDE_PASS = "head dim 320 (12 heads, hidden 3840), bf16"
 
 
 def e2e_parity_phase(torch):
     """Phase 4. Its CPU references run in turn on one worker thread beside
     the card's work (one thread: two teams of torch's CPU threads at
-    most)."""
+    most). Returns the launch counts of the bf16 head-dim-320 pass (the
+    16-bit wide kernel's serving path)."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1597,7 +1695,9 @@ def e2e_parity_phase(torch):
     variants = {"fp16": (pnp, dict(dtype="float16")),
                 "head dim 32 (128 heads), fp32": (pnp, dict(heads=128)),
                 "head dim 320 (12 heads, hidden 3840), fp32":
-                    (w320, dict(heads=12, hidden=3840))}
+                    (w320, dict(heads=12, hidden=3840)),
+                WIDE_PASS: (w320, dict(heads=12, hidden=3840,
+                                       dtype="bfloat16"))}
     worker = ThreadPoolExecutor(1)
     refs = {"fp32": worker.submit(lambda: incr(model("cpu"), pnp, "cpu")),
             "int8": worker.submit(
@@ -1792,11 +1892,12 @@ def e2e_parity_phase(torch):
 
     # fp16 weights, activations and cache (the same draw), head dim 32
     # (128 heads of 32, fp32: the card pads the cache to 64) and head dim
-    # 320 (12 heads, hidden 3840, fp32, a draw of its own: the card pads
-    # the cache to 512, served by the wide kernels), each served greedily
-    # on the card and on the CPU
+    # 320 (12 heads, hidden 3840, a draw of its own: the card pads the
+    # cache to 512) in fp32 (the FFMA wide kernel) and in bf16 (the 16-bit
+    # wide cluster kernel), each served greedily on the card and on the CPU
+    wide_counts = None
     for what, (wts, kw) in variants.items():
-        strict = what != "fp16"
+        strict = what.endswith("fp32")
         toks = {}
         m = model("cuda", **kw)
         toks["cuda"], _, counts = incr(m, wts, "cuda")
@@ -1815,15 +1916,20 @@ def e2e_parity_phase(torch):
                 log(f"    first divergence: request {i} token {j}: cpu "
                     f"{a[j]} vs cuda {b[j]}")
                 break
-        # fp32: every token; fp16: at most one request may diverge (a
-        # near-tie flips one argmax, as in the fp32 incremental pass above)
+        # fp32: every token; fp16 and bf16: at most one request may
+        # diverge (a near-tie flips one argmax, as in the fp32 incremental
+        # pass above)
         bad = (toks["cpu"] != toks["cuda"]) if strict else (
             same_req < REQUESTS - 1)
+        if what == WIDE_PASS:
+            wide_counts = counts
+            bad = bad or not counts["flash_attend_wide"]
         if (bad or not counts["flash_attend_append"]
                 or counts["plain_attend_cuda"]):
             raise AssertionError(f"card {what} vs CPU parity failed")
         del cache
         gc.collect()
+    return wide_counts
 
 
 # ----------------------------------------------------------------------
@@ -2003,8 +2109,8 @@ def serve_and_time(torch, card, llm, prompts, new_tokens, layers, vocab,
     want = {"flash_attend": layers * stats["prefill_steps"],
             "flash_attend_append": layers * stats["decode_steps"],
             "flash_attend_bias": 0, "flash_attend_partials": 0,
-            "flash_attend_fp32": 0, "plain_attend_cuda": 0, "qmatmul": 0,
-            "qmatmul_plain_cuda": 0}
+            "flash_attend_fp32": 0, "flash_attend_wide": 0,
+            "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
     if counts != want or not stats["prefill_steps"]:
         raise AssertionError(f"kernel launch counts {counts} != {want}")
     if profile:
@@ -7679,11 +7785,11 @@ def main(argv=None) -> int:
     # the model <-> InferenceManager reference cycle keeps a phase's model
     # alive until a collection; free it before the next phase's peak
     gc.collect()
+    by_path = {}
     if 4 in phases:
         lap('4')
-        e2e_parity_phase(torch)
+        by_path["wide"] = e2e_parity_phase(torch)
         gc.collect()
-    by_path = {}
     bf16_decode_ms = None
     if 5 in phases:
         lap('5')
@@ -7844,10 +7950,12 @@ def main(argv=None) -> int:
         # each kernel's launches on the path it serves: K1 (prefill) and
         # K2 (decode) on incremental decoding, K1's bias mode on spec, K3
         # on the int8 model's incremental decoding, K1/K2's partials mode
-        # on sequence-parallel serving
+        # on sequence-parallel serving, the 16-bit wide kernel on phase
+        # 4's bf16 head-dim-320 pass
         path = {"flash_attend_bias": "spec", "qmatmul": "int8",
                 "flash_attend_partials": "sp2",
-                "flash_attend_fp32": "fleet"}.get(r["name"], "incr")
+                "flash_attend_fp32": "fleet",
+                "flash_attend_wide": "wide"}.get(r["name"], "incr")
         if path in by_path:
             r["launches"] = by_path[path][r["name"]]
         r["launches_by_path"] = {p: c[r["name"]] for p, c in by_path.items()}

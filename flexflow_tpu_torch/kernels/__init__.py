@@ -15,9 +15,10 @@ CUDA tensors too (a context variable, so each thread has its own).
 launches it; ``flash_attend_bias`` counts the K1 launches that carry an
 additive bias (tree verification), which ``flash_attend`` counts too;
 ``flash_attend_partials`` counts the K1 and K2 launches that return
-their partials (sequence-parallel serving), and ``flash_attend_fp32``
-those on an fp32 cache (the FFMA kernel), which ``flash_attend`` and
-``flash_attend_append`` count too.
+their partials (sequence-parallel serving), ``flash_attend_fp32``
+those on an fp32 cache (the FFMA kernel) and ``flash_attend_wide`` the
+16-bit launches at head dims 256 and past (the wide cluster kernel), which
+``flash_attend`` and ``flash_attend_append`` count too.
 ``plain_attend_cuda`` and ``qmatmul_plain_cuda`` count calls of the plain
 versions on CUDA tensors, which the serving path never makes
 (``chip_smoke.py`` checks they read 0 after every serving run).
@@ -43,7 +44,8 @@ import contextvars
 
 counts = {"flash_attend": 0, "flash_attend_append": 0,
           "flash_attend_bias": 0, "flash_attend_partials": 0,
-          "flash_attend_fp32": 0, "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
+          "flash_attend_fp32": 0, "flash_attend_wide": 0,
+          "plain_attend_cuda": 0, "qmatmul": 0, "qmatmul_plain_cuda": 0}
 shapes: dict = {}
 _recording = [False]
 

@@ -24,7 +24,10 @@ the S tiles into splits; each split's partial softmax state is combined
 by a second small launch in a fixed order. The plan depends on (R, KH, S,
 SM count) only, never on the query width or on ``lengths`` (no host
 read). ``split_attend`` is its plain version, for tests and the chip
-smoke test.
+smoke test. The 16-bit wide kernel (head dims 256 and its multiples)
+launches a cluster of column-slice blocks a stream, two blocks an SM, and
+takes ``wide_split_plan`` (R, KH, S, D, SM count) instead: it counts those
+blocks and splits S only as far as one wave holds them.
 
 fp32 caches run an FFMA kernel whose query tile is sized to the G*Q real
 rows of a (row, kv head): ``f32_tile_plan``, a function of G*Q and D
@@ -64,7 +67,13 @@ F32_WIDE_QUERY_TILES = (8, 16)
 F32_UNIT = 32
 F32_STAGES, F32_WIDE_STAGES = 4, 2
 SMEM_PER_BLOCK = 232448   # an H100 block's dynamic shared memory limit
+SMEM_PER_SM = 233472      # an H100 SM's shared memory for its blocks
+SMEM_RESERVED = 1024      # what the card reserves of it for each block
 MMA_QUERY_TILE = 64       # the 16-bit kernels' query rows a block
+# the 16-bit wide kernel (csrc/flash_attend.cu attend_mma_wide_kernel): at
+# most WIDE_CLUSTER blocks a cluster, a ring of WIDE_SLOTS [64, 256] units
+WIDE_CLUSTER = 8
+WIDE_SLOTS = 2
 
 
 def supports_shapes(S: int, D: int) -> bool:
@@ -87,10 +96,54 @@ def kernel_takes(device, S: int, D: int, dtype) -> bool:
     """Does a kernel launch serve a cache of S positions, head dim D (the
     cache's own, padded or not) and ``dtype`` on ``device``? The one
     predicate behind ``_launch``'s checks and ``kernel_serves``. An fp32
-    cache also needs a query tile that fits a block (D up to 5120)."""
+    cache also needs a query tile that fits a block (D up to 5120), a
+    16-bit one past 256 a wide block (D up to 8192)."""
+    if dtype == torch.float32:
+        fits = f32_tile_plan(1, D) is not None
+    else:
+        fits = D < WIDE_HEAD_DIM or wide_smem_bytes(D) <= SMEM_PER_BLOCK
     return (torch.device(device).type == "cuda" and dtype in _KERNEL_DTYPES
-            and supports_shapes(S, D)
-            and (dtype != torch.float32 or f32_tile_plan(1, D) is not None))
+            and supports_shapes(S, D) and fits)
+
+
+def wide_shape(D: int):
+    """(chunks, clusters, ranks, chunks a rank) of the 16-bit wide kernel at
+    head dim D, as csrc/flash_attend.cu wide_shape: D / 256 column chunks;
+    one cluster of that many blocks a (stream, query tile, split) up to
+    ``WIDE_CLUSTER`` chunks, past it ceil(chunks / 8) clusters of equal
+    rank counts, rank r holding score chunks r, r + ranks, ..."""
+    nch = D // WIDE_HEAD_DIM
+    ncl = -(-nch // WIDE_CLUSTER)
+    cs = -(-nch // ncl)
+    return nch, ncl, cs, -(-nch // cs)
+
+
+def wide_smem_bytes(D: int) -> int:
+    """Shared memory of a 16-bit wide block at head dim D: its q chunks and
+    the ring of ``WIDE_SLOTS`` units, each [64, 256] 16-bit, and a 64 x 64
+    fp32 partial score tile where the cluster has two ranks or more."""
+    _, _, cs, kpr = wide_shape(D)
+    return ((kpr + WIDE_SLOTS) * BLOCK_S * WIDE_HEAD_DIM * 2
+            + (MMA_QUERY_TILE * BLOCK_S * 4 if cs > 1 else 0))
+
+
+@functools.lru_cache(maxsize=None)
+def wide_split_plan(R: int, KH: int, S: int, D: int, sms: int):
+    """(n_split, tiles_per_split) of the 16-bit wide kernel for R * KH
+    streams over S positions at head dim D on ``sms`` SMs. A split
+    launches ``clusters x ranks`` blocks a stream (``wide_shape``), as
+    many of them an SM as their shared memory lets; one split when those
+    fill the card's slots, else as many splits, of whole tiles and at
+    least ``SPLIT_MIN_TILES`` each, as one wave holds. A function of R,
+    KH, S, D and the SM count only (never of the query width)."""
+    tiles = -(-S // BLOCK_S)
+    _, ncl, cs, _ = wide_shape(D)
+    blocks = R * KH * ncl * cs
+    slots = sms * (SMEM_PER_SM // (wide_smem_bytes(D) + SMEM_RESERVED))
+    if blocks >= slots:
+        return 1, tiles
+    tps = max(-(-tiles // (slots // blocks)), SPLIT_MIN_TILES)
+    return -(-tiles // tps), tps
 
 
 def f32_smem_bytes(qm: int, D: int) -> int:
@@ -452,8 +505,10 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
         ap = small(appos, torch.int32, (R,), "appos")
     out = (None if partials else
            torch.empty((R, Q, H * D), dtype=out_dtype, device=dev))
-    n_split, tps = split_plan(R, KH, S, _sm_count(dev))
     fp32 = cdt == torch.float32
+    wide = not fp32 and D >= WIDE_HEAD_DIM
+    n_split, tps = (wide_split_plan(R, KH, S, D, _sm_count(dev)) if wide
+                    else split_plan(R, KH, S, _sm_count(dev)))
     qm = f32_tile_plan(H // KH * Q, D)[0] if fp32 else MMA_QUERY_TILE
     part_o = part_ml = None
     if n_split > 1 or partials:
@@ -482,6 +537,8 @@ def _launch(q, k_cache, v_cache, lengths, qpos, bias, alibi, append_kv,
     kernels.bump(key)
     if fp32:
         kernels.bump("flash_attend_fp32")
+    if wide:
+        kernels.bump("flash_attend_wide")
     if b is not None and append_kv is None:
         kernels.bump("flash_attend_bias")
     if partials:

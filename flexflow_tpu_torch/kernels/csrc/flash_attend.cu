@@ -63,10 +63,12 @@
 //    rows for the same query.
 // The fp16 cache takes the same tensor-core body with the f16 form of the
 // mma (P rounded to fp16, the reference's p.to(dt)). Head dims 64 and 128
-// here; 256 and its multiples are served by the wide kernels (one block
-// per 256-column slice of O, q and K staged in 256-column chunks; see
-// their section). Other head dims are served by a cache padded to the
-// next of these (ops/inc_attention.py cache_head_dim).
+// here; 256 and its multiples are served by the wide kernel: a cluster of
+// one block per 256-column slice of O, which computes the scores once and
+// sums the ranks' partial S tiles through distributed shared memory, q
+// staged once, two blocks an SM and a plan of its own (see its section).
+// Other head dims are served by a cache padded to the next of these
+// (ops/inc_attention.py cache_head_dim; 320 -> 512).
 // The fp32 cache type keeps exact FFMA products (TF32 tensor cores would
 // lose the 2e-5 parity): register-blocked kernels over a cp.async ring of
 // half tiles, their query tile sized to G*Q by the host, with the same
@@ -150,14 +152,17 @@ __device__ __forceinline__ void copy_rows(const float* st, int lane, int rows, D
 // A warp's 16 finished rows (mma accumulator layout) go through shared
 // memory `st` as fp32 (padded rows: conflict-free) and out to dst(row), a
 // row of dtype code dt, in 16-byte stores; normalised and rounded like
-// the combine when `normalise`. The accumulators are dead once staged, so
-// the branch on dt costs the main loop no registers.
-template <typename T, int D, typename Dst>
+// the combine when `normalise` (RCP: by one reciprocal a row, not a
+// division an element: the wide kernel's D / 4 elements a thread). The
+// accumulators are dead once staged, so the branch on dt costs the main
+// loop no registers.
+template <typename T, int D, bool RCP, typename Dst>
 __device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4], const float* l,
                                            bool normalise, int lane, int rows, int dt,
                                            Dst dst) {
   constexpr int LD = D + 4;
   const int gid = lane >> 2, tig = lane & 3;
+  const float inv[2] = {1.f / fmaxf(l[0], 1e-30f), 1.f / fmaxf(l[1], 1e-30f)};
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -165,7 +170,7 @@ __device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4]
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         float x = o[n][2 * i + e];
-        if (normalise) x = round_to<T>(x / fmaxf(l[i], 1e-30f));
+        if (normalise) x = round_to<T>(RCP ? x * inv[i] : x / fmaxf(l[i], 1e-30f));
         st[(gid + 8 * i) * LD + n * 8 + tig * 2 + e] = x;
       }
   __syncwarp();
@@ -178,7 +183,7 @@ __device__ __forceinline__ void warp_store(float* st, const float (&o)[D / 8][4]
 // copy pending), so each warp stages its rows in its own 16 x DW slice of
 // it. The rows are columns [c0, c0 + DW) of head dim D (c0 = 0, DW = D but
 // in the wide kernels); the split's (m, l) go out with column slice 0.
-template <typename T, int DW>
+template <typename T, int DW, bool RCP = false>
 __device__ __forceinline__ void mma_epilogue(const Args& a, const Block& b,
                                              unsigned char* smem_raw, int warp, int lane,
                                              int wrow, const float (&o)[DW / 8][4],
@@ -188,13 +193,13 @@ __device__ __forceinline__ void mma_epilogue(const Args& a, const Block& b,
   float* st = reinterpret_cast<float*>(smem_raw) + warp * 16 * (DW + 4);
   if (!a.partial) {
     const size_t esize = a.out_dt == 0 ? 4 : 2;
-    warp_store<T, DW>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
+    warp_store<T, DW, RCP>(st, o, l, true, lane, nrows, a.out_dt, [&](int row) {
       return static_cast<void*>(static_cast<char*>(a.out) +
                                 (out_row(a, b, wrow + row) * D + c0) * esize);
     });
   } else {
     const size_t base = (size_t)b.split * a.R * a.Q * a.H;
-    warp_store<T, DW>(st, o, l, false, lane, nrows, 0, [&](int row) {
+    warp_store<T, DW, RCP>(st, o, l, false, lane, nrows, 0, [&](int row) {
       return static_cast<void*>(a.part_o + (base + out_row(a, b, wrow + row)) * D + c0);
     });
     if (c0 == 0) {
@@ -409,34 +414,110 @@ __global__ void __launch_bounds__(NT_MMA, 2) attend_mma_kernel(const Args a) {
 }
 
 // ---------------------------------------------------------------------
-// head dims 256 and past (a multiple of DC = 256): the wide kernels
+// head dims 256 and past (a multiple of DC = 256): the wide kernel
 // ---------------------------------------------------------------------
-// A block owns one DC-column slice of O for its (row, kv head, query
-// tile, split): grid x = query tiles x splits x D / DC. Its scores run
-// over the full D: per S-tile, the D / DC chunks of q and K are staged
-// through shared memory one after another (q chunk beside K chunk) and
-// their products summed in order, then the tile's V slice is staged for
-// P . V. Every column slice computes the same scores, so each of them
-// normalises its slice alike; slice 0 writes the split's (m, l) and K2's
-// append. The 16-bit ring holds WSTAGE stages of two [BS][DC] halves:
-// (q chunk, K chunk) or (V slice, unused), 192 KiB whatever D is.
+// What bounds it: bytes, as at D <= 128 (every valid K/V row read once, q
+// read and O written once; well below bf16's ~295 flop/byte), D / DC
+// times more of them a stream. At the serving shapes (R 8, S 256, one
+// valid tile a stream) a block streams one tile, so the launch is one
+// round of memory latency a block plus its own instructions: what costs
+// is a second wave of blocks, a chain of dependent copies, bytes or
+// products done twice, and any long serial stretch of a block (a block's
+// 64 x 256 output once took ~5 us to normalise by a division an element;
+// one reciprocal a row now). Over a long cache it is the bytes in flight.
+//
+// The design: one thread-block cluster of cs blocks (ranks) a stream,
+// query tile and split; block (cluster g, rank r) owns the DC-column slice
+// c = g cs + r of O. Up to D = 2048 a stream has one cluster (cs = D / DC)
+// and rank r owns score chunk r; past it ncl = ceil(nch / 8) clusters of
+// cs = ceil(nch / ncl) ranks, rank r owning chunks r, r + cs, ... (each
+// cluster computes the scores again; a block with c >= nch owns no slice).
+//  * scores once a cluster: each rank multiplies q and K over its own
+//    chunks, writes its partial 64 x 64 fp32 S tile to shared memory, and
+//    after a cluster barrier every rank sums all ranks' partials through
+//    distributed shared memory in rank order: every rank holds the same
+//    bits, runs the same softmax and P . V over its own V slice. K is read
+//    once, and the Q.K^T products are not repeated a slice;
+//  * q resident: the rank's q chunks are staged once, beside its first K
+//    unit, and read by ldmatrix at every tile;
+//  * a ring of WSLOT [BS][DC] units (the rank's K chunks of a tile, then
+//    its V slice): the next unit is in flight while one computes, and a
+//    tile's K and V both leave before its first product;
+//  * two blocks an SM (112 KiB of shared memory up to D = 2048), so the
+//    other block's copies hide one's latency (rather than one block with a
+//    producer warp feeding TMA and wgmma consumers: a block's 64 query rows
+//    are 4 mma.sync warps, and at one tile a stream there is no stream of
+//    tiles for a producer to run ahead on); the host's plan
+//    (wide_split_plan in kernels/attention.py, a function of R, KH, S, D
+//    and the SM count) counts the blocks this launch really makes and
+//    splits S only as far as one wave holds;
+//  * the partial buffer is reused at every tile: a rank writes it after
+//    the cluster's "read" barrier of the tile before, whose wait it
+//    overlaps with that tile's P . V and the next K unit.
+// Slice 0 writes the split's (m, l) and K2's append, as every slice holds
+// the same (m, l).
 
-constexpr int WSTAGE = 3;   // wide 16-bit ring depth
+constexpr int WSLOT = 2;      // wide kernel: K/V units in flight
+constexpr int WCLUSTER = 8;   // most blocks a cluster (the portable limit)
 
-constexpr size_t wide_mma_smem_bytes() { return (size_t)WSTAGE * 2 * BS * DC * 2; }
+// The wide launch at head dim D: nch DC-column chunks, ncl clusters of cs
+// ranks a (stream, query tile, split), at most kpr score chunks a rank.
+struct WideShape {
+  int nch, ncl, cs, kpr;
+};
+__host__ __device__ inline WideShape wide_shape(int D) {
+  WideShape w;
+  w.nch = D / DC;
+  w.ncl = (w.nch + WCLUSTER - 1) / WCLUSTER;
+  w.cs = (w.nch + w.ncl - 1) / w.ncl;
+  w.kpr = (w.nch + w.cs - 1) / w.cs;
+  return w;
+}
+
+constexpr size_t WUNIT = (size_t)BS * DC;         // elements of one [BS][DC] unit
+constexpr size_t WXBUF = (size_t)QM * BS * 4;     // bytes of a partial S tile, fp32
+
+// q chunks, the ring, and the partial S tile (clusters of 2 or more)
+inline size_t wide_mma_smem_bytes(const WideShape& w) {
+  return (w.kpr + WSLOT) * WUNIT * 2 + (w.cs > 1 ? WXBUF : 0);
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+// 16 bytes at shared address `local` of cluster rank `rank`
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t local, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(local), "r"(rank));
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(remote)
+               : "memory");
+  return v;
+}
 
 template <typename T, bool APPEND>
-__global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a) {
+__global__ void __launch_bounds__(NT_MMA, 2) attend_mma_wide_kernel(const Args a) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);  // [WSTAGE][2][BS][DC]
-  constexpr int CH = DC / 8;                 // 16-byte chunks per staged row
-  constexpr int KS = DC / 16;                // k-steps of one chunk's q.k
-  constexpr int ND = DC / 8;                 // n-tiles of p.v (the slice)
-  const int D = a.D, nch = D / DC;
-  const int col = blockIdx.x % nch;
-  const Block b = block_setup<APPEND>(a, blockIdx.x / nch, QM);
+  constexpr int CH = DC / 8;   // 16-byte chunks per staged row
+  constexpr int KS = DC / 16;  // k-steps of one chunk's q.k
+  constexpr int ND = DC / 8;   // n-tiles of p.v (the slice)
+  const WideShape w = wide_shape(a.D);
+  const int D = a.D, nblk = w.ncl * w.cs;
+  const int rank = blockIdx.x % w.cs;
+  const int col = blockIdx.x % nblk;                 // g cs + rank
+  const bool slice = col < w.nch;
+  const int kpr = (w.nch - rank + w.cs - 1) / w.cs;  // chunks rank, rank + cs, ...
+  const Block b = block_setup<APPEND>(a, blockIdx.x / nblk, QM);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int gid = lane >> 2;
+  T* qs = reinterpret_cast<T*>(smem_raw);            // [kpr][QM][DC]
+  T* ring = qs + w.kpr * WUNIT;                      // [WSLOT][BS][DC]
+  float4* xbuf = reinterpret_cast<float4*>(ring + WSLOT * WUNIT);  // [4 warps][8][32]
   const size_t head = ((size_t)b.r * a.KH + b.kh) * (size_t)a.S * D;
   const T* kc = reinterpret_cast<const T*>(a.k) + head;
   const T* vc = reinterpret_cast<const T*>(a.v) + head;
@@ -445,39 +526,42 @@ __global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a
   const T* vn = APPEND ? reinterpret_cast<const T*>(a.v_new) + nsrc : nullptr;
   const T* qg = reinterpret_cast<const T*>(a.q);
 
-  // sub-step u of the stream: tile u / (nch + 1); part p = u % (nch + 1)
-  // is (q, K) chunk p for p < nch, else the tile's V slice
-  auto load_sub = [&](int u, int st) {
-    const int t = b.t0 + u / (nch + 1), p = u % (nch + 1);
-    T* lo = ring + (size_t)st * 2 * BS * DC;
-    T* hi = lo + BS * DC;
+  // unit u of the stream: tile u / upt; part p = u % upt is K chunk
+  // rank + p cs for p < kpr, else the tile's V slice
+  const int upt = kpr + (slice ? 1 : 0);
+  auto load_unit = [&](int u, int st) {
+    const int t = b.t0 + u / upt, p = u % upt;
+    const bool isv = p == kpr;
+    const int c0 = (isv ? col : rank + p * w.cs) * DC;
+    const T* src = isv ? vc : kc;
+    const T* fresh = isv ? vn : kn;
+    T* dst = ring + st * WUNIT;
     for (int c = tid; c < BS * CH; c += NT_MMA) {
       const int row = c / CH, ch = c % CH, pos = t * BS + row;
-      if (p < nch) {
-        const int cofs = p * DC + ch * 8, gq = b.q0 + row;
-        cp_async16(lo + swz<DC>(row, ch), gq < b.GQ ? qg + out_row(a, b, gq) * D + cofs : qg,
-                   gq < b.GQ ? 16 : 0);
-        const T* ksrc = kc;
-        int bytes = 16;
-        if (pos == b.app) ksrc = kn + cofs;
-        else if (pos < b.len) ksrc = kc + (size_t)pos * D + cofs;
-        else bytes = 0;  // past the valid prefix: zeros, nothing read
-        cp_async16(hi + swz<DC>(row, ch), ksrc, bytes);
-      } else {
-        const int cofs = col * DC + ch * 8;
-        const T* vsrc = vc;
-        int bytes = 16;
-        if (pos == b.app) vsrc = vn + cofs;
-        else if (pos < b.len) vsrc = vc + (size_t)pos * D + cofs;
-        else bytes = 0;
-        cp_async16(lo + swz<DC>(row, ch), vsrc, bytes);
-      }
+      const T* s = src;
+      int bytes = 16;
+      if (pos == b.app) s = fresh + c0 + ch * 8;
+      else if (pos < b.len) s = src + (size_t)pos * D + c0 + ch * 8;
+      else bytes = 0;  // past the valid prefix: zeros, nothing read
+      cp_async16(dst + swz<DC>(row, ch), s, bytes);
     }
   };
-  const int nsub = max(b.t1 - b.t0, 0) * (nch + 1);
+  const int ntiles = max(b.t1 - b.t0, 0), nunits = ntiles * upt;
+  if (ntiles > 0) {
+    // q, once: the rank's chunks of the tile's query rows (rows past G*Q
+    // zero-filled), in the first unit's copy group
+    for (int p = 0; p < kpr; ++p)
+      for (int c = tid; c < QM * CH; c += NT_MMA) {
+        const int row = c / CH, ch = c % CH, gq = b.q0 + row;
+        const bool ok = gq < b.GQ;
+        cp_async16(qs + p * WUNIT + swz<DC>(row, ch),
+                   ok ? qg + out_row(a, b, gq) * D + (rank + p * w.cs) * DC + ch * 8 : qg,
+                   ok ? 16 : 0);
+      }
+  }
 #pragma unroll
-  for (int i = 0; i < WSTAGE - 1; ++i) {
-    if (i < nsub) load_sub(i, i);
+  for (int i = 0; i < WSLOT - 1; ++i) {
+    if (i < nunits) load_unit(i, i);
     cp_async_commit();
   }
 
@@ -507,48 +591,79 @@ __global__ void __launch_bounds__(NT_MMA, 1) attend_mma_wide_kernel(const Args a
     for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   float s[8][4];
+  // this thread's float4 of n-tile n in every rank's partial buffer
+  const uint32_t xslot = smem_addr(xbuf + warp * 8 * 32 + lane);
 
-  for (int u = 0; u < nsub; ++u) {
-    if (u + WSTAGE - 1 < nsub) load_sub(u + WSTAGE - 1, (u + WSTAGE - 1) % WSTAGE);
+  for (int u = 0; u < nunits; ++u) {
+    if (u + WSLOT - 1 < nunits) load_unit(u + WSLOT - 1, (u + WSLOT - 1) % WSLOT);
     cp_async_commit();
-    cp_async_wait<WSTAGE - 1>();
+    cp_async_wait<WSLOT - 1>();
     __syncthreads();
-    if (wactive) {
-      const T* lo = ring + (size_t)(u % WSTAGE) * 2 * BS * DC;
-      const int p = u % (nch + 1);
-      if (p < nch) {
-        // S += q[:, chunk p] . K[:, chunk p]^T, the chunks in order
+    const T* us = ring + (u % WSLOT) * WUNIT;
+    const int t = u / upt, p = u % upt;
+    if (p < kpr) {
+      // S += q[:, chunk] . K[:, chunk]^T over the rank's chunks in order
+      if (wactive) {
         if (p == 0) {
 #pragma unroll
           for (int n = 0; n < 8; ++n)
 #pragma unroll
             for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
         }
-        const T* ks_ = lo + BS * DC;
+        const T* qc = qs + p * WUNIT;
 #pragma unroll
         for (int ks = 0; ks < KS; ++ks) {
           uint32_t qf[4];
-          ldmatrix_x4(qf, lo + swz<DC>(warp * 16 + (lane & 15), ks * 2 + (lane >> 4)));
+          ldmatrix_x4(qf, qc + swz<DC>(warp * 16 + (lane & 15), ks * 2 + (lane >> 4)));
 #pragma unroll
           for (int np = 0; np < 4; ++np) {
             uint32_t kb[4];
             const int key = np * 16 + (lane & 7) + ((lane >> 4) << 3);
-            ldmatrix_x4(kb, ks_ + swz<DC>(key, ks * 2 + ((lane >> 3) & 1)));
+            ldmatrix_x4(kb, us + swz<DC>(key, ks * 2 + ((lane >> 3) & 1)));
             mma16<T>(s[2 * np], qf, kb[0], kb[1]);
             mma16<T>(s[2 * np + 1], qf, kb[2], kb[3]);
           }
         }
-      } else {
-        tile_softmax_pv<T, DC>(a, b, s, o, m, l, rok, qp, slope, brow,
-                               (b.t0 + u / (nch + 1)) * BS, lo, lane);
       }
+      if (p == kpr - 1 && w.cs > 1) {
+        // the cluster's partials summed in rank order (every thread of
+        // the block takes the barriers; a warp without rows in one rank
+        // has none in any)
+        if (t > 0) cluster_wait();  // every rank has read the last tile's
+        if (wactive) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n)
+            xbuf[(warp * 8 + n) * 32 + lane] = make_float4(s[n][0], s[n][1], s[n][2], s[n][3]);
+        }
+        cluster_arrive();
+        cluster_wait();
+        if (wactive) {
+#pragma unroll
+          for (int n = 0; n < 8; ++n) {
+            const float4 x = ld_cluster_f4(xslot + n * 32 * 16, 0);
+            s[n][0] = x.x; s[n][1] = x.y; s[n][2] = x.z; s[n][3] = x.w;
+          }
+          for (int r = 1; r < w.cs; ++r)
+#pragma unroll
+            for (int n = 0; n < 8; ++n) {
+              const float4 x = ld_cluster_f4(xslot + n * 32 * 16, r);
+              s[n][0] += x.x; s[n][1] += x.y; s[n][2] += x.z; s[n][3] += x.w;
+            }
+        }
+        cluster_arrive();  // this rank's reads of the tile are done
+      }
+    } else if (wactive) {
+      tile_softmax_pv<T, DC>(a, b, s, o, m, l, rok, qp, slope, brow, (b.t0 + t) * BS, us, lane);
     }
-    __syncthreads();  // the next sub-step refills this stage
+    __syncthreads();  // the next unit refills this slot
   }
 
-  if (wactive)
-    mma_epilogue<T, DC>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow, D, col * DC);
+  // the rows go through the idle q and ring space, never the partial
+  // buffer, which other ranks may still read
+  if (wactive && slice)
+    mma_epilogue<T, DC, true>(a, b, smem_raw, warp, lane, wrow, o, m, l, rok, orow, D, col * DC);
   if (APPEND && col == 0) append_store<T>(a, b, D);
+  if (ntiles > 0 && w.cs > 1) cluster_wait();  // no rank reads this block's buffer now
 }
 
 // ---------------------------------------------------------------------
@@ -565,12 +680,13 @@ int launch(const Args& a, cudaStream_t stream) {
                         NT_MMA, D, a, stream);
 }
 
-// D a multiple of DC: one block per DC-column slice of O
+// D a multiple of DC: clusters of the DC-column slices of O
 template <typename T, bool APPEND>
 int launch_wide(const Args& a, cudaStream_t stream) {
   static size_t smem_set = 0;
-  return launch_with<T>(attend_mma_wide_kernel<T, APPEND>, wide_mma_smem_bytes(), smem_set, QM,
-                        a.D / DC, NT_MMA, a.D, a, stream);
+  const WideShape w = wide_shape(a.D);
+  return launch_with<T>(attend_mma_wide_kernel<T, APPEND>, wide_mma_smem_bytes(w), smem_set, QM,
+                        w.ncl * w.cs, NT_MMA, a.D, a, stream, w.cs);
 }
 
 template <typename T, bool APPEND>

@@ -233,12 +233,12 @@ __global__ void combine_kernel(const float* part_o, const float* part_ml, void* 
 // ---------------------------------------------------------------------
 
 // One attention launch (grid x = query tiles of qm rows x splits x nx
-// column slices), its dynamic shared-memory limit raised to the largest
-// smem this kernel has launched with, then the split-S combine when there
-// are splits.
+// column slices, in clusters of `cluster` consecutive blocks), its dynamic
+// shared-memory limit raised to the largest smem this kernel has launched
+// with, then the split-S combine when there are splits.
 template <typename T, typename Kern>
 int launch_with(Kern kern, size_t smem, size_t& smem_set, int qm, int nx, int threads, int D,
-                const Args& a, cudaStream_t stream) {
+                const Args& a, cudaStream_t stream, int cluster = 1) {
   cudaError_t err = cudaSuccess;
   if (smem > smem_set) {
     err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -247,8 +247,20 @@ int launch_with(Kern kern, size_t smem, size_t& smem_set, int qm, int nx, int th
   }
   const dim3 grid((unsigned)(((a.H / a.KH) * a.Q + qm - 1) / qm * a.n_split * nx),
                   (unsigned)a.KH, (unsigned)a.R);
-  kern<<<grid, threads, smem, stream>>>(a);
-  err = cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, kern, a);
+  if (err == cudaSuccess) err = cudaGetLastError();
   // partials out (no output): the caller combines
   if (err != cudaSuccess || !a.partial || !a.out) return (int)err;
   const int rows = a.R * a.Q * a.H;

@@ -20,16 +20,17 @@ from flexflow_tpu.kernels import attention as jatt
 from flexflow_tpu_torch import kernels as tk
 from flexflow_tpu_torch.kernels import attention as tatt
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = {"float32": 2e-5, "bfloat16": 2e-2, "float16": 2e-3}
 _JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
-_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float16": torch.float16}
 
 
 def _case(name):
     """numpy inputs of one flash_attend case (the cases of
     tests/test_pallas_kernels.py)."""
     rng = np.random.RandomState(
-        (CASES + SPLIT_CASES + FP32_GQ_CASES).index(name))
+        (CASES + SPLIT_CASES + FP32_GQ_CASES + WIDE_CASES).index(name))
     c = dict(dtype="float32", causal=True, bias=None, alibi=None,
              append=None, layer_idx=None)
 
@@ -98,6 +99,19 @@ def _case(name):
         c["append"] = (rng.randn(2, 1, KH, D).astype(np.float32),
                        rng.randn(2, 1, KH, D).astype(np.float32),
                        c["lengths"] - 1)
+    elif name.startswith("wide"):
+        # the 16-bit wide kernel: K1 and K2 at head dim D, GQA, S 512 (its
+        # plan cuts two splits), the new row at each row's last position
+        _, d, dt = name.split("-")
+        D = int(d[1:])
+        qkv(2, 8, 4, 2, D, 512)
+        c["lengths"] = np.array([420, 97], np.int32)
+        c["qpos"] = c["lengths"][:, None] - 8 + np.arange(
+            8, dtype=np.int32)[None]
+        c["append"] = (rng.randn(2, 1, 2, D).astype(np.float32),
+                       rng.randn(2, 1, 2, D).astype(np.float32),
+                       c["lengths"] - 1)
+        c["dtype"] = dt
     elif name.startswith("append"):
         stacked = name == "append-stacked"
         R, KH = (2, 4) if stacked else (4, 4)
@@ -128,6 +142,9 @@ MANY_SMS = 132   # an H100's SM count: R * KH = 4 streams leave it idle
 _GQ_SHAPES = {1: (4, 4, 1), 8: (8, 8, 8), 16: (8, 4, 8), 17: (17, 1, 1),
               64: (8, 8, 64), 65: (13, 1, 5), 568: (71, 1, 8)}
 FP32_GQ_CASES = [f"fp32-gq{gq}" for gq in sorted(_GQ_SHAPES)]
+# the 16-bit wide kernel at head dims 256, 512 and 768
+WIDE_CASES = [f"wide-d{D}-{dt}" for D in (256, 512, 768)
+              for dt in ("bfloat16", "float16")]
 
 
 def _appended(cache, append, layer_idx, which):
@@ -299,12 +316,13 @@ def cuda_device():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", ["append-stacked", "split-append-later"]
-                         + FP32_GQ_CASES)
+                         + FP32_GQ_CASES + WIDE_CASES)
 def test_cuda_kernels_match_plain_version(cuda_device, name):
     """On a card: K1 and K2 against their plain versions, on the stacked
-    cache, with split-S, and on fp32 caches at the G*Q values where the
-    fp32 kernel's query tiles cut (chip_smoke.py phase 3 runs the full
-    set)."""
+    cache, with split-S, on fp32 caches at the G*Q values where the fp32
+    kernel's query tiles cut, and through the 16-bit wide kernel at head
+    dims 256, 512 and 768 in bf16 and fp16 (chip_smoke.py phase 3 runs the
+    full set)."""
     c = _case(name)
     dev = cuda_device
     dt = _TORCH[c["dtype"]]
